@@ -1,0 +1,49 @@
+"""Flax GPT-2 parameters -> the port's ``state_dict``.
+
+Takes the params pytree of ``deepspeed_tpu.models.gpt2.GPT2LMHeadModel``
+as nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)``)
+and returns the state_dict of
+``deepspeed_tpu_torch.models.gpt2.GPT2LMHeadModel``. Dense kernels go
+from flax's ``[in, out]`` to ``[out, in]`` (the fused QKV keeps its
+``[q | k | v]`` column order as row order), LayerNorm ``scale``/``bias``
+become ``weight``/``bias``, flax block ``h_{i}`` becomes ``h.{i}``, and
+``wte`` keeps its padded vocab (it is also the tied LM head). This module
+imports neither jax nor flax.
+"""
+
+import numpy as np
+import torch
+
+
+def _leaf(x):
+    return torch.from_numpy(np.array(x, copy=True))
+
+
+def _dense(tree, prefix, out):
+    out[f"{prefix}.weight"] = _leaf(np.asarray(tree["kernel"]).T)
+    if "bias" in tree:
+        out[f"{prefix}.bias"] = _leaf(tree["bias"])
+
+
+def _norm(tree, prefix, out):
+    out[f"{prefix}.weight"] = _leaf(tree["scale"])
+    out[f"{prefix}.bias"] = _leaf(tree["bias"])
+
+
+def flax_to_state_dict(params) -> dict:
+    """Convert a flax GPT-2 params tree (numpy leaves) to a state_dict."""
+    if "params" in params:
+        params = params["params"]
+    sd = {"wte": _leaf(params["wte"]), "wpe": _leaf(params["wpe"])}
+    n_layer = sum(1 for name in params if name.startswith("h_"))
+    for i in range(n_layer):
+        blk = params[f"h_{i}"]
+        p = f"h.{i}"
+        _norm(blk["ln_1"], f"{p}.ln_1", sd)
+        _norm(blk["ln_2"], f"{p}.ln_2", sd)
+        _dense(blk["attn"]["qkv"], f"{p}.attn.qkv", sd)
+        _dense(blk["attn"]["proj"], f"{p}.attn.proj", sd)
+        _dense(blk["mlp"]["fc"], f"{p}.mlp.fc", sd)
+        _dense(blk["mlp"]["proj"], f"{p}.mlp.proj", sd)
+    _norm(params["ln_f"], "ln_f", sd)
+    return sd

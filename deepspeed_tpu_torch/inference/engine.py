@@ -1,0 +1,129 @@
+"""Inference engine (counterpart of ``deepspeed_tpu/inference/engine.py``).
+
+Casts the model's floating parameters to the serving dtype, places it on
+the device, and generates. ``generate`` defaults to cached decoding: one
+prefill forward writes the prompt's K/V into a :class:`KVCache`, then
+each new token is one single-token forward, as a host loop (the JAX
+package compiles the same loop into one ``lax.scan``).
+
+Not ported yet: tensor parallelism (``mp_size > 1``), MoE inference, int8
+weight storage (``dtype=torch.int8``) and checkpoint loading.
+"""
+
+import inspect
+
+import torch
+
+from deepspeed_tpu_torch.ops._platform import resolve_device
+
+
+class InferenceEngine:
+    def __init__(self, model, params=None, dtype=None, device=None,
+                 mp_size=1, checkpoint=None, moe=False, ep_size=1):
+        """``params``: an optional state_dict loaded into ``model`` (e.g.
+        from :func:`deepspeed_tpu_torch.bridge.flax_to_state_dict`).
+        ``dtype`` (default bfloat16) is the dtype of the floating
+        parameters and activations; ``device=None`` means CUDA."""
+        for what, hit in (("mp_size > 1", mp_size > 1),
+                          ("MoE inference", bool(moe) or ep_size > 1),
+                          ("int8 weights", dtype == torch.int8),
+                          ("checkpoint loading", checkpoint is not None)):
+            if hit:
+                raise NotImplementedError(f"{what} is not ported yet")
+        self.device = resolve_device(device)
+        self.dtype = dtype or torch.bfloat16
+        if params is not None:
+            model.load_state_dict(params)
+        self.module = model.to(device=self.device, dtype=self.dtype).eval()
+
+    def _call_params(self):
+        try:
+            return inspect.signature(type(self.module).forward).parameters
+        except (TypeError, ValueError):
+            return {}
+
+    def _supports_kv_cache(self) -> bool:
+        """True when the module takes a ``cache`` (the :class:`KVCache`
+        protocol of models/gpt2.py) and can make one."""
+        return ("cache" in self._call_params()
+                and hasattr(self.module, "new_cache"))
+
+    @torch.no_grad()
+    def forward(self, batch, **kwargs):
+        return self.module(batch, **kwargs)
+
+    __call__ = forward
+
+    @torch.no_grad()
+    def generate(self, input_ids, max_new_tokens=32, temperature=0.0,
+                 logits_fn=None, generator=None, eos_token_id=None,
+                 use_cache=None):
+        """Greedy (``temperature=0``) or sampled decoding; returns the
+        prompt followed by ``max_new_tokens`` tokens, [B, S + new].
+
+        Cached decoding is the default; a custom ``logits_fn(ids) ->
+        [B, S, V]`` or a module without cache support recomputes the
+        whole sequence per token. ``generator`` (a ``torch.Generator`` on
+        the engine's device) drives sampling. With ``eos_token_id`` a
+        sequence that produced it keeps producing it."""
+        input_ids = torch.as_tensor(input_ids, device=self.device).long()
+        if use_cache is None:
+            use_cache = logits_fn is None and self._supports_kv_cache()
+        if use_cache:
+            return self._generate_cached(input_ids, max_new_tokens,
+                                         float(temperature), generator,
+                                         eos_token_id)
+        return self._generate_recompute(input_ids, max_new_tokens,
+                                        float(temperature), logits_fn,
+                                        generator, eos_token_id)
+
+    def _sample(self, last, generator, temperature):
+        # padded vocab rows exist only for alignment: never sample them
+        vs = getattr(getattr(self.module, "config", None), "vocab_size", None)
+        if vs is not None and vs < last.shape[-1]:
+            last = last[..., :vs]
+        if temperature > 0:
+            probs = torch.softmax(last.float() / temperature, dim=-1)
+            return torch.multinomial(probs, 1, generator=generator)[:, 0]
+        return torch.argmax(last, dim=-1)
+
+    def _generate_cached(self, input_ids, max_new_tokens, temperature,
+                         generator, eos_token_id):
+        B, S = input_ids.shape
+        max_pos = getattr(getattr(self.module, "config", None),
+                          "n_positions", None)
+        if max_pos is not None and S + max_new_tokens > max_pos:
+            raise ValueError(
+                f"prompt ({S}) + max_new_tokens ({max_new_tokens}) exceeds "
+                f"the model's n_positions ({max_pos})")
+        cache = self.module.new_cache(B)
+        logits = self.module({"input_ids": input_ids}, cache=cache,
+                             last_only=True)
+        tok = self._sample(logits[:, -1], generator, temperature)
+        out = [tok]
+        done = torch.zeros(B, dtype=torch.bool, device=self.device)
+        for _ in range(max_new_tokens - 1):
+            logits = self.module({"input_ids": tok[:, None]}, cache=cache,
+                                 last_only=True)
+            nxt = self._sample(logits[:, -1], generator, temperature)
+            if eos_token_id is not None:
+                done = done | (tok == eos_token_id)
+                nxt = torch.where(done, eos_token_id, nxt)
+            tok = nxt
+            out.append(tok)
+        return torch.cat([input_ids, torch.stack(out, dim=1)], dim=1)
+
+    def _generate_recompute(self, input_ids, max_new_tokens, temperature,
+                            logits_fn, generator, eos_token_id):
+        if logits_fn is None:
+            def logits_fn(ids):
+                return self.module({"input_ids": ids}, return_logits=True)
+        B, S = input_ids.shape
+        ids = input_ids
+        for t in range(S, S + max_new_tokens):
+            nxt = self._sample(logits_fn(ids)[:, -1], generator, temperature)
+            if eos_token_id is not None and t > S:
+                nxt = torch.where(ids[:, -1] == eos_token_id, eos_token_id,
+                                  nxt)
+            ids = torch.cat([ids, nxt[:, None]], dim=1)
+        return ids

@@ -1,0 +1,71 @@
+"""Just-in-time build of the package's CUDA kernels (``csrc/*.cu``).
+
+The kernels are compiled for Hopper (``sm_90a``) by
+``torch.utils.cpp_extension.load`` into ``build/torch_ext/`` at the
+checkout's root on first use, and loaded as one shared library with a
+plain C interface through ``ctypes``. The sources include no PyTorch
+header, so the build takes seconds rather than minutes. The import of
+``torch.utils.cpp_extension`` happens inside :func:`load_kernels`, so the
+package imports on machines without ``nvcc``. A failed build raises.
+
+Every wrapper that launches a kernel adds one to its entry in
+:data:`LAUNCHES` at the launch and nowhere else, so a run can show that
+its main path went through the kernels.
+"""
+
+import collections
+import ctypes
+import os
+import pathlib
+
+_CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "torch_ext"
+SOURCES = ("flash_fwd.cu", "decode_attention.cu")
+NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
+              "-lineinfo"]
+
+# kernel name -> launches since the last reset
+LAUNCHES = collections.Counter()
+
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+    ctypes.c_longlong
+_SIGNATURES = {
+    "ds_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                     _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                     _F, _I, _I, _P],
+    "ds_decode_attention": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
+                            _I, _I, _L, _L, _L, _L, _F, _I, _P],
+}
+
+_lib = None
+
+
+def reset_launch_counts():
+    LAUNCHES.clear()
+
+
+def load_kernels():
+    """Build (once per process, cached on disk by content) and load the
+    kernel library; returns the ``ctypes.CDLL``."""
+    global _lib
+    if _lib is None:
+        from torch.utils.cpp_extension import load
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        path = load(name="deepspeed_tpu_torch_kernels",
+                    sources=[str(_CSRC / s) for s in SOURCES],
+                    build_directory=str(BUILD_DIR),
+                    extra_cuda_cflags=NVCC_FLAGS, is_python_module=False)
+        lib = ctypes.CDLL(os.fspath(path))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def check_launch(err: int, name: str):
+    """Raise if a kernel launch returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    LAUNCHES[name] += 1

@@ -19,7 +19,8 @@ setup(
     version="0.1.0",
     description="TPU-native large-scale training framework "
                 "(DeepSpeed-compatible surface on JAX/XLA/Pallas)",
-    packages=find_packages(include=["deepspeed_tpu", "deepspeed_tpu.*"]),
+    packages=find_packages(include=["deepspeed_tpu", "deepspeed_tpu.*",
+                                    "deepspeed_tpu_torch*"]),
     include_package_data=True,
     install_requires=["jax", "flax", "numpy"],
     entry_points={

@@ -1,0 +1,110 @@
+"""Package rules of the PyTorch port: it never imports JAX, flax or the
+JAX package; it builds nothing on import; its entry points run on CUDA
+unless the CPU is asked for by name."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import deepspeed_tpu_torch
+from deepspeed_tpu_torch.models import gpt2
+from deepspeed_tpu_torch.ops import _platform, op_builder
+from deepspeed_tpu_torch.ops.transformer import decode, flash
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "deepspeed_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "flax", "deepspeed_tpu")
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in FORBIDDEN, f"{path.name} imports {mod}"
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import sys, importlib.abc\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'flax', 'deepspeed_tpu'):\n"
+        "            raise ImportError('port imported ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import deepspeed_tpu_torch, deepspeed_tpu_torch.bridge\n"
+        "import deepspeed_tpu_torch.models.gpt2\n"
+        "import deepspeed_tpu_torch.ops.transformer.flash\n"
+        "import deepspeed_tpu_torch.ops.transformer.decode\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'flax', 'deepspeed_tpu', 'triton')\n"
+        "       or m == 'torch.utils.cpp_extension']\n"
+        "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT,
+                   timeout=120)
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = gpt2.PRESETS["tiny"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gpt2.GPT2LMHeadModel(cfg)
+    model = gpt2.GPT2LMHeadModel(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        deepspeed_tpu_torch.init_inference(model)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gpt2.synthetic_batch(1, 4, 10)
+    assert _platform.resolve_device("cpu").type == "cpu"
+
+
+def test_kernel_route_follows_tensor_device(monkeypatch):
+    """CPU tensors take the plain versions and never build a kernel; no
+    switch of any kind selects the route."""
+    def no_build(*a, **k):
+        raise AssertionError("a CPU call must not build the kernels")
+    monkeypatch.setattr(op_builder, "load_kernels", no_build)
+    op_builder.reset_launch_counts()
+    q = torch.randn(1, 2, 8, 16)
+    flash.flash_attention_fwd(q, q, q)
+    decode.decode_attention(q[:, :, :1], q, q, 5)
+    assert sum(op_builder.LAUNCHES.values()) == 0
+    assert _platform.use_kernel(q) is False
+    with pytest.raises(ValueError, match="one device"):
+        _platform.use_kernel(q, q.to("meta"))
+
+
+def test_op_builder_targets_hopper():
+    assert "-gencode=arch=compute_90a,code=sm_90a" in op_builder.NVCC_FLAGS
+    for src in op_builder.SOURCES:
+        assert (ROOT / "deepspeed_tpu_torch" / "csrc" / src).is_file()
+    # the build directory is ignored by git
+    assert "/build/" in (ROOT / ".gitignore").read_text().split()
+
+
+def test_chip_smoke_fails_without_cuda():
+    """Without a card the smoke script exits non-zero and prints no
+    result line."""
+    proc = subprocess.run([sys.executable, "-c",
+                           "import sys, torch, runpy\n"
+                           "torch.cuda.is_available = lambda: False\n"
+                           "sys.argv = ['chip_smoke.py']\n"
+                           "runpy.run_path('chip_smoke.py', "
+                           "run_name='__main__')\n"],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
