@@ -12,40 +12,65 @@ Phases, each fatal on failure:
    ``build/torch_ext/`` and print the build time;
 3. hold every kernel against its plain PyTorch version on the card
    (tolerances: fp32 atol = rtol = 2e-5; bf16 atol = rtol = 2e-2, the
-   plain version rounds the softmax weights to bf16 before P·V where the
-   kernels keep fp32);
-4. the main path at full width: GPT-2 medium (24 layers, n_embd 1024,
-   16 heads, vocab 50257 padded to 50304) on weights drawn from a seed,
-   cast to bf16 by ``init_inference``, greedy ``generate`` on 8 prompts of
-   896 tokens (64 new) and of 32 tokens (128 new), and with an int8 KV
-   cache on 8 prompts of 32 tokens (32 new). Launch counts are zeroed just
-   before and read just after; every kernel must have launched. The
-   prefill logits and the first decode step's logits must agree with the
-   same model run on the plain attention versions on the card;
-5. time the end-to-end path and each kernel at the main path's shapes
+   plain forward rounds the softmax weights to bf16 before P·V where the
+   kernels keep fp32, and the backward's outputs are bf16; Adam rtol 1e-6,
+   atol 1e-7): flash forward, decode, the flash backward (dq, dk/dv) at
+   the training shape (B 8, H 16, S 1024, D 64, causal) and at Sq < Sk,
+   and both Adam forms at GPT-2 medium's size;
+4. the generation path at full width: GPT-2 medium (24 layers, n_embd
+   1024, 16 heads, vocab 50257 padded to 50304) on weights drawn from a
+   seed, cast to bf16 by ``init_inference``, greedy ``generate`` on 8
+   prompts of 896 tokens (64 new) and of 32 tokens (128 new), and with an
+   int8 KV cache on 8 prompts of 32 tokens (32 new). Launch counts are
+   zeroed just before and read just after; every kernel of the path must
+   have launched. The prefill logits and the first decode step's logits
+   must agree with the same model run on the plain attention versions on
+   the card;
+5. time the generation path and its kernels;
+6. the training path at full width: ``initialize`` on GPT-2 medium, bs 8
+   × seq 1024, bf16 over fp32 masters, ZeRO stage 1, Adam lr 1e-4 with
+   ``sweep: true`` and ``gradient_clipping`` 1.0, 10 steps on one
+   synthetic batch from a seed, then 3 steps of a second engine with
+   ``fused: true``. Launch counts are zeroed just before and read just
+   after: flash_fwd, flash_bwd_dq and flash_bwd_dkv 24 a step, adam once a
+   sweep step and 292 times a fused step. The losses must be finite, the
+   first near ln(50257), and the loss on the repeated batch must fall;
+7. one-step parity: a 2-layer model at full width takes one step on the
+   kernels and one with attention and Adam on their plain versions; the
+   loss, the gradients and the updated params must agree;
+8. time the training step (median of steps 3-10), tokens/s, MFU, peak
+   memory, one profiled step, and each kernel at the main path's shapes
    (CUDA events) beside its plain version, its least possible time on the
    card and, where one exists, the PyTorch call that computes the same
-   function (``scaled_dot_product_attention``, timed for the table only).
+   function (``scaled_dot_product_attention`` and its backward,
+   ``torch.optim.AdamW(fused=True)``: timed for the table only).
 
-Prints a ``kernels`` JSON line, an ``e2e`` JSON line, the card line, and
-last ``{"ok": true, "device": {...}}``. Exits non-zero with no result
-when CUDA is unavailable or any phase fails.
+Prints an ``e2e`` JSON line, a ``train`` JSON line, a ``kernels`` JSON
+line, the card line, and last ``{"ok": true, "device": {...}}``. Exits
+non-zero with no result when CUDA is unavailable or any phase fails.
 """
 
 import contextlib
 import json
+import math
+import statistics
 import subprocess
 import sys
 import time
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 3.35 TB/s,
-# bf16 tensor cores 989 TFLOP/s
+# bf16 tensor cores 989 TFLOP/s, fp32 outside the tensor cores 67 TFLOP/s
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12
 
 B, H, D = 8, 16, 64          # GPT-2 medium heads at batch 8
 T_CACHE = 1024               # aligned_cache_len(1024)
 DECODE_LEN = 896 + 32        # live cache length halfway through the long run
+SEQ = 1024                   # training sequence (bench.py headline)
+LR = 1e-4
+TRAIN_STEPS, FUSED_STEPS = 10, 3
+ADAM_TOL = dict(rtol=1e-6, atol=1e-7)
 
 
 def card_line():
@@ -106,6 +131,8 @@ def device_profile(torch, fn):
         kernels.append((us / 1e3, ev.count, ev.key[:60]))
         name = ev.key.lower()
         group = ("flash_fwd" if "flash_fwd" in name else
+                 "flash_bwd" if "flash_bwd" in name else
+                 "adam" if "adam_kernel" in name else
                  "decode_attention" if "decode_kernel" in name else
                  "matmul" if any(s in name for s in (
                      "gemm", "gemv", "cutlass", "nvjet", "xmma")) else
@@ -115,7 +142,7 @@ def device_profile(torch, fn):
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "device_idle_share": (1 - busy / wall_ms) if busy else None,
             "device_ms_by_group": groups,
-            "top_kernels_ms_count_name": sorted(kernels, reverse=True)[:6]}
+            "top_kernels_ms_count_name": sorted(kernels, reverse=True)[:8]}
 
 
 def close(got, want, tol):
@@ -220,6 +247,315 @@ def first_logits(torch, model, ids, tok=None):
     return pre, step, tok
 
 
+def check_training_kernels(torch, flash, fused_adam, param_shapes):
+    """Phase 3, training kernels: the flash backward and both Adam forms
+    against their plain versions. Returns the max abs error of each at
+    the main path's shapes (bf16 flash, the real sweep size)."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    main_err = {}
+    tols = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+    for dtype, tol in tols.items():
+        for sq, sk in [(SEQ, SEQ), (128, SEQ)]:
+            q, do = rnd(B, H, sq, D, dtype=dtype), rnd(B, H, sq, D,
+                                                       dtype=dtype)
+            k, v = rnd(B, H, sk, D, dtype=dtype), rnd(B, H, sk, D,
+                                                      dtype=dtype)
+            o, lse = flash.flash_attention_fwd(q, k, v, True)
+            got = flash.flash_attention_bwd(q, k, v, o, lse, do, True)
+            want = flash.flash_attention_bwd_plain(q, k, v, o, lse, do, True)
+            torch.cuda.synchronize()
+            errs = [close(g, w, tol) for g, w in zip(got, want)]
+            print(f"check flash_bwd {str(dtype)[6:]} Sq={sq} Sk={sk} causal: "
+                  + ", ".join(f"{n} err {e:.3g}" for n, (e, _) in
+                              zip(("dq", "dk", "dv"), errs)), flush=True)
+            if not all(ok for _, ok in errs):
+                raise AssertionError("flash_bwd disagrees with its plain "
+                                     "version")
+            if dtype == torch.bfloat16 and sq == sk:
+                main_err["flash_bwd_dq"] = errs[0][0]
+                main_err["flash_bwd_dkv"] = max(errs[1][0], errs[2][0])
+            del q, k, v, o, lse, do, got, want
+
+    n = sum(math.prod(s) for s in param_shapes)
+    n = -(-n // fused_adam.sweep_pad()) * fused_adam.sweep_pad()
+    p, g = rnd(n), rnd(n) * 1e-3
+    m, v = rnd(n) * 1e-4, rnd(n).square() * 1e-8
+    cc = torch.tensor(0.25, device="cuda")
+    for wd, cast in [(0.0, None), (0.01, torch.bfloat16)]:
+        kw = dict(weight_decay=wd, cast_dtype=cast)
+        got = fused_adam.adam_sweep_apply(p if wd else None, g, m, v, LR,
+                                          0.271, 0.002997, cc, **kw)
+        want = fused_adam.adam_sweep_apply_plain(p, g, m, v, LR, 0.271,
+                                                 0.002997, cc, **kw)
+        torch.cuda.synchronize()
+        case_err = 0.0
+        for a, b in zip(got, want):
+            if b is None:
+                continue
+            # the bf16 cast of p + u: one bf16 ulp where the fp32 sums
+            # differ in the last bit
+            tol = ADAM_TOL if a.dtype == torch.float32 else dict(
+                rtol=1e-2, atol=1e-2)
+            torch.testing.assert_close(a.float(), b.float(), **tol)
+            if a.dtype == torch.float32:
+                case_err = max(case_err,
+                               (a - b).abs().max().item())
+        if wd == 0.0:
+            main_err["adam_sweep"] = case_err
+        print(f"check adam sweep n={n} wd={wd} cast={cast}: "
+              f"err {case_err:.3g}", flush=True)
+    del got, want
+    errs = []
+    off = 0
+    for shape in param_shapes:
+        size = math.prod(shape)
+        sl = slice(off, off + size)
+        off += size
+        args = [t[sl].view(shape) for t in (p, g, m, v)]
+        got = fused_adam.fused_adam_update(*args, LR, 0.271, 0.002997)
+        want = fused_adam.adam_sweep_apply_plain(*args, LR, 0.271,
+                                                 0.002997)[:3]
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, **ADAM_TOL)
+            errs.append((a - b).abs().max().item())
+    main_err["adam_per_tensor"] = max(errs)
+    print(f"check adam per-tensor over the model's shapes: err "
+          f"{max(errs):.3g}", flush=True)
+    return main_err
+
+
+def train_config(**opt):
+    """The headline training config: bf16 over fp32 masters, ZeRO-1,
+    Adam lr 1e-4, clip 1.0; ``opt`` adds ``sweep`` or ``fused``."""
+    return {"train_batch_size": B, "train_micro_batch_size_per_gpu": B,
+            "steps_per_print": 10 ** 9, "bf16": {"enabled": True},
+            "zero_optimization": {"stage": 1}, "gradient_clipping": 1.0,
+            "optimizer": {"type": "Adam", "params": {"lr": LR, **opt}}}
+
+
+def run_steps(torch, engine, batch, n):
+    """n train_batch steps; (losses, synchronised host ms of each)."""
+    losses, ms = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = engine.train_batch(batch=batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    return losses, ms
+
+
+@contextlib.contextmanager
+def plain_training(gpt2, attn_mod, decode, fused_adam):
+    """Attention and the Adam sweep on their plain versions."""
+    saved = fused_adam.adam_sweep_apply
+    fused_adam.adam_sweep_apply = fused_adam.adam_sweep_apply_plain
+    try:
+        with plain_attention(gpt2, attn_mod, decode):
+            yield
+    finally:
+        fused_adam.adam_sweep_apply = saved
+
+
+def one_step_parity(torch, deepspeed_tpu_torch, gpt2, attn_mod, decode,
+                    fused_adam, cfg, batch):
+    """Phase 7: a 2-layer full-width model, one step on the kernels and
+    one on the plain versions, from the same seed and batch.
+
+    Tolerances (bf16): loss within 0.02 absolute (the forward kernel keeps
+    the softmax weights in fp32, the plain version rounds them); the
+    gradients within 2e-2 relative in L2 over all tensors; the updated
+    params within 2·lr absolute (Adam's first step moves each parameter
+    by lr·sign(g), so a gradient near zero whose sign differs between the
+    routes moves its parameter the other way) with at least 95% of them
+    equal to 1e-6."""
+    import dataclasses
+    cfg2 = dataclasses.replace(cfg, n_layer=2)
+
+    def one(plain):
+        model = gpt2.GPT2LMHeadModel(cfg2, seed=5)
+        engine, *_ = deepspeed_tpu_torch.initialize(
+            model=model, config=train_config(sweep=True))
+        ctx = (plain_training(gpt2, attn_mod, decode, fused_adam) if plain
+               else contextlib.nullcontext())
+        with ctx:
+            engine._micro_step(batch)
+            grads = {k: p.grad.clone() for k, p in engine.params.items()}
+            loss = float(engine.train_batch(batch=batch))
+        params = {k: p.detach().clone() for k, p in engine.params.items()}
+        return loss, grads, params
+
+    loss_k, grads_k, params_k = one(False)
+    loss_p, grads_p, params_p = one(True)
+    num = sum((grads_k[k] - grads_p[k]).square().sum() for k in grads_p)
+    den = sum(grads_p[k].square().sum() for k in grads_p)
+    grad_rel = (num / den).sqrt().item()
+    worst = max(((grads_k[k] - grads_p[k]).norm() /
+                 grads_p[k].norm().clamp(min=1e-30)).item()
+                for k in grads_p)
+    dmax = max((params_k[k] - params_p[k]).abs().max().item()
+               for k in params_p)
+    n_all = sum(t.numel() for t in params_p.values())
+    n_diff = sum(((params_k[k] - params_p[k]).abs() > 1e-6).sum().item()
+                 for k in params_p)
+    out = {"loss_kernels": loss_k, "loss_plain": loss_p,
+           "loss_abs_err": abs(loss_k - loss_p), "grad_rel_l2": grad_rel,
+           "grad_rel_l2_worst_tensor": worst, "param_max_abs_diff": dmax,
+           "param_share_differing": n_diff / n_all}
+    print(f"parity 2-layer one step: {json.dumps(out)}", flush=True)
+    if not (math.isfinite(loss_k) and abs(loss_k - loss_p) <= 0.02
+            and grad_rel <= 2e-2 and dmax <= 2 * LR * 1.001
+            and n_diff / n_all <= 0.05):
+        raise AssertionError(f"kernel and plain training steps disagree: "
+                             f"{out}")
+    return out
+
+
+def training_kernel_rows(torch, flash, fused_adam, param_shapes):
+    """Timings of the training kernels at the main path's shapes: (rows
+    without launches, max_abs_err and card)."""
+    import ctypes
+
+    from deepspeed_tpu_torch.ops import op_builder
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    q, k, v, do = (rnd(B, H, SEQ, D) for _ in range(4))
+    o, lse = flash.flash_attention_fwd(q, k, v, True)
+    delta = (do.float() * o.float()).sum(-1)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lib = op_builder.load_kernels()
+    # the kernels alone, without the wrapper's allocations and delta
+    strides = (ctypes.c_longlong * 21)(*(
+        st for t in (q, k, v, do, dq, dk, dv) for st in t.stride()[:3]))
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(fn):
+        return lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                          dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), 1, B,
+                          H, SEQ, SEQ, D, strides, D ** -0.5, 1, 1, stream)
+
+    plain_ms = cuda_ms(lambda: flash.flash_attention_bwd_plain(
+        q, k, v, o, lse, do, True), iters=5)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qg, kg, vg, is_causal=True))
+    sdpa_fwd_bwd = cuda_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(qg, kg, vg, is_causal=True),
+        (qg, kg, vg), do))
+    pairs = B * H * SEQ * (SEQ + 1) // 2
+    tensor = B * H * SEQ * D * 2
+    stats = 2 * B * H * SEQ * 4
+    rows = [
+        {"name": "flash_bwd_dq", "route": "cuda",
+         "source": "deepspeed_tpu_torch/csrc/flash_bwd.cu",
+         "replaces": "deepspeed_tpu/ops/transformer/flash.py:258",
+         "shape": "B8 H16 S1024 D64 causal bf16",
+         "ms": cuda_ms(launch(lib.ds_flash_bwd_dq)),
+         "plain_ms": plain_ms, "plain_note": "the whole plain backward",
+         "library_ms": sdpa_fwd_bwd - sdpa_fwd,
+         "library_note": "scaled_dot_product_attention backward (fwd+bwd "
+                         "less fwd), dq, dk and dv together",
+         "bytes": 4 * tensor + stats + tensor, "flops": 6 * D * pairs,
+         "peak": BF16_FLOPS},
+        {"name": "flash_bwd_dkv", "route": "cuda",
+         "source": "deepspeed_tpu_torch/csrc/flash_bwd.cu",
+         "replaces": "deepspeed_tpu/ops/transformer/flash.py:292",
+         "shape": "B8 H16 S1024 D64 causal bf16",
+         "ms": cuda_ms(launch(lib.ds_flash_bwd_dkv)),
+         "plain_ms": plain_ms, "plain_note": "the whole plain backward",
+         "library_ms": sdpa_fwd_bwd - sdpa_fwd,
+         "library_note": "scaled_dot_product_attention backward (fwd+bwd "
+                         "less fwd), dq, dk and dv together",
+         "bytes": 4 * tensor + stats + 2 * tensor, "flops": 8 * D * pairs,
+         "peak": BF16_FLOPS},
+    ]
+    del q, k, v, do, o, lse, delta, dq, dk, dv, qg, kg, vg
+
+    # Adam, sweep form: the main path's call (wd 0, no cast, clip on)
+    n = sum(math.prod(s) for s in param_shapes)
+    n_pad = -(-n // fused_adam.sweep_pad()) * fused_adam.sweep_pad()
+    g = rnd(n_pad, dtype=torch.float32) * 1e-3
+    m = rnd(n_pad, dtype=torch.float32) * 1e-4
+    v = rnd(n_pad, dtype=torch.float32).square() * 1e-8
+    cc = torch.tensor(0.5, device="cuda")
+    sweep = lambda: fused_adam.adam_sweep_apply(None, g, m, v, LR, 0.271,
+                                                0.002997, cc)
+    plain = lambda: fused_adam.adam_sweep_apply_plain(None, g, m, v, LR,
+                                                      0.271, 0.002997, cc)
+    p = torch.nn.Parameter(rnd(n_pad, dtype=torch.float32))
+    p.grad = g
+    opt = torch.optim.AdamW([p], lr=LR, weight_decay=0.0, fused=True)
+    rows.append({
+        "name": "adam_sweep", "route": "cuda",
+        "source": "deepspeed_tpu_torch/csrc/adam.cu",
+        "replaces": "deepspeed_tpu/ops/adam/fused_adam.py:130",
+        "shape": f"flat fp32 n={n_pad} (GPT-2 medium), wd 0, no cast, "
+                 f"clip on",
+        "ms": cuda_ms(sweep, iters=10), "plain_ms": cuda_ms(plain, iters=5),
+        "library_ms": cuda_ms(opt.step, iters=10),
+        "library_note": "torch.optim.AdamW(fused=True).step on one flat "
+                        "tensor (updates p in place)",
+        "bytes": 24 * n_pad, "flops": 14 * n_pad, "peak": FP32_FLOPS})
+    del g, m, v, p, opt
+
+    # Adam, per-tensor form: one launch per parameter tensor
+    ps = [rnd(*s, dtype=torch.float32) for s in param_shapes]
+    gs = [rnd(*s, dtype=torch.float32) * 1e-3 for s in param_shapes]
+    ms_ = [torch.zeros_like(t) for t in ps]
+    vs_ = [torch.zeros_like(t) for t in ps]
+
+    def per_tensor(fn):
+        return lambda: [fn(a, b, c, d, LR, 0.271, 0.002997)
+                        for a, b, c, d in zip(ps, gs, ms_, vs_)]
+
+    params = [torch.nn.Parameter(t.clone()) for t in ps]
+    for prm, gr in zip(params, gs):
+        prm.grad = gr
+    opt = torch.optim.AdamW(params, lr=LR, weight_decay=0.0, fused=True)
+    rows.append({
+        "name": "adam_per_tensor", "route": "cuda",
+        "source": "deepspeed_tpu_torch/csrc/adam.cu",
+        "replaces": "deepspeed_tpu/ops/adam/fused_adam.py:35",
+        "shape": f"{len(param_shapes)} fp32 tensors, {n} elements "
+                 f"(GPT-2 medium), one launch each",
+        "ms": cuda_ms(per_tensor(fused_adam.fused_adam_update), iters=5),
+        "plain_ms": cuda_ms(per_tensor(fused_adam.adam_sweep_apply_plain),
+                            iters=3),
+        "library_ms": cuda_ms(opt.step, iters=5),
+        "library_note": "torch.optim.AdamW(fused=True).step over the same "
+                        "tensors (multi-tensor, updates p in place)",
+        "bytes": 28 * n, "flops": 14 * n, "peak": FP32_FLOPS})
+    del ps, gs, ms_, vs_, params, opt
+    torch.cuda.empty_cache()
+    return rows
+
+
+def finish_rows(rows, launches, max_err, card):
+    """bound_ms (the larger of bytes at 3.35 TB/s and operations at the
+    peak of their type), launches and max_abs_err for each row."""
+    out = []
+    for row in rows:
+        t_bytes = row.pop("bytes") / HBM_BYTES_PER_S * 1e3
+        t_ops = row.pop("flops") / row.pop("peak", BF16_FLOPS) * 1e3
+        row.update(launches=launches[row["name"]],
+                   max_abs_err=max_err[row["name"]],
+                   bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   card=card)
+        out.append(row)
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -230,6 +566,7 @@ def main():
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models import gpt2
     from deepspeed_tpu_torch.ops import op_builder
+    from deepspeed_tpu_torch.ops.adam import fused_adam
     from deepspeed_tpu_torch.ops.transformer import attention as attn_mod
     from deepspeed_tpu_torch.ops.transformer import decode, flash
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -247,9 +584,14 @@ def main():
 
     # 3. kernels against their plain versions
     max_err = check_kernels(torch, flash, decode)
-
-    # 4. the main path at full width
     cfg = gpt2.PRESETS["gpt2-medium"]
+    param_shapes = [tuple(p.shape) for p in
+                    gpt2.GPT2LMHeadModel(cfg, seed=0).parameters()]
+    torch.cuda.empty_cache()
+    max_err.update(check_training_kernels(torch, flash, fused_adam,
+                                          param_shapes))
+
+    # 4. the generation path at full width
     model = gpt2.GPT2LMHeadModel(cfg, seed=0)
     engine = deepspeed_tpu_torch.init_inference(model, dtype=torch.bfloat16)
     qcfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
@@ -313,7 +655,7 @@ def main():
                                      f"(tolerance {logit_tol}), greedy "
                                      f"agreement {same.item()}")
 
-    # 5. timings
+    # 5. timings of the generation path
     prefill_ms = host_ms(lambda: engine.generate(long_ids, max_new_tokens=1))
     gen_ms = host_ms(lambda: engine.generate(long_ids, max_new_tokens=64),
                      reps=2)
@@ -398,18 +740,106 @@ def main():
         "bytes": 2 * live * (D + 4) + 2 * B * H * D * 2 + 4,
         "flops": 4 * live * D,
     }
-    rows = []
+    gen_launches = dict(launches)
+    del engine, qengine, model, q, k, v, qd, kc, vc, kq, ks, vq, vs
+    torch.cuda.empty_cache()
+
+    # 6. the training path at full width
+    batch = gpt2.synthetic_batch(B, SEQ, cfg.vocab_size, seed=4)
+    torch.cuda.reset_peak_memory_stats()
+    model = gpt2.GPT2LMHeadModel(cfg, seed=0)
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=model, config=train_config(sweep=True))
+    fused_engine, *_ = deepspeed_tpu_torch.initialize(
+        model=gpt2.GPT2LMHeadModel(cfg, seed=0),
+        config=train_config(fused=True))
+    op_builder.reset_launch_counts()
+    losses, step_ms = run_steps(torch, engine, batch, TRAIN_STEPS)
+    sweep_counts = dict(op_builder.LAUNCHES)
+    fused_losses, fused_ms = run_steps(torch, fused_engine, batch,
+                                       FUSED_STEPS)
+    train_launches = dict(op_builder.LAUNCHES)
+    peak_mem = torch.cuda.max_memory_allocated()
+    fused_counts = {k: train_launches.get(k, 0) - sweep_counts.get(k, 0)
+                    for k in train_launches}
+    print(f"launches on the training path: sweep {sweep_counts}, "
+          f"fused {fused_counts}", flush=True)
+    print(f"train losses: sweep {losses}, fused {fused_losses}", flush=True)
+    n_tensors = len(engine.params)
+    for counts, steps, adam_per_step in (
+            (sweep_counts, TRAIN_STEPS, 1),
+            (fused_counts, FUSED_STEPS, n_tensors)):
+        want = {"flash_fwd": 24 * steps, "flash_bwd_dq": 24 * steps,
+                "flash_bwd_dkv": 24 * steps, "adam": adam_per_step * steps}
+        got = {k: counts.get(k, 0) for k in want}
+        if got != want or sum(counts.values()) != sum(want.values()):
+            raise AssertionError(f"training launches {counts}, expected "
+                                 f"{want}")
+    # random init: logits of variance ~0.4 add ~0.2 to ln(vocab); both
+    # engines start from the same weights, so their first losses are equal
+    ln_vocab = math.log(cfg.vocab_size)
+    if not all(math.isfinite(x) for x in losses + fused_losses):
+        raise AssertionError("a training loss is not finite")
+    if abs(losses[0] - ln_vocab) > 0.5 or fused_losses[0] != losses[0]:
+        raise AssertionError(f"first losses {losses[0]}, "
+                             f"{fused_losses[0]} are not near ln(vocab) "
+                             f"{ln_vocab}")
+    if not (losses[-1] < losses[0] and fused_losses[-1] < fused_losses[0]):
+        raise AssertionError("the loss on the repeated batch did not fall")
+    # the two Adam forms are the same math (clip fused or applied first)
+    if max(abs(a - b) for a, b in zip(losses, fused_losses)) > 0.05:
+        raise AssertionError("the sweep and per-tensor Adam runs diverge")
+    del fused_engine
+    torch.cuda.empty_cache()
+
+    # 7. one step on the kernels against one on the plain versions
+    parity = one_step_parity(torch, deepspeed_tpu_torch, gpt2, attn_mod,
+                             decode, fused_adam, cfg, batch)
+
+    # 8. training timings, a profiled step, the kernels
+    med = statistics.median(step_ms[2:TRAIN_STEPS])
+    n_params = sum(p.numel() for p in engine.params.values())
+    flops_per_token = 6 * n_params + 12 * cfg.n_layer * cfg.n_embd * SEQ
+    train = {
+        "card": card, "config": "gpt2-medium bs8 seq1024 bf16 zero1 "
+                                "adam-sweep clip1.0",
+        "n_params": n_params, "step_ms_median_3_10": med,
+        "step_ms": step_ms, "fused_step_ms": fused_ms,
+        "tokens_per_s": B * SEQ / med * 1e3,
+        "flops_per_token": flops_per_token,
+        "mfu": flops_per_token * B * SEQ / (med / 1e3) / BF16_FLOPS,
+        "losses": losses, "fused_losses": fused_losses,
+        "peak_mem_gb": peak_mem / 1e9,
+        "launches_sweep_run": sweep_counts,
+        "launches_fused_run": fused_counts,
+        "parity_2layer": parity,
+        "profile_train_step": device_profile(
+            torch, lambda: engine.train_batch(batch=batch)),
+    }
+    del engine, model
+    torch.cuda.empty_cache()
+
+    launches = {"flash_fwd": gen_launches.get("flash_fwd", 0) +
+                train_launches.get("flash_fwd", 0),
+                "decode_attention": gen_launches.get("decode_attention", 0),
+                "decode_attention_int8": gen_launches.get(
+                    "decode_attention_int8", 0),
+                "flash_bwd_dq": train_launches.get("flash_bwd_dq", 0),
+                "flash_bwd_dkv": train_launches.get("flash_bwd_dkv", 0),
+                "adam_sweep": sweep_counts.get("adam", 0),
+                "adam_per_tensor": fused_counts.get("adam", 0)}
+    flash_row["launches_by_path"] = {
+        "generate": gen_launches.get("flash_fwd", 0),
+        "train": train_launches.get("flash_fwd", 0)}
     for row in (flash_row, decode_row, int8_row):
-        t_bytes = row.pop("bytes") / HBM_BYTES_PER_S * 1e3
-        t_ops = row.pop("flops") / BF16_FLOPS * 1e3
-        row.update(launches=launches.get(row["name"], 0),
-                   max_abs_err=max_err[row["name"]],
-                   bound_ms=max(t_bytes, t_ops),
-                   bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   card=card)
-        rows.append(row)
+        row["peak"] = BF16_FLOPS
+    rows = finish_rows(
+        [flash_row, decode_row, int8_row] + training_kernel_rows(
+            torch, flash, fused_adam, param_shapes),
+        launches, max_err, card)
 
     print(json.dumps({"e2e": e2e}))
+    print(json.dumps({"train": train}))
     print(json.dumps({"kernels": rows}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

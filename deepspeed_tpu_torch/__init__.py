@@ -1,14 +1,24 @@
 """deepspeed_tpu_torch: the PyTorch + CUDA port of deepspeed_tpu for NVIDIA
 Hopper (H100).
 
-This package ports the cached-generation path
-(``init_inference`` -> ``InferenceEngine.generate`` over GPT-2) with
-hand-written CUDA kernels for flash-attention prefill and KV-cache decode
-attention (``csrc/``). It imports torch and numpy only; the JAX package
-``deepspeed_tpu`` stays the reference and is never imported from here.
+This package ports two paths over GPT-2, with hand-written CUDA kernels
+(``csrc/``):
+
+* cached generation: ``init_inference`` -> ``InferenceEngine.generate``,
+  on the flash-attention forward and KV-cache decode-attention kernels;
+* training: ``initialize`` -> ``DeepSpeedEngine.train_batch`` (bf16, fp16
+  or fp32 compute over fp32 masters, Adam/AdamW, ZeRO stage 0/1 on one
+  rank), on the flash-attention forward and backward kernels and the
+  fused Adam kernel.
+
+It imports torch and numpy only; the JAX package ``deepspeed_tpu`` stays
+the reference and is never imported from here.
 """
 
 from deepspeed_tpu_torch.inference.engine import InferenceEngine
+from deepspeed_tpu_torch.ops._platform import resolve_device
+from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
 
 __version__ = "0.1.0"
 
@@ -22,4 +32,42 @@ def init_inference(model, params=None, dtype=None, device=None, **kwargs):
                            **kwargs)
 
 
-__all__ = ["InferenceEngine", "init_inference", "__version__"]
+def initialize(args=None, model=None, optimizer=None, model_parameters=None,
+               training_data=None, lr_scheduler=None, config=None,
+               config_params=None, device=None, **kwargs):
+    """Create a training engine (reference: deepspeed.initialize).
+
+    Returns ``(engine, optimizer, None, lr_scheduler)``, the tuple
+    contract of the JAX ``initialize``. ``model`` is a port ``nn.Module``
+    whose ``forward(batch)`` returns the loss; its parameters become the
+    fp32 masters on ``device`` (``None`` means CUDA, and raises without a
+    card). ``model_parameters``, when given, is a state_dict loaded into
+    it (for example ``bridge.flax_to_state_dict`` of flax params).
+    Not ported yet: ``training_data`` (the dataloader), a client
+    ``optimizer`` or ``lr_scheduler``, and ``args`` carrying the
+    config."""
+    unported = {"training_data (the dataloader)": training_data,
+                "a client optimizer": optimizer,
+                "a client lr_scheduler": lr_scheduler,
+                "args": args}
+    unported.update({f"initialize({k}=...)": v for k, v in kwargs.items()})
+    for what, value in unported.items():
+        if value is not None:
+            raise NotImplementedError(f"{what} is not ported yet")
+    if model is None:
+        raise ValueError("initialize needs model=")
+    if config is None:
+        config = config_params
+    if config is None:
+        raise ValueError("initialize needs config= (a dict or a JSON path)")
+    cfg = DeepSpeedConfig(config)
+    dev = resolve_device(device)
+    model = model.to(dev)
+    if model_parameters is not None:
+        model.load_state_dict(model_parameters)
+    engine = DeepSpeedEngine(model, cfg, dev)
+    return engine, engine.optimizer, None, engine.lr_scheduler
+
+
+__all__ = ["DeepSpeedConfig", "DeepSpeedEngine", "InferenceEngine",
+           "init_inference", "initialize", "__version__"]

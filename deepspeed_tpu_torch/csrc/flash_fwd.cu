@@ -35,51 +35,18 @@
 // Plain C interface (loaded with ctypes); returns the cudaError_t of the
 // launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "flash_common.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
+using namespace flash;
 
-constexpr float kNegInf = -1e30f;  // the JAX kernels' masking value
-constexpr int kBQ = 64;            // query rows per CTA
-constexpr int kBK = 64;            // keys per shared-memory tile
-
-struct Strides {  // element strides of a [B, H, S, D] view (D contiguous)
-  long long b, h, s;
-};
+constexpr int kBQ = 64;  // query rows per CTA
+constexpr int kBK = 64;  // keys per shared-memory tile
 
 // ------------------------------------------------------------ bf16: mma
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// c += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// 8 consecutive bf16 of a row from global memory (zeros past `n` live
-// elements); `vec`: the 8 are whole and 16-byte aligned.
-__device__ __forceinline__ uint4 load8_bf16(const bf16* p, int n, bool vec) {
-  if (vec && n >= 8) return *reinterpret_cast<const uint4*>(p);
-  uint4 out;
-  uint16_t* e = reinterpret_cast<uint16_t*>(&out);
-  const uint16_t* src = reinterpret_cast<const uint16_t*>(p);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) e[i] = i < n ? src[i] : 0;
-  return out;
-}
-
 // DP: head dim padded to a multiple of 16 (zeros beyond D).
 template <int DP>
 __global__ void __launch_bounds__(128)
@@ -110,20 +77,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vb = v + b * vs.b + h * vs.h;
 
   uint32_t qa[NQ][4];
-#pragma unroll
-  for (int kk = 0; kk < NQ; ++kk) {
-#pragma unroll
-    for (int reg = 0; reg < 4; ++reg) {
-      const int r = (reg & 1) ? r1 : r0;
-      const int c = kk * 16 + t * 2 + ((reg & 2) ? 8 : 0);
-      float lo = 0.f, hi = 0.f;
-      if (r < Sq) {
-        if (c < D) lo = __bfloat162float(qb[r * qs.s + c]);
-        if (c + 1 < D) hi = __bfloat162float(qb[r * qs.s + c + 1]);
-      }
-      qa[kk][reg] = pack_bf16(lo, hi);
-    }
-  }
+  load_a_frags<NQ>(qa, qb, qs.s, r0, Sq, D, t);
   float acc[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
@@ -153,9 +107,8 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < NQ; ++kk) {
-        const bf16* kr = &k_tile[(nt * 8 + g) * KP + kk * 16 + t * 2];
-        const uint32_t bfrag[2] = {*reinterpret_cast<const uint32_t*>(kr),
-                                   *reinterpret_cast<const uint32_t*>(kr + 8)};
+        uint32_t bfrag[2];
+        load_b_frag(bfrag, k_tile, KP, nt * 8, kk * 16, g, t);
         mma_bf16(s[nt], qa[kk], bfrag);
       }
     }
@@ -209,9 +162,8 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
       for (int n = 0; n < NO; ++n) {
-        const bf16* vr = &vt_tile[(n * 8 + g) * VP + kk * 16 + t * 2];
-        const uint32_t bfrag[2] = {*reinterpret_cast<const uint32_t*>(vr),
-                                   *reinterpret_cast<const uint32_t*>(vr + 8)};
+        uint32_t bfrag[2];
+        load_b_frag(bfrag, vt_tile, VP, n * 8, kk * 16, g, t);
         mma_bf16(acc[n], pa, bfrag);
       }
     }

@@ -1,7 +1,8 @@
 """GPT-2 family in PyTorch (counterpart of ``deepspeed_tpu/models/gpt2.py``).
 
-Prefill runs causal attention through :func:`attention` (the flash kernel
-on CUDA tensors) over the prompt's fresh K/V; every later token runs
+Training and prefill run causal attention through :func:`attention` (the
+flash kernels on CUDA tensors, differentiable through the backward
+kernels; the plain dense version on the CPU); every later token runs
 :func:`decode_attention` (the decode kernel on CUDA tensors) over the KV
 cache. The flax ``"cache"`` collection becomes an explicit
 :class:`KVCache` passed to ``forward``; its ``pos`` is the JAX model's
@@ -11,7 +12,7 @@ Batch convention: a dict with ``input_ids`` [B, S] (and optionally
 ``labels``), a tuple ``(input_ids, labels)``, or the ids tensor itself.
 ``forward`` returns the mean next-token cross-entropy unless logits are
 asked for. Not ported yet: pipeline stages, ring/ulysses/sparse attention,
-MoE, rotary embeddings, dropout.
+MoE, rotary embeddings, dropout, remat.
 """
 
 import dataclasses
@@ -42,6 +43,7 @@ class GPT2Config:
     n_layer: int = 12
     n_head: int = 12
     dropout: float = 0.0
+    remat: bool = False
     pp_stages: int = 1
     attention_mode: str = "auto"
     moe_num_experts: int = 0
@@ -79,6 +81,7 @@ def _check_ported(cfg: GPT2Config):
         f"position_embedding={cfg.position_embedding!r}":
             cfg.position_embedding != "learned",
         "dropout > 0": cfg.dropout > 0,
+        "remat": cfg.remat,
     }
     for what, hit in unported.items():
         if hit:

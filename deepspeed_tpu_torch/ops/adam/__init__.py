@@ -1,0 +1,1 @@
+"""ops/adam of the PyTorch port (see deepspeed_tpu_torch/__init__.py)."""

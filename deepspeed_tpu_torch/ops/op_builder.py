@@ -20,7 +20,7 @@ import pathlib
 
 _CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "torch_ext"
-SOURCES = ("flash_fwd.cu", "decode_attention.cu")
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "decode_attention.cu", "adam.cu")
 NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-lineinfo"]
 
@@ -35,6 +35,13 @@ _SIGNATURES = {
                      _F, _I, _I, _P],
     "ds_decode_attention": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
                             _I, _I, _L, _L, _L, _L, _F, _I, _P],
+    # q, k, v, do, lse, delta, dq, dk, dv, dtype, B, H, Sq, Sk, D,
+    # strides (21 long long), sm_scale, causal, vec, stream
+    "ds_flash_bwd_dq": [_P] * 9 + [_I] * 6 + [_P, _F, _I, _I, _P],
+    "ds_flash_bwd_dkv": [_P] * 9 + [_I] * 6 + [_P, _F, _I, _I, _P],
+    # p, g, m, v, u, m_out, v_out, cast, n, clip_coef, lr, bc1, bc2, b1,
+    # 1-b1, b2, 1-b2, eps, weight_decay, adam_w_mode, read_p, vec, stream
+    "ds_adam": [_P] * 8 + [_L, _P] + [_F] * 9 + [_I, _I, _I, _P],
 }
 
 _lib = None

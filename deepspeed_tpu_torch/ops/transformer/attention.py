@@ -40,9 +40,10 @@ def attention(q, k, v, *, causal=True, sm_scale=None, bias=None, mask=None):
     """Attention on q, k, v [B, H, S, D].
 
     On CUDA tensors, attention with no bias and no mask always runs the
-    flash kernel; the JAX package's TPU-measured 512-token crossover is
-    not carried over (the crossover on the H100 is still to be measured).
-    Biased or masked attention, and every CPU call, runs
+    flash kernels through :class:`flash.FlashAttentionFunction`, so
+    gradients flow to q, k and v; the JAX package's TPU-measured 512-token
+    crossover is not carried over (the crossover on the H100 is still to
+    be measured). Biased or masked attention, and every CPU call, runs
     :func:`mha_reference`."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5

@@ -1,0 +1,1 @@
+"""runtime/fp16 of the PyTorch port (see deepspeed_tpu_torch/__init__.py)."""

@@ -6,15 +6,19 @@ PyTorch::
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
 Tolerances: fp32 rtol = atol = 2e-5 (summation order); bf16 rtol = atol =
-2e-2 (the plain versions round the softmax weights to bf16 before P·V,
-the kernels keep them in fp32).
+2e-2 (the plain forward rounds the softmax weights to bf16 before P·V,
+the forward kernel keeps them in fp32; the backward's outputs are bf16,
+one ulp of which is 0.0156 at magnitudes in [2, 4)); Adam rtol 1e-6,
+atol 1e-7 (the same fp32 operations; a division by a scalar may round
+once more in PyTorch).
 """
 
 import pytest
 import torch
 
 from deepspeed_tpu_torch.ops import op_builder
-from deepspeed_tpu_torch.ops.transformer import decode, flash
+from deepspeed_tpu_torch.ops.adam import fused_adam
+from deepspeed_tpu_torch.ops.transformer import attention, decode, flash
 
 pytestmark = pytest.mark.cuda
 
@@ -81,6 +85,81 @@ def test_decode_kernel_matches_plain(gen, dtype, quantized, T, D):
                 q, k, v, decode._lengths(lens, B, "cuda"), **scales)
             torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                        atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Sq,Sk,D,causal", [
+    (2, 4, 256, 256, 64, True), (1, 3, 200, 200, 64, False),
+    (1, 2, 100, 300, 64, True), (2, 2, 100, 100, 16, True),
+    (1, 2, 130, 130, 128, True), (1, 2, 65, 65, 20, False)])
+def test_flash_bwd_kernels_match_plain(gen, dtype, B, H, Sq, Sk, D, causal):
+    q = _rand(gen, B, H, Sq, D, dtype=dtype)
+    k, v = _rand(gen, B, H, Sk, D, dtype=dtype), _rand(gen, B, H, Sk, D,
+                                                       dtype=dtype)
+    do = _rand(gen, B, H, Sq, D, dtype=dtype)
+    o, lse = flash.flash_attention_fwd(q, k, v, causal)
+    before = dict(op_builder.LAUNCHES)
+    got = flash.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert op_builder.LAUNCHES[name] == before.get(name, 0) + 1
+    want = flash.flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    tol = TOLS[dtype]
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == dtype
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_gradients_flow_on_cuda(gen, dtype):
+    """The unmasked CUDA path is differentiable: q/k/v grads through the
+    flash kernels equal those of the plain dense attention."""
+    qkv = _rand(gen, 2, 96, 3, 4, 64, dtype=dtype).requires_grad_()
+    do = _rand(gen, 2, 4, 96, 64, dtype=dtype)
+
+    def grads(fn):
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        (g,) = torch.autograd.grad(fn(q, k, v), qkv, do)
+        return g
+
+    got = grads(lambda q, k, v: attention.attention(q, k, v, causal=True))
+    want = grads(lambda q, k, v: attention.mha_reference(q, k, v,
+                                                         causal=True))
+    tol = TOLS[dtype]
+    assert got.abs().sum() > 0
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("weight_decay,adam_w_mode,cast", [
+    (0.0, True, False), (0.01, True, True), (0.01, False, False)])
+def test_adam_kernel_matches_plain(gen, weight_decay, adam_w_mode, cast):
+    n = fused_adam.sweep_pad() * 3
+    p, g = _rand(gen, n, dtype=torch.float32), _rand(gen, n,
+                                                      dtype=torch.float32)
+    m = _rand(gen, n, dtype=torch.float32) * 0.1
+    v = _rand(gen, n, dtype=torch.float32).square() * 0.01
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=weight_decay,
+              adam_w_mode=adam_w_mode)
+    cc = torch.tensor(0.5, device="cuda")
+    cast_dtype = torch.bfloat16 if cast else None
+    got = fused_adam.adam_sweep_apply(p, g, m, v, 1e-3, 0.19, 0.002, cc,
+                                      cast_dtype=cast_dtype, **kw)
+    want = fused_adam.adam_sweep_apply_plain(p, g, m, v, 1e-3, 0.19, 0.002,
+                                             cc, cast_dtype=cast_dtype, **kw)
+    for a, b in zip(got, want):
+        if b is None:
+            assert a is None
+            continue
+        torch.testing.assert_close(a.float(), b.float(), rtol=1e-6,
+                                   atol=1e-7 if a.dtype == torch.float32
+                                   else 1e-2)
+    # the per-tensor form: clip coefficient 1, a ragged length
+    t = slice(0, 1000 * 3 + 1)
+    got = fused_adam.fused_adam_update(p[t], g[t], m[t], v[t], 1e-3, 0.19,
+                                       0.002, **kw)
+    want = fused_adam.adam_sweep_apply_plain(p[t], g[t], m[t], v[t], 1e-3,
+                                             0.19, 0.002, **kw)[:3]
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
 
 
 def test_kernels_raise_on_bad_input(gen):

@@ -155,7 +155,7 @@ def test_cache_overflow_raises(tiny):
 @pytest.mark.parametrize("field,value", [
     ("pp_stages", 2), ("attention_mode", "ring:seq"),
     ("attention_mode", "sparse"), ("moe_num_experts", 4),
-    ("position_embedding", "rope"), ("dropout", 0.1)])
+    ("position_embedding", "rope"), ("dropout", 0.1), ("remat", True)])
 def test_unported_options_raise(field, value):
     cfg = dataclasses.replace(gpt2.PRESETS["tiny"], **{field: value})
     with pytest.raises(NotImplementedError, match="not ported yet"):

@@ -13,6 +13,7 @@ import torch
 import deepspeed_tpu_torch
 from deepspeed_tpu_torch.models import gpt2
 from deepspeed_tpu_torch.ops import _platform, op_builder
+from deepspeed_tpu_torch.ops.adam import fused_adam
 from deepspeed_tpu_torch.ops.transformer import decode, flash
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -50,6 +51,8 @@ def test_import_leaves_jax_out():
         "import deepspeed_tpu_torch.models.gpt2\n"
         "import deepspeed_tpu_torch.ops.transformer.flash\n"
         "import deepspeed_tpu_torch.ops.transformer.decode\n"
+        "import deepspeed_tpu_torch.ops.adam.fused_adam\n"
+        "import deepspeed_tpu_torch.runtime.engine\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'flax', 'deepspeed_tpu', 'triton')\n"
         "       or m == 'torch.utils.cpp_extension']\n"
@@ -67,6 +70,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         deepspeed_tpu_torch.init_inference(model)
     with pytest.raises(RuntimeError, match="CUDA"):
+        deepspeed_tpu_torch.initialize(model=model, config={
+            "train_batch_size": 2})
+    with pytest.raises(RuntimeError, match="CUDA"):
         gpt2.synthetic_batch(1, 4, 10)
     assert _platform.resolve_device("cpu").type == "cpu"
 
@@ -79,8 +85,12 @@ def test_kernel_route_follows_tensor_device(monkeypatch):
     monkeypatch.setattr(op_builder, "load_kernels", no_build)
     op_builder.reset_launch_counts()
     q = torch.randn(1, 2, 8, 16)
-    flash.flash_attention_fwd(q, q, q)
+    o, lse = flash.flash_attention_fwd(q, q, q)
+    flash.flash_attention_bwd(q, q, q, o, lse, q)
     decode.decode_attention(q[:, :, :1], q, q, 5)
+    x = torch.randn(fused_adam.sweep_pad())
+    fused_adam.adam_sweep_apply(None, x, x, x.abs(), 1e-3, 0.1, 0.001, 0.5)
+    fused_adam.fused_adam_update(q, q, q, q.abs(), 1e-3, 0.1, 0.001)
     assert sum(op_builder.LAUNCHES.values()) == 0
     assert _platform.use_kernel(q) is False
     with pytest.raises(ValueError, match="one device"):
