@@ -43,11 +43,29 @@ Phases, each fatal on failure:
    (CUDA events) beside its plain version, its least possible time on the
    card and, where one exists, the PyTorch call that computes the same
    function (``scaled_dot_product_attention`` and its backward,
-   ``torch.optim.AdamW(fused=True)``: timed for the table only).
+   ``torch.optim.AdamW(fused=True)``, ``F.layer_norm``,
+   ``native_layer_norm_backward``, add + ``F.gelu``: timed for the table
+   only);
+9. the BERT MLM path at full width: ``initialize`` on BERT-large (24
+   layers, hidden 1024, 16 heads, intermediate 4096, vocab 30522 padded
+   to 30592, post-LN, eps 1e-12), bs 64 × seq 128 with 15% of positions
+   masked, bf16 over fp32 masters, ZeRO 0, LAMB lr 1e-4: 10 steps with
+   ``fused: true`` (the one-launch LAMB kernel), then 3 with ``fused:
+   false`` (plain LAMB) from the same seed, whose losses must agree with
+   the fused run's within 0.02. Launch counts are zeroed just before each
+   run and read just after: flash_fwd, flash_bwd_dq, flash_bwd_dkv 24 a
+   step, ln_fwd and ln_bwd 48, bias_gelu 24, lamb 1 (0 with plain LAMB).
+   Then a one-step parity on a 2-layer full-width BERT (kernels against
+   the plain versions of attention, LayerNorm, bias-GeLU and LAMB pass 1),
+   flash against ``scaled_dot_product_attention`` at B 64, S 128, the
+   step time, tokens/s, samples/s, MFU, idle share and peak memory, and
+   the four new kernels' timings. Phase 3 holds those kernels against
+   their plain versions at BERT-large's shapes and ragged ones first.
 
-Prints an ``e2e`` JSON line, a ``train`` JSON line, a ``kernels`` JSON
-line, the card line, and last ``{"ok": true, "device": {...}}``. Exits
-non-zero with no result when CUDA is unavailable or any phase fails.
+Prints an ``e2e`` JSON line, a ``train`` JSON line, a ``bert`` JSON line,
+a ``kernels`` JSON line, the card line, and last ``{"ok": true,
+"device": {...}}``. Exits non-zero with no result when CUDA is
+unavailable or any phase fails.
 """
 
 import contextlib
@@ -70,6 +88,8 @@ DECODE_LEN = 896 + 32        # live cache length halfway through the long run
 SEQ = 1024                   # training sequence (bench.py headline)
 LR = 1e-4
 TRAIN_STEPS, FUSED_STEPS = 10, 3
+BERT_B, BERT_S = 64, 128     # bench.py's BERT-large row
+BERT_STEPS, BERT_PLAIN_STEPS = 10, 3
 ADAM_TOL = dict(rtol=1e-6, atol=1e-7)
 
 
@@ -111,8 +131,9 @@ def host_ms(fn, reps=3):
 
 def device_profile(torch, fn):
     """Run ``fn`` once under ``torch.profiler``: wall ms, device-busy ms
-    (sum of kernel self times, one stream), the idle share, and the
-    device ms of each kernel group."""
+    (sum of kernel self times, one stream), the idle share, the device ms
+    of each kernel group, and the largest kernels and the PyTorch ops
+    whose kernels took the most device time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -121,11 +142,13 @@ def device_profile(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    groups, kernels = {}, []
+    groups, kernels, ops = {}, [], []
     for ev in prof.key_averages():
         us = ev.self_device_time_total
         # kernel events only: the CPU ops that launched them also carry
-        # their device time
+        # their device time (kept apart, by op)
+        if us > 0 and ev.device_type == torch.autograd.DeviceType.CPU:
+            ops.append((us / 1e3, ev.count, ev.key[:60]))
         if us <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         kernels.append((us / 1e3, ev.count, ev.key[:60]))
@@ -133,6 +156,10 @@ def device_profile(torch, fn):
         group = ("flash_fwd" if "flash_fwd" in name else
                  "flash_bwd" if "flash_bwd" in name else
                  "adam" if "adam_kernel" in name else
+                 "layer_norm" if "ln_fwd_kernel" in name
+                 or "ln_bwd_kernel" in name else
+                 "bias_gelu" if "bias_gelu_kernel" in name else
+                 "lamb" if "lamb_" in name else
                  "decode_attention" if "decode_kernel" in name else
                  "matmul" if any(s in name for s in (
                      "gemm", "gemv", "cutlass", "nvjet", "xmma")) else
@@ -142,7 +169,8 @@ def device_profile(torch, fn):
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "device_idle_share": (1 - busy / wall_ms) if busy else None,
             "device_ms_by_group": groups,
-            "top_kernels_ms_count_name": sorted(kernels, reverse=True)[:8]}
+            "top_kernels_ms_count_name": sorted(kernels, reverse=True)[:8],
+            "top_ops_device_ms_count_name": sorted(ops, reverse=True)[:12]}
 
 
 def close(got, want, tol):
@@ -540,6 +568,343 @@ def training_kernel_rows(torch, flash, fused_adam, param_shapes):
     return rows
 
 
+def bert_param_shapes(torch, bert, cfg):
+    model = bert.BertForPreTraining(cfg, seed=0)
+    shapes = [tuple(p.shape) for p in model.parameters()]
+    del model
+    torch.cuda.empty_cache()
+    return shapes
+
+
+def lamb_state(torch, gen, shapes):
+    """p, g, m, v lists over ``shapes``, LAMB-like magnitudes."""
+    def rnd(s):
+        return torch.randn(*s, generator=gen, device="cuda")
+    return ([rnd(s) * 0.02 for s in shapes], [rnd(s) * 1e-3 for s in shapes],
+            [rnd(s) * 1e-4 for s in shapes],
+            [rnd(s).square() * 1e-8 for s in shapes])
+
+
+def check_bert_kernels(torch, flash, fused, fused_lamb, param_shapes):
+    """Phase 3, the BERT path's kernels against their plain versions: the
+    LayerNorm forward and backward and bias-GeLU at BERT-large's shapes
+    and ragged ones, fp32 and bf16 (tolerances: fp32 2e-5; bf16 2e-2, one
+    bf16 ulp where the fp32 results straddle a rounding boundary; mu and
+    rstd 2e-5); LAMB pass 1 over BERT-large's 298 tensors (u, m, v rtol
+    1e-6, atol 1e-7; the squared norms rtol 1e-5, sums in another order)
+    and over ragged ones with weight decay; the flash kernels at B 64,
+    H 16, S 128, non-causal. Returns the max abs error of each new kernel
+    at the main path's shapes (bf16; LAMB fp32)."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    main_err = {}
+    tols = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+    for dtype, tol in tols.items():
+        for n, h in [(BERT_B * BERT_S, 1024), (37, 20), (5, 1000), (9, 7),
+                     (1000, 64)]:
+            x = rnd(n, h, dtype=dtype) * 2 + 0.5
+            g = 1 + 0.1 * rnd(h, dtype=dtype)
+            b = 0.1 * rnd(h, dtype=dtype)
+            dy = rnd(n, h, dtype=dtype)
+            y, mu, rstd = fused.layer_norm_fwd(x, g, b, 1e-12)
+            dx = fused.layer_norm_bwd(x, g, mu, rstd, dy)
+            y_ref, mu_ref, rstd_ref = fused.layer_norm_fwd_plain(x, g, b,
+                                                                 1e-12)
+            dx_ref = fused.layer_norm_bwd_plain(x, g, mu_ref, rstd_ref, dy)
+            torch.cuda.synchronize()
+            errs = {"y": close(y, y_ref, tol), "dx": close(dx, dx_ref, tol),
+                    "mu": close(mu, mu_ref, 2e-5),
+                    "rstd": close(rstd, rstd_ref, 2e-5)}
+            print(f"check layer_norm {str(dtype)[6:]} [{n}, {h}]: " +
+                  ", ".join(f"{k} err {e:.3g}" for k, (e, _) in errs.items()),
+                  flush=True)
+            if not all(ok for _, ok in errs.values()):
+                raise AssertionError("the layer norm kernels disagree with "
+                                     "their plain versions")
+            if dtype == torch.bfloat16 and h == 1024:
+                main_err["ln_fwd"] = errs["y"][0]
+                main_err["ln_bwd"] = errs["dx"][0]
+        for n, h in [(BERT_B * BERT_S, 4096), (37, 20), (5, 1000), (3, 7)]:
+            x, bias = rnd(n, h, dtype=dtype) * 3, rnd(h, dtype=dtype)
+            err, ok = close(fused.bias_gelu(x, bias),
+                            fused.bias_gelu_plain(x, bias), tol)
+            print(f"check bias_gelu {str(dtype)[6:]} [{n}, {h}]: err "
+                  f"{err:.3g}", flush=True)
+            if not ok:
+                raise AssertionError("bias_gelu disagrees with its plain "
+                                     "version")
+            if dtype == torch.bfloat16 and h == 4096:
+                main_err["bias_gelu"] = err
+        # the attention of the BERT path: flash at S 128, non-causal
+        q, k, v, do = (rnd(BERT_B, H, BERT_S, D, dtype=dtype)
+                       for _ in range(4))
+        o, lse = flash.flash_attention_fwd(q, k, v, False)
+        o_ref, lse_ref = flash.flash_attention_fwd_plain(q, k, v, False)
+        got = flash.flash_attention_bwd(q, k, v, o, lse, do, False)
+        want = flash.flash_attention_bwd_plain(q, k, v, o, lse, do, False)
+        torch.cuda.synchronize()
+        errs = [close(o, o_ref, tol), close(lse, lse_ref, 2e-5)] + \
+            [close(a, w, tol) for a, w in zip(got, want)]
+        print(f"check flash {str(dtype)[6:]} B{BERT_B} S{BERT_S} "
+              f"non-causal: o, lse, dq, dk, dv err "
+              f"{[round(e, 6) for e, _ in errs]}", flush=True)
+        if not all(ok for _, ok in errs):
+            raise AssertionError("flash disagrees with its plain version at "
+                                 "the BERT shape")
+        del x, dy, q, k, v, do, o, got, want
+
+    for wd, shapes in [(0.0, param_shapes),
+                       (0.01, [(1024, 1024), (0,), (7, 3), (20000,)])]:
+        ps, gs, ms, vs = lamb_state(torch, gen, shapes)
+        if wd:
+            ps[2] = rnd(22)[1:].view(7, 3)     # not 16-byte aligned
+        args = (ps, gs, ms, vs, 0.271, 0.002997)
+        got = fused_lamb.lamb_pass1(*args, weight_decay=wd)
+        want = fused_lamb.lamb_pass1_all_plain(*args, weight_decay=wd)
+        torch.cuda.synchronize()
+        err = 0.0
+        for a_list, w_list in zip(got[:3], want[:3]):
+            for a, w in zip(a_list, w_list):
+                torch.testing.assert_close(a, w, **ADAM_TOL)
+                if a.numel():
+                    err = max(err, (a - w).abs().max().item())
+        for a, w in zip(got[3:], want[3:]):
+            torch.testing.assert_close(a, w, rtol=1e-5, atol=0)
+        print(f"check lamb pass 1, {len(shapes)} tensors, wd {wd}: err "
+              f"{err:.3g}", flush=True)
+        if not wd:
+            main_err["lamb"] = err
+        del ps, gs, ms, vs, got, want
+    torch.cuda.empty_cache()
+    return main_err
+
+
+def bert_config(fused):
+    """``bench.py``'s BERT-large row: bf16 over fp32 masters, ZeRO 0,
+    LAMB lr 1e-4 (``fused`` selects the one-launch pass-1 kernel)."""
+    return {"train_batch_size": BERT_B,
+            "train_micro_batch_size_per_gpu": BERT_B,
+            "steps_per_print": 10 ** 9, "bf16": {"enabled": True},
+            "zero_optimization": {"stage": 0},
+            "optimizer": {"type": "Lamb", "params": {"lr": LR,
+                                                     "fused": fused}}}
+
+
+@contextlib.contextmanager
+def plain_bert(transformer, attn_mod, fused, fused_lamb):
+    """The BERT path's attention, LayerNorm, bias-GeLU and LAMB pass 1 on
+    their plain versions, restoring the kernels."""
+    saved = (transformer.attention, fused.layer_norm_fwd,
+             fused.layer_norm_bwd, fused.bias_gelu, fused_lamb.lamb_pass1)
+    transformer.attention = lambda q, k, v, causal=True, mask=None: \
+        attn_mod.mha_reference(q, k, v, causal=causal, mask=mask)
+    fused.layer_norm_fwd = fused.layer_norm_fwd_plain
+    fused.layer_norm_bwd = fused.layer_norm_bwd_plain
+    fused.bias_gelu = fused.bias_gelu_plain
+    fused_lamb.lamb_pass1 = fused_lamb.lamb_pass1_all_plain
+    try:
+        yield
+    finally:
+        (transformer.attention, fused.layer_norm_fwd, fused.layer_norm_bwd,
+         fused.bias_gelu, fused_lamb.lamb_pass1) = saved
+
+
+def bert_one_step_parity(torch, deepspeed_tpu_torch, bert, op_builder,
+                         plain_ctx, cfg, batch):
+    """A 2-layer BERT at full width, one fused-LAMB step on the kernels and
+    one on the plain versions, from the same seed and batch.
+
+    Tolerances (bf16): loss within 0.02 absolute; the gradients within
+    2e-2 relative in L2 over all tensors; the updated params within
+    2·lr·max_coeff (LAMB's first step moves each element by lr·ratio·u with
+    u ≈ ±1 and the ratio at most 10, so a gradient near zero whose sign
+    differs between the routes moves its element the other way) with at
+    most 5% of them differing by more than 1e-6."""
+    import dataclasses
+    cfg2 = dataclasses.replace(cfg, num_hidden_layers=2)
+
+    def one(plain):
+        engine, *_ = deepspeed_tpu_torch.initialize(
+            model=bert.BertForPreTraining(cfg2, seed=5),
+            config=bert_config(fused=True))
+        op_builder.reset_launch_counts()
+        with plain_ctx() if plain else contextlib.nullcontext():
+            engine._micro_step(batch)
+            grads = {k: p.grad.clone() for k, p in engine.params.items()}
+            loss = float(engine.train_batch(batch=batch))
+        launched = sum(op_builder.LAUNCHES.values())
+        if plain != (launched == 0):
+            raise AssertionError(f"plain={plain} run launched {launched} "
+                                 f"kernels")
+        params = {k: p.detach().clone() for k, p in engine.params.items()}
+        return loss, grads, params
+
+    loss_k, grads_k, params_k = one(False)
+    loss_p, grads_p, params_p = one(True)
+    num = sum((grads_k[k] - grads_p[k]).square().sum() for k in grads_p)
+    den = sum(grads_p[k].square().sum() for k in grads_p)
+    grad_rel = (num / den).sqrt().item()
+    worst = max(((grads_k[k] - grads_p[k]).norm() /
+                 grads_p[k].norm().clamp(min=1e-30)).item()
+                for k in grads_p)
+    dmax = max((params_k[k] - params_p[k]).abs().max().item()
+               for k in params_p)
+    n_all = sum(t.numel() for t in params_p.values())
+    n_diff = sum(((params_k[k] - params_p[k]).abs() > 1e-6).sum().item()
+                 for k in params_p)
+    out = {"loss_kernels": loss_k, "loss_plain": loss_p,
+           "loss_abs_err": abs(loss_k - loss_p), "grad_rel_l2": grad_rel,
+           "grad_rel_l2_worst_tensor": worst, "param_max_abs_diff": dmax,
+           "param_share_differing": n_diff / n_all}
+    print(f"bert parity 2-layer one step: {json.dumps(out)}", flush=True)
+    if not (math.isfinite(loss_k) and abs(loss_k - loss_p) <= 0.02
+            and grad_rel <= 2e-2 and dmax <= 2 * LR * 10 * 1.001
+            and n_diff / n_all <= 0.05):
+        raise AssertionError(f"BERT kernel and plain steps disagree: {out}")
+    return out
+
+
+def flash_vs_sdpa(torch, flash):
+    """Flash forward and forward + backward against
+    ``scaled_dot_product_attention`` at the BERT shape (timed only)."""
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    q, k, v, do = (torch.randn(BERT_B, H, BERT_S, D, generator=gen,
+                               device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    out = {
+        "shape": f"B{BERT_B} H{H} S{BERT_S} D{D} non-causal bf16",
+        "flash_fwd_ms": cuda_ms(lambda: flash.flash_attention_fwd(
+            q, k, v, False)),
+        "sdpa_fwd_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v)),
+        "flash_fwd_bwd_ms": cuda_ms(lambda: torch.autograd.grad(
+            flash.flash_attention(qg, kg, vg, causal=False), (qg, kg, vg),
+            do)),
+        "sdpa_fwd_bwd_ms": cuda_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(qg, kg, vg), (qg, kg, vg), do)),
+    }
+    print(f"flash vs SDPA at the BERT shape: {json.dumps(out)}", flush=True)
+    return out
+
+
+def bert_kernel_rows(torch, fused, fused_lamb, param_shapes):
+    """Timings of the BERT path's kernels at its shapes (rows without
+    launches, max_abs_err and card)."""
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    bf16 = torch.bfloat16
+
+    def rnd(*shape, dtype=bf16):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    from deepspeed_tpu_torch.ops import op_builder
+    lib = op_builder.load_kernels()
+    stream = torch.cuda.current_stream().cuda_stream
+    n, h, inter = BERT_B * BERT_S, 1024, 4096
+    x, dy = rnd(n, h), rnd(n, h)
+    g, b = 1 + 0.1 * rnd(h), 0.1 * rnd(h)
+    y, mu, rstd = fused.layer_norm_fwd(x, g, b, 1e-12)
+    dx = torch.empty_like(x)
+    # the kernels alone (``ms``), without the wrappers' checks and
+    # allocations, which ``wrapper_ms`` includes
+    ln_fwd = lambda: lib.ds_ln_fwd(
+        x.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(),
+        mu.data_ptr(), rstd.data_ptr(), n, h, 1e-12, 1, 1, stream)
+    ln_bwd = lambda: lib.ds_ln_bwd(
+        x.data_ptr(), g.data_ptr(), mu.data_ptr(), rstd.data_ptr(),
+        dy.data_ptr(), dx.data_ptr(), n, h, 1, 1, stream)
+    # torch's own layer norm keeps mean and rstd as [n, 1]
+    _, t_mu, t_rstd = torch.native_layer_norm(x, [h], g, b, 1e-12)
+    row = n * h * 2
+    rows = [
+        {"name": "ln_fwd", "route": "cuda",
+         "source": "deepspeed_tpu_torch/csrc/fused.cu",
+         "replaces": "deepspeed_tpu/ops/transformer/fused.py:43",
+         "shape": f"[{n}, {h}] bf16, eps 1e-12",
+         "ms": cuda_ms(ln_fwd, iters=100),
+         "wrapper_ms": cuda_ms(lambda: fused.layer_norm_fwd(x, g, b, 1e-12),
+                               iters=100),
+         "plain_ms": cuda_ms(lambda: fused.layer_norm_fwd_plain(
+             x, g, b, 1e-12)),
+         "library_ms": cuda_ms(lambda: F.layer_norm(x, [h], g, b, 1e-12),
+                               iters=100),
+         "library_note": "F.layer_norm (one call; keeps no mu/rstd)",
+         "bytes": 2 * row + 2 * h * 2 + 2 * n * 4, "flops": 8 * n * h,
+         "peak": FP32_FLOPS},
+        {"name": "ln_bwd", "route": "cuda",
+         "source": "deepspeed_tpu_torch/csrc/fused.cu",
+         "replaces": "deepspeed_tpu/ops/transformer/fused.py:55",
+         "shape": f"[{n}, {h}] bf16, dx only",
+         "ms": cuda_ms(ln_bwd, iters=100),
+         "wrapper_ms": cuda_ms(lambda: fused.layer_norm_bwd(
+             x, g, mu, rstd, dy), iters=100),
+         "plain_ms": cuda_ms(lambda: fused.layer_norm_bwd_plain(
+             x, g, mu, rstd, dy)),
+         "library_ms": cuda_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+             dy, x, [h], t_mu, t_rstd, g, b, [True, False, False]),
+             iters=100),
+         "library_note": "torch.ops.aten.native_layer_norm_backward, dx "
+                         "only (one call)",
+         "bytes": 3 * row + h * 2 + 2 * n * 4, "flops": 11 * n * h,
+         "peak": FP32_FLOPS},
+    ]
+    del x, dy, dx, y, mu, rstd, t_mu, t_rstd
+    xi, bias = rnd(n, inter), rnd(inter)
+    yi = torch.empty_like(xi)
+    gelu = lambda: lib.ds_bias_gelu(xi.data_ptr(), bias.data_ptr(),
+                                    yi.data_ptr(), n * inter, inter, 1, 1,
+                                    stream)
+    rows.append({
+        "name": "bias_gelu", "route": "cuda",
+        "source": "deepspeed_tpu_torch/csrc/fused.cu",
+        "replaces": "deepspeed_tpu/ops/transformer/fused.py:147",
+        "shape": f"[{n}, {inter}] bf16",
+        "ms": cuda_ms(gelu, iters=100),
+        "wrapper_ms": cuda_ms(lambda: fused.bias_gelu(xi, bias), iters=100),
+        "plain_ms": cuda_ms(lambda: fused.bias_gelu_plain(xi, bias)),
+        "library_ms": cuda_ms(lambda: F.gelu(xi + bias, approximate="tanh"),
+                              iters=100),
+        "library_note": "two calls: add, then F.gelu(approximate='tanh')",
+        "bytes": 2 * n * inter * 2 + inter * 2, "flops": 12 * n * inter,
+        "peak": FP32_FLOPS})
+    del xi, bias, yi
+    ps, gs, ms_, vs = lamb_state(torch, gen, param_shapes)
+    n_params = sum(p.numel() for p in ps)
+    args = (ps, gs, ms_, vs, 0.271, 0.002997)
+    outs = [torch.empty(n_params, device="cuda") for _ in range(3)]
+    table, n_chunks = fused_lamb.launch_table(ps, gs, ms_, vs, outs)
+    partial = torch.empty(2 * n_chunks, device="cuda")
+    wsq, usq = torch.empty(len(ps), device="cuda"), torch.empty(
+        len(ps), device="cuda")
+    lamb = lambda: lib.ds_lamb(
+        table.data_ptr(), len(ps), n_chunks, partial.data_ptr(),
+        wsq.data_ptr(), usq.data_ptr(), 0.271, 0.002997, 0.9, 0.1, 0.999,
+        0.001, 1e-6, 0.0, stream)
+    rows.append({
+        "name": "lamb", "route": "cuda",
+        "source": "deepspeed_tpu_torch/csrc/lamb.cu",
+        "replaces": "deepspeed_tpu/ops/lamb/fused_lamb.py:28",
+        "shape": f"{len(ps)} fp32 tensors, {n_params} elements "
+                 f"(BERT-large), wd 0, one launch",
+        "ms": cuda_ms(lamb, iters=10),
+        "wrapper_ms": cuda_ms(lambda: fused_lamb.lamb_pass1(*args),
+                              iters=10),
+        "plain_ms": cuda_ms(lambda: fused_lamb.lamb_pass1_all_plain(*args),
+                            iters=3),
+        "library_ms": None,
+        "library_note": "PyTorch has no LAMB",
+        "bytes": 28 * n_params + 8 * len(ps), "flops": 20 * n_params,
+        "peak": FP32_FLOPS})
+    del ps, gs, ms_, vs, args, outs, table, partial, wsq, usq
+    torch.cuda.empty_cache()
+    return rows
+
+
 def finish_rows(rows, launches, max_err, card):
     """bound_ms (the larger of bytes at 3.35 TB/s and operations at the
     peak of their type), launches and max_abs_err for each row."""
@@ -564,11 +929,13 @@ def main():
     import dataclasses
 
     import deepspeed_tpu_torch
-    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.models import bert, gpt2
     from deepspeed_tpu_torch.ops import op_builder
     from deepspeed_tpu_torch.ops.adam import fused_adam
+    from deepspeed_tpu_torch.ops.lamb import fused_lamb
     from deepspeed_tpu_torch.ops.transformer import attention as attn_mod
-    from deepspeed_tpu_torch.ops.transformer import decode, flash
+    from deepspeed_tpu_torch.ops.transformer import (decode, flash, fused,
+                                                     transformer)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -590,6 +957,10 @@ def main():
     torch.cuda.empty_cache()
     max_err.update(check_training_kernels(torch, flash, fused_adam,
                                           param_shapes))
+    bert_cfg = bert.PRESETS["bert-large"]
+    bert_shapes = bert_param_shapes(torch, bert, bert_cfg)
+    max_err.update(check_bert_kernels(torch, flash, fused, fused_lamb,
+                                      bert_shapes))
 
     # 4. the generation path at full width
     model = gpt2.GPT2LMHeadModel(cfg, seed=0)
@@ -819,27 +1190,124 @@ def main():
     del engine, model
     torch.cuda.empty_cache()
 
+    # 9. the BERT MLM path at full width: fused LAMB, then plain LAMB
+    bert_batch = bert.synthetic_mlm_batch(BERT_B, BERT_S,
+                                          bert_cfg.vocab_size, seed=6)
+    torch.cuda.reset_peak_memory_stats()
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=bert.BertForPreTraining(bert_cfg, seed=0),
+        config=bert_config(fused=True))
+    op_builder.reset_launch_counts()
+    bert_losses, bert_ms = run_steps(torch, engine, bert_batch, BERT_STEPS)
+    bert_counts = dict(op_builder.LAUNCHES)
+    bert_peak = torch.cuda.max_memory_allocated()
+    bert_profile = device_profile(
+        torch, lambda: engine.train_batch(batch=bert_batch))
+    bert_n_params = sum(p.numel() for p in engine.params.values())
+    del engine
+    torch.cuda.empty_cache()
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=bert.BertForPreTraining(bert_cfg, seed=0),
+        config=bert_config(fused=False))
+    op_builder.reset_launch_counts()
+    plain_losses, plain_ms = run_steps(torch, engine, bert_batch,
+                                       BERT_PLAIN_STEPS)
+    bert_plain_counts = dict(op_builder.LAUNCHES)
+    del engine
+    torch.cuda.empty_cache()
+    print(f"launches on the BERT path: fused LAMB {bert_counts}, plain "
+          f"LAMB {bert_plain_counts}", flush=True)
+    print(f"bert losses: fused LAMB {bert_losses}, plain LAMB "
+          f"{plain_losses}", flush=True)
+    per_step = {"flash_fwd": 24, "flash_bwd_dq": 24, "flash_bwd_dkv": 24,
+                "ln_fwd": 48, "ln_bwd": 48, "bias_gelu": 24}
+    for counts, steps, lamb_per_step in ((bert_counts, BERT_STEPS, 1),
+                                         (bert_plain_counts,
+                                          BERT_PLAIN_STEPS, 0)):
+        want = {k: c * steps for k, c in per_step.items()}
+        if lamb_per_step:
+            want["lamb"] = lamb_per_step * steps
+        got = {k: counts.get(k, 0) for k in want}
+        if got != want or sum(counts.values()) != sum(want.values()):
+            raise AssertionError(f"BERT launches {counts}, expected {want}")
+    ln_vocab = math.log(bert_cfg.vocab_size)
+    if not all(math.isfinite(x) for x in bert_losses + plain_losses):
+        raise AssertionError("a BERT training loss is not finite")
+    if abs(bert_losses[0] - ln_vocab) > 0.5 or \
+            plain_losses[0] != bert_losses[0]:
+        raise AssertionError(f"first BERT losses {bert_losses[0]}, "
+                             f"{plain_losses[0]} are not near ln(vocab) "
+                             f"{ln_vocab} or differ")
+    if not (bert_losses[-1] < bert_losses[0]
+            and plain_losses[-1] < plain_losses[0]):
+        raise AssertionError("the BERT loss on the repeated batch did not "
+                             "fall")
+    # fused and plain LAMB are the same math (the norms summed in another
+    # order): 0.02 absolute over the plain run's steps
+    lamb_diff = max(abs(a - b) for a, b in zip(bert_losses, plain_losses))
+    if lamb_diff > 0.02:
+        raise AssertionError(f"fused and plain LAMB diverge by {lamb_diff}")
+
+    bert_parity = bert_one_step_parity(
+        torch, deepspeed_tpu_torch, bert, op_builder,
+        lambda: plain_bert(transformer, attn_mod, fused, fused_lamb),
+        bert_cfg, bert_batch)
+    sdpa = flash_vs_sdpa(torch, flash)
+    bert_med = statistics.median(bert_ms[2:BERT_STEPS])
+    bert_fpt = 6 * bert_n_params + \
+        12 * bert_cfg.num_hidden_layers * bert_cfg.hidden_size * BERT_S
+    bert_line = {
+        "card": card,
+        "config": f"bert-large bs{BERT_B} seq{BERT_S} bf16 zero0 "
+                  f"lamb(fused) lr{LR}, post-LN, MLM 15%",
+        "n_params": bert_n_params, "step_ms_median_3_10": bert_med,
+        "step_ms": bert_ms, "plain_lamb_step_ms": plain_ms,
+        "tokens_per_s": BERT_B * BERT_S / bert_med * 1e3,
+        "samples_per_s": BERT_B / bert_med * 1e3,
+        "flops_per_token": bert_fpt,
+        "mfu": bert_fpt * BERT_B * BERT_S / (bert_med / 1e3) / BF16_FLOPS,
+        "device_idle_share": bert_profile["device_idle_share"],
+        "peak_mem_gb": bert_peak / 1e9,
+        "first_loss": bert_losses[0], "last_loss": bert_losses[-1],
+        "losses": bert_losses, "plain_lamb_losses": plain_losses,
+        "fused_vs_plain_lamb_max_loss_diff": lamb_diff,
+        "launches_fused_lamb_run": bert_counts,
+        "launches_plain_lamb_run": bert_plain_counts,
+        "parity_2layer": bert_parity, "flash_vs_sdpa_s128": sdpa,
+        "profile_train_step": bert_profile,
+    }
+
+    bert_all = {k: bert_counts.get(k, 0) + bert_plain_counts.get(k, 0)
+                for k in per_step}
     launches = {"flash_fwd": gen_launches.get("flash_fwd", 0) +
-                train_launches.get("flash_fwd", 0),
+                train_launches.get("flash_fwd", 0) + bert_all["flash_fwd"],
                 "decode_attention": gen_launches.get("decode_attention", 0),
                 "decode_attention_int8": gen_launches.get(
                     "decode_attention_int8", 0),
-                "flash_bwd_dq": train_launches.get("flash_bwd_dq", 0),
-                "flash_bwd_dkv": train_launches.get("flash_bwd_dkv", 0),
+                "flash_bwd_dq": train_launches.get("flash_bwd_dq", 0) +
+                bert_all["flash_bwd_dq"],
+                "flash_bwd_dkv": train_launches.get("flash_bwd_dkv", 0) +
+                bert_all["flash_bwd_dkv"],
                 "adam_sweep": sweep_counts.get("adam", 0),
-                "adam_per_tensor": fused_counts.get("adam", 0)}
+                "adam_per_tensor": fused_counts.get("adam", 0),
+                "ln_fwd": bert_all["ln_fwd"], "ln_bwd": bert_all["ln_bwd"],
+                "bias_gelu": bert_all["bias_gelu"],
+                "lamb": bert_counts.get("lamb", 0)}
     flash_row["launches_by_path"] = {
         "generate": gen_launches.get("flash_fwd", 0),
-        "train": train_launches.get("flash_fwd", 0)}
+        "train": train_launches.get("flash_fwd", 0),
+        "bert": bert_all["flash_fwd"]}
     for row in (flash_row, decode_row, int8_row):
         row["peak"] = BF16_FLOPS
     rows = finish_rows(
-        [flash_row, decode_row, int8_row] + training_kernel_rows(
-            torch, flash, fused_adam, param_shapes),
+        [flash_row, decode_row, int8_row]
+        + training_kernel_rows(torch, flash, fused_adam, param_shapes)
+        + bert_kernel_rows(torch, fused, fused_lamb, bert_shapes),
         launches, max_err, card)
 
     print(json.dumps({"e2e": e2e}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"bert": bert_line}))
     print(json.dumps({"kernels": rows}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,20 @@
 """deepspeed_tpu_torch: the PyTorch + CUDA port of deepspeed_tpu for NVIDIA
 Hopper (H100).
 
-This package ports two paths over GPT-2, with hand-written CUDA kernels
+This package ports three paths, with hand-written CUDA kernels
 (``csrc/``):
 
-* cached generation: ``init_inference`` -> ``InferenceEngine.generate``,
-  on the flash-attention forward and KV-cache decode-attention kernels;
-* training: ``initialize`` -> ``DeepSpeedEngine.train_batch`` (bf16, fp16
-  or fp32 compute over fp32 masters, Adam/AdamW, ZeRO stage 0/1 on one
-  rank), on the flash-attention forward and backward kernels and the
-  fused Adam kernel.
+* cached GPT-2 generation: ``init_inference`` ->
+  ``InferenceEngine.generate``, on the flash-attention forward and KV-cache
+  decode-attention kernels;
+* GPT-2 training: ``initialize`` -> ``DeepSpeedEngine.train_batch`` (bf16,
+  fp16 or fp32 compute over fp32 masters, Adam/AdamW, ZeRO stage 0/1 on
+  one rank), on the flash-attention forward and backward kernels and the
+  fused Adam kernel;
+* BERT MLM pretraining: the same entry point on
+  ``models.bert.BertForPreTraining`` with LAMB, on the flash kernels
+  (non-causal), the LayerNorm forward/backward and bias-GeLU kernels of
+  the fused encoder layer, and the one-launch fused LAMB kernel.
 
 It imports torch and numpy only; the JAX package ``deepspeed_tpu`` stays
 the reference and is never imported from here.
@@ -42,7 +47,8 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     whose ``forward(batch)`` returns the loss; its parameters become the
     fp32 masters on ``device`` (``None`` means CUDA, and raises without a
     card). ``model_parameters``, when given, is a state_dict loaded into
-    it (for example ``bridge.flax_to_state_dict`` of flax params).
+    it (for example ``bridge.flax_to_state_dict`` or
+    ``bridge.bert_flax_to_state_dict`` of flax params).
     Not ported yet: ``training_data`` (the dataloader), a client
     ``optimizer`` or ``lr_scheduler``, and ``args`` carrying the
     config."""

@@ -1,9 +1,11 @@
-"""Flax GPT-2 parameters -> the port's ``state_dict``.
+"""Flax GPT-2 and BERT parameters -> the port's ``state_dict``.
 
-Takes the params pytree of ``deepspeed_tpu.models.gpt2.GPT2LMHeadModel``
-as nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)``)
-and returns the state_dict of
-``deepspeed_tpu_torch.models.gpt2.GPT2LMHeadModel``. Dense kernels go
+:func:`flax_to_state_dict` takes the params pytree of
+``deepspeed_tpu.models.gpt2.GPT2LMHeadModel`` as nested dicts of numpy
+arrays (``jax.tree.map(np.asarray, params)``) and returns the state_dict
+of ``deepspeed_tpu_torch.models.gpt2.GPT2LMHeadModel``;
+:func:`bert_flax_to_state_dict` does the same for ``BertForPreTraining``.
+Dense kernels go
 from flax's ``[in, out]`` to ``[out, in]`` (the fused QKV keeps its
 ``[q | k | v]`` column order as row order), LayerNorm ``scale``/``bias``
 become ``weight``/``bias``, flax block ``h_{i}`` becomes ``h.{i}``, and
@@ -46,4 +48,32 @@ def flax_to_state_dict(params) -> dict:
         _dense(blk["mlp"]["fc"], f"{p}.mlp.fc", sd)
         _dense(blk["mlp"]["proj"], f"{p}.mlp.proj", sd)
     _norm(params["ln_f"], "ln_f", sd)
+    return sd
+
+
+def bert_flax_to_state_dict(params) -> dict:
+    """Convert a flax BERT params tree (numpy leaves) to the state_dict of
+    ``deepspeed_tpu_torch.models.bert.BertForPreTraining``. Dense kernels
+    are transposed to ``[out, in]`` and LayerNorm ``scale`` becomes
+    ``weight``; the raw params (embeddings, ``mlm_bias``, the fused
+    layer's ``inter_w`` [in, out], ``inter_b`` and LayerNorm
+    ``*_gamma``/``*_beta``) are carried across as they are. Flax layer
+    ``layer_{i}`` becomes ``layer.{i}``."""
+    if "params" in params:
+        params = params["params"]
+    sd = {k: _leaf(params[k]) for k in (
+        "word_embeddings", "position_embeddings", "token_type_embeddings",
+        "mlm_bias")}
+    _norm(params["emb_ln"], "emb_ln", sd)
+    n_layer = sum(1 for name in params if name.startswith("layer_"))
+    for i in range(n_layer):
+        lay = params[f"layer_{i}"]["layer"]
+        p = f"layer.{i}.layer"
+        for raw in ("attn_ln_gamma", "attn_ln_beta", "ln_gamma", "ln_beta",
+                    "inter_w", "inter_b"):
+            sd[f"{p}.{raw}"] = _leaf(lay[raw])
+        for dense in ("attn_qkv", "attn_out", "output_w"):
+            _dense(lay[dense], f"{p}.{dense}", sd)
+    _dense(params["mlm_dense"], "mlm_dense", sd)
+    _norm(params["mlm_ln"], "mlm_ln", sd)
     return sd

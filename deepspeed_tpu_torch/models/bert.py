@@ -1,0 +1,217 @@
+"""BERT for MLM pretraining in PyTorch (counterpart of
+``deepspeed_tpu/models/bert.py``).
+
+Embeddings, a stack of fused encoder layers
+(:class:`~deepspeed_tpu_torch.ops.transformer.transformer.DeepSpeedTransformerLayer`:
+the LayerNorm and bias-GeLU kernels, flash attention), and the MLM head
+tied to the word embeddings. ``emb_ln`` and ``mlm_ln`` are plain
+LayerNorm, as the flax model's ``nn.LayerNorm`` is; the head's logits are
+fp32. Batches are dicts with ``input_ids`` [B, S] and either ``labels``
+(-100 = ignore) or ``masked_positions`` + ``masked_labels`` (the head then
+runs on those positions only), optionally ``attention_mask`` [B, S]; or a
+tuple ``(input_ids, labels)``. ``forward`` returns the MLM cross-entropy,
+or the logits when the batch has no labels.
+
+Not ported yet: block-sparse attention (``sparse_attention_mode``),
+dropout and remat.
+"""
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from deepspeed_tpu_torch.models.common import masked_next_token_ce
+from deepspeed_tpu_torch.ops._platform import resolve_device
+from deepspeed_tpu_torch.ops.transformer.transformer import (
+    DeepSpeedTransformerConfig, DeepSpeedTransformerLayer)
+
+
+@dataclasses.dataclass(frozen=True)
+class BertConfig:
+    vocab_size: int = 30522
+    hidden_size: int = 768
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    intermediate_size: int = 3072
+    max_position_embeddings: int = 512
+    type_vocab_size: int = 2
+    hidden_dropout_prob: float = 0.0
+    attention_probs_dropout_prob: float = 0.0
+    layer_norm_eps: float = 1e-12
+    pre_layer_norm: bool = False       # classic BERT is post-LN
+    remat: bool = False
+    sparse_attention_mode: Optional[str] = None
+    sparse_block: int = 16
+    sparse_num_local_blocks: int = 4
+    sparse_num_global_blocks: int = 1
+
+    @property
+    def padded_vocab(self):
+        return ((self.vocab_size + 127) // 128) * 128
+
+
+PRESETS = {
+    "bert-base": BertConfig(),
+    "bert-large": BertConfig(hidden_size=1024, num_hidden_layers=24,
+                             num_attention_heads=16, intermediate_size=4096),
+    "tiny": BertConfig(vocab_size=512, hidden_size=64, num_hidden_layers=2,
+                       num_attention_heads=4, intermediate_size=256,
+                       max_position_embeddings=128),
+}
+
+
+def _check_ported(cfg: BertConfig):
+    unported = {
+        f"sparse_attention_mode={cfg.sparse_attention_mode!r}":
+            cfg.sparse_attention_mode is not None,
+        "dropout > 0": cfg.hidden_dropout_prob > 0
+            or cfg.attention_probs_dropout_prob > 0,
+        "remat": cfg.remat,
+    }
+    for what, hit in unported.items():
+        if hit:
+            raise NotImplementedError(f"BERT {what} is not ported yet")
+
+
+class BertLayer(nn.Module):
+    """The flax ``BertLayer``: a named holder of one fused layer."""
+
+    def __init__(self, hidden_size, num_heads, intermediate_size,
+                 pre_layer_norm=False, layer_norm_eps=1e-12, *, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        cfg = DeepSpeedTransformerConfig(
+            hidden_size=hidden_size, heads=num_heads,
+            intermediate_size=intermediate_size,
+            pre_layer_norm=pre_layer_norm, layer_norm_eps=layer_norm_eps)
+        self.layer = DeepSpeedTransformerLayer(cfg, device=device,
+                                               dtype=dtype)
+
+    def forward(self, x, mask=None):
+        return self.layer(x, mask)
+
+
+def _unpack(batch):
+    """(input_ids, labels, attention_mask, masked_positions)."""
+    if isinstance(batch, (tuple, list)):
+        return batch[0], (batch[1] if len(batch) > 1 else None), None, None
+    positions = batch.get("masked_positions")
+    labels = batch["masked_labels"] if positions is not None \
+        else batch.get("labels")
+    return batch["input_ids"], labels, batch.get("attention_mask"), positions
+
+
+class BertForPreTraining(nn.Module):
+    """Embeddings + fused encoder stack + tied MLM head (no next-sentence
+    head, as in the JAX model).
+
+    ``device=None`` means CUDA (raises without a card); weights are drawn
+    from ``seed`` as the flax init draws them: embeddings and the layers'
+    kernels normal(0.02), ``mlm_dense`` LeCun-normal, zero biases, unit
+    LayerNorm scales."""
+
+    def __init__(self, config: BertConfig, *, device=None,
+                 dtype=torch.float32, seed: int = 0):
+        super().__init__()
+        _check_ported(config)
+        dev = resolve_device(device)
+        self.config = config
+        H = config.hidden_size
+        kw = dict(device=dev, dtype=dtype)
+        self.word_embeddings = nn.Parameter(
+            torch.empty((config.padded_vocab, H), **kw))
+        self.position_embeddings = nn.Parameter(
+            torch.empty((config.max_position_embeddings, H), **kw))
+        self.token_type_embeddings = nn.Parameter(
+            torch.empty((config.type_vocab_size, H), **kw))
+        self.emb_ln = nn.LayerNorm(H, eps=config.layer_norm_eps, **kw)
+        self.layer = nn.ModuleList(
+            BertLayer(H, config.num_attention_heads,
+                      config.intermediate_size, config.pre_layer_norm,
+                      config.layer_norm_eps, **kw)
+            for _ in range(config.num_hidden_layers))
+        self.mlm_dense = nn.Linear(H, H, **kw)
+        self.mlm_ln = nn.LayerNorm(H, eps=config.layer_norm_eps, **kw)
+        self.mlm_bias = nn.Parameter(torch.zeros(config.padded_vocab, **kw))
+        self.reset_parameters(seed)
+
+    @torch.no_grad()
+    def reset_parameters(self, seed: int = 0):
+        gen = torch.Generator(device=self.word_embeddings.device)
+        gen.manual_seed(seed)
+        for emb in (self.word_embeddings, self.position_embeddings,
+                    self.token_type_embeddings):
+            nn.init.normal_(emb, 0.0, 0.02, generator=gen)
+        for blk in self.layer:
+            blk.layer.reset_parameters(gen)
+        # flax lecun_normal: a normal truncated at 2 std, rescaled so the
+        # variance is 1 / fan_in
+        std = (1.0 / self.config.hidden_size) ** 0.5 / .87962566103423978
+        nn.init.trunc_normal_(self.mlm_dense.weight, 0.0, std, -2 * std,
+                              2 * std, generator=gen)
+        nn.init.zeros_(self.mlm_dense.bias)
+        nn.init.zeros_(self.mlm_bias)
+        for ln in (self.emb_ln, self.mlm_ln):
+            nn.init.ones_(ln.weight)
+            nn.init.zeros_(ln.bias)
+
+    def forward(self, batch):
+        cfg = self.config
+        input_ids, labels, mask, positions = _unpack(batch)
+        B, S = input_ids.shape
+        if S > cfg.max_position_embeddings:
+            raise ValueError(f"sequence length {S} exceeds "
+                             f"max_position_embeddings "
+                             f"({cfg.max_position_embeddings})")
+        x = (F.embedding(input_ids, self.word_embeddings)
+             + self.position_embeddings[:S] + self.token_type_embeddings[0])
+        x = self.emb_ln(x)
+        for blk in self.layer:
+            x = blk(x, mask)
+
+        # MLM transform + tied decoder; with masked_positions only those
+        # positions reach the head
+        if positions is not None:
+            idx = positions.long()[..., None].expand(-1, -1, x.shape[-1])
+            x = torch.gather(x, 1, idx)
+        h = F.gelu(self.mlm_dense(x), approximate="tanh")
+        h = self.mlm_ln(h)
+        # fp32 logits, exact for bf16 operands (the JAX einsum's
+        # preferred_element_type=float32)
+        logits = F.linear(h.float(), self.word_embeddings.float()) \
+            + self.mlm_bias
+        if labels is None:
+            return logits
+        return masked_next_token_ce(logits, labels)
+
+
+def synthetic_mlm_batch(batch_size, seq_len, vocab_size, mask_prob=0.15,
+                        seed=0, masked_positions_format=False, device=None):
+    """MLM batch from ``seed``: the numpy draws of the JAX function, as
+    int64 tensors on ``device`` (None means CUDA). 15% of positions become
+    [MASK] (103) with their ids as labels (-100 elsewhere), or, in the
+    masked-positions format, a fixed round(S · mask_prob) sorted positions
+    a sequence."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, vocab_size, (batch_size, seq_len), dtype=np.int32)
+    if masked_positions_format:
+        P = max(1, int(round(seq_len * mask_prob)))
+        positions = np.stack([
+            np.sort(rng.choice(seq_len, size=P, replace=False))
+            for _ in range(batch_size)]).astype(np.int32)
+        labels = np.take_along_axis(ids, positions, axis=1)
+        np.put_along_axis(ids, positions, 103, axis=1)  # [MASK]
+        out = {"input_ids": ids, "masked_positions": positions,
+               "masked_labels": labels}
+    else:
+        labels = np.full_like(ids, -100)
+        mask = rng.random((batch_size, seq_len)) < mask_prob
+        labels[mask] = ids[mask]
+        ids[mask] = 103  # [MASK]
+        out = {"input_ids": ids, "labels": labels}
+    return {k: torch.from_numpy(v).long().to(dev) for k, v in out.items()}

@@ -1,0 +1,1 @@
+"""ops/lamb of the PyTorch port (see deepspeed_tpu_torch/__init__.py)."""

@@ -20,7 +20,8 @@ import pathlib
 
 _CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "torch_ext"
-SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "decode_attention.cu", "adam.cu")
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "decode_attention.cu", "adam.cu",
+           "fused.cu", "lamb.cu")
 NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-lineinfo"]
 
@@ -42,6 +43,15 @@ _SIGNATURES = {
     # p, g, m, v, u, m_out, v_out, cast, n, clip_coef, lr, bc1, bc2, b1,
     # 1-b1, b2, 1-b2, eps, weight_decay, adam_w_mode, read_p, vec, stream
     "ds_adam": [_P] * 8 + [_L, _P] + [_F] * 9 + [_I, _I, _I, _P],
+    # x, gamma, beta, y, mu, rstd, n, h, eps, dtype, vec, stream
+    "ds_ln_fwd": [_P] * 6 + [_L, _I, _F, _I, _I, _P],
+    # x, gamma, mu, rstd, dy, dx, n, h, dtype, vec, stream
+    "ds_ln_bwd": [_P] * 6 + [_L, _I, _I, _I, _P],
+    # x, bias, y, total, h, dtype, vec, stream
+    "ds_bias_gelu": [_P] * 3 + [_L, _I, _I, _I, _P],
+    # table, n_tensors, n_chunks, partial, wsq, usq, bc1, bc2, b1, 1-b1,
+    # b2, 1-b2, eps, weight_decay, stream
+    "ds_lamb": [_P, _I, _L, _P, _P, _P] + [_F] * 8 + [_P],
 }
 
 _lib = None

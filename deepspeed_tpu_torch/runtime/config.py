@@ -16,9 +16,10 @@ from deepspeed_tpu_torch.runtime import constants as C
 
 ADAM_OPTIMIZER = "adam"
 ADAMW_OPTIMIZER = "adamw"
-DEEPSPEED_OPTIMIZERS = [ADAM_OPTIMIZER, ADAMW_OPTIMIZER, "lamb",
+LAMB_OPTIMIZER = "lamb"
+DEEPSPEED_OPTIMIZERS = [ADAM_OPTIMIZER, ADAMW_OPTIMIZER, LAMB_OPTIMIZER,
                         "onebitadam", "onebitlamb", "sgd", "adagrad"]
-PORTED_OPTIMIZERS = (ADAM_OPTIMIZER, ADAMW_OPTIMIZER)
+PORTED_OPTIMIZERS = (ADAM_OPTIMIZER, ADAMW_OPTIMIZER, LAMB_OPTIMIZER)
 
 # (top-level block, what it enables): rejected when enabled
 _UNPORTED_BLOCKS = (
@@ -114,7 +115,8 @@ class DeepSpeedConfig:
             self.optimizer_name = self.optimizer_name.lower()
         self.optimizer_params = optimizer.get(C.OPTIMIZER_PARAMS, None)
         params = self.optimizer_params or {}
-        # the fused-kernel forms of Adam (engine._configure_optimizer)
+        # the fused-kernel forms of Adam and LAMB
+        # (engine._configure_optimizer)
         self.optimizer_fused = bool(params.get("fused", False))
         self.optimizer_sweep = bool(params.get("sweep", False))
 
@@ -184,7 +186,7 @@ class DeepSpeedConfig:
             raise DeepSpeedConfigError(
                 "fp16 and bf16 modes are mutually exclusive")
         if self.optimizer_sweep and self.optimizer_name not in \
-                PORTED_OPTIMIZERS:
+                (ADAM_OPTIMIZER, ADAMW_OPTIMIZER):
             raise ValueError(
                 f"optimizer.params.sweep is the whole-state fused-Adam "
                 f"path; it does not apply to optimizer "

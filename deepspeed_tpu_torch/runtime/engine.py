@@ -23,7 +23,8 @@ import torch
 from torch.func import functional_call
 
 from deepspeed_tpu_torch.runtime import optim as optim_lib
-from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+from deepspeed_tpu_torch.runtime.config import (LAMB_OPTIMIZER,
+                                                DeepSpeedConfig)
 from deepspeed_tpu_torch.runtime.fp16.loss_scaler import (make_scale_state,
                                                           update_scale)
 from deepspeed_tpu_torch.runtime.lr_schedules import get_lr_schedule
@@ -87,13 +88,24 @@ class DeepSpeedEngine:
 
     # ------------------------------------------------------------- config
     def _configure_optimizer(self):
-        """Adam/AdamW, the only optimizers the config lets through
-        (engine.py:928-998): ``sweep`` -> the whole-state kernel,
-        ``fused`` -> the per-tensor kernel, else plain torch."""
+        """The optimizers the config lets through (engine.py:928-1009):
+        Adam/AdamW (``sweep`` -> the whole-state kernel, ``fused`` -> the
+        per-tensor kernel, else plain torch) and LAMB (``fused`` -> the
+        one-launch pass-1 kernel, else plain torch)."""
         from deepspeed_tpu_torch.ops.adam import fused_adam
+        from deepspeed_tpu_torch.ops.lamb import fused_lamb
         cfg = self.config
         params = dict(cfg.optimizer_params or {})
         betas = params.get("betas", (0.9, 0.999))
+        if cfg.optimizer_name == LAMB_OPTIMIZER:
+            kw = dict(b1=betas[0], b2=betas[1], eps=params.get("eps", 1e-6),
+                      weight_decay=params.get("weight_decay", 0.0),
+                      min_coeff=params.get("min_coeff", 0.01),
+                      max_coeff=params.get("max_coeff", 10.0),
+                      bias_correction=params.get("bias_correction", True))
+            if cfg.optimizer_fused:
+                return fused_lamb.fused_lamb(**kw)
+            return optim_lib.lamb(**kw)
         kw = dict(b1=betas[0], b2=betas[1], eps=params.get("eps", 1e-8),
                   weight_decay=params.get("weight_decay", 0.0),
                   adam_w_mode=params.get("adam_w_mode", True),
@@ -184,8 +196,8 @@ class DeepSpeedEngine:
         else:
             updates, self.opt_state = self.optimizer.update(
                 grads, self.opt_state, params, lr)
-        for k, p in params.items():
-            p.add_(updates[k])
+        torch._foreach_add_(list(params.values()),
+                            [updates[k] for k in params])
         self.step_count += 1
 
     def train_batch(self, data_iter=None, batch=None):

@@ -7,8 +7,8 @@ engine adds the updates to the fp32 master params. Params, grads and
 updates are dicts ``name -> tensor``; the applied-step count and the
 learning rate are host numbers, so the bias corrections are too. The
 arithmetic follows the JAX functions operation by operation, with the
-bias corrections taken in fp32 as ``1 - b ** step`` is there. ``lamb``,
-``sgd`` and ``adagrad`` are not ported yet.
+bias corrections taken in fp32 as ``1 - b ** step`` is there. ``sgd``
+and ``adagrad`` are not ported yet.
 """
 
 from typing import Any, Callable, NamedTuple
@@ -74,6 +74,54 @@ def adam(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0, adam_w_mode=True,
                 u = u - lr_wd * params[k]
             updates[k] = u
         return updates, AdamState(step=step, mu=mu, nu=nu)
+
+    return Optimizer(init, update)
+
+
+class LambState(NamedTuple):
+    step: int        # applied updates so far
+    mu: Any
+    nu: Any
+
+
+def lamb_trust_ratio(w_norm, u_norm, min_coeff, max_coeff):
+    """clip(‖w‖ / ‖u‖, min_coeff, max_coeff), or 1 where either norm is 0
+    (a tensor that starts at zero takes the plain Adam-style step). Works
+    on device scalars or vectors of norms; nothing is read back."""
+    return torch.where((w_norm > 0) & (u_norm > 0),
+                       torch.clamp(w_norm / u_norm, min_coeff, max_coeff),
+                       torch.ones_like(w_norm))
+
+
+def lamb(b1=0.9, b2=0.999, eps=1e-6, weight_decay=0.0, min_coeff=0.01,
+         max_coeff=10.0, bias_correction=True):
+    """LAMB with a per-tensor trust ratio in plain torch (the JAX
+    ``optim.lamb``, config ``fused: false``): Adam moments, the update
+    direction u = m̂ / (√v̂ + eps) (+ wd · p), and −lr · ratio · u."""
+
+    def init(params):
+        zeros = {k: torch.zeros_like(p, dtype=torch.float32)
+                 for k, p in params.items()}
+        return LambState(step=0, mu=zeros,
+                         nu={k: torch.zeros_like(z) for k, z in zeros.items()})
+
+    def update(grads, state, params, lr):
+        step = state.step + 1
+        bc1, bc2 = bias_corrections(b1, b2, step, bias_correction)
+        lr = float(lr)
+        mu = {k: b1 * state.mu[k] + (1.0 - b1) * g for k, g in grads.items()}
+        nu = {k: b2 * state.nu[k] + (1.0 - b2) * (g * g)
+              for k, g in grads.items()}
+        updates = {}
+        for k in grads:
+            u = (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + eps)
+            if weight_decay > 0.0:
+                u = u + weight_decay * params[k]
+            ratio = lamb_trust_ratio(
+                torch.linalg.vector_norm(params[k].float()),
+                torch.linalg.vector_norm(u.float()), min_coeff, max_coeff)
+            updates[k] = -lr * ratio * u
+        return updates, LambState(step=step, mu=mu, nu=nu)
 
     return Optimizer(init, update)
 

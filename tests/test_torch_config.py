@@ -53,6 +53,11 @@ CONFIGS = [
               "warmup_min_lr": 0, "warmup_max_lr": 1e-3}}),
     {"train_batch_size": 8, "optimizer": {"type": "adam"},
      "wall_clock_breakdown": False},
+    basic(optimizer={"type": "Lamb", "params": {
+        "lr": 1e-4, "fused": True, "betas": [0.9, 0.98], "eps": 1e-6,
+        "weight_decay": 0.01, "min_coeff": 0.02, "max_coeff": 5.0,
+        "bias_correction": False}}, bf16={"enabled": True}),
+    basic(optimizer={"type": "LAMB", "params": {"lr": 1e-3}}),
 ]
 
 
@@ -106,8 +111,9 @@ def test_invalid_configs_raise_like_jax(cfg):
      "cpu_offload"),
     ({"comm_overlap": {"enabled": True}}, "comm_overlap"),
     ({"optimizer": {"type": "OneBitAdam"}}, "onebitadam"),
-    ({"optimizer": {"type": "Lamb"}}, "lamb"),
+    ({"optimizer": {"type": "OneBitLamb"}}, "onebitlamb"),
     ({"optimizer": {"type": "SGD"}}, "sgd"),
+    ({"optimizer": {"type": "Adagrad"}}, "adagrad"),
     ({"pipeline": {"stages": 2}}, "pipeline"),
     ({"moe": {"enabled": True}}, "MoE"),
     ({"telemetry": {"enabled": True}}, "telemetry"),
@@ -135,3 +141,10 @@ def test_sweep_needs_adam():
     with pytest.raises(ValueError, match="sweep"):
         DeepSpeedConfig(basic(optimizer={"type": "Lamb", "params": {
             "sweep": True}}))
+
+
+def test_lamb_is_admitted_with_fused_flag():
+    cfg = DeepSpeedConfig(basic(optimizer={"type": "lamb", "params": {
+        "lr": 1e-4, "fused": True}}))
+    assert cfg.optimizer_name == "lamb" and cfg.optimizer_fused
+    assert not cfg.optimizer_sweep

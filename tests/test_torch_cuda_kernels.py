@@ -8,9 +8,12 @@ PyTorch::
 Tolerances: fp32 rtol = atol = 2e-5 (summation order); bf16 rtol = atol =
 2e-2 (the plain forward rounds the softmax weights to bf16 before P·V,
 the forward kernel keeps them in fp32; the backward's outputs are bf16,
-one ulp of which is 0.0156 at magnitudes in [2, 4)); Adam rtol 1e-6,
-atol 1e-7 (the same fp32 operations; a division by a scalar may round
-once more in PyTorch).
+one ulp of which is 0.0156 at magnitudes in [2, 4)); Adam and LAMB rtol
+1e-6, atol 1e-7 (the same fp32 operations; a division by a scalar may
+round once more in PyTorch); LayerNorm and bias-GeLU fp32 2e-5, bf16 2e-2
+(fp32 arithmetic on both sides, outputs rounded to bf16: one ulp apart
+where the fp32 results straddle a rounding boundary); LAMB's squared
+norms rtol 1e-5 (sums in another order).
 """
 
 import pytest
@@ -18,7 +21,9 @@ import torch
 
 from deepspeed_tpu_torch.ops import op_builder
 from deepspeed_tpu_torch.ops.adam import fused_adam
-from deepspeed_tpu_torch.ops.transformer import attention, decode, flash
+from deepspeed_tpu_torch.ops.lamb import fused_lamb
+from deepspeed_tpu_torch.ops.transformer import (attention, decode, flash,
+                                                 fused)
 
 pytestmark = pytest.mark.cuda
 
@@ -162,6 +167,104 @@ def test_adam_kernel_matches_plain(gen, weight_decay, adam_w_mode, cast):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h", [(8192, 1024), (37, 20), (5, 1000),
+                                 (64, 64), (3, 2048), (9, 7)])
+@pytest.mark.parametrize("eps", [1e-5, 1e-12])
+def test_layer_norm_kernels_match_plain(gen, dtype, n, h, eps):
+    x = _rand(gen, n, h, dtype=dtype) * 2 + 0.5
+    g = 1 + 0.1 * _rand(gen, h, dtype=dtype)
+    b = 0.1 * _rand(gen, h, dtype=dtype)
+    dy = _rand(gen, n, h, dtype=dtype)
+    before = dict(op_builder.LAUNCHES)
+    y, mu, rstd = fused.layer_norm_fwd(x, g, b, eps)
+    dx = fused.layer_norm_bwd(x, g, mu, rstd, dy)
+    for name in ("ln_fwd", "ln_bwd"):
+        assert op_builder.LAUNCHES[name] == before.get(name, 0) + 1
+    y_ref, mu_ref, rstd_ref = fused.layer_norm_fwd_plain(x, g, b, eps)
+    dx_ref = fused.layer_norm_bwd_plain(x, g, mu_ref, rstd_ref, dy)
+    tol = TOLS[dtype]
+    assert y.dtype == dx.dtype == dtype
+    torch.testing.assert_close(mu, mu_ref, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(rstd, rstd_ref, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(y.float(), y_ref.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(dx.float(), dx_ref.float(), rtol=tol,
+                               atol=tol)
+
+
+def test_layer_norm_kernels_on_unaligned_rows(gen):
+    """A view that starts 4 bytes into its buffer: the scalar path."""
+    buf = _rand(gen, 33 * 64 + 1, dtype=torch.float32)
+    x = buf[1:].view(33, 64)
+    g, b = torch.ones(64, device="cuda"), torch.zeros(64, device="cuda")
+    y, mu, rstd = fused.layer_norm_fwd(x, g, b, 1e-5)
+    y_ref, _, _ = fused.layer_norm_fwd_plain(x, g, b, 1e-5)
+    torch.testing.assert_close(y, y_ref, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_layer_norm_gradients_on_cuda(gen, dtype):
+    """The autograd Function on the card: dx from the kernel, dgamma and
+    dbeta plain, against autograd through the plain forward."""
+    x = _rand(gen, 4, 50, 256, dtype=dtype).requires_grad_()
+    g = (1 + 0.1 * _rand(gen, 256, dtype=dtype)).requires_grad_()
+    b = (0.1 * _rand(gen, 256, dtype=dtype)).requires_grad_()
+    dy = _rand(gen, 4, 50, 256, dtype=dtype)
+    got = torch.autograd.grad(fused.fused_layer_norm(x, g, b, 1e-12),
+                              (x, g, b), dy)
+    want = torch.autograd.grad(
+        fused.layer_norm_fwd_plain(x, g, b, 1e-12)[0], (x, g, b), dy)
+    # dgamma/dbeta sum 200 rows; in bf16 the plain autograd rounds inside
+    tol = 2e-5 if dtype == torch.float32 else 5e-2
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a.float(), w.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h", [(8192, 4096), (37, 20), (5, 1000),
+                                 (3, 7)])
+def test_bias_gelu_kernel_matches_plain(gen, dtype, n, h):
+    x = _rand(gen, n, h, dtype=dtype) * 3
+    bias = _rand(gen, h, dtype=dtype)
+    before = op_builder.LAUNCHES["bias_gelu"]
+    y = fused.bias_gelu(x, bias)
+    assert op_builder.LAUNCHES["bias_gelu"] == before + 1
+    tol = TOLS[dtype]
+    torch.testing.assert_close(y.float(),
+                               fused.bias_gelu_plain(x, bias).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("weight_decay", [0.0, 0.01])
+def test_lamb_kernel_matches_plain(gen, weight_decay):
+    """One launch over tensors of ragged sizes, one larger than a block,
+    one empty, one zero, one not 16-byte aligned (the scalar path)."""
+    shapes = [(1024, 1024), (1024,), (30592, 64), (0,), (7, 3), (20000,)]
+    ps = [_rand(gen, *s, dtype=torch.float32) for s in shapes]
+    ps[1] = torch.zeros(1024, device="cuda")
+    ps[4] = _rand(gen, 22, dtype=torch.float32)[1:].view(7, 3)
+    gs = [_rand(gen, *s, dtype=torch.float32) * 1e-2 for s in shapes]
+    ms = [_rand(gen, *s, dtype=torch.float32) * 1e-3 for s in shapes]
+    vs = [_rand(gen, *s, dtype=torch.float32).square() * 1e-5
+          for s in shapes]
+    before = op_builder.LAUNCHES["lamb"]
+    got = fused_lamb.lamb_pass1(ps, gs, ms, vs, 0.271, 0.002997,
+                                weight_decay=weight_decay)
+    assert op_builder.LAUNCHES["lamb"] == before + 1
+    for i, args in enumerate(zip(ps, gs, ms, vs)):
+        want = fused_lamb.lamb_pass1_plain(*args, 0.271, 0.002997,
+                                           weight_decay=weight_decay)
+        for a, w in zip((got[0][i], got[1][i], got[2][i]), want[:3]):
+            assert a.shape == w.shape
+            torch.testing.assert_close(a, w, rtol=1e-6, atol=1e-7)
+        torch.testing.assert_close(got[3][i], want[3], rtol=1e-5, atol=0)
+        torch.testing.assert_close(got[4][i], want[4], rtol=1e-5, atol=0)
+    # the norms reduce in a fixed order: a second run is bit-equal
+    again = fused_lamb.lamb_pass1(ps, gs, ms, vs, 0.271, 0.002997,
+                                  weight_decay=weight_decay)
+    assert torch.equal(again[3], got[3]) and torch.equal(again[4], got[4])
+
+
 def test_kernels_raise_on_bad_input(gen):
     q = _rand(gen, 1, 2, 8, 16, dtype=torch.float16)
     with pytest.raises(TypeError):
@@ -169,3 +272,11 @@ def test_kernels_raise_on_bad_input(gen):
     kc = _rand(gen, 1, 2, 32, 16, dtype=torch.float32)
     with pytest.raises(ValueError):
         decode.decode_attention(kc[:, :, :1], kc.transpose(2, 3), kc, 4)
+    x = _rand(gen, 4, 4096, dtype=torch.float32)
+    with pytest.raises(ValueError):     # wider than the LN kernel's rows
+        fused.layer_norm_fwd(x, x[0], x[0], 1e-5)
+    with pytest.raises(TypeError):      # gamma in another dtype than x
+        fused.layer_norm_fwd(x[:, :64], x[0, :64].bfloat16(), x[0, :64],
+                             1e-5)
+    with pytest.raises(ValueError):
+        fused_lamb.lamb_pass1([x], [x.double()], [x], [x], 0.1, 0.01)

@@ -14,7 +14,8 @@ import deepspeed_tpu_torch
 from deepspeed_tpu_torch.models import gpt2
 from deepspeed_tpu_torch.ops import _platform, op_builder
 from deepspeed_tpu_torch.ops.adam import fused_adam
-from deepspeed_tpu_torch.ops.transformer import decode, flash
+from deepspeed_tpu_torch.ops.lamb import fused_lamb
+from deepspeed_tpu_torch.ops.transformer import decode, flash, fused
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "deepspeed_tpu_torch").rglob("*.py")) + [
@@ -53,6 +54,9 @@ def test_import_leaves_jax_out():
         "import deepspeed_tpu_torch.ops.transformer.decode\n"
         "import deepspeed_tpu_torch.ops.adam.fused_adam\n"
         "import deepspeed_tpu_torch.runtime.engine\n"
+        "import deepspeed_tpu_torch.models.bert\n"
+        "import deepspeed_tpu_torch.ops.transformer.fused\n"
+        "import deepspeed_tpu_torch.ops.lamb.fused_lamb\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'flax', 'deepspeed_tpu', 'triton')\n"
         "       or m == 'torch.utils.cpp_extension']\n"
@@ -77,6 +81,15 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert _platform.resolve_device("cpu").type == "cpu"
 
 
+def test_bert_entry_points_raise_without_cuda(monkeypatch):
+    from deepspeed_tpu_torch.models import bert
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bert.BertForPreTraining(bert.PRESETS["tiny"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bert.synthetic_mlm_batch(1, 4, 10)
+
+
 def test_kernel_route_follows_tensor_device(monkeypatch):
     """CPU tensors take the plain versions and never build a kernel; no
     switch of any kind selects the route."""
@@ -91,6 +104,11 @@ def test_kernel_route_follows_tensor_device(monkeypatch):
     x = torch.randn(fused_adam.sweep_pad())
     fused_adam.adam_sweep_apply(None, x, x, x.abs(), 1e-3, 0.1, 0.001, 0.5)
     fused_adam.fused_adam_update(q, q, q, q.abs(), 1e-3, 0.1, 0.001)
+    g, b = torch.ones(16), torch.zeros(16)
+    y, mu, rstd = fused.layer_norm_fwd(q, g, b, 1e-5)
+    fused.layer_norm_bwd(q, g, mu, rstd, q)
+    fused.bias_gelu(q, b)
+    fused_lamb.lamb_pass1([q], [q], [q], [q.abs()], 0.1, 0.001)
     assert sum(op_builder.LAUNCHES.values()) == 0
     assert _platform.use_kernel(q) is False
     with pytest.raises(ValueError, match="one device"):
