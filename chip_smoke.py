@@ -60,12 +60,33 @@ Phases, each fatal on failure:
    flash against ``scaled_dot_product_attention`` at B 64, S 128, the
    step time, tokens/s, samples/s, MFU, idle share and peak memory, and
    the four new kernels' timings. Phase 3 holds those kernels against
-   their plain versions at BERT-large's shapes and ragged ones first.
+   their plain versions at BERT-large's shapes and ragged ones first;
+10. the MoQ path: the BERT path of phase 9 (fused LAMB) with a
+   ``quantize_training`` block (symmetric, nearest, groups 8, 12 -> 8 bits,
+   period 2: bits 12, 11, 11, 10, 10, 10, 10, 9, 9, 9), 10 steps. Launch
+   counts zeroed just before and read just after: phase 9's a step plus
+   100 quantize launches (one a 2-D master); after every step each of the
+   8 groups of two sampled tensors (the first qkv weight, [out, in], and
+   the word embeddings) holds at most 2^bits levels; the losses fall. The
+   step time is printed beside phase 9's. Then a 2-layer full-width BERT
+   takes one step and its post-update masters are fake-quantized by the
+   MoQ schedule on the kernel and on the plain version: bit-equal (nearest
+   at 8 bits and stochastic at 6). Phase 3 holds ``ds_quantize`` bit-equal
+   to its plain version (fp32/bf16, symmetric/asymmetric, nearest/
+   stochastic, 8/4 bits, groups 1/8/7, a ragged row, BERT-large's qkv
+   weight and word embeddings) and ``ds_softmax`` within 2e-6 (fp32) and
+   one bf16 ulp at [131072, 128], [131072, 1024], h 1000, 7 and 4096;
+11. int8-weight GPT-2 medium: ``init_inference(dtype=torch.int8)``,
+   greedy ``generate`` on 8 prompts of 896 tokens (32 new); prefill ms,
+   decode ms/token, the weights' device bytes (int8, bf16, scales, shed);
+   the prefill logits within 0.25 of a bf16 model built from the
+   dequantized weights, greedy agreement at least 7/8.
 
 Prints an ``e2e`` JSON line, a ``train`` JSON line, a ``bert`` JSON line,
-a ``kernels`` JSON line, the card line, and last ``{"ok": true,
-"device": {...}}``. Exits non-zero with no result when CUDA is
-unavailable or any phase fails.
+a ``moq`` JSON line, an ``int8`` JSON line, a ``kernels`` JSON line (the
+softmax, on no path as in the JAX package, with 0 launches), the card
+line, and last ``{"ok": true, "device": {...}}``. Exits non-zero with no
+result when CUDA is unavailable or any phase fails.
 """
 
 import contextlib
@@ -90,6 +111,8 @@ LR = 1e-4
 TRAIN_STEPS, FUSED_STEPS = 10, 3
 BERT_B, BERT_S = 64, 128     # bench.py's BERT-large row
 BERT_STEPS, BERT_PLAIN_STEPS = 10, 3
+MOQ_STEPS = 10
+INT8_NEW = 32                # new tokens of the int8-weight generate
 ADAM_TOL = dict(rtol=1e-6, atol=1e-7)
 
 
@@ -160,6 +183,9 @@ def device_profile(torch, fn):
                  or "ln_bwd_kernel" in name else
                  "bias_gelu" if "bias_gelu_kernel" in name else
                  "lamb" if "lamb_" in name else
+                 "quantize" if "quant_stats" in name
+                 or "quant_apply" in name else
+                 "softmax" if "softmax_" in name else
                  "decode_attention" if "decode_kernel" in name else
                  "matmul" if any(s in name for s in (
                      "gemm", "gemv", "cutlass", "nvjet", "xmma")) else
@@ -905,6 +931,390 @@ def bert_kernel_rows(torch, fused, fused_lamb, param_shapes):
     return rows
 
 
+def moq_block(start_bits=12, target_bits=8, period=2, rounding="nearest"):
+    """DeepSpeed's documented MoQ block (symmetric, nearest, 8 groups,
+    16 -> 8 bits over periods of 400) with its bits and period cut so that
+    the bit drops show inside the run: 12 -> 8, period 2, so bits 12, 11,
+    11, 10, 10, 10, 10, 9, 9, 9 over 10 steps."""
+    return {"enabled": True, "quantize_type": "symmetric",
+            "quantize_algo": {"rounding": rounding}, "quantize_groups": 8,
+            "quantize_bits": {"start_bits": start_bits,
+                              "target_bits": target_bits},
+            "quantize_schedule": {"quantize_period": period}}
+
+
+def check_quant_kernels(torch, quantizer, fused, bert_shapes):
+    """Phase 3, the MoQ quantizer and the softmax against their plain
+    versions. ``ds_quantize``: bit-equal (atol 0) for fp32 and bf16,
+    symmetric and asymmetric, nearest and stochastic (the same Philox
+    bits), 8 and 4 bits, groups 1, 8 and 7, a ragged row, BERT-large's qkv
+    weight in its [out, in] layout and its word embeddings. ``ds_softmax``:
+    fp32 within 2e-6 absolute (expf and the row sum in another order),
+    bf16 within one bf16 ulp (2^-7 relative); at BERT-large's and GPT-2
+    medium's attention-score shapes and at h 1000 and 7. Returns the max
+    abs error of each at the main path's shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    qkv, emb = (3072, 1024), (30592, 1024)   # BERT-large's largest two
+    if not {qkv, emb} <= set(bert_shapes):
+        raise AssertionError("BERT-large's shapes changed")
+    cases = [((64, 256), 1, False), ((64, 256), 8, False),
+             ((63, 77), 7, False), (qkv, 8, True), (emb, 8, False)]
+    main_err = {"quantize": 0.0}
+    n_cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape, groups, transposed in cases:
+            x = rnd(*shape, dtype=dtype) * 0.05
+            for symmetric in (True, False):
+                for stochastic in (False, True):
+                    for bits in (8, 4):
+                        kw = dict(num_bits=bits, groups=groups,
+                                  symmetric=symmetric, stochastic=stochastic,
+                                  seed=99 if stochastic else None,
+                                  transposed=transposed)
+                        got = quantizer.quantize(x, **kw)
+                        want = quantizer.quantize_plain(x, **kw)
+                        torch.cuda.synchronize()
+                        err = (got.float() - want.float()).abs().max().item()
+                        n_cases += 1
+                        if not torch.equal(got, want):
+                            raise AssertionError(
+                                f"quantize {dtype} {shape} {kw} differs from "
+                                f"its plain version by {err}")
+                        if dtype == torch.float32 and shape in (qkv, emb):
+                            main_err["quantize"] = max(main_err["quantize"],
+                                                       err)
+            del x, got, want
+    print(f"check quantize: {n_cases} cases bit-equal to the plain version "
+          f"(fp32/bf16, sym/asym, nearest/stochastic, 8/4 bits, groups "
+          f"1/8/7, qkv {qkv} transposed, embeddings {emb})", flush=True)
+    for dtype, tol in ((torch.float32, 2e-6), (torch.bfloat16, 2 ** -7)):
+        for n, h, name in [(BERT_B * H * BERT_S, BERT_S, "softmax"),
+                           (B * H * SEQ, SEQ, "softmax_h1024"),
+                           (37, 1000, None), (9, 7, None), (5, 4096, None)]:
+            x = rnd(n, h, dtype=dtype) * 4
+            got = fused.fused_softmax(x, 0.125)
+            want = fused.softmax_plain(x, 0.125)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs()
+            ok = bool((err <= (tol if dtype == torch.float32 else
+                               tol * want.float().abs())).all())
+            print(f"check softmax {str(dtype)[6:]} [{n}, {h}]: err "
+                  f"{err.max().item():.3g}", flush=True)
+            if not ok:
+                raise AssertionError("softmax disagrees with its plain "
+                                     "version")
+            if dtype == torch.bfloat16 and name:
+                main_err[name] = err.max().item()
+            del x, got, want, err
+    torch.cuda.empty_cache()
+    return main_err
+
+
+def quant_kernel_rows(torch, quantizer, fused, moq_tensors):
+    """Timings of ``ds_quantize`` over BERT-large's 100 quantized fp32
+    masters (``moq_tensors``: (shape, transposed) of each; one MoQ step,
+    200 kernel launches) and of ``ds_softmax`` at the two attention-score
+    shapes (rows without launches, max_abs_err and card)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepspeed_tpu_torch.ops import op_builder
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    lib = op_builder.load_kernels()
+    stream = torch.cuda.current_stream().cuda_stream
+    xs = [torch.randn(*s, generator=gen, device="cuda") * 0.02
+          for s, _ in moq_tensors]
+    transposed = [tr for _, tr in moq_tensors]
+    launches = []
+    for x, tr in zip(xs, transposed):
+        n = x.numel()
+        blocks = 8 * -(-(n // 8) // quantizer.CHUNK)
+        part = torch.empty(2 * blocks, device="cuda")
+        rows, cols = x.shape if tr else (n, 1)
+        args = (x.data_ptr(), x.data_ptr(), part.data_ptr(), part.numel(),
+                n, 8, int(tr), rows, cols, 10, 1, 0, 0, 0, 1, stream)
+        launches.append((args, part))
+
+    def sweep():
+        for args, _ in launches:
+            lib.ds_quantize(*args)
+
+    def wrapper_sweep():
+        for x, tr in zip(xs, transposed):
+            quantizer.quantize(x, 10, 8, transposed=tr, out=x)
+
+    def plain_sweep():
+        for x, tr in zip(xs, transposed):
+            quantizer.quantize_plain(x, 10, 8, transposed=tr)
+
+    ms = cuda_ms(sweep, iters=10)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sweep()
+        torch.cuda.synchronize()
+    device_ms = sum(ev.self_device_time_total for ev in prof.key_averages()
+                    if "quant_" in ev.key) / 1e3
+    n_el = sum(x.numel() for x in xs)
+    rows = [{
+        "name": "quantize", "route": "cuda",
+        "source": "deepspeed_tpu_torch/csrc/quantizer.cu",
+        "replaces": "deepspeed_tpu/ops/quantizer/quantizer.py:68",
+        "shape": f"{len(xs)} fp32 tensors, {n_el} elements (BERT-large's "
+                 f"MoQ step), groups 8, 10 bits, symmetric, nearest, in "
+                 f"place; two launches each",
+        "ms": ms, "device_ms_profiled": device_ms,
+        "wrapper_ms": cuda_ms(wrapper_sweep, iters=5),
+        "plain_ms": cuda_ms(plain_sweep, iters=2),
+        "library_ms": None,
+        "library_note": "no PyTorch call computes a grouped fake-quantize "
+                        "with its own absmax scale: "
+                        "torch.fake_quantize_per_channel_affine takes the "
+                        "scale as an input",
+        "bytes": 8 * n_el, "flops": 5 * n_el, "peak": FP32_FLOPS}]
+    del xs, launches
+    F = torch.nn.functional
+    for name, n, h in (("softmax", BERT_B * H * BERT_S, BERT_S),
+                       ("softmax_h1024", B * H * SEQ, SEQ)):
+        x = torch.randn(n, h, generator=gen, device="cuda").to(torch.bfloat16)
+        y = torch.empty_like(x)
+        kernel = lambda: lib.ds_softmax(x.data_ptr(), y.data_ptr(), n, h,
+                                        1.0, 1, stream)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "deepspeed_tpu_torch/csrc/fused.cu",
+            "replaces": "deepspeed_tpu/ops/transformer/fused.py:226",
+            "shape": f"[{n}, {h}] bf16, scale 1.0 "
+                     + ("(BERT-large's attention scores, B64 H16 S128)"
+                        if h == BERT_S else
+                        "(GPT-2 medium's, B8 H16 S1024)"),
+            "ms": cuda_ms(kernel, iters=100),
+            "wrapper_ms": cuda_ms(lambda: fused.fused_softmax(x), iters=100),
+            "plain_ms": cuda_ms(lambda: fused.softmax_plain(x)),
+            "library_ms": cuda_ms(lambda: torch.softmax(x, -1), iters=100),
+            "library_note": "torch.softmax(x, -1) (one call)",
+            "bytes": 2 * n * h * 2, "flops": 5 * n * h, "peak": FP32_FLOPS})
+        del x, y
+    torch.cuda.empty_cache()
+    return rows
+
+
+def group_levels(torch, t, groups, transposed, bits):
+    """The most distinct values any group of ``t`` holds; fails above
+    2^bits."""
+    ref = t.detach().t() if transposed else t.detach()
+    most = max(torch.unique(g).numel() for g in ref.reshape(groups, -1))
+    if most > 2 ** bits:
+        raise AssertionError(f"a group holds {most} levels at {bits} bits")
+    return most
+
+
+def moq_phase(torch, deepspeed_tpu_torch, bert, op_builder, cfg, batch,
+              base_counts_per_step, bert_ms):
+    """The MoQ path: BERT-large with ``quantize_training`` for MOQ_STEPS
+    steps. Launch counts zeroed just before and read just after: the BERT
+    path's per step plus 100 quantize launches a step. After every step
+    two sampled tensors (the first layer's qkv weight, [out, in], and the
+    word embeddings) hold at most 2^bits levels in each of their 8
+    groups. Returns (moq line, launch counts, (shape, transposed) of each
+    quantized tensor)."""
+    config = dict(bert_config(fused=True), quantize_training=moq_block())
+    torch.cuda.reset_peak_memory_stats()
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=bert.BertForPreTraining(cfg, seed=0), config=config)
+    q = engine.quantizer
+    moq_tensors = [(tuple(p.shape), k in engine._transposed)
+                   for k, p in sorted(engine.params.items()) if p.dim() >= 2]
+    n_quantized = len(moq_tensors)
+    sampled = {"layer.0.layer.attn_qkv.weight": True,
+               "word_embeddings": False}
+    for name, tr in sampled.items():
+        if (name in engine._transposed) != tr:
+            raise AssertionError(f"{name}: transposed layout expected {tr}")
+    op_builder.reset_launch_counts()
+    losses, ms, bits, levels = [], [], [], []
+    for _ in range(MOQ_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = engine.train_batch(batch=batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        bits.append(q.current_bits())
+        levels.append({n: group_levels(torch, engine.params[n], 8, tr,
+                                       bits[-1])
+                       for n, tr in sampled.items()})
+    counts = dict(op_builder.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    profile_step = device_profile(torch, lambda: engine.train_batch(
+        batch=batch))
+    del engine
+    torch.cuda.empty_cache()
+    print(f"moq losses {losses}, bits {bits}, levels {levels}", flush=True)
+    want = {k: c * MOQ_STEPS for k, c in base_counts_per_step.items()}
+    want["quantize"] = n_quantized * MOQ_STEPS
+    got = {k: counts.get(k, 0) for k in want}
+    if got != want or sum(counts.values()) != sum(want.values()) or \
+            n_quantized != 100:
+        raise AssertionError(f"MoQ launches {counts} on {n_quantized} "
+                             f"tensors, expected {want}")
+    if bits != [12, 11, 11, 10, 10, 10, 10, 9, 9, 9]:
+        raise AssertionError(f"MoQ bit schedule {bits}")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"MoQ losses {losses} not finite or not falling")
+    med = statistics.median(ms[2:])
+    base = statistics.median(bert_ms[2:])
+    line = {"config": "bert-large bs64 seq128 bf16 zero0 lamb(fused) lr1e-4 "
+                      "+ quantize_training symmetric nearest groups 8, "
+                      "12 -> 8 bits, period 2",
+            "step_ms_median_3_10": med, "step_ms": ms,
+            "step_ms_without_moq_median_3_10": base,
+            "moq_cost_ms": med - base,
+            "losses": losses, "bits": bits, "sampled_group_levels": levels,
+            "quantized_tensors": n_quantized,
+            "launches": counts, "peak_mem_gb": peak / 1e9,
+            "profile_train_step": profile_step}
+    return line, counts, moq_tensors
+
+
+def moq_parity(torch, deepspeed_tpu_torch, bert, quantize_mod, quantizer,
+               op_builder, cfg, batch):
+    """A 2-layer BERT at full width takes one LAMB step; the same
+    post-update masters are then fake-quantized by the MoQ schedule on the
+    kernel and on the plain version (nearest at 8 bits, and stochastic at
+    6): the results must be bit-equal."""
+    import dataclasses
+    cfg2 = dataclasses.replace(cfg, num_hidden_layers=2)
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=bert.BertForPreTraining(cfg2, seed=5),
+        config=bert_config(fused=True))
+    engine.train_batch(batch=batch)
+    masters = {k: p.detach().clone() for k, p in engine.params.items()}
+    transposed = engine._transposed
+    del engine
+
+    def plain_kernel(x, out=None, **kw):
+        return out.copy_(quantizer.quantize_plain(x, **kw))
+
+    out = {}
+    for rounding, bits in (("nearest", 8), ("stochastic", 6)):
+        runs = []
+        for plain in (False, True):
+            params = {k: v.clone() for k, v in masters.items()}
+            sched = quantize_mod.Quantizer(
+                q_groups=8, q_rounding=int(rounding == "stochastic"),
+                q_start_bits=bits, q_target_bits=bits)
+            op_builder.reset_launch_counts()
+            saved = quantize_mod.quantize_kernel
+            if plain:
+                quantize_mod.quantize_kernel = plain_kernel
+            try:
+                sched.quantize(params, transposed=transposed)
+            finally:
+                quantize_mod.quantize_kernel = saved
+            torch.cuda.synchronize()
+            launched = op_builder.LAUNCHES.get("quantize", 0)
+            if launched != (0 if plain else 12):
+                raise AssertionError(f"plain={plain}: {launched} quantize "
+                                     f"launches")
+            runs.append(params)
+        differ = [k for k in masters if not torch.equal(runs[0][k],
+                                                        runs[1][k])]
+        changed = sum(1 for k in masters
+                      if not torch.equal(runs[0][k], masters[k]))
+        out[rounding] = {"bits": bits, "tensors_quantized": changed,
+                         "tensors_differing": len(differ)}
+        if differ or changed != 12:
+            raise AssertionError(f"MoQ kernel and plain quantizer differ on "
+                                 f"{differ[:3]} ({rounding}), {changed} "
+                                 f"tensors changed")
+    print(f"moq parity 2-layer: {json.dumps(out)}", flush=True)
+    return out
+
+
+def int8_phase(torch, deepspeed_tpu_torch, gpt2, module_quantize, op_builder,
+               cfg, ids):
+    """GPT-2 medium with int8 transformer weights: ``init_inference(dtype=
+    torch.int8)``, greedy ``generate`` on bs 8 × prompt 896, 32 new tokens;
+    prefill ms, decode ms/token, the weights' device bytes. The prefill
+    logits must lie within 0.25 absolute of a bf16 model built from the
+    dequantized weights (the int8 path rounds x·q to bf16 and then
+    multiplies by the bf16-rounded scale where the reference rounds
+    q·scale to bf16: a relative difference of ~2^-8 in each of the 96
+    products, which after 24 layers moves logits of size ~3 by up to
+    ~0.1), with the greedy tokens of at least 7 of the 8 sequences
+    agreeing. Returns (int8 line, launch counts)."""
+    import copy
+    torch.cuda.reset_peak_memory_stats()
+    engine = deepspeed_tpu_torch.init_inference(
+        gpt2.GPT2LMHeadModel(cfg, seed=0), dtype=torch.int8)
+    engine.generate(ids[:, :32], max_new_tokens=4)          # warm-up
+    torch.cuda.synchronize()
+    op_builder.reset_launch_counts()
+    out = engine.generate(ids, max_new_tokens=INT8_NEW)
+    torch.cuda.synchronize()
+    counts = dict(op_builder.LAUNCHES)
+    if out.shape != (B, ids.shape[1] + INT8_NEW) or \
+            not torch.equal(out[:, :ids.shape[1]], ids) or \
+            int(out.max()) >= cfg.vocab_size:
+        raise AssertionError(f"int8 generate: output {tuple(out.shape)}")
+    for k in ("flash_fwd", "decode_attention"):
+        if counts.get(k, 0) == 0:
+            raise AssertionError(f"kernel {k} never launched on the int8 path")
+    prefill_ms = host_ms(lambda: engine.generate(ids, max_new_tokens=1))
+    gen_ms = host_ms(lambda: engine.generate(ids, max_new_tokens=INT8_NEW),
+                     reps=2)
+    mod = engine.module
+    int8_bytes = sum(p.numel() for p in mod.parameters()
+                     if p.dtype == torch.int8)
+    bf16_bytes = sum(2 * p.numel() for p in mod.parameters()
+                     if p.dtype == torch.bfloat16)
+    scale_bytes = sum(4 * s.numel() for s in engine.quant_scales.values())
+    saved = engine.int8_bytes_saved
+
+    ref = copy.deepcopy(mod)
+    module_quantize.dequantize_transformer_layer(ref, dtype=torch.bfloat16)
+    ref_bytes = sum(p.numel() * p.element_size() for p in ref.parameters())
+    with torch.no_grad():
+        got = mod({"input_ids": ids}, return_logits=True, last_only=True)
+        want = ref({"input_ids": ids}, return_logits=True, last_only=True)
+    got, want = got[:, -1, :cfg.vocab_size], want[:, -1, :cfg.vocab_size]
+    err = (got - want).abs().max().item()
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    ref_ms = host_ms(lambda: ref({"input_ids": ids}, return_logits=True,
+                                 last_only=True))
+    peak = torch.cuda.max_memory_allocated()
+    del ref, engine, mod
+    torch.cuda.empty_cache()
+    line = {"config": "gpt2-medium int8 weights (qkv, attn proj, mlp fc, "
+                      "mlp proj; per-row fp32 scales), bf16 activations, "
+                      "bs8 prompt896, 32 new, greedy",
+            "prefill_ms": prefill_ms, "generate_ms": gen_ms,
+            "decode_ms_per_token": (gen_ms - prefill_ms) / (INT8_NEW - 1),
+            "tokens_per_s": B * INT8_NEW / gen_ms * 1e3,
+            "dequantized_bf16_prefill_forward_ms": ref_ms,
+            "int8_bytes_saved": saved,
+            "weight_bytes": {"int8": int8_bytes, "bf16": bf16_bytes,
+                             "scales_fp32": scale_bytes,
+                             "total": int8_bytes + bf16_bytes + scale_bytes,
+                             "all_bf16_model": ref_bytes,
+                             "bytes_shed": ref_bytes - int8_bytes
+                             - bf16_bytes - scale_bytes},
+            "prefill_logits_vs_dequantized_bf16": {
+                "max_abs_err": err, "logit_scale": want.abs().max().item(),
+                "argmax_agree": agree},
+            "launches": counts, "peak_mem_gb": peak / 1e9}
+    print(f"int8 check: prefill logits max abs err {err:.4g} against the "
+          f"dequantized bf16 model, argmax agree {agree}", flush=True)
+    if not (err <= 0.25 and agree >= 7 / 8):
+        raise AssertionError(f"int8 logits disagree with the dequantized "
+                             f"bf16 model: {err}, agreement {agree}")
+    return line, counts
+
+
 def finish_rows(rows, launches, max_err, card):
     """bound_ms (the larger of bytes at 3.35 TB/s and operations at the
     peak of their type), launches and max_abs_err for each row."""
@@ -932,10 +1342,13 @@ def main():
     from deepspeed_tpu_torch.models import bert, gpt2
     from deepspeed_tpu_torch.ops import op_builder
     from deepspeed_tpu_torch.ops.adam import fused_adam
+    from deepspeed_tpu_torch.module_inject import module_quantize
     from deepspeed_tpu_torch.ops.lamb import fused_lamb
+    from deepspeed_tpu_torch.ops.quantizer import quantizer
     from deepspeed_tpu_torch.ops.transformer import attention as attn_mod
     from deepspeed_tpu_torch.ops.transformer import (decode, flash, fused,
                                                      transformer)
+    from deepspeed_tpu_torch.runtime import quantize as quantize_mod
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -961,6 +1374,7 @@ def main():
     bert_shapes = bert_param_shapes(torch, bert, bert_cfg)
     max_err.update(check_bert_kernels(torch, flash, fused, fused_lamb,
                                       bert_shapes))
+    max_err.update(check_quant_kernels(torch, quantizer, fused, bert_shapes))
 
     # 4. the generation path at full width
     model = gpt2.GPT2LMHeadModel(cfg, seed=0)
@@ -1277,11 +1691,29 @@ def main():
         "profile_train_step": bert_profile,
     }
 
+    # 10. the MoQ path: BERT-large with quantize_training, then a one-step
+    # kernel-against-plain parity of the quantizer on a 2-layer BERT
+    moq_line, moq_counts, moq_tensors = moq_phase(
+        torch, deepspeed_tpu_torch, bert, op_builder, bert_cfg, bert_batch,
+        dict(per_step, lamb=1), bert_ms)
+    moq_line["parity_2layer"] = moq_parity(
+        torch, deepspeed_tpu_torch, bert, quantize_mod, quantizer, op_builder,
+        bert_cfg, bert_batch)
+    moq_line["card"] = card
+
+    # 11. int8-weight GPT-2 medium generation
+    int8_line, int8_counts = int8_phase(
+        torch, deepspeed_tpu_torch, gpt2, module_quantize, op_builder, cfg,
+        long_ids)
+    int8_line["card"] = card
+
     bert_all = {k: bert_counts.get(k, 0) + bert_plain_counts.get(k, 0)
-                for k in per_step}
+                + moq_counts.get(k, 0) for k in per_step}
     launches = {"flash_fwd": gen_launches.get("flash_fwd", 0) +
-                train_launches.get("flash_fwd", 0) + bert_all["flash_fwd"],
-                "decode_attention": gen_launches.get("decode_attention", 0),
+                train_launches.get("flash_fwd", 0) + bert_all["flash_fwd"]
+                + int8_counts.get("flash_fwd", 0),
+                "decode_attention": gen_launches.get("decode_attention", 0)
+                + int8_counts.get("decode_attention", 0),
                 "decode_attention_int8": gen_launches.get(
                     "decode_attention_int8", 0),
                 "flash_bwd_dq": train_launches.get("flash_bwd_dq", 0) +
@@ -1292,22 +1724,31 @@ def main():
                 "adam_per_tensor": fused_counts.get("adam", 0),
                 "ln_fwd": bert_all["ln_fwd"], "ln_bwd": bert_all["ln_bwd"],
                 "bias_gelu": bert_all["bias_gelu"],
-                "lamb": bert_counts.get("lamb", 0)}
+                "lamb": bert_counts.get("lamb", 0) + moq_counts.get("lamb", 0),
+                "quantize": moq_counts.get("quantize", 0),
+                # on no path, as in the JAX package
+                "softmax": 0, "softmax_h1024": 0}
     flash_row["launches_by_path"] = {
         "generate": gen_launches.get("flash_fwd", 0),
         "train": train_launches.get("flash_fwd", 0),
-        "bert": bert_all["flash_fwd"]}
+        "bert": bert_counts.get("flash_fwd", 0)
+        + bert_plain_counts.get("flash_fwd", 0),
+        "moq": moq_counts.get("flash_fwd", 0),
+        "int8_generate": int8_counts.get("flash_fwd", 0)}
     for row in (flash_row, decode_row, int8_row):
         row["peak"] = BF16_FLOPS
     rows = finish_rows(
         [flash_row, decode_row, int8_row]
         + training_kernel_rows(torch, flash, fused_adam, param_shapes)
-        + bert_kernel_rows(torch, fused, fused_lamb, bert_shapes),
+        + bert_kernel_rows(torch, fused, fused_lamb, bert_shapes)
+        + quant_kernel_rows(torch, quantizer, fused, moq_tensors),
         launches, max_err, card)
 
     print(json.dumps({"e2e": e2e}))
     print(json.dumps({"train": train}))
     print(json.dumps({"bert": bert_line}))
+    print(json.dumps({"moq": moq_line}))
+    print(json.dumps({"int8": int8_line}))
     print(json.dumps({"kernels": rows}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

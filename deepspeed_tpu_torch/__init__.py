@@ -1,7 +1,7 @@
 """deepspeed_tpu_torch: the PyTorch + CUDA port of deepspeed_tpu for NVIDIA
 Hopper (H100).
 
-This package ports three paths, with hand-written CUDA kernels
+This package ports four paths, with hand-written CUDA kernels
 (``csrc/``):
 
 * cached GPT-2 generation: ``init_inference`` ->
@@ -14,7 +14,13 @@ This package ports three paths, with hand-written CUDA kernels
 * BERT MLM pretraining: the same entry point on
   ``models.bert.BertForPreTraining`` with LAMB, on the flash kernels
   (non-causal), the LayerNorm forward/backward and bias-GeLU kernels of
-  the fused encoder layer, and the one-launch fused LAMB kernel.
+  the fused encoder layer, and the one-launch fused LAMB kernel;
+* MoQ and int8 weights: the ``quantize_training`` config block
+  fake-quantizes the fp32 masters after every applied step on the
+  grouped-quantize kernel, and ``init_inference(dtype=torch.int8)``
+  generates on int8 transformer weights with per-row scales. The scaled
+  softmax kernel (``ops.transformer.fused.fused_softmax``) lies on no
+  path, as in the JAX package.
 
 It imports torch and numpy only; the JAX package ``deepspeed_tpu`` stays
 the reference and is never imported from here.
@@ -32,7 +38,8 @@ def init_inference(model, params=None, dtype=None, device=None, **kwargs):
     """Create an inference engine (reference: deepspeed.init_inference).
 
     ``device=None`` means CUDA and raises when no card is present;
-    ``dtype`` defaults to bfloat16."""
+    ``dtype`` defaults to bfloat16; ``torch.int8`` stores the transformer
+    weights in int8 under bf16 activations."""
     return InferenceEngine(model, params=params, dtype=dtype, device=device,
                            **kwargs)
 

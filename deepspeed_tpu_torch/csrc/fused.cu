@@ -1,18 +1,24 @@
-// LayerNorm forward and backward, and bias + GeLU, for Hopper (sm_90a).
+// LayerNorm forward and backward, bias + GeLU, and the scaled softmax, for
+// Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of deepspeed_tpu/ops/transformer/fused.py:
 // * `_ln_fwd_kernel` (:43): y = (x - mu) rstd gamma + beta over the last dim,
 //   with mu and rstd (fp32) kept for the backward;
 // * `_ln_bwd_kernel` (:55): dx = (g dy - c1 xhat - c2) rstd, with
 //   xhat = (x - mu) rstd, c1 = mean(xhat g dy), c2 = mean(g dy);
-// * `_bias_gelu_kernel` (:147): y = gelu_tanh(x + b).
-// x, gamma, beta, dy and the outputs are fp32 or bf16 (one type per call);
-// the arithmetic is fp32 throughout, as in the TPU kernels.
+// * `_bias_gelu_kernel` (:147): y = gelu_tanh(x + b);
+// * `_softmax_kernel` (:226): y = softmax(x * scale) over the last dim.
+// x, gamma, beta, dy and the outputs are fp32 or bf16 (one type per call;
+// the softmax also takes fp16); the arithmetic is fp32 throughout, as in
+// the TPU kernels.
 //
 // Bound on the H100: memory, all three. At BERT-large's shapes (bf16):
 // LN forward over [8192, 1024] reads x and writes y, 33.6 MB (10.0 us at
 // 3.35 TB/s); the backward reads x and dy and writes dx, 50.4 MB (15.0 us);
-// bias-GeLU over [8192, 4096] reads x and writes y, 134 MB (40.1 us).
+// bias-GeLU over [8192, 4096] reads x and writes y, 134 MB (40.1 us); the
+// softmax reads x and writes y, 67 MB at [131072, 128] bf16 (BERT-large's
+// attention scores, 20.0 us) and 537 MB at [131072, 1024] (GPT-2 medium's,
+// 160 us).
 //
 // Design. The TPU kernels take blocks of rows through VMEM; here one warp
 // owns one row and holds it in registers (NPL values a lane, NPL * 32 >= h),
@@ -25,13 +31,19 @@
 // of shuffles, so every lane holds the same total and the order is fixed.
 // Rows up to 2048 wide fit (NPL = 64; the backward keeps two such arrays).
 // Bias-GeLU is a grid-stride elementwise pass; tanhf (not tanh.approx.f32,
-// whose ~5e-4 relative error is far above the fp32 tolerance).
+// whose ~5e-4 relative error is far above the fp32 tolerance). The softmax
+// keeps a row of up to 2048 in one warp's registers (max, then the sum of
+// expf(x - max), then expf / sum with an IEEE division: one read, one
+// write); a wider row takes a block of 256 threads and three passes over
+// it in device memory.
 //
 // Plain C interface (loaded with ctypes); each function returns the
 // cudaError_t of its launch.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -333,6 +345,116 @@ bool vec_ok(int dtype, int h, int vec) {
   return !vec || h % w == 0;
 }
 
+// ---------------------------------------------------------------------------
+// Scaled softmax over the last dim
+
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
+template <>
+__device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);
+}
+
+__device__ __forceinline__ float warp_max(float m) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  return m;
+}
+
+// one warp a row; lane l holds columns l, l + 32, ... (NPL of them)
+template <typename T, int NPL>
+__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+softmax_warp_kernel(const T* __restrict__ x, T* __restrict__ y, long long n,
+                    int h, float scale) {
+  const int lane = threadIdx.x & 31;
+  const long long row =
+      (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (row >= n) return;
+  const T* xr = x + row * h;
+  float v[NPL];
+  float m = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < NPL; ++i) {
+    const int c = lane + 32 * i;
+    v[i] = c < h ? __fmul_rn(to_f(xr[c]), scale) : -INFINITY;
+    m = fmaxf(m, v[i]);
+  }
+  m = warp_max(m);
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < NPL; ++i) {
+    v[i] = lane + 32 * i < h ? expf(__fsub_rn(v[i], m)) : 0.f;
+    s += v[i];
+  }
+  s = warp_sum(s);
+  T* yr = y + row * h;
+#pragma unroll
+  for (int i = 0; i < NPL; ++i) {
+    const int c = lane + 32 * i;
+    if (c < h) yr[c] = from_f<T>(__fdiv_rn(v[i], s));
+  }
+}
+
+constexpr int kSoftmaxThreads = 256;
+
+template <bool MAX>
+__device__ float softmax_block_reduce(float v, float* sh) {
+  v = MAX ? warp_max(v) : warp_sum(v);
+  if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5] = v;
+  __syncthreads();
+  v = sh[0];
+#pragma unroll
+  for (int i = 1; i < kSoftmaxThreads / 32; ++i)
+    v = MAX ? fmaxf(v, sh[i]) : v + sh[i];
+  __syncthreads();
+  return v;
+}
+
+// one block a row, for rows wider than a warp holds
+template <typename T>
+__global__ void __launch_bounds__(kSoftmaxThreads)
+softmax_block_kernel(const T* __restrict__ x, T* __restrict__ y, int h,
+                     float scale) {
+  __shared__ float sh[kSoftmaxThreads / 32];
+  const T* xr = x + (long long)blockIdx.x * h;
+  T* yr = y + (long long)blockIdx.x * h;
+  float m = -INFINITY;
+  for (int c = threadIdx.x; c < h; c += kSoftmaxThreads)
+    m = fmaxf(m, __fmul_rn(to_f(xr[c]), scale));
+  m = softmax_block_reduce<true>(m, sh);
+  float s = 0.f;
+  for (int c = threadIdx.x; c < h; c += kSoftmaxThreads)
+    s += expf(__fsub_rn(__fmul_rn(to_f(xr[c]), scale), m));
+  s = softmax_block_reduce<false>(s, sh);
+  for (int c = threadIdx.x; c < h; c += kSoftmaxThreads)
+    yr[c] = from_f<T>(
+        __fdiv_rn(expf(__fsub_rn(__fmul_rn(to_f(xr[c]), scale), m)), s));
+}
+
+template <typename T>
+cudaError_t launch_softmax(const void* x, void* y, long long n, int h,
+                           float scale, cudaStream_t s) {
+  const T* xx = static_cast<const T*>(x);
+  T* yy = static_cast<T*>(y);
+  const unsigned warp_blocks =
+      (unsigned)((n + kWarpsPerBlock - 1) / kWarpsPerBlock);
+  const int threads = 32 * kWarpsPerBlock;
+#define DS_SOFTMAX_CASE(NPL)                                             \
+  if (h <= 32 * NPL) {                                                   \
+    softmax_warp_kernel<T, NPL><<<warp_blocks, threads, 0, s>>>(xx, yy,  \
+                                                                n, h,    \
+                                                                scale);  \
+    return cudaGetLastError();                                           \
+  }
+  DS_SOFTMAX_CASE(1) DS_SOFTMAX_CASE(2) DS_SOFTMAX_CASE(4)
+  DS_SOFTMAX_CASE(8) DS_SOFTMAX_CASE(16) DS_SOFTMAX_CASE(32)
+  DS_SOFTMAX_CASE(64)
+#undef DS_SOFTMAX_CASE
+  softmax_block_kernel<T><<<(unsigned)n, kSoftmaxThreads, 0, s>>>(xx, yy, h,
+                                                                  scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x, y: [n, h] row-major; gamma, beta: [h]; all of one type (dtype 0 =
@@ -398,4 +520,17 @@ extern "C" int ds_bias_gelu(const void* x, const void* bias, void* y,
     return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
+}
+
+
+// y = softmax(x * scale) over the last dim of x [n, h] (row-major); x and
+// y of one type: dtype 0 = fp32, 1 = bf16, 2 = fp16. n < 2^31.
+extern "C" int ds_softmax(const void* x, void* y, long long n, int h,
+                          float scale, int dtype, void* stream) {
+  if (n <= 0 || h <= 0 || n > 0x7fffffffLL) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_softmax<float>(x, y, n, h, scale, s);
+  if (dtype == 1) return launch_softmax<__nv_bfloat16>(x, y, n, h, scale, s);
+  if (dtype == 2) return launch_softmax<__half>(x, y, n, h, scale, s);
+  return cudaErrorInvalidValue;
 }

@@ -6,8 +6,16 @@ prefill forward writes the prompt's K/V into a :class:`KVCache`, then
 each new token is one single-token forward, as a host loop (the JAX
 package compiles the same loop into one ``lax.scan``).
 
-Not ported yet: tensor parallelism (``mp_size > 1``), MoE inference, int8
-weight storage (``dtype=torch.int8``) and checkpoint loading.
+``dtype=torch.int8`` (JAX engine.py:46-56, 95-120) keeps the floats in
+bf16 and the transformer weights in int8: the floating parameters are
+cast to bf16 first, then ``module_inject.quantize_transformer_layer``
+swaps the matched weights for int8 with per-output-unit fp32 scales
+beside them; ``int8_bytes_saved`` is the JAX counter
+``inference_int8_bytes_saved_total``.
+
+Not ported yet: tensor parallelism (``mp_size > 1``), MoE inference,
+checkpoint loading, ``quantization_setting`` (the weight quantizer that
+rides on checkpoint loading) and a custom ``apply_fn``.
 """
 
 import inspect
@@ -17,24 +25,52 @@ import torch
 from deepspeed_tpu_torch.ops._platform import resolve_device
 
 
+def _param_bytes(module):
+    return sum(p.numel() * p.element_size() for p in module.parameters())
+
+
 class InferenceEngine:
     def __init__(self, model, params=None, dtype=None, device=None,
-                 mp_size=1, checkpoint=None, moe=False, ep_size=1):
+                 mp_size=1, checkpoint=None, moe=False, ep_size=1,
+                 quantization_setting=None, apply_fn=None):
         """``params``: an optional state_dict loaded into ``model`` (e.g.
         from :func:`deepspeed_tpu_torch.bridge.flax_to_state_dict`).
         ``dtype`` (default bfloat16) is the dtype of the floating
-        parameters and activations; ``device=None`` means CUDA."""
+        parameters and activations, or ``torch.int8`` for int8
+        transformer weights under bf16 activations; ``device=None`` means
+        CUDA."""
+        self._int8_weights = dtype == torch.int8
+        if self._int8_weights and apply_fn is not None:
+            raise ValueError(
+                "dtype=int8 quantizes the weights and keeps their scales in "
+                "buffers the model's forward reads; a custom apply_fn would "
+                "bypass it — drop apply_fn or quantize explicitly via "
+                "module_inject.quantize_transformer_layer")
         for what, hit in (("mp_size > 1", mp_size > 1),
                           ("MoE inference", bool(moe) or ep_size > 1),
-                          ("int8 weights", dtype == torch.int8),
-                          ("checkpoint loading", checkpoint is not None)):
+                          ("checkpoint loading", checkpoint is not None),
+                          ("quantization_setting (the checkpoint weight "
+                           "quantizer)", quantization_setting is not None),
+                          ("a custom apply_fn", apply_fn is not None)):
             if hit:
                 raise NotImplementedError(f"{what} is not ported yet")
         self.device = resolve_device(device)
-        self.dtype = dtype or torch.bfloat16
+        self.dtype = torch.bfloat16 if self._int8_weights or dtype is None \
+            else dtype
         if params is not None:
             model.load_state_dict(params)
         self.module = model.to(device=self.device, dtype=self.dtype).eval()
+        self.quant_scales = None
+        self.int8_bytes_saved = 0
+        if self._int8_weights:
+            from deepspeed_tpu_torch.module_inject.module_quantize import \
+                quantize_transformer_layer
+            before = _param_bytes(self.module)
+            self.quant_scales = quantize_transformer_layer(self.module)
+            scale_bytes = sum(s.numel() * s.element_size()
+                              for s in self.quant_scales.values())
+            self.int8_bytes_saved = max(
+                0, before - _param_bytes(self.module) - scale_bytes)
 
     def _call_params(self):
         try:

@@ -21,15 +21,15 @@ import pathlib
 _CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "torch_ext"
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "decode_attention.cu", "adam.cu",
-           "fused.cu", "lamb.cu")
+           "fused.cu", "lamb.cu", "quantizer.cu")
 NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-lineinfo"]
 
 # kernel name -> launches since the last reset
 LAUNCHES = collections.Counter()
 
-_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
-    ctypes.c_longlong
+_P, _I, _F, _L, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+    ctypes.c_longlong, ctypes.c_ulonglong
 _SIGNATURES = {
     "ds_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                      _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
@@ -52,6 +52,12 @@ _SIGNATURES = {
     # table, n_tensors, n_chunks, partial, wsq, usq, bc1, bc2, b1, 1-b1,
     # b2, 1-b2, eps, weight_decay, stream
     "ds_lamb": [_P, _I, _L, _P, _P, _P] + [_F] * 8 + [_P],
+    # x, y, n, h, scale, dtype, stream
+    "ds_softmax": [_P, _P, _L, _I, _F, _I, _P],
+    # x, y, partial, partial_len, n, groups, transposed, R, C, num_bits,
+    # symmetric, stochastic, seed, dtype, vec, stream
+    "ds_quantize": [_P, _P, _P, _L, _L, _I, _I, _L, _L, _I, _I, _I, _U, _I,
+                    _I, _P],
 }
 
 _lib = None

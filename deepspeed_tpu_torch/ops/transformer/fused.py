@@ -1,6 +1,7 @@
-"""Fused LayerNorm and bias-GeLU: the Hopper kernels of ``csrc/fused.cu``,
-their plain PyTorch versions, and the autograd ``Function``s that join
-them (counterpart of ``deepspeed_tpu/ops/transformer/fused.py``).
+"""Fused LayerNorm, bias-GeLU and the scaled softmax: the Hopper kernels of
+``csrc/fused.cu``, their plain PyTorch versions, and the autograd
+``Function``s that join them (counterpart of
+``deepspeed_tpu/ops/transformer/fused.py``).
 
 * :func:`fused_layer_norm`: the forward kernel returns y, mu and rstd; the
   backward kernel returns dx from the saved x, mu and rstd; dgamma and
@@ -9,12 +10,15 @@ them (counterpart of ``deepspeed_tpu/ops/transformer/fused.py``).
   x + bias; the backward is the explicit formula of the JAX
   ``_bias_gelu_bwd`` in plain torch (the JAX package has no kernel for
   it either).
+* :func:`fused_softmax`: softmax(x * scale) over the last dim in fp32,
+  out in x's dtype; forward only, as in JAX (the training path runs
+  flash attention instead).
 
 CUDA tensors launch the kernels; CPU tensors run the plain versions. The
-kernels take fp32 or bf16, with gamma, beta and the bias in x's dtype, and
-compute in fp32; LayerNorm rows are at most 2048 wide. mu and rstd are
-fp32 ``x.shape[:-1]``; the TPU kernel's lane-replicated ``[n, 8]`` layout
-is not carried over. ``fused_softmax`` is not ported yet.
+kernels take fp32 or bf16 (the softmax also fp16), with gamma, beta and
+the bias in x's dtype, and compute in fp32; LayerNorm rows are at most
+2048 wide. mu and rstd are fp32 ``x.shape[:-1]``; the TPU kernel's
+lane-replicated ``[n, 8]`` layout is not carried over.
 """
 
 import torch
@@ -56,6 +60,14 @@ def bias_gelu_plain(x, bias):
     t = x.float() + bias.float()
     y = 0.5 * t * (1.0 + torch.tanh(_GELU_C * (t + 0.044715 * t * t * t)))
     return y.to(x.dtype)
+
+
+def softmax_plain(x, scale=1.0):
+    """softmax(x * scale) over the last dim in fp32, in x's dtype
+    (fused.py:226-230): the row max, exp, then a division by the sum."""
+    xf = x.float() * scale
+    e = torch.exp(xf - xf.amax(-1, keepdim=True))
+    return (e / e.sum(-1, keepdim=True)).to(x.dtype)
 
 
 def _check_rows(x, params, what):
@@ -154,6 +166,29 @@ def bias_gelu(x, bias):
         x.data_ptr(), bias.data_ptr(), y.data_ptr(), x.numel(), h,
         _DTYPES[x.dtype], _vec(h, x.dtype, x, bias, y), _stream(x))
     op_builder.check_launch(err, "bias_gelu")
+    return y
+
+
+_SOFTMAX_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def fused_softmax(x, scale=1.0):
+    """Scaled softmax over the last dim (JAX fused.py:233): ``ds_softmax``
+    on CUDA tensors, :func:`softmax_plain` on CPU tensors."""
+    if not use_kernel(x):
+        return softmax_plain(x, scale)
+    if x.dtype not in _SOFTMAX_DTYPES:
+        raise TypeError(f"softmax kernel takes float32, bfloat16 or float16, "
+                        f"got {x.dtype}")
+    x = x.contiguous()
+    y = torch.empty_like(x)
+    if x.numel() == 0:
+        return y
+    h = x.shape[-1]
+    err = op_builder.load_kernels().ds_softmax(
+        x.data_ptr(), y.data_ptr(), x.numel() // h, h, float(scale),
+        _SOFTMAX_DTYPES[x.dtype], _stream(x))
+    op_builder.check_launch(err, "softmax")
     return y
 
 

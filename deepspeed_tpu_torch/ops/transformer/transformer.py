@@ -7,12 +7,15 @@ layer) and :func:`fused_bias_gelu` (once); unmasked attention runs the
 flash kernels (non-causal), masked attention the plain dense version
 (:func:`attention`). ``inter_w`` is a raw ``[hidden, intermediate]``
 parameter, as in the flax layer; the other three projections are
-:class:`QuantDense`. Parameter names are the flax layer's.
+:class:`QuantDense`. Parameter names are the flax layer's. An int8
+``inter_w`` (from ``module_inject.quantize_transformer_layer``, with its
+per-column scales in the ``inter_w_scale`` buffer) runs
+:func:`int8_matmul` (JAX transformer.py:120-133).
 
 Not ported yet: dropout (``attn_dropout_ratio`` or ``hidden_dropout_ratio``
 > 0), remat (``normalize_invertible``, ``gelu_checkpoint``,
-``attn_dropout_checkpoint``), an int8 ``inter_w``, and
-``transformer_tp_rules`` (tensor parallelism).
+``attn_dropout_checkpoint``), and ``transformer_tp_rules`` (tensor
+parallelism).
 """
 
 import dataclasses
@@ -20,7 +23,8 @@ import dataclasses
 import torch
 from torch import nn
 
-from deepspeed_tpu_torch.ops.quantizer.int8_linear import QuantDense
+from deepspeed_tpu_torch.ops.quantizer.int8_linear import (QuantDense,
+                                                           int8_matmul)
 from deepspeed_tpu_torch.ops.transformer.attention import attention
 from deepspeed_tpu_torch.ops.transformer.fused import (fused_bias_gelu,
                                                        fused_layer_norm)
@@ -106,8 +110,6 @@ class DeepSpeedTransformerLayer(nn.Module):
 
     def forward(self, hidden_states, attention_mask=None):
         cfg = self.config
-        if self.inter_w.dtype == torch.int8:
-            raise NotImplementedError("an int8 inter_w is not ported yet")
         mask = attention_mask
         if mask is not None and mask.dim() == 2:
             mask = mask[:, None, None, :].bool()
@@ -130,7 +132,17 @@ class DeepSpeedTransformerLayer(nn.Module):
 
         mlp_in = (fused_layer_norm(x, self.ln_gamma, self.ln_beta, eps)
                   if cfg.pre_layer_norm else x)
-        h = fused_bias_gelu(mlp_in @ self.inter_w, self.inter_b)
+        if self.inter_w.dtype == torch.int8:
+            scale = getattr(self, "inter_w_scale", None)
+            if scale is None:
+                raise ValueError(
+                    "DeepSpeedTransformerLayer: int8 inter_w but no "
+                    "'inter_w_scale' buffer — quantize with "
+                    "module_inject.quantize_transformer_layer")
+            h = fused_bias_gelu(
+                int8_matmul(mlp_in, self.inter_w.t(), scale), self.inter_b)
+        else:
+            h = fused_bias_gelu(mlp_in @ self.inter_w, self.inter_b)
         x = x + self.output_w(h)
         if not cfg.pre_layer_norm:
             x = fused_layer_norm(x, self.ln_gamma, self.ln_beta, eps)

@@ -1,12 +1,16 @@
 """The training config (counterpart of ``deepspeed_tpu/runtime/config.py``)
 over the keys the port's training path reads: the batch triad, optimizer,
-scheduler, fp16, bf16, gradient_clipping, zero_optimization.stage and
-steps_per_print. The attribute names are the JAX ``DeepSpeedConfig``'s.
+scheduler, fp16, bf16, gradient_clipping, zero_optimization.stage,
+steps_per_print and the ``quantize_training`` (MoQ) block. The attribute
+names are the JAX ``DeepSpeedConfig``'s.
 
 A key that turns on something the port does not run yet raises
 ``NotImplementedError`` naming it, as the JAX ``initialize`` fails loudly
 on keys it does not implement; keys it does not know are ignored, as
-there.
+there. Every ``enabled`` block the JAX config reads that changes the
+step's math is either ported or in :data:`_UNPORTED_BLOCKS`; blocks that
+only observe (tensorboard, flops_profiler) and blocks the JAX engine
+never consumes (amp, autotuning) are ignored, as there.
 """
 
 import json
@@ -29,6 +33,13 @@ _UNPORTED_BLOCKS = (
     ("curriculum_learning", "curriculum learning"),
     ("progressive_layer_drop", "progressive layer drop"),
     ("moe", "MoE"),
+    # eigenvalue-guided MoQ needs Hessian-vector products (a double
+    # backward through the flash kernels, which have none)
+    (C.EIGENVALUE, "eigenvalue-guided MoQ"),
+    # rewrites the batch triad before triangulation (JAX config.py:1202)
+    ("elasticity", "elasticity"),
+    # rolls the train state back and rescues the fp16 scale
+    ("guardian", "the guardian"),
 )
 
 
@@ -56,6 +67,41 @@ class DeepSpeedFP16Config:
     @property
     def dynamic_loss_scale(self):
         return self.loss_scale == 0
+
+
+class DeepSpeedQuantizeTrainingConfig:
+    """The MoQ quantize-aware-training block (JAX config.py:1133-1158).
+    ``schedule_offset`` and ``quantize_offset`` are parsed and, as in the
+    JAX engine, never used."""
+
+    def __init__(self, param_dict):
+        qt = param_dict.get(C.QUANTIZE_TRAINING, {}) or {}
+        self.enabled = qt.get(C.QUANTIZE_TRAINING_ENABLED,
+                              C.QUANTIZE_TRAINING_ENABLED_DEFAULT)
+        bits = qt.get(C.QUANTIZE_BITS, {}) or {}
+        self.start_bits = bits.get(C.START_BITS, C.START_BITS_DEFAULT)
+        self.target_bits = bits.get(C.TARGET_BITS, C.TARGET_BITS_DEFAULT)
+        sched = qt.get(C.QUANTIZE_SCHEDULE, {}) or {}
+        self.quantize_period = sched.get(C.QUANTIZE_PERIOD,
+                                         C.QUANTIZE_PERIOD_DEFAULT)
+        self.schedule_offset = sched.get(C.SCHEDULE_OFFSET,
+                                         C.SCHEDULE_OFFSET_DEFAULT)
+        self.quantize_groups = qt.get(C.QUANTIZE_GROUPS,
+                                      C.QUANTIZE_GROUPS_DEFAULT)
+        self.quantize_verbose = qt.get(C.QUANTIZE_VERBOSE,
+                                       C.QUANTIZE_VERBOSE_DEFAULT)
+        self.quantizer_kernel = qt.get(C.QUANTIZER_KERNEL,
+                                       C.QUANTIZER_KERNEL_DEFAULT)
+        self.quantize_change_ratio = qt.get(C.QUANTIZE_CHANGE_RATIO,
+                                            C.QUANTIZE_CHANGE_RATIO_DEFAULT)
+        self.quantize_type = qt.get(C.QUANTIZE_TYPE, C.QUANTIZE_SYMMETRIC)
+        algo = qt.get(C.QUANTIZE_ALGO, {}) or {}
+        self.rounding = algo.get(C.QUANTIZE_ROUNDING, "nearest")
+        self.stochastic_rounding = self.rounding == "stochastic"
+        mixed = qt.get(C.FP16_MIXED_QUANTIZE, {}) or {}
+        self.fp16_mixed_quantize = mixed.get("enabled", False)
+        self.quantize_offset = mixed.get(C.QUANTIZE_OFFSET,
+                                         C.QUANTIZE_OFFSET_DEFAULT)
 
 
 class DeepSpeedConfig:
@@ -123,6 +169,12 @@ class DeepSpeedConfig:
         scheduler = pd.get(C.SCHEDULER, {}) or {}
         self.scheduler_name = scheduler.get(C.TYPE, C.SCHEDULER_TYPE_DEFAULT)
         self.scheduler_params = scheduler.get(C.SCHEDULER_PARAMS, None)
+
+        self.quantize_training_config = DeepSpeedQuantizeTrainingConfig(pd)
+        self.quantize_training_enabled = self.quantize_training_config.enabled
+        ev = pd.get(C.EIGENVALUE, {}) or {}
+        self.eigenvalue_enabled = ev.get(C.EIGENVALUE_ENABLED,
+                                         C.EIGENVALUE_ENABLED_DEFAULT)
 
     # -- batch triangulation (JAX config.py:1403-1450) -----------------------
 
@@ -213,6 +265,13 @@ class DeepSpeedConfig:
             _not_ported("pipeline parallelism")
         if pd.get("sparse_gradients"):
             _not_ported("sparse_gradients")
+        if self.eigenvalue_enabled and not self.quantize_training_enabled:
+            # the JAX engine's check (engine.py:422-428) comes first
+            raise ValueError(
+                "eigenvalue.enabled=true has no consumer without "
+                "quantize_training (MoQ): the curvature estimate only "
+                "guides the quantization schedule — enable "
+                "quantize_training or drop the eigenvalue block")
         for key, what in _UNPORTED_BLOCKS:
             if (pd.get(key) or {}).get("enabled"):
                 _not_ported(f"{what} ({key}.enabled)")

@@ -13,6 +13,12 @@ ZeRO stages 0 and 1 at world size 1 are the same math: one rank's
 partition is the whole optimizer state, as on the JAX package's
 one-device mesh.
 
+MoQ (``quantize_training``): after an applied step and before the lr
+scheduler advances, the schedule of ``runtime/quantize.py`` fake-quantizes
+the fp32 masters in place under ``no_grad`` (engine.py:3111-3130, where
+the JAX engine replaces the params pytree); an fp16 step that overflowed
+skips it.
+
 Host syncs: bf16 and fp32 steps make none. An fp16 step makes one, to read
 the overflow flag that decides whether the update is applied; this is the
 port's counterpart of the JAX ``lax.cond`` (engine.py:1627), which keeps
@@ -28,6 +34,8 @@ from deepspeed_tpu_torch.runtime.config import (LAMB_OPTIMIZER,
 from deepspeed_tpu_torch.runtime.fp16.loss_scaler import (make_scale_state,
                                                           update_scale)
 from deepspeed_tpu_torch.runtime.lr_schedules import get_lr_schedule
+from deepspeed_tpu_torch.runtime.quantize import (Quantizer,
+                                                  transposed_weight_names)
 
 
 def _to_device(batch, device):
@@ -79,6 +87,8 @@ class DeepSpeedEngine:
         self.opt_state = self.optimizer.init(
             {k: p.detach() for k, p in self.params.items()})
         self.lr_scheduler, self._lr_fn = self._configure_lr_scheduler()
+        self.quantizer = self._configure_quantizer()
+        self._transposed = transposed_weight_names(module)
 
         self.global_grad_norm = None   # device scalar of the last step
         self.step_count = 0      # applied optimizer steps (indexes the lr)
@@ -123,6 +133,21 @@ class DeepSpeedEngine:
                                     self.config.scheduler_params)
             return sched, sched.lr_at
         return None, (lambda step: base_lr)
+
+    def _configure_quantizer(self):
+        """The MoQ schedule from ``quantize_training`` (engine.py:401-417);
+        eigenvalue guidance is refused by the config."""
+        if not self.config.quantize_training_enabled:
+            return None
+        qc = self.config.quantize_training_config
+        return Quantizer(
+            q_groups=qc.quantize_groups,
+            q_mixed_fp16=qc.fp16_mixed_quantize,
+            q_change_ratio=qc.quantize_change_ratio,
+            q_type=0 if qc.quantize_type == "symmetric" else 1,
+            q_rounding=1 if qc.rounding == "stochastic" else 0,
+            q_start_bits=qc.start_bits, q_target_bits=qc.target_bits,
+            q_period=qc.quantize_period)
 
     # ------------------------------------------------------------- queries
     def gradient_accumulation_steps(self):
@@ -221,6 +246,9 @@ class DeepSpeedEngine:
         if finite:
             self._apply_update(grads, clip_coef)
         self.global_steps += 1
+        if self.quantizer is not None:
+            self.quantizer.quantize(self.params, overflow=not finite,
+                                    transposed=self._transposed)
         if not finite:
             # the scheduler does not advance on a skipped step
             self.skipped_steps += 1

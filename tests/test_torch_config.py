@@ -1,7 +1,8 @@
 """The PyTorch port's training config against the JAX package's: the same
 JSON dicts go through both ``DeepSpeedConfig``s (world size 1) and must
-give the same batch triad, precision, optimizer, scheduler, clipping and
-ZeRO stage; keys that turn on what the port does not run yet raise."""
+give the same batch triad, precision, optimizer, scheduler, clipping,
+ZeRO stage and MoQ block; keys that turn on what the port does not run yet
+raise."""
 
 import json
 
@@ -21,6 +22,18 @@ FIELDS = ("train_batch_size", "train_micro_batch_size_per_gpu",
 FP16_FIELDS = ("enabled", "loss_scale", "initial_scale_power",
                "loss_scale_window", "hysteresis", "min_loss_scale",
                "dynamic_loss_scale")
+QUANTIZE_FIELDS = ("enabled", "start_bits", "target_bits", "quantize_period",
+                   "schedule_offset", "quantize_groups", "quantize_verbose",
+                   "quantizer_kernel", "quantize_change_ratio",
+                   "quantize_type", "rounding", "stochastic_rounding",
+                   "fp16_mixed_quantize", "quantize_offset")
+MOQ = {"enabled": True, "quantize_bits": {"start_bits": 12,
+                                          "target_bits": 8},
+       "quantize_schedule": {"quantize_period": 2, "schedule_offset": 10},
+       "quantize_groups": 8, "quantize_type": "asymmetric",
+       "quantize_algo": {"rounding": "stochastic"},
+       "fp16_mixed_quantize": {"enabled": True, "quantize_offset": 5},
+       "quantize_change_ratio": 0.01, "quantize_verbose": True}
 
 
 def basic(**over):
@@ -58,6 +71,10 @@ CONFIGS = [
         "weight_decay": 0.01, "min_coeff": 0.02, "max_coeff": 5.0,
         "bias_correction": False}}, bf16={"enabled": True}),
     basic(optimizer={"type": "LAMB", "params": {"lr": 1e-3}}),
+    basic(quantize_training=MOQ),
+    basic(quantize_training={"enabled": True}),
+    basic(quantize_training={"enabled": False}, eigenvalue={
+        "enabled": False}),
 ]
 
 
@@ -69,6 +86,11 @@ def test_config_matches_jax(cfg):
         assert getattr(got, f) == getattr(want, f), f
     for f in FP16_FIELDS:
         assert getattr(got.fp16, f) == getattr(want.fp16, f), f
+    assert got.quantize_training_enabled == want.quantize_training_enabled
+    assert got.eigenvalue_enabled == want.eigenvalue_enabled
+    for f in QUANTIZE_FIELDS:
+        assert getattr(got.quantize_training_config, f) == \
+            getattr(want.quantize_training_config, f), f
 
 
 def test_fused_and_sweep_flags():
@@ -121,6 +143,10 @@ def test_invalid_configs_raise_like_jax(cfg):
     ({"curriculum_learning": {"enabled": True}}, "curriculum"),
     ({"progressive_layer_drop": {"enabled": True}}, "layer drop"),
     ({"sparse_gradients": True}, "sparse_gradients"),
+    ({"quantize_training": {"enabled": True},
+      "eigenvalue": {"enabled": True, "layer_num": 2}}, "eigenvalue"),
+    ({"elasticity": {"enabled": True}}, "elasticity"),
+    ({"guardian": {"enabled": True}}, "guardian"),
 ])
 def test_unported_keys_raise(over, what):
     with pytest.raises(NotImplementedError, match="not ported yet") as err:
@@ -148,3 +174,34 @@ def test_lamb_is_admitted_with_fused_flag():
         "lr": 1e-4, "fused": True}}))
     assert cfg.optimizer_name == "lamb" and cfg.optimizer_fused
     assert not cfg.optimizer_sweep
+
+
+def test_eigenvalue_without_moq_raises_the_jax_error():
+    """JAX engine.py:422-428: the curvature estimate has no consumer
+    without quantize_training; the port raises the same ValueError."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import gpt2
+    cfg = basic(eigenvalue={"enabled": True, "layer_num": 2})
+    with pytest.raises(ValueError, match="no consumer"):
+        DeepSpeedConfig(cfg)
+    with pytest.raises(ValueError, match="no consumer"):
+        deepspeed_tpu_torch.initialize(
+            model=gpt2.GPT2LMHeadModel(gpt2.PRESETS["tiny"], device="cpu"),
+            config=cfg, device="cpu")
+
+
+def test_quantize_training_is_no_longer_ignored():
+    """The fault of the parent: the port parsed no ``quantize_training``
+    block and trained unquantized. Now the engine builds the MoQ schedule
+    from it (tests/test_torch_moq.py holds its effect to the JAX
+    engine)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import gpt2
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=gpt2.GPT2LMHeadModel(gpt2.PRESETS["tiny"], device="cpu"),
+        config=basic(train_batch_size=2, quantize_training=MOQ),
+        device="cpu")
+    q = engine.quantizer
+    assert q is not None and q.q_groups == 8 and q.q_type == 1
+    assert q.q_rounding == 1 and q.q_mixed_fp16
+    assert (q.q_start_bits, q.q_target_bits, q.q_period) == ([12], 8, [2])

@@ -13,7 +13,12 @@ one ulp of which is 0.0156 at magnitudes in [2, 4)); Adam and LAMB rtol
 round once more in PyTorch); LayerNorm and bias-GeLU fp32 2e-5, bf16 2e-2
 (fp32 arithmetic on both sides, outputs rounded to bf16: one ulp apart
 where the fp32 results straddle a rounding boundary); LAMB's squared
-norms rtol 1e-5 (sums in another order).
+norms rtol 1e-5 (sums in another order). The grouped quantizer: bit-equal
+(atol 0) in nearest and in stochastic rounding (the same fp32 operations
+with round-to-nearest intrinsics, the same Philox bits). The softmax: fp32
+atol 2e-6 (expf and the row sum in another order); bf16 and fp16 one ulp
+of the output (2^-7 and 2^-10 relative; for fp16 outputs below 2^-14,
+the subnormal ulp 2^-24), both sides rounding once.
 """
 
 import pytest
@@ -22,6 +27,7 @@ import torch
 from deepspeed_tpu_torch.ops import op_builder
 from deepspeed_tpu_torch.ops.adam import fused_adam
 from deepspeed_tpu_torch.ops.lamb import fused_lamb
+from deepspeed_tpu_torch.ops.quantizer import int8_linear, quantizer
 from deepspeed_tpu_torch.ops.transformer import (attention, decode, flash,
                                                  fused)
 
@@ -280,3 +286,124 @@ def test_kernels_raise_on_bad_input(gen):
                              1e-5)
     with pytest.raises(ValueError):
         fused_lamb.lamb_pass1([x], [x.double()], [x], [x], 0.1, 0.01)
+    with pytest.raises(TypeError):      # the quantizer takes fp32 or bf16
+        quantizer.quantize(x.half(), 8, 8)
+    with pytest.raises(TypeError):
+        fused.fused_softmax(x.double())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("symmetric", [True, False])
+@pytest.mark.parametrize("stochastic", [False, True])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("shape,groups,transposed", [
+    ((64, 256), 1, False), ((64, 256), 8, False), ((63, 77), 7, False),
+    ((1000, 9), 3, False), ((3072, 1024), 8, True), ((256, 64), 8, True),
+    ((40, 24), 16, True), ((21, 8), 1, True)])
+def test_quantize_kernel_matches_plain(gen, dtype, symmetric, stochastic,
+                                       bits, shape, groups, transposed):
+    """Bit-equal: groups 1, 8 and odd counts, ragged rows (77, 9: the
+    scalar path), the [out, in] layout (BERT-large's qkv shape) and a
+    group count that ends inside a reference row (24 columns, 16
+    groups)."""
+    x = _rand(gen, *shape, dtype=dtype) * 3
+    x[0] = 0.0
+    kw = dict(num_bits=bits, groups=groups, symmetric=symmetric,
+              stochastic=stochastic, seed=1234 if stochastic else None,
+              transposed=transposed)
+    before = op_builder.LAUNCHES["quantize"]
+    got = quantizer.quantize(x, **kw)
+    assert op_builder.LAUNCHES["quantize"] == before + 1
+    want = quantizer.quantize_plain(x, **kw)
+    assert got.dtype == dtype and got.shape == x.shape
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    ref = got.t() if transposed else got
+    for grp in ref.reshape(groups, -1):
+        assert torch.unique(grp).numel() <= 2 ** bits
+
+
+def test_quantize_kernel_in_place_and_unaligned(gen):
+    buf = _rand(gen, 4096 + 1, dtype=torch.float32)
+    x = buf[1:].view(64, 64)                 # 4 bytes into its buffer
+    want = quantizer.quantize_plain(x, 8, 8, transposed=True)
+    y = x.clone()
+    assert quantizer.quantize(y, 8, 8, transposed=True, out=y) is y
+    torch.testing.assert_close(y, want, rtol=0, atol=0)
+    torch.testing.assert_close(quantizer.quantize(x, 8, 8, transposed=True),
+                               want, rtol=0, atol=0)
+
+
+def test_quantize_kernel_at_the_word_embedding_size(gen):
+    """BERT-large's word embeddings: 3.9 M elements a group at groups 8,
+    478 blocks of partials a row."""
+    x = _rand(gen, 30592, 1024, dtype=torch.float32) * 0.02
+    got = quantizer.quantize(x, 8, 8)
+    torch.testing.assert_close(got, quantizer.quantize_plain(x, 8, 8),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("n,h", [(4096, 128), (512, 1024), (37, 1000),
+                                 (9, 7), (5, 4096), (3, 2048)])
+@pytest.mark.parametrize("scale", [1.0, 0.125])
+def test_softmax_kernel_matches_plain(gen, dtype, n, h, scale):
+    x = _rand(gen, n, h, dtype=dtype) * 4
+    before = op_builder.LAUNCHES["softmax"]
+    got = fused.fused_softmax(x, scale)
+    assert op_builder.LAUNCHES["softmax"] == before + 1
+    want = fused.softmax_plain(x, scale)
+    assert got.dtype == dtype and got.shape == x.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=0, atol=2e-6)
+    else:
+        rtol, atol = (2 ** -7, 0) if dtype == torch.bfloat16 else \
+            (2 ** -10, 2 ** -24)
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=atol)
+
+
+def test_int8_quant_dense_on_cuda(gen):
+    """The int8 QuantDense on the card: the int8 weight upcast to bf16
+    times the per-row scales against the dequantized float weight (bf16
+    products summed in another order; 2e-2)."""
+    from deepspeed_tpu_torch.module_inject import module_quantize
+    layer = int8_linear.QuantDense(1024, 3072, device="cuda",
+                                   dtype=torch.bfloat16)
+    with torch.no_grad():
+        layer.weight.copy_(_rand(gen, 3072, 1024, dtype=torch.bfloat16) * 0.02)
+        layer.bias.copy_(_rand(gen, 3072, dtype=torch.bfloat16) * 0.1)
+    module_quantize.quantize_transformer_layer(layer,
+                                               patterns=(r"^weight$",))
+    x = _rand(gen, 8, 64, 1024, dtype=torch.bfloat16)
+    with torch.no_grad():
+        got = layer(x)
+    w = int8_linear.dequantize_weight_int8(layer.weight, layer.weight_scale)
+    want = x.float() @ w.t() + layer.bias.float()
+    assert got.dtype == torch.bfloat16 and layer.weight.dtype == torch.int8
+    torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2)
+
+
+def test_moq_train_batch_launches_the_quantize_kernel(gen):
+    """A MoQ step on the tiny GPT-2 quantizes its 10 matrices (wte, wpe,
+    four dense weights a layer) in place, one launch each, and leaves each
+    group with at most 2^bits levels."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import gpt2
+    model = gpt2.GPT2LMHeadModel(gpt2.PRESETS["tiny"], seed=1)
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config={
+        "train_batch_size": 4, "bf16": {"enabled": True},
+        "optimizer": {"type": "Adam", "params": {"lr": 1e-3}},
+        "quantize_training": {"enabled": True, "quantize_groups": 8,
+                              "quantize_bits": {"start_bits": 6,
+                                                "target_bits": 6}}})
+    batch = gpt2.synthetic_batch(4, 32, 512, seed=3)
+    op_builder.reset_launch_counts()
+    losses = [float(engine.train_batch(batch=batch)) for _ in range(3)]
+    assert op_builder.LAUNCHES["quantize"] == 3 * 10
+    assert all(torch.isfinite(torch.tensor(losses)))
+    for name, p in engine.params.items():
+        if p.dim() == 2:
+            ref = p.detach().t() if name in engine._transposed else p
+            for grp in ref.reshape(8, -1):
+                assert torch.unique(grp).numel() <= 64, name

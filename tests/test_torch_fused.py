@@ -1,5 +1,5 @@
-"""The PyTorch port's fused LayerNorm and bias-GeLU against the JAX
-package's.
+"""The PyTorch port's fused LayerNorm, bias-GeLU and scaled softmax against
+the JAX package's.
 
 The JAX side runs ``fused_layer_norm`` / ``_ln_fwd`` and
 ``fused_bias_gelu``, whose Pallas kernels run in interpret mode on the
@@ -10,8 +10,11 @@ Tolerances: fp32 rtol = atol = 1e-5 (the same fp32 formulas, summed in
 another order); bf16 inputs rtol = atol = 2e-2 (both sides compute in fp32
 and round the outputs to bf16, so they differ by at most one bf16 ulp,
 0.0156 at magnitudes in [2, 4), where the fp32 results straddle a
-rounding boundary). The CUDA kernels are held against the plain versions
-in tests/test_torch_cuda_kernels.py.
+rounding boundary). The softmax: fp32 atol 1e-6 (the same fp32 formula,
+``exp`` and the row sum in another order, on outputs in [0, 1]); bf16 one
+bf16 ulp of the output, at most 2^-7 relative (both sides round the fp32
+result once). The CUDA kernels are held against the plain versions in
+tests/test_torch_cuda_kernels.py.
 """
 
 import jax
@@ -149,3 +152,26 @@ def test_small_fused_ops_match_jax():
            TOL["float32"])
     _close(fused.moe_res_matmul(T(r), T(coef), T(x)),
            jax_fused.moe_res_matmul(J(r), J(coef), J(x)), TOL["float32"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(37, 20), (2, 8, 128), (8, 1000), (5, 7),
+                                   (3, 4096)])
+@pytest.mark.parametrize("scale", [1.0, 0.125])
+def test_fused_softmax_matches_jax_kernel(dtype, shape, scale):
+    """The plain version (the CPU route of ``fused_softmax``) against the
+    Pallas ``_softmax_kernel`` in interpret mode."""
+    x = (3 * np.random.default_rng(shape[-1]).standard_normal(shape)).astype(
+        np.float32)
+    want = jax_fused.fused_softmax(jnp.asarray(x, JDT[dtype]), scale)
+    got = fused.fused_softmax(torch.from_numpy(x).to(TDT[dtype]), scale)
+    assert got.dtype == TDT[dtype] and got.shape == shape
+    want = np.asarray(want.astype(jnp.float32))
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+    else:
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=2 ** -7,
+                                   atol=0)
+    np.testing.assert_allclose(got.float().sum(-1).numpy(), 1.0,
+                               rtol=0, atol=2e-2 if dtype == "bfloat16"
+                               else 1e-5)

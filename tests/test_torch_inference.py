@@ -140,9 +140,25 @@ def test_engine_casts_dtype_and_forward(weights):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"mp_size": 2}, {"moe": True}, {"dtype": torch.int8},
+    {"mp_size": 2}, {"moe": True}, {"quantization_setting": 8},
     {"checkpoint": "ckpt.json"}])
 def test_unported_engine_options_raise(kwargs):
     model = gpt2.GPT2LMHeadModel(gpt2.PRESETS["tiny"], device="cpu")
     with pytest.raises(NotImplementedError, match="not ported yet"):
         deepspeed_tpu_torch.init_inference(model, device="cpu", **kwargs)
+
+
+def test_int8_weights_engine(weights):
+    """``dtype=torch.int8``, refused before this slice, now stores the
+    transformer weights in int8 under bf16 activations and generates
+    (tests/test_torch_int8.py holds it to the JAX engine)."""
+    params, ids = weights
+    model = gpt2.GPT2LMHeadModel(gpt2.PRESETS["tiny"], device="cpu")
+    eng = deepspeed_tpu_torch.init_inference(
+        model, params=flax_to_state_dict(params), dtype=torch.int8,
+        device="cpu")
+    assert eng.dtype == torch.bfloat16 and eng.int8_bytes_saved > 0
+    assert eng.module.h[1].attn.proj.weight.dtype == torch.int8
+    assert eng.module.h[1].attn.proj.weight_scale.dtype == torch.float32
+    out = eng.generate(torch.from_numpy(ids), max_new_tokens=3)
+    assert out.shape == (2, 19)

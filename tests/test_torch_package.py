@@ -15,6 +15,7 @@ from deepspeed_tpu_torch.models import gpt2
 from deepspeed_tpu_torch.ops import _platform, op_builder
 from deepspeed_tpu_torch.ops.adam import fused_adam
 from deepspeed_tpu_torch.ops.lamb import fused_lamb
+from deepspeed_tpu_torch.ops.quantizer import quantizer
 from deepspeed_tpu_torch.ops.transformer import decode, flash, fused
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -57,6 +58,10 @@ def test_import_leaves_jax_out():
         "import deepspeed_tpu_torch.models.bert\n"
         "import deepspeed_tpu_torch.ops.transformer.fused\n"
         "import deepspeed_tpu_torch.ops.lamb.fused_lamb\n"
+        "import deepspeed_tpu_torch.ops.quantizer.quantizer\n"
+        "import deepspeed_tpu_torch.ops.quantizer.int8_linear\n"
+        "import deepspeed_tpu_torch.runtime.quantize\n"
+        "import deepspeed_tpu_torch.module_inject.module_quantize\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'flax', 'deepspeed_tpu', 'triton')\n"
         "       or m == 'torch.utils.cpp_extension']\n"
@@ -109,6 +114,9 @@ def test_kernel_route_follows_tensor_device(monkeypatch):
     fused.layer_norm_bwd(q, g, mu, rstd, q)
     fused.bias_gelu(q, b)
     fused_lamb.lamb_pass1([q], [q], [q], [q.abs()], 0.1, 0.001)
+    fused.fused_softmax(q, 0.5)
+    quantizer.quantize(q, 4, 2, stochastic=True, seed=1)
+    quantizer.quantize(q[0, 0], 8, 2, transposed=True, out=q[0, 0].clone())
     assert sum(op_builder.LAUNCHES.values()) == 0
     assert _platform.use_kernel(q) is False
     with pytest.raises(ValueError, match="one device"):
