@@ -80,13 +80,39 @@ Phases, each fatal on failure:
    greedy ``generate`` on 8 prompts of 896 tokens (32 new); prefill ms,
    decode ms/token, the weights' device bytes (int8, bf16, scales, shed);
    the prefill logits within 0.25 of a bf16 model built from the
-   dequantized weights, greedy agreement at least 7/8.
+   dequantized weights, greedy agreement at least 7/8;
+12. the block-sparse BERT path, ``bench.py``'s bert-sparse row:
+   BERT-large with Fixed block-sparse attention (block 64, a 256-token
+   local window, 1 global block; positions widened to 2048), bs 4 × seq
+   2048, bf16 over fp32 masters, ZeRO 0, fused LAMB lr 1e-4, 10 steps.
+   Launch counts zeroed just before and read just after: exactly 24
+   sparse_fwd, 24 sparse_dq, 24 sparse_dkv and 1 lamb a step, nothing
+   else (no flash, LayerNorm or bias-GeLU kernel). Losses finite, the
+   first near ln(vocab), falling. Step ms, tokens/s, samples/s, MFU (the
+   attention term scaled by the layout's density, ``bench.py:560-571``),
+   idle share, peak memory; beside it, 5 steps of the dense BERT-large at
+   the same bs 4 × 2048 on the flash kernels. Phase 3 holds the three
+   sparse kernels (forward, dq, dk/dv with the bias cotangent) against
+   their plain versions (fp32 2e-5, bf16 2e-2; lse 2e-5) at blocks 16,
+   64 and 128, causal and bidirectional, with and without a key bias,
+   packed rectangular layouts, empty rows, the predicated (raw) lists,
+   and the BERT and GPT-2 paths' own shapes;
+13. one-step parity of a 2-layer full-width sparse BERT, kernels against
+   the plain versions (sparse kernels and LAMB pass 1; the tolerances of
+   phase 9's parity), then ``DS_SPARSE_IMPL=predicated`` against
+   ``fused`` on the kernels;
+14. GPT-2 medium with ``attention_mode="sparse:1024/128"`` (causal; a
+   decomposition with dense global rows and packed global columns), bs 2
+   × seq 4096, positions widened, bf16, Adam ``sweep``, 5 steps: exactly
+   24 sparse_fwd, 24 sparse_dq, 24 sparse_dkv and 1 adam a step.
 
 Prints an ``e2e`` JSON line, a ``train`` JSON line, a ``bert`` JSON line,
-a ``moq`` JSON line, an ``int8`` JSON line, a ``kernels`` JSON line (the
-softmax, on no path as in the JAX package, with 0 launches), the card
-line, and last ``{"ok": true, "device": {...}}``. Exits non-zero with no
-result when CUDA is unavailable or any phase fails.
+a ``moq`` JSON line, an ``int8`` JSON line, a ``sparse`` JSON line, a
+``kernels`` JSON line (the softmax, on no path as in the JAX package,
+with 0 launches; the sparse kernels' predicated rows with the launches of
+phase 13's predicated step), the card line, and last ``{"ok": true,
+"device": {...}}``. Exits non-zero with no result when CUDA is
+unavailable or any phase fails.
 """
 
 import contextlib
@@ -114,6 +140,11 @@ BERT_STEPS, BERT_PLAIN_STEPS = 10, 3
 MOQ_STEPS = 10
 INT8_NEW = 32                # new tokens of the int8-weight generate
 ADAM_TOL = dict(rtol=1e-6, atol=1e-7)
+SPARSE_B, SPARSE_S = 4, 2048  # bench.py's bert-sparse row
+SPARSE_BLOCK, SPARSE_WINDOW = 64, 256
+SPARSE_STEPS, DENSE_LONG_STEPS = 10, 5
+GPT_SPARSE_B, GPT_SPARSE_S = 2, 4096
+GPT_SPARSE_MODE, GPT_SPARSE_STEPS = "sparse:1024/128", 5
 
 
 def card_line():
@@ -187,6 +218,7 @@ def device_profile(torch, fn):
                  or "quant_apply" in name else
                  "softmax" if "softmax_" in name else
                  "decode_attention" if "decode_kernel" in name else
+                 "sparse_attention" if "sparse_" in name else
                  "matmul" if any(s in name for s in (
                      "gemm", "gemv", "cutlass", "nvjet", "xmma")) else
                  "other")
@@ -382,10 +414,11 @@ def check_training_kernels(torch, flash, fused_adam, param_shapes):
     return main_err
 
 
-def train_config(**opt):
+def train_config(batch=B, **opt):
     """The headline training config: bf16 over fp32 masters, ZeRO-1,
     Adam lr 1e-4, clip 1.0; ``opt`` adds ``sweep`` or ``fused``."""
-    return {"train_batch_size": B, "train_micro_batch_size_per_gpu": B,
+    return {"train_batch_size": batch,
+            "train_micro_batch_size_per_gpu": batch,
             "steps_per_print": 10 ** 9, "bf16": {"enabled": True},
             "zero_optimization": {"stage": 1}, "gradient_clipping": 1.0,
             "optimizer": {"type": "Adam", "params": {"lr": LR, **opt}}}
@@ -708,11 +741,11 @@ def check_bert_kernels(torch, flash, fused, fused_lamb, param_shapes):
     return main_err
 
 
-def bert_config(fused):
+def bert_config(fused, batch=BERT_B):
     """``bench.py``'s BERT-large row: bf16 over fp32 masters, ZeRO 0,
     LAMB lr 1e-4 (``fused`` selects the one-launch pass-1 kernel)."""
-    return {"train_batch_size": BERT_B,
-            "train_micro_batch_size_per_gpu": BERT_B,
+    return {"train_batch_size": batch,
+            "train_micro_batch_size_per_gpu": batch,
             "steps_per_print": 10 ** 9, "bf16": {"enabled": True},
             "zero_optimization": {"stage": 0},
             "optimizer": {"type": "Lamb", "params": {"lr": LR,
@@ -1315,6 +1348,428 @@ def int8_phase(torch, deepspeed_tpu_torch, gpt2, module_quantize, op_builder,
     return line, counts
 
 
+def sparse_case(np, sfk, lay, block, causal, packed):
+    """The strategy of the fused form's kernel part (the path's own plan:
+    the layout decomposed, its global columns packed) or of the predicated
+    form (the raw layout), on the card."""
+    lay = np.asarray(lay) != 0
+    if packed:
+        return sfk._get_plan(lay, block, causal, D ** -0.5, "cuda:0").strat
+    return sfk._get_strategy(lay, block, causal, D ** -0.5, device="cuda:0")
+
+
+def bert_sparse_layout(ssc, heads):
+    """bench.py's bert-sparse layout: Fixed, block 64, 4 local blocks (a
+    256-token window), 1 global block, bidirectional, at seq 2048."""
+    return ssc.FixedSparsityConfig(
+        num_heads=heads, block=SPARSE_BLOCK,
+        num_local_blocks=SPARSE_WINDOW // SPARSE_BLOCK,
+        num_global_blocks=1).make_layout(SPARSE_S)
+
+
+def check_sparse_kernels(torch, np, sfk, ssc):
+    """Phase 3, the sparse kernels (forward, dq, dk/dv and the bias
+    cotangent) against their plain versions. Returns the max abs errors at
+    the BERT path's shape (bf16; fused and predicated lists) and the
+    largest bias-cotangent error of the bf16 cases."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    def fixed(block, causal, seq):
+        return ssc.FixedSparsityConfig(
+            num_heads=H, block=block, num_local_blocks=4,
+            attention="unidirectional" if causal else "bidirectional"
+        ).make_layout(seq)
+
+    def with_empty_rows(lay):
+        lay = lay.copy()
+        lay[:, 1, :] = 0                 # no live block
+        lay[:, 2, :] = 0
+        lay[:, 2, 3] = 1                 # a block above the diagonal only
+        return lay
+
+    from deepspeed_tpu_torch.ops.sparse_attention.fused_kernels import \
+        sparse_mode_layout
+    gpt_lay, _ = sparse_mode_layout(GPT_SPARSE_MODE, H, GPT_SPARSE_S)
+    # (name, batch, layout, block, causal, packed, bias)
+    cases = [
+        ("bert", SPARSE_B, bert_sparse_layout(ssc, H), SPARSE_BLOCK, False,
+         True, False),
+        ("bert_predicated", SPARSE_B, bert_sparse_layout(ssc, H),
+         SPARSE_BLOCK, False, False, False),
+        ("gpt2", GPT_SPARSE_B, gpt_lay, 128, True, True, False),
+        ("b16_causal_bias", 2, fixed(16, True, 1024), 16, True, True, True),
+        ("b16_bidi", 2, fixed(16, False, 1024), 16, False, True, False),
+        ("b64_causal_bias_empty_rows_raw", 2,
+         with_empty_rows(fixed(64, True, 1024)), 64, True, False, True),
+        ("b128_bidi_bias_packed", 2, fixed(128, False, 2048), 128, False,
+         True, True),
+        ("b128_causal_raw", 2, fixed(128, True, 1024), 128, True, False,
+         False),
+    ]
+    main_err, dbias_err = {}, 0.0
+    tols = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+    for dtype, tol in tols.items():
+        for name, b, lay, block, causal, packed, bias in cases:
+            strat = sparse_case(np, sfk, lay, block, causal, packed)
+            S, Skv = strat.Sq, strat.Skv
+            q, do = rnd(b, H, S, D, dtype=dtype), rnd(b, H, S, D, dtype=dtype)
+            k, v = rnd(b, H, Skv, D, dtype=dtype), rnd(b, H, Skv, D,
+                                                       dtype=dtype)
+            kpb = rnd(b, Skv) if bias else None
+            o, lse = sfk.sparse_attention_fwd(q, k, v, kpb, strat)
+            o_ref, lse_ref = sfk.sparse_attention_fwd_plain(q, k, v, kpb,
+                                                            strat)
+            delta = (do.float() * o_ref.float()).sum(-1)
+            dq = sfk.sparse_attention_dq(q, k, v, kpb, do, lse_ref, delta,
+                                         strat)
+            dq_ref = sfk.sparse_attention_dq_plain(q, k, v, kpb, do, lse_ref,
+                                                   delta, strat)
+            dk, dv, db = sfk.sparse_attention_dkv(q, k, v, kpb, do, lse_ref,
+                                                  delta, strat, True)
+            dk_ref, dv_ref, db_ref = sfk.sparse_attention_dkv_plain(
+                q, k, v, kpb, do, lse_ref, delta, strat, True)
+            torch.cuda.synchronize()
+            errs = {"o": close(o, o_ref, tol), "lse": close(lse, lse_ref, 2e-5),
+                    "dq": close(dq, dq_ref, tol), "dk": close(dk, dk_ref, tol),
+                    "dv": close(dv, dv_ref, tol)}
+            if bias:
+                errs["dbias"] = close(db, db_ref, tol)
+            print(f"check sparse {name} {str(dtype)[6:]} B{b} S{S} Skv{Skv} "
+                  f"block {block}: " + ", ".join(
+                      f"{k} err {e:.3g}" for k, (e, _) in errs.items()),
+                  flush=True)
+            if not all(ok for _, ok in errs.values()):
+                raise AssertionError(f"sparse kernels disagree with their "
+                                     f"plain versions ({name}, {dtype})")
+            if name.startswith("b64_causal"):
+                if not ((lse[:, :, 64:192] == -1e30).all()
+                        and (o[:, :, 64:192] == 0).all()):
+                    raise AssertionError("rows with no visible key did not "
+                                         "give 0 and lse -1e30")
+            if dtype == torch.bfloat16:
+                if bias:
+                    dbias_err = max(dbias_err, errs["dbias"][0])
+                if name.startswith("bert"):
+                    suffix = "_predicated" if name.endswith("predicated") \
+                        else ""
+                    main_err["sparse_fwd" + suffix] = errs["o"][0]
+                    main_err["sparse_dq" + suffix] = errs["dq"][0]
+                    main_err["sparse_dkv" + suffix] = max(errs["dk"][0],
+                                                          errs["dv"][0])
+            del q, k, v, do, kpb, o, lse, o_ref, lse_ref, dq, dq_ref, dk, dv
+            del dk_ref, dv_ref, db, db_ref
+    torch.cuda.empty_cache()
+    return main_err, dbias_err
+
+
+@contextlib.contextmanager
+def plain_sparse(sfk, fused_lamb):
+    """The sparse kernels and LAMB pass 1 on their plain versions,
+    restoring the kernels."""
+    saved = (sfk.sparse_attention_fwd, sfk.sparse_attention_dq,
+             sfk.sparse_attention_dkv, fused_lamb.lamb_pass1)
+    sfk.sparse_attention_fwd = sfk.sparse_attention_fwd_plain
+    sfk.sparse_attention_dq = sfk.sparse_attention_dq_plain
+    sfk.sparse_attention_dkv = sfk.sparse_attention_dkv_plain
+    fused_lamb.lamb_pass1 = fused_lamb.lamb_pass1_all_plain
+    try:
+        yield
+    finally:
+        (sfk.sparse_attention_fwd, sfk.sparse_attention_dq,
+         sfk.sparse_attention_dkv, fused_lamb.lamb_pass1) = saved
+
+
+def sparse_bert_phase(torch, deepspeed_tpu_torch, bert, op_builder, cfg,
+                      dense_cfg, batch, density, card):
+    """Phase 12: the sparse BERT-large path, then the dense one at the same
+    shape. Returns the ``sparse`` line's BERT part and the launches of the
+    sparse run."""
+    torch.cuda.reset_peak_memory_stats()
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=bert.BertForPreTraining(cfg, seed=0),
+        config=bert_config(fused=True, batch=SPARSE_B))
+    op_builder.reset_launch_counts()
+    losses, step_ms = run_steps(torch, engine, batch, SPARSE_STEPS)
+    counts = dict(op_builder.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    profile = device_profile(torch, lambda: engine.train_batch(batch=batch))
+    n_params = sum(p.numel() for p in engine.params.values())
+    del engine
+    torch.cuda.empty_cache()
+    print(f"launches on the sparse BERT path: {counts}", flush=True)
+    print(f"sparse bert losses: {losses}", flush=True)
+    want = {"sparse_fwd": 24 * SPARSE_STEPS, "sparse_dq": 24 * SPARSE_STEPS,
+            "sparse_dkv": 24 * SPARSE_STEPS, "lamb": SPARSE_STEPS}
+    if counts != want:
+        raise AssertionError(f"sparse BERT launches {counts}, expected "
+                             f"{want} and nothing else")
+    ln_vocab = math.log(cfg.vocab_size)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("a sparse BERT loss is not finite")
+    if abs(losses[0] - ln_vocab) > 0.5 or not losses[-1] < losses[0]:
+        raise AssertionError(f"sparse BERT losses {losses}: the first is "
+                             f"not near ln(vocab) {ln_vocab} or they do "
+                             f"not fall")
+
+    torch.cuda.reset_peak_memory_stats()
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=bert.BertForPreTraining(dense_cfg, seed=0),
+        config=bert_config(fused=True, batch=SPARSE_B))
+    op_builder.reset_launch_counts()
+    dense_losses, dense_ms = run_steps(torch, engine, batch,
+                                       DENSE_LONG_STEPS)
+    dense_counts = dict(op_builder.LAUNCHES)
+    dense_peak = torch.cuda.max_memory_allocated()
+    del engine
+    torch.cuda.empty_cache()
+    if dense_counts.get("flash_fwd") != 24 * DENSE_LONG_STEPS or any(
+            k.startswith("sparse") for k in dense_counts):
+        raise AssertionError(f"dense BERT launches {dense_counts}")
+    if not all(math.isfinite(x) for x in dense_losses):
+        raise AssertionError("a dense BERT loss is not finite")
+
+    med = statistics.median(step_ms[2:])
+    dense_med = statistics.median(dense_ms[2:])
+    L, E, S = cfg.num_hidden_layers, cfg.hidden_size, SPARSE_S
+    fpt = 6 * n_params + 12 * L * E * S * density
+    dense_fpt = 6 * n_params + 12 * L * E * S
+    tokens = SPARSE_B * SPARSE_S
+    return {
+        "card": card,
+        "config": f"bert-large bs{SPARSE_B} seq{SPARSE_S} bf16 zero0 "
+                  f"lamb(fused) lr{LR}, post-LN, MLM 15%, Fixed block "
+                  f"{SPARSE_BLOCK} window {SPARSE_WINDOW} 1 global",
+        "layout_density": density, "n_params": n_params,
+        "step_ms_median_3_10": med, "step_ms": step_ms,
+        "tokens_per_s": tokens / med * 1e3,
+        "samples_per_s": SPARSE_B / med * 1e3,
+        "flops_per_token": fpt,
+        "mfu": fpt * tokens / (med / 1e3) / BF16_FLOPS,
+        "device_idle_share": profile["device_idle_share"],
+        "peak_mem_gb": peak / 1e9, "losses": losses,
+        "launches": counts, "profile_train_step": profile,
+        "dense_same_shape": {
+            "step_ms_median_3_5": dense_med, "step_ms": dense_ms,
+            "tokens_per_s": tokens / dense_med * 1e3,
+            "mfu": dense_fpt * tokens / (dense_med / 1e3) / BF16_FLOPS,
+            "peak_mem_gb": dense_peak / 1e9, "losses": dense_losses,
+            "launches": dense_counts},
+        "sparse_speedup_vs_dense": dense_med / med,
+    }, counts
+
+
+def compare_steps(torch, a, b):
+    """Loss, gradient and parameter differences of two one-step runs."""
+    loss_a, grads_a, params_a = a
+    loss_b, grads_b, params_b = b
+    num = sum((grads_a[k] - grads_b[k]).square().sum() for k in grads_b)
+    den = sum(grads_b[k].square().sum() for k in grads_b)
+    n_all = sum(t.numel() for t in params_b.values())
+    n_diff = sum(((params_a[k] - params_b[k]).abs() > 1e-6).sum().item()
+                 for k in params_b)
+    return {"loss_a": loss_a, "loss_b": loss_b,
+            "loss_abs_err": abs(loss_a - loss_b),
+            "grad_rel_l2": (num / den).sqrt().item(),
+            "param_max_abs_diff": max(
+                (params_a[k] - params_b[k]).abs().max().item()
+                for k in params_b),
+            "param_share_differing": n_diff / n_all}
+
+
+def sparse_bert_parity(torch, os, deepspeed_tpu_torch, bert, op_builder, sfk,
+                       fused_lamb, cfg, batch):
+    """Phase 13: a 2-layer full-width sparse BERT, one fused-LAMB step on
+    the kernels, one on the plain versions, and one on the kernels with
+    ``DS_SPARSE_IMPL=predicated``. Tolerances: phase 9's (loss 0.02,
+    gradients 2e-2 relative in L2, params within 2·lr·max_coeff with at
+    most 5% differing by more than 1e-6). Returns the comparisons and the
+    launches of the predicated step."""
+    import dataclasses
+    cfg2 = dataclasses.replace(cfg, num_hidden_layers=2)
+
+    def one(plain, impl):
+        os.environ["DS_SPARSE_IMPL"] = impl
+        try:
+            engine, *_ = deepspeed_tpu_torch.initialize(
+                model=bert.BertForPreTraining(cfg2, seed=5),
+                config=bert_config(fused=True, batch=SPARSE_B))
+            op_builder.reset_launch_counts()
+            with plain_sparse(sfk, fused_lamb) if plain else \
+                    contextlib.nullcontext():
+                engine._micro_step(batch)
+                grads = {k: p.grad.clone() for k, p in engine.params.items()}
+                loss = float(engine.train_batch(batch=batch))
+            counts = dict(op_builder.LAUNCHES)
+        finally:
+            del os.environ["DS_SPARSE_IMPL"]
+        params = {k: p.detach().clone() for k, p in engine.params.items()}
+        del engine
+        torch.cuda.empty_cache()
+        return (loss, grads, params), counts
+
+    kern, kern_counts = one(False, "fused")
+    plain, plain_counts = one(True, "fused")
+    pred, pred_counts = one(False, "predicated")
+    # two layers, a forward and a backward in each of the two passes
+    want = {"sparse_fwd": 4, "sparse_dq": 4, "sparse_dkv": 4, "lamb": 1}
+    if kern_counts != want or pred_counts != want or plain_counts:
+        raise AssertionError(f"parity launches: kernels {kern_counts}, "
+                             f"plain {plain_counts}, predicated "
+                             f"{pred_counts}")
+    out = {"kernels_vs_plain": compare_steps(torch, kern, plain),
+           "predicated_vs_fused": compare_steps(torch, pred, kern)}
+    print(f"sparse bert parity 2-layer one step: {json.dumps(out)}",
+          flush=True)
+    for what, c in out.items():
+        if not (math.isfinite(c["loss_a"]) and c["loss_abs_err"] <= 0.02
+                and c["grad_rel_l2"] <= 2e-2
+                and c["param_max_abs_diff"] <= 2 * LR * 10 * 1.001
+                and c["param_share_differing"] <= 0.05):
+            raise AssertionError(f"sparse BERT {what} disagree: {c}")
+    return out, pred_counts
+
+
+def sparse_gpt2_phase(torch, deepspeed_tpu_torch, gpt2, op_builder, cfg,
+                      density, card):
+    """Phase 14: GPT-2 medium with causal sparse attention. Returns the
+    ``sparse`` line's GPT-2 part and its launches."""
+    batch = gpt2.synthetic_batch(GPT_SPARSE_B, GPT_SPARSE_S, cfg.vocab_size,
+                                 seed=9)
+    torch.cuda.reset_peak_memory_stats()
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=gpt2.GPT2LMHeadModel(cfg, seed=0),
+        config=train_config(batch=GPT_SPARSE_B, sweep=True))
+    op_builder.reset_launch_counts()
+    losses, step_ms = run_steps(torch, engine, batch, GPT_SPARSE_STEPS)
+    counts = dict(op_builder.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    profile = device_profile(torch, lambda: engine.train_batch(batch=batch))
+    n_params = sum(p.numel() for p in engine.params.values())
+    del engine
+    torch.cuda.empty_cache()
+    print(f"launches on the sparse GPT-2 path: {counts}", flush=True)
+    print(f"sparse gpt2 losses: {losses}", flush=True)
+    n = GPT_SPARSE_STEPS
+    want = {"sparse_fwd": 24 * n, "sparse_dq": 24 * n, "sparse_dkv": 24 * n,
+            "adam": n}
+    if counts != want:
+        raise AssertionError(f"sparse GPT-2 launches {counts}, expected "
+                             f"{want}")
+    if not all(math.isfinite(x) for x in losses) or \
+            abs(losses[0] - math.log(cfg.vocab_size)) > 0.5 or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"sparse GPT-2 losses {losses}")
+    med = statistics.median(step_ms[2:])
+    tokens = GPT_SPARSE_B * GPT_SPARSE_S
+    fpt = 6 * n_params + 12 * cfg.n_layer * cfg.n_embd * GPT_SPARSE_S * \
+        density
+    return {
+        "card": card,
+        "config": f"gpt2-medium attention_mode={GPT_SPARSE_MODE} "
+                  f"bs{GPT_SPARSE_B} seq{GPT_SPARSE_S} bf16 zero1 "
+                  f"adam-sweep clip1.0",
+        "layout_density": density, "n_params": n_params,
+        "step_ms_median_3_5": med, "step_ms": step_ms,
+        "tokens_per_s": tokens / med * 1e3, "flops_per_token": fpt,
+        "mfu": fpt * tokens / (med / 1e3) / BF16_FLOPS,
+        "device_idle_share": profile["device_idle_share"],
+        "peak_mem_gb": peak / 1e9, "losses": losses, "launches": counts,
+        "profile_train_step": profile,
+    }, counts
+
+
+def sparse_kernel_rows(torch, np, sfk, sk, ssc):
+    """Timings of the sparse kernels at the BERT path's shape (bf16),
+    through the fused form's packed lists (rows 16-18) and the predicated
+    form's raw lists (rows 19-21). The PyTorch call that computes the same
+    function is ``scaled_dot_product_attention`` with the layout expanded
+    to a boolean element mask."""
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    bf16 = torch.bfloat16
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(bf16)
+
+    lay = bert_sparse_layout(ssc, H)
+    b, S = SPARSE_B, SPARSE_S
+    q, do = rnd(b, H, S, D), rnd(b, H, S, D)
+    k, v = rnd(b, H, S, D), rnd(b, H, S, D)
+    mask = torch.from_numpy(sk.layout_to_dense_mask(lay, SPARSE_BLOCK, S)
+                            ).cuda().bool()[None]
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask), iters=10)
+    sdpa_fwd_bwd = cuda_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask),
+        (qg, kg, vg), do), iters=10)
+    rows = []
+    for packed, suffix in ((True, ""), (False, "_predicated")):
+        strat = sparse_case(np, sfk, lay, SPARSE_BLOCK, False, packed)
+        Skv = strat.Skv
+        k2 = torch.cat([k, k[:, :, :Skv - S]], 2) if Skv > S else k
+        v2 = torch.cat([v, v[:, :, :Skv - S]], 2) if Skv > S else v
+        o, lse = sfk.sparse_attention_fwd(q, k2, v2, None, strat)
+        delta = (do.float() * o.float()).sum(-1)
+        pairs = b * int(strat.element_mask("cuda").sum())
+        io = b * H * (2 * S + 2 * Skv) * D * 2          # q, k, v, do / o
+        stats = 2 * b * H * S * 4
+        src = "deepspeed_tpu/ops/sparse_attention/" + (
+            "fused_kernels.py" if packed else "kernels.py")
+        lines = ((192, 239, 279) if packed else (35, 88, 129))
+        shape = (f"B{b} H{H} S{S} Skv{Skv} D{D} bf16, Fixed block "
+                 f"{SPARSE_BLOCK}, {strat.tile_pairs // H} live 64x64 tiles "
+                 f"a head, " + ("global columns packed" if packed
+                                else "raw layout (predicated form)"))
+        common = {"route": "cuda",
+                  "source": "deepspeed_tpu_torch/csrc/sparse_attention.cu",
+                  "shape": shape, "peak": BF16_FLOPS,
+                  "live_pairs": pairs, "tile_pairs": strat.tile_pairs}
+        rows += [
+            dict(common, name="sparse_fwd" + suffix,
+                 replaces=f"{src}:{lines[0]}",
+                 ms=cuda_ms(lambda: sfk.sparse_attention_fwd(
+                     q, k2, v2, None, strat)),
+                 plain_ms=cuda_ms(lambda: sfk.sparse_attention_fwd_plain(
+                     q, k2, v2, None, strat), iters=3),
+                 library_ms=sdpa_fwd,
+                 library_note="scaled_dot_product_attention with the "
+                              "layout's boolean element mask",
+                 bytes=b * H * (2 * S + 2 * Skv) * D * 2 + b * H * S * 4,
+                 flops=4 * D * pairs),
+            dict(common, name="sparse_dq" + suffix,
+                 replaces=f"{src}:{lines[1]}",
+                 ms=cuda_ms(lambda: sfk.sparse_attention_dq(
+                     q, k2, v2, None, do, lse, delta, strat)),
+                 plain_ms=cuda_ms(lambda: sfk.sparse_attention_dq_plain(
+                     q, k2, v2, None, do, lse, delta, strat), iters=3),
+                 library_ms=sdpa_fwd_bwd - sdpa_fwd,
+                 library_note="scaled_dot_product_attention backward with "
+                              "the mask (fwd+bwd less fwd), dq, dk and dv "
+                              "together",
+                 bytes=io + stats + b * H * S * D * 2, flops=6 * D * pairs),
+            dict(common, name="sparse_dkv" + suffix,
+                 replaces=f"{src}:{lines[2]}",
+                 ms=cuda_ms(lambda: sfk.sparse_attention_dkv(
+                     q, k2, v2, None, do, lse, delta, strat)),
+                 plain_ms=cuda_ms(lambda: sfk.sparse_attention_dkv_plain(
+                     q, k2, v2, None, do, lse, delta, strat), iters=3),
+                 library_ms=sdpa_fwd_bwd - sdpa_fwd,
+                 library_note="scaled_dot_product_attention backward with "
+                              "the mask (fwd+bwd less fwd), dq, dk and dv "
+                              "together",
+                 bytes=io + stats + 2 * b * H * Skv * D * 2,
+                 flops=8 * D * pairs),
+        ]
+        del k2, v2, o, lse, delta
+    del q, k, v, do, mask, qg, kg, vg
+    torch.cuda.empty_cache()
+    return rows
+
+
 def finish_rows(rows, launches, max_err, card):
     """bound_ms (the larger of bytes at 3.35 TB/s and operations at the
     peak of their type), launches and max_abs_err for each row."""
@@ -1337,6 +1792,9 @@ def main():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     import dataclasses
+    import os
+
+    import numpy as np
 
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models import bert, gpt2
@@ -1345,6 +1803,9 @@ def main():
     from deepspeed_tpu_torch.module_inject import module_quantize
     from deepspeed_tpu_torch.ops.lamb import fused_lamb
     from deepspeed_tpu_torch.ops.quantizer import quantizer
+    from deepspeed_tpu_torch.ops.sparse_attention import fused_kernels as sfk
+    from deepspeed_tpu_torch.ops.sparse_attention import kernels as sk
+    from deepspeed_tpu_torch.ops.sparse_attention import sparsity_config as ssc
     from deepspeed_tpu_torch.ops.transformer import attention as attn_mod
     from deepspeed_tpu_torch.ops.transformer import (decode, flash, fused,
                                                      transformer)
@@ -1375,6 +1836,8 @@ def main():
     max_err.update(check_bert_kernels(torch, flash, fused, fused_lamb,
                                       bert_shapes))
     max_err.update(check_quant_kernels(torch, quantizer, fused, bert_shapes))
+    sparse_err, sparse_dbias_err = check_sparse_kernels(torch, np, sfk, ssc)
+    max_err.update(sparse_err)
 
     # 4. the generation path at full width
     model = gpt2.GPT2LMHeadModel(cfg, seed=0)
@@ -1707,6 +2170,33 @@ def main():
         long_ids)
     int8_line["card"] = card
 
+    # 12. the sparse BERT-large path, and the dense one at the same shape
+    sparse_cfg = dataclasses.replace(
+        bert_cfg, sparse_attention_mode="fixed", sparse_block=SPARSE_BLOCK,
+        sparse_num_local_blocks=SPARSE_WINDOW // SPARSE_BLOCK,
+        sparse_num_global_blocks=1, max_position_embeddings=SPARSE_S)
+    lay = bert_sparse_layout(ssc, bert_cfg.num_attention_heads)
+    sparse_batch = bert.synthetic_mlm_batch(SPARSE_B, SPARSE_S,
+                                            bert_cfg.vocab_size, seed=7)
+    sparse_line, sparse_counts = sparse_bert_phase(
+        torch, deepspeed_tpu_torch, bert, op_builder, sparse_cfg,
+        dataclasses.replace(bert_cfg, max_position_embeddings=SPARSE_S),
+        sparse_batch, float(lay.sum()) / lay.size, card)
+
+    # 13. one step, kernels against plain, then predicated against fused
+    sparse_line["parity_2layer"], pred_counts = sparse_bert_parity(
+        torch, os, deepspeed_tpu_torch, bert, op_builder, sfk, fused_lamb,
+        sparse_cfg, sparse_batch)
+
+    # 14. causal sparse GPT-2 medium at seq 4096
+    glay, _ = sfk.sparse_mode_layout(GPT_SPARSE_MODE, cfg.n_head,
+                                     GPT_SPARSE_S)
+    sparse_line["gpt2"], gpt_counts = sparse_gpt2_phase(
+        torch, deepspeed_tpu_torch, gpt2, op_builder, dataclasses.replace(
+            cfg, attention_mode=GPT_SPARSE_MODE, n_positions=GPT_SPARSE_S),
+        float((glay != 0).sum()) / glay.size, card)
+    sparse_line["max_abs_err_bias_cotangent_bf16"] = sparse_dbias_err
+
     bert_all = {k: bert_counts.get(k, 0) + bert_plain_counts.get(k, 0)
                 + moq_counts.get(k, 0) for k in per_step}
     launches = {"flash_fwd": gen_launches.get("flash_fwd", 0) +
@@ -1728,6 +2218,9 @@ def main():
                 "quantize": moq_counts.get("quantize", 0),
                 # on no path, as in the JAX package
                 "softmax": 0, "softmax_h1024": 0}
+    for name in ("sparse_fwd", "sparse_dq", "sparse_dkv"):
+        launches[name] = sparse_counts[name] + gpt_counts[name]
+        launches[name + "_predicated"] = pred_counts[name]
     flash_row["launches_by_path"] = {
         "generate": gen_launches.get("flash_fwd", 0),
         "train": train_launches.get("flash_fwd", 0),
@@ -1741,14 +2234,23 @@ def main():
         [flash_row, decode_row, int8_row]
         + training_kernel_rows(torch, flash, fused_adam, param_shapes)
         + bert_kernel_rows(torch, fused, fused_lamb, bert_shapes)
-        + quant_kernel_rows(torch, quantizer, fused, moq_tensors),
+        + quant_kernel_rows(torch, quantizer, fused, moq_tensors)
+        + sparse_kernel_rows(torch, np, sfk, sk, ssc),
         launches, max_err, card)
+    for row in rows:
+        if row["name"] == "sparse_dkv":
+            row["max_abs_err_bias_cotangent"] = sparse_dbias_err
+        if row["name"] in ("sparse_fwd", "sparse_dq", "sparse_dkv"):
+            row["launches_by_path"] = {
+                "bert_sparse": sparse_counts[row["name"]],
+                "gpt2_sparse": gpt_counts[row["name"]]}
 
     print(json.dumps({"e2e": e2e}))
     print(json.dumps({"train": train}))
     print(json.dumps({"bert": bert_line}))
     print(json.dumps({"moq": moq_line}))
     print(json.dumps({"int8": int8_line}))
+    print(json.dumps({"sparse": sparse_line}))
     print(json.dumps({"kernels": rows}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

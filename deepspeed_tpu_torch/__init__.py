@@ -1,7 +1,7 @@
 """deepspeed_tpu_torch: the PyTorch + CUDA port of deepspeed_tpu for NVIDIA
 Hopper (H100).
 
-This package ports four paths, with hand-written CUDA kernels
+This package ports five paths, with hand-written CUDA kernels
 (``csrc/``):
 
 * cached GPT-2 generation: ``init_inference`` ->
@@ -20,7 +20,11 @@ This package ports four paths, with hand-written CUDA kernels
   grouped-quantize kernel, and ``init_inference(dtype=torch.int8)``
   generates on int8 transformer weights with per-row scales. The scaled
   softmax kernel (``ops.transformer.fused.fused_softmax``) lies on no
-  path, as in the JAX package.
+  path, as in the JAX package;
+* block-sparse attention: BERT with ``sparse_attention_mode`` and GPT-2
+  with ``attention_mode="sparse..."`` train through the same entry point
+  on the block-sparse forward, dq and dk/dv kernels
+  (``ops.sparse_attention``).
 
 It imports torch and numpy only; the JAX package ``deepspeed_tpu`` stays
 the reference and is never imported from here.

@@ -58,7 +58,9 @@ def bert_flax_to_state_dict(params) -> dict:
     ``weight``; the raw params (embeddings, ``mlm_bias``, the fused
     layer's ``inter_w`` [in, out], ``inter_b`` and LayerNorm
     ``*_gamma``/``*_beta``) are carried across as they are. Flax layer
-    ``layer_{i}`` becomes ``layer.{i}``."""
+    ``layer_{i}`` becomes ``layer.{i}``; a sparse layer's ``attention/qkv``,
+    ``attn_out``, ``fc`` and ``out`` denses and ``attn_ln``/``out_ln``
+    LayerNorms keep their names."""
     if "params" in params:
         params = params["params"]
     sd = {k: _leaf(params[k]) for k in (
@@ -67,6 +69,16 @@ def bert_flax_to_state_dict(params) -> dict:
     _norm(params["emb_ln"], "emb_ln", sd)
     n_layer = sum(1 for name in params if name.startswith("layer_"))
     for i in range(n_layer):
+        if "attention" in params[f"layer_{i}"]:
+            # BertSparseLayer: flax denses and LayerNorms
+            lay = params[f"layer_{i}"]
+            p = f"layer.{i}"
+            _dense(lay["attention"]["qkv"], f"{p}.attention.qkv", sd)
+            for dense in ("attn_out", "fc", "out"):
+                _dense(lay[dense], f"{p}.{dense}", sd)
+            for norm in ("attn_ln", "out_ln"):
+                _norm(lay[norm], f"{p}.{norm}", sd)
+            continue
         lay = params[f"layer_{i}"]["layer"]
         p = f"layer.{i}.layer"
         for raw in ("attn_ln_gamma", "attn_ln_beta", "ln_gamma", "ln_beta",

@@ -1,6 +1,7 @@
-// Pieces shared by the flash-attention kernels (flash_fwd.cu,
-// flash_bwd.cu): strides of a [B, H, S, D] view, the masking value, and
-// the bf16 tensor-core helpers (mma.sync m16n8k16, fp32 accumulation).
+// Pieces shared by the attention kernels (flash_fwd.cu, flash_bwd.cu,
+// sparse_attention.cu): strides of a [B, H, S, D] view, the masking value,
+// the bf16 tensor-core helpers (mma.sync m16n8k16, fp32 accumulation), the
+// staging of bf16 tiles into shared memory, and the fp32 row helpers.
 //
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A 16x16 row-major: a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
@@ -83,6 +84,102 @@ __device__ __forceinline__ uint4 load8_bf16(const bf16* p, int n, bool vec) {
 #pragma unroll
   for (int i = 0; i < 8; ++i) e[i] = i < n ? src[i] : 0;
   return out;
+}
+
+// Stage `n` rows (from row0 of a [S, D] view, zeros past `rows`) of a bf16
+// matrix into `tile` (row-major, stride DP + 8) and, when `tt` is given,
+// transposed into `tt` (stride TN + 8).
+template <int DP, int TN>
+__device__ __forceinline__ void stage_bf16(bf16* tile, bf16* tt,
+                                           const bf16* src, long long stride,
+                                           int row0, int rows, int D,
+                                           bool vec) {
+  constexpr int KP = DP + 8, TP = TN + 8;
+  for (int idx = threadIdx.x; idx < TN * (DP / 8); idx += blockDim.x) {
+    const int j = idx / (DP / 8), c8 = (idx % (DP / 8)) * 8;
+    const int row = row0 + j;
+    const int n = row < rows ? D - c8 : 0;
+    const uint4 x = load8_bf16(src + row * stride + c8, n, vec);
+    *reinterpret_cast<uint4*>(&tile[j * KP + c8]) = x;
+    if (tt != nullptr) {
+      const bf16* e = reinterpret_cast<const bf16*>(&x);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) tt[(c8 + i) * TP + j] = e[i];
+    }
+  }
+}
+
+// ------------------------------------------------------------ fp32 rows
+// The fp32 kernels give four neighbouring threads (t = 0..3) one row each
+// and split the head dim as float4 groups interleaved by 16.
+
+// `NV` float4 groups of row `r` (head dim interleaved by 16 over the 4
+// threads of the row), zeros past `rows` or D
+template <int NV>
+__device__ __forceinline__ void load_row_f32(float4 x[NV], const float* base,
+                                             long long stride, int r, int rows,
+                                             int D, int t) {
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    float e[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int d = 16 * i + 4 * t + c;
+      e[c] = (r < rows && d < D) ? base[r * stride + d] : 0.f;
+    }
+    x[i] = make_float4(e[0], e[1], e[2], e[3]);
+  }
+}
+
+template <int DP>
+__device__ __forceinline__ void stage_f32(float4* tile, const float* src,
+                                          long long stride, int rows, int n,
+                                          int D) {
+  float* out = reinterpret_cast<float*>(tile);
+  for (int idx = threadIdx.x; idx < n * DP; idx += blockDim.x) {
+    const int j = idx / DP, d = idx % DP;
+    out[idx] = (j < rows && d < D) ? src[j * stride + d] : 0.f;
+  }
+}
+
+template <int NV>
+__device__ __forceinline__ float dot4(const float4 x[NV], const float4* y,
+                                      int t) {
+  float part = 0.f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const float4 w = y[4 * i + t];
+    part += x[i].x * w.x + x[i].y * w.y + x[i].z * w.z + x[i].w * w.w;
+  }
+  part += __shfl_xor_sync(0xffffffffu, part, 1);
+  part += __shfl_xor_sync(0xffffffffu, part, 2);
+  return part;
+}
+
+template <int NV>
+__device__ __forceinline__ void axpy4(float4 acc[NV], float c, const float4* y,
+                                      int t) {
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const float4 w = y[4 * i + t];
+    acc[i].x += c * w.x; acc[i].y += c * w.y;
+    acc[i].z += c * w.z; acc[i].w += c * w.w;
+  }
+}
+
+template <int NV>
+__device__ __forceinline__ void store_row_f32(float* base, long long stride,
+                                              int r, int D, int t,
+                                              const float4 x[NV]) {
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const float e[4] = {x[i].x, x[i].y, x[i].z, x[i].w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int d = 16 * i + 4 * t + c;
+      if (d < D) base[r * stride + d] = e[c];
+    }
+  }
 }
 
 }  // namespace flash

@@ -3,8 +3,11 @@
 
 Embeddings, a stack of fused encoder layers
 (:class:`~deepspeed_tpu_torch.ops.transformer.transformer.DeepSpeedTransformerLayer`:
-the LayerNorm and bias-GeLU kernels, flash attention), and the MLM head
-tied to the word embeddings. ``emb_ln`` and ``mlm_ln`` are plain
+the LayerNorm and bias-GeLU kernels, flash attention) or, with
+``sparse_attention_mode``, of :class:`BertSparseLayer` (block-sparse
+attention on the sparse kernels; plain ``nn.LayerNorm``, ``nn.Linear``
+and tanh-GeLU, as the flax layer's), and the MLM head tied to the word
+embeddings. ``emb_ln`` and ``mlm_ln`` are plain
 LayerNorm, as the flax model's ``nn.LayerNorm`` is; the head's logits are
 fp32. Batches are dicts with ``input_ids`` [B, S] and either ``labels``
 (-100 = ignore) or ``masked_positions`` + ``masked_labels`` (the head then
@@ -12,8 +15,7 @@ runs on those positions only), optionally ``attention_mask`` [B, S]; or a
 tuple ``(input_ids, labels)``. ``forward`` returns the MLM cross-entropy,
 or the logits when the batch has no labels.
 
-Not ported yet: block-sparse attention (``sparse_attention_mode``),
-dropout and remat.
+Not ported yet: dropout and remat.
 """
 
 import dataclasses
@@ -26,6 +28,9 @@ from torch.nn import functional as F
 
 from deepspeed_tpu_torch.models.common import masked_next_token_ce
 from deepspeed_tpu_torch.ops._platform import resolve_device
+from deepspeed_tpu_torch.ops.sparse_attention import sparsity_config as sc
+from deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention import \
+    BertSparseSelfAttention
 from deepspeed_tpu_torch.ops.transformer.transformer import (
     DeepSpeedTransformerConfig, DeepSpeedTransformerLayer)
 
@@ -44,6 +49,8 @@ class BertConfig:
     layer_norm_eps: float = 1e-12
     pre_layer_norm: bool = False       # classic BERT is post-LN
     remat: bool = False
+    # block-sparse attention: None = the dense fused layer; else one of
+    # fixed|variable|bigbird|bslongformer|dense with the block geometry
     sparse_attention_mode: Optional[str] = None
     sparse_block: int = 16
     sparse_num_local_blocks: int = 4
@@ -66,8 +73,6 @@ PRESETS = {
 
 def _check_ported(cfg: BertConfig):
     unported = {
-        f"sparse_attention_mode={cfg.sparse_attention_mode!r}":
-            cfg.sparse_attention_mode is not None,
         "dropout > 0": cfg.hidden_dropout_prob > 0
             or cfg.attention_probs_dropout_prob > 0,
         "remat": cfg.remat,
@@ -75,6 +80,11 @@ def _check_ported(cfg: BertConfig):
     for what, hit in unported.items():
         if hit:
             raise NotImplementedError(f"BERT {what} is not ported yet")
+    # the JAX model's assert (bert.py:190-192); its attention-dropout
+    # assert is covered by the dropout refusal above
+    if cfg.sparse_attention_mode is not None and cfg.pre_layer_norm:
+        raise ValueError("BertSparseLayer is post-LN (classic BERT); "
+                         "pre_layer_norm is not implemented for sparse mode")
 
 
 class BertLayer(nn.Module):
@@ -93,6 +103,73 @@ class BertLayer(nn.Module):
 
     def forward(self, x, mask=None):
         return self.layer(x, mask)
+
+
+def _lecun_normal_(weight, gen):
+    """flax ``lecun_normal``: a normal truncated at 2 std, rescaled so the
+    variance is 1 / fan_in (fan_in = weight.shape[1] for [out, in])."""
+    std = (1.0 / weight.shape[1]) ** 0.5 / .87962566103423978
+    nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std, generator=gen)
+
+
+def sparsity_config(mode, num_heads, block, num_local_blocks=4,
+                    num_global_blocks=1):
+    """The SparsityConfig a ``sparse_attention_mode`` names (the JAX
+    ``BertSparseLayer._sparsity_config``)."""
+    if mode == "fixed":
+        return sc.FixedSparsityConfig(
+            num_heads=num_heads, block=block,
+            num_local_blocks=num_local_blocks,
+            num_global_blocks=num_global_blocks)
+    classes = {"bigbird": sc.BigBirdSparsityConfig,
+               "bslongformer": sc.BSLongformerSparsityConfig,
+               "variable": sc.VariableSparsityConfig,
+               "dense": sc.DenseSparsityConfig}
+    if mode not in classes:
+        raise ValueError(f"unknown sparse attention mode {mode!r}")
+    return classes[mode](num_heads=num_heads, block=block)
+
+
+class BertSparseLayer(nn.Module):
+    """Post-LN encoder layer whose self-attention is block-sparse (the JAX
+    ``BertSparseLayer``, bert.py:87-170): ``attention`` (qkv + sparse
+    attention), ``attn_out``, ``attn_ln``, ``fc``, tanh-GeLU, ``out``,
+    ``out_ln``."""
+
+    def __init__(self, hidden_size, num_heads, intermediate_size,
+                 sparsity_mode="fixed", block=16, num_local_blocks=4,
+                 num_global_blocks=1, layer_norm_eps=1e-12, *, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.attention = BertSparseSelfAttention(
+            hidden_size, num_heads,
+            sparsity_config(sparsity_mode, num_heads, block,
+                            num_local_blocks, num_global_blocks), **kw)
+        self.attn_out = nn.Linear(hidden_size, hidden_size, **kw)
+        self.attn_ln = nn.LayerNorm(hidden_size, eps=layer_norm_eps, **kw)
+        self.fc = nn.Linear(hidden_size, intermediate_size, **kw)
+        self.out = nn.Linear(intermediate_size, hidden_size, **kw)
+        self.out_ln = nn.LayerNorm(hidden_size, eps=layer_norm_eps, **kw)
+
+    @torch.no_grad()
+    def reset_parameters(self, gen):
+        """The flax init: ``qkv`` LeCun-normal (nn.Dense's default), the
+        other denses normal(0.02), zero biases, unit LayerNorm scales."""
+        _lecun_normal_(self.attention.qkv.weight, gen)
+        for dense in (self.attn_out, self.fc, self.out):
+            nn.init.normal_(dense.weight, 0.0, 0.02, generator=gen)
+        for dense in (self.attention.qkv, self.attn_out, self.fc, self.out):
+            nn.init.zeros_(dense.bias)
+        for ln in (self.attn_ln, self.out_ln):
+            nn.init.ones_(ln.weight)
+            nn.init.zeros_(ln.bias)
+
+    def forward(self, x, mask=None):
+        ctx = self.attention(x, mask)
+        x = self.attn_ln(x + self.attn_out(ctx))
+        h = F.gelu(self.fc(x), approximate="tanh")
+        return self.out_ln(x + self.out(h))
 
 
 def _unpack(batch):
@@ -129,11 +206,21 @@ class BertForPreTraining(nn.Module):
         self.token_type_embeddings = nn.Parameter(
             torch.empty((config.type_vocab_size, H), **kw))
         self.emb_ln = nn.LayerNorm(H, eps=config.layer_norm_eps, **kw)
-        self.layer = nn.ModuleList(
-            BertLayer(H, config.num_attention_heads,
-                      config.intermediate_size, config.pre_layer_norm,
-                      config.layer_norm_eps, **kw)
-            for _ in range(config.num_hidden_layers))
+        if config.sparse_attention_mode is not None:
+            self.layer = nn.ModuleList(
+                BertSparseLayer(
+                    H, config.num_attention_heads, config.intermediate_size,
+                    config.sparse_attention_mode, config.sparse_block,
+                    config.sparse_num_local_blocks,
+                    config.sparse_num_global_blocks, config.layer_norm_eps,
+                    **kw)
+                for _ in range(config.num_hidden_layers))
+        else:
+            self.layer = nn.ModuleList(
+                BertLayer(H, config.num_attention_heads,
+                          config.intermediate_size, config.pre_layer_norm,
+                          config.layer_norm_eps, **kw)
+                for _ in range(config.num_hidden_layers))
         self.mlm_dense = nn.Linear(H, H, **kw)
         self.mlm_ln = nn.LayerNorm(H, eps=config.layer_norm_eps, **kw)
         self.mlm_bias = nn.Parameter(torch.zeros(config.padded_vocab, **kw))
@@ -147,12 +234,11 @@ class BertForPreTraining(nn.Module):
                     self.token_type_embeddings):
             nn.init.normal_(emb, 0.0, 0.02, generator=gen)
         for blk in self.layer:
-            blk.layer.reset_parameters(gen)
-        # flax lecun_normal: a normal truncated at 2 std, rescaled so the
-        # variance is 1 / fan_in
-        std = (1.0 / self.config.hidden_size) ** 0.5 / .87962566103423978
-        nn.init.trunc_normal_(self.mlm_dense.weight, 0.0, std, -2 * std,
-                              2 * std, generator=gen)
+            if isinstance(blk, BertSparseLayer):
+                blk.reset_parameters(gen)
+            else:
+                blk.layer.reset_parameters(gen)
+        _lecun_normal_(self.mlm_dense.weight, gen)
         nn.init.zeros_(self.mlm_dense.bias)
         nn.init.zeros_(self.mlm_bias)
         for ln in (self.emb_ln, self.mlm_ln):

@@ -2,7 +2,10 @@
 
 Training and prefill run causal attention through :func:`attention` (the
 flash kernels on CUDA tensors, differentiable through the backward
-kernels; the plain dense version on the CPU); every later token runs
+kernels; the plain dense version on the CPU) or, with
+``attention_mode="sparse"`` / ``"sparse:<window_tokens>/<block>"``,
+through causal block-sparse attention (a unidirectional Fixed layout on
+the sparse kernels; training only, as in JAX); every later token runs
 :func:`decode_attention` (the decode kernel on CUDA tensors) over the KV
 cache. The flax ``"cache"`` collection becomes an explicit
 :class:`KVCache` passed to ``forward``; its ``pos`` is the JAX model's
@@ -11,8 +14,8 @@ cache. The flax ``"cache"`` collection becomes an explicit
 Batch convention: a dict with ``input_ids`` [B, S] (and optionally
 ``labels``), a tuple ``(input_ids, labels)``, or the ids tensor itself.
 ``forward`` returns the mean next-token cross-entropy unless logits are
-asked for. Not ported yet: pipeline stages, ring/ulysses/sparse attention,
-MoE, rotary embeddings, dropout, remat.
+asked for. Not ported yet: pipeline stages, ring/ulysses attention, MoE,
+rotary embeddings, dropout, remat.
 """
 
 import dataclasses
@@ -25,6 +28,8 @@ from torch.nn import functional as F
 from deepspeed_tpu_torch.models.common import masked_next_token_ce
 from deepspeed_tpu_torch.ops._platform import resolve_device
 from deepspeed_tpu_torch.ops.quantizer.int8_linear import QuantDense
+from deepspeed_tpu_torch.ops.sparse_attention.fused_kernels import (
+    block_sparse_attention_fused, parse_sparse_mode, sparse_mode_layout)
 from deepspeed_tpu_torch.ops.transformer.attention import attention
 from deepspeed_tpu_torch.ops.transformer.decode import (
     aligned_cache_len, decode_attention, decode_attention_quantized,
@@ -76,7 +81,9 @@ PRESETS = {
 def _check_ported(cfg: GPT2Config):
     unported = {
         "pp_stages > 1": cfg.pp_stages > 1,
-        f"attention_mode={cfg.attention_mode!r}": cfg.attention_mode != "auto",
+        f"attention_mode={cfg.attention_mode!r}":
+            cfg.attention_mode != "auto"
+            and not cfg.attention_mode.startswith("sparse"),
         "MoE": cfg.moe_num_experts > 0,
         f"position_embedding={cfg.position_embedding!r}":
             cfg.position_embedding != "learned",
@@ -86,6 +93,8 @@ def _check_ported(cfg: GPT2Config):
     for what, hit in unported.items():
         if hit:
             raise NotImplementedError(f"GPT-2 {what} is not ported yet")
+    if cfg.attention_mode.startswith("sparse"):
+        parse_sparse_mode(cfg.attention_mode)
     if cfg.kv_cache_dtype not in ("auto", "int8"):
         raise ValueError(f"kv_cache_dtype must be 'auto' or 'int8', got "
                          f"{cfg.kv_cache_dtype!r}")
@@ -151,7 +160,16 @@ class CausalSelfAttention(nn.Module):
         # fused projection: [q | k | v] along the last dim, each (B, S, H, D)
         qkv = self.qkv(x).view(B, S, 3, H, D)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-        if cache is None:
+        sparse = cfg.attention_mode.startswith("sparse")
+        if sparse and cache is not None:
+            raise ValueError(
+                "KV-cache decode would silently run DENSE attention on a "
+                "sparse-trained model; decode with attention_mode='auto'")
+        if sparse:
+            layout, blk = sparse_mode_layout(cfg.attention_mode, H, S)
+            out = block_sparse_attention_fused(q, k, v, layout, block=blk,
+                                               causal=True)
+        elif cache is None:
             out = attention(q, k, v, causal=True)
         elif cache.pos == 0:
             # prefill: write the prompt's K/V, attend over the fresh K/V

@@ -21,7 +21,7 @@ import pathlib
 _CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "torch_ext"
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "decode_attention.cu", "adam.cu",
-           "fused.cu", "lamb.cu", "quantizer.cu")
+           "fused.cu", "lamb.cu", "quantizer.cu", "sparse_attention.cu")
 NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-lineinfo"]
 
@@ -58,6 +58,11 @@ _SIGNATURES = {
     # symmetric, stochastic, seed, dtype, vec, stream
     "ds_quantize": [_P, _P, _P, _L, _L, _I, _I, _L, _L, _I, _I, _I, _U, _I,
                     _I, _P],
+    # ptrs (15: q, k, v, o, dout, lse, delta, dq, dk, dv, bias, dbias, ptr,
+    # idx, bits), strides (24), dims (11), sm_scale, stream
+    "ds_sparse_fwd": [_P, _P, _P, _F, _P],
+    "ds_sparse_dq": [_P, _P, _P, _F, _P],
+    "ds_sparse_dkv": [_P, _P, _P, _F, _P],
 }
 
 _lib = None

@@ -1,7 +1,10 @@
 """The training config (counterpart of ``deepspeed_tpu/runtime/config.py``)
 over the keys the port's training path reads: the batch triad, optimizer,
 scheduler, fp16, bf16, gradient_clipping, zero_optimization.stage,
-steps_per_print and the ``quantize_training`` (MoQ) block. The attribute
+steps_per_print and the ``quantize_training`` (MoQ) block. The raw
+``sparse_attention`` block is kept as it is given, as the JAX config keeps
+it (the models read it through ``ops.sparse_attention.
+sparse_attention_utils``). The attribute
 names are the JAX ``DeepSpeedConfig``'s.
 
 A key that turns on something the port does not run yet raises
@@ -175,6 +178,7 @@ class DeepSpeedConfig:
         ev = pd.get(C.EIGENVALUE, {}) or {}
         self.eigenvalue_enabled = ev.get(C.EIGENVALUE_ENABLED,
                                          C.EIGENVALUE_ENABLED_DEFAULT)
+        self.sparse_attention = pd.get(C.SPARSE_ATTENTION, None)
 
     # -- batch triangulation (JAX config.py:1403-1450) -----------------------
 

@@ -205,3 +205,14 @@ def test_quantize_training_is_no_longer_ignored():
     assert q is not None and q.q_groups == 8 and q.q_type == 1
     assert q.q_rounding == 1 and q.q_mixed_fp16
     assert (q.q_start_bits, q.q_target_bits, q.q_period) == ([12], 8, [2])
+
+
+@pytest.mark.parametrize("block", [None, {}, {"mode": "fixed", "block": 64},
+                                   {"mode": "bigbird", "block": 16,
+                                    "num_random_blocks": 2}])
+def test_sparse_attention_block_is_exposed_raw(block):
+    """The raw ``sparse_attention`` block, as the JAX config keeps it
+    (runtime/config.py:1337)."""
+    cfg = basic() if block is None else basic(sparse_attention=block)
+    want = JaxConfig(json.loads(json.dumps(cfg))).sparse_attention
+    assert DeepSpeedConfig(cfg).sparse_attention == want == block

@@ -18,8 +18,12 @@ norms rtol 1e-5 (sums in another order). The grouped quantizer: bit-equal
 with round-to-nearest intrinsics, the same Philox bits). The softmax: fp32
 atol 2e-6 (expf and the row sum in another order); bf16 and fp16 one ulp
 of the output (2^-7 and 2^-10 relative; for fp16 outputs below 2^-14,
-the subnormal ulp 2^-24), both sides rounding once.
+the subnormal ulp 2^-24), both sides rounding once. The block-sparse
+kernels: as flash (fp32 2e-5; bf16 2e-2), the lse 2e-5, the bias
+cotangent fp32 2e-5 and, from bf16 inputs, 2e-2.
 """
+
+import numpy as np
 
 import pytest
 import torch
@@ -28,6 +32,9 @@ from deepspeed_tpu_torch.ops import op_builder
 from deepspeed_tpu_torch.ops.adam import fused_adam
 from deepspeed_tpu_torch.ops.lamb import fused_lamb
 from deepspeed_tpu_torch.ops.quantizer import int8_linear, quantizer
+from deepspeed_tpu_torch.ops.sparse_attention import fused_kernels as sfk
+from deepspeed_tpu_torch.ops.sparse_attention import kernels as sk
+from deepspeed_tpu_torch.ops.sparse_attention import sparsity_config as ssc
 from deepspeed_tpu_torch.ops.transformer import (attention, decode, flash,
                                                  fused)
 
@@ -407,3 +414,146 @@ def test_moq_train_batch_launches_the_quantize_kernel(gen):
             ref = p.detach().t() if name in engine._transposed else p
             for grp in ref.reshape(8, -1):
                 assert torch.unique(grp).numel() <= 64, name
+
+
+def _sparse_strategy(block, causal, seq, H, packed, empty_rows=False):
+    """A Fixed layout (4 local blocks, 1 global; unidirectional when
+    causal): the fused form's kernel part (decomposed, global columns
+    packed) or the raw layout the predicated form takes."""
+    lay = ssc.FixedSparsityConfig(
+        num_heads=H, block=block, num_local_blocks=4,
+        attention="unidirectional" if causal else "bidirectional"
+    ).make_layout(seq) != 0
+    if empty_rows:
+        lay[:, 1, :] = False                  # a row with no live block
+        lay[:, 2, :] = False
+        lay[:, 2, 3] = True                   # only above the diagonal
+    if not packed:
+        return sfk._get_strategy(lay, block, causal, None, device="cuda")
+    plan = sfk._get_plan(lay, block, causal, None, "cuda")
+    assert plan.col_ids is not None
+    return plan.strat
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block,causal,seq,packed,bias,D,empty", [
+    (16, True, 512, True, True, 64, False),
+    (16, False, 256, True, False, 64, False),
+    (64, False, 1024, True, True, 64, False),
+    (64, True, 512, False, False, 64, True),
+    (128, True, 1024, True, True, 64, False),
+    (128, False, 512, False, True, 32, False),
+    (32, True, 384, True, False, 16, True),
+    (8, False, 256, False, True, 64, False),
+    (16, True, 80, True, True, 20, False)])
+def test_sparse_kernels_match_plain(gen, dtype, block, causal, seq, packed,
+                                    bias, D, empty):
+    B, H = 2, 3
+    strat = _sparse_strategy(block, causal, seq, H, packed, empty)
+    Skv = strat.Skv
+    q, do = (_rand(gen, B, H, seq, D, dtype=dtype) for _ in range(2))
+    k, v = (_rand(gen, B, H, Skv, D, dtype=dtype) for _ in range(2))
+    kpb = _rand(gen, B, Skv, dtype=torch.float32) if bias else None
+    tol = TOLS[dtype]
+    before = dict(op_builder.LAUNCHES)
+    o, lse = sfk.sparse_attention_fwd(q, k, v, kpb, strat)
+    o_ref, lse_ref = sfk.sparse_attention_fwd_plain(q, k, v, kpb, strat)
+    torch.testing.assert_close(o.float(), o_ref.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, lse_ref, rtol=2e-5, atol=2e-5)
+    if empty:
+        assert (lse[:, :, block:3 * block] == -1e30).all()
+        assert (o[:, :, block:3 * block] == 0).all()
+    delta = (do.float() * o_ref.float()).sum(-1)
+    dq = sfk.sparse_attention_dq(q, k, v, kpb, do, lse_ref, delta, strat)
+    dk, dv, db = sfk.sparse_attention_dkv(q, k, v, kpb, do, lse_ref, delta,
+                                          strat, want_dbias=True)
+    for name in ("sparse_fwd", "sparse_dq", "sparse_dkv"):
+        assert op_builder.LAUNCHES[name] == before.get(name, 0) + 1
+    want = (sfk.sparse_attention_dq_plain(q, k, v, kpb, do, lse_ref, delta,
+                                          strat),) + \
+        sfk.sparse_attention_dkv_plain(q, k, v, kpb, do, lse_ref, delta,
+                                       strat, want_dbias=True)
+    for g, w in zip((dq, dk, dv), want[:3]):
+        assert g.shape == w.shape and g.dtype == dtype
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
+    if bias:
+        torch.testing.assert_close(db, want[3], rtol=tol, atol=tol)
+    else:
+        assert db is None and want[3] is None
+
+
+def test_sparse_kernels_read_strided_views(gen):
+    """q/k/v as head-split views of one fused [B, S, 3, H, D] projection,
+    on the raw (unpacked) lists."""
+    strat = _sparse_strategy(16, True, 256, 4, packed=False)
+    qkv = _rand(gen, 2, 256, 3, 4, 64, dtype=torch.bfloat16)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    o, lse = sfk.sparse_attention_fwd(q, k, v, None, strat)
+    o_ref, lse_ref = sfk.sparse_attention_fwd_plain(q, k, v, None, strat)
+    torch.testing.assert_close(o.float(), o_ref.float(), rtol=2e-2,
+                               atol=2e-2)
+    torch.testing.assert_close(lse, lse_ref, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("mode,seq,causal", [
+    ("bigbird", 512, False), ("fixed-uni", 1024, True),
+    ("longformer", 256, False)])
+def test_fused_sparse_attention_gradients_on_cuda(gen, mode, seq, causal):
+    """The whole fused form on the card (packing, dense global rows,
+    the kernels' Function) against the same function on CPU tensors (the
+    plain route), fp32, with a key-padding bias."""
+    H = 2
+    cfg = {"bigbird": lambda: ssc.BigBirdSparsityConfig(
+               num_heads=H, block=32, num_random_blocks=1),
+           "fixed-uni": lambda: ssc.FixedSparsityConfig(
+               num_heads=H, block=128, num_local_blocks=2,
+               attention="unidirectional"),
+           "longformer": lambda: ssc.BSLongformerSparsityConfig(
+               num_heads=H, block=16)}[mode]()
+    lay = cfg.make_layout(seq)
+    x = [_rand(gen, 2, H, seq, 64, dtype=torch.float32) for _ in range(4)]
+    kpb = _rand(gen, 2, seq, dtype=torch.float32)
+
+    def run(dev):
+        t = [a.detach().to(dev).requires_grad_() for a in x[:3] + [kpb]]
+        out = sfk.block_sparse_attention_fused(
+            t[0], t[1], t[2], lay, key_padding_bias=t[3], block=cfg.block,
+            causal=causal)
+        out.backward(x[3].to(dev))
+        return [out.detach().cpu()] + [a.grad.cpu() for a in t]
+
+    before = op_builder.LAUNCHES["sparse_fwd"]
+    got = run("cuda")
+    assert op_builder.LAUNCHES["sparse_fwd"] == before + 1
+    for g, w in zip(got, run("cpu")):
+        torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-5)
+
+
+def test_predicated_form_launches_the_kernels_without_bias_grad(gen):
+    lay = ssc.FixedSparsityConfig(num_heads=2, block=64).make_layout(512)
+    q, k, v = (_rand(gen, 1, 2, 512, 64, dtype=torch.bfloat16
+                     ).requires_grad_() for _ in range(3))
+    kpb = torch.zeros(1, 512, device="cuda", requires_grad=True)
+    before = dict(op_builder.LAUNCHES)
+    out = sk.block_sparse_attention(q, k, v, lay, kpb, 64)
+    out.float().sum().backward()
+    for name in ("sparse_fwd", "sparse_dq", "sparse_dkv"):
+        assert op_builder.LAUNCHES[name] == before.get(name, 0) + 1
+    assert kpb.grad is None and q.grad.abs().sum() > 0
+
+
+def test_sparse_kernels_raise_on_bad_input(gen):
+    strat = _sparse_strategy(16, False, 128, 2, packed=False)
+    q = _rand(gen, 1, 2, 128, 64, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        sfk.sparse_attention_fwd(q, q, q, None, strat)
+    q = _rand(gen, 1, 2, 128, 128, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dims"):
+        sfk.sparse_attention_fwd(q, q, q, None, strat)
+    q = _rand(gen, 1, 2, 64, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="layout"):
+        sfk.sparse_attention_fwd(q, q, q, None, strat)
+    cpu = sfk._get_strategy(np.ones((2, 8, 8)), 16, False, None)
+    q = _rand(gen, 1, 2, 128, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="tile lists"):
+        sfk.sparse_attention_fwd(q, q, q, None, cpu)

@@ -3,6 +3,7 @@ JAX package; it builds nothing on import; its entry points run on CUDA
 unless the CPU is asked for by name."""
 
 import ast
+import dataclasses
 import pathlib
 import subprocess
 import sys
@@ -62,6 +63,12 @@ def test_import_leaves_jax_out():
         "import deepspeed_tpu_torch.ops.quantizer.int8_linear\n"
         "import deepspeed_tpu_torch.runtime.quantize\n"
         "import deepspeed_tpu_torch.module_inject.module_quantize\n"
+        "import deepspeed_tpu_torch.ops.sparse_attention.fused_kernels\n"
+        "import deepspeed_tpu_torch.ops.sparse_attention.kernels\n"
+        "import deepspeed_tpu_torch.ops.sparse_attention."
+        "sparse_self_attention\n"
+        "import deepspeed_tpu_torch.ops.sparse_attention."
+        "sparse_attention_utils\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'flax', 'deepspeed_tpu', 'triton')\n"
         "       or m == 'torch.utils.cpp_extension']\n"
@@ -93,6 +100,14 @@ def test_bert_entry_points_raise_without_cuda(monkeypatch):
         bert.BertForPreTraining(bert.PRESETS["tiny"])
     with pytest.raises(RuntimeError, match="CUDA"):
         bert.synthetic_mlm_batch(1, 4, 10)
+    sparse = dataclasses.replace(bert.PRESETS["tiny"],
+                                 sparse_attention_mode="fixed")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bert.BertForPreTraining(sparse)
+    model = bert.BertForPreTraining(sparse, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        deepspeed_tpu_torch.initialize(model=model, config={
+            "train_batch_size": 2})
 
 
 def test_kernel_route_follows_tensor_device(monkeypatch):
