@@ -16,7 +16,11 @@ Phases, each fatal on failure:
    kernels keep fp32, and the backward's outputs are bf16; Adam rtol 1e-6,
    atol 1e-7): flash forward, decode, the flash backward (dq, dk/dv) at
    the training shape (B 8, H 16, S 1024, D 64, causal) and at Sq < Sk,
-   and both Adam forms at GPT-2 medium's size;
+   then at B 8, H 16 in bf16: every head-dim class (16, 20, 64, 80, 128),
+   Sq != Sk both ways (rows with no visible key), lengths one short of
+   and one past the 64-row tile and the 3-stage ring, a packed qkv
+   projection, delta = rowsum(do·o) from the dq kernel (2e-5), and two
+   backward runs bit-equal; both Adam forms at GPT-2 medium's size;
 4. the generation path at full width: GPT-2 medium (24 layers, n_embd
    1024, 16 heads, vocab 50257 padded to 50304) on weights drawn from a
    seed, cast to bf16 by ``init_inference``, greedy ``generate`` on 8
@@ -42,7 +46,8 @@ Phases, each fatal on failure:
    memory, one profiled step, and each kernel at the main path's shapes
    (CUDA events) beside its plain version, its least possible time on the
    card and, where one exists, the PyTorch call that computes the same
-   function (``scaled_dot_product_attention`` and its backward,
+   function (``scaled_dot_product_attention`` and its backward alone on
+   the flash backend pinned, cuDNN's beside it,
    ``torch.optim.AdamW(fused=True)``, ``F.layer_norm``,
    ``native_layer_norm_backward``, add + ``F.gelu``: timed for the table
    only);
@@ -365,6 +370,7 @@ def check_training_kernels(torch, flash, fused_adam, param_shapes):
                 main_err["flash_bwd_dq"] = errs[0][0]
                 main_err["flash_bwd_dkv"] = max(errs[1][0], errs[2][0])
             del q, k, v, o, lse, do, got, want
+    check_flash_bwd_shapes(torch, flash, rnd)
 
     n = sum(math.prod(s) for s in param_shapes)
     n = -(-n // fused_adam.sweep_pad()) * fused_adam.sweep_pad()
@@ -412,6 +418,60 @@ def check_training_kernels(torch, flash, fused_adam, param_shapes):
     print(f"check adam per-tensor over the model's shapes: err "
           f"{max(errs):.3g}", flush=True)
     return main_err
+
+
+# (Sq, Sk, D, causal, packed) at B 8, H 16, bf16: the shape classes of
+# tests/test_torch_cuda_kernels.py at full size. Every head-dim class (16,
+# 20 padded to 32, 64, 80 padded to 128, 128); Sq != Sk both ways (Sq > Sk
+# causal: the first 128 rows see no key); one short of and one past the
+# 64-row tile and the 192-row ring (96 at D 128); a packed qkv projection.
+BWD_SHAPES = [(SEQ, SEQ, 16, True, False), (SEQ, SEQ, 20, True, False),
+              (SEQ, SEQ, 80, True, False), (SEQ, SEQ, 128, True, False),
+              (SEQ, SEQ, 128, False, False), (SEQ, 896, 64, True, False),
+              (896, SEQ, 128, True, False),
+              (SEQ - 1, SEQ - 1, 64, True, False),
+              (SEQ + 1, SEQ + 1, 64, False, False),
+              (3 * 64 * 5 + 1, 3 * 64 * 5 - 1, 64, True, False),
+              (3 * 32 * 10 + 1, 3 * 32 * 10 + 1, 128, True, False),
+              (SEQ, SEQ, 64, True, True)]
+
+
+def check_flash_bwd_shapes(torch, flash, rnd):
+    """Phase 3, the flash backward beyond the main shape (bf16, 2e-2;
+    delta 2e-5, fp32 sums in another order), then two runs at the main
+    shape bit-equal (no atomics)."""
+    tol = 2e-2
+    for sq, sk, d, causal, packed in BWD_SHAPES:
+        if packed:
+            qkv = rnd(B, sq, 3, H, d, dtype=torch.bfloat16)
+            q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        else:
+            q = rnd(B, H, sq, d, dtype=torch.bfloat16)
+            k, v = (rnd(B, H, sk, d, dtype=torch.bfloat16) for _ in range(2))
+        do = rnd(B, H, sq, d, dtype=torch.bfloat16)
+        o, lse = flash.flash_attention_fwd(q, k, v, causal)
+        got = flash.flash_attention_bwd(q, k, v, o, lse, do, causal,
+                                        return_delta=True)
+        want = flash.flash_attention_bwd_plain(q, k, v, o, lse, do, causal,
+                                               return_delta=True)
+        torch.cuda.synchronize()
+        errs = [close(g, w, tol) for g, w in zip(got[:3], want[:3])]
+        errs.append(close(got[3], want[3], 2e-5))
+        print(f"check flash_bwd bf16 Sq={sq} Sk={sk} D={d} causal={causal}"
+              f" packed={packed}: " + ", ".join(
+                  f"{n} err {e:.3g}" for n, (e, _) in
+                  zip(("dq", "dk", "dv", "delta"), errs)), flush=True)
+        if not all(ok for _, ok in errs):
+            raise AssertionError("flash_bwd disagrees with its plain version")
+        del q, k, v, o, lse, do, got, want
+    q, k, v, do = (rnd(B, H, SEQ, D, dtype=torch.bfloat16) for _ in range(4))
+    o, lse = flash.flash_attention_fwd(q, k, v, True)
+    runs = [flash.flash_attention_bwd(q, k, v, o, lse, do, True,
+                                      return_delta=True) for _ in range(2)]
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        raise AssertionError("flash_bwd is not bit-reproducible")
+    print("check flash_bwd: two runs bit-equal (dq, dk, dv, delta)",
+          flush=True)
 
 
 def train_config(batch=B, **opt):
@@ -503,13 +563,98 @@ def one_step_parity(torch, deepspeed_tpu_torch, gpt2, attn_mod, decode,
     return out
 
 
-def training_kernel_rows(torch, flash, fused_adam, param_shapes):
-    """Timings of the training kernels at the main path's shapes: (rows
-    without launches, max_abs_err and card)."""
+def sdpa_bwd_backend_ms(torch, q, k, v, do, causal, backend):
+    """The backward alone of ``scaled_dot_product_attention`` on one backend
+    (a yardstick, timed only): the graph is built once, then
+    ``torch.autograd.grad(out, (q, k, v), do, retain_graph=True)`` is timed
+    with CUDA events. None where the backend refuses the shape."""
+    from torch.nn.attention import sdpa_kernel
+    F = torch.nn.functional
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    try:
+        with sdpa_kernel(backend):
+            out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+            return cuda_ms(lambda: torch.autograd.grad(
+                out, (qg, kg, vg), do, retain_graph=True))
+    except RuntimeError as err:
+        print(f"SDPA {backend.name} refused the shape: {err}"[:200],
+              flush=True)
+        return None
+
+
+def sdpa_bwd_ms(torch, q, k, v, do, causal):
+    """SDPA's backward alone on the flash backend pinned, or on the
+    memory-efficient one where flash refuses the shape: (ms, backend)."""
+    from torch.nn.attention import SDPBackend
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION):
+        ms = sdpa_bwd_backend_ms(torch, q, k, v, do, causal, backend)
+        if ms is not None:
+            return ms, backend.name
+    raise RuntimeError("no SDPA backend takes this shape")
+
+
+def flash_bwd_timing(torch, flash, batch, seq, causal):
+    """The two backward kernels alone at [batch, 16, seq, 64] bf16 (their C
+    entry points, without the wrapper's allocations; dq writes delta, dk/dv
+    reads it), the wrapper, and SDPA's backward alone on the same inputs.
+    Times by CUDA events."""
     import ctypes
 
     from deepspeed_tpu_torch.ops import op_builder
-    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v, do = (torch.randn(batch, H, seq, D, generator=gen,
+                               device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    o, lse = flash.flash_attention_fwd(q, k, v, causal)
+    delta = torch.empty_like(lse)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lib = op_builder.load_kernels()
+    strides = (ctypes.c_longlong * 24)(*(
+        st for t in (q, k, v, o, do, dq, dk, dv) for st in t.stride()[:3]))
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(fn):
+        return lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          o.data_ptr(), do.data_ptr(), lse.data_ptr(), None,
+                          delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                          dv.data_ptr(), 1, batch, H, seq, seq, D, strides,
+                          D ** -0.5, int(causal), 1, stream)
+
+    pairs = batch * H * (seq * (seq + 1) // 2 if causal else seq * seq)
+    tensor, rowstat = batch * H * seq * D * 2, batch * H * seq * 4
+    out = {"shape": f"B{batch} H{H} S{seq} D{D} "
+                    f"{'causal' if causal else 'non-causal'} bf16",
+           "dq_ms": cuda_ms(launch(lib.ds_flash_bwd_dq)),
+           "dkv_ms": cuda_ms(launch(lib.ds_flash_bwd_dkv)),
+           "wrapper_ms": cuda_ms(lambda: flash.flash_attention_bwd(
+               q, k, v, o, lse, do, causal)),
+           # q, k, v, o, do and lse read, dq and delta written; q, k, v,
+           # do, lse and delta read, dk and dv written
+           "dq_bytes": 6 * tensor + 2 * rowstat,
+           "dkv_bytes": 6 * tensor + 2 * rowstat,
+           "dq_flops": 6 * D * pairs, "dkv_flops": 8 * D * pairs}
+    out["sdpa_bwd_ms"], out["sdpa_backend"] = sdpa_bwd_ms(torch, q, k, v, do,
+                                                          causal)
+    # cuDNN's backend, which SDPA may pick when no backend is pinned
+    from torch.nn.attention import SDPBackend
+    out["sdpa_cudnn_bwd_ms"] = sdpa_bwd_backend_ms(
+        torch, q, k, v, do, causal, SDPBackend.CUDNN_ATTENTION)
+    for name in ("dq", "dkv"):
+        bound = max(out[f"{name}_bytes"] / HBM_BYTES_PER_S,
+                    out[f"{name}_flops"] / BF16_FLOPS) * 1e3
+        out[f"{name}_x_bound"] = out[f"{name}_ms"] / bound
+        out[f"{name}_tflops"] = out[f"{name}_flops"] / out[f"{name}_ms"] / 1e9
+    out["dq_plus_dkv_over_sdpa"] = (out["dq_ms"] + out["dkv_ms"]) / \
+        out["sdpa_bwd_ms"]
+    print(f"flash_bwd timing: {json.dumps(out)}", flush=True)
+    del q, k, v, do, o, lse, delta, dq, dk, dv
+    return out
+
+
+def training_kernel_rows(torch, flash, fused_adam, param_shapes):
+    """Timings of the training kernels at the main path's shapes: (rows
+    without launches, max_abs_err and card)."""
     gen = torch.Generator(device="cuda").manual_seed(7)
 
     def rnd(*shape, dtype=torch.bfloat16):
@@ -517,56 +662,31 @@ def training_kernel_rows(torch, flash, fused_adam, param_shapes):
 
     q, k, v, do = (rnd(B, H, SEQ, D) for _ in range(4))
     o, lse = flash.flash_attention_fwd(q, k, v, True)
-    delta = (do.float() * o.float()).sum(-1)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    lib = op_builder.load_kernels()
-    # the kernels alone, without the wrapper's allocations and delta
-    strides = (ctypes.c_longlong * 21)(*(
-        st for t in (q, k, v, do, dq, dk, dv) for st in t.stride()[:3]))
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def launch(fn):
-        return lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                          do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                          dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), 1, B,
-                          H, SEQ, SEQ, D, strides, D ** -0.5, 1, 1, stream)
-
     plain_ms = cuda_ms(lambda: flash.flash_attention_bwd_plain(
         q, k, v, o, lse, do, True), iters=5)
-    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
-    sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qg, kg, vg, is_causal=True))
-    sdpa_fwd_bwd = cuda_ms(lambda: torch.autograd.grad(
-        F.scaled_dot_product_attention(qg, kg, vg, is_causal=True),
-        (qg, kg, vg), do))
-    pairs = B * H * SEQ * (SEQ + 1) // 2
-    tensor = B * H * SEQ * D * 2
-    stats = 2 * B * H * SEQ * 4
+    del q, k, v, do, o, lse
+    bwd = flash_bwd_timing(torch, flash, B, SEQ, True)
+    sdpa_note = (f"scaled_dot_product_attention backward alone "
+                 f"({bwd['sdpa_backend']} backend pinned), dq, dk and dv "
+                 f"together")
     rows = [
         {"name": "flash_bwd_dq", "route": "cuda",
          "source": "deepspeed_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "deepspeed_tpu/ops/transformer/flash.py:258",
-         "shape": "B8 H16 S1024 D64 causal bf16",
-         "ms": cuda_ms(launch(lib.ds_flash_bwd_dq)),
+         "shape": bwd["shape"], "ms": bwd["dq_ms"],
          "plain_ms": plain_ms, "plain_note": "the whole plain backward",
-         "library_ms": sdpa_fwd_bwd - sdpa_fwd,
-         "library_note": "scaled_dot_product_attention backward (fwd+bwd "
-                         "less fwd), dq, dk and dv together",
-         "bytes": 4 * tensor + stats + tensor, "flops": 6 * D * pairs,
+         "library_ms": bwd["sdpa_bwd_ms"], "library_note": sdpa_note,
+         "bytes": bwd["dq_bytes"], "flops": bwd["dq_flops"],
          "peak": BF16_FLOPS},
         {"name": "flash_bwd_dkv", "route": "cuda",
          "source": "deepspeed_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "deepspeed_tpu/ops/transformer/flash.py:292",
-         "shape": "B8 H16 S1024 D64 causal bf16",
-         "ms": cuda_ms(launch(lib.ds_flash_bwd_dkv)),
+         "shape": bwd["shape"], "ms": bwd["dkv_ms"],
          "plain_ms": plain_ms, "plain_note": "the whole plain backward",
-         "library_ms": sdpa_fwd_bwd - sdpa_fwd,
-         "library_note": "scaled_dot_product_attention backward (fwd+bwd "
-                         "less fwd), dq, dk and dv together",
-         "bytes": 4 * tensor + stats + 2 * tensor, "flops": 8 * D * pairs,
+         "library_ms": bwd["sdpa_bwd_ms"], "library_note": sdpa_note,
+         "bytes": bwd["dkv_bytes"], "flops": bwd["dkv_flops"],
          "peak": BF16_FLOPS},
     ]
-    del q, k, v, do, o, lse, delta, dq, dk, dv, qg, kg, vg
 
     # Adam, sweep form: the main path's call (wd 0, no cast, clip on)
     n = sum(math.prod(s) for s in param_shapes)
@@ -828,7 +948,8 @@ def bert_one_step_parity(torch, deepspeed_tpu_torch, bert, op_builder,
 
 def flash_vs_sdpa(torch, flash):
     """Flash forward and forward + backward against
-    ``scaled_dot_product_attention`` at the BERT shape (timed only)."""
+    ``scaled_dot_product_attention`` at the BERT shape, and the backward
+    kernels alone against SDPA's backward alone (timed only)."""
     F = torch.nn.functional
     gen = torch.Generator(device="cuda").manual_seed(12)
     q, k, v, do = (torch.randn(BERT_B, H, BERT_S, D, generator=gen,
@@ -846,6 +967,7 @@ def flash_vs_sdpa(torch, flash):
             do)),
         "sdpa_fwd_bwd_ms": cuda_ms(lambda: torch.autograd.grad(
             F.scaled_dot_product_attention(qg, kg, vg), (qg, kg, vg), do)),
+        "bwd": flash_bwd_timing(torch, flash, BERT_B, BERT_S, False),
     }
     print(f"flash vs SDPA at the BERT shape: {json.dumps(out)}", flush=True)
     return out

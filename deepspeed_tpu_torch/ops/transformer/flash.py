@@ -109,43 +109,49 @@ def flash_attention_fwd(q, k, v, causal=True, sm_scale=None):
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True,
-                              sm_scale=None):
+                              sm_scale=None, return_delta=False):
     """(dq, dk, dv) in the input dtypes: the formulas of the JAX backward
     (``_flash_bwd``, flash.py:444-574) on dense matrices, not the autograd
     of :func:`flash_attention_fwd_plain`. delta = rowsum(do·o) in fp32;
-    p = exp(s − lse) with the offset causal mask; dp = do·vᵀ;
-    ds = p·(dp − delta)·sm_scale; dv = pᵀ·do with p rounded to the input
-    dtype first; dq = ds·k and dk = dsᵀ·q with ds rounded first. The
-    products accumulate in fp32, as the kernels' do."""
+    p = exp(s − lse) with the offset causal mask, and p = 0 on a row with
+    no visible key (Sq > Sk, causal: its lse is the -1e30 masking value);
+    dp = do·vᵀ; ds = p·(dp − delta)·sm_scale; dv = pᵀ·do with p rounded to
+    the input dtype first; dq = ds·k and dk = dsᵀ·q with ds rounded first.
+    The products accumulate in fp32, as the kernels' do. ``return_delta``
+    appends delta [B, H, Sq] fp32."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     dt = q.dtype
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
-    delta = (dof * o.float()).sum(-1, keepdim=True)
-    p = torch.exp(_scores(q, k, causal, sm_scale) - lse.float()[..., None])
+    delta = (dof * o.float()).sum(-1)
+    lse = lse.float()[..., None]
+    p = torch.exp(_scores(q, k, causal, sm_scale) - lse)
+    p = torch.where(lse <= NEG_INF / 2, 0.0, p)
     dp = torch.matmul(dof, vf.transpose(-1, -2))
-    ds = p * (dp - delta) * sm_scale
+    ds = p * (dp - delta[..., None]) * sm_scale
     dv = torch.matmul(p.to(dt).float().transpose(-1, -2), dof)
     ds = ds.to(dt).float()
     dq = torch.matmul(ds, kf)
     dk = torch.matmul(ds.transpose(-1, -2), qf)
-    return dq.to(dt), dk.to(k.dtype), dv.to(v.dtype)
+    grads = (dq.to(dt), dk.to(k.dtype), dv.to(v.dtype))
+    return grads + (delta,) if return_delta else grads
 
 
-def flash_attention_bwd(q, k, v, o, lse, do, causal=True, sm_scale=None):
+def flash_attention_bwd(q, k, v, o, lse, do, causal=True, sm_scale=None,
+                        return_delta=False):
     """(dq, dk, dv) of flash attention, given the forward's o and lse.
 
-    CUDA tensors launch the two kernels of ``csrc/flash_bwd.cu`` (dq, then
-    dk/dv); CPU tensors run :func:`flash_attention_bwd_plain`. q, k, v and
-    o may be strided views with a contiguous head dim; ``do`` is made
-    contiguous only when its head dim is not. delta = rowsum(do·o) is
-    computed here in plain torch, as the JAX package computes it outside
-    its kernels (flash.py:461-467)."""
+    CUDA tensors launch the two kernels of ``csrc/flash_bwd.cu``: dq,
+    which also computes delta = rowsum(do·o) for its rows and writes it to
+    an fp32 [B, H, Sq] buffer, then dk/dv, which reads it; CPU tensors run
+    :func:`flash_attention_bwd_plain`. q, k, v and o may be strided views
+    with a contiguous head dim; ``do`` is made contiguous only when its
+    head dim is not. ``return_delta`` appends that delta."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     if not use_kernel(q, k, v, o, lse, do):
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal,
-                                         sm_scale)
+                                         sm_scale, return_delta)
     _check(q, k, v)
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
@@ -162,29 +168,30 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=True, sm_scale=None):
         raise ValueError(f"lse must be fp32 {(B, H, Sq)}, got "
                          f"{tuple(lse.shape)} {lse.dtype}")
     lse = lse.contiguous()
-    delta = (do.float() * o.float()).sum(-1).contiguous()
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     dq = _heads_view(B, Sq, H, D, q)
     dk = _heads_view(B, Sk, H, D, k)
     dv = _heads_view(B, Sk, H, D, v)
     if dq.numel() == 0 or dk.numel() == 0:
-        return dq.zero_(), dk.zero_(), dv.zero_()
-    strides = (ctypes.c_longlong * 21)(*(
-        st for t in (q, k, v, do, dq, dk, dv) for st in t.stride()[:3]))
+        grads = (dq.zero_(), dk.zero_(), dv.zero_())
+        return grads + (delta.zero_(),) if return_delta else grads
+    strides = (ctypes.c_longlong * 24)(*(
+        st for t in (q, k, v, o, do, dq, dk, dv) for st in t.stride()[:3]))
+    # every row the kernels stage in shared memory loads as 16-byte
+    # vectors when aligned
+    vec = int(D % 8 == 0 and _aligned16(q, k, v, o, do))
     lib = op_builder.load_kernels()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    for name, fn, staged in (("flash_bwd_dq", lib.ds_flash_bwd_dq, (k, v)),
-                             ("flash_bwd_dkv", lib.ds_flash_bwd_dkv,
-                              (q, do))):
-        # the rows a kernel stages in shared memory load as 16-byte
-        # vectors when aligned
-        vec = int(D % 8 == 0 and _aligned16(*staged))
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                 dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype], B, H, Sq,
-                 Sk, D, strides, float(sm_scale), int(bool(causal)), vec,
-                 stream)
+    for name, fn in (("flash_bwd_dq", lib.ds_flash_bwd_dq),
+                     ("flash_bwd_dkv", lib.ds_flash_bwd_dkv)):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 do.data_ptr(), lse.data_ptr(), None, delta.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 _DTYPES[q.dtype], B, H, Sq, Sk, D, strides,
+                 float(sm_scale), int(bool(causal)), vec, stream)
         op_builder.check_launch(err, name)
-    return dq, dk, dv
+    grads = (dq, dk, dv)
+    return grads + (delta,) if return_delta else grads
 
 
 class FlashAttentionFunction(torch.autograd.Function):
@@ -219,8 +226,8 @@ def flash_attention_with_lse(q, k, v, causal=True, sm_scale=None):
 
     The JAX form is differentiable in both outputs; the lse cotangent
     (flash.py:465-466, 594-596) matters only to ring attention, which comes
-    with the long-context work. The backward kernels already take
-    ``delta`` as an input, so that gradient needs no kernel change: it is
-    delta − g_lse."""
+    with the long-context work. The dq kernel already takes a ``g_lse``
+    pointer (null here) and subtracts it from the delta it computes, so
+    that gradient needs no kernel change: it is delta − g_lse."""
     with torch.no_grad():
         return flash_attention_fwd(q, k, v, causal, sm_scale)

@@ -1,7 +1,8 @@
 """The training config (counterpart of ``deepspeed_tpu/runtime/config.py``)
 over the keys the port's training path reads: the batch triad, optimizer,
 scheduler, fp16, bf16, gradient_clipping, zero_optimization.stage,
-steps_per_print and the ``quantize_training`` (MoQ) block. The raw
+steps_per_print, gradient_accumulation_dtype and the ``quantize_training``
+(MoQ) block. The raw
 ``sparse_attention`` block is kept as it is given, as the JAX config keeps
 it (the models read it through ``ops.sparse_attention.
 sparse_attention_utils``). The attribute
@@ -12,8 +13,13 @@ A key that turns on something the port does not run yet raises
 on keys it does not implement; keys it does not know are ignored, as
 there. Every ``enabled`` block the JAX config reads that changes the
 step's math is either ported or in :data:`_UNPORTED_BLOCKS`; blocks that
-only observe (tensorboard, flops_profiler) and blocks the JAX engine
-never consumes (amp, autotuning) are ignored, as there.
+only observe (tensorboard, flops_profiler) and autotuning are ignored, as
+there. The keys the JAX config refuses off-default (``amp.enabled``,
+``prescale_gradients``, ``gradient_predivide_factor`` != 1,
+``disable_allgather``, ``communication_data_type``,
+``optimizer.legacy_fusion``, ``fp16.fp16_master_weights_and_grads``, a
+``gradient_accumulation_dtype`` outside fp32|bf16|fp16) raise the same
+``DeepSpeedConfigError`` (JAX config.py:1464-1509).
 """
 
 import json
@@ -66,6 +72,9 @@ class DeepSpeedFP16Config:
         self.hysteresis = fp16.get(C.FP16_HYSTERESIS, C.FP16_HYSTERESIS_DEFAULT)
         self.min_loss_scale = fp16.get(C.FP16_MIN_LOSS_SCALE,
                                        C.FP16_MIN_LOSS_SCALE_DEFAULT)
+        self.master_weights_and_grads = fp16.get(
+            C.FP16_MASTER_WEIGHTS_AND_GRADS,
+            C.FP16_MASTER_WEIGHTS_AND_GRADS_DEFAULT)
 
     @property
     def dynamic_loss_scale(self):
@@ -151,8 +160,22 @@ class DeepSpeedConfig:
         bf = pd.get(C.BFLOAT16, pd.get(C.BFLOAT16_OLD, {})) or {}
         self.bfloat16_enabled = bf.get(C.BFLOAT16_ENABLED,
                                        C.BFLOAT16_ENABLED_DEFAULT)
+        self.fp16_master_weights_and_gradients = \
+            self.fp16.master_weights_and_grads
+        self.amp_enabled = (pd.get(C.AMP, {}) or {}).get(C.AMP_ENABLED,
+                                                         C.AMP_ENABLED_DEFAULT)
         self.loss_scale = self.fp16.loss_scale
         self.initial_dynamic_scale = 2 ** self.fp16.initial_scale_power
+        self.disable_allgather = pd.get(C.DISABLE_ALLGATHER,
+                                        C.DISABLE_ALLGATHER_DEFAULT)
+        self.communication_data_type = pd.get(
+            C.COMMUNICATION_DATA_TYPE, C.COMMUNICATION_DATA_TYPE_DEFAULT)
+        self.prescale_gradients = pd.get(C.PRESCALE_GRADIENTS,
+                                         C.PRESCALE_GRADIENTS_DEFAULT)
+        self.gradient_predivide_factor = pd.get(
+            C.GRADIENT_PREDIVIDE_FACTOR, C.GRADIENT_PREDIVIDE_FACTOR_DEFAULT)
+        self.gradient_accumulation_dtype = pd.get(
+            C.GRADIENT_ACCUMULATION_FORMAT, None)
 
         self.gradient_clipping = pd.get(C.GRADIENT_CLIPPING,
                                         C.GRADIENT_CLIPPING_DEFAULT)
@@ -163,6 +186,8 @@ class DeepSpeedConfig:
                 self.optimizer_name.lower() in DEEPSPEED_OPTIMIZERS:
             self.optimizer_name = self.optimizer_name.lower()
         self.optimizer_params = optimizer.get(C.OPTIMIZER_PARAMS, None)
+        self.optimizer_legacy_fusion = optimizer.get(C.LEGACY_FUSION,
+                                                     C.LEGACY_FUSION_DEFAULT)
         params = self.optimizer_params or {}
         # the fused-kernel forms of Adam and LAMB
         # (engine._configure_optimizer)
@@ -241,6 +266,42 @@ class DeepSpeedConfig:
         if self.fp16_enabled and self.bfloat16_enabled:
             raise DeepSpeedConfigError(
                 "fp16 and bf16 modes are mutually exclusive")
+        # the keys the JAX config refuses off-default (config.py:1464-1509),
+        # with its conditions: their reference mechanism has no counterpart
+        # in the step, so they are refused rather than silently parsed
+        if self.fp16_master_weights_and_gradients:
+            raise DeepSpeedConfigError(
+                "fp16_master_weights_and_grads: the masters stay fp32 — "
+                "remove the key")
+        if self.amp_enabled:
+            raise DeepSpeedConfigError(
+                "amp.enabled: apex AMP is not supported; use the native "
+                "mixed-precision blocks, bf16 {enabled: true} or fp16 "
+                "{enabled: true}")
+        if self.prescale_gradients or self.gradient_predivide_factor != 1.0:
+            raise DeepSpeedConfigError(
+                "prescale_gradients/gradient_predivide_factor rescale "
+                "gradients around an explicit allreduce; the step has none "
+                "to pre-scale — remove the key (fp16 overflow is handled by "
+                "the dynamic loss scaler)")
+        if self.disable_allgather:
+            raise DeepSpeedConfigError(
+                "disable_allgather selects the ZeRO-1 update's collective, "
+                "which the step does not expose — remove the key")
+        if self.communication_data_type is not None:
+            raise DeepSpeedConfigError(
+                "communication_data_type casts gradients for an explicit "
+                "allreduce, which the step does not expose — remove the key")
+        if self.optimizer_legacy_fusion:
+            raise DeepSpeedConfigError(
+                "optimizer.legacy_fusion toggles a kernel-fusion fallback "
+                "the optimizers do not have — remove the key")
+        if self.gradient_accumulation_dtype not in (
+                None, "fp32", "bf16", "fp16"):
+            raise DeepSpeedConfigError(
+                "data_types.grad_accum_dtype must be one of "
+                "fp32|bf16|fp16, got "
+                f"{self.gradient_accumulation_dtype!r}")
         if self.optimizer_sweep and self.optimizer_name not in \
                 (ADAM_OPTIMIZER, ADAMW_OPTIMIZER):
             raise ValueError(

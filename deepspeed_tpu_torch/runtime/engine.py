@@ -4,7 +4,10 @@
 One rank: fp32 master parameters (the module's own), the forward in the
 compute dtype (bf16, fp16 or fp32) through ``torch.func.functional_call``
 so the gradients land on the fp32 masters, gradient accumulation over
-``gas`` micro-batches, then the epilogue and update of the JAX step in
+``gas`` micro-batches (in fp32, or in the ``gradient_accumulation_dtype``
+bf16/fp16 buffer as the JAX micro-step casts into it, engine.py:1144-1150,
+1532-1535; at gas 1 the JAX fused step has no buffer, and neither has the
+port), then the epilogue and update of the JAX step in
 the same order (engine.py:1555-1628): unscale, the non-finite check
 (fp16 only), the global norm (fp16 or clipping only), the clip
 coefficient, the loss-scale update, the optimizer update, ``p += u``.
@@ -48,6 +51,13 @@ def _to_device(batch, device):
     return torch.as_tensor(batch, device=device)
 
 
+def _grad_of(name, p):
+    if p.grad is None:
+        raise RuntimeError(f"no gradient reached {name}: the loss graph is "
+                           f"cut")
+    return p.grad
+
+
 class DeepSpeedEngine:
     """``train_batch`` over a module whose ``forward(batch)`` returns the
     loss. ``module`` holds the fp32 master parameters on ``device``."""
@@ -82,6 +92,12 @@ class DeepSpeedEngine:
             init_scale = 1.0
         self.scale = make_scale_state(init_scale,
                                       delayed_shift=config.fp16.hysteresis)
+        # the accumulation buffer's dtype; None: the masters' fp32 .grad
+        acc = {"bf16": torch.bfloat16, "fp16": torch.float16}.get(
+            config.gradient_accumulation_dtype)
+        self._acc_dtype = acc if config.gradient_accumulation_steps > 1 \
+            else None
+        self._acc = None
 
         self.optimizer = self._configure_optimizer()
         self.opt_state = self.optimizer.init(
@@ -170,12 +186,25 @@ class DeepSpeedEngine:
 
     def _micro_step(self, batch):
         """Forward + backward of one micro-batch; grads accumulate in fp32
-        in each master's ``.grad``. Returns the unscaled loss."""
+        in each master's ``.grad``, or are cast into the bf16/fp16 buffer
+        and added there (``a + g.astype(a.dtype)``). Returns the unscaled
+        loss."""
         gas = self.gradient_accumulation_steps()
         scale = self.scale.loss_scale / gas
         loss = self._compute_loss(_to_device(batch, self.device))
         sloss = loss * scale
         sloss.backward()
+        if self._acc_dtype is not None:
+            with torch.no_grad():
+                grads = {k: _grad_of(k, p).to(self._acc_dtype)
+                         for k, p in self.params.items()}
+                if self._acc is None:
+                    self._acc = grads
+                else:
+                    torch._foreach_add_(list(self._acc.values()),
+                                        [grads[k] for k in self._acc])
+            for p in self.params.values():
+                p.grad = None
         self.micro_steps += 1
         return sloss.detach() * gas / self.scale.loss_scale
 
@@ -237,11 +266,12 @@ class DeepSpeedEngine:
         for _ in range(self.gradient_accumulation_steps()):
             micro = batch if batch is not None else next(data_iter)
             losses.append(self._micro_step(micro))
-        grads = {k: p.grad for k, p in self.params.items()}
-        missing = [k for k, g in grads.items() if g is None]
-        if missing:
-            raise RuntimeError(f"no gradient reached {missing[:3]}: the "
-                               f"loss graph is cut")
+        if self._acc is not None:
+            # the buffer, read back in fp32 and reset (engine.py:1596-1600)
+            for k, p in self.params.items():
+                p.grad = self._acc[k].float()
+            self._acc = None
+        grads = {k: _grad_of(k, p) for k, p in self.params.items()}
         grads, finite, clip_coef = self._grad_epilogue(grads)
         if finite:
             self._apply_update(grads, clip_coef)

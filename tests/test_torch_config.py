@@ -216,3 +216,38 @@ def test_sparse_attention_block_is_exposed_raw(block):
     cfg = basic() if block is None else basic(sparse_attention=block)
     want = JaxConfig(json.loads(json.dumps(cfg))).sparse_attention
     assert DeepSpeedConfig(cfg).sparse_attention == want == block
+
+
+@pytest.mark.parametrize("over", [
+    {"amp": {"enabled": True}},
+    {"prescale_gradients": True},
+    {"gradient_predivide_factor": 2.0},
+    {"disable_allgather": True},
+    {"communication_data_type": "fp16"},
+    {"optimizer": {"type": "Adam", "legacy_fusion": True,
+                   "params": {"lr": 1e-3}}},
+    {"fp16": {"enabled": True, "fp16_master_weights_and_grads": True}},
+    {"gradient_accumulation_dtype": "fp8"},
+], ids=lambda o: json.dumps(o)[:50])
+def test_keys_the_jax_config_refuses_raise(over):
+    """The keys JAX ``_do_sanity_check`` refuses off-default
+    (tests/unit/test_config.py:194-217): the port raises the same error
+    class on the same dicts, where it used to build the config."""
+    with pytest.raises(JaxError):
+        JaxConfig(basic(**over), data_parallel_size=1)
+    with pytest.raises(DeepSpeedConfigError):
+        DeepSpeedConfig(basic(**over))
+
+
+@pytest.mark.parametrize("over", [
+    {"amp": {"enabled": False}}, {"gradient_predivide_factor": 1.0},
+    {"prescale_gradients": False}, {"disable_allgather": False},
+    {"gradient_accumulation_dtype": "bf16"},
+    {"gradient_accumulation_dtype": "fp16"},
+    {"gradient_accumulation_dtype": "fp32"}])
+def test_refused_keys_at_their_defaults_parse(over):
+    got = DeepSpeedConfig(basic(**over))
+    want = JaxConfig(basic(**over), data_parallel_size=1)
+    assert got.gradient_accumulation_dtype == \
+        want.gradient_accumulation_dtype
+    assert got.gradient_predivide_factor == want.gradient_predivide_factor

@@ -105,26 +105,81 @@ def test_decode_kernel_matches_plain(gen, dtype, quantized, T, D):
                                        atol=tol)
 
 
+# (B, H, Sq, Sk, D, causal, packed): the bf16 kernels stage 64 rows a CTA
+# and stream 64-row tiles (32 at head dims above 64) through a ring of 3
+# stages; packed: q, k, v are head-split views of one [B, S, 3, H, D]
+# projection
+BWD_CASES = [
+    (2, 4, 256, 256, 64, True, False), (1, 3, 200, 200, 64, False, False),
+    (1, 2, 100, 300, 64, True, False), (2, 2, 100, 100, 16, True, False),
+    (1, 2, 130, 130, 128, True, False), (1, 2, 65, 65, 20, False, False),
+    # every head-dim class: 16, 20 (padded to 32), 64, 80 (padded to 128),
+    # 128
+    (1, 2, 160, 160, 16, False, False), (1, 2, 160, 160, 20, True, False),
+    (1, 2, 160, 160, 64, False, False), (1, 2, 160, 160, 80, True, False),
+    (1, 2, 160, 160, 128, False, False),
+    # Sq != Sk both ways; with Sq > Sk and the causal mask the first Sq - Sk
+    # rows have no visible key at all
+    (1, 2, 77, 200, 64, True, False), (1, 2, 300, 100, 64, True, False),
+    (1, 2, 300, 100, 64, False, False), (1, 2, 200, 77, 128, True, False),
+    (1, 2, 90, 40, 20, True, False),
+    # one short of and one past the 64-row tile and the 192-row ring
+    (1, 2, 63, 63, 64, True, False), (1, 2, 65, 65, 64, True, False),
+    (1, 2, 191, 191, 64, True, False), (1, 2, 193, 193, 64, False, False),
+    (1, 2, 65, 191, 64, True, False), (1, 2, 193, 63, 64, False, False),
+    # at D 128: the 32-row inner tile and the 96-row ring
+    (1, 2, 31, 31, 128, True, False), (1, 2, 33, 97, 128, True, False),
+    (1, 2, 95, 95, 128, False, False), (1, 2, 97, 33, 128, True, False),
+    # a packed qkv projection (strided views, head dim contiguous)
+    (2, 4, 150, 150, 64, True, True), (1, 3, 70, 70, 128, False, True),
+    (1, 2, 50, 50, 20, True, True),
+]
+
+
+def _bwd_inputs(gen, dtype, B, H, Sq, Sk, D, packed):
+    if packed:
+        qkv = _rand(gen, B, Sq, 3, H, D, dtype=dtype)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    else:
+        q = _rand(gen, B, H, Sq, D, dtype=dtype)
+        k, v = (_rand(gen, B, H, Sk, D, dtype=dtype) for _ in range(2))
+    return q, k, v, _rand(gen, B, H, Sq, D, dtype=dtype)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,H,Sq,Sk,D,causal", [
-    (2, 4, 256, 256, 64, True), (1, 3, 200, 200, 64, False),
-    (1, 2, 100, 300, 64, True), (2, 2, 100, 100, 16, True),
-    (1, 2, 130, 130, 128, True), (1, 2, 65, 65, 20, False)])
-def test_flash_bwd_kernels_match_plain(gen, dtype, B, H, Sq, Sk, D, causal):
-    q = _rand(gen, B, H, Sq, D, dtype=dtype)
-    k, v = _rand(gen, B, H, Sk, D, dtype=dtype), _rand(gen, B, H, Sk, D,
-                                                       dtype=dtype)
-    do = _rand(gen, B, H, Sq, D, dtype=dtype)
+@pytest.mark.parametrize("B,H,Sq,Sk,D,causal,packed", BWD_CASES)
+def test_flash_bwd_kernels_match_plain(gen, dtype, B, H, Sq, Sk, D, causal,
+                                       packed):
+    q, k, v, do = _bwd_inputs(gen, dtype, B, H, Sq, Sk, D, packed)
     o, lse = flash.flash_attention_fwd(q, k, v, causal)
     before = dict(op_builder.LAUNCHES)
-    got = flash.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    *got, delta = flash.flash_attention_bwd(q, k, v, o, lse, do, causal,
+                                            return_delta=True)
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         assert op_builder.LAUNCHES[name] == before.get(name, 0) + 1
-    want = flash.flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    *want, want_delta = flash.flash_attention_bwd_plain(
+        q, k, v, o, lse, do, causal, return_delta=True)
     tol = TOLS[dtype]
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.dtype == dtype
         torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
+    # delta = rowsum(do·o), folded into the dq kernel: fp32 sums of the
+    # same products in another order
+    torch.testing.assert_close(delta, want_delta, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_is_bit_reproducible(gen, dtype, causal):
+    """No atomics: two backward runs give bit-equal dq, dk, dv and delta."""
+    q, k, v, do = _bwd_inputs(gen, dtype, 2, 4, 333, 333, 64, False)
+    o, lse = flash.flash_attention_fwd(q, k, v, causal)
+    first = flash.flash_attention_bwd(q, k, v, o, lse, do, causal,
+                                      return_delta=True)
+    second = flash.flash_attention_bwd(q, k, v, o, lse, do, causal,
+                                       return_delta=True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -131,13 +131,18 @@ def test_fp16_overflow_skips_step_and_keeps_scale_once(setup):
     assert all(torch.equal(p, before[k]) for k, p in engine.params.items())
 
 
-def _jax_engine(cfg, batches):
+def _jax_engine(cfg, batches, gas=1):
+    """The JAX engine's losses and final params; at gas > 1 each batch is
+    fed as ``gas`` micro-batches, the split ``_run_port`` makes."""
     groups.destroy()
     groups.initialize(devices=jax.devices()[:1])
     engine, *_ = deepspeed_tpu.initialize(
         model=jax_gpt2.GPT2LMHeadModel(jax_gpt2.GPT2Config(**oracle.TINY)),
         config=cfg, sample_batch=batches[0], seed=oracle.SEED)
-    losses = [float(engine.train_batch(batch=b)) for b in batches]
+    mb = oracle.BATCH_SIZE // gas
+    losses = [float(engine.train_batch(data_iter=iter(
+        {"input_ids": b["input_ids"][i * mb:(i + 1) * mb]}
+        for i in range(gas)))) for b in batches]
     params = flax_to_state_dict(jax.tree.map(np.asarray,
                                              engine.state.params))
     return losses, params
@@ -167,6 +172,34 @@ def test_matches_jax_engine(setup, sweep, scheduler):
         np.testing.assert_allclose(got[k].numpy(), w.numpy(), rtol=1e-5,
                                    atol=1e-5, err_msg=k)
     assert engine.lr_scheduler.last_batch_iteration == len(batches) - 1
+
+
+def test_bf16_accumulator_matches_jax_engine(setup):
+    """gas 2 with ``gradient_accumulation_dtype: "bf16"``: both engines
+    cast each micro-batch's fp32 gradients into a bf16 buffer and add
+    there (JAX engine.py:1144-1150, 1532-1535). Losses and params against
+    the JAX engine: losses at 1e-5, params at atol 1e-4 (a gradient
+    element whose two fp32 sums differ in the last bit can round to
+    neighbouring bf16 values, and Adam's normalised update carries that
+    into a few elements). An fp32 accumulator lands well apart, so the
+    buffer's dtype is what the comparison sees."""
+    cfg = _config(train_micro_batch_size_per_gpu=oracle.BATCH_SIZE // 2,
+                  gradient_accumulation_dtype="bf16",
+                  optimizer={"type": "Adam", "params": {"lr": 2e-3}})
+    batches = setup[1][:8]
+    want_losses, want_params = _jax_engine(dict(cfg), batches, gas=2)
+    engine, losses = _run_port((setup[0], batches, setup[2]), dict(cfg))
+    assert engine.gradient_accumulation_steps() == 2
+    np.testing.assert_allclose(losses, want_losses, rtol=1e-5, atol=1e-5)
+    got = engine.module.state_dict()
+    for k, w in want_params.items():
+        np.testing.assert_allclose(got[k].numpy(), w.numpy(), rtol=0,
+                                   atol=1e-4, err_msg=k)
+    cfg.pop("gradient_accumulation_dtype")
+    fp32_engine, _ = _run_port((setup[0], batches, setup[2]), cfg)
+    apart = max(float((fp32_engine.module.state_dict()[k] - w).abs().max())
+                for k, w in want_params.items())
+    assert apart > 1e-3
 
 
 def test_initialize_contract_and_unported_arguments(setup):
