@@ -12,15 +12,21 @@ Phases, each fatal on failure:
    ``build/torch_ext/`` and print the build time;
 3. hold every kernel against its plain PyTorch version on the card
    (tolerances: fp32 atol = rtol = 2e-5; bf16 atol = rtol = 2e-2, the
-   plain forward rounds the softmax weights to bf16 before P·V where the
-   kernels keep fp32, and the backward's outputs are bf16; Adam rtol 1e-6,
+   plain forward rounds the normalised softmax weights to bf16 before P·V
+   where the kernel rounds the unnormalised ones and divides by their
+   fp32 sum after, and the backward's outputs are bf16; Adam rtol 1e-6,
    atol 1e-7): flash forward, decode, the flash backward (dq, dk/dv) at
    the training shape (B 8, H 16, S 1024, D 64, causal) and at Sq < Sk,
    then at B 8, H 16 in bf16: every head-dim class (16, 20, 64, 80, 128),
    Sq != Sk both ways (rows with no visible key), lengths one short of
    and one past the 64-row tile and the 3-stage ring, a packed qkv
    projection, delta = rowsum(do·o) from the dq kernel (2e-5), and two
-   backward runs bit-equal; both Adam forms at GPT-2 medium's size;
+   backward runs bit-equal; the flash forward at the same shape classes
+   (and one short of and one past its 128-row CTA)
+   (o and lse on every row; o = 0 and lse at most -5e29 on the rows
+   that see no key) and two forward runs bit-equal; both Adam forms at
+   GPT-2 medium's size (the per-tensor form: all 292 tensors in one
+   launch);
 4. the generation path at full width: GPT-2 medium (24 layers, n_embd
    1024, 16 heads, vocab 50257 padded to 50304) on weights drawn from a
    seed, cast to bf16 by ``init_inference``, greedy ``generate`` on 8
@@ -37,7 +43,8 @@ Phases, each fatal on failure:
    synthetic batch from a seed, then 3 steps of a second engine with
    ``fused: true``. Launch counts are zeroed just before and read just
    after: flash_fwd, flash_bwd_dq and flash_bwd_dkv 24 a step, adam once a
-   sweep step and 292 times a fused step. The losses must be finite, the
+   sweep step and once a fused step (one multi-tensor launch for the 292
+   tensors). The losses must be finite, the
    first near ln(50257), and the loss on the repeated batch must fall;
 7. one-step parity: a 2-layer model at full width takes one step on the
    kernels and one with attention and Adam on their plain versions; the
@@ -46,8 +53,10 @@ Phases, each fatal on failure:
    memory, one profiled step, and each kernel at the main path's shapes
    (CUDA events) beside its plain version, its least possible time on the
    card and, where one exists, the PyTorch call that computes the same
-   function (``scaled_dot_product_attention`` and its backward alone on
-   the flash backend pinned, cuDNN's beside it,
+   function (``scaled_dot_product_attention``'s forward and its backward
+   alone on the flash backend pinned, cuDNN's beside it; the forward's
+   wrapper against SDPA's call, and the device times of both from the
+   profiler;
    ``torch.optim.AdamW(fused=True)``, ``F.layer_norm``,
    ``native_layer_norm_backward``, add + ``F.gelu``: timed for the table
    only);
@@ -62,7 +71,8 @@ Phases, each fatal on failure:
    step, ln_fwd and ln_bwd 48, bias_gelu 24, lamb 1 (0 with plain LAMB).
    Then a one-step parity on a 2-layer full-width BERT (kernels against
    the plain versions of attention, LayerNorm, bias-GeLU and LAMB pass 1),
-   flash against ``scaled_dot_product_attention`` at B 64, S 128, the
+   flash against ``scaled_dot_product_attention`` at B 64, S 128 (the
+   forward alone against SDPA's on the flash and cuDNN backends), the
    step time, tokens/s, samples/s, MFU, idle share and peak memory, and
    the four new kernels' timings. Phase 3 holds those kernels against
    their plain versions at BERT-large's shapes and ragged ones first;
@@ -214,7 +224,8 @@ def device_profile(torch, fn):
         name = ev.key.lower()
         group = ("flash_fwd" if "flash_fwd" in name else
                  "flash_bwd" if "flash_bwd" in name else
-                 "adam" if "adam_kernel" in name else
+                 "adam" if "adam_kernel" in name
+                 or "adam_multi_kernel" in name else
                  "layer_norm" if "ln_fwd_kernel" in name
                  or "ln_bwd_kernel" in name else
                  "bias_gelu" if "bias_gelu_kernel" in name else
@@ -302,7 +313,63 @@ def check_kernels(torch, flash, decode):
                                              "plain version")
                     if dtype == torch.bfloat16:
                         main_err[name] = max(main_err.get(name, 0), err)
+    check_flash_fwd_shapes(torch, flash, rnd)
     return main_err
+
+
+# (Sq, Sk, D, causal, packed) at B 8, H 16, bf16: the forward's shape
+# classes of tests/test_torch_cuda_kernels.py at full size. Every head-dim
+# class (16, 20 padded to 32, 64, 80 padded to 128, 128); one short of and
+# one past the 64-row tile, the 128-row CTA and the 192-key ring; Sq != Sk
+# both ways (Sq > Sk causal: the first Sq - Sk rows see no key); a packed
+# qkv projection.
+FWD_SHAPES = [(896, 896, 16, True, False), (896, 896, 20, False, False),
+              (896, 896, 80, True, False), (896, 896, 128, True, False),
+              (128, 128, 128, False, False),
+              (63, 63, 64, True, False), (65, 65, 64, True, False),
+              (127, 127, 64, True, False), (129, 129, 32, False, False),
+              (191, 191, 64, True, False), (193, 193, 64, False, False),
+              (65, 191, 64, True, False), (193, 63, 64, False, False),
+              (SEQ, 896, 64, True, False), (896, 128, 128, True, False),
+              (300, 100, 20, True, False), (SEQ, SEQ, 64, True, True),
+              (BERT_S, BERT_S, 64, False, True)]
+
+
+def check_flash_fwd_shapes(torch, flash, rnd):
+    """Phase 3, the bf16 flash forward beyond the main shapes: o within
+    2e-2 and lse within 2e-5 on every row, o = 0 and lse at most -5e29
+    on the rows with no visible key (no softmax there); then two runs at
+    the prefill shape bit-equal."""
+    for sq, sk, d, causal, packed in FWD_SHAPES:
+        if packed:
+            qkv = rnd(B, sq, 3, H, d, dtype=torch.bfloat16)
+            q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        else:
+            q = rnd(B, H, sq, d, dtype=torch.bfloat16)
+            k, v = (rnd(B, H, sk, d, dtype=torch.bfloat16) for _ in range(2))
+        o, lse = flash.flash_attention_fwd(q, k, v, causal)
+        o_ref, lse_ref = flash.flash_attention_fwd_plain(q, k, v, causal)
+        torch.cuda.synchronize()
+        sees = torch.ones(sq, dtype=torch.bool, device="cuda")
+        if causal:
+            sees = torch.arange(sq, device="cuda") + sk - sq >= 0
+        err, ok = close(o, o_ref, 2e-2)
+        err_l, ok_l = close(lse, lse_ref, 2e-5)
+        keyless = int((~sees).sum())
+        ok_k = bool((lse[:, :, ~sees] <= -5e29).all() and
+                    (o[:, :, ~sees] == 0).all())
+        print(f"check flash_fwd bf16 Sq={sq} Sk={sk} D={d} causal={causal} "
+              f"packed={packed}: o err {err:.3g}, lse err {err_l:.3g}, "
+              f"{keyless} rows with no key at the masking value: {ok_k}",
+              flush=True)
+        if not (ok and ok_l and ok_k):
+            raise AssertionError("flash_fwd disagrees with its plain version")
+        del q, k, v, o, lse, o_ref, lse_ref
+    q, k, v = (rnd(B, H, 896, D, dtype=torch.bfloat16) for _ in range(3))
+    runs = [flash.flash_attention_fwd(q, k, v, True) for _ in range(2)]
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        raise AssertionError("flash_fwd is not bit-reproducible")
+    print("check flash_fwd: two runs bit-equal (o, lse)", flush=True)
 
 
 @contextlib.contextmanager
@@ -401,22 +468,24 @@ def check_training_kernels(torch, flash, fused_adam, param_shapes):
         print(f"check adam sweep n={n} wd={wd} cast={cast}: "
               f"err {case_err:.3g}", flush=True)
     del got, want
-    errs = []
-    off = 0
+    # the per-tensor form: every tensor of the model in one launch
+    lists, off = [[], [], [], []], 0
     for shape in param_shapes:
         size = math.prod(shape)
-        sl = slice(off, off + size)
+        for lst, t in zip(lists, (p, g, m, v)):
+            lst.append(t[off:off + size].view(shape))
         off += size
-        args = [t[sl].view(shape) for t in (p, g, m, v)]
-        got = fused_adam.fused_adam_update(*args, LR, 0.271, 0.002997)
+    got = fused_adam.fused_adam_multi(*lists, LR, 0.271, 0.002997)
+    errs = []
+    for i, args in enumerate(zip(*lists)):
         want = fused_adam.adam_sweep_apply_plain(*args, LR, 0.271,
                                                  0.002997)[:3]
-        for a, b in zip(got, want):
+        for a, b in zip((got[0][i], got[1][i], got[2][i]), want):
             torch.testing.assert_close(a, b, **ADAM_TOL)
             errs.append((a - b).abs().max().item())
     main_err["adam_per_tensor"] = max(errs)
-    print(f"check adam per-tensor over the model's shapes: err "
-          f"{max(errs):.3g}", flush=True)
+    print(f"check adam per-tensor, {len(param_shapes)} tensors in one "
+          f"launch: err {max(errs):.3g}", flush=True)
     return main_err
 
 
@@ -582,6 +651,126 @@ def sdpa_bwd_backend_ms(torch, q, k, v, do, causal, backend):
         return None
 
 
+def sdpa_fwd_backend_ms(torch, q, k, v, causal, backend):
+    """``scaled_dot_product_attention`` forward on one backend (a
+    yardstick, timed only; the forward twin of :func:`sdpa_bwd_backend_ms`):
+    (ms of the call by CUDA events, device ms of its kernels from the
+    profiler), or (None, None) where the backend refuses the shape."""
+    from torch.nn.attention import sdpa_kernel
+    F = torch.nn.functional
+    fn = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+    try:
+        with sdpa_kernel(backend):
+            return cuda_ms(fn), call_device_ms(torch, fn)
+    except RuntimeError as err:
+        print(f"SDPA {backend.name} refused the shape: {err}"[:200],
+              flush=True)
+        return None, None
+
+
+def _device_kernels(torch, fn, iters):
+    """(name, count, device µs) of every CUDA kernel ``torch.profiler``
+    recorded over ``iters`` calls of ``fn``, after one call unprofiled."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return [(ev.key, ev.count, ev.self_device_time_total)
+            for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def kernel_device_ms(torch, fn, name, iters=20):
+    """Mean device time in ms of one launch of the kernel whose name holds
+    ``name``, from ``torch.profiler`` over ``iters`` calls of ``fn`` (no
+    host time in it, where CUDA events around a short kernel can time the
+    host's enqueue). Divided by the launches the profiler recorded: it
+    can drop some of a window's kernel records."""
+    evs = [ev for ev in _device_kernels(torch, fn, iters) if name in ev[0]]
+    count = sum(ev[1] for ev in evs)
+    if count == 0:
+        raise RuntimeError(f"the profiler recorded no {name} kernel")
+    return sum(ev[2] for ev in evs) / 1e3 / count
+
+
+def call_device_ms(torch, fn, iters=20):
+    """Mean device time in ms of one call of ``fn`` (a library call that
+    launches kernels of its own): every kernel the profiler recorded,
+    summed, over the launches of the kernel it recorded most often (each
+    call launches each of its kernels once)."""
+    evs = _device_kernels(torch, fn, iters)
+    if not evs:
+        raise RuntimeError("the profiler recorded no kernel")
+    return sum(ev[2] for ev in evs) / 1e3 / max(ev[1] for ev in evs)
+
+
+def flash_fwd_timing(torch, flash, batch, seq, causal):
+    """The forward at [batch, 16, seq, 64] bf16: ``ms`` times the wrapper
+    (what the models call; CUDA events), ``kernel_ms`` its C entry point
+    alone (without the wrapper's checks and allocations) and
+    ``device_ms`` the kernel's device time from the profiler. SDPA's
+    forward on the same inputs, on the flash backend pinned, on cuDNN's
+    and unpinned: each call by CUDA events (``sdpa_*_ms``, to hold
+    against ``ms``) and the device time of its kernels from the profiler
+    (``sdpa_*_device_ms``, to hold against ``device_ms``). Bound: q, k, v
+    read and o, lse written at 3.35 TB/s, or 4·D flops a visible
+    (query, key) pair at 989 TFLOP/s."""
+    from torch.nn.attention import SDPBackend
+
+    from deepspeed_tpu_torch.ops import op_builder
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    q, k, v = (torch.randn(batch, H, seq, D, generator=gen,
+                           device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    o, lse = flash.flash_attention_fwd(q, k, v, causal)
+    lib = op_builder.load_kernels()
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), 1, batch, H, seq, seq, D, *q.stride()[:3],
+            *k.stride()[:3], *v.stride()[:3], *o.stride()[:3], D ** -0.5,
+            int(causal), 1, stream)
+    kernel = lambda: lib.ds_flash_fwd(*args)
+    pairs = batch * H * (seq * (seq + 1) // 2 if causal else seq * seq)
+    out = {"shape": f"B{batch} H{H} S{seq} D{D} "
+                    f"{'causal' if causal else 'non-causal'} bf16",
+           "ms": cuda_ms(lambda: flash.flash_attention_fwd(q, k, v, causal)),
+           "kernel_ms": cuda_ms(kernel),
+           "device_ms": kernel_device_ms(torch, kernel, "flash_fwd"),
+           "bytes": 4 * batch * H * seq * D * 2 + batch * H * seq * 4,
+           "flops": 4 * D * pairs}
+    for key, backend in (("flash", SDPBackend.FLASH_ATTENTION),
+                         ("cudnn", SDPBackend.CUDNN_ATTENTION)):
+        out[f"sdpa_{key}_ms"], out[f"sdpa_{key}_device_ms"] = \
+            sdpa_fwd_backend_ms(torch, q, k, v, causal, backend)
+    unpinned = lambda: F.scaled_dot_product_attention(q, k, v,
+                                                      is_causal=causal)
+    out["sdpa_unpinned_ms"] = cuda_ms(unpinned)
+    out["sdpa_unpinned_device_ms"] = call_device_ms(torch, unpinned)
+    out["bound_ms"] = max(out["bytes"] / HBM_BYTES_PER_S,
+                          out["flops"] / BF16_FLOPS) * 1e3
+    out["x_bound"] = out["ms"] / out["bound_ms"]
+    out["device_tflops"] = out["flops"] / out["device_ms"] / 1e9
+    if out["sdpa_flash_ms"]:
+        # call against call, and device time against device time
+        out["over_sdpa_flash"] = out["ms"] / out["sdpa_flash_ms"]
+        out["device_over_sdpa_flash"] = (out["device_ms"] /
+                                         out["sdpa_flash_device_ms"])
+    print(f"flash_fwd timing: {json.dumps(out)}", flush=True)
+    del q, k, v, o, lse
+    return out
+
+
+# what the kernels line and phase 5 keep of :func:`flash_fwd_timing`
+SDPA_FWD_KEYS = ("sdpa_flash_device_ms", "sdpa_cudnn_ms",
+                 "sdpa_cudnn_device_ms", "sdpa_unpinned_ms",
+                 "sdpa_unpinned_device_ms", "device_tflops",
+                 "over_sdpa_flash", "device_over_sdpa_flash")
+
+
 def sdpa_bwd_ms(torch, q, k, v, do, causal):
     """SDPA's backward alone on the flash backend pinned, or on the
     memory-efficient one where flash refuses the shape: (ms, backend)."""
@@ -715,34 +904,54 @@ def training_kernel_rows(torch, flash, fused_adam, param_shapes):
         "bytes": 24 * n_pad, "flops": 14 * n_pad, "peak": FP32_FLOPS})
     del g, m, v, p, opt
 
-    # Adam, per-tensor form: one launch per parameter tensor
-    ps = [rnd(*s, dtype=torch.float32) for s in param_shapes]
-    gs = [rnd(*s, dtype=torch.float32) * 1e-3 for s in param_shapes]
-    ms_ = [torch.zeros_like(t) for t in ps]
-    vs_ = [torch.zeros_like(t) for t in ps]
+    # Adam, per-tensor form: the optimizer's whole-step call (one launch
+    # for all the tensors) as the fused engine makes it
+    names = [f"t{i}" for i in range(len(param_shapes))]
+    ps = {k: rnd(*s, dtype=torch.float32) for k, s in zip(names, param_shapes)}
+    gs = {k: rnd(*s, dtype=torch.float32) * 1e-3
+          for k, s in zip(names, param_shapes)}
+    opt = fused_adam.fused_adam()
+    state = opt.init(ps)
+    step = lambda: opt.update(gs, state, ps, LR)
 
-    def per_tensor(fn):
-        return lambda: [fn(a, b, c, d, LR, 0.271, 0.002997)
-                        for a, b, c, d in zip(ps, gs, ms_, vs_)]
+    def enqueue_ms(fn, reps=5):
+        """The host's time for ``fn``, synchronised before, not after:
+        what the wrapper costs the host, apart from the device's time."""
+        best = float("inf")
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            best = min(best, (time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        return best
 
-    params = [torch.nn.Parameter(t.clone()) for t in ps]
-    for prm, gr in zip(params, gs):
+    plain = lambda: [fused_adam.adam_sweep_apply_plain(
+        ps[k], gs[k], state.mu[k], state.nu[k], LR, 0.271, 0.002997)
+        for k in names]
+    params = [torch.nn.Parameter(t.clone()) for t in ps.values()]
+    for prm, gr in zip(params, gs.values()):
         prm.grad = gr
-    opt = torch.optim.AdamW(params, lr=LR, weight_decay=0.0, fused=True)
+    aw = torch.optim.AdamW(params, lr=LR, weight_decay=0.0, fused=True)
     rows.append({
         "name": "adam_per_tensor", "route": "cuda",
         "source": "deepspeed_tpu_torch/csrc/adam.cu",
         "replaces": "deepspeed_tpu/ops/adam/fused_adam.py:35",
         "shape": f"{len(param_shapes)} fp32 tensors, {n} elements "
-                 f"(GPT-2 medium), one launch each",
-        "ms": cuda_ms(per_tensor(fused_adam.fused_adam_update), iters=5),
-        "plain_ms": cuda_ms(per_tensor(fused_adam.adam_sweep_apply_plain),
-                            iters=3),
-        "library_ms": cuda_ms(opt.step, iters=5),
+                 f"(GPT-2 medium), the fused optimizer's step: "
+                 f"{-(-len(names) // fused_adam.MULTI_MAX_TENSORS)} launch",
+        "ms": cuda_ms(step, iters=10),
+        "device_ms": kernel_device_ms(torch, step, "adam_multi", iters=5),
+        "host_ms": enqueue_ms(step),
+        "host_note": "the whole-step call's host time (table, views, "
+                     "launch), not waiting for the device",
+        "plain_ms": cuda_ms(plain, iters=3),
+        "library_ms": cuda_ms(aw.step, iters=5),
         "library_note": "torch.optim.AdamW(fused=True).step over the same "
                         "tensors (multi-tensor, updates p in place)",
+        "library_host_ms": enqueue_ms(aw.step),
         "bytes": 28 * n, "flops": 14 * n, "peak": FP32_FLOPS})
-    del ps, gs, ms_, vs_, params, opt
+    del ps, gs, state, params, opt, aw
     torch.cuda.empty_cache()
     return rows
 
@@ -947,9 +1156,10 @@ def bert_one_step_parity(torch, deepspeed_tpu_torch, bert, op_builder,
 
 
 def flash_vs_sdpa(torch, flash):
-    """Flash forward and forward + backward against
-    ``scaled_dot_product_attention`` at the BERT shape, and the backward
-    kernels alone against SDPA's backward alone (timed only)."""
+    """The forward kernel alone against ``scaled_dot_product_attention``'s
+    forward on pinned backends, forward + backward against SDPA's at the
+    BERT shape, and the backward kernels alone against SDPA's backward
+    alone (timed only)."""
     F = torch.nn.functional
     gen = torch.Generator(device="cuda").manual_seed(12)
     q, k, v, do = (torch.randn(BERT_B, H, BERT_S, D, generator=gen,
@@ -958,10 +1168,7 @@ def flash_vs_sdpa(torch, flash):
     qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
     out = {
         "shape": f"B{BERT_B} H{H} S{BERT_S} D{D} non-causal bf16",
-        "flash_fwd_ms": cuda_ms(lambda: flash.flash_attention_fwd(
-            q, k, v, False)),
-        "sdpa_fwd_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v)),
+        "fwd": flash_fwd_timing(torch, flash, BERT_B, BERT_S, False),
         "flash_fwd_bwd_ms": cuda_ms(lambda: torch.autograd.grad(
             flash.flash_attention(qg, kg, vg, causal=False), (qg, kg, vg),
             do)),
@@ -1996,8 +2203,8 @@ def main():
 
     # the same model on the plain attention versions, on the card. The
     # bf16 logits (largest about 3) differ by up to 0.05 after 24 layers,
-    # since the kernels keep the softmax weights in fp32 where the plain
-    # versions round them to bf16: the tolerance is 0.1 absolute, and the
+    # since the kernels and the plain versions round the softmax weights
+    # to bf16 at other points: the tolerance is 0.1 absolute, and the
     # greedy tokens of at least 7 of the 8 sequences must agree (a
     # near-tie may flip one)
     logit_tol, min_agree = 0.1, 7 / 8
@@ -2060,19 +2267,20 @@ def main():
 
     F = torch.nn.functional
     q, k, v = rnd(B, H, 896, D), rnd(B, H, 896, D), rnd(B, H, 896, D)
-    pairs = sum(min(r + 1, 896) for r in range(896))
+    fwd = flash_fwd_timing(torch, flash, B, 896, True)
     flash_row = {
         "name": "flash_fwd", "route": "cuda",
         "source": "deepspeed_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "deepspeed_tpu/ops/transformer/flash.py:211",
-        "shape": "B8 H16 S896 D64 causal bf16",
-        "ms": cuda_ms(lambda: flash.flash_attention_fwd(q, k, v, True)),
+        "shape": fwd["shape"], "ms": fwd["ms"],
+        "kernel_ms": fwd["kernel_ms"], "device_ms": fwd["device_ms"],
         "plain_ms": cuda_ms(
             lambda: flash.flash_attention_fwd_plain(q, k, v, True)),
-        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True)),
-        "bytes": 4 * B * H * 896 * D * 2 + B * H * 896 * 4,
-        "flops": 4 * D * pairs * B * H,
+        "library_ms": fwd["sdpa_flash_ms"],
+        "library_note": "scaled_dot_product_attention forward, flash "
+                        "backend pinned",
+        **{key: fwd[key] for key in SDPA_FWD_KEYS if key in fwd},
+        "bytes": fwd["bytes"], "flops": fwd["flops"],
     }
     qd = rnd(B, H, 1, D)
     kc, vc = rnd(B, H, T_CACHE, D), rnd(B, H, T_CACHE, D)
@@ -2136,9 +2344,11 @@ def main():
           f"fused {fused_counts}", flush=True)
     print(f"train losses: sweep {losses}, fused {fused_losses}", flush=True)
     n_tensors = len(engine.params)
+    # the fused Adam: one launch a step for up to MULTI_MAX_TENSORS tensors
+    fused_launches = -(-n_tensors // fused_adam.MULTI_MAX_TENSORS)
     for counts, steps, adam_per_step in (
             (sweep_counts, TRAIN_STEPS, 1),
-            (fused_counts, FUSED_STEPS, n_tensors)):
+            (fused_counts, FUSED_STEPS, fused_launches)):
         want = {"flash_fwd": 24 * steps, "flash_bwd_dq": 24 * steps,
                 "flash_bwd_dkv": 24 * steps, "adam": adam_per_step * steps}
         got = {k: counts.get(k, 0) for k in want}
@@ -2343,6 +2553,11 @@ def main():
     for name in ("sparse_fwd", "sparse_dq", "sparse_dkv"):
         launches[name] = sparse_counts[name] + gpt_counts[name]
         launches[name + "_predicated"] = pred_counts[name]
+    bert_fwd = sdpa["fwd"]
+    flash_row["bert_shape"] = {
+        key: bert_fwd[key] for key in (
+            "shape", "ms", "kernel_ms", "device_ms", "bound_ms", "x_bound",
+            "sdpa_flash_ms", *SDPA_FWD_KEYS) if key in bert_fwd}
     flash_row["launches_by_path"] = {
         "generate": gen_launches.get("flash_fwd", 0),
         "train": train_launches.get("flash_fwd", 0),

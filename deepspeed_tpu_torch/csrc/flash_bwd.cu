@@ -74,34 +74,20 @@ using hopper::cp_async4;
 using hopper::cp_async_commit;
 using hopper::cp_async_wait;
 using hopper::ex2;
+using hopper::hold_regs;
+using hopper::kLog2e;
 using hopper::ldsm_a;
 using hopper::ldsm_b;
 using hopper::ldsm_bt;
 using hopper::stage_tile;
+using hopper::store_rows;
+using hopper::use_wgmma;
 using hopper::wgmma_commit;
 using hopper::wgmma_desc;
 using hopper::wgmma_fence;
 using hopper::wgmma_rs;
 using hopper::wgmma_wait;
 
-// the products are warpgroup MMAs where the tile rows are a hardware
-// swizzle (DP 16, 32, 64), mma.sync at DP 128
-template <int DP>
-__host__ __device__ constexpr bool use_wgmma() {
-  return DP <= 64;
-}
-
-// keep A registers of in-flight wgmmas alive and unchanged until the wait
-template <int N>
-__device__ __forceinline__ void hold_regs(uint32_t (&a)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
-  }
-}
-
-constexpr float kLog2e = 1.4426950408889634f;
 // 64 rows a CTA (one warpgroup) and a ring of 3 stages: 128-row CTAs and
 // 2 stages were no faster on the H100
 constexpr int kRows = 64;  // rows a CTA owns (queries for dq, keys for dkv)
@@ -147,30 +133,6 @@ __device__ __forceinline__ float row_lse(const float* lse, long long i,
 
 __device__ __forceinline__ float2 unpack_bf16(uint32_t x) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
-}
-
-// rows r0 and r0 + 8 of an [S, D] bf16 output from an m16n8 accumulator
-template <int NO>
-__device__ __forceinline__ void store_rows(bf16* out, long long stride,
-                                           float acc[NO][4], int r0,
-                                           int rows, int D, int t) {
-#pragma unroll
-  for (int n = 0; n < NO; ++n) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = r0 + 8 * half;
-      const int c = n * 8 + t * 2;
-      if (row >= rows || c >= D) continue;
-      bf16* p = out + row * stride + c;
-      if (D % 2 == 0) {
-        *reinterpret_cast<__nv_bfloat162*>(p) =
-            __floats2bfloat162_rn(acc[n][2 * half], acc[n][2 * half + 1]);
-      } else {
-        p[0] = __float2bfloat16(acc[n][2 * half]);
-        if (c + 1 < D) p[1] = __float2bfloat16(acc[n][2 * half + 1]);
-      }
-    }
-  }
 }
 
 // ------------------------------------------------------------ bf16: dq

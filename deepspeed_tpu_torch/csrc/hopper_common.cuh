@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks of the redesigned attention kernels
-// (flash_bwd.cu): asynchronous 16- and 4-byte copies into shared memory
-// (cp.async, zero fill past the live bytes) with their commit/wait groups,
-// the swizzled layout of a [rows, DP] bf16 tile, ldmatrix fragment loads,
-// plain and transposed, warpgroup MMA (wgmma: matrix descriptors, fences,
-// m64n16/32/64k16 with A from registers), and exp2. flash_fwd.cu and
-// sparse_attention.cu keep flash_common.cuh's helpers.
+// (flash_fwd.cu, flash_bwd.cu): asynchronous 16- and 4-byte copies into
+// shared memory (cp.async, zero fill past the live bytes) with their
+// commit/wait groups, the swizzled layout of a [rows, DP] bf16 tile,
+// ldmatrix fragment loads, plain and transposed, warpgroup MMA (wgmma:
+// matrix descriptors, fences, m64n16/32/64k16 with A from registers),
+// exp2, and the bf16 row store of an accumulator. sparse_attention.cu
+// keeps flash_common.cuh's helpers.
 //
 // Swizzle. A tile row of DP bf16 is DP / 8 chunks of 16 bytes, stored
 // without padding; chunk c of row r lands at chunk position swz(r, c) of
@@ -174,6 +175,30 @@ __device__ __forceinline__ void stage_tile(bf16* tile, const bf16* src,
   }
 }
 
+// rows r0 and r0 + 8 of an [S, D] bf16 output from an m16n8 accumulator
+template <int NO>
+__device__ __forceinline__ void store_rows(bf16* out, long long stride,
+                                           float acc[NO][4], int r0,
+                                           int rows, int D, int t) {
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = r0 + 8 * half;
+      const int c = n * 8 + t * 2;
+      if (row >= rows || c >= D) continue;
+      bf16* p = out + row * stride + c;
+      if (D % 2 == 0) {
+        *reinterpret_cast<__nv_bfloat162*>(p) =
+            __floats2bfloat162_rn(acc[n][2 * half], acc[n][2 * half + 1]);
+      } else {
+        p[0] = __float2bfloat16(acc[n][2 * half]);
+        if (c + 1 < D) p[1] = __float2bfloat16(acc[n][2 * half + 1]);
+      }
+    }
+  }
+}
+
 // ------------------------------------------------------------ wgmma
 // Warpgroup MMA (sm_90a): four warps issue one asynchronous 64-row
 // product; A from registers in the mma.sync A-fragment layout (warp w holds
@@ -214,6 +239,23 @@ __device__ __forceinline__ void reg_fence(float (&d)[N][4]) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[i][e])::"memory");
   }
+}
+
+// keep A registers of in-flight wgmmas alive and unchanged until the wait
+template <int N>
+__device__ __forceinline__ void hold_regs(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
+  }
+}
+
+// the products are warpgroup MMAs where the tile rows are a hardware
+// swizzle (DP 16, 32, 64), mma.sync at DP 128
+template <int DP>
+__host__ __device__ constexpr bool use_wgmma() {
+  return DP <= 64;
 }
 
 // make this thread's generic-proxy shared-memory writes (cp.async, st)
@@ -293,6 +335,8 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 8][4],
     wgmma_m64n16k16<TRANS_B>(d, a, desc);
   }
 }
+
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float ex2(float x) {
   float y;

@@ -1,11 +1,15 @@
 """Fused Adam: the Hopper kernel ``csrc/adam.cu`` and its plain PyTorch
 version (counterpart of ``deepspeed_tpu/ops/adam/fused_adam.py``).
 
-One elementwise kernel reads (p, g, m, v) once and writes (update, m, v).
+An elementwise kernel reads (p, g, m, v) once and writes (update, m, v).
 Exposed two ways, as in the JAX package:
 
-* :func:`fused_adam_update` and :func:`fused_adam`: one launch per tensor
-  (config ``optimizer.params.fused``);
+* :func:`fused_adam_update` and :func:`fused_adam`: the per-tensor form
+  (config ``optimizer.params.fused``). :func:`fused_adam_multi` updates a
+  list of tensors in one launch (up to ``MULTI_MAX_TENSORS`` a launch),
+  the table of tensors passed by value in the kernel's parameters;
+  :func:`fused_adam` makes one such call a step, and
+  :func:`fused_adam_update` is the call with one tensor;
 * :func:`adam_sweep_apply` and :func:`fused_adam_sweep`: one launch over
   the whole state flattened into padded fp32 vectors, with the global-norm
   clip coefficient folded in (``optimizer.params.sweep``).
@@ -25,6 +29,10 @@ from deepspeed_tpu_torch.ops._platform import use_kernel
 from deepspeed_tpu_torch.runtime import optim as optim_lib
 
 _SWEEP_PAD = 256 * 128   # the JAX sweep kernel's block (rows x lanes)
+# csrc/adam.cu's multi-tensor launch: tensors a launch (kMaxTensors) and
+# elements a block (kChunk)
+MULTI_MAX_TENSORS = 448
+MULTI_CHUNK = 4096
 
 
 def sweep_pad():
@@ -101,27 +109,131 @@ def _launch(p, g, m, v, lr, bc1, bc2, clip_coef, b1, b2, eps, weight_decay,
     return u, mo, vo, cast
 
 
+def _multi_route(ps, gs, ms, vs):
+    """True (launch) when the lists lie on one CUDA device, False on the
+    CPU; raises on unequal lists or tensors on different devices. Cheap
+    per tensor: the fused optimizer passes every tensor of a model."""
+    if not (len(ps) == len(gs) == len(ms) == len(vs)):
+        raise ValueError("fused_adam_multi takes equal lists")
+    devices = {t.get_device() for lst in (ps, gs, ms, vs) for t in lst}
+    if len(devices) != 1:
+        raise ValueError(f"tensors must share one device, got {devices}")
+    return use_kernel(gs[0])
+
+
+def _check_multi(ps, gs, ms, vs):
+    """The kernel's contract: fp32 p, g, m, v of one size per tensor.
+    Tensors that are not contiguous are replaced by contiguous copies (the
+    outputs are fresh flat buffers either way). Returns the sizes and the
+    four lists."""
+    sizes = [g.numel() for g in gs]
+    lists = []
+    for name, lst in zip("pgmv", (ps, gs, ms, vs)):
+        # comprehensions, not generators: the host cost is per tensor
+        if {t.dtype for t in lst} == {torch.float32} and \
+                (lst is gs or [t.numel() for t in lst] == sizes):
+            if not all([t.is_contiguous() for t in lst]):
+                lst = [t.contiguous() for t in lst]
+            lists.append(lst)
+            continue
+        for i, (t, n) in enumerate(zip(lst, sizes)):
+            if t.dtype != torch.float32 or t.numel() != n:
+                raise ValueError(f"adam kernel takes fp32 tensors of one "
+                                 f"size; {name}[{i}] is {t.dtype} "
+                                 f"{tuple(t.shape)}")
+    return (sizes, *lists)
+
+
+def multi_table(ps, gs, ms, vs, sizes=None):
+    """The host table of ``ds_adam_multi`` for the lists: int64 [n, 6]
+    rows (p, g, m, v pointers, numel, output offset), the offsets running
+    over the sizes padded to multiples of 4 so that each tensor's outputs
+    start 16-byte aligned; also the padded sizes and the flat output
+    length."""
+    if sizes is None:
+        sizes = [g.numel() for g in gs]
+    padded = [-(-n // 4) * 4 for n in sizes]
+    table = np.empty((len(gs), 6), dtype=np.int64)
+    table[:, 0] = [t.data_ptr() for t in ps]
+    table[:, 1] = [t.data_ptr() for t in gs]
+    table[:, 2] = [t.data_ptr() for t in ms]
+    table[:, 3] = [t.data_ptr() for t in vs]
+    table[:, 4] = sizes
+    table[0, 5] = 0
+    np.cumsum(padded[:-1], out=table[1:, 5])
+    return table, padded, int(table[-1, 5]) + padded[-1]
+
+
+def fused_adam_multi(ps, gs, ms, vs, lr, bc1, bc2, *, b1=0.9, b2=0.999,
+                     eps=1e-8, weight_decay=0.0, adam_w_mode=True):
+    """One Adam step for every fp32 tensor of the lists (the TPU
+    ``_adam_kernel`` applied to each: p always read, clip coefficient 1);
+    returns three lists (updates, m, v) in the tensors' shapes.
+
+    CUDA tensors launch ``ds_adam_multi`` once for up to
+    ``MULTI_MAX_TENSORS`` tensors (the table travels in the kernel's
+    parameters); the outputs are views of three flat fp32 buffers. CPU
+    tensors run :func:`adam_sweep_apply_plain` on each tensor."""
+    ps, gs, ms, vs = list(ps), list(gs), list(ms), list(vs)
+    if not gs:
+        return [], [], []
+    if not _multi_route(ps, gs, ms, vs):
+        outs = [adam_sweep_apply_plain(p, g, m, v, lr, bc1, bc2, 1.0, b1=b1,
+                                       b2=b2, eps=eps,
+                                       weight_decay=weight_decay,
+                                       adam_w_mode=adam_w_mode)
+                for p, g, m, v in zip(ps, gs, ms, vs)]
+        return ([o[0] for o in outs], [o[1] for o in outs],
+                [o[2] for o in outs])
+    sizes, ps, gs, ms, vs = _check_multi(ps, gs, ms, vs)
+    table, padded, total = multi_table(ps, gs, ms, vs, sizes)
+    dev = gs[0].device
+    u, mo, vo = (torch.empty(total, dtype=torch.float32, device=dev)
+                 for _ in range(3))
+    f32 = lambda x: float(np.float32(x))
+    lib = op_builder.load_kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for i in range(0, len(gs), MULTI_MAX_TENSORS):
+        part = np.ascontiguousarray(table[i:i + MULTI_MAX_TENSORS])
+        if not part[:, 4].any():
+            continue  # only empty tensors: nothing to launch
+        err = lib.ds_adam_multi(
+            part.ctypes.data, len(part), u.data_ptr(), mo.data_ptr(),
+            vo.data_ptr(), f32(lr), f32(bc1), f32(bc2), f32(b1),
+            f32(1.0 - b1), f32(b2), f32(1.0 - b2), f32(eps),
+            f32(weight_decay), int(bool(adam_w_mode)), stream)
+        op_builder.check_launch(err, "adam")
+    if padded == sizes:
+        parts = lambda flat: flat.split(sizes)
+    else:
+        split = [n for size, pad in zip(sizes, padded)
+                 for n in (size, pad - size)]
+        parts = lambda flat: flat.split(split)[::2]
+    # views in the tensors' shapes; split already gives the 1-D ones (and
+    # view(*ints) costs the host half what view(torch.Size) does)
+    shapes = [None if g.dim() == 1 else tuple(g.shape) for g in gs]
+    return tuple([t if shape is None else t.view(*shape) if shape
+                  else t.view(())
+                  for t, shape in zip(parts(flat), shapes)]
+                 for flat in (u, mo, vo))
+
+
 def fused_adam_update(p, g, m, v, lr, bc1, bc2, *, b1=0.9, b2=0.999,
                       eps=1e-8, weight_decay=0.0, adam_w_mode=True):
-    """One Adam step for a single fp32 tensor; returns (update, m, v).
-    CUDA tensors launch the kernel (p always read, clip coefficient 1, as
-    the TPU ``_adam_kernel``); CPU tensors run the plain version."""
-    if not use_kernel(p, g, m, v):
-        u, m_new, v_new, _ = adam_sweep_apply_plain(
-            p, g, m, v, lr, bc1, bc2, 1.0, b1=b1, b2=b2, eps=eps,
-            weight_decay=weight_decay, adam_w_mode=adam_w_mode)
-        return u, m_new, v_new
-    shape = p.shape
-    u, m_new, v_new, _ = _launch(
-        p.reshape(-1), g.reshape(-1), m.reshape(-1), v.reshape(-1), lr, bc1,
-        bc2, 1.0, b1, b2, eps, weight_decay, adam_w_mode, True, None)
-    return u.view(shape), m_new.view(shape), v_new.view(shape)
+    """One Adam step for a single fp32 tensor; returns (update, m, v):
+    :func:`fused_adam_multi` with one tensor (the JAX counterpart's API).
+    CUDA tensors launch the kernel; CPU tensors run the plain version."""
+    u, m_new, v_new = fused_adam_multi(
+        [p], [g], [m], [v], lr, bc1, bc2, b1=b1, b2=b2, eps=eps,
+        weight_decay=weight_decay, adam_w_mode=adam_w_mode)
+    return u[0], m_new[0], v_new[0]
 
 
 def fused_adam(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0,
                adam_w_mode=True, bias_correction=True):
-    """Optimizer pair over :func:`fused_adam_update`: one launch per
-    tensor (the TPU package's ``fused_adam``)."""
+    """Optimizer pair over :func:`fused_adam_multi` (the TPU package's
+    ``fused_adam``): on CUDA one kernel launch a step for up to
+    ``MULTI_MAX_TENSORS`` tensors."""
 
     def init(params):
         return optim_lib.adam().init(params)
@@ -129,15 +241,15 @@ def fused_adam(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0,
     def update(grads, state, params, lr):
         step = state.step + 1
         bc1, bc2 = optim_lib.bias_corrections(b1, b2, step, bias_correction)
-        out = {k: fused_adam_update(params[k], g, state.mu[k], state.nu[k],
-                                    lr, bc1, bc2, b1=b1, b2=b2, eps=eps,
-                                    weight_decay=weight_decay,
-                                    adam_w_mode=adam_w_mode)
-               for k, g in grads.items()}
-        return ({k: o[0] for k, o in out.items()},
-                optim_lib.AdamState(step=step,
-                                    mu={k: o[1] for k, o in out.items()},
-                                    nu={k: o[2] for k, o in out.items()}))
+        keys = list(grads)
+        us, mu, nu = fused_adam_multi(
+            [params[k] for k in keys], [grads[k] for k in keys],
+            [state.mu[k] for k in keys], [state.nu[k] for k in keys], lr,
+            bc1, bc2, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
+            adam_w_mode=adam_w_mode)
+        return (dict(zip(keys, us)),
+                optim_lib.AdamState(step=step, mu=dict(zip(keys, mu)),
+                                    nu=dict(zip(keys, nu))))
 
     return optim_lib.Optimizer(init, update)
 

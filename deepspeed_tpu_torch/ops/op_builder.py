@@ -43,6 +43,9 @@ _SIGNATURES = {
     # p, g, m, v, u, m_out, v_out, cast, n, clip_coef, lr, bc1, bc2, b1,
     # 1-b1, b2, 1-b2, eps, weight_decay, adam_w_mode, read_p, vec, stream
     "ds_adam": [_P] * 8 + [_L, _P] + [_F] * 9 + [_I, _I, _I, _P],
+    # table (host int64 [n, 6]), n_tensors, u, m_out, v_out, lr, bc1, bc2,
+    # b1, 1-b1, b2, 1-b2, eps, weight_decay, adam_w_mode, stream
+    "ds_adam_multi": [_P, _I, _P, _P, _P] + [_F] * 9 + [_I, _P],
     # x, gamma, beta, y, mu, rstd, n, h, eps, dtype, vec, stream
     "ds_ln_fwd": [_P] * 6 + [_L, _I, _F, _I, _I, _P],
     # x, gamma, mu, rstd, dy, dx, n, h, dtype, vec, stream

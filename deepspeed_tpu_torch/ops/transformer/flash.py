@@ -36,12 +36,19 @@ def _scores(q, k, causal, sm_scale):
 
 def flash_attention_fwd_plain(q, k, v, causal=True, sm_scale=None):
     """Masked dense attention with the same outputs as the kernel:
-    (o in q.dtype, lse fp32 [B, H, Sq])."""
+    (o in q.dtype, lse fp32 [B, H, Sq]). A row that sees no key (Sq > Sk,
+    causal) has no softmax: it gets o = 0 and lse = -1e30, the masking
+    value (the JAX kernels give it the mean of v)."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     s = _scores(q, k, causal, sm_scale)
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
+    sq, sk = q.shape[2], k.shape[2]
+    if causal and sq > sk:
+        sees = torch.arange(sq, device=q.device) >= sq - sk
+        lse = torch.where(sees, lse, NEG_INF)
+        p = torch.where(sees[:, None], p, 0.0)
     o = torch.matmul(p.to(v.dtype), v).to(q.dtype)
     return o, lse
 
@@ -95,8 +102,9 @@ def flash_attention_fwd(q, k, v, causal=True, sm_scale=None):
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, lse
-    # bf16 K/V rows load as whole 16-byte vectors when aligned
-    vec = int(D % 8 == 0 and _aligned16(k, v))
+    # the q, k and v rows the kernel stages in shared memory load as
+    # 16-byte vectors when aligned
+    vec = int(D % 8 == 0 and _aligned16(q, k, v))
     lib = op_builder.load_kernels()
     err = lib.ds_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),

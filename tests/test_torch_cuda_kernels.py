@@ -6,8 +6,9 @@ PyTorch::
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
 Tolerances: fp32 rtol = atol = 2e-5 (summation order); bf16 rtol = atol =
-2e-2 (the plain forward rounds the softmax weights to bf16 before P·V,
-the forward kernel keeps them in fp32; the backward's outputs are bf16,
+2e-2 (the plain forward rounds the normalised softmax weights to bf16
+before P·V, the forward kernel the unnormalised ones, dividing by their
+fp32 sum after; the backward's outputs are bf16,
 one ulp of which is 0.0156 at magnitudes in [2, 4)); Adam and LAMB rtol
 1e-6, atol 1e-7 (the same fp32 operations; a division by a scalar may
 round once more in PyTorch); LayerNorm and bias-GeLU fp32 2e-5, bf16 2e-2
@@ -37,6 +38,7 @@ from deepspeed_tpu_torch.ops.sparse_attention import kernels as sk
 from deepspeed_tpu_torch.ops.sparse_attention import sparsity_config as ssc
 from deepspeed_tpu_torch.ops.transformer import (attention, decode, flash,
                                                  fused)
+from deepspeed_tpu_torch.runtime import optim
 
 pytestmark = pytest.mark.cuda
 
@@ -80,6 +82,75 @@ def test_flash_kernel_reads_strided_views(gen):
     o_ref, _ = flash.flash_attention_fwd_plain(q, k, v, True)
     torch.testing.assert_close(o.float(), o_ref.float(), rtol=2e-2,
                                atol=2e-2)
+
+
+# (B, H, Sq, Sk, D, causal, packed): the bf16 forward stages 128 query rows
+# a CTA (two warpgroups of 64; 64 rows at D 128) and streams 64-key tiles
+# through a ring of 3 stages; packed: q, k, v are head-split views of one
+# [B, S, 3, H, D] projection
+FWD_CASES = [
+    # every head-dim class: 16, 20 (padded to 32), 64, 80 (padded to 128),
+    # 128
+    (1, 2, 160, 160, 16, True, False), (1, 2, 160, 160, 20, False, False),
+    (1, 2, 160, 160, 64, True, False), (1, 2, 160, 160, 80, False, False),
+    (1, 2, 160, 160, 128, True, False),
+    # one short of and one past the 64-row tile, the 128-row CTA and the
+    # 192-key ring
+    (1, 2, 63, 63, 64, True, False), (1, 2, 65, 65, 64, True, False),
+    (1, 2, 127, 127, 64, True, False), (1, 2, 129, 129, 32, False, False),
+    (1, 2, 191, 191, 64, True, False), (1, 2, 193, 193, 64, False, False),
+    (1, 2, 65, 191, 64, True, False), (1, 2, 193, 63, 64, False, False),
+    (1, 2, 193, 193, 128, True, False),
+    # Sq != Sk; with Sq > Sk and the causal mask the first Sq - Sk rows see
+    # no key (a whole CTA of them at 300 / 100)
+    (1, 2, 77, 200, 64, True, False), (1, 2, 300, 100, 64, True, False),
+    (1, 2, 200, 77, 128, True, False), (1, 2, 90, 40, 20, True, False),
+    (1, 2, 100, 30, 16, True, False),
+    # a packed qkv projection (strided views, head dim contiguous)
+    (2, 4, 150, 150, 64, True, True), (1, 3, 70, 70, 128, False, True),
+    (1, 2, 50, 50, 20, True, True),
+]
+
+
+def _fwd_inputs(gen, dtype, B, H, Sq, Sk, D, packed):
+    if packed:
+        qkv = _rand(gen, B, Sq, 3, H, D, dtype=dtype)
+        return tuple(qkv[:, :, i].transpose(1, 2) for i in range(3))
+    return (_rand(gen, B, H, Sq, D, dtype=dtype),
+            _rand(gen, B, H, Sk, D, dtype=dtype),
+            _rand(gen, B, H, Sk, D, dtype=dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Sq,Sk,D,causal,packed", FWD_CASES)
+def test_flash_fwd_kernel_shapes_match_plain(gen, dtype, B, H, Sq, Sk, D,
+                                             causal, packed):
+    """o and lse on every row; a row with no visible key has no softmax
+    (o = 0) and its lse stays at the masking value, so the backward's
+    p = 0 rule holds."""
+    q, k, v = _fwd_inputs(gen, dtype, B, H, Sq, Sk, D, packed)
+    before = op_builder.LAUNCHES["flash_fwd"]
+    o, lse = flash.flash_attention_fwd(q, k, v, causal)
+    assert op_builder.LAUNCHES["flash_fwd"] == before + 1
+    o_ref, lse_ref = flash.flash_attention_fwd_plain(q, k, v, causal)
+    sees = torch.ones(Sq, dtype=torch.bool, device="cuda")
+    if causal:
+        sees = torch.arange(Sq, device="cuda") + Sk - Sq >= 0
+    tol = TOLS[dtype]
+    assert o.shape == (B, H, Sq, D) and o.dtype == dtype
+    torch.testing.assert_close(o.float(), o_ref.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, lse_ref, rtol=2e-5, atol=2e-5)
+    assert bool((lse[:, :, ~sees] <= -5e29).all())
+    assert bool((o[:, :, ~sees] == 0).all())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_fwd_is_bit_reproducible(gen, causal):
+    q, k, v = _fwd_inputs(gen, torch.bfloat16, 2, 4, 333, 333, 64, False)
+    first = flash.flash_attention_fwd(q, k, v, causal)
+    second = flash.flash_attention_fwd(q, k, v, causal)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -233,6 +304,114 @@ def test_adam_kernel_matches_plain(gen, weight_decay, adam_w_mode, cast):
                                              0.19, 0.002, **kw)[:3]
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+
+
+def _adam_lists(gen, sizes):
+    p = [_rand(gen, n, dtype=torch.float32) for n in sizes]
+    g = [_rand(gen, n, dtype=torch.float32) * 1e-3 for n in sizes]
+    m = [_rand(gen, n, dtype=torch.float32) * 1e-4 for n in sizes]
+    v = [_rand(gen, n, dtype=torch.float32).square() * 1e-8 for n in sizes]
+    return p, g, m, v
+
+
+def _check_multi(got, ps, gs, ms, vs, **kw):
+    for i, (p, g, m, v) in enumerate(zip(ps, gs, ms, vs)):
+        want = fused_adam.adam_sweep_apply_plain(p, g, m, v, 1e-3, 0.19,
+                                                 0.002, **kw)[:3]
+        for a, b in zip((got[0][i], got[1][i], got[2][i]), want):
+            assert a.shape == p.shape
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("weight_decay,adam_w_mode", [(0.0, True),
+                                                      (0.01, True),
+                                                      (0.01, False)])
+def test_adam_multi_kernel_matches_plain_on_gpt2_medium(gen, weight_decay,
+                                                        adam_w_mode):
+    """All 292 tensors of GPT-2 medium in one launch."""
+    from deepspeed_tpu_torch.models import gpt2
+    model = gpt2.GPT2LMHeadModel(gpt2.PRESETS["gpt2-medium"], seed=0)
+    shapes = [tuple(t.shape) for t in model.parameters()]
+    del model
+    assert len(shapes) == 292
+    ps, gs, ms, vs = (
+        [t.view(s) for t, s in zip(lst, shapes)]
+        for lst in _adam_lists(gen, [int(np.prod(s)) for s in shapes]))
+    kw = dict(weight_decay=weight_decay, adam_w_mode=adam_w_mode)
+    before = op_builder.LAUNCHES["adam"]
+    got = fused_adam.fused_adam_multi(ps, gs, ms, vs, 1e-3, 0.19, 0.002,
+                                      **kw)
+    assert op_builder.LAUNCHES["adam"] == before + 1
+    _check_multi(got, ps, gs, ms, vs, **kw)
+
+
+def test_adam_multi_kernel_ragged_unaligned_and_batched(gen):
+    """Lengths of 1, 7 and one past a chunk, views that are not 16-byte
+    aligned (the scalar route), an empty and a 0-dim tensor, and more
+    tensors than one launch takes (two launches)."""
+    sizes = [1, 7, fused_adam.MULTI_CHUNK + 1, 4096, 0, 37 * 53, 50000]
+    ps, gs, ms, vs = _adam_lists(gen, sizes)
+    base = _rand(gen, 5000, dtype=torch.float32)
+    ps.append(base[1:1001])  # 4-byte aligned only
+    gs.append(base[2001:3001] * 1e-3)
+    ms.append(torch.zeros(1001, device="cuda")[1:])
+    vs.append(torch.zeros(1002, device="cuda")[2:])
+    for lst, scale in zip((ps, gs, ms, vs), (1, 1e-3, 1e-4, 1e-8)):
+        lst.append(_rand(gen, 1, dtype=torch.float32).reshape(()).abs() *
+                   scale)  # a 0-dim tensor
+    before = op_builder.LAUNCHES["adam"]
+    got = fused_adam.fused_adam_multi(ps, gs, ms, vs, 1e-3, 0.19, 0.002)
+    assert op_builder.LAUNCHES["adam"] == before + 1
+    _check_multi(got, ps, gs, ms, vs)
+    n = fused_adam.MULTI_MAX_TENSORS + 5
+    ps, gs, ms, vs = _adam_lists(gen, [(i % 13) + 1 for i in range(n)])
+    before = op_builder.LAUNCHES["adam"]
+    got = fused_adam.fused_adam_multi(ps, gs, ms, vs, 1e-3, 0.19, 0.002)
+    assert op_builder.LAUNCHES["adam"] == before + 2
+    _check_multi(got, ps, gs, ms, vs)
+
+
+def test_adam_multi_kernel_takes_non_contiguous_views(gen):
+    """Transposed and strided views go through the one launch (as
+    contiguous copies), by both the one-tensor and the list API."""
+    p, g, m, v = (lst[0].view(40, 33).t()
+                  for lst in _adam_lists(gen, [1320]))
+    before = op_builder.LAUNCHES["adam"]
+    got = fused_adam.fused_adam_update(p, g, m, v, 1e-3, 0.19, 0.002)
+    assert op_builder.LAUNCHES["adam"] == before + 1
+    _check_multi(tuple([t] for t in got), [p], [g], [m], [v])
+    ps, gs, ms, vs = _adam_lists(gen, [7, 1000, 64])
+    gs[1] = _rand(gen, 2000, dtype=torch.float32)[::2] * 1e-3
+    for lst in (ps, gs, ms, vs):
+        lst[2] = lst[2].view(8, 8).t()
+    before = op_builder.LAUNCHES["adam"]
+    got = fused_adam.fused_adam_multi(ps, gs, ms, vs, 1e-3, 0.19, 0.002)
+    assert op_builder.LAUNCHES["adam"] == before + 1
+    _check_multi(got, ps, gs, ms, vs)
+
+
+def test_fused_adam_optimizer_is_one_launch_a_step(gen):
+    shapes = {"a": (33, 7), "b": (5,), "c": (1024, 1024), "d": (1,)}
+    params = {k: _rand(gen, *s, dtype=torch.float32)
+              for k, s in shapes.items()}
+    opt = fused_adam.fused_adam(weight_decay=0.01)
+    state = opt.init(params)
+    for _ in range(3):
+        grads = {k: _rand(gen, *s, dtype=torch.float32)
+                 for k, s in shapes.items()}
+        before = op_builder.LAUNCHES["adam"]
+        upd, new_state = opt.update(grads, state, params, 1e-3)
+        assert op_builder.LAUNCHES["adam"] == before + 1
+        bc1, bc2 = optim.bias_corrections(0.9, 0.999, new_state.step)
+        for k in shapes:
+            want = fused_adam.adam_sweep_apply_plain(
+                params[k], grads[k], state.mu[k], state.nu[k], 1e-3, bc1,
+                bc2, weight_decay=0.01)[:3]
+            for a, b in zip((upd[k], new_state.mu[k], new_state.nu[k]),
+                            want):
+                torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+        params = {k: params[k] + upd[k] for k in shapes}
+        state = new_state
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
