@@ -111,7 +111,9 @@ Phases, each fatal on failure:
    their plain versions (fp32 2e-5, bf16 2e-2; lse 2e-5) at blocks 16,
    64 and 128, causal and bidirectional, with and without a key bias,
    packed rectangular layouts, empty rows, the predicated (raw) lists,
-   and the BERT and GPT-2 paths' own shapes;
+   and the BERT and GPT-2 paths' own shapes; dq's delta against the
+   plain one (2e-5), and the backward rerun bit-equal at the BERT, GPT-2
+   and a biased causal shape;
 13. one-step parity of a 2-layer full-width sparse BERT, kernels against
    the plain versions (sparse kernels and LAMB pass 1; the tolerances of
    phase 9's parity), then ``DS_SPARSE_IMPL=predicated`` against
@@ -125,7 +127,9 @@ Prints an ``e2e`` JSON line, a ``train`` JSON line, a ``bert`` JSON line,
 a ``moq`` JSON line, an ``int8`` JSON line, a ``sparse`` JSON line, a
 ``kernels`` JSON line (the softmax, on no path as in the JAX package,
 with 0 launches; the sparse kernels' predicated rows with the launches of
-phase 13's predicated step), the card line, and last ``{"ok": true,
+phase 13's predicated step; the sparse rows' SDPA yardstick is the masked
+backward alone, and ``sparse timing`` lines give the three sparse kernels
+at the BERT and GPT-2 shapes), the card line, and last ``{"ok": true,
 "device": {...}}``. Exits non-zero with no result when CUDA is
 unavailable or any phase fails.
 """
@@ -688,23 +692,28 @@ def kernel_device_ms(torch, fn, name, iters=20):
     ``name``, from ``torch.profiler`` over ``iters`` calls of ``fn`` (no
     host time in it, where CUDA events around a short kernel can time the
     host's enqueue). Divided by the launches the profiler recorded: it
-    can drop some of a window's kernel records."""
-    evs = [ev for ev in _device_kernels(torch, fn, iters) if name in ev[0]]
-    count = sum(ev[1] for ev in evs)
-    if count == 0:
-        raise RuntimeError(f"the profiler recorded no {name} kernel")
-    return sum(ev[2] for ev in evs) / 1e3 / count
+    can drop some of a window's kernel records, or all of them, and then
+    the window is profiled again (three windows at most)."""
+    for _ in range(3):
+        evs = [ev for ev in _device_kernels(torch, fn, iters)
+               if name in ev[0]]
+        count = sum(ev[1] for ev in evs)
+        if count:
+            return sum(ev[2] for ev in evs) / 1e3 / count
+    raise RuntimeError(f"the profiler recorded no {name} kernel")
 
 
 def call_device_ms(torch, fn, iters=20):
     """Mean device time in ms of one call of ``fn`` (a library call that
     launches kernels of its own): every kernel the profiler recorded,
     summed, over the launches of the kernel it recorded most often (each
-    call launches each of its kernels once)."""
-    evs = _device_kernels(torch, fn, iters)
-    if not evs:
-        raise RuntimeError("the profiler recorded no kernel")
-    return sum(ev[2] for ev in evs) / 1e3 / max(ev[1] for ev in evs)
+    call launches each of its kernels once); a window with no record is
+    profiled again, as in :func:`kernel_device_ms`."""
+    for _ in range(3):
+        evs = _device_kernels(torch, fn, iters)
+        if evs:
+            return sum(ev[2] for ev in evs) / 1e3 / max(ev[1] for ev in evs)
+    raise RuntimeError("the profiler recorded no kernel")
 
 
 def flash_fwd_timing(torch, flash, batch, seq, causal):
@@ -1697,8 +1706,10 @@ def bert_sparse_layout(ssc, heads):
 
 
 def check_sparse_kernels(torch, np, sfk, ssc):
-    """Phase 3, the sparse kernels (forward, dq, dk/dv and the bias
-    cotangent) against their plain versions. Returns the max abs errors at
+    """Phase 3, the sparse kernels (forward, dq with its delta, dk/dv and
+    the bias cotangent) against their plain versions; the backward of the
+    BERT, GPT-2 and a biased causal case rerun bit-equal. Returns the max
+    abs errors at
     the BERT path's shape (bf16; fused and predicated lists) and the
     largest bias-cotangent error of the bf16 cases."""
     gen = torch.Generator(device="cuda").manual_seed(21)
@@ -1751,17 +1762,29 @@ def check_sparse_kernels(torch, np, sfk, ssc):
             o, lse = sfk.sparse_attention_fwd(q, k, v, kpb, strat)
             o_ref, lse_ref = sfk.sparse_attention_fwd_plain(q, k, v, kpb,
                                                             strat)
-            delta = (do.float() * o_ref.float()).sum(-1)
-            dq = sfk.sparse_attention_dq(q, k, v, kpb, do, lse_ref, delta,
-                                         strat)
-            dq_ref = sfk.sparse_attention_dq_plain(q, k, v, kpb, do, lse_ref,
-                                                   delta, strat)
+            # dq computes delta = rowsum(do·o) from the rows it stages
+            dq, delta = sfk.sparse_attention_dq(q, k, v, kpb, do, o_ref,
+                                                lse_ref, strat)
+            dq_ref, delta_ref = sfk.sparse_attention_dq_plain(
+                q, k, v, kpb, do, o_ref, lse_ref, strat)
             dk, dv, db = sfk.sparse_attention_dkv(q, k, v, kpb, do, lse_ref,
                                                   delta, strat, True)
             dk_ref, dv_ref, db_ref = sfk.sparse_attention_dkv_plain(
                 q, k, v, kpb, do, lse_ref, delta, strat, True)
+            if name in ("bert", "gpt2", "b16_causal_bias"):
+                # the backward reruns bit-equal (no atomics, fixed order)
+                again = sfk.sparse_attention_dq(q, k, v, kpb, do, o_ref,
+                                                lse_ref, strat) + \
+                    sfk.sparse_attention_dkv(q, k, v, kpb, do, lse_ref,
+                                             delta, strat, True)
+                if not all(a is b is None or torch.equal(a, b) for a, b in
+                           zip(again, (dq, delta, dk, dv, db))):
+                    raise AssertionError(f"sparse backward reruns differ "
+                                         f"({name}, {dtype})")
+                del again
             torch.cuda.synchronize()
             errs = {"o": close(o, o_ref, tol), "lse": close(lse, lse_ref, 2e-5),
+                    "delta": close(delta, delta_ref, 2e-5),
                     "dq": close(dq, dq_ref, tol), "dk": close(dk, dk_ref, tol),
                     "dv": close(dv, dv_ref, tol)}
             if bias:
@@ -1789,7 +1812,7 @@ def check_sparse_kernels(torch, np, sfk, ssc):
                     main_err["sparse_dkv" + suffix] = max(errs["dk"][0],
                                                           errs["dv"][0])
             del q, k, v, do, kpb, o, lse, o_ref, lse_ref, dq, dq_ref, dk, dv
-            del dk_ref, dv_ref, db, db_ref
+            del dk_ref, dv_ref, db, db_ref, delta, delta_ref
     torch.cuda.empty_cache()
     return main_err, dbias_err
 
@@ -2010,18 +2033,109 @@ def sparse_gpt2_phase(torch, deepspeed_tpu_torch, gpt2, op_builder, cfg,
     }, counts
 
 
-def sparse_kernel_rows(torch, np, sfk, sk, ssc):
-    """Timings of the sparse kernels at the BERT path's shape (bf16),
-    through the fused form's packed lists (rows 16-18) and the predicated
-    form's raw lists (rows 19-21). The PyTorch call that computes the same
-    function is ``scaled_dot_product_attention`` with the layout expanded
-    to a boolean element mask."""
+def sdpa_masked_ms(torch, q, k, v, do, mask):
+    """``scaled_dot_product_attention`` with a boolean element mask (a
+    yardstick, timed only; unpinned: PyTorch picks the backend): (forward
+    ms, backward-alone ms, the backward's kernels by device time). The
+    backward is timed on a retained graph: ``torch.autograd.grad(out, (q,
+    k, v), do, retain_graph=True)`` by CUDA events."""
     F = torch.nn.functional
+    fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask), iters=10)
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+    bwd_fn = lambda: torch.autograd.grad(out, (qg, kg, vg), do,
+                                         retain_graph=True)
+    bwd = cuda_ms(bwd_fn, iters=10)
+    kernels = sorted(_device_kernels(torch, bwd_fn, 2), key=lambda e: -e[2])
+    del out, qg, kg, vg
+    return fwd, bwd, [name[:70] for name, _, _ in kernels[:3]]
+
+
+def sparse_shape_timing(torch, sfk, strat, q, k, v, do, what):
+    """The three sparse wrappers at one shape (bf16, CUDA events), their
+    bounds and their plain versions' times. dq reads q, k, v, do, o and
+    lse and writes dq and delta; dk/dv reads q, k, v, do, lse and delta
+    and writes dk and dv; the forward reads q, k, v and writes o, lse.
+    Operations: 4, 6 and 8 D flops a live (query, key) pair."""
+    b, _, S, _ = q.shape
+    Skv = strat.Skv
+    o, lse = sfk.sparse_attention_fwd(q, k, v, None, strat)
+    dq, delta = sfk.sparse_attention_dq(q, k, v, None, do, o, lse, strat)
+    pairs = b * int(strat.element_mask("cuda").sum())
+    tq, tk = b * H * S * D * 2, b * H * Skv * D * 2    # one q-, one k-side
+    row = b * H * S * 4                                # one fp32 row stat
+    out = {"shape": what, "live_pairs": pairs,
+           "tile_pairs_a_head": strat.tile_pairs // H,
+           "fwd": {"bytes": 2 * tq + 2 * tk + row, "flops": 4 * D * pairs,
+                   "fn": lambda: sfk.sparse_attention_fwd(q, k, v, None,
+                                                          strat),
+                   "plain": lambda: sfk.sparse_attention_fwd_plain(
+                       q, k, v, None, strat)},
+           "dq": {"bytes": 4 * tq + 2 * tk + 2 * row, "flops": 6 * D * pairs,
+                  "fn": lambda: sfk.sparse_attention_dq(
+                      q, k, v, None, do, o, lse, strat),
+                  "plain": lambda: sfk.sparse_attention_dq_plain(
+                      q, k, v, None, do, o, lse, strat)},
+           "dkv": {"bytes": 2 * tq + 4 * tk + 2 * row, "flops": 8 * D * pairs,
+                   "fn": lambda: sfk.sparse_attention_dkv(
+                       q, k, v, None, do, lse, delta, strat),
+                   "plain": lambda: sfk.sparse_attention_dkv_plain(
+                       q, k, v, None, do, lse, delta, strat)}}
+    for key in ("fwd", "dq", "dkv"):
+        t = out[key]
+        t["ms"] = cuda_ms(t.pop("fn"))
+        t["plain_ms"] = cuda_ms(t.pop("plain"), iters=3)
+        t["bound_ms"] = max(t["bytes"] / HBM_BYTES_PER_S,
+                            t["flops"] / BF16_FLOPS) * 1e3
+        t["bound_by"] = "bytes" if t["bytes"] / HBM_BYTES_PER_S >= \
+            t["flops"] / BF16_FLOPS else "operations"
+        t["x_bound"] = t["ms"] / t["bound_ms"]
+        t["tflops"] = t["flops"] / t["ms"] / 1e9
+    del o, lse, dq, delta
+    return out
+
+
+def sparse_kernel_rows(torch, np, sfk, sk, ssc):
+    """Timings of the sparse kernels (bf16) at the BERT path's shape,
+    through the fused form's packed lists (rows 16-18) and the predicated
+    form's raw lists (rows 19-21), and at the causal sparse GPT-2 path's
+    shape (packed; printed as ``sparse timing`` and kept in the fused
+    rows under ``gpt2``). The PyTorch call that computes the same function
+    is ``scaled_dot_product_attention`` with the layout expanded to a
+    boolean element mask; its backward is timed alone."""
     gen = torch.Generator(device="cuda").manual_seed(22)
     bf16 = torch.bfloat16
 
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device="cuda").to(bf16)
+
+    def extend(x, Skv):
+        S = x.shape[2]
+        return torch.cat([x, x[:, :, :Skv - S]], 2) if Skv > S else x
+
+    def report(t, sdpa_fwd, sdpa_bwd, kernels):
+        t.update(sdpa_fwd_ms=sdpa_fwd, sdpa_bwd_ms=sdpa_bwd,
+                 sdpa_bwd_kernels=kernels,
+                 dq_plus_dkv_ms=t["dq"]["ms"] + t["dkv"]["ms"],
+                 dq_plus_dkv_over_sdpa_bwd=(t["dq"]["ms"] + t["dkv"]["ms"])
+                 / sdpa_bwd)
+        print(f"sparse timing: {json.dumps(t)}", flush=True)
+
+    # the causal sparse GPT-2 path: sparse:1024/128 at B 2, S 4096
+    glay, gblock = sfk.sparse_mode_layout(GPT_SPARSE_MODE, H, GPT_SPARSE_S)
+    b, S = GPT_SPARSE_B, GPT_SPARSE_S
+    q, do, k, v = (rnd(b, H, S, D) for _ in range(4))
+    mask = torch.from_numpy(sk.layout_to_dense_mask(glay, gblock, S)).cuda() \
+        .bool().tril()[None]
+    sdpa = sdpa_masked_ms(torch, q, k, v, do, mask)
+    strat = sparse_case(np, sfk, glay, gblock, True, True)
+    gpt = sparse_shape_timing(
+        torch, sfk, strat, q, extend(k, strat.Skv), extend(v, strat.Skv),
+        do, f"B{b} H{H} S{S} Skv{strat.Skv} D{D} bf16, causal "
+            f"{GPT_SPARSE_MODE}, global columns packed")
+    report(gpt, *sdpa)
+    del q, do, k, v, mask
 
     lay = bert_sparse_layout(ssc, H)
     b, S = SPARSE_B, SPARSE_S
@@ -2029,72 +2143,47 @@ def sparse_kernel_rows(torch, np, sfk, sk, ssc):
     k, v = rnd(b, H, S, D), rnd(b, H, S, D)
     mask = torch.from_numpy(sk.layout_to_dense_mask(lay, SPARSE_BLOCK, S)
                             ).cuda().bool()[None]
-    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
-    sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask), iters=10)
-    sdpa_fwd_bwd = cuda_ms(lambda: torch.autograd.grad(
-        F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask),
-        (qg, kg, vg), do), iters=10)
+    sdpa_fwd, sdpa_bwd, sdpa_kernels = sdpa_masked_ms(torch, q, k, v, do,
+                                                      mask)
     rows = []
     for packed, suffix in ((True, ""), (False, "_predicated")):
         strat = sparse_case(np, sfk, lay, SPARSE_BLOCK, False, packed)
-        Skv = strat.Skv
-        k2 = torch.cat([k, k[:, :, :Skv - S]], 2) if Skv > S else k
-        v2 = torch.cat([v, v[:, :, :Skv - S]], 2) if Skv > S else v
-        o, lse = sfk.sparse_attention_fwd(q, k2, v2, None, strat)
-        delta = (do.float() * o.float()).sum(-1)
-        pairs = b * int(strat.element_mask("cuda").sum())
-        io = b * H * (2 * S + 2 * Skv) * D * 2          # q, k, v, do / o
-        stats = 2 * b * H * S * 4
+        t = sparse_shape_timing(
+            torch, sfk, strat, q, extend(k, strat.Skv), extend(v, strat.Skv),
+            do, f"B{b} H{H} S{S} Skv{strat.Skv} D{D} bf16, Fixed block "
+                f"{SPARSE_BLOCK}, {strat.tile_pairs // H} live 64x64 tiles "
+                f"a head, " + ("global columns packed" if packed
+                               else "raw layout (predicated form)"))
+        report(t, sdpa_fwd, sdpa_bwd, sdpa_kernels)
         src = "deepspeed_tpu/ops/sparse_attention/" + (
             "fused_kernels.py" if packed else "kernels.py")
         lines = ((192, 239, 279) if packed else (35, 88, 129))
-        shape = (f"B{b} H{H} S{S} Skv{Skv} D{D} bf16, Fixed block "
-                 f"{SPARSE_BLOCK}, {strat.tile_pairs // H} live 64x64 tiles "
-                 f"a head, " + ("global columns packed" if packed
-                                else "raw layout (predicated form)"))
         common = {"route": "cuda",
                   "source": "deepspeed_tpu_torch/csrc/sparse_attention.cu",
-                  "shape": shape, "peak": BF16_FLOPS,
-                  "live_pairs": pairs, "tile_pairs": strat.tile_pairs}
-        rows += [
-            dict(common, name="sparse_fwd" + suffix,
-                 replaces=f"{src}:{lines[0]}",
-                 ms=cuda_ms(lambda: sfk.sparse_attention_fwd(
-                     q, k2, v2, None, strat)),
-                 plain_ms=cuda_ms(lambda: sfk.sparse_attention_fwd_plain(
-                     q, k2, v2, None, strat), iters=3),
-                 library_ms=sdpa_fwd,
-                 library_note="scaled_dot_product_attention with the "
-                              "layout's boolean element mask",
-                 bytes=b * H * (2 * S + 2 * Skv) * D * 2 + b * H * S * 4,
-                 flops=4 * D * pairs),
-            dict(common, name="sparse_dq" + suffix,
-                 replaces=f"{src}:{lines[1]}",
-                 ms=cuda_ms(lambda: sfk.sparse_attention_dq(
-                     q, k2, v2, None, do, lse, delta, strat)),
-                 plain_ms=cuda_ms(lambda: sfk.sparse_attention_dq_plain(
-                     q, k2, v2, None, do, lse, delta, strat), iters=3),
-                 library_ms=sdpa_fwd_bwd - sdpa_fwd,
-                 library_note="scaled_dot_product_attention backward with "
-                              "the mask (fwd+bwd less fwd), dq, dk and dv "
-                              "together",
-                 bytes=io + stats + b * H * S * D * 2, flops=6 * D * pairs),
-            dict(common, name="sparse_dkv" + suffix,
-                 replaces=f"{src}:{lines[2]}",
-                 ms=cuda_ms(lambda: sfk.sparse_attention_dkv(
-                     q, k2, v2, None, do, lse, delta, strat)),
-                 plain_ms=cuda_ms(lambda: sfk.sparse_attention_dkv_plain(
-                     q, k2, v2, None, do, lse, delta, strat), iters=3),
-                 library_ms=sdpa_fwd_bwd - sdpa_fwd,
-                 library_note="scaled_dot_product_attention backward with "
-                              "the mask (fwd+bwd less fwd), dq, dk and dv "
-                              "together",
-                 bytes=io + stats + 2 * b * H * Skv * D * 2,
-                 flops=8 * D * pairs),
-        ]
-        del k2, v2, o, lse, delta
-    del q, k, v, do, mask, qg, kg, vg
+                  "shape": t["shape"], "peak": BF16_FLOPS,
+                  "live_pairs": t["live_pairs"],
+                  "tile_pairs": strat.tile_pairs}
+        bwd_note = ("scaled_dot_product_attention backward alone (retained "
+                    "forward) with the layout's boolean mask, dq, dk and dv "
+                    "together; kernels " + ", ".join(sdpa_kernels))
+        for key, name, line, lib, note in (
+                ("fwd", "sparse_fwd", lines[0], sdpa_fwd,
+                 "scaled_dot_product_attention with the layout's boolean "
+                 "element mask"),
+                ("dq", "sparse_dq", lines[1], sdpa_bwd, bwd_note),
+                ("dkv", "sparse_dkv", lines[2], sdpa_bwd, bwd_note)):
+            row = dict(common, name=name + suffix, replaces=f"{src}:{line}",
+                       ms=t[key]["ms"], plain_ms=t[key]["plain_ms"],
+                       library_ms=lib, library_note=note,
+                       bytes=t[key]["bytes"], flops=t[key]["flops"])
+            if packed:
+                row["gpt2"] = {"shape": gpt["shape"], **{
+                    f: gpt[key][f] for f in ("ms", "bound_ms", "bound_by",
+                                             "x_bound", "plain_ms")},
+                    "library_ms": gpt["sdpa_fwd_ms"] if key == "fwd"
+                    else gpt["sdpa_bwd_ms"]}
+            rows.append(row)
+    del q, k, v, do, mask
     torch.cuda.empty_cache()
     return rows
 

@@ -1,7 +1,8 @@
 // Pieces shared by the attention kernels (flash_fwd.cu, flash_bwd.cu,
 // sparse_attention.cu): strides of a [B, H, S, D] view, the masking value,
-// the bf16 tensor-core helpers (mma.sync m16n8k16, fp32 accumulation), the
-// staging of bf16 tiles into shared memory, and the fp32 row helpers.
+// the bf16 tensor-core helpers (mma.sync m16n8k16, fp32 accumulation; the
+// sparse forward's fragment loads from global and padded shared tiles),
+// and the fp32 row helpers.
 //
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A 16x16 row-major: a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
@@ -84,29 +85,6 @@ __device__ __forceinline__ uint4 load8_bf16(const bf16* p, int n, bool vec) {
 #pragma unroll
   for (int i = 0; i < 8; ++i) e[i] = i < n ? src[i] : 0;
   return out;
-}
-
-// Stage `n` rows (from row0 of a [S, D] view, zeros past `rows`) of a bf16
-// matrix into `tile` (row-major, stride DP + 8) and, when `tt` is given,
-// transposed into `tt` (stride TN + 8).
-template <int DP, int TN>
-__device__ __forceinline__ void stage_bf16(bf16* tile, bf16* tt,
-                                           const bf16* src, long long stride,
-                                           int row0, int rows, int D,
-                                           bool vec) {
-  constexpr int KP = DP + 8, TP = TN + 8;
-  for (int idx = threadIdx.x; idx < TN * (DP / 8); idx += blockDim.x) {
-    const int j = idx / (DP / 8), c8 = (idx % (DP / 8)) * 8;
-    const int row = row0 + j;
-    const int n = row < rows ? D - c8 : 0;
-    const uint4 x = load8_bf16(src + row * stride + c8, n, vec);
-    *reinterpret_cast<uint4*>(&tile[j * KP + c8]) = x;
-    if (tt != nullptr) {
-      const bf16* e = reinterpret_cast<const bf16*>(&x);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) tt[(c8 + i) * TP + j] = e[i];
-    }
-  }
 }
 
 // ------------------------------------------------------------ fp32 rows

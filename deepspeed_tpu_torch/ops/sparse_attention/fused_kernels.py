@@ -25,12 +25,20 @@ What differs from the TPU design, and why:
   column-major for dk/dv). One CTA owns one (batch·head, output tile) and
   loops over its segment. The lists go to the device once, when the
   strategy is built, not on every call.
-* Tiles are the card's: 64 query rows × 64 keys (``mma.sync`` and shared
-  memory), not the TPU's 512 × 1024 (``DS_SPARSE_BQ``/``DS_SPARSE_BKC``
-  are not read). A fine block smaller than the tile (8, 16, 32) is masked
-  per pair with a 64-bit word of fine-block bits; a larger one (a multiple
-  of 64) spans several tiles. Causal tiles wholly above the diagonal are
-  dropped from the lists (they add nothing).
+* Tiles are the card's: 64 query rows × 64 keys (one warpgroup's
+  ``wgmma`` in the backward, ``mma.sync`` in the forward), not the TPU's
+  512 × 1024 (``DS_SPARSE_BQ``/``DS_SPARSE_BKC`` are not read). A fine
+  block smaller than the tile (8, 16, 32) is masked per pair with a 64-bit
+  word of fine-block bits; a larger one (a multiple of 64) spans several
+  tiles. Causal tiles wholly above the diagonal are dropped from the lists
+  (they add nothing).
+* With the lists the host flags, once, the pairs that need mask
+  arithmetic (a fine-block word that is not all-ones, a causal diagonal
+  tile, the key tail); the backward kernels run every other pair without
+  it. It also orders each list's output tiles longest segment first, the
+  order in which the backward kernels' grids walk them.
+* The dq kernel computes delta = rowsum(do·o) − g_lse for its rows from
+  the rows it stages, and writes it for the dk/dv kernel.
 * The packed region starts on a tile edge: the real region is padded with
   dead key columns up to a multiple of 64 when the sequence is not.
 * ``D`` is read from the tensors on every call, never kept on the
@@ -101,6 +109,30 @@ def _csr(bits):
     return ptr, j.astype(np.int32), bits[h, i, j].view(np.int64)
 
 
+def _full_word(fine):
+    """The fine-block word of a pair whose every fine block is live."""
+    n = (TILE // min(fine, TILE)) ** 2
+    return np.uint64(0xFFFFFFFFFFFFFFFF) if n == 64 else np.uint64((1 << n) - 1)
+
+
+def _walk(lists, n_out, queries_out, fine, causal, causal_ntiles, Skv):
+    """(flags uint8 [nnz], order int32 [H·n_out]) of one CSR list: 1 where
+    a pair needs mask arithmetic (its fine-block word is not all-ones, it
+    is a causal diagonal tile of the real region, or it holds the key
+    tail), and the segments by length, longest first (ties in index
+    order). ``queries_out``: the output tiles are query tiles."""
+    ptr, idx, words = lists
+    counts = np.diff(ptr)
+    out = np.repeat(np.arange(len(counts)) % n_out, counts)
+    qt, kt = (out, idx) if queries_out else (idx, out)
+    flags = (words.view(np.uint64) != _full_word(fine)) | \
+        ((kt + 1) * TILE > Skv)
+    if causal:
+        flags |= (qt == kt) & (kt < causal_ntiles)
+    order = np.argsort(-counts, kind="stable")
+    return flags.astype(np.uint8), order.astype(np.int32)
+
+
 class _Strategy:
     """One layout's tile lists (on ``device``) and its autograd entry
     points.
@@ -134,12 +166,16 @@ class _Strategy:
         self.tile_pairs = int(np.count_nonzero(bits))
         self.fwd_lists = _csr(bits)
         self.bwd_lists = _csr(bits.transpose(0, 2, 1))
+        # the backward kernels' mask flags and CTA orders
+        walk = (self.fine, causal, self.causal_ntiles, self.Skv)
+        self.fwd_walk = _walk(self.fwd_lists, self.n_qtiles, True, *walk)
+        self.bwd_walk = _walk(self.bwd_lists, self.n_ktiles, False, *walk)
         self.device = _device(device)
         if self.device.type == "cuda":
             self.fwd_dev = tuple(torch.from_numpy(a).to(self.device)
-                                 for a in self.fwd_lists)
+                                 for a in self.fwd_lists + self.fwd_walk)
             self.bwd_dev = tuple(torch.from_numpy(a).to(self.device)
-                                 for a in self.bwd_lists)
+                                 for a in self.bwd_lists + self.bwd_walk)
 
     def element_mask(self, device):
         """[H, Sq, Skv] bool: the fine layout expanded to elements, with
@@ -228,12 +264,13 @@ def _check(q, k, v, kpb, strat):
 
 def _launch(name, fn_name, strat, lists, n_out, q, k, v, *, o=None,
             dout=None, lse=None, delta=None, dq=None, dk=None, dv=None,
-            bias=None, dbias=None, staged=()):
-    """One launch of a kernel of ``csrc/sparse_attention.cu``."""
+            bias=None, dbias=None, g_lse=None, staged=()):
+    """One launch of a kernel of ``csrc/sparse_attention.cu``; ``lists``:
+    (ptr, idx, bits, flags, order) on the device."""
     B, H, Sq, D = q.shape
     tensors = (q, k, v, o, dout, lse, delta, dq, dk, dv, bias, dbias,
-               *lists)
-    ptrs = (ctypes.c_void_p * 15)(*(0 if t is None else t.data_ptr()
+               *lists, g_lse)
+    ptrs = (ctypes.c_void_p * 18)(*(0 if t is None else t.data_ptr()
                                     for t in tensors))
     strides = (ctypes.c_longlong * 24)(*(
         st for t in (q, k, v, o, dout, dq, dk, dv)
@@ -284,14 +321,19 @@ def _probs(q, k, kpb, lse, strat):
     return torch.where(lse <= NEG_INF / 2, 0.0, torch.exp(s - lse))
 
 
-def sparse_attention_dq_plain(q, k, v, kpb, do, lse, delta, strat):
-    """dq of the dq kernel on dense matrices: p = exp(s − lse) (0 where
-    lse is -1e30), ds = p·(do vᵀ − delta)·sm_scale rounded to q.dtype,
-    dq = ds k accumulated in fp32."""
+def sparse_attention_dq_plain(q, k, v, kpb, do, o, lse, strat, g_lse=None):
+    """(dq, delta) of the dq kernel on dense matrices: delta =
+    rowsum(do·o) − g_lse (fp32 [B, H, Sq]), p = exp(s − lse) (0 where lse
+    is -1e30), ds = p·(do vᵀ − delta)·sm_scale rounded to q.dtype, dq = ds
+    k accumulated in fp32."""
+    delta = (do.float() * o.float()).sum(-1)
+    if g_lse is not None:
+        delta = delta - g_lse.float()
     p = _probs(q, k, kpb, lse, strat)
     dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
-    ds = p * (dp - delta.float()[..., None]) * _scale(strat, q.shape[-1])
-    return torch.matmul(ds.to(q.dtype).float(), k.float()).to(q.dtype)
+    ds = p * (dp - delta[..., None]) * _scale(strat, q.shape[-1])
+    dq = torch.matmul(ds.to(q.dtype).float(), k.float()).to(q.dtype)
+    return dq, delta
 
 
 def sparse_attention_dkv_plain(q, k, v, kpb, do, lse, delta, strat,
@@ -329,36 +371,47 @@ def sparse_attention_fwd(q, k, v, kpb, strat):
     return o, lse
 
 
-def _bwd_inputs(q, do, lse, delta):
+def _bwd_inputs(q, do, **rows):
+    """``do`` with a contiguous head dim, and the fp32 [B, H, Sq] row
+    statistics (lse, delta, g_lse) contiguous; None stays None."""
     B, H, Sq, _ = q.shape
     if do.shape != q.shape or do.dtype != q.dtype:
         raise ValueError(f"do {tuple(do.shape)} {do.dtype} must match q "
                          f"{tuple(q.shape)} {q.dtype}")
-    for name, t in (("lse", lse), ("delta", delta)):
-        if t.shape != (B, H, Sq) or t.dtype != torch.float32:
+    for name, t in rows.items():
+        if t is not None and (t.shape != (B, H, Sq)
+                              or t.dtype != torch.float32):
             raise ValueError(f"{name} must be fp32 {(B, H, Sq)}, got "
                              f"{tuple(t.shape)} {t.dtype}")
     if do.stride(3) != 1:
         do = do.contiguous()
-    return do, lse.contiguous(), delta.contiguous()
+    return (do, *(None if t is None else t.contiguous()
+                  for t in rows.values()))
 
 
-def sparse_attention_dq(q, k, v, kpb, do, lse, delta, strat):
-    """dq over the row-major tile lists. CUDA tensors launch
-    ``ds_sparse_dq``; CPU tensors run :func:`sparse_attention_dq_plain`.
-    ``delta`` is rowsum(do·o) minus any lse cotangent, fp32 [B, H, Sq]."""
-    if not use_kernel(q, k, v, kpb, do, lse, delta):
-        return sparse_attention_dq_plain(q, k, v, kpb, do, lse, delta,
-                                         strat)
+def sparse_attention_dq(q, k, v, kpb, do, o, lse, strat, g_lse=None):
+    """(dq, delta) over the row-major tile lists, delta = rowsum(do·o) −
+    g_lse fp32 [B, H, Sq] (g_lse: the lse cotangent, or None), which the
+    dk/dv kernel reads. CUDA tensors launch ``ds_sparse_dq``, which
+    computes delta from the rows it stages; CPU tensors run
+    :func:`sparse_attention_dq_plain`."""
+    if not use_kernel(q, k, v, kpb, do, o, lse, g_lse):
+        return sparse_attention_dq_plain(q, k, v, kpb, do, o, lse, strat,
+                                         g_lse)
     _check(q, k, v, kpb, strat)
-    do, lse, delta = _bwd_inputs(q, do, lse, delta)
+    if o.shape != q.shape or o.dtype != q.dtype or o.stride(3) != 1:
+        raise ValueError(f"o {tuple(o.shape)} {o.dtype} must match q "
+                         f"{tuple(q.shape)} {q.dtype} with a contiguous "
+                         f"head dim")
+    do, lse, g_lse = _bwd_inputs(q, do, lse=lse, g_lse=g_lse)
     B, H, Sq, D = q.shape
     dq = _heads_view(B, Sq, H, D, q)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     _launch("sparse_dq", "ds_sparse_dq", strat, strat.fwd_dev,
-            strat.n_qtiles, q, k, v, dout=do, lse=lse, delta=delta, dq=dq,
-            bias=None if kpb is None else kpb.float().contiguous(),
-            staged=(k, v))
-    return dq
+            strat.n_qtiles, q, k, v, o=o, dout=do, lse=lse, delta=delta,
+            dq=dq, bias=None if kpb is None else kpb.float().contiguous(),
+            g_lse=g_lse, staged=(q, k, v, do, o))
+    return dq, delta
 
 
 def sparse_attention_dkv(q, k, v, kpb, do, lse, delta, strat,
@@ -371,7 +424,7 @@ def sparse_attention_dkv(q, k, v, kpb, do, lse, delta, strat,
         return sparse_attention_dkv_plain(q, k, v, kpb, do, lse, delta,
                                           strat, want_dbias)
     _check(q, k, v, kpb, strat)
-    do, lse, delta = _bwd_inputs(q, do, lse, delta)
+    do, lse, delta = _bwd_inputs(q, do, lse=lse, delta=delta)
     B, H, _, D = q.shape
     Skv = k.shape[2]
     dk = _heads_view(B, Skv, H, D, k)
@@ -381,13 +434,14 @@ def sparse_attention_dkv(q, k, v, kpb, do, lse, delta, strat,
     _launch("sparse_dkv", "ds_sparse_dkv", strat, strat.bwd_dev,
             strat.n_ktiles, q, k, v, dout=do, lse=lse, delta=delta, dk=dk,
             dv=dv, bias=None if kpb is None else kpb.float().contiguous(),
-            dbias=dbias, staged=(q, do))
+            dbias=dbias, staged=(q, k, v, do))
     return dk, dv, dbias
 
 
 class SparseAttentionFunction(torch.autograd.Function):
     """Differentiable block-sparse attention on the three kernels: the
-    forward kernel, then dq and dk/dv on the saved q, k, v, o and lse.
+    forward kernel, then dq (which computes delta) and dk/dv on the saved
+    q, k, v, o and lse.
     ``with_lse`` also returns the lse (its cotangent folds into delta);
     ``bias_grad=False`` returns no bias gradient (the predicated form,
     JAX ``kernels.py:390-391``)."""
@@ -405,10 +459,10 @@ class SparseAttentionFunction(torch.autograd.Function):
         q, k, v, kpb, o, lse = ctx.saved_tensors
         if do is None:
             do = torch.zeros_like(o)
-        delta = (do.float() * o.float()).sum(-1)
-        if g_lse is not None:
-            delta = delta - g_lse.float()
-        dq = sparse_attention_dq(q, k, v, kpb, do, lse, delta, ctx.strat)
+        # the dq kernel computes delta = rowsum(do·o) − g_lse (JAX
+        # ``_bwd_impl``) and writes it for the dk/dv kernel
+        dq, delta = sparse_attention_dq(q, k, v, kpb, do, o, lse, ctx.strat,
+                                        g_lse)
         want_db = ctx.bias_grad and kpb is not None and \
             ctx.needs_input_grad[3]
         dk, dv, dbias = sparse_attention_dkv(q, k, v, kpb, do, lse, delta,

@@ -15,6 +15,7 @@ tiles, dk/dv over the column-major list) must give the plain versions'
 results.
 """
 
+import collections
 import random
 
 import jax
@@ -31,6 +32,7 @@ from deepspeed_tpu_torch.ops.sparse_attention import fused_kernels as fk
 from deepspeed_tpu_torch.ops.sparse_attention import kernels as tk
 from deepspeed_tpu_torch.ops.sparse_attention import sparse_self_attention
 from deepspeed_tpu_torch.ops.sparse_attention import sparsity_config as tsc
+from tests.test_torch_flash_bwd import _Ring
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 B, H, S, D = 2, 2, 128, 16
@@ -462,40 +464,141 @@ def _emulate_fwd(q, k, v, kpb, strat):
     return o, lse
 
 
-def _emulate_dkv(q, k, v, kpb, do, lse, delta, strat):
-    """dk, dv and dbias of the dk/dv kernel's loop over the column-major
-    lists, in numpy."""
-    Bq, Hq, Sq, _ = q.shape
-    Skv = k.shape[2]
-    ptr, idx, bits = strat.bwd_lists
+# The bf16 backward kernels' walk (csrc/sparse_attention.cu): one CTA per
+# (output tile, batch element), the output tiles in the strategy's order
+# (longest segment first); the segment's streamed tiles come through the
+# flash backward's ring of 3 slots (``_Ring``); mask arithmetic runs only
+# on the flagged pairs.
+
+
+def _tile_rows(x, start):
+    """Rows start .. start + 63 of [S, D], zero past the end."""
+    out = np.zeros((fk.TILE, x.shape[-1]))
+    live = x[start:start + fk.TILE]
+    out[:len(live)] = live
+    return out
+
+
+def _tile_vals(x, start, fill):
+    """x[start .. start + 63], ``fill`` past the end."""
+    out = np.full(fk.TILE, fill, dtype=np.float64)
+    live = x[start:start + fk.TILE]
+    out[:len(live)] = live
+    return out
+
+
+def _ctas(strat, walk, n_out, B):
+    """(batch, head, output tile, segment) in the kernels' grid order."""
+    order = walk[1]
+    for i in range(B * strat.H * n_out):
+        b, seg = i % B, int(order[i // B])
+        yield b, seg // n_out, seg % n_out, seg
+
+
+def _pair_live(strat, e, bits, qt, kt):
+    """[64 rows, 64 keys] liveness of pair e, rows past Sq and keys past
+    Skv dead."""
     T, f = fk.TILE, strat.fine
-    n = T // f
+    rows, keys = np.arange(qt * T, qt * T + T), np.arange(kt * T, kt * T + T)
+    live = _live(bits[e], rows - qt * T, keys - kt * T, f, T // f)
+    live &= (rows[:, None] < strat.Sq) & (keys[None, :] < strat.Skv)
+    if strat.causal and kt < strat.causal_ntiles:
+        live &= keys[None, :] <= rows[:, None]
+    return live
+
+
+def _emulate_dq(q, k, v, kpb, do, o, lse, strat, g_lse=None):
+    """dq and delta of the dq kernel's walk over the row-major lists, and
+    the visits of each (query, key) pair."""
+    Bq, Hq, Sq, _ = q.shape
+    Skv, T = k.shape[2], fk.TILE
+    ptr, idx, bits = strat.fwd_lists
+    flags = strat.fwd_walk[0]
+    scale = D ** -0.5
+    dq, delta = np.zeros(q.shape), np.zeros((Bq, Hq, Sq))
+    seen = np.zeros((Bq, Hq, Sq, Skv), int)
+    for b, h, it, seg in _ctas(strat, strat.fwd_walk, strat.n_qtiles, Bq):
+        q0 = it * T
+        rows = np.arange(q0, q0 + T)
+        live_r = rows < Sq
+        Q, dO, O = (_tile_rows(x[b, h], q0) for x in (q, do, o))
+        dl = (dO * O).sum(-1)                     # from the staged rows
+        if g_lse is not None:
+            dl -= _tile_vals(g_lse[b, h], q0, 0.0)
+        L = _tile_vals(lse[b, h], q0, np.inf)
+        L[L <= fk.NEG_INF / 2] = np.inf           # no live key: p = 0
+        e0, cnt = ptr[seg], ptr[seg + 1] - ptr[seg]
+        ring, acc = _Ring(cnt), np.zeros((T, q.shape[-1]))
+        for j in range(cnt):
+            ring.take(j)
+            e, kt = e0 + j, idx[e0 + j]
+            keys = np.arange(kt * T, kt * T + T)
+            K, V = _tile_rows(k[b, h], kt * T), _tile_rows(v[b, h], kt * T)
+            bias = np.zeros(T) if kpb is None else _tile_vals(kpb[b], kt * T,
+                                                              0.0)
+            x = Q @ K.T * scale + bias[None, :] - L[:, None]
+            live = _pair_live(strat, e, bits, it, kt)
+            if flags[e]:
+                x = np.where(live, x, -np.inf)    # the mask code
+            else:
+                assert live.all()                 # no mask code
+            keep = keys < Skv
+            seen[b, h][np.ix_(rows[live_r], keys[keep])] += \
+                live[live_r][:, keep]
+            ds = np.exp(x) * (dO @ V.T - dl[:, None]) * scale
+            acc += ds @ K
+        dq[b, h, rows[live_r]] = acc[live_r]
+        delta[b, h, rows[live_r]] = dl[live_r]
+    return dq, delta, seen
+
+
+def _emulate_dkv(q, k, v, kpb, do, lse, delta, strat):
+    """dk, dv and dbias of the dk/dv kernel's walk over the column-major
+    lists (s^T = k q^T per pair), and the visits of each pair."""
+    Bq, Hq, Sq, _ = q.shape
+    Skv, T = k.shape[2], fk.TILE
+    ptr, idx, bits = strat.bwd_lists
+    flags = strat.bwd_walk[0]
     scale = D ** -0.5
     dk, dv = np.zeros(k.shape), np.zeros(v.shape)
     dbias = np.zeros((Bq, Hq, Skv))
-    for b in range(Bq):
-        for h in range(Hq):
-            for kt in range(strat.n_ktiles):
-                keys = np.arange(kt * T, min((kt + 1) * T, Skv))
-                seg = h * strat.n_ktiles + kt
-                for e in range(ptr[seg], ptr[seg + 1]):
-                    it = idx[e]
-                    rows = np.arange(it * T, min((it + 1) * T, Sq))
-                    live = _live(bits[e], rows - it * T, keys - kt * T, f, n)
-                    if strat.causal and kt < strat.causal_ntiles:
-                        live &= keys[None, :] <= rows[:, None]
-                    x = np.where(live, q[b, h, rows] @ k[b, h, keys].T *
-                                 scale, fk.NEG_INF)
-                    if kpb is not None:
-                        x = x + kpb[b, keys][None, :]
-                    L = lse[b, h, rows][:, None]
-                    p = np.where(L <= fk.NEG_INF / 2, 0.0, np.exp(x - L))
-                    dp = do[b, h, rows] @ v[b, h, keys].T
-                    dsig = p * (dp - delta[b, h, rows][:, None])
-                    dv[b, h, keys] += p.T @ do[b, h, rows]
-                    dk[b, h, keys] += (dsig * scale).T @ q[b, h, rows]
-                    dbias[b, h, keys] += dsig.sum(0)
-    return dk, dv, dbias
+    seen = np.zeros((Bq, Hq, Sq, Skv), int)
+    for b, h, kt, seg in _ctas(strat, strat.bwd_walk, strat.n_ktiles, Bq):
+        k0 = kt * T
+        keys = np.arange(k0, k0 + T)
+        live_k = keys < Skv
+        K, V = _tile_rows(k[b, h], k0), _tile_rows(v[b, h], k0)
+        bias = np.zeros(T) if kpb is None else _tile_vals(kpb[b], k0, 0.0)
+        e0, cnt = ptr[seg], ptr[seg + 1] - ptr[seg]
+        ring = _Ring(cnt)
+        adk, adv = np.zeros((T, k.shape[-1])), np.zeros((T, k.shape[-1]))
+        adb = np.zeros(T)
+        for j in range(cnt):
+            ring.take(j)
+            e, it = e0 + j, idx[e0 + j]
+            rows = np.arange(it * T, it * T + T)
+            Q, dO = _tile_rows(q[b, h], it * T), _tile_rows(do[b, h], it * T)
+            L = _tile_vals(lse[b, h], it * T, np.inf)   # +inf past Sq
+            L[L <= fk.NEG_INF / 2] = np.inf
+            Dl = _tile_vals(delta[b, h], it * T, 0.0)
+            xt = K @ Q.T * scale + bias[:, None] - L[None, :]
+            live = _pair_live(strat, e, bits, it, kt)
+            if flags[e]:
+                xt = np.where(live.T, xt, -np.inf)
+            else:
+                assert live.all()
+            keep = rows < Sq
+            seen[b, h][np.ix_(rows[keep], keys[live_k])] += \
+                live[keep][:, live_k]
+            pt = np.exp(xt)
+            dsig = pt * (V @ dO.T - Dl[None, :])
+            adv += pt @ dO
+            adk += (dsig * scale) @ Q
+            adb += dsig.sum(1)
+        dk[b, h, keys[live_k]] = adk[live_k]
+        dv[b, h, keys[live_k]] = adv[live_k]
+        dbias[b, h, keys[live_k]] = adb[live_k]
+    return dk, dv, dbias, seen
 
 
 @pytest.mark.parametrize("block,causal,name,seq", [
@@ -506,7 +609,10 @@ def _emulate_dkv(q, k, v, kpb, do, lse, delta, strat):
 def test_tile_lists_reproduce_the_plain_versions(block, causal, name, seq):
     """The lists the CUDA kernels walk (fine-block bits, causal tiles
     dropped, packed columns after a tile-aligned real region) give the
-    plain versions' out, lse, dk, dv and dbias."""
+    plain versions' out, lse, dq, delta, dk, dv and dbias, with and without
+    an lse cotangent, through the backward kernels' walk (CTA order, ring,
+    mask code on flagged pairs only); each kernel visits every live pair
+    once."""
     lay = _layout(name, block, tsc, seq)[0] != 0
     gr, gc, rem = fk._decompose_layout(lay, causal)
     if name == "dense":
@@ -524,19 +630,98 @@ def test_tile_lists_reproduce_the_plain_versions(block, causal, name, seq):
     q, do = (rng.standard_normal((1, H, seq, D)) for _ in range(2))
     k, v = (rng.standard_normal((1, H, Skv, D)) for _ in range(2))
     kpb = 0.5 * rng.standard_normal((1, Skv))
+    g_lse = rng.standard_normal((1, H, seq))
     o, lse = _emulate_fwd(q, k, v, kpb, strat)
     t = [torch.from_numpy(x) for x in (q, k, v, kpb, do)]
     po, plse = fk.sparse_attention_fwd_plain(t[0], t[1], t[2], t[3], strat)
     # the emulation runs in fp64, the plain versions in fp32
     np.testing.assert_allclose(o, po.numpy(), **TOL)
     np.testing.assert_allclose(lse, plse.numpy(), **TOL)
-    delta = (do * o).sum(-1)
-    dk, dv, dbias = _emulate_dkv(q, k, v, kpb, do, lse, delta, strat)
-    pdk, pdv, pdb = fk.sparse_attention_dkv_plain(
-        t[0], t[1], t[2], t[3], t[4], plse, torch.from_numpy(delta), strat,
-        True)
-    for got, want in ((dk, pdk), (dv, pdv), (dbias, pdb)):
-        np.testing.assert_allclose(got, want.numpy(), **TOL)
+    live = np.broadcast_to(strat.element_mask("cpu").numpy()[None],
+                           (1, H, seq, Skv))
+    for gl in (None, g_lse):
+        dq, delta, seen_q = _emulate_dq(q, k, v, kpb, do, o, lse, strat, gl)
+        dk, dv, dbias, seen_kv = _emulate_dkv(q, k, v, kpb, do, lse, delta,
+                                              strat)
+        np.testing.assert_array_equal(seen_q, live)
+        np.testing.assert_array_equal(seen_kv, live)
+        pdq, pdelta = fk.sparse_attention_dq_plain(
+            t[0], t[1], t[2], t[3], t[4], torch.from_numpy(o), plse, strat,
+            None if gl is None else torch.from_numpy(gl))
+        pdk, pdv, pdb = fk.sparse_attention_dkv_plain(
+            t[0], t[1], t[2], t[3], t[4], plse, pdelta, strat, True)
+        for got, want in ((dq, pdq), (delta, pdelta), (dk, pdk), (dv, pdv),
+                          (dbias, pdb)):
+            np.testing.assert_allclose(got, want.numpy(), **TOL)
+
+
+def _brute_walk(strat):
+    """The backward kernels' flags and orders counted from the element
+    mask: a pair is listed where its tile holds a live fine block (causal
+    tiles above the diagonal dropped), flagged where any of its 64 x 64
+    elements is not live; segments longest first."""
+    T = fk.TILE
+    H, Sq, Skv = strat.H, strat.Sq, strat.Skv
+    nq, nk = strat.n_qtiles, strat.n_ktiles
+    live = np.zeros((H, nq * T, nk * T), bool)
+    live[:, :Sq, :Skv] = strat.element_mask("cpu").numpy()
+    tiles = live.reshape(H, nq, T, nk, T)
+    full = tiles.all(axis=(2, 4))
+    listed = fk._tile_bits(strat.lay, strat.block)[:, :nq, :nk] != 0
+    if strat.causal:
+        i, j = np.arange(nq)[:, None], np.arange(nk)[None, :]
+        listed &= ~((j > i) & (j < strat.causal_ntiles))
+    out = {}
+    for name, lst, fl in (("fwd", listed, full),
+                          ("bwd", listed.transpose(0, 2, 1),
+                           full.transpose(0, 2, 1))):
+        h, a, b = np.nonzero(lst)
+        counts = lst.sum(-1).reshape(-1)
+        out[name] = ((~fl[h, a, b]).astype(np.uint8),
+                     np.argsort(-counts, kind="stable").astype(np.int32),
+                     counts.reshape(H, -1))
+    return out
+
+
+@pytest.mark.parametrize("block,causal,name,seq", [
+    (8, True, "fixed-uni", 128), (16, False, "bigbird", 128),
+    (32, True, "bigbird-uni", 256), (64, False, "fixed", 256),
+    (128, True, "fixed-uni", 512), (16, True, "variable", 80),
+    (16, True, "dense", 256), (16, False, "longformer", 80)])
+@pytest.mark.parametrize("packed", [True, False])
+def test_strategy_flags_and_orders_match_a_brute_force_count(
+        block, causal, name, seq, packed):
+    lay = _layout(name, block, tsc, seq)[0] != 0
+    strat = fk._get_plan(lay, block, causal, D ** -0.5, "cpu").strat \
+        if packed else fk._get_strategy(lay, block, causal, D ** -0.5)
+    want = _brute_walk(strat)
+    for got, (flags, order, _) in ((strat.fwd_walk, want["fwd"]),
+                                   (strat.bwd_walk, want["bwd"])):
+        np.testing.assert_array_equal(got[0], flags)
+        np.testing.assert_array_equal(got[1], order)
+
+
+def test_bert_path_dkv_lists_run_the_longest_first():
+    """The sparse BERT path (Fixed, block 64, window 256, 1 global, S 2048,
+    global columns packed): a head's 40 key tiles hold 32 pairs (8 tiles:
+    the packed global columns), 4 (24) and none (8: the real-region global
+    columns), 352 in all; the 32-pair tiles of every head lead the dk/dv
+    grid; no pair needs the mask."""
+    heads = 2
+    lay = tsc.FixedSparsityConfig(num_heads=heads, block=64,
+                                  num_local_blocks=4,
+                                  num_global_blocks=1).make_layout(2048) != 0
+    strat = fk._get_plan(lay, 64, False, D ** -0.5, "cpu").strat
+    want = _brute_walk(strat)
+    counts = want["bwd"][2]
+    for h in range(heads):
+        assert sorted(collections.Counter(counts[h]).items()) == \
+            [(0, 8), (4, 24), (32, 8)]
+    assert strat.tile_pairs == 352 * heads
+    np.testing.assert_array_equal(strat.bwd_walk[1], want["bwd"][1])
+    lead = np.diff(strat.bwd_lists[0])[strat.bwd_walk[1][:8 * heads]]
+    assert (lead == 32).all()
+    assert not strat.fwd_walk[0].any() and not strat.bwd_walk[0].any()
 
 
 def test_strategy_is_cached_per_layout_and_device():
