@@ -15,7 +15,11 @@ Phases, each fatal on failure:
    plain forward rounds the normalised softmax weights to bf16 before P·V
    where the kernel rounds the unnormalised ones and divides by their
    fp32 sum after, and the backward's outputs are bf16; Adam rtol 1e-6,
-   atol 1e-7): flash forward, decode, the flash backward (dq, dk/dv) at
+   atol 1e-7): flash forward; decode, fp and int8 KV, fp32 and bf16, at
+   B 8 (one split), B 1 (8 splits of 128 keys) and B 2 (4 of 256) × H 16
+   × T 1024, at every live length at a split boundary (± 1), scalar and
+   per-sequence, two runs bit-equal, zeros at length 0; the flash
+   backward (dq, dk/dv) at
    the training shape (B 8, H 16, S 1024, D 64, causal) and at Sq < Sk,
    then at B 8, H 16 in bf16: every head-dim class (16, 20, 64, 80, 128),
    Sq != Sk both ways (rows with no visible key), lengths one short of
@@ -33,10 +37,16 @@ Phases, each fatal on failure:
    prompts of 896 tokens (64 new) and of 32 tokens (128 new), and with an
    int8 KV cache on 8 prompts of 32 tokens (32 new). Launch counts are
    zeroed just before and read just after; every kernel of the path must
-   have launched. The prefill logits and the first decode step's logits
+   have launched, the decode kernels exactly once a layer and a generated
+   token after the first. The prefill logits and the first decode step's
+   logits
    must agree with the same model run on the plain attention versions on
    the card;
-5. time the generation path and its kernels;
+5. time the generation path and its kernels; decode (bf16 and int8 KV)
+   at the generation path's B 8 × len 928, at B 1 × len 1000 and at B 64
+   with per-sequence lengths from seed 0: the wrapper and its C entry by
+   CUDA events, the kernel's device time from the profiler, the wrapper's
+   host time, the plain version and SDPA with the length mask;
 6. the training path at full width: ``initialize`` on GPT-2 medium, bs 8
    × seq 1024, bf16 over fp32 masters, ZeRO stage 1, Adam lr 1e-4 with
    ``sweep: true`` and ``gradient_clipping`` 1.0, 10 steps on one
@@ -90,7 +100,8 @@ Phases, each fatal on failure:
    to its plain version (fp32/bf16, symmetric/asymmetric, nearest/
    stochastic, 8/4 bits, groups 1/8/7, a ragged row, BERT-large's qkv
    weight and word embeddings) and ``ds_softmax`` within 2e-6 (fp32) and
-   one bf16 ulp at [131072, 128], [131072, 1024], h 1000, 7 and 4096;
+   one bf16 ulp at [131072, 128], [131072, 1024], h 1000, 1003, 7, 4096,
+   16384 and 40000, and on a view one element past an aligned start;
 11. int8-weight GPT-2 medium: ``init_inference(dtype=torch.int8)``,
    greedy ``generate`` on 8 prompts of 896 tokens (32 new); prefill ms,
    decode ms/token, the weights' device bytes (int8, bf16, scales, shed);
@@ -126,8 +137,11 @@ Phases, each fatal on failure:
 Prints an ``e2e`` JSON line, a ``train`` JSON line, a ``bert`` JSON line,
 a ``moq`` JSON line, an ``int8`` JSON line, a ``sparse`` JSON line, a
 ``kernels`` JSON line (the softmax, on no path as in the JAX package,
-with 0 launches; the sparse kernels' predicated rows with the launches of
-phase 13's predicated step; the sparse rows' SDPA yardstick is the masked
+with 0 launches, and its C entry's and ``torch.softmax``'s device times
+from the profiler; the decode rows' ``single_stream`` and
+``serving_batch`` shapes beside the main path's; the sparse kernels'
+predicated rows with the launches of phase 13's predicated step; the
+sparse rows' SDPA yardstick is the masked
 backward alone, and ``sparse timing`` lines give the three sparse kernels
 at the BERT and GPT-2 shapes), the card line, and last ``{"ok": true,
 "device": {...}}``. Exits non-zero with no result when CUDA is
@@ -200,6 +214,23 @@ def host_ms(fn, reps=3):
         torch.cuda.synchronize()
         best = min(best, (time.perf_counter() - t0) * 1e3)
     return best
+
+
+def host_call_ms(fn, calls=1000, window=100):
+    """Host time of one call of ``fn`` in ms: ``calls`` calls in windows
+    of ``window`` with no sync inside a window (so the queue of launches
+    never fills), synchronised between windows."""
+    import torch
+    total = 0.0
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(calls // window):
+        t0 = time.perf_counter()
+        for _ in range(window):
+            fn()
+        total += time.perf_counter() - t0
+        torch.cuda.synchronize()
+    return total / calls * 1e3
 
 
 def device_profile(torch, fn):
@@ -287,38 +318,70 @@ def check_kernels(torch, flash, decode):
                                      "version")
             if dtype == torch.bfloat16 and sq == sk and causal:
                 main_err["flash_fwd"] = max(main_err.get("flash_fwd", 0), err)
-        q = rnd(B, H, 1, D, dtype=dtype)
-        k, v = rnd(B, H, T_CACHE, D, dtype=dtype), rnd(B, H, T_CACHE, D,
-                                                        dtype=dtype)
-        kq, ks = decode.quantize_kv(k)
-        vq, vs = decode.quantize_kv(v)
-        for length in (1, 7, 513, 1024):
-            for per_seq in (False, True):
-                lens = (torch.tensor([max(1, length - 3 * i)
-                                      for i in range(B)], dtype=torch.int32,
-                                     device="cuda")
-                        if per_seq else length)
-                dev_lens = decode._lengths(lens, B, "cuda")
-                for name, got, want in [
-                        ("decode_attention",
-                         decode.decode_attention(q, k, v, lens),
-                         decode.decode_attention_plain(q, k, v, dev_lens)),
-                        ("decode_attention_int8",
-                         decode.decode_attention_quantized(q, kq, ks, vq, vs,
-                                                           lens),
-                         decode.decode_attention_plain(
-                             q, kq, vq, dev_lens, k_scale=ks, v_scale=vs))]:
-                    torch.cuda.synchronize()
-                    err, ok = close(got, want, tol)
-                    print(f"check {name} {str(dtype)[6:]} T={T_CACHE} "
-                          f"len={length} per_seq={per_seq}: err {err:.3g}")
-                    if not ok:
-                        raise AssertionError(f"{name} disagrees with its "
-                                             "plain version")
-                    if dtype == torch.bfloat16:
-                        main_err[name] = max(main_err.get(name, 0), err)
+        for name, err in check_decode_kernels(torch, decode, rnd, dtype,
+                                              tol).items():
+            if dtype == torch.bfloat16:
+                main_err[name] = max(main_err.get(name, 0), err)
     check_flash_fwd_shapes(torch, flash, rnd)
     return main_err
+
+
+# (batch, heads) of the decode checks at T_CACHE on 132 SMs: the
+# generation path (one split), B 1 (8 splits of 128 keys), B 2 (4 of 256)
+DECODE_CHECKS = [(B, H), (1, H), (2, H)]
+
+
+def check_decode_kernels(torch, decode, rnd, dtype, tol):
+    """Phase 3, decode: the fp and int8 kernels against their plain
+    versions at each DECODE_CHECKS shape, for every live length at the
+    split plan's chunk boundaries (± 1), 1, 7, 513, DECODE_LEN, T - 1 and T,
+    scalar and per-sequence; two runs bit-equal; zeros at length 0.
+    Returns the max abs error of each kernel."""
+    errs = {}
+    for batch, heads in DECODE_CHECKS:
+        q = rnd(batch, heads, 1, D, dtype=dtype)
+        k = rnd(batch, heads, T_CACHE, D, dtype=dtype)
+        v = rnd(batch, heads, T_CACHE, D, dtype=dtype)
+        kq, ks = decode.quantize_kv(k)
+        vq, vs = decode.quantize_kv(v)
+        splits, chunk = decode._plan(q.device, batch * heads, T_CACHE)
+        lengths = {1, 7, 513, DECODE_LEN, T_CACHE - 1, T_CACHE}
+        for i in range(1, splits):
+            lengths |= {i * chunk - 1, i * chunk, i * chunk + 1}
+        kinds = [("decode_attention", k, v, {}),
+                 ("decode_attention_int8", kq, vq,
+                  {"k_scale": ks, "v_scale": vs})]
+        for length in sorted(lengths):
+            for per_seq in (False, True):
+                lens = (torch.tensor([max(1, length - 3 * i)
+                                      for i in range(batch)],
+                                     dtype=torch.int32, device="cuda")
+                        if per_seq else length)
+                dev_lens = decode._lengths(lens, batch, q.device)
+                for name, kk, vv, sc in kinds:
+                    got = decode.decode_attention(q, kk, vv, lens, **sc)
+                    want = decode.decode_attention_plain(q, kk, vv, dev_lens,
+                                                         **sc)
+                    torch.cuda.synchronize()
+                    err, ok = close(got, want, tol)
+                    if not ok:
+                        raise AssertionError(
+                            f"{name} {dtype} B{batch} splits {splits} len "
+                            f"{length} per_seq {per_seq} disagrees with its "
+                            f"plain version: {err}")
+                    errs[name] = max(errs.get(name, 0), err)
+        for name, kk, vv, sc in kinds:
+            first = decode.decode_attention(q, kk, vv, DECODE_LEN, **sc)
+            again = decode.decode_attention(q, kk, vv, DECODE_LEN, **sc)
+            zero = decode.decode_attention(q, kk, vv, 0, **sc)
+            if not torch.equal(first, again):
+                raise AssertionError(f"{name} reruns differ")
+            if not bool((zero == 0).all()):
+                raise AssertionError(f"{name} at length 0 is not zero")
+        print(f"check decode {str(dtype)[6:]} B{batch} H{heads} "
+              f"T{T_CACHE}: {splits} splits of {chunk}, lengths "
+              f"{sorted(lengths)}, max err {errs}", flush=True)
+    return errs
 
 
 # (Sq, Sk, D, causal, packed) at B 8, H 16, bf16: the forward's shape
@@ -714,6 +777,115 @@ def call_device_ms(torch, fn, iters=20):
         if evs:
             return sum(ev[2] for ev in evs) / 1e3 / max(ev[1] for ev in evs)
     raise RuntimeError("the profiler recorded no kernel")
+
+
+def maybe_device_ms(torch, fn, name=None, iters=20):
+    """:func:`kernel_device_ms` of the kernel ``name`` (or
+    :func:`call_device_ms` of the whole call), or None where the profiler
+    recorded nothing in three windows (it can drop a window's records)."""
+    try:
+        return (kernel_device_ms(torch, fn, name, iters) if name else
+                call_device_ms(torch, fn, iters))
+    except RuntimeError as e:
+        print(f"profiler: {e}", flush=True)
+        return None
+
+
+def decode_timing(torch, decode, op_builder, batch, lens, quantized):
+    """Decode at [batch, 16, 1024, 64] (bf16 q, a bf16 or int8 cache) with
+    ``lens`` (a device scalar or a [batch] vector): ``ms`` the wrapper by
+    CUDA events over 100 back-to-back calls, ``kernel_ms`` its C entry
+    alone, ``device_ms`` the kernel's device time from the profiler,
+    ``host_ms`` the wrapper's host time (1000 calls, no sync inside a
+    window of 100), the plain version, and for the bf16 cache SDPA with
+    the length mask (``library_ms`` its call by events,
+    ``library_device_ms`` its kernels). Bound: the live K/V rows (and the
+    int8 form's row scales) read once, q read and o written, at 3.35 TB/s;
+    4 flops an element of a live row at 989 TFLOP/s."""
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    q, kc, vc = rnd(batch, H, 1, D), rnd(batch, H, T_CACHE, D), \
+        rnd(batch, H, T_CACHE, D)
+    sc = {}
+    if quantized:
+        kc, sc["k_scale"] = decode.quantize_kv(kc)
+        vc, sc["v_scale"] = decode.quantize_kv(vc)
+    per_seq = lens.dim() == 1
+    live = H * (int(lens.sum()) if per_seq else batch * int(lens))
+    wrapper = lambda: decode.decode_attention(q, kc, vc, lens, **sc)
+    o = wrapper()
+    args, stream = decode._launch_args(q, kc, vc, sc.get("k_scale"),
+                                       sc.get("v_scale"), lens, o, 1,
+                                       D ** -0.5)
+    lib = op_builder.load_kernels()
+    kernel = lambda: lib.ds_decode_attention(args, stream)
+    splits, chunk = decode._plan(q.device, batch * H, T_CACHE)
+    out = {"shape": f"B{batch} H{H} T{T_CACHE} "
+                    + (f"per-sequence lengths (seed 0, 1-{T_CACHE})"
+                       if per_seq else f"len{int(lens)}") + f" D{D} "
+                    + ("int8 KV, bf16 q" if quantized else "bf16"),
+           "splits": splits, "chunk": chunk,
+           "ms": cuda_ms(wrapper, iters=100),
+           "kernel_ms": cuda_ms(kernel, iters=100),
+           "device_ms": maybe_device_ms(torch, kernel, "decode_kernel"),
+           "host_ms": host_call_ms(wrapper),
+           "plain_ms": cuda_ms(lambda: decode.decode_attention_plain(
+               q, kc, vc, lens, **sc)),
+           "library_ms": None,
+           "bytes": 2 * live * ((D + 4) if quantized else 2 * D)
+           + 2 * batch * H * D * 2 + 4 * lens.numel(),
+           "flops": 4 * live * D}
+    if not quantized:
+        cols = torch.arange(T_CACHE, device="cuda")
+        mask = (cols[None, :] < (lens[:, None] if per_seq
+                                 else lens.reshape(1, 1)))[:, None, None, :]
+        sdpa = lambda: F.scaled_dot_product_attention(q, kc, vc,
+                                                      attn_mask=mask)
+        out["library_ms"] = cuda_ms(sdpa, iters=100)
+        out["library_device_ms"] = maybe_device_ms(torch, sdpa)
+    out["bound_ms"] = max(out["bytes"] / HBM_BYTES_PER_S,
+                          out["flops"] / BF16_FLOPS) * 1e3
+    return out
+
+
+def decode_row(torch, np, decode, op_builder, quantized):
+    """The kernels-line row of the fp (or int8) decode kernel: the
+    generation path's shape (B 8, len DECODE_LEN), with ``single_stream``
+    (B 1, len 1000) and ``serving_batch`` (B 64, per-sequence lengths
+    drawn from seed 0, uniform in 1-1024) beside it."""
+    rng = np.random.default_rng(0)
+    shapes = {
+        "main_path": (B, torch.full((), DECODE_LEN, dtype=torch.int32,
+                                    device="cuda")),
+        "single_stream": (1, torch.full((), 1000, dtype=torch.int32,
+                                        device="cuda")),
+        "serving_batch": (64, torch.tensor(rng.integers(1, T_CACHE + 1, 64),
+                                           dtype=torch.int32,
+                                           device="cuda"))}
+    times = {label: decode_timing(torch, decode, op_builder, batch, lens,
+                                  quantized)
+             for label, (batch, lens) in shapes.items()}
+    row = {"name": "decode_attention_int8" if quantized
+           else "decode_attention", "route": "cuda",
+           "source": "deepspeed_tpu_torch/csrc/decode_attention.cu",
+           "replaces": "deepspeed_tpu/ops/transformer/decode.py:54"
+           + (" (quantized=True)" if quantized else ""),
+           **times.pop("main_path"),
+           "library_note": "none: no PyTorch call attends over an int8 "
+                           "cache" if quantized else
+                           "scaled_dot_product_attention with the length "
+                           "mask (one call)"}
+    for label, t in times.items():
+        t.pop("bytes")
+        t.pop("flops")
+        row[label] = t
+    torch.cuda.empty_cache()
+    return row
 
 
 def flash_fwd_timing(torch, flash, batch, seq, causal):
@@ -1365,8 +1537,14 @@ def check_quant_kernels(torch, quantizer, fused, bert_shapes):
     for dtype, tol in ((torch.float32, 2e-6), (torch.bfloat16, 2 ** -7)):
         for n, h, name in [(BERT_B * H * BERT_S, BERT_S, "softmax"),
                            (B * H * SEQ, SEQ, "softmax_h1024"),
-                           (37, 1000, None), (9, 7, None), (5, 4096, None)]:
-            x = rnd(n, h, dtype=dtype) * 4
+                           (37, 1000, None), (33, 1003, None), (9, 7, None),
+                           (5, 4096, None), (7, 16384, None),
+                           (2, 40000, None), (19, 1024, "unaligned")]:
+            # unaligned: a view one element past an aligned start (one
+            # element a load); 1003: rows that are not whole vectors;
+            # 16384: one block a row in registers; 40000: three passes
+            x = (rnd(n * h + 1, dtype=dtype) * 4)[1:].view(n, h) \
+                if name == "unaligned" else rnd(n, h, dtype=dtype) * 4
             got = fused.fused_softmax(x, 0.125)
             want = fused.softmax_plain(x, 0.125)
             torch.cuda.synchronize()
@@ -1378,7 +1556,8 @@ def check_quant_kernels(torch, quantizer, fused, bert_shapes):
             if not ok:
                 raise AssertionError("softmax disagrees with its plain "
                                      "version")
-            if dtype == torch.bfloat16 and name:
+            if dtype == torch.bfloat16 and name in ("softmax",
+                                                    "softmax_h1024"):
                 main_err[name] = err.max().item()
             del x, got, want, err
     torch.cuda.empty_cache()
@@ -1462,9 +1641,12 @@ def quant_kernel_rows(torch, quantizer, fused, moq_tensors):
                         if h == BERT_S else
                         "(GPT-2 medium's, B8 H16 S1024)"),
             "ms": cuda_ms(kernel, iters=100),
+            "device_ms": maybe_device_ms(torch, kernel, "softmax_"),
             "wrapper_ms": cuda_ms(lambda: fused.fused_softmax(x), iters=100),
             "plain_ms": cuda_ms(lambda: fused.softmax_plain(x)),
             "library_ms": cuda_ms(lambda: torch.softmax(x, -1), iters=100),
+            "library_device_ms": maybe_device_ms(
+                torch, lambda: torch.softmax(x, -1)),
             "library_note": "torch.softmax(x, -1) (one call)",
             "bytes": 2 * n * h * 2, "flops": 5 * n * h, "peak": FP32_FLOPS})
         del x, y
@@ -2289,6 +2471,16 @@ def main():
     for k in ("flash_fwd", "decode_attention", "decode_attention_int8"):
         if launches.get(k, 0) == 0:
             raise AssertionError(f"kernel {k} never launched on the main path")
+    # one decode launch a layer and a generated token after the first
+    n_layer = cfg.n_layer
+    want = {"decode_attention": n_layer * sum(
+                new - 1 for _, eng, _, new in runs if eng is engine),
+            "decode_attention_int8": n_layer * sum(
+                new - 1 for _, eng, _, new in runs if eng is qengine)}
+    for k, n in want.items():
+        if launches.get(k, 0) != n:
+            raise AssertionError(f"{k}: {launches.get(k, 0)} launches on "
+                                 f"the generation path, expected {n}")
 
     # the same model on the plain attention versions, on the card. The
     # bf16 logits (largest about 3) differ by up to 0.05 after 24 layers,
@@ -2354,7 +2546,6 @@ def main():
         return torch.randn(*shape, generator=gen, device="cuda").to(
             torch.bfloat16)
 
-    F = torch.nn.functional
     q, k, v = rnd(B, H, 896, D), rnd(B, H, 896, D), rnd(B, H, 896, D)
     fwd = flash_fwd_timing(torch, flash, B, 896, True)
     flash_row = {
@@ -2371,44 +2562,10 @@ def main():
         **{key: fwd[key] for key in SDPA_FWD_KEYS if key in fwd},
         "bytes": fwd["bytes"], "flops": fwd["flops"],
     }
-    qd = rnd(B, H, 1, D)
-    kc, vc = rnd(B, H, T_CACHE, D), rnd(B, H, T_CACHE, D)
-    kq, ks = decode.quantize_kv(kc)
-    vq, vs = decode.quantize_kv(vc)
-    lens = torch.full((), DECODE_LEN, dtype=torch.int32, device="cuda")
-    mask = (torch.arange(T_CACHE, device="cuda") < DECODE_LEN)[None, None,
-                                                                None, :]
-    live = B * H * DECODE_LEN
-    decode_row = {
-        "name": "decode_attention", "route": "cuda",
-        "source": "deepspeed_tpu_torch/csrc/decode_attention.cu",
-        "replaces": "deepspeed_tpu/ops/transformer/decode.py:54",
-        "shape": f"B8 H16 T{T_CACHE} len{DECODE_LEN} D64 bf16",
-        "ms": cuda_ms(lambda: decode.decode_attention(qd, kc, vc, lens),
-                      iters=100),
-        "plain_ms": cuda_ms(
-            lambda: decode.decode_attention_plain(qd, kc, vc, lens)),
-        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-            qd, kc, vc, attn_mask=mask), iters=100),
-        "bytes": 2 * live * D * 2 + 2 * B * H * D * 2 + 4,
-        "flops": 4 * live * D,
-    }
-    int8_row = {
-        "name": "decode_attention_int8", "route": "cuda",
-        "source": "deepspeed_tpu_torch/csrc/decode_attention.cu",
-        "replaces": "deepspeed_tpu/ops/transformer/decode.py:54 "
-                    "(quantized=True)",
-        "shape": f"B8 H16 T{T_CACHE} len{DECODE_LEN} D64 int8 KV, bf16 q",
-        "ms": cuda_ms(lambda: decode.decode_attention_quantized(
-            qd, kq, ks, vq, vs, lens), iters=100),
-        "plain_ms": cuda_ms(lambda: decode.decode_attention_plain(
-            qd, kq, vq, lens, k_scale=ks, v_scale=vs)),
-        "library_ms": None,
-        "bytes": 2 * live * (D + 4) + 2 * B * H * D * 2 + 4,
-        "flops": 4 * live * D,
-    }
+    decode_rows = [decode_row(torch, np, decode, op_builder, quantized)
+                   for quantized in (False, True)]
     gen_launches = dict(launches)
-    del engine, qengine, model, q, k, v, qd, kc, vc, kq, ks, vq, vs
+    del engine, qengine, model, q, k, v
     torch.cuda.empty_cache()
 
     # 6. the training path at full width
@@ -2654,10 +2811,10 @@ def main():
         + bert_plain_counts.get("flash_fwd", 0),
         "moq": moq_counts.get("flash_fwd", 0),
         "int8_generate": int8_counts.get("flash_fwd", 0)}
-    for row in (flash_row, decode_row, int8_row):
+    for row in [flash_row] + decode_rows:
         row["peak"] = BF16_FLOPS
     rows = finish_rows(
-        [flash_row, decode_row, int8_row]
+        [flash_row] + decode_rows
         + training_kernel_rows(torch, flash, fused_adam, param_shapes)
         + bert_kernel_rows(torch, fused, fused_lamb, bert_shapes)
         + quant_kernel_rows(torch, quantizer, fused, moq_tensors)

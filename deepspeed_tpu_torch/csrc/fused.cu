@@ -31,11 +31,23 @@
 // of shuffles, so every lane holds the same total and the order is fixed.
 // Rows up to 2048 wide fit (NPL = 64; the backward keeps two such arrays).
 // Bias-GeLU is a grid-stride elementwise pass; tanhf (not tanh.approx.f32,
-// whose ~5e-4 relative error is far above the fp32 tolerance). The softmax
-// keeps a row of up to 2048 in one warp's registers (max, then the sum of
-// expf(x - max), then expf / sum with an IEEE division: one read, one
-// write); a wider row takes a block of 256 threads and three passes over
-// it in device memory.
+// whose ~5e-4 relative error is far above the fp32 tolerance).
+//
+// The softmax reads each row once and writes it once, with the row held in
+// registers between its max, its sum and the store. Lanes read 16-byte
+// vectors (8 bf16/fp16, 4 fp32 columns a vector, vector i of a lane at
+// column 8 lane + 256 i for bf16) when the row is whole vectors and both
+// buffers are aligned, else single elements (a view offset by one element
+// takes this path). Rows of fewer than 32 vectors share a warp: at h 128
+// bf16, 16 lanes a row and two rows a warp, the reductions butterflies
+// over the 16-lane group. Every load of a row is issued before its first
+// reduction; blocks of 8 warps. Arithmetic: x * scale rounded once
+// (__fmul_rn), so the max is the plain version's; exp2f of (x * scale -
+// m) log2 e; one IEEE reciprocal of the row sum, then a multiply. Rows up
+// to 2048 take the warp kernel (64 values a lane at most); wider rows one
+// block of 512 threads a row, still held in registers, up to 32768; wider
+// still, a block of 256 threads and three passes over the row in device
+// memory.
 //
 // Plain C interface (loaded with ctypes); each function returns the
 // cudaError_t of its launch.
@@ -361,56 +373,146 @@ __device__ __forceinline__ float warp_max(float m) {
   return m;
 }
 
-// one warp a row; lane l holds columns l, l + 32, ... (NPL of them)
-template <typename T, int NPL>
-__global__ void __launch_bounds__(32 * kWarpsPerBlock)
-softmax_warp_kernel(const T* __restrict__ x, T* __restrict__ y, long long n,
-                    int h, float scale) {
-  const int lane = threadIdx.x & 31;
-  const long long row =
-      (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= n) return;
-  const T* xr = x + row * h;
-  float v[NPL];
-  float m = -INFINITY;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kSoftmaxWarps = 8;          // rows kernel: warps a block
+constexpr int kSoftmaxWideThreads = 512;  // wide kernel: one row a block
+constexpr int kSoftmaxMaxValues = 64;     // values a thread holds at most
+
+template <>
+struct VecWidth<__half> {
+  static constexpr int N = 8;
+};
+
+// The part of a row one thread holds: CH groups of W consecutive columns
+// (W = 1, or one 16-byte vector), group i at column (t + P i) W for the
+// thread's index t among the P threads of the row. All CH loads are issued
+// before the first value is used; columns past h read as -inf (scaled).
+template <typename T, int W, int CH, int P>
+__device__ __forceinline__ void softmax_load(const T* __restrict__ xr, int h,
+                                             int t, bool live, float scale,
+                                             float (&v)[CH * W]) {
+  if constexpr (W == 1) {
 #pragma unroll
-  for (int i = 0; i < NPL; ++i) {
-    const int c = lane + 32 * i;
-    v[i] = c < h ? __fmul_rn(to_f(xr[c]), scale) : -INFINITY;
-    m = fmaxf(m, v[i]);
-  }
-  m = warp_max(m);
-  float s = 0.f;
+    for (int i = 0; i < CH; ++i) {
+      const int c = t + P * i;
+      v[i] = live && c < h ? __fmul_rn(to_f(xr[c]), scale) : -INFINITY;
+    }
+  } else {
+    uint4 raw[CH];
 #pragma unroll
-  for (int i = 0; i < NPL; ++i) {
-    v[i] = lane + 32 * i < h ? expf(__fsub_rn(v[i], m)) : 0.f;
-    s += v[i];
-  }
-  s = warp_sum(s);
-  T* yr = y + row * h;
+    for (int i = 0; i < CH; ++i) {
+      const int c = (t + P * i) * W;
+      raw[i] = live && c < h ? *reinterpret_cast<const uint4*>(xr + c)
+                             : make_uint4(0u, 0u, 0u, 0u);
+    }
 #pragma unroll
-  for (int i = 0; i < NPL; ++i) {
-    const int c = lane + 32 * i;
-    if (c < h) yr[c] = from_f<T>(__fdiv_rn(v[i], s));
+    for (int i = 0; i < CH; ++i) {
+      const bool in = (t + P * i) * W < h;
+      const T* e = reinterpret_cast<const T*>(&raw[i]);
+#pragma unroll
+      for (int j = 0; j < W; ++j)
+        v[i * W + j] = in ? __fmul_rn(to_f(e[j]), scale) : -INFINITY;
+    }
   }
 }
 
-constexpr int kSoftmaxThreads = 256;
+template <typename T, int W, int CH, int P>
+__device__ __forceinline__ void softmax_store(T* __restrict__ yr, int h, int t,
+                                              bool live,
+                                              const float (&v)[CH * W]) {
+  if (!live) return;
+#pragma unroll
+  for (int i = 0; i < CH; ++i) {
+    const int c = (t + P * i) * W;
+    if (c < h) store_n<T, W>(yr + c, &v[i * W]);
+  }
+}
 
-template <bool MAX>
+// exp2 of (x * scale - m) log2 e in place; returns the thread's sum
+template <int N>
+__device__ __forceinline__ float softmax_exp(float (&v)[N], float m) {
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    v[i] = exp2f(__fsub_rn(v[i], m) * kLog2e);
+    s += v[i];
+  }
+  return s;
+}
+
+// LPR lanes a row (32 / LPR rows a warp, aligned lane groups), CH groups
+// of W columns a lane; the row stays in registers from the load to the
+// store: one read, one write
+template <typename T, int W, int LPR, int CH>
+__global__ void __launch_bounds__(32 * kSoftmaxWarps)
+softmax_rows_kernel(const T* __restrict__ x, T* __restrict__ y, long long n,
+                    int h, float scale) {
+  constexpr int RPW = 32 / LPR;
+  const int lane = threadIdx.x & 31;
+  const int t = lane % LPR;
+  const long long row =
+      ((long long)blockIdx.x * kSoftmaxWarps + (threadIdx.x >> 5)) * RPW +
+      lane / LPR;
+  const bool live = row < n;  // dead lanes still join the shuffles
+  const long long r0 = live ? row * h : 0;
+  float v[CH * W];
+  softmax_load<T, W, CH, LPR>(x + r0, h, t, live, scale, v);
+  float m = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < CH * W; ++i) m = fmaxf(m, v[i]);
+#pragma unroll
+  for (int off = LPR / 2; off > 0; off >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  float s = softmax_exp(v, m);
+#pragma unroll
+  for (int off = LPR / 2; off > 0; off >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  const float r = __frcp_rn(s);
+#pragma unroll
+  for (int i = 0; i < CH * W; ++i) v[i] *= r;
+  softmax_store<T, W, CH, LPR>(y + r0, h, t, live, v);
+}
+
+template <bool MAX, int THREADS>
 __device__ float softmax_block_reduce(float v, float* sh) {
   v = MAX ? warp_max(v) : warp_sum(v);
   if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5] = v;
   __syncthreads();
   v = sh[0];
 #pragma unroll
-  for (int i = 1; i < kSoftmaxThreads / 32; ++i)
-    v = MAX ? fmaxf(v, sh[i]) : v + sh[i];
+  for (int i = 1; i < THREADS / 32; ++i) v = MAX ? fmaxf(v, sh[i]) : v + sh[i];
   __syncthreads();
   return v;
 }
 
-// one block a row, for rows wider than a warp holds
+// one block a row, held in registers (CH groups of W a thread): rows
+// wider than a warp holds, up to kSoftmaxWideThreads * kSoftmaxMaxValues
+template <typename T, int W, int CH>
+__global__ void __launch_bounds__(kSoftmaxWideThreads)
+softmax_wide_kernel(const T* __restrict__ x, T* __restrict__ y, int h,
+                    float scale) {
+  __shared__ float sh[kSoftmaxWideThreads / 32];
+  const long long r0 = (long long)blockIdx.x * h;
+  float v[CH * W];
+  softmax_load<T, W, CH, kSoftmaxWideThreads>(x + r0, h, threadIdx.x, true,
+                                              scale, v);
+  float m = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < CH * W; ++i) m = fmaxf(m, v[i]);
+  m = softmax_block_reduce<true, kSoftmaxWideThreads>(m, sh);
+  const float s =
+      softmax_block_reduce<false, kSoftmaxWideThreads>(softmax_exp(v, m), sh);
+  const float r = __frcp_rn(s);
+#pragma unroll
+  for (int i = 0; i < CH * W; ++i) v[i] *= r;
+  softmax_store<T, W, CH, kSoftmaxWideThreads>(y + r0, h, threadIdx.x, true,
+                                               v);
+}
+
+constexpr int kSoftmaxThreads = 256;
+
+// one block a row and three passes over it in device memory: rows wider
+// than the wide kernel holds
 template <typename T>
 __global__ void __launch_bounds__(kSoftmaxThreads)
 softmax_block_kernel(const T* __restrict__ x, T* __restrict__ y, int h,
@@ -421,35 +523,105 @@ softmax_block_kernel(const T* __restrict__ x, T* __restrict__ y, int h,
   float m = -INFINITY;
   for (int c = threadIdx.x; c < h; c += kSoftmaxThreads)
     m = fmaxf(m, __fmul_rn(to_f(xr[c]), scale));
-  m = softmax_block_reduce<true>(m, sh);
+  m = softmax_block_reduce<true, kSoftmaxThreads>(m, sh);
   float s = 0.f;
   for (int c = threadIdx.x; c < h; c += kSoftmaxThreads)
     s += expf(__fsub_rn(__fmul_rn(to_f(xr[c]), scale), m));
-  s = softmax_block_reduce<false>(s, sh);
+  s = softmax_block_reduce<false, kSoftmaxThreads>(s, sh);
   for (int c = threadIdx.x; c < h; c += kSoftmaxThreads)
     yr[c] = from_f<T>(
         __fdiv_rn(expf(__fsub_rn(__fmul_rn(to_f(xr[c]), scale), m)), s));
 }
 
+__host__ __device__ constexpr int pow2_at_least(int v) {
+  int p = 1;
+  while (p < v) p *= 2;
+  return p;
+}
+
+template <typename T, int W, int LPR, int CH>
+cudaError_t launch_rows(const T* x, T* y, long long n, int h, float scale,
+                        cudaStream_t s) {
+  constexpr long long rows_per_block = kSoftmaxWarps * (32 / LPR);
+  const unsigned blocks =
+      (unsigned)((n + rows_per_block - 1) / rows_per_block);
+  softmax_rows_kernel<T, W, LPR, CH><<<blocks, 32 * kSoftmaxWarps, 0, s>>>(
+      x, y, n, h, scale);
+  return cudaGetLastError();
+}
+
+// rows up to 32 * kSoftmaxMaxValues wide: LPR lanes a row for rows of
+// fewer than 32 groups of W, else 32 lanes and CH groups a lane
+template <typename T, int W>
+cudaError_t dispatch_rows(const T* x, T* y, long long n, int h, float scale,
+                          cudaStream_t s) {
+  const int groups = h / W;  // W divides h
+  if (groups <= 16) {
+    switch (pow2_at_least(groups)) {
+      case 1: return launch_rows<T, W, 1, 1>(x, y, n, h, scale, s);
+      case 2: return launch_rows<T, W, 2, 1>(x, y, n, h, scale, s);
+      case 4: return launch_rows<T, W, 4, 1>(x, y, n, h, scale, s);
+      case 8: return launch_rows<T, W, 8, 1>(x, y, n, h, scale, s);
+      default: return launch_rows<T, W, 16, 1>(x, y, n, h, scale, s);
+    }
+  }
+  switch (pow2_at_least((groups + 31) / 32)) {
+    case 1: return launch_rows<T, W, 32, 1>(x, y, n, h, scale, s);
+    case 2: return launch_rows<T, W, 32, 2>(x, y, n, h, scale, s);
+    case 4: return launch_rows<T, W, 32, 4>(x, y, n, h, scale, s);
+    case 8: return launch_rows<T, W, 32, 8>(x, y, n, h, scale, s);
+    case 16:
+      if constexpr (16 * W <= kSoftmaxMaxValues)
+        return launch_rows<T, W, 32, 16>(x, y, n, h, scale, s);
+      break;
+    case 32:
+      if constexpr (32 * W <= kSoftmaxMaxValues)
+        return launch_rows<T, W, 32, 32>(x, y, n, h, scale, s);
+      break;
+    case 64:
+      if constexpr (64 * W <= kSoftmaxMaxValues)
+        return launch_rows<T, W, 32, 64>(x, y, n, h, scale, s);
+      break;
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename T, int W, int CH>
+cudaError_t launch_wide(const T* x, T* y, long long n, int h, float scale,
+                        cudaStream_t s) {
+  softmax_wide_kernel<T, W, CH><<<(unsigned)n, kSoftmaxWideThreads, 0, s>>>(
+      x, y, h, scale);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_softmax(const void* x, void* y, long long n, int h,
                            float scale, cudaStream_t s) {
+  constexpr int VW = VecWidth<T>::N;
   const T* xx = static_cast<const T*>(x);
   T* yy = static_cast<T*>(y);
-  const unsigned warp_blocks =
-      (unsigned)((n + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  const int threads = 32 * kWarpsPerBlock;
-#define DS_SOFTMAX_CASE(NPL)                                             \
-  if (h <= 32 * NPL) {                                                   \
-    softmax_warp_kernel<T, NPL><<<warp_blocks, threads, 0, s>>>(xx, yy,  \
-                                                                n, h,    \
-                                                                scale);  \
-    return cudaGetLastError();                                           \
+  // 16-byte vectors where every row is whole vectors and both buffers are
+  // aligned (a view offset by an element is not): else one element a load
+  const bool vec = h % VW == 0 &&
+                   reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  if (h <= 32 * kSoftmaxMaxValues)
+    return vec ? dispatch_rows<T, VW>(xx, yy, n, h, scale, s)
+               : dispatch_rows<T, 1>(xx, yy, n, h, scale, s);
+  if (vec && h <= kSoftmaxWideThreads * kSoftmaxMaxValues) {
+    switch (pow2_at_least((h / VW + kSoftmaxWideThreads - 1) /
+                          kSoftmaxWideThreads)) {
+      case 1: return launch_wide<T, VW, 1>(xx, yy, n, h, scale, s);
+      case 2: return launch_wide<T, VW, 2>(xx, yy, n, h, scale, s);
+      case 4: return launch_wide<T, VW, 4>(xx, yy, n, h, scale, s);
+      case 8: return launch_wide<T, VW, 8>(xx, yy, n, h, scale, s);
+      case 16:
+        if constexpr (16 * VW <= kSoftmaxMaxValues)
+          return launch_wide<T, VW, 16>(xx, yy, n, h, scale, s);
+        break;
+    }
+    return cudaErrorInvalidValue;
   }
-  DS_SOFTMAX_CASE(1) DS_SOFTMAX_CASE(2) DS_SOFTMAX_CASE(4)
-  DS_SOFTMAX_CASE(8) DS_SOFTMAX_CASE(16) DS_SOFTMAX_CASE(32)
-  DS_SOFTMAX_CASE(64)
-#undef DS_SOFTMAX_CASE
   softmax_block_kernel<T><<<(unsigned)n, kSoftmaxThreads, 0, s>>>(xx, yy, h,
                                                                   scale);
   return cudaGetLastError();

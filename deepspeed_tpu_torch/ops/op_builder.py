@@ -34,8 +34,8 @@ _SIGNATURES = {
     "ds_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                      _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
                      _F, _I, _I, _P],
-    "ds_decode_attention": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
-                            _I, _I, _L, _L, _L, _L, _F, _I, _P],
+    # the packed DecodeArgs (ops/transformer/decode.py _ARGS), stream
+    "ds_decode_attention": [ctypes.c_char_p, _P],
     # q, k, v, o, do, lse, g_lse, delta, dq, dk, dv, dtype, B, H, Sq, Sk,
     # D, strides (24 long long), sm_scale, causal, vec, stream
     "ds_flash_bwd_dq": [_P] * 11 + [_I] * 6 + [_P, _F, _I, _I, _P],

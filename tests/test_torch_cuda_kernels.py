@@ -154,11 +154,7 @@ def test_flash_fwd_is_bit_reproducible(gen, causal):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("quantized", [False, True])
-@pytest.mark.parametrize("T,D", [(1024, 64), (100, 16), (63, 20), (64, 128)])
-def test_decode_kernel_matches_plain(gen, dtype, quantized, T, D):
-    B, H = 3, 4
+def _decode_inputs(gen, dtype, quantized, B, H, T, D):
     q = _rand(gen, B, H, 1, D, dtype=dtype)
     k, v = _rand(gen, B, H, T, D, dtype=dtype), _rand(gen, B, H, T, D,
                                                       dtype=dtype)
@@ -166,15 +162,109 @@ def test_decode_kernel_matches_plain(gen, dtype, quantized, T, D):
     if quantized:
         k, scales["k_scale"] = decode.quantize_kv(k)
         v, scales["v_scale"] = decode.quantize_kv(v)
+    return q, k, v, scales
+
+
+def _split_lengths(device, B, H, T):
+    """Live lengths at the kernel's split boundaries for [B, H, T]."""
+    splits, chunk = decode._plan(torch.device(device), B * H, T)
+    edges = {1, 7, T // 2 + 1, T - 1, T}
+    for s in range(1, splits):
+        edges |= {s * chunk - 1, s * chunk, s * chunk + 1}
+    return splits, sorted(x for x in edges if 1 <= x <= T)
+
+
+# (B, H), on 132 SMs at T 1024: B·H 1 (16 splits of 64 keys), 12 (8 of
+# 128), 32 (4 of 256), 128 (the generation path: one split) and 272
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("T,D", [(1024, 64), (100, 16), (63, 20), (64, 128)])
+@pytest.mark.parametrize("B,H", [(1, 1), (3, 4), (2, 16), (8, 16),
+                                 (17, 16)])
+def test_decode_kernel_matches_plain(gen, dtype, quantized, T, D, B, H):
+    q, k, v, scales = _decode_inputs(gen, dtype, quantized, B, H, T, D)
     tol = TOLS[dtype]
-    for length in (1, 7, T // 2 + 1, T):
-        for lens in (length, torch.tensor([length, max(1, length - 5), 1],
-                                          dtype=torch.int32, device="cuda")):
+    _, lengths = _split_lengths("cuda", B, H, T)
+    for length in lengths:
+        # the last sequence holds one key
+        ragged = torch.tensor([max(1, length - 5 * b) for b in range(B - 1)]
+                              + [1 if B > 1 else length],
+                              dtype=torch.int32, device="cuda")
+        for lens in (length, ragged):
             got = decode.decode_attention(q, k, v, lens, **scales)
             want = decode.decode_attention_plain(
-                q, k, v, decode._lengths(lens, B, "cuda"), **scales)
+                q, k, v, decode._lengths(lens, B, q.device), **scales)
             torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                        atol=tol)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_decode_kernel_ragged_lengths_at_split_edges(gen, quantized):
+    """The generation path's shape with one sequence at each split edge,
+    one with a single key and one with none (zeros): B·H 30, 4 splits of
+    256 keys on 132 SMs."""
+    B, H, T, D = 10, 3, 1024, 64
+    q, k, v, scales = _decode_inputs(gen, torch.bfloat16, quantized, B, H, T,
+                                     D)
+    splits, chunk = decode._plan(q.device, B * H, T)
+    assert splits > 1
+    lens = torch.tensor([1, 0, chunk - 1, chunk, chunk + 1, 2 * chunk,
+                         2 * chunk + 1, T - 1, T, 500], dtype=torch.int32,
+                        device="cuda").clamp(max=T)
+    got = decode.decode_attention(q, k, v, lens, **scales)
+    want = decode.decode_attention_plain(q, k, v, lens, **scales)
+    live = lens > 0
+    torch.testing.assert_close(got[live].float(), want[live].float(),
+                               rtol=2e-2, atol=2e-2)
+    assert bool((got[~live] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_decode_kernel_len_zero_writes_zeros(gen, dtype, quantized):
+    for B, H in [(1, 16), (8, 16), (17, 16)]:
+        q, k, v, scales = _decode_inputs(gen, dtype, quantized, B, H, 1024,
+                                         64)
+        for lens in (0, torch.zeros(B, dtype=torch.int32, device="cuda")):
+            got = decode.decode_attention(q, k, v, lens, **scales)
+            assert bool((got == 0).all())
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_decode_kernel_ignores_rows_past_the_length(gen, quantized):
+    """NaN in the cache rows past the live length (rows a cache holds
+    but has not written yet) must not reach the output."""
+    B, H, T, D = 2, 16, 1024, 64
+    q, k, v, scales = _decode_inputs(gen, torch.bfloat16, quantized, B, H, T,
+                                     D)
+    lens = torch.tensor([5, 700], dtype=torch.int32, device="cuda")
+    want = decode.decode_attention_plain(q, k, v, lens, **scales)
+    dead = (torch.arange(T, device="cuda")[None, :] >= lens[:, None])
+    for c in (k, v) if not quantized else (scales["k_scale"],
+                                          scales["v_scale"]):
+        c[dead[:, None, :].expand(B, H, T)] = float("nan")
+    got = decode.decode_attention(q, k, v, lens, **scales)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_decode_kernel_is_bit_reproducible(gen, quantized):
+    """Reruns are bit-equal whichever split finishes last (the merge runs
+    in split order), and a rerun after a launch of another shape on the
+    same counters gives the same bits (every launch leaves them at 0)."""
+    first = {}
+    shapes = [(1, 16, 1024, 1000), (8, 16, 1024, 928), (2, 3, 700, 650)]
+    inputs = {s: _decode_inputs(gen, torch.bfloat16, quantized, s[0], s[1],
+                                s[2], 64) for s in shapes}
+    for rnd in range(3):
+        for s in (shapes if rnd != 1 else reversed(shapes)):
+            q, k, v, scales = inputs[s]
+            out = decode.decode_attention(q, k, v, s[3], **scales)
+            if rnd == 0:
+                first[s] = out
+            else:
+                assert torch.equal(out, first[s]), s
 
 
 # (B, H, Sq, Sk, D, causal, packed): the bf16 kernels stage 64 rows a CTA
@@ -584,18 +674,8 @@ def test_quantize_kernel_at_the_word_embedding_size(gen):
                                rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
-                                   torch.float16])
-@pytest.mark.parametrize("n,h", [(4096, 128), (512, 1024), (37, 1000),
-                                 (9, 7), (5, 4096), (3, 2048)])
-@pytest.mark.parametrize("scale", [1.0, 0.125])
-def test_softmax_kernel_matches_plain(gen, dtype, n, h, scale):
-    x = _rand(gen, n, h, dtype=dtype) * 4
-    before = op_builder.LAUNCHES["softmax"]
-    got = fused.fused_softmax(x, scale)
-    assert op_builder.LAUNCHES["softmax"] == before + 1
-    want = fused.softmax_plain(x, scale)
-    assert got.dtype == dtype and got.shape == x.shape
+def _check_softmax(got, want, dtype):
+    assert got.dtype == dtype and got.shape == want.shape
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=0, atol=2e-6)
     else:
@@ -603,6 +683,39 @@ def test_softmax_kernel_matches_plain(gen, dtype, n, h, scale):
             (2 ** -10, 2 ** -24)
         torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                    atol=atol)
+
+
+# h 128 (16 lanes a bf16 row, two rows a warp), 256, 1000 (a lane's last
+# vectors past the row), 1003 (not whole vectors: one element a load), 24
+# and 7 (narrow lane groups), 1024, 2048, 4096 and 16384 (one block a row
+# in registers), 40000 (three passes)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("n,h", [(4096, 128), (512, 1024), (37, 1000),
+                                 (9, 7), (5, 4096), (3, 2048), (300, 256),
+                                 (33, 1003), (70, 24), (7, 16384),
+                                 (2, 40000)])
+@pytest.mark.parametrize("scale", [1.0, 0.125])
+def test_softmax_kernel_matches_plain(gen, dtype, n, h, scale):
+    x = _rand(gen, n, h, dtype=dtype) * 4
+    before = op_builder.LAUNCHES["softmax"]
+    got = fused.fused_softmax(x, scale)
+    assert op_builder.LAUNCHES["softmax"] == before + 1
+    _check_softmax(got, fused.softmax_plain(x, scale), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("h", [128, 1024, 4096])
+def test_softmax_kernel_on_an_unaligned_view(gen, dtype, h):
+    """A contiguous view one element past an aligned start: no 16-byte
+    access is aligned, so the kernel reads one element a load."""
+    n = 19
+    base = _rand(gen, n * h + 1, dtype=dtype) * 4
+    x = base[1:].view(n, h)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    _check_softmax(fused.fused_softmax(x, 0.5), fused.softmax_plain(x, 0.5),
+                   dtype)
 
 
 def test_int8_quant_dense_on_cuda(gen):

@@ -111,3 +111,146 @@ def test_decode_attention_quantized_matches_jax(kind):
 @pytest.mark.parametrize("n", [1, 16, 100, 128, 512, 513, 1024, 2000])
 def test_aligned_cache_len_matches_jax(n):
     assert decode.aligned_cache_len(n) == jax_decode.aligned_cache_len(n)
+
+
+# ---------------------------------------------------- the kernel's split walk
+LOG2E = 1.4426950408889634
+
+
+def _emulate_split_decode(q, k, v, lens, *, k_scale=None, v_scale=None,
+                          sms=132):
+    """The CUDA kernel's arithmetic in torch fp32, split by split: the
+    (splits, chunk) the wrapper picks (``decode.split_plan`` on ``sms``
+    SMs), each live split's (m, l, acc) over its chunk in the log2 domain
+    (scores times sm_scale · log2 e, the k-scale folded into the score and
+    the v-scale into p), splits past the live length skipped, then the
+    merge in split order: o = Σ acc·2^(m − M) / Σ l·2^(m − M), zeros when
+    no key is live."""
+    B, H, _, D = q.shape
+    T = k.shape[2]
+    splits, chunk = decode.split_plan(B * H, T, sms)
+    lens = torch.as_tensor(lens, dtype=torch.int32)
+    lens = lens.expand(B) if lens.dim() == 0 else lens
+    scale2 = np.float32(D ** -0.5 * LOG2E)
+    out = torch.zeros(B, H, 1, D)
+    for b in range(B):
+        n = int(min(max(int(lens[b]), 0), T))
+        n_live = 1 if splits == 1 else max(1, -(-n // chunk))
+        for h in range(H):
+            parts = []
+            for s in range(n_live):
+                lo, hi = s * chunk, min(n, (s + 1) * chunk)
+                if lo >= hi:          # no live key: l = 0, acc = 0
+                    parts.append((-1e30, 0.0, torch.zeros(D)))
+                    continue
+                kk = k[b, h, lo:hi].float()
+                sc = (kk @ q[b, h, 0].float()) * scale2
+                vv = v[b, h, lo:hi].float()
+                if k_scale is not None:
+                    sc = sc * k_scale[b, h, lo:hi]
+                m = sc.max()
+                p = torch.exp2(sc - m)
+                pv = p * v_scale[b, h, lo:hi] if v_scale is not None else p
+                parts.append((float(m), float(p.sum()), pv @ vv))
+            M = max(m for m, _, _ in parts)
+            L = sum(l * 2.0 ** (m - M) for m, l, _ in parts)
+            A = sum(a * float(2.0 ** (m - M)) for m, _, a in parts)
+            out[b, h, 0] = A / L if L > 0 else 0.0
+    return out
+
+
+def _split_lengths(B, H, T, sms):
+    splits, chunk = decode.split_plan(B * H, T, sms)
+    edges = {1, T}
+    for s in range(1, splits):
+        edges |= {s * chunk - 1, s * chunk, s * chunk + 1}
+    return splits, chunk, sorted(x for x in edges if 1 <= x <= T)
+
+
+# (B, H, T, D, sms, splits): 4 splits of 64 keys (B·H 4 on 132 SMs); 3
+# of 384 on 12 SMs (T 1000: the last chunk ragged, 232 keys); one split
+# (B·H 80 fills half of 132 SMs)
+SPLIT_CASES = [(2, 2, 256, 16, 132, 4), (2, 2, 1000, 16, 12, 3),
+               (2, 40, 128, 16, 132, 1)]
+
+
+@pytest.mark.parametrize("B,H,T,D,sms,splits", SPLIT_CASES)
+@pytest.mark.parametrize("kind", ["scalar", "per_seq"])
+def test_split_decode_emulation_matches_jax_and_plain(B, H, T, D, sms,
+                                                      splits, kind):
+    """fp32: the split walk against the JAX Pallas kernel (interpret mode)
+    and the plain version at rtol = atol = 2e-5 (the same softmax summed
+    in another order and in the log2 domain). Lengths at 1, each chunk
+    boundary ± 1 and T; per-sequence vectors pair each with a one-key
+    sequence, whose later chunks are all dead."""
+    q, k, v = _inputs(B, H, T, D, seed=T + H)
+    assert _split_lengths(B, H, T, sms)[0] == splits
+    _, _, lengths = _split_lengths(B, H, T, sms)
+    for length in lengths:
+        lens = (length if kind == "scalar" else
+                np.array([length] + [1] * (B - 1), np.int32))
+        got = _emulate_split_decode(*(torch.from_numpy(a) for a in (q, k, v)),
+                                    lens, sms=sms)
+        want = jax_decode.decode_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+            jnp.asarray(lens, jnp.int32), use_flash=True)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+        plain = decode.decode_attention(
+            *(torch.from_numpy(a) for a in (q, k, v)), torch.as_tensor(lens))
+        torch.testing.assert_close(got, plain, **TOL)
+
+
+@pytest.mark.parametrize("B,H,T,D,sms,splits", SPLIT_CASES[:2])
+@pytest.mark.parametrize("kind", ["scalar", "per_seq"])
+def test_split_decode_emulation_int8_matches_jax(B, H, T, D, sms, splits,
+                                                 kind):
+    """int8 KV: the split walk against the JAX dequantize-first path at
+    2e-5 and its int8 Pallas kernel at 1e-2 (that kernel rounds p·v_scale
+    to bf16, the CUDA kernel does not); the plain version at 2e-5."""
+    q, k, v = _inputs(B, H, T, D, seed=3 * T)
+    jkq, jks = jax_decode.quantize_kv(jnp.asarray(k))
+    jvq, jvs = jax_decode.quantize_kv(jnp.asarray(v))
+    kq, ks = decode.quantize_kv(torch.from_numpy(k))
+    vq, vs = decode.quantize_kv(torch.from_numpy(v))
+    assert _split_lengths(B, H, T, sms)[0] == splits
+    _, _, lengths = _split_lengths(B, H, T, sms)
+    for length in lengths:
+        lens = (length if kind == "scalar" else
+                np.array([length] + [1] * (B - 1), np.int32))
+        got = _emulate_split_decode(torch.from_numpy(q), kq, vq, lens,
+                                    k_scale=ks, v_scale=vs, sms=sms)
+        jl = jnp.asarray(lens, jnp.int32)
+        dense = jax_decode.decode_attention_quantized(
+            jnp.asarray(q), jkq, jks, jvq, jvs, jl, use_flash=False)
+        np.testing.assert_allclose(got.numpy(), np.asarray(dense), **TOL)
+        kernel = jax_decode.decode_attention_quantized(
+            jnp.asarray(q), jkq, jks, jvq, jvs, jl, use_flash=True)
+        np.testing.assert_allclose(got.numpy(), np.asarray(kernel),
+                                   rtol=1e-2, atol=1e-2)
+        plain = decode.decode_attention_quantized(
+            torch.from_numpy(q), kq, ks, vq, vs, torch.as_tensor(lens))
+        torch.testing.assert_close(got, plain, **TOL)
+
+
+def test_split_decode_emulation_len_zero_writes_zeros():
+    q, k, v = (torch.from_numpy(a) for a in _inputs(2, 2, 256, 16, seed=4))
+    got = _emulate_split_decode(q, k, v, np.array([0, 9], np.int32))
+    assert bool((got[0] == 0).all())
+    torch.testing.assert_close(
+        got[1:], decode.decode_attention(q, k, v, 9)[1:], **TOL)
+
+
+@pytest.mark.parametrize("bh,T,sms,want", [
+    (128, 1024, 132, (1, 1024)),   # B 8 × H 16: one CTA a row
+    (16, 1024, 132, (8, 128)),     # B 1: 8 splits of 128 keys
+    (1, 1024, 132, (16, 64)),      # capped at 64-key chunks
+    (32, 1024, 132, (4, 256)),
+    (1024, 1024, 132, (1, 1024)),
+    (6, 700, 132, (11, 64)),       # the last chunk ragged (60 keys)
+    (1, 63, 132, (1, 63)),         # one chunk's worth
+])
+def test_split_plan_reads_the_allocation_only(bh, T, sms, want):
+    splits, chunk = decode.split_plan(bh, T, sms)
+    assert (splits, chunk) == want
+    assert splits == 1 or (chunk % 64 == 0 and (splits - 1) * chunk < T
+                           <= splits * chunk)

@@ -175,3 +175,36 @@ def test_fused_softmax_matches_jax_kernel(dtype, shape, scale):
     np.testing.assert_allclose(got.float().sum(-1).numpy(), 1.0,
                                rtol=0, atol=2e-2 if dtype == "bfloat16"
                                else 1e-5)
+
+
+def _emulate_kernel_softmax(x, scale):
+    """``ds_softmax``'s arithmetic in torch fp32: x · scale rounded once,
+    the row max, exp2 of (x · scale − max) · log2 e, one reciprocal of the
+    row sum, then a multiply; rounded once to x's dtype."""
+    xf = x.float() * np.float32(scale)
+    e = torch.exp2((xf - xf.amax(-1, keepdim=True))
+                   * np.float32(1.4426950408889634))
+    return (e * (1.0 / e.sum(-1, keepdim=True))).to(x.dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(37, 20), (2, 8, 128), (8, 1000), (5, 7),
+                                   (3, 4096), (4, 16384)])
+@pytest.mark.parametrize("scale", [1.0, 0.125])
+def test_exp2_reciprocal_softmax_matches_jax_kernel(dtype, shape, scale):
+    """The kernel's exp2 / reciprocal form against the Pallas
+    ``_softmax_kernel`` in interpret mode, at the plain version's
+    tolerances: fp32 atol 1e-6 (exp2 of a product rounded once, and a
+    multiply by a rounded reciprocal, each within an ulp or two of exp
+    and a division, on outputs in [0, 1]); bf16 one ulp (2^-7 relative),
+    both sides rounding the fp32 result once."""
+    x = (3 * np.random.default_rng(shape[-1] + 1).standard_normal(shape)
+         ).astype(np.float32)
+    want = jax_fused.fused_softmax(jnp.asarray(x, JDT[dtype]), scale)
+    got = _emulate_kernel_softmax(torch.from_numpy(x).to(TDT[dtype]), scale)
+    want = np.asarray(want.astype(jnp.float32))
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+    else:
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=2 ** -7,
+                                   atol=0)
