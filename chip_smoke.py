@@ -90,16 +90,22 @@ Phases, each fatal on failure:
    ``quantize_training`` block (symmetric, nearest, groups 8, 12 -> 8 bits,
    period 2: bits 12, 11, 11, 10, 10, 10, 10, 9, 9, 9), 10 steps. Launch
    counts zeroed just before and read just after: phase 9's a step plus
-   100 quantize launches (one a 2-D master); after every step each of the
+   one quantize call a step (the 100 2-D masters in one table of
+   ``ds_quantize_multi``, one kernel launch); after every step each of
+   the
    8 groups of two sampled tensors (the first qkv weight, [out, in], and
    the word embeddings) holds at most 2^bits levels; the losses fall. The
    step time is printed beside phase 9's. Then a 2-layer full-width BERT
    takes one step and its post-update masters are fake-quantized by the
-   MoQ schedule on the kernel and on the plain version: bit-equal (nearest
-   at 8 bits and stochastic at 6). Phase 3 holds ``ds_quantize`` bit-equal
-   to its plain version (fp32/bf16, symmetric/asymmetric, nearest/
-   stochastic, 8/4 bits, groups 1/8/7, a ragged row, BERT-large's qkv
-   weight and word embeddings) and ``ds_softmax`` within 2e-6 (fp32) and
+   MoQ schedule on the kernel (one call) and on the plain version:
+   bit-equal (nearest at 8 bits and stochastic at 6). Phase 3 holds
+   ``ds_quantize_multi`` bit-equal to its plain version, one tensor a call
+   (fp32/bf16, symmetric/asymmetric, nearest/stochastic, 8/4 bits, groups
+   1/8/7, a ragged row, BERT-large's qkv weight and word embeddings), on
+   BERT-large's 100-master table and on a 64 MB group beside small
+   tensors (nearest and stochastic, out of place twice, which shows the
+   counters back at 0, and in place; one kernel call each), and
+   ``ds_softmax`` within 2e-6 (fp32) and
    one bf16 ulp at [131072, 128], [131072, 1024], h 1000, 1003, 7, 4096,
    16384 and 40000, and on a view one element past an aligned start;
 11. int8-weight GPT-2 medium: ``init_inference(dtype=torch.int8)``,
@@ -123,8 +129,10 @@ Phases, each fatal on failure:
    64 and 128, causal and bidirectional, with and without a key bias,
    packed rectangular layouts, empty rows, the predicated (raw) lists,
    and the BERT and GPT-2 paths' own shapes; dq's delta against the
-   plain one (2e-5), and the backward rerun bit-equal at the BERT, GPT-2
-   and a biased causal shape;
+   plain one (2e-5), the forward rerun bit-equal at every case and the
+   backward at the BERT, GPT-2 and a biased causal shape; then the bf16
+   forward's shape classes (``SPARSE_FWD_SHAPES``: D 16/24/32/64, fine
+   blocks 16/32/64, query and key tails, empty rows, packed and raw);
 13. one-step parity of a 2-layer full-width sparse BERT, kernels against
    the plain versions (sparse kernels and LAMB pass 1; the tolerances of
    phase 9's parity), then ``DS_SPARSE_IMPL=predicated`` against
@@ -143,7 +151,10 @@ from the profiler; the decode rows' ``single_stream`` and
 predicated rows with the launches of phase 13's predicated step; the
 sparse rows' SDPA yardstick is the masked
 backward alone, and ``sparse timing`` lines give the three sparse kernels
-at the BERT and GPT-2 shapes), the card line, and last ``{"ok": true,
+at the BERT and GPT-2 shapes, the forward's device time from the profiler
+beside SDPA-with-mask's forward; the quantize row times the one call's C
+entry, its device time, the whole step's call through the wrapper and
+stochastic rounding at 6 bits), the card line, and last ``{"ok": true,
 "device": {...}}``. Exits non-zero with no result when CUDA is
 unavailable or any phase fails.
 """
@@ -265,8 +276,8 @@ def device_profile(torch, fn):
                  or "ln_bwd_kernel" in name else
                  "bias_gelu" if "bias_gelu_kernel" in name else
                  "lamb" if "lamb_" in name else
-                 "quantize" if "quant_stats" in name
-                 or "quant_apply" in name else
+                 "quantize" if "quant_stats_multi" in name
+                 or "quant_apply_multi" in name else
                  "softmax" if "softmax_" in name else
                  "decode_attention" if "decode_kernel" in name else
                  "sparse_attention" if "sparse_" in name else
@@ -1145,6 +1156,19 @@ def bert_param_shapes(torch, bert, cfg):
     return shapes
 
 
+def bert_moq_table(torch, bert, quantize_mod, cfg):
+    """(shape, stored [out, in]) of each tensor a MoQ step quantizes on
+    ``cfg``'s BERT: the 2-D parameters in name order, as the engine hands
+    them to the schedule."""
+    model = bert.BertForPreTraining(cfg, seed=0)
+    tr = quantize_mod.transposed_weight_names(model)
+    table = [(tuple(p.shape), n in tr)
+             for n, p in sorted(model.named_parameters()) if p.dim() >= 2]
+    del model
+    torch.cuda.empty_cache()
+    return table
+
+
 def lamb_state(torch, gen, shapes):
     """p, g, m, v lists over ``shapes``, LAMB-like magnitudes."""
     def rnd(s):
@@ -1486,16 +1510,20 @@ def moq_block(start_bits=12, target_bits=8, period=2, rounding="nearest"):
             "quantize_schedule": {"quantize_period": period}}
 
 
-def check_quant_kernels(torch, quantizer, fused, bert_shapes):
+def check_quant_kernels(torch, quantizer, fused, bert_shapes, moq_table):
     """Phase 3, the MoQ quantizer and the softmax against their plain
-    versions. ``ds_quantize``: bit-equal (atol 0) for fp32 and bf16,
+    versions. ``ds_quantize_multi``: bit-equal (atol 0) for fp32 and bf16,
     symmetric and asymmetric, nearest and stochastic (the same Philox
     bits), 8 and 4 bits, groups 1, 8 and 7, a ragged row, BERT-large's qkv
-    weight in its [out, in] layout and its word embeddings. ``ds_softmax``:
+    weight in its [out, in] layout and its word embeddings, one tensor a
+    call; then the MoQ step's table (``moq_table``: BERT-large's 100
+    masters) and a 64 MB group beside small tensors in one call, twice
+    out of place and once in place, nearest and stochastic. ``ds_softmax``:
     fp32 within 2e-6 absolute (expf and the row sum in another order),
     bf16 within one bf16 ulp (2^-7 relative); at BERT-large's and GPT-2
     medium's attention-score shapes and at h 1000 and 7. Returns the max
     abs error of each at the main path's shapes."""
+    from deepspeed_tpu_torch.ops import op_builder
     gen = torch.Generator(device="cuda").manual_seed(21)
 
     def rnd(*shape, dtype=torch.float32):
@@ -1534,6 +1562,41 @@ def check_quant_kernels(torch, quantizer, fused, bert_shapes):
     print(f"check quantize: {n_cases} cases bit-equal to the plain version "
           f"(fp32/bf16, sym/asym, nearest/stochastic, 8/4 bits, groups "
           f"1/8/7, qkv {qkv} transposed, embeddings {emb})", flush=True)
+    # the MoQ step's table (BERT-large's 100 masters) in one call: out of
+    # place twice (the counters back at 0) and in place; then a 64 MB
+    # group beside small fp32 and bf16 tensors
+    xs = [rnd(*shape) * 0.02 for shape, _ in moq_table]
+    tables = [(xs, 8, [tr for _, tr in moq_table], (10, 6)),
+              ([rnd(4096, 4096), rnd(63, 77, dtype=torch.bfloat16),
+                rnd(3072, 1024), rnd(1000, 9, dtype=torch.bfloat16)],
+               [1, 7, 8, 3], [False, False, True, False], ([8, 4, 10, 3],
+                                                          [6, 3, 8, 2]))]
+    for ts, groups, trs, (bits_n, bits_s) in tables:
+        for stochastic, bits in ((False, bits_n), (True, bits_s)):
+            kw = dict(stochastic=stochastic, transposed=trs,
+                      seeds=list(range(1, len(ts) + 1)))
+            want = quantizer.quantize_multi_plain(ts, bits, groups, **kw)
+            before = op_builder.LAUNCHES["quantize"]
+            runs = [quantizer.quantize_multi(ts, bits, groups, **kw)
+                    for _ in range(2)]
+            ys = [t.clone() for t in ts]
+            runs.append(quantizer.quantize_multi(ys, bits, groups, out=ys,
+                                                 **kw))
+            torch.cuda.synchronize()
+            launched = op_builder.LAUNCHES["quantize"] - before
+            if launched != 3 or not all(torch.equal(g, w) for run in runs
+                                        for g, w in zip(run, want)):
+                raise AssertionError(
+                    f"quantize_multi over {len(ts)} tensors (stochastic "
+                    f"{stochastic}) differs from the plain version or took "
+                    f"{launched} calls for 3")
+            n_cases += 1
+            del want, runs, ys
+    del xs, tables
+    print(f"check quantize_multi: BERT-large's {len(moq_table)} masters "
+          f"and a 64 MB group beside small tensors, nearest and "
+          f"stochastic, out of place twice and in place: one kernel "
+          f"call each, bit-equal", flush=True)
     for dtype, tol in ((torch.float32, 2e-6), (torch.bfloat16, 2 ** -7)):
         for n, h, name in [(BERT_B * H * BERT_S, BERT_S, "softmax"),
                            (B * H * SEQ, SEQ, "softmax_h1024"),
@@ -1564,13 +1627,42 @@ def check_quant_kernels(torch, quantizer, fused, bert_shapes):
     return main_err
 
 
-def quant_kernel_rows(torch, quantizer, fused, moq_tensors):
-    """Timings of ``ds_quantize`` over BERT-large's 100 quantized fp32
-    masters (``moq_tensors``: (shape, transposed) of each; one MoQ step,
-    200 kernel launches) and of ``ds_softmax`` at the two attention-score
-    shapes (rows without launches, max_abs_err and card)."""
-    from torch.profiler import ProfilerActivity, profile
+def quantize_entry(torch, quantizer, lib, xs, transposed, bits, stochastic):
+    """The C entry of the multi-tensor quantize alone, with the arguments
+    its wrapper passes for ``xs`` in place (groups 8, symmetric, seeds 1,
+    2, ...; the plan built by one wrapper call): a function of no
+    arguments that makes the call."""
+    quantizer._multi_cache.clear()
+    quantizer.quantize_multi(xs, bits, 8, stochastic=stochastic,
+                             seeds=list(range(1, len(xs) + 1)),
+                             transposed=transposed, out=xs)
+    (plan,) = quantizer._multi_cache.values()
+    stream = torch.cuda.current_stream().cuda_stream
+    calls = []
+    for first, stop, partial, scale, count, chunks, groups in plan.calls:
+        table = plan.rows[first:stop].copy()
+        # the plan too: its device scratch must outlive the cache entry
+        calls.append((table, plan, (
+            table.ctypes.data, stop - first, partial.data_ptr(),
+            scale.data_ptr(), count.data_ptr(), chunks, groups, 1,
+            int(stochastic), stream)))
 
+    def run():
+        for _, _, args in calls:
+            if lib.ds_quantize_multi(*args):
+                raise RuntimeError("ds_quantize_multi failed")
+    return run
+
+
+def quant_kernel_rows(torch, quantizer, fused, moq_tensors):
+    """Timings of ``ds_quantize_multi`` over BERT-large's 100 quantized
+    fp32 masters (``moq_tensors``: (shape, transposed) of each; one MoQ
+    step, one call): the C entry alone by CUDA events
+    (``ms``), the device time of its kernels from the profiler, the whole
+    step's call
+    through the wrapper (``wrapper_ms``, and its host time), stochastic
+    rounding at 6 bits; and of ``ds_softmax`` at the two attention-score
+    shapes (rows without launches, max_abs_err and card)."""
     from deepspeed_tpu_torch.ops import op_builder
     gen = torch.Generator(device="cuda").manual_seed(23)
     lib = op_builder.load_kernels()
@@ -1578,35 +1670,16 @@ def quant_kernel_rows(torch, quantizer, fused, moq_tensors):
     xs = [torch.randn(*s, generator=gen, device="cuda") * 0.02
           for s, _ in moq_tensors]
     transposed = [tr for _, tr in moq_tensors]
-    launches = []
-    for x, tr in zip(xs, transposed):
-        n = x.numel()
-        blocks = 8 * -(-(n // 8) // quantizer.CHUNK)
-        part = torch.empty(2 * blocks, device="cuda")
-        rows, cols = x.shape if tr else (n, 1)
-        args = (x.data_ptr(), x.data_ptr(), part.data_ptr(), part.numel(),
-                n, 8, int(tr), rows, cols, 10, 1, 0, 0, 0, 1, stream)
-        launches.append((args, part))
+    entry = quantize_entry(torch, quantizer, lib, xs, transposed, 10, False)
+    stochastic = quantize_entry(torch, quantizer, lib, xs, transposed, 6,
+                                True)
 
-    def sweep():
-        for args, _ in launches:
-            lib.ds_quantize(*args)
-
-    def wrapper_sweep():
-        for x, tr in zip(xs, transposed):
-            quantizer.quantize(x, 10, 8, transposed=tr, out=x)
+    def wrapper_call():
+        quantizer.quantize_multi(xs, 10, 8, transposed=transposed, out=xs)
 
     def plain_sweep():
-        for x, tr in zip(xs, transposed):
-            quantizer.quantize_plain(x, 10, 8, transposed=tr)
+        quantizer.quantize_multi_plain(xs, 10, 8, transposed=transposed)
 
-    ms = cuda_ms(sweep, iters=10)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        sweep()
-        torch.cuda.synchronize()
-    device_ms = sum(ev.self_device_time_total for ev in prof.key_averages()
-                    if "quant_" in ev.key) / 1e3
     n_el = sum(x.numel() for x in xs)
     rows = [{
         "name": "quantize", "route": "cuda",
@@ -1614,9 +1687,12 @@ def quant_kernel_rows(torch, quantizer, fused, moq_tensors):
         "replaces": "deepspeed_tpu/ops/quantizer/quantizer.py:68",
         "shape": f"{len(xs)} fp32 tensors, {n_el} elements (BERT-large's "
                  f"MoQ step), groups 8, 10 bits, symmetric, nearest, in "
-                 f"place; two launches each",
-        "ms": ms, "device_ms_profiled": device_ms,
-        "wrapper_ms": cuda_ms(wrapper_sweep, iters=5),
+                 f"place; one call, one launch",
+        "ms": cuda_ms(entry, iters=10),
+        "device_ms_profiled": maybe_device_ms(torch, entry, None, iters=5),
+        "wrapper_ms": cuda_ms(wrapper_call, iters=10),
+        "wrapper_host_ms": host_call_ms(wrapper_call, 100, 10),
+        "stochastic_6bit_ms": cuda_ms(stochastic, iters=10),
         "plain_ms": cuda_ms(plain_sweep, iters=2),
         "library_ms": None,
         "library_note": "no PyTorch call computes a grouped fake-quantize "
@@ -1624,7 +1700,8 @@ def quant_kernel_rows(torch, quantizer, fused, moq_tensors):
                         "torch.fake_quantize_per_channel_affine takes the "
                         "scale as an input",
         "bytes": 8 * n_el, "flops": 5 * n_el, "peak": FP32_FLOPS}]
-    del xs, launches
+    quantizer._multi_cache.clear()
+    del xs, entry, stochastic
     F = torch.nn.functional
     for name, n, h in (("softmax", BERT_B * H * BERT_S, BERT_S),
                        ("softmax_h1024", B * H * SEQ, SEQ)):
@@ -1668,7 +1745,8 @@ def moq_phase(torch, deepspeed_tpu_torch, bert, op_builder, cfg, batch,
               base_counts_per_step, bert_ms):
     """The MoQ path: BERT-large with ``quantize_training`` for MOQ_STEPS
     steps. Launch counts zeroed just before and read just after: the BERT
-    path's per step plus 100 quantize launches a step. After every step
+    path's per step plus one quantize launch a step (the 100 masters in
+    one table). After every step
     two sampled tensors (the first layer's qkv weight, [out, in], and the
     word embeddings) hold at most 2^bits levels in each of their 8
     groups. Returns (moq line, launch counts, (shape, transposed) of each
@@ -1707,7 +1785,7 @@ def moq_phase(torch, deepspeed_tpu_torch, bert, op_builder, cfg, batch,
     torch.cuda.empty_cache()
     print(f"moq losses {losses}, bits {bits}, levels {levels}", flush=True)
     want = {k: c * MOQ_STEPS for k, c in base_counts_per_step.items()}
-    want["quantize"] = n_quantized * MOQ_STEPS
+    want["quantize"] = MOQ_STEPS   # one launch for the step's masters
     got = {k: counts.get(k, 0) for k in want}
     if got != want or sum(counts.values()) != sum(want.values()) or \
             n_quantized != 100:
@@ -1737,8 +1815,9 @@ def moq_parity(torch, deepspeed_tpu_torch, bert, quantize_mod, quantizer,
                op_builder, cfg, batch):
     """A 2-layer BERT at full width takes one LAMB step; the same
     post-update masters are then fake-quantized by the MoQ schedule on the
-    kernel and on the plain version (nearest at 8 bits, and stochastic at
-    6): the results must be bit-equal."""
+    kernel (its 12 masters in one call) and on the plain version
+    (nearest at 8 bits, and stochastic at 6): the results must be
+    bit-equal."""
     import dataclasses
     cfg2 = dataclasses.replace(cfg, num_hidden_layers=2)
     engine, *_ = deepspeed_tpu_torch.initialize(
@@ -1749,9 +1828,6 @@ def moq_parity(torch, deepspeed_tpu_torch, bert, quantize_mod, quantizer,
     transposed = engine._transposed
     del engine
 
-    def plain_kernel(x, out=None, **kw):
-        return out.copy_(quantizer.quantize_plain(x, **kw))
-
     out = {}
     for rounding, bits in (("nearest", 8), ("stochastic", 6)):
         runs = []
@@ -1761,16 +1837,16 @@ def moq_parity(torch, deepspeed_tpu_torch, bert, quantize_mod, quantizer,
                 q_groups=8, q_rounding=int(rounding == "stochastic"),
                 q_start_bits=bits, q_target_bits=bits)
             op_builder.reset_launch_counts()
-            saved = quantize_mod.quantize_kernel
+            saved = quantize_mod.quantize_multi
             if plain:
-                quantize_mod.quantize_kernel = plain_kernel
+                quantize_mod.quantize_multi = quantizer.quantize_multi_plain
             try:
                 sched.quantize(params, transposed=transposed)
             finally:
-                quantize_mod.quantize_kernel = saved
+                quantize_mod.quantize_multi = saved
             torch.cuda.synchronize()
             launched = op_builder.LAUNCHES.get("quantize", 0)
-            if launched != (0 if plain else 12):
+            if launched != (0 if plain else 1):
                 raise AssertionError(f"plain={plain}: {launched} quantize "
                                      f"launches")
             runs.append(params)
@@ -1942,6 +2018,11 @@ def check_sparse_kernels(torch, np, sfk, ssc):
                                                        dtype=dtype)
             kpb = rnd(b, Skv) if bias else None
             o, lse = sfk.sparse_attention_fwd(q, k, v, kpb, strat)
+            o2, lse2 = sfk.sparse_attention_fwd(q, k, v, kpb, strat)
+            if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+                raise AssertionError(f"sparse forward reruns differ "
+                                     f"({name}, {dtype})")
+            del o2, lse2
             o_ref, lse_ref = sfk.sparse_attention_fwd_plain(q, k, v, kpb,
                                                             strat)
             # dq computes delta = rowsum(do·o) from the rows it stages
@@ -1997,6 +2078,66 @@ def check_sparse_kernels(torch, np, sfk, ssc):
             del dk_ref, dv_ref, db, db_ref, delta, delta_ref
     torch.cuda.empty_cache()
     return main_err, dbias_err
+
+
+# (block, causal, seq, packed, bias, D, empty) at B 2, H 16, bf16: head
+# dims 16, 24 and 32 (DP 32), 64; fine blocks 16, 32, 64; query tails (seq
+# % 64 of 16 and 32), the raw lists' key tail, rows with no live key,
+# packed and raw lists (tests/test_torch_cuda_kernels.py's forward cases)
+SPARSE_FWD_SHAPES = [
+    (16, False, 208, False, True, 16, False),
+    (32, True, 352, True, True, 32, True),
+    (64, False, 512, False, False, 64, True),
+    (64, True, 1024, True, True, 64, False),
+    (16, True, 144, False, False, 24, False),
+    (32, False, 96, False, True, 64, False),
+    (16, True, 512, True, False, 64, True),
+    (32, False, 256, True, False, 16, False)]
+
+
+def check_sparse_fwd_shapes(torch, np, sfk, ssc):
+    """Phase 3, the bf16 sparse forward beyond the paths' shapes: o
+    within 2e-2 and lse within 2e-5 of the plain version, o = 0 and lse
+    -1e30 on rows with no live key, and a rerun bit-equal."""
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    worst = {"o": 0.0, "lse": 0.0}
+    for block, causal, seq, packed, bias, d, empty in SPARSE_FWD_SHAPES:
+        lay = ssc.FixedSparsityConfig(
+            num_heads=H, block=block, num_local_blocks=4,
+            attention="unidirectional" if causal else "bidirectional"
+        ).make_layout(seq) != 0
+        if empty:
+            lay[:, 1, :] = False             # a row with no live block
+            lay[:, 2, :] = False
+            lay[:, 2, 3] = True              # only above the diagonal
+        strat = sparse_case(np, sfk, lay, block, causal, packed)
+        q = torch.randn(2, H, seq, d, generator=gen, device="cuda").bfloat16()
+        k, v = (torch.randn(2, H, strat.Skv, d, generator=gen,
+                            device="cuda").bfloat16() for _ in range(2))
+        kpb = torch.randn(2, strat.Skv, generator=gen, device="cuda") \
+            if bias else None
+        o, lse = sfk.sparse_attention_fwd(q, k, v, kpb, strat)
+        o2, lse2 = sfk.sparse_attention_fwd(q, k, v, kpb, strat)
+        o_ref, lse_ref = sfk.sparse_attention_fwd_plain(q, k, v, kpb, strat)
+        torch.cuda.synchronize()
+        errs = {"o": close(o, o_ref, 2e-2), "lse": close(lse, lse_ref, 2e-5)}
+        dead = slice(block, (3 if causal else 2) * block)
+        if not (all(ok for _, ok in errs.values()) and torch.equal(o, o2)
+                and torch.equal(lse, lse2)) or (empty and not (
+                    (lse[:, :, dead] == -1e30).all()
+                    and (o[:, :, dead] == 0).all())):
+            raise AssertionError(
+                f"sparse forward (block {block}, causal {causal}, seq "
+                f"{seq}, packed {packed}, D {d}): errors {errs}, rerun "
+                f"equal {torch.equal(o, o2)}")
+        for key, (e, _) in errs.items():
+            worst[key] = max(worst[key], e)
+        del q, k, v, kpb, o, lse, o2, lse2, o_ref, lse_ref
+    print(f"check sparse_fwd shapes: {len(SPARSE_FWD_SHAPES)} classes (D "
+          f"16/24/32/64, fine blocks 16/32/64, query and key tails, empty "
+          f"rows, packed and raw), reruns bit-equal, max errors {worst}",
+          flush=True)
+    torch.cuda.empty_cache()
 
 
 @contextlib.contextmanager
@@ -2264,6 +2405,8 @@ def sparse_shape_timing(torch, sfk, strat, q, k, v, do, what):
                        q, k, v, None, do, lse, delta, strat),
                    "plain": lambda: sfk.sparse_attention_dkv_plain(
                        q, k, v, None, do, lse, delta, strat)}}
+    out["fwd"]["device_ms"] = maybe_device_ms(torch, out["fwd"]["fn"],
+                                              "sparse_fwd")
     for key in ("fwd", "dq", "dkv"):
         t = out[key]
         t["ms"] = cuda_ms(t.pop("fn"))
@@ -2356,12 +2499,15 @@ def sparse_kernel_rows(torch, np, sfk, sk, ssc):
                 ("dkv", "sparse_dkv", lines[2], sdpa_bwd, bwd_note)):
             row = dict(common, name=name + suffix, replaces=f"{src}:{line}",
                        ms=t[key]["ms"], plain_ms=t[key]["plain_ms"],
+                       **({"device_ms": t[key]["device_ms"]}
+                          if "device_ms" in t[key] else {}),
                        library_ms=lib, library_note=note,
                        bytes=t[key]["bytes"], flops=t[key]["flops"])
             if packed:
                 row["gpt2"] = {"shape": gpt["shape"], **{
-                    f: gpt[key][f] for f in ("ms", "bound_ms", "bound_by",
-                                             "x_bound", "plain_ms")},
+                    f: gpt[key][f] for f in ("ms", "device_ms", "bound_ms",
+                                             "bound_by", "x_bound",
+                                             "plain_ms") if f in gpt[key]},
                     "library_ms": gpt["sdpa_fwd_ms"] if key == "fwd"
                     else gpt["sdpa_bwd_ms"]}
             rows.append(row)
@@ -2435,9 +2581,12 @@ def main():
     bert_shapes = bert_param_shapes(torch, bert, bert_cfg)
     max_err.update(check_bert_kernels(torch, flash, fused, fused_lamb,
                                       bert_shapes))
-    max_err.update(check_quant_kernels(torch, quantizer, fused, bert_shapes))
+    max_err.update(check_quant_kernels(
+        torch, quantizer, fused, bert_shapes,
+        bert_moq_table(torch, bert, quantize_mod, bert_cfg)))
     sparse_err, sparse_dbias_err = check_sparse_kernels(torch, np, sfk, ssc)
     max_err.update(sparse_err)
+    check_sparse_fwd_shapes(torch, np, sfk, ssc)
 
     # 4. the generation path at full width
     model = gpt2.GPT2LMHeadModel(cfg, seed=0)

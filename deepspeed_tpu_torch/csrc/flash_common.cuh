@@ -1,7 +1,6 @@
 // Pieces shared by the attention kernels (flash_fwd.cu, flash_bwd.cu,
 // sparse_attention.cu): strides of a [B, H, S, D] view, the masking value,
-// the bf16 tensor-core helpers (mma.sync m16n8k16, fp32 accumulation; the
-// sparse forward's fragment loads from global and padded shared tiles),
+// the bf16 tensor-core helpers (mma.sync m16n8k16, fp32 accumulation),
 // and the fp32 row helpers.
 //
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
@@ -41,50 +40,6 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// B fragment from a shared-memory tile stored N x K (row n, k contiguous):
-// rows n0 + g, k elements k0 + 2t (+1) and k0 + 2t + 8 (+9)
-__device__ __forceinline__ void load_b_frag(uint32_t b[2], const bf16* tile,
-                                            int row_stride, int n0, int k0,
-                                            int g, int t) {
-  const bf16* p = tile + (n0 + g) * row_stride + k0 + t * 2;
-  b[0] = *reinterpret_cast<const uint32_t*>(p);
-  b[1] = *reinterpret_cast<const uint32_t*>(p + 8);
-}
-
-// A fragments of a 16-row slab of a [S, D] bf16 matrix in global memory,
-// rows r0 and r0 + 8 (zeros past `rows` live rows or `D` columns)
-template <int NQ>
-__device__ __forceinline__ void load_a_frags(uint32_t a[NQ][4], const bf16* base,
-                                             long long row_stride, int r0,
-                                             int rows, int D, int t) {
-#pragma unroll
-  for (int kk = 0; kk < NQ; ++kk) {
-#pragma unroll
-    for (int reg = 0; reg < 4; ++reg) {
-      const int r = (reg & 1) ? r0 + 8 : r0;
-      const int c = kk * 16 + t * 2 + ((reg & 2) ? 8 : 0);
-      float lo = 0.f, hi = 0.f;
-      if (r < rows) {
-        if (c < D) lo = __bfloat162float(base[r * row_stride + c]);
-        if (c + 1 < D) hi = __bfloat162float(base[r * row_stride + c + 1]);
-      }
-      a[kk][reg] = pack_bf16(lo, hi);
-    }
-  }
-}
-
-// 8 consecutive bf16 of a row from global memory (zeros past `n` live
-// elements); `vec`: the 8 are whole and 16-byte aligned.
-__device__ __forceinline__ uint4 load8_bf16(const bf16* p, int n, bool vec) {
-  if (vec && n >= 8) return *reinterpret_cast<const uint4*>(p);
-  uint4 out;
-  uint16_t* e = reinterpret_cast<uint16_t*>(&out);
-  const uint16_t* src = reinterpret_cast<const uint16_t*>(p);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) e[i] = i < n ? src[i] : 0;
-  return out;
 }
 
 // ------------------------------------------------------------ fp32 rows

@@ -1,12 +1,11 @@
 // Hopper (sm_90a) building blocks of the redesigned attention kernels
-// (flash_fwd.cu, flash_bwd.cu, the bf16 dq and dk/dv of
+// (flash_fwd.cu, flash_bwd.cu, the bf16 kernels of
 // sparse_attention.cu): asynchronous 16- and 4-byte copies into
 // shared memory (cp.async, zero fill past the live bytes) with their
 // commit/wait groups, the swizzled layout of a [rows, DP] bf16 tile,
 // ldmatrix fragment loads, plain and transposed, warpgroup MMA (wgmma:
 // matrix descriptors, fences, m64n16/32/64k16 with A from registers),
-// exp2, and the bf16 row store of an accumulator. The sparse forward
-// keeps flash_common.cuh's helpers.
+// exp2, and the bf16 row store of an accumulator.
 //
 // Swizzle. A tile row of DP bf16 is DP / 8 chunks of 16 bytes, stored
 // without padding; chunk c of row r lands at chunk position swz(r, c) of

@@ -1,44 +1,59 @@
-// Grouped fake-quantization (MoQ) for Hopper (sm_90a).
+// Grouped fake-quantization (MoQ) for Hopper (sm_90a): every tensor of a
+// MoQ step in one call.
 //
 // Replaces the Pallas TPU kernel `_quant_kernel` of
-// deepspeed_tpu/ops/quantizer/quantizer.py:68 (pallas_call at :106): the
+// deepspeed_tpu/ops/quantizer/quantizer.py:68 (pallas_call at :106): a
 // tensor is viewed as [groups, L] rows in the reference (flax) layout; each
 // row gets one scale, symmetric (absmax / qmax, levels -qmax-1 .. qmax) or
 // asymmetric (min/max affine, levels 0 .. 2^bits - 1); every element is
 // rounded (to nearest even, or stochastically: floor(q + u)) and at once
 // dequantized, in the input's dtype. The arithmetic is the reference's
 // `_quantize_rows` (quantizer.py:40-65) in fp32 with round-to-nearest
-// intrinsics and no contracted multiply-adds, so the nearest-rounding
-// result equals the plain PyTorch version bit for bit.
+// intrinsics and no contracted multiply-adds, so the result equals the
+// plain PyTorch version bit for bit.
 //
 // Bound on the H100: memory. Each element must be read once and written
 // once: BERT-large's 100 quantized fp32 masters (334.9 M elements) move
-// 2.68 GB a MoQ step, 0.80 ms at 3.35 TB/s. This kernel reads each element
-// twice (12 bytes an fp32 element, ~1.2 ms); the second read of a small
-// tensor may come from the 50 MB L2.
+// 2.68 GB a MoQ step, 0.80 ms at 3.35 TB/s.
 //
 // Design. A row spans up to millions of elements (the word embeddings:
-// 3.9 M a group at groups 8), and Hopper's blocks run in no order with
-// nothing carried between them, so the TPU's one grid step a row becomes
-// two launches over blocks of kChunk elements of one row:
-//  1. `quant_stats`: each block writes its chunk's absmax (or min and max)
-//     to a partial buffer;
-//  2. `quant_apply`: each block reduces its row's partials (max and min
-//     are exact in any order, so the scale is deterministic), then
-//     quantizes and dequantizes its chunk; in place when y == x (each
-//     element is read and written by one thread).
-// Layouts. `transposed` = 0: the buffer is the reference layout (group g is
-// elements [g L, (g+1) L)). `transposed` = 1: the buffer is [R, C] and the
-// reference layout is its transpose [C, R] (the port stores dense weights
-// [out, in], flax [in, out]); with C % groups == 0 group g is the column
-// strip [0, R) x [g w, (g+1) w), w = C / groups, walked row by row so the
-// loads stay coalesced. Lanes read 16-byte vectors (4 fp32 or 8 bf16) when
-// the row (or strip) width is a multiple of the vector and the buffers are
-// aligned, else single elements.
-// Stochastic rounding draws one Philox4x32-10 word a element, keyed by the
-// 64-bit seed, with the element's index in the reference layout as the
-// counter; the noise is (word >> 8) 2^-24, the TPU kernel's 24-bit form.
-// NaN inputs are out of scope: fmaxf/fminf drop them from the scale.
+// 3.9 M a group at groups 8) and Hopper's blocks share nothing, so a group
+// is cut into chunks of kChunk elements; the scale needs every chunk's
+// statistics before any chunk is rounded. One call takes a table of up to
+// kMaxTensors tensors by value in the kernels' parameters (pointers,
+// group length, the transposed view, bits and seed per tensor), so a MoQ
+// step is one call for all its masters, and two launches of a block a
+// chunk:
+//  1. `quant_stats_multi`: each chunk's absmax (or min and max) into a
+//     partial buffer, then a ticket on the group's arrival counter; the
+//     block that takes the last ticket reduces the group's partials in
+//     chunk order (deterministic), writes the scale and resets the
+//     counter to 0, so every call finds it so (the call can be captured);
+//  2. `quant_apply_multi`: each chunk rounded with its group's scale, last
+//     chunk first (the first launch's tail may still lie in L2).
+// Each element is read twice from HBM (12 bytes an fp32 element where 8
+// are needed): 91% of that traffic's bound on an H100 80GB HBM3 at 700 W.
+// Every single-launch form that read each element once measured level or
+// slower there (PERF.md): a cooperative launch re-reading chunks
+// from L2 in windows of whole groups, and one holding each chunk in
+// registers or in shared memory from its statistics to its rounding; in
+// each, a chunk's fence, ticket and wait for its group cost about what the
+// second read saves. Each thread issues the loads of kUnroll vectors
+// before it uses any.
+// Layouts. A plain entry's group g is elements [g L, (g+1) L) of its
+// buffer. A transposed entry is a buffer [R, C] whose reference layout is
+// its transpose [C, R] (the port stores dense weights [out, in], flax
+// [in, out]); with C % groups == 0 group g is the column strip [0, R) x
+// [g w, (g+1) w), w = C / groups, walked row by row so the loads stay
+// coalesced, with row and column counters (no division in the loop).
+// Lanes read 16-byte vectors (4 fp32 or 8 bf16) when the entry's group or
+// strip width is a multiple of the vector and its buffers are aligned,
+// else single elements.
+// Stochastic rounding draws one Philox4x32-10 word an element, keyed by
+// the tensor's 64-bit seed, with the element's index in the reference
+// layout as the counter; the noise is (word >> 8) 2^-24, the TPU kernel's
+// 24-bit form. NaN inputs are out of scope: fmaxf/fminf drop them from the
+// scale.
 //
 // Plain C interface (loaded with ctypes); the function returns the
 // cudaError_t of its launches.
@@ -51,17 +66,33 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr long long kChunk = 8192;  // elements of one row a block takes
+constexpr int kChunk = 16384;      // elements of one group a chunk
+constexpr int kUnroll = 4;         // vectors a thread loads before it uses them
+constexpr int kMaxTensors = 320;   // the table stays well within 32 KB
 
-template <typename T>
-struct VecWidth;  // elements in one 16-byte vector
-template <>
-struct VecWidth<float> {
-  static constexpr int N = 4;
+enum { kBf16 = 1, kTransposed = 2, kVec = 4 };  // Entry::flags
+
+struct Entry {
+  const void* x;
+  void* y;
+  unsigned long long seed;
+  long long L;     // elements a group
+  long long R, C;  // transposed: the buffer [R, C]
+  int w;           // transposed: the strip width C / groups
+  int chunk0;      // the entry's first chunk in the launch
+  int cpg;         // chunks a group
+  int group0;      // the entry's first group in the launch
+  float qmax;
+  int flags;
 };
-template <>
-struct VecWidth<__nv_bfloat16> {
-  static constexpr int N = 8;
+
+struct Table {
+  Entry e[kMaxTensors];
+  int n;
+  int chunks, groups;  // in the call
+  float* partial;      // [2, chunks] absmax or min | max of each chunk
+  float* scale;        // [2, groups] scale | lo of each group
+  int* count;          // [groups] arrivals
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -104,24 +135,6 @@ __device__ __forceinline__ void store_n(T* p, const float* in) {
   }
 }
 
-// Where the j-th element of group g lies, in the buffer and in the
-// reference layout.
-struct Layout {
-  long long L;  // elements a group
-  long long S;  // blocks a group
-  long long R, C, w;  // transposed: the buffer is [R, C], strips of width w
-  int transposed;
-
-  __device__ long long phys(int g, long long j) const {
-    if (!transposed) return (long long)g * L + j;
-    return (j / w) * C + (long long)g * w + j % w;
-  }
-  __device__ long long logical(int g, long long j) const {
-    if (!transposed) return (long long)g * L + j;
-    return ((long long)g * w + j % w) * R + j / w;
-  }
-};
-
 // Philox4x32-10 (Salmon et al., SC'11), first output word, counter
 // (index_lo, index_hi, 0, 0), key (seed_lo, seed_hi)
 __device__ __forceinline__ uint32_t philox_word(unsigned long long index,
@@ -152,7 +165,7 @@ __device__ __forceinline__ float combine(float a, float b) {
 
 // the block's max (or min) of v, returned to every thread
 template <bool MAX>
-__device__ float block_reduce(float v, float* sh) {
+__device__ __forceinline__ float block_reduce(float v, float* sh) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     v = combine<MAX>(v, __shfl_xor_sync(0xffffffffu, v, off));
@@ -165,183 +178,350 @@ __device__ float block_reduce(float v, float* sh) {
   return v;
 }
 
-// Pass 1: partial[b] = the chunk's absmax (SYM) or min, and
-// partial[nblocks + b] its max (asymmetric).
-template <typename T, int W, bool SYM>
-__global__ void __launch_bounds__(kThreads)
-quant_stats(const T* __restrict__ x, float* __restrict__ partial,
-            Layout lay) {
-  __shared__ float sh[kThreads / 32];
-  const long long b = blockIdx.x;
-  const int g = (int)(b / lay.S);
-  const long long j0 = (b % lay.S) * kChunk;
-  const long long j1 = min(lay.L, j0 + kChunk);
-  float lo = SYM ? 0.f : INFINITY, hi = -INFINITY;
-  for (long long j = j0 + (long long)threadIdx.x * W; j < j1;
-       j += (long long)kThreads * W) {
-    float v[W];
-    load_n<T, W>(x + lay.phys(g, j), v);
+// Chunk c of the launch: its entry, its group (in the entry and in the
+// launch) and its elements [j0, j1) of the group.
+struct Where {
+  int ent, g, gg;
+  long long j0, j1;
+};
+
+__device__ __forceinline__ Where locate(const Table& t, int c) {
+  int lo = 0, hi = t.n - 1;  // the last entry whose first chunk is <= c
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (t.e[mid].chunk0 <= c) lo = mid;
+    else hi = mid - 1;
+  }
+  const Entry& e = t.e[lo];
+  const int k = c - e.chunk0;
+  Where w;
+  w.ent = lo;
+  w.g = k / e.cpg;
+  w.gg = e.group0 + w.g;
+  w.j0 = (long long)(k - w.g * e.cpg) * kChunk;
+  w.j1 = min(e.L, w.j0 + kChunk);
+  return w;
+}
+
+// This thread's vectors of elements [j0, j1) of group g, kUnroll at a
+// time (their loads are all issued before any is used): the buffer offset
+// and the reference index of each. A transposed strip [0, R) x [g w,
+// (g+1) w) is walked with row and column counters (element j at (j / w,
+// j % w); no division in the loop).
+template <int W, bool TR>
+struct Walk {
+  static constexpr long long kStep = (long long)kThreads * W;
+  long long j, j1, base, row, col, w, gw, drow, dcol, R, C;
+
+  __device__ __forceinline__ Walk(const Entry& e, int g, long long j0,
+                                  long long end)
+      : j(j0 + (long long)threadIdx.x * W), j1(end), R(e.R), C(e.C) {
+    base = (long long)g * e.L;
+    if (TR) {
+      w = e.w;
+      gw = (long long)g * w;
+      drow = kStep / w;
+      dcol = kStep % w;
+      row = j / w;
+      col = j % w;
+    }
+  }
+
+  // the next vectors: returns how many (0 at the end)
+  __device__ __forceinline__ int next(long long (&p)[kUnroll],
+                                      long long (&li)[kUnroll]) {
+    int n = 0;
 #pragma unroll
-    for (int e = 0; e < W; ++e) {
-      if (SYM) {
-        lo = fmaxf(lo, fabsf(v[e]));
+    for (int u = 0; u < kUnroll; ++u) {
+      if (j >= j1) break;
+      if (TR) {
+        p[u] = row * C + gw + col;
+        li[u] = (gw + col) * R + row;
+        row += drow;
+        col += dcol;
+        if (col >= w) {
+          col -= w;
+          ++row;
+        }
       } else {
-        lo = fminf(lo, v[e]);
-        hi = fmaxf(hi, v[e]);
+        p[u] = li[u] = base + j;
+      }
+      j += kStep;
+      ++n;
+    }
+    return n;
+  }
+};
+
+template <typename T, int W, bool TR, bool SYM>
+__device__ __forceinline__ void chunk_stats(const Entry& e, const Where& w,
+                                            float& lo, float& hi) {
+  const T* x = static_cast<const T*>(e.x);
+  Walk<W, TR> walk(e, w.g, w.j0, w.j1);
+  long long p[kUnroll], li[kUnroll];
+  for (int n; (n = walk.next(p, li)) > 0;) {
+    float v[kUnroll][W];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      if (u < n) load_n<T, W>(x + p[u], v[u]);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (u >= n) break;
+#pragma unroll
+      for (int i = 0; i < W; ++i) {
+        if (SYM) {
+          lo = fmaxf(lo, fabsf(v[u][i]));
+        } else {
+          lo = fminf(lo, v[u][i]);
+          hi = fmaxf(hi, v[u][i]);
+        }
       }
     }
   }
-  if (SYM) {
-    lo = block_reduce<true>(lo, sh);
-  } else {
-    lo = block_reduce<false>(lo, sh);
-    hi = block_reduce<true>(hi, sh);
-  }
-  if (threadIdx.x == 0) {
-    partial[b] = lo;
-    if (!SYM) partial[gridDim.x + b] = hi;
+}
+
+// Fake-quantize one vector's W values in place, as the reference does:
+// li is the reference index of its first element, ls the reference
+// stride between its elements (the Philox counters).
+template <int W, bool SYM, bool SR>
+__device__ __forceinline__ void round_vector(float (&v)[W], float scale,
+                                             float lo, float qmax, float qlo,
+                                             long long li, long long ls,
+                                             unsigned long long seed) {
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    float q = SYM ? __fdiv_rn(v[i], scale)
+                  : __fdiv_rn(__fsub_rn(v[i], lo), scale);
+    if (SR) {
+      const uint32_t word =
+          philox_word((unsigned long long)(li + i * ls), seed);
+      const float r = (float)(word >> 8) * (1.f / 16777216.f);
+      q = floorf(__fadd_rn(q, r));
+    } else {
+      q = rintf(q);  // half to even, as jnp.round
+    }
+    q = q < qlo ? qlo : (q > qmax ? qmax : q);  // NaN passes, as jnp.clip
+    v[i] = SYM ? __fmul_rn(q, scale) : __fadd_rn(__fmul_rn(q, scale), lo);
   }
 }
 
-// Pass 2: the row's scale from its partials, then quantize + dequantize.
-template <typename T, int W, bool SYM, bool SR>
-__global__ void __launch_bounds__(kThreads)
-quant_apply(const T* x, T* y, const float* __restrict__ partial, Layout lay,
-            float qmax, unsigned long long seed) {
-  __shared__ float sh[kThreads / 32];
-  const long long b = blockIdx.x;
-  const int g = (int)(b / lay.S);
-  const long long j0 = (b % lay.S) * kChunk;
-  const long long j1 = min(lay.L, j0 + kChunk);
-  const float* row = partial + (long long)g * lay.S;
-  float lo = SYM ? 0.f : INFINITY, hi = -INFINITY;
-  for (long long k = threadIdx.x; k < lay.S; k += kThreads) {
-    if (SYM) {
-      lo = fmaxf(lo, row[k]);
-    } else {
-      lo = fminf(lo, row[k]);
-      hi = fmaxf(hi, row[gridDim.x + k]);
+template <typename T, int W, bool TR, bool SYM, bool SR>
+__device__ __forceinline__ void chunk_apply(const Entry& e, const Where& w,
+                                            float scale, float lo) {
+  const T* x = static_cast<const T*>(e.x);
+  T* y = static_cast<T*>(e.y);
+  const float qmax = e.qmax, qlo = SYM ? -qmax - 1.f : 0.f;
+  const long long ls = TR ? e.R : 1;  // reference stride in a vector
+  Walk<W, TR> walk(e, w.g, w.j0, w.j1);
+  long long p[kUnroll], li[kUnroll];
+  for (int n; (n = walk.next(p, li)) > 0;) {
+    float v[kUnroll][W];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      if (u < n) load_n<T, W>(x + p[u], v[u]);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (u >= n) break;
+      round_vector<W, SYM, SR>(v[u], scale, lo, qmax, qlo, li[u], ls,
+                               e.seed);
+      store_n<T, W>(y + p[u], v[u]);
     }
   }
-  float scale;
-  if (SYM) {
-    lo = block_reduce<true>(lo, sh);
-    scale = __fdiv_rn(lo, qmax);
+}
+
+// the entry's dtype, vector width and layout, uniform over the block
+template <bool SYM>
+__device__ void stats_any(const Entry& e, const Where& w, float& lo,
+                          float& hi) {
+  typedef __nv_bfloat16 bf;
+  const bool tr = e.flags & kTransposed, vec = e.flags & kVec;
+  if (e.flags & kBf16) {
+    if (vec && tr) chunk_stats<bf, 8, true, SYM>(e, w, lo, hi);
+    else if (vec) chunk_stats<bf, 8, false, SYM>(e, w, lo, hi);
+    else if (tr) chunk_stats<bf, 1, true, SYM>(e, w, lo, hi);
+    else chunk_stats<bf, 1, false, SYM>(e, w, lo, hi);
   } else {
-    lo = block_reduce<false>(lo, sh);
-    hi = block_reduce<true>(hi, sh);
-    scale = __fdiv_rn(__fsub_rn(hi, lo), qmax);
+    if (vec && tr) chunk_stats<float, 4, true, SYM>(e, w, lo, hi);
+    else if (vec) chunk_stats<float, 4, false, SYM>(e, w, lo, hi);
+    else if (tr) chunk_stats<float, 1, true, SYM>(e, w, lo, hi);
+    else chunk_stats<float, 1, false, SYM>(e, w, lo, hi);
+  }
+}
+
+template <bool SYM, bool SR>
+__device__ void apply_any(const Entry& e, const Where& w, float scale,
+                          float lo) {
+  typedef __nv_bfloat16 bf;
+  const bool tr = e.flags & kTransposed, vec = e.flags & kVec;
+  if (e.flags & kBf16) {
+    if (vec && tr) chunk_apply<bf, 8, true, SYM, SR>(e, w, scale, lo);
+    else if (vec) chunk_apply<bf, 8, false, SYM, SR>(e, w, scale, lo);
+    else if (tr) chunk_apply<bf, 1, true, SYM, SR>(e, w, scale, lo);
+    else chunk_apply<bf, 1, false, SYM, SR>(e, w, scale, lo);
+  } else {
+    if (vec && tr) chunk_apply<float, 4, true, SYM, SR>(e, w, scale, lo);
+    else if (vec) chunk_apply<float, 4, false, SYM, SR>(e, w, scale, lo);
+    else if (tr) chunk_apply<float, 1, true, SYM, SR>(e, w, scale, lo);
+    else chunk_apply<float, 1, false, SYM, SR>(e, w, scale, lo);
+  }
+}
+
+struct Shared {
+  float red[kThreads / 32];
+  int last;
+};
+
+// The scale of chunk w's group (and its minimum, asymmetric): its
+// partials reduced by the block in chunk order, for every thread.
+template <bool SYM>
+__device__ __forceinline__ void group_scale(const Table& t, const Entry& e,
+                                            const Where& w, Shared& sh,
+                                            float& scale, float& lo) {
+  const int c0 = e.chunk0 + w.g * e.cpg;  // the group's first chunk
+  float a = SYM ? 0.f : INFINITY, b = -INFINITY;
+  for (int k = threadIdx.x; k < e.cpg; k += kThreads) {
+    if (SYM) {
+      a = fmaxf(a, __ldcg(t.partial + c0 + k));
+    } else {
+      a = fminf(a, __ldcg(t.partial + c0 + k));
+      b = fmaxf(b, __ldcg(t.partial + t.chunks + c0 + k));
+    }
+  }
+  if (SYM) {
+    a = block_reduce<true>(a, sh.red);
+    scale = __fdiv_rn(a, e.qmax);
+    lo = 0.f;
+  } else {
+    a = block_reduce<false>(a, sh.red);
+    b = block_reduce<true>(b, sh.red);
+    scale = __fdiv_rn(__fsub_rn(b, a), e.qmax);
+    lo = a;
   }
   if (scale == 0.f) scale = 1.f;
-  const float qlo = SYM ? -qmax - 1.f : 0.f;
+}
 
-  for (long long j = j0 + (long long)threadIdx.x * W; j < j1;
-       j += (long long)kThreads * W) {
-    const long long p = lay.phys(g, j);
-    float v[W];
-    load_n<T, W>(x + p, v);
-#pragma unroll
-    for (int e = 0; e < W; ++e) {
-      float q = SYM ? __fdiv_rn(v[e], scale)
-                    : __fdiv_rn(__fsub_rn(v[e], lo), scale);
-      if (SR) {
-        const uint32_t word = philox_word(
-            (unsigned long long)lay.logical(g, j + e), seed);
-        const float u = (float)(word >> 8) * (1.f / 16777216.f);
-        q = floorf(__fadd_rn(q, u));
-      } else {
-        q = rintf(q);  // half to even, as jnp.round
-      }
-      q = q < qlo ? qlo : (q > qmax ? qmax : q);  // NaN passes, as jnp.clip
-      v[e] = SYM ? __fmul_rn(q, scale) : __fadd_rn(__fmul_rn(q, scale), lo);
-    }
-    store_n<T, W>(y + p, v);
+// Chunk blockIdx.x's statistics into the partial buffer, then a ticket on
+// its group's arrival counter: the last arrival reduces the group's
+// partials, writes its scale and resets the counter.
+template <bool SYM>
+__global__ void __launch_bounds__(kThreads)
+quant_stats_multi(const __grid_constant__ Table t) {
+  __shared__ Shared sh;
+  const int c = blockIdx.x;
+  const Where w = locate(t, c);
+  const Entry& e = t.e[w.ent];
+  float lo = SYM ? 0.f : INFINITY, hi = -INFINITY;
+  stats_any<SYM>(e, w, lo, hi);
+  if (SYM) {
+    lo = block_reduce<true>(lo, sh.red);
+  } else {
+    lo = block_reduce<false>(lo, sh.red);
+    hi = block_reduce<true>(hi, sh.red);
+  }
+  if (threadIdx.x == 0) {
+    t.partial[c] = lo;
+    if (!SYM) t.partial[t.chunks + c] = hi;
+    __threadfence();  // the partial before the ticket
+    sh.last = atomicAdd(t.count + w.gg, 1) == e.cpg - 1;
+  }
+  __syncthreads();
+  if (!sh.last) return;  // uniform over the block
+  __threadfence();
+  float scale, lo0;
+  group_scale<SYM>(t, e, w, sh, scale, lo0);
+  if (threadIdx.x == 0) {
+    t.scale[w.gg] = scale;
+    t.scale[t.groups + w.gg] = lo0;
+    t.count[w.gg] = 0;  // every arrival is in
   }
 }
 
-template <typename T, int W, bool SYM, bool SR>
-cudaError_t run(const void* x, void* y, float* partial, Layout lay,
-                long long blocks, float qmax, unsigned long long seed,
-                cudaStream_t s) {
-  quant_stats<T, W, SYM><<<(unsigned)blocks, kThreads, 0, s>>>(
-      static_cast<const T*>(x), partial, lay);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  quant_apply<T, W, SYM, SR><<<(unsigned)blocks, kThreads, 0, s>>>(
-      static_cast<const T*>(x), static_cast<T*>(y), partial, lay, qmax,
-      seed);
-  return cudaGetLastError();
+// One chunk's rounding with its group's scale, the last chunk first.
+template <bool SYM, bool SR>
+__global__ void __launch_bounds__(kThreads)
+quant_apply_multi(const __grid_constant__ Table t) {
+  const Where w = locate(t, t.chunks - 1 - blockIdx.x);
+  apply_any<SYM, SR>(t.e[w.ent], w, __ldg(t.scale + w.gg),
+                     __ldg(t.scale + t.groups + w.gg));
 }
 
-template <typename T, int W>
-cudaError_t dispatch_mode(int symmetric, int stochastic, const void* x,
-                          void* y, float* partial, Layout lay,
-                          long long blocks, float qmax,
-                          unsigned long long seed, cudaStream_t s) {
-  if (symmetric)
-    return stochastic
-               ? run<T, W, true, true>(x, y, partial, lay, blocks, qmax, seed,
-                                       s)
-               : run<T, W, true, false>(x, y, partial, lay, blocks, qmax,
-                                        seed, s);
-  return stochastic
-             ? run<T, W, false, true>(x, y, partial, lay, blocks, qmax, seed,
-                                      s)
-             : run<T, W, false, false>(x, y, partial, lay, blocks, qmax, seed,
-                                       s);
+template <bool SYM, bool SR>
+cudaError_t launch(const Table& t, cudaStream_t s) {
+  quant_stats_multi<SYM><<<t.chunks, kThreads, 0, s>>>(t);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  quant_apply_multi<SYM, SR><<<t.chunks, kThreads, 0, s>>>(t);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// y = fake-quantized x (y may be x). n elements of dtype 0 = fp32 or
-// 1 = bf16, viewed as `groups` rows in the reference layout: the buffer
-// itself (transposed = 0), or the transpose of the buffer [R, C]
-// (transposed = 1; R * C = n, C % groups == 0). num_bits 1..16; symmetric
-// and stochastic are 0/1; seed keys the Philox noise. vec = 1 when every
-// group (rows) or strip (transposed) width is a multiple of the 16-byte
-// vector and x and y are 16-byte aligned. partial: partial_len floats of
-// scratch, at least 2 * groups * ceil((n / groups) / 8192).
-extern "C" int ds_quantize(const void* x, void* y, float* partial,
-                           long long partial_len, long long n, int groups,
-                           int transposed, long long R, long long C,
-                           int num_bits, int symmetric, int stochastic,
-                           unsigned long long seed, int dtype, int vec,
-                           void* stream) {
-  if (n <= 0 || groups <= 0 || n % groups != 0 || num_bits < 1 ||
-      num_bits > 16 || (dtype != 0 && dtype != 1))
-    return cudaErrorInvalidValue;
-  Layout lay;
-  lay.L = n / groups;
-  lay.S = (lay.L + kChunk - 1) / kChunk;
-  lay.transposed = transposed ? 1 : 0;
-  lay.R = R;
-  lay.C = C;
-  lay.w = 1;
-  if (transposed) {
-    if (R <= 0 || C <= 0 || R * C != n || C % groups != 0)
+// One call (two launches) fake-quantizing n_tensors tensors. table: host
+// int64 [n_tensors, 9] = (x, y, n, groups, R, C, bits, flags, seed) a
+// tensor: y = fake-quantized x (y may be x) of n > 0 elements viewed as
+// `groups` rows in the reference layout; flags bit 0: bf16 (else fp32),
+// bit 1: transposed (the buffer is [R, C], R * C = n, C % groups == 0; R
+// and C are ignored otherwise), bit 2: 16-byte vectors (the group or
+// strip width is a multiple of the vector, x and y 16-byte aligned); bits
+// 1..16; seed keys the tensor's Philox noise. Chunks of kChunk elements a
+// group are numbered tensor by tensor: `chunks` and `groups` are the
+// call's totals. partial: device fp32 [2 chunks]; scale: device fp32 [2
+// groups]; count: device int32 [groups], all 0 on the first call (each
+// call leaves them at 0). 1 <= n_tensors <= kMaxTensors (320).
+extern "C" int ds_quantize_multi(const long long* table, int n_tensors,
+                                 float* partial, float* scale, int* count,
+                                 int chunks, int groups, int symmetric,
+                                 int stochastic, void* stream) {
+  if (n_tensors < 1 || n_tensors > kMaxTensors) return cudaErrorInvalidValue;
+  Table t;
+  long long n_chunks = 0, n_groups = 0;
+  for (int i = 0; i < n_tensors; ++i) {
+    const long long* r = table + 9 * i;
+    const long long n = r[2], g = r[3], bits = r[6], flags = r[7];
+    if (n <= 0 || g <= 0 || n % g != 0 || bits < 1 || bits > 16 ||
+        (flags & ~7ll) != 0)
       return cudaErrorInvalidValue;
-    lay.w = C / groups;
+    Entry& e = t.e[i];
+    e.x = reinterpret_cast<const void*>(r[0]);
+    e.y = reinterpret_cast<void*>(r[1]);
+    e.L = n / g;
+    e.R = r[4];
+    e.C = r[5];
+    e.w = 1;
+    e.flags = (int)flags;
+    if (flags & kTransposed) {
+      if (e.R <= 0 || e.C <= 0 || e.R * e.C != n || e.C % g != 0 ||
+          e.C / g > 0x7fffffffll)
+        return cudaErrorInvalidValue;
+      e.w = (int)(e.C / g);
+    }
+    if (flags & kVec) {
+      const long long width = (flags & kTransposed) ? e.w : e.L;
+      if (width % ((flags & kBf16) ? 8 : 4) != 0 ||
+          reinterpret_cast<uintptr_t>(e.x) % 16 != 0 ||
+          reinterpret_cast<uintptr_t>(e.y) % 16 != 0)
+        return cudaErrorInvalidValue;
+    }
+    e.seed = (unsigned long long)r[8];
+    e.qmax = symmetric ? (float)((1 << (bits - 1)) - 1)
+                       : (float)((1 << bits) - 1);
+    e.cpg = (int)((e.L + kChunk - 1) / kChunk);
+    e.chunk0 = (int)n_chunks;
+    e.group0 = (int)n_groups;
+    n_chunks += g * e.cpg;
+    n_groups += g;
+    if (n_chunks > 0x7fffffffll || n_groups > 0x7fffffffll)
+      return cudaErrorInvalidValue;
   }
-  const long long blocks = lay.S * groups;
-  if (blocks > 0x7fffffffLL || partial_len < 2 * blocks)
-    return cudaErrorInvalidValue;
-  const int width = dtype == 0 ? 4 : 8;
-  if (vec && ((transposed ? lay.w : lay.L) % width != 0 ||
-              reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
-              reinterpret_cast<uintptr_t>(y) % 16 != 0))
-    return cudaErrorInvalidValue;
-  const float qmax = symmetric ? (float)((1 << (num_bits - 1)) - 1)
-                               : (float)((1 << num_bits) - 1);
+  if (n_chunks != chunks || n_groups != groups) return cudaErrorInvalidValue;
+  t.n = n_tensors;
+  t.chunks = chunks;
+  t.groups = groups;
+  t.partial = partial;
+  t.scale = scale;
+  t.count = count;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return vec ? dispatch_mode<float, 4>(symmetric, stochastic, x, y, partial,
-                                         lay, blocks, qmax, seed, s)
-               : dispatch_mode<float, 1>(symmetric, stochastic, x, y, partial,
-                                         lay, blocks, qmax, seed, s);
-  return vec ? dispatch_mode<__nv_bfloat16, 8>(symmetric, stochastic, x, y,
-                                               partial, lay, blocks, qmax,
-                                               seed, s)
-             : dispatch_mode<__nv_bfloat16, 1>(symmetric, stochastic, x, y,
-                                               partial, lay, blocks, qmax,
-                                               seed, s);
+  if (symmetric)
+    return stochastic ? launch<true, true>(t, s) : launch<true, false>(t, s);
+  return stochastic ? launch<false, true>(t, s) : launch<false, false>(t, s);
 }

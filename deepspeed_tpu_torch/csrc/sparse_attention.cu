@@ -42,38 +42,41 @@
 // a head, 92.3 M live (query, key) pairs) the forward does 4 D flops a
 // pair (24 us at 989 TFLOP/s) against ~76 MB of q, o and the packed k, v
 // (23 us at 3.35 TB/s); dq does 6 D (36 us), dk/dv 8 D (48 us), both
-// above their bytes: the products set the pace.
-// * Forward (bf16 and fp32) and the fp32 dq and dk/dv: the first form.
-//   Four warps of mma.sync m16n8k16 own 16 query rows each; streamed tiles
-//   are staged synchronously into padded shared tiles; fp32 runs on the
-//   FMA pipes (no TF32), four threads a row.
-// * bf16 dq and dk/dv: the flash backward's design (flash_bwd.cu) with the
-//   CSR walk in place of the dense kv / q loop. One warpgroup owns a
-//   64-row output tile; its own rows (q, do and o for dq, which computes
-//   delta from them; k, v for dk/dv) are staged once by cp.async and held
-//   as A fragments. The segment's streamed tiles (K|V with the 64 bias
-//   values for dq; Q|dO with their 64 lse and 64 delta values for dk/dv)
-//   come through a 3-stage cp.async ring in dynamic shared memory, stored
-//   in the XOR swizzle of hopper_common.cuh (no padding, no transposed
-//   copy). Every product is a warpgroup MMA at D <= 64 (DP 16/32/64): s =
-//   q k^T and dp = do v^T (dk/dv: s^T = k q^T, dp^T = v do^T) K-major,
-//   dq += ds k, dv += p^T do and dk += ds^T q through the transpose bit.
+// above their bytes: the products set the pace. At the causal GPT-2
+// path (B 2, S 4096, Skv 5504) the forward's bytes lead (24 us).
+// * fp32 forward, dq and dk/dv: the first form. A row of four threads on
+//   the FMA pipes (no TF32); streamed tiles are staged synchronously.
+// * bf16 forward, dq and dk/dv: the flash kernels' design (flash_fwd.cu,
+//   flash_bwd.cu) with the CSR walk in place of the dense kv / q loop. One
+//   warpgroup owns a 64-row output tile; its own rows (q for the forward;
+//   q, do and o for dq, which computes delta from them; k, v for dk/dv) are
+//   staged once by cp.async and held as A fragments. The segment's streamed
+//   tiles (K|V with the 64 bias values for the forward and dq; Q|dO with
+//   their 64 lse and 64 delta values for dk/dv) come through a 3-stage
+//   cp.async ring in dynamic shared memory, stored in the XOR swizzle of
+//   hopper_common.cuh (no padding, no transposed copy). Every product is a
+//   warpgroup MMA at D <= 64 (DP 16/32/64): s = q k^T and dp = do v^T
+//   (dk/dv: s^T = k q^T, dp^T = v do^T) K-major, o += p v, dq += ds k,
+//   dv += p^T do and dk += ds^T q through the transpose bit. The forward's
+//   online softmax runs in the log2 domain: sm_scale log2e and the key
+//   bias times log2e enter one fma, exp is ex2, lse = m ln2 + log(l).
 // * Mask arithmetic runs only on the pairs the host flags (`flags`: the
 //   fine-block word is not all-ones, a causal diagonal tile of the real
 //   region, or the pair holds the key tail). The flag is read once a pair,
 //   so the branch is uniform over the warpgroup; as in flash_bwd.cu it
-//   picks one of two instantiations of the pair's work (dq_pair, dkv_pair
-//   with and without the mask). Keep it so: the pair's work inlined into
-//   the loop, with the mask under a branch between the wgmmas, compiled
-//   without a warning and gave wrong dq and dk/dv at DP 64 from a
-//   segment's second pair on. Query rows past Sq are zero-filled with lse
-//   +inf (p = 0).
+//   picks one of two instantiations of the pair's work (fwd_pair, dq_pair,
+//   dkv_pair with and without the mask). Keep it so: the pair's work
+//   inlined into the loop, with the mask under a branch between the
+//   wgmmas, compiled without a warning and gave wrong dq and dk/dv at DP 64
+//   from a segment's second pair on. Query rows past Sq are zero-filled
+//   (forward: not written; backward: lse +inf, p = 0).
 // * Each grid walks its output tiles in `order` (segment length
 //   descending, across heads; batch elements side by side), so no long
 //   list starts in the last wave.
-// * p is rounded to bf16 before p^T do and ds before ds k and ds^T q, where
-//   the JAX kernels cast. The sums run in a fixed order: the gradients are
-//   bit-identical from run to run.
+// * p is rounded to bf16 before p v and p^T do and ds before ds k and ds^T
+//   q, where the JAX kernels cast (the row sums keep the fp32 p). The sums
+//   run in a fixed order: outputs and gradients are bit-identical from run
+//   to run.
 //
 // Plain C interface (loaded with ctypes); each entry point returns the
 // cudaError_t of its launch.
@@ -103,10 +106,11 @@ using hopper::wgmma_wait;
 
 constexpr int kT = 64;             // tile: query rows and keys
 constexpr int kThreads = 128;      // bf16: one warpgroup a CTA
-constexpr int kStages = 3;         // bf16 dq, dk/dv: the ring of streamed tiles
+constexpr int kStages = 3;         // bf16: the ring of streamed tiles
 constexpr int kTPR = 4;            // fp32: threads a row
 constexpr int kThreads32 = kT * kTPR;
 constexpr int kChunk = 16;         // fp32 forward: keys an online update
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Args {
   const void *q, *k, *v;
@@ -120,8 +124,8 @@ struct Args {
   const int* ptr;      // [H * n_out + 1] segment offsets
   const int* idx;      // streamed tile of each pair
   const unsigned long long* bits;  // fine-block bits of each pair
-  const unsigned char* flags;      // bf16 dq, dk/dv: 1 where a pair needs the mask
-  const int* order;                // bf16 dq, dk/dv: the segments, longest first
+  const unsigned char* flags;      // bf16: 1 where a pair needs the mask
+  const int* order;                // bf16: the segments, longest first
   const float* g_lse;              // dq: the lse cotangent [B*H, Sq], or null
   int B, H, Sq, Skv, D;
   int n_out;           // output tiles a (batch, head)
@@ -175,148 +179,15 @@ __device__ __forceinline__ T* head_out(void* p, const Strides& s, int b,
   return static_cast<T*>(p) + b * s.b + h * s.h;
 }
 
-// ------------------------------------------------------------ bf16: mma
-// Forward: one CTA per (query tile, batch*head).
-template <int DP>
-__global__ void __launch_bounds__(128) sparse_fwd_bf16(Args a) {
-  constexpr int KP = DP + 8;   // padded K row
-  constexpr int VP = kT + 8;   // padded V^T row
-  constexpr int NQ = DP / 16;  // k-steps of the score product
-  constexpr int NS = kT / 8;   // score n-tiles a warp
-  constexpr int NO = DP / 8;   // output n-tiles a warp
-  __shared__ __align__(16) bf16 k_tile[kT * KP];
-  __shared__ __align__(16) bf16 vt_tile[DP * VP];
-
-  const int it = blockIdx.x, bh = blockIdx.y;
-  const int b = bh / a.H, h = bh % a.H;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int rl0 = warp * 16 + g, rl1 = rl0 + 8;  // this thread's rows
-  const int r0 = it * kT + rl0, r1 = r0 + 8;
-  const int D = a.D, Skv = a.Skv;
-  const float scale = a.sm_scale;
-  const bf16* kb = head<bf16>(a.k, a.ks, b, h);
-  const bf16* vb = head<bf16>(a.v, a.vs, b, h);
-  const float* brow = a.bias ? a.bias + (long long)b * Skv : nullptr;
-
-  uint32_t qa[NQ][4];
-  load_a_frags<NQ>(qa, head<bf16>(a.q, a.qs, b, h), a.qs.s, r0, a.Sq, D, t);
-  float acc[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;  // l: this thread's part
-
-  const int seg = h * a.n_out + it;
-  for (int e = a.ptr[seg]; e < a.ptr[seg + 1]; ++e) {
-    const int kt = a.idx[e];
-    const PairMask pm = pair_mask(a, e, it, kt);
-    const int k0 = kt * kT;
-    __syncthreads();  // the previous tile is no longer read
-    for (int i = tid; i < kT * (DP / 8); i += 128) {
-      const int j = i / (DP / 8), c8 = (i % (DP / 8)) * 8;
-      const int key = k0 + j;
-      const int n = key < Skv ? D - c8 : 0;
-      *reinterpret_cast<uint4*>(&k_tile[j * KP + c8]) =
-          load8_bf16(kb + key * a.ks.s + c8, n, a.vec);
-      const uint4 vr = load8_bf16(vb + key * a.vs.s + c8, n, a.vec);
-      const bf16* ve = reinterpret_cast<const bf16*>(&vr);
-#pragma unroll
-      for (int c = 0; c < 8; ++c) vt_tile[(c8 + c) * VP + j] = ve[c];
-    }
-    __syncthreads();
-
-    float s[NS][4];
-#pragma unroll
-    for (int nt = 0; nt < NS; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < NQ; ++kk) {
-        uint32_t bfrag[2];
-        load_b_frag(bfrag, k_tile, KP, nt * 8, kk * 16, g, t);
-        mma_bf16(s[nt], qa[kk], bfrag);
-      }
-    }
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int nt = 0; nt < NS; ++nt) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int cl = nt * 8 + t * 2 + (c & 1);
-        float x = pm((c < 2) ? rl0 : rl1, cl) ? s[nt][c] * scale : kNegInf;
-        if (brow != nullptr && k0 + cl < Skv) x += brow[k0 + cl];
-        s[nt][c] = x;
-      }
-      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float alpha0 = __expf(m0 - mx0), alpha1 = __expf(m1 - mx1);
-    // a row whose keys so far are all masked keeps its max at -1e30: its
-    // weights are 0, not exp(0)
-    const bool dead0 = mx0 <= kNegInf * 0.5f, dead1 = mx1 <= kNegInf * 0.5f;
-    l0 *= alpha0;
-    l1 *= alpha1;
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      acc[n][0] *= alpha0; acc[n][1] *= alpha0;
-      acc[n][2] *= alpha1; acc[n][3] *= alpha1;
-    }
-#pragma unroll
-    for (int nt = 0; nt < NS; ++nt) {
-      s[nt][0] = dead0 ? 0.f : __expf(s[nt][0] - mx0);
-      s[nt][1] = dead0 ? 0.f : __expf(s[nt][1] - mx0);
-      s[nt][2] = dead1 ? 0.f : __expf(s[nt][2] - mx1);
-      s[nt][3] = dead1 ? 0.f : __expf(s[nt][3] - mx1);
-      l0 += s[nt][0] + s[nt][1];
-      l1 += s[nt][2] + s[nt][3];
-    }
-    m0 = mx0;
-    m1 = mx1;
-#pragma unroll
-    for (int kk = 0; kk < kT / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        uint32_t bfrag[2];
-        load_b_frag(bfrag, vt_tile, VP, n * 8, kk * 16, g, t);
-        mma_bf16(acc[n], pa, bfrag);
-      }
-    }
-  }
-
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float ls0 = (l0 == 0.f) ? 1.f : l0, ls1 = (l1 == 0.f) ? 1.f : l1;
-  const float inv0 = 1.f / ls0, inv1 = 1.f / ls1;
-  bf16* ob = head_out<bf16>(a.o, a.os, b, h);
-#pragma unroll
-  for (int n = 0; n < NO; ++n) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int row = (c < 2) ? r0 : r1;
-      const int col = n * 8 + t * 2 + (c & 1);
-      if (row < a.Sq && col < D)
-        ob[row * a.os.s + col] =
-            __float2bfloat16(acc[n][c] * ((c < 2) ? inv0 : inv1));
-    }
-  }
-  if (t == 0) {
-    if (r0 < a.Sq) a.lse[(long long)bh * a.Sq + r0] = m0 + logf(ls0);
-    if (r1 < a.Sq) a.lse[(long long)bh * a.Sq + r1] = m1 + logf(ls1);
-  }
-}
-
 // ------------------------------------------------------------ bf16: wgmma
-// dq and dk/dv on the flash backward's pieces (flash_bwd.cu): one
-// warpgroup a CTA, a 3-stage cp.async ring of swizzled tiles, wgmma.
+// The forward, dq and dk/dv on the flash kernels' pieces (flash_fwd.cu,
+// flash_bwd.cu): one warpgroup a CTA, a 3-stage cp.async ring of swizzled
+// tiles, wgmma.
+
+template <int DP>
+constexpr int fwd_smem_bytes() {  // ring of K|V (q in its last stage) | bias
+  return kStages * 2 * kT * DP * 2 + kStages * kT * 4;
+}
 
 template <int DP>
 constexpr int dq_smem_bytes() {  // q, do | ring of K|V (o in its last stage) | bias
@@ -362,6 +233,188 @@ __device__ __forceinline__ Cta cta_of(const Args& a) {
   c.e0 = a.ptr[seg];
   c.n = a.ptr[seg + 1] - c.e0;
   return c;
+}
+
+// One pair of the forward: s = q k^T, the online softmax in the log2
+// domain (sm_scale log2e and bias log2e folded into one fma), o += p v.
+// m0, m1: the running row maxima (log2 domain), l0, l1: this thread's
+// parts of the row sums. MASK: as dq_pair; masked scores are -1e30, and a
+// row whose live keys so far are all masked keeps its max at -1e30 and
+// takes p = 0 (the clamp of fused_kernels.py:220).
+template <int DP, bool MASK>
+__device__ __forceinline__ void fwd_pair(
+    float (&acc)[DP / 8][4], uint32_t (&qa)[DP / 16][4], const bf16* ks,
+    const bf16* vs, const float* bias_t, const Args& a, int e, int it,
+    int rl0, float scale2, float& m0, float& m1, float& l0, float& l1,
+    int t) {
+  constexpr int NK = DP / 16, NS = kT / 8, NO = DP / 8;
+  float s[NS][4];
+#pragma unroll
+  for (int nt = 0; nt < NS; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk)
+    wgmma_rs<kT, 0>(s, qa[kk], wgmma_desc(ks + kk * 16, DP * 2));
+  wgmma_commit();
+  wgmma_wait();
+  hopper::reg_fence(s);
+  PairMask pm;
+  if (MASK) pm = pair_mask(a, e, it, a.idx[e]);
+  float mx0 = m0, mx1 = m1;
+#pragma unroll
+  for (int nt = 0; nt < NS; ++nt) {
+    float2 bb = make_float2(0.f, 0.f);
+    if (bias_t != nullptr)
+      bb = *reinterpret_cast<const float2*>(bias_t + nt * 8 + 2 * t);
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      float y = fmaf(s[nt][x], scale2, ((x & 1) ? bb.y : bb.x) * kLog2e);
+      if (MASK && !pm(x < 2 ? rl0 : rl0 + 8, nt * 8 + 2 * t + (x & 1)))
+        y = kNegInf;
+      s[nt][x] = y;
+    }
+    mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
+    mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
+  }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  // 0 while the old max is -1e30; 1 for a row still dead (acc, l are 0)
+  const float alpha0 = ex2(m0 - mx0), alpha1 = ex2(m1 - mx1);
+  const bool dead0 = MASK && mx0 <= kNegInf * 0.5f;
+  const bool dead1 = MASK && mx1 <= kNegInf * 0.5f;
+  m0 = mx0;
+  m1 = mx1;
+  l0 *= alpha0;
+  l1 *= alpha1;
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    acc[n][0] *= alpha0; acc[n][1] *= alpha0;
+    acc[n][2] *= alpha1; acc[n][3] *= alpha1;
+  }
+#pragma unroll
+  for (int nt = 0; nt < NS; ++nt) {
+    s[nt][0] = dead0 ? 0.f : ex2(s[nt][0] - mx0);
+    s[nt][1] = dead0 ? 0.f : ex2(s[nt][1] - mx0);
+    s[nt][2] = dead1 ? 0.f : ex2(s[nt][2] - mx1);
+    s[nt][3] = dead1 ? 0.f : ex2(s[nt][3] - mx1);
+    l0 += s[nt][0] + s[nt][1];
+    l1 += s[nt][2] + s[nt][3];
+  }
+  // o += p v: p rounded to bf16 in the A fragments (l keeps the fp32 p),
+  // v read through the transpose bit
+  uint32_t pa[kT / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < kT / 16; ++kk) pack_a(pa[kk], s[2 * kk], s[2 * kk + 1]);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kT / 16; ++kk)
+    wgmma_rs<DP, 1>(acc, pa[kk], wgmma_desc(vs + kk * 16 * DP, DP * 2));
+  wgmma_commit();
+  wgmma_wait();
+  hopper::reg_fence(acc);
+  hold_regs(pa);
+}
+
+// The forward over the row-major list: o and lse of one query tile.
+template <int DP>
+// Four CTAs an SM (at most 128 registers): 10% faster than three at the
+// BERT and GPT-2 paths (tests/perf/torch_sparse_fwd_quant_variants.py).
+__global__ void __launch_bounds__(kThreads, 4) sparse_fwd_bf16(Args a) {
+  constexpr int NK = DP / 16, NO = DP / 8;
+  constexpr int TILE = kT * DP;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);  // kStages x [K tile | V tile]
+  float* bias_r = reinterpret_cast<float*>(ring + kStages * 2 * TILE);
+  bf16* q_s = ring + (kStages - 1) * 2 * TILE;  // free until the loop
+
+  const Cta c = cta_of(a);
+  const int b = c.b, h = c.h, it = c.tile;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int t = lane % 4;
+  const int rl0 = warp * 16 + lane / 4;  // this thread's rows: rl0, rl0 + 8
+  const int q0 = it * kT, r0 = q0 + rl0, r1 = r0 + 8;
+  const int Sq = a.Sq, Skv = a.Skv, D = a.D;
+  const bool vec = a.vec;
+  const bf16* kb = head<bf16>(a.k, a.ks, b, h);
+  const bf16* vb = head<bf16>(a.v, a.vs, b, h);
+  const float* brow = a.bias ? a.bias + (long long)b * Skv : nullptr;
+
+  // pair j of the segment: its K and V tiles and the keys' bias
+  auto stage_kv = [&](int j, int st) {
+    const int k0 = a.idx[c.e0 + j] * kT;
+    bf16* slot = ring + st * 2 * TILE;
+    stage_tile<DP, kT, kThreads>(slot, kb, a.ks.s, k0, Skv, D, vec);
+    stage_tile<DP, kT, kThreads>(slot + TILE, vb, a.vs.s, k0, Skv, D, vec);
+    const int i = threadIdx.x;
+    if (brow != nullptr && i < kT) {
+      const bool live = k0 + i < Skv;
+      cp_async4(bias_r + st * kT + i, live ? brow + k0 + i : brow,
+                live ? 4 : 0);
+    }
+  };
+
+  stage_tile<DP, kT, kThreads>(q_s, head<bf16>(a.q, a.qs, b, h), a.qs.s, q0,
+                               Sq, D, vec);
+  cp_async_commit();
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < c.n) stage_kv(st, st);
+    cp_async_commit();
+  }
+  cp_async_wait<kStages - 1>();  // q
+  hopper::fence_async_smem();
+  __syncthreads();
+
+  uint32_t qa[NK][4];
+  ldsm_a<DP, NK>(qa, q_s, warp * 16, lane);
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+  const float scale2 = a.sm_scale * kLog2e;
+
+  int slot = 0;
+  for (int j = 0; j < c.n; ++j) {
+    const int e = c.e0 + j;
+    const bool masked = a.flags[e] != 0;
+    cp_async_wait<kStages - 2>();  // pair j has landed
+    hopper::fence_async_smem();
+    __syncthreads();               // and pair j - 1's stage (or q) is free
+    const int jn = j + kStages - 1;
+    if (jn < c.n) stage_kv(jn, jn % kStages);
+    cp_async_commit();
+    const bf16* ks = ring + slot * 2 * TILE;
+    const float* bias_t = brow != nullptr ? bias_r + slot * kT : nullptr;
+    if (masked)  // uniform over the CTA: one flag a pair
+      fwd_pair<DP, true>(acc, qa, ks, ks + TILE, bias_t, a, e, it, rl0,
+                         scale2, m0, m1, l0, l1, t);
+    else
+      fwd_pair<DP, false>(acc, qa, ks, ks + TILE, bias_t, a, e, it, rl0,
+                          scale2, m0, m1, l0, l1, t);
+    slot = slot + 1 == kStages ? 0 : slot + 1;
+  }
+  cp_async_wait<0>();
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  // l = 0: the row has no live key (o = 0, lse -1e30)
+  const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
+  const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    acc[n][0] *= inv0; acc[n][1] *= inv0;
+    acc[n][2] *= inv1; acc[n][3] *= inv1;
+  }
+  store_rows<NO>(head_out<bf16>(a.o, a.os, b, h), a.os.s, acc, r0, Sq, D, t);
+  if (t == 0) {
+    const long long row0 = (long long)c.bh * Sq;
+    if (r0 < Sq) a.lse[row0 + r0] = l0 > 0.f ? m0 * kLn2 + logf(l0) : kNegInf;
+    if (r1 < Sq) a.lse[row0 + r1] = l1 > 0.f ? m1 * kLn2 + logf(l1) : kNegInf;
+  }
 }
 
 // One pair of the dq kernel: s = q k^T, dp = do v^T, p, ds, dq += ds k.
@@ -953,11 +1006,12 @@ cudaError_t launch_smem(Kernel kernel, int blocks, int smem, const Args& a) {
 template <int DP>
 cudaError_t launch(const Args& a, int dtype, int which) {
   const dim3 grid(a.n_out, a.B * a.H);
-  const int ctas = a.B * a.H * a.n_out;  // bf16 dq, dk/dv: in `order`
+  const int ctas = a.B * a.H * a.n_out;  // bf16: in `order`
   const bool bf = dtype == 1;
   if (which == kFwd) {
-    if (bf) sparse_fwd_bf16<DP><<<grid, kThreads, 0, a.stream>>>(a);
-    else sparse_fwd_f32<DP><<<grid, kThreads32, 0, a.stream>>>(a);
+    if (bf)
+      return launch_smem(sparse_fwd_bf16<DP>, ctas, fwd_smem_bytes<DP>(), a);
+    sparse_fwd_f32<DP><<<grid, kThreads32, 0, a.stream>>>(a);
   } else if (which == kDq) {
     if (bf)
       return launch_smem(sparse_dq_bf16<DP>, ctas, dq_smem_bytes<DP>(), a);
@@ -1013,7 +1067,7 @@ int run(int which, void* const* p, const long long* st, const int* d,
 // bits, flags, order, g_lse (null where a kernel does not use one; bias,
 // dbias and g_lse may be null). flags (uint8, one a pair: the pair needs
 // the mask) and order (int32 [H * n_out]: the segments, longest first)
-// are read by the bf16 dq and dk/dv kernels. ds_sparse_dq writes dq and
+// are read by the bf16 kernels. ds_sparse_dq writes dq and
 // delta = rowsum(do * o) - g_lse; ds_sparse_dkv reads that delta: launch
 // it after ds_sparse_dq on the same stream.
 // `strides`: (batch, head, seq) element strides of q, k, v, o, dout, dq,

@@ -28,8 +28,8 @@ NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
 # kernel name -> launches since the last reset
 LAUNCHES = collections.Counter()
 
-_P, _I, _F, _L, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
-    ctypes.c_longlong, ctypes.c_ulonglong
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+    ctypes.c_longlong
 _SIGNATURES = {
     "ds_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                      _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
@@ -57,10 +57,9 @@ _SIGNATURES = {
     "ds_lamb": [_P, _I, _L, _P, _P, _P] + [_F] * 8 + [_P],
     # x, y, n, h, scale, dtype, stream
     "ds_softmax": [_P, _P, _L, _I, _F, _I, _P],
-    # x, y, partial, partial_len, n, groups, transposed, R, C, num_bits,
-    # symmetric, stochastic, seed, dtype, vec, stream
-    "ds_quantize": [_P, _P, _P, _L, _L, _I, _I, _L, _L, _I, _I, _I, _U, _I,
-                    _I, _P],
+    # table (host int64 [n, 9]), n_tensors, partial, scale, count, chunks,
+    # groups, symmetric, stochastic, stream
+    "ds_quantize_multi": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
     # ptrs (15: q, k, v, o, dout, lse, delta, dq, dk, dv, bias, dbias, ptr,
     # idx, bits), strides (24), dims (11), sm_scale, stream
     "ds_sparse_fwd": [_P, _P, _P, _F, _P],

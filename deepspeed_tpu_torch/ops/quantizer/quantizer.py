@@ -15,6 +15,13 @@ layout in place; nothing is copied unless the column count is not a
 multiple of ``groups`` (a group then ends inside a reference row), where
 the wrapper quantizes a transposed copy.
 
+:func:`quantize_multi` fake-quantizes a list of tensors (a MoQ step's
+masters) in one call of ``ds_quantize_multi``: the table of tensors
+travels by value in the kernels' parameters (up to ``MAX_TENSORS`` a
+call), and two launches take every chunk's statistics, then round every
+chunk. The table's scratch and counters are cached per tensor signature,
+device and stream. :func:`quantize` is the call with one tensor.
+
 Stochastic rounding draws its noise from Philox4x32-10, keyed by
 ``seed`` with each element's index in the reference layout as the
 counter: the kernel and :func:`philox_uniform` (int64 PyTorch, 16-bit
@@ -25,10 +32,13 @@ noise injected into :func:`_quantize_rows` on both sides. There is no
 module-level seed counter: a caller that wants fresh noise on every call
 passes a new ``seed`` (the MoQ schedule and :class:`Quantizer` own one).
 
-CUDA tensors (fp32 or bf16) launch ``ds_quantize``; CPU tensors run
+CUDA tensors (fp32 or bf16) launch the kernel; CPU tensors run
 :func:`quantize_plain`.
 """
 
+import ctypes
+
+import numpy as np
 import torch
 
 from deepspeed_tpu_torch.ops import op_builder
@@ -36,7 +46,11 @@ from deepspeed_tpu_torch.ops._platform import use_kernel
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _VEC_ELEMS = {torch.float32: 4, torch.bfloat16: 8}   # one 16-byte vector
-CHUNK = 8192   # elements of one row a block of the kernel takes
+# csrc/quantizer.cu: elements of one group a chunk (kChunk) and tensors a
+# call (kMaxTensors)
+CHUNK = 16384
+MAX_TENSORS = 320
+_BF16, _TRANSPOSED, _VEC = 1, 2, 4   # the table's flags
 
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
@@ -134,51 +148,175 @@ def quantize_plain(x, num_bits=8, groups=1, symmetric=True, stochastic=False,
     return y.t() if transposed else y
 
 
+def _each(value, n, name):
+    """A per-tensor list from a scalar or a sequence of n values."""
+    if isinstance(value, (list, tuple)):
+        if len(value) != n:
+            raise ValueError(f"{name}: {len(value)} values for {n} tensors")
+        return list(value)
+    return [value] * n
+
+
+def quantize_multi_plain(tensors, num_bits=8, groups=1, symmetric=True,
+                         stochastic=False, seeds=None, *, transposed=False,
+                         out=None):
+    """The plain version of :func:`quantize_multi`: :func:`quantize_plain`
+    on each tensor (copied into ``out[i]`` when ``out`` is given)."""
+    n = len(tensors)
+    bits, groups = _each(num_bits, n, "num_bits"), _each(groups, n, "groups")
+    seeds = _each(seeds, n, "seeds")
+    transposed = _each(transposed, n, "transposed")
+    ys = [quantize_plain(x, b, g, symmetric, stochastic, sd, tr)
+          for x, b, g, sd, tr in zip(tensors, bits, groups, seeds,
+                                     transposed)]
+    if out is None:
+        return ys
+    return [o.copy_(y) for o, y in zip(out, ys)]
+
+
+def plan_calls(specs, max_tensors=MAX_TENSORS):
+    """The kernel calls of one multi-tensor call. ``specs``: (numel,
+    groups) of each tensor, in order. Returns a list of (first, stop,
+    chunks, groups): the call takes tensors [first, stop) (at most
+    ``max_tensors``), whose groups are cut into ``chunks`` chunks of
+    ``CHUNK`` elements, numbered tensor by tensor as the kernel numbers
+    them."""
+    calls = []
+    for first in range(0, len(specs), max_tensors):
+        stop = min(first + max_tensors, len(specs))
+        chunks = sum(g * -(-(n // g) // CHUNK) for n, g in specs[first:stop])
+        groups = sum(g for _, g in specs[first:stop])
+        calls.append((first, stop, chunks, groups))
+    return calls
+
+
+class _MultiPlan:
+    """The kernel calls of one tensor signature on one device and stream:
+    the table rows (host int64 [n, 9]: x, y, numel, groups, R, C, bits,
+    flags, seed; pointers, bits and seeds are filled in on every call),
+    and each call's partials, scales and arrival counters on the device
+    (the counters start at 0 and every call leaves them at 0)."""
+
+    def __init__(self, signature, device):
+        n = len(signature)
+        self.rows = np.zeros((n, 9), np.int64)
+        for i, (numel, groups, dtype, tr, rows, cols, vec) in \
+                enumerate(signature):
+            self.rows[i, 2:6] = (numel, groups, rows, cols)
+            self.rows[i, 7] = (_BF16 if dtype == torch.bfloat16 else 0) | \
+                (_TRANSPOSED if tr else 0) | (_VEC if vec else 0)
+        self.calls = [(
+            first, stop,
+            torch.empty(2 * chunks, dtype=torch.float32, device=device),
+            torch.empty(2 * groups, dtype=torch.float32, device=device),
+            torch.zeros(groups, dtype=torch.int32, device=device),
+            chunks, groups)
+            for first, stop, chunks, groups in plan_calls(
+                [sig[:2] for sig in signature])]
+
+
+_multi_cache = {}
+
+
+def quantize_multi(tensors, num_bits=8, groups=1, symmetric=True,
+                   stochastic=False, seeds=None, *, transposed=False,
+                   out=None):
+    """Fake-quantize every tensor of ``tensors`` (the reference's
+    ``quantize`` on each): ``num_bits``, ``groups``, ``seeds`` and
+    ``transposed`` are one value for all or one a tensor. Returns the list
+    of results, ``out`` when given (``out=tensors`` quantizes in place).
+    CUDA tensors: one call of ``ds_quantize_multi`` for up to
+    ``MAX_TENSORS`` tensors; CPU tensors: :func:`quantize_multi_plain`.
+    The tensors must not overlap."""
+    tensors = list(tensors)
+    n = len(tensors)
+    bits, groups = _each(num_bits, n, "num_bits"), _each(groups, n, "groups")
+    seeds = _each(seeds, n, "seeds")
+    transposed = _each(transposed, n, "transposed")
+    if out is not None:
+        out = list(out)
+        if len(out) != n:
+            raise ValueError(f"out: {len(out)} tensors for {n}")
+        for x, o in zip(tensors, out):
+            if o.shape != x.shape or o.dtype != x.dtype:
+                raise ValueError(f"out {tuple(o.shape)} {o.dtype} must match "
+                                 f"x {tuple(x.shape)} {x.dtype}")
+    if not n or not use_kernel(*tensors, *(out or ())):
+        return quantize_multi_plain(tensors, bits, groups, symmetric,
+                                    stochastic, seeds, transposed=transposed,
+                                    out=out)
+    results, srcs, dsts, sig, copies, keep = [], [], [], [], [], []
+    for i, x in enumerate(tensors):
+        g, tr = groups[i], transposed[i]
+        _check(x, bits[i], g, stochastic, seeds[i], tr)
+        if x.dtype not in _DTYPES:
+            raise TypeError(f"quantize kernel takes float32 or bfloat16, got "
+                            f"{x.dtype}")
+        y = torch.empty(x.shape, dtype=x.dtype, device=x.device) \
+            if out is None else out[i]
+        if not y.is_contiguous():
+            raise ValueError("quantize kernel writes a contiguous out")
+        results.append(y)
+        if x.numel() == 0:
+            continue
+        if tr and x.shape[1] % g:
+            # a group ends inside a reference row: quantize the reference
+            # layout itself
+            src = x.t().contiguous()
+            dst = torch.empty_like(src)
+            copies.append((y, dst))
+            tr = False
+        else:
+            src, dst = x.contiguous(), y
+        rows, cols = src.shape if tr else (0, 0)
+        width = cols // g if tr else src.numel() // g
+        vec = width % _VEC_ELEMS[x.dtype] == 0 and \
+            src.data_ptr() % 16 == 0 and dst.data_ptr() % 16 == 0
+        srcs.append(src)
+        dsts.append(dst)
+        sig.append((src.numel(), g, x.dtype, tr, rows, cols, vec))
+        keep.append(i)
+    if srcs:
+        _launch_multi(srcs, dsts, tuple(sig), [bits[i] for i in keep],
+                      [seeds[i] for i in keep], symmetric, stochastic)
+    for y, dst in copies:
+        y.copy_(dst.t())
+    return results
+
+
+def _launch_multi(srcs, dsts, signature, bits, seeds, symmetric, stochastic):
+    """The calls of ``ds_quantize_multi`` for contiguous ``srcs`` into
+    ``dsts`` (``signature``: the plan's key, one entry a tensor)."""
+    device = srcs[0].device
+    stream = torch.cuda.current_stream(device).cuda_stream
+    key = (signature, str(device), stream)
+    plan = _multi_cache.get(key)
+    if plan is None:
+        plan = _multi_cache[key] = _MultiPlan(signature, device)
+    rows = plan.rows
+    rows[:, 0] = [t.data_ptr() for t in srcs]
+    rows[:, 1] = [t.data_ptr() for t in dsts]
+    rows[:, 6] = bits
+    # the 64-bit seed's bits in an int64 cell
+    rows[:, 8] = [0 if sd is None else (int(sd) + 2 ** 63) % 2 ** 64 - 2 ** 63
+                  for sd in seeds] if stochastic else 0
+    lib = op_builder.load_kernels()
+    for first, stop, partial, scale, count, chunks, groups in plan.calls:
+        err = lib.ds_quantize_multi(
+            rows[first:stop].ctypes.data_as(ctypes.c_void_p), stop - first,
+            partial.data_ptr(), scale.data_ptr(), count.data_ptr(), chunks,
+            groups, int(symmetric), int(stochastic), stream)
+        op_builder.check_launch(err, "quantize")
+
+
 def quantize(x, num_bits=8, groups=1, symmetric=True, stochastic=False,
              seed=None, *, transposed=False, out=None):
     """Fake-quantize ``x`` (the reference's ``quantize``): returns a
     tensor of x's shape and dtype, ``out`` when given (``out=x``
-    quantizes in place). ``ds_quantize`` on CUDA tensors (two launches:
-    the per-block stats, then the scale and the rounding),
-    :func:`quantize_plain` on CPU tensors."""
-    if out is not None and (out.shape != x.shape or out.dtype != x.dtype):
-        raise ValueError(f"out {tuple(out.shape)} {out.dtype} must match x "
-                         f"{tuple(x.shape)} {x.dtype}")
-    if not use_kernel(x, out):
-        y = quantize_plain(x, num_bits, groups, symmetric, stochastic, seed,
-                           transposed)
-        return y if out is None else out.copy_(y)
-    _check(x, num_bits, groups, stochastic, seed, transposed)
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"quantize kernel takes float32 or bfloat16, got "
-                        f"{x.dtype}")
-    if out is not None and not out.is_contiguous():
-        raise ValueError("quantize kernel writes a contiguous out")
-    if transposed and x.shape[1] % groups:
-        # a group ends inside a reference row: quantize the reference
-        # layout itself
-        y = quantize(x.t().contiguous(), num_bits, groups, symmetric,
-                     stochastic, seed).t()
-        return y if out is None else out.copy_(y)
-    x = x.contiguous()
-    y = torch.empty_like(x) if out is None else out
-    n = x.numel()
-    if n == 0:
-        return y
-    group_len = n // groups
-    blocks = groups * -(-group_len // CHUNK)
-    partial = torch.empty(2 * blocks, dtype=torch.float32, device=x.device)
-    rows, cols = x.shape if transposed else (n, 1)
-    width = cols // groups if transposed else group_len
-    vec = int(width % _VEC_ELEMS[x.dtype] == 0 and x.data_ptr() % 16 == 0
-              and y.data_ptr() % 16 == 0)
-    err = op_builder.load_kernels().ds_quantize(
-        x.data_ptr(), y.data_ptr(), partial.data_ptr(), partial.numel(), n,
-        groups, int(transposed), rows, cols, num_bits, int(symmetric),
-        int(stochastic), 0 if seed is None else int(seed) & (2 ** 64 - 1),
-        _DTYPES[x.dtype], vec, torch.cuda.current_stream(x.device).cuda_stream)
-    op_builder.check_launch(err, "quantize")
-    return y
+    quantizes in place). :func:`quantize_multi` with one tensor."""
+    return quantize_multi([x], num_bits, groups, symmetric, stochastic,
+                          [seed], transposed=transposed,
+                          out=None if out is None else [out])[0]
 
 
 class Quantizer:

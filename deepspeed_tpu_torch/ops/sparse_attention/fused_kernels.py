@@ -26,7 +26,7 @@ What differs from the TPU design, and why:
   loops over its segment. The lists go to the device once, when the
   strategy is built, not on every call.
 * Tiles are the card's: 64 query rows × 64 keys (one warpgroup's
-  ``wgmma`` in the backward, ``mma.sync`` in the forward), not the TPU's
+  ``wgmma`` in the bf16 kernels), not the TPU's
   512 × 1024 (``DS_SPARSE_BQ``/``DS_SPARSE_BKC`` are not read). A fine
   block smaller than the tile (8, 16, 32) is masked per pair with a 64-bit
   word of fine-block bits; a larger one (a multiple of 64) spans several
@@ -34,9 +34,9 @@ What differs from the TPU design, and why:
   (they add nothing).
 * With the lists the host flags, once, the pairs that need mask
   arithmetic (a fine-block word that is not all-ones, a causal diagonal
-  tile, the key tail); the backward kernels run every other pair without
+  tile, the key tail); the bf16 kernels run every other pair without
   it. It also orders each list's output tiles longest segment first, the
-  order in which the backward kernels' grids walk them.
+  order in which the bf16 kernels' grids walk them.
 * The dq kernel computes delta = rowsum(do·o) − g_lse for its rows from
   the rows it stages, and writes it for the dk/dv kernel.
 * The packed region starts on a tile edge: the real region is padded with
@@ -166,7 +166,7 @@ class _Strategy:
         self.tile_pairs = int(np.count_nonzero(bits))
         self.fwd_lists = _csr(bits)
         self.bwd_lists = _csr(bits.transpose(0, 2, 1))
-        # the backward kernels' mask flags and CTA orders
+        # the bf16 kernels' mask flags and CTA orders
         walk = (self.fine, causal, self.causal_ntiles, self.Skv)
         self.fwd_walk = _walk(self.fwd_lists, self.n_qtiles, True, *walk)
         self.bwd_walk = _walk(self.bwd_lists, self.n_ktiles, False, *walk)
@@ -367,7 +367,7 @@ def sparse_attention_fwd(q, k, v, kpb, strat):
     _launch("sparse_fwd", "ds_sparse_fwd", strat, strat.fwd_dev,
             strat.n_qtiles, q, k, v, o=o, lse=lse,
             bias=None if kpb is None else kpb.float().contiguous(),
-            staged=(k, v))
+            staged=(q, k, v))
     return o, lse
 
 

@@ -30,8 +30,7 @@ import torch
 from torch import nn
 
 from deepspeed_tpu_torch.ops.quantizer.int8_linear import QuantDense
-from deepspeed_tpu_torch.ops.quantizer.quantizer import quantize as \
-    quantize_kernel
+from deepspeed_tpu_torch.ops.quantizer.quantizer import quantize_multi
 
 
 def transposed_weight_names(module):
@@ -109,7 +108,10 @@ class Quantizer:
     def quantize(self, params, overflow=False, eigenvalue_enabled=False,
                  block_eigenvalue=None, transposed=()):
         """Fake-quantize ``params`` (name -> tensor) in place, in name
-        order (the JAX tree walk's order for the port's names).
+        order (the JAX tree walk's order for the port's names): the seeds
+        and bit switches follow that order, and the tensors go to the
+        kernel together, one :func:`quantize_multi` call (out of place and
+        blended where the mixed-fp16 ratio is below 1).
         ``transposed``: the names stored as the transpose of the reference
         layout. ``block_eigenvalue``: ``{path_str(name): (curvature_ratio,
         block_id)}``; empty puts every tensor in block 0."""
@@ -121,6 +123,9 @@ class Quantizer:
         if self.q_mixed_fp16:
             self.quantize_real_ratio = max(
                 0.0, self.quantize_real_ratio - self.q_change_ratio)
+        # (tensor, bits, seed, transposed) quantized in place, and with the
+        # mixed-fp16 blend beside its ratio
+        in_place, mixed = [], []
         for name in sorted(params):
             x = params[name]
             if x.dim() < 2 or x.numel() % self.q_groups:
@@ -139,13 +144,25 @@ class Quantizer:
             if bits >= 16:
                 continue
             self.seed += 1
-            kw = dict(num_bits=bits, groups=self.q_groups,
-                      symmetric=self.q_type == 0,
-                      stochastic=self.q_rounding == 1, seed=self.seed,
-                      transposed=name in transposed)
+            item = (x, bits, self.seed, name in transposed)
             ratio = self.quantize_real_ratio
             if self.q_mixed_fp16 and ratio < 1.0:
-                qx = quantize_kernel(x, **kw)
-                x.copy_(ratio * x + (1.0 - ratio) * qx)
+                mixed.append((item, ratio))
             else:
-                quantize_kernel(x, out=x, **kw)
+                in_place.append(item)
+        # one multi-tensor call for each kind (one launch a step)
+        for items, mix in ((in_place, False), (mixed, True)):
+            if not items:
+                continue
+            if mix:
+                items, ratios = zip(*items)
+            xs, bits, seeds, trans = zip(*items)
+            kw = dict(num_bits=list(bits), groups=self.q_groups,
+                      symmetric=self.q_type == 0,
+                      stochastic=self.q_rounding == 1, seeds=list(seeds),
+                      transposed=list(trans))
+            if not mix:
+                quantize_multi(xs, out=xs, **kw)
+                continue
+            for x, qx, ratio in zip(xs, quantize_multi(xs, **kw), ratios):
+                x.copy_(ratio * x + (1.0 - ratio) * qx)

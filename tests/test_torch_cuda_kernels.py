@@ -674,6 +674,88 @@ def test_quantize_kernel_at_the_word_embedding_size(gen):
                                rtol=0, atol=0)
 
 
+def _bert_large_masters():
+    """BERT-large's 100 quantized fp32 masters (the 2-D parameters, in
+    name order, drawn from seed 0) and whether each is stored [out, in]."""
+    from deepspeed_tpu_torch.models import bert
+    from deepspeed_tpu_torch.runtime import quantize as quantize_mod
+    model = bert.BertForPreTraining(bert.PRESETS["bert-large"], seed=0)
+    tr = quantize_mod.transposed_weight_names(model)
+    items = [(n, p.detach().clone()) for n, p in
+             sorted(model.named_parameters()) if p.dim() >= 2]
+    del model
+    return [p for _, p in items], [n in tr for n, _ in items]
+
+
+@pytest.mark.parametrize("stochastic", [False, True])
+def test_quantize_multi_is_one_call_bit_equal_on_bert_large(gen,
+                                                              stochastic):
+    """A MoQ step's table: BERT-large's 100 masters, groups 8, 10 bits
+    (stochastic: 6), one call; out of place and in place, bit-equal to
+    the plain version per tensor; a second call is bit-equal (the
+    counters went back to 0)."""
+    xs, tr = _bert_large_masters()
+    assert len(xs) == 100
+    kw = dict(num_bits=6 if stochastic else 10, groups=8,
+              stochastic=stochastic, seeds=list(range(1, 101)),
+              transposed=tr)
+    want = quantizer.quantize_multi_plain(xs, **kw)
+    before = op_builder.LAUNCHES["quantize"]
+    got = quantizer.quantize_multi(xs, **kw)
+    again = quantizer.quantize_multi(xs, **kw)
+    assert op_builder.LAUNCHES["quantize"] == before + 2
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, w) and torch.equal(a, w)
+    del got, again
+    ys = [x.clone() for x in xs]
+    assert quantizer.quantize_multi(ys, out=ys, **kw)[0] is ys[0]
+    for y, w in zip(ys, want):
+        assert torch.equal(y, w)
+
+
+@pytest.mark.parametrize("symmetric", [True, False])
+@pytest.mark.parametrize("stochastic", [False, True])
+def test_quantize_multi_mixed_list_and_a_large_group(gen, symmetric,
+                                                     stochastic):
+    """fp32 and bf16, [out, in] and not, groups 1/3/7/8/16, ragged rows, a
+    group ending inside a reference row, bits 3-10 a tensor, and a 64 MB
+    group (4096 chunks) beside them: bit-equal to the plain version per
+    tensor, one call, twice in a row (the counters back at 0)."""
+    specs = [((4096, 4096), 1, False, torch.float32, 8),
+             ((63, 77), 7, False, torch.bfloat16, 4),
+             ((3072, 1024), 8, True, torch.float32, 10),
+             ((21, 8), 1, True, torch.bfloat16, 6),
+             ((40, 24), 16, True, torch.float32, 8),
+             ((1000, 9), 3, False, torch.bfloat16, 3),
+             ((256, 64), 8, True, torch.bfloat16, 8)]
+    xs = [_rand(gen, *shape, dtype=dt) * 3 for shape, _, _, dt, _ in specs]
+    xs[1][0] = 0.0
+    kw = dict(num_bits=[b for *_, b in specs],
+              groups=[g for _, g, *_ in specs], symmetric=symmetric,
+              stochastic=stochastic, seeds=[7 * i + 1 for i in
+                                            range(len(specs))],
+              transposed=[tr for _, _, tr, *_ in specs])
+    want = quantizer.quantize_multi_plain(xs, **kw)
+    before = op_builder.LAUNCHES["quantize"]
+    for _ in range(2):
+        got = quantizer.quantize_multi(xs, **kw)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+    assert op_builder.LAUNCHES["quantize"] == before + 2
+
+
+def test_quantize_multi_splits_past_the_table(gen):
+    """More tensors than a call's table holds: ceil(700 / 320) calls,
+    every tensor bit-equal to the plain version."""
+    xs = [_rand(gen, 8, 16 + i % 5 * 4, dtype=torch.float32)
+          for i in range(700)]
+    before = op_builder.LAUNCHES["quantize"]
+    got = quantizer.quantize_multi(xs, 4, 2)
+    assert op_builder.LAUNCHES["quantize"] == before + 3
+    for g, w in zip(got, quantizer.quantize_multi_plain(xs, 4, 2)):
+        assert torch.equal(g, w)
+
+
 def _check_softmax(got, want, dtype):
     assert got.dtype == dtype and got.shape == want.shape
     if dtype == torch.float32:
@@ -741,7 +823,7 @@ def test_int8_quant_dense_on_cuda(gen):
 
 def test_moq_train_batch_launches_the_quantize_kernel(gen):
     """A MoQ step on the tiny GPT-2 quantizes its 10 matrices (wte, wpe,
-    four dense weights a layer) in place, one launch each, and leaves each
+    four dense weights a layer) in place, in one launch, and leaves each
     group with at most 2^bits levels."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models import gpt2
@@ -755,7 +837,7 @@ def test_moq_train_batch_launches_the_quantize_kernel(gen):
     batch = gpt2.synthetic_batch(4, 32, 512, seed=3)
     op_builder.reset_launch_counts()
     losses = [float(engine.train_batch(batch=batch)) for _ in range(3)]
-    assert op_builder.LAUNCHES["quantize"] == 3 * 10
+    assert op_builder.LAUNCHES["quantize"] == 3
     assert all(torch.isfinite(torch.tensor(losses)))
     for name, p in engine.params.items():
         if p.dim() == 2:
@@ -832,6 +914,72 @@ def test_sparse_kernels_match_plain(gen, dtype, block, causal, seq, packed,
         torch.testing.assert_close(db, want[3], rtol=tol, atol=tol)
     else:
         assert db is None and want[3] is None
+
+
+# (block, causal, seq, packed, bias, D, empty): head dims 16, 24 and 32
+# (DP 32), 64; fine blocks 16, 32, 64; query tails (seq % 64: 16, 32) and
+# the key tail of the raw lists; rows with no live key; packed and raw
+@pytest.mark.parametrize("block,causal,seq,packed,bias,D,empty", [
+    (16, False, 208, False, True, 16, False),
+    (32, True, 352, True, True, 32, True),
+    (64, False, 512, False, False, 64, True),
+    (64, True, 1024, True, True, 64, False),
+    (16, True, 144, False, False, 24, False),
+    (32, False, 96, False, True, 64, False),
+    (16, True, 512, True, False, 64, True),
+    (32, False, 256, True, False, 16, False)])
+def test_sparse_fwd_kernel_shapes_match_plain(gen, block, causal, seq,
+                                              packed, bias, D, empty):
+    """The bf16 forward against its plain version (o 2e-2, lse 2e-5), o =
+    0 and lse -1e30 on rows with no live key, and a rerun bit-equal."""
+    B, H = 2, 3
+    strat = _sparse_strategy(block, causal, seq, H, packed, empty)
+    q = _rand(gen, B, H, seq, D, dtype=torch.bfloat16)
+    k, v = (_rand(gen, B, H, strat.Skv, D, dtype=torch.bfloat16)
+            for _ in range(2))
+    kpb = _rand(gen, B, strat.Skv, dtype=torch.float32) if bias else None
+    o, lse = sfk.sparse_attention_fwd(q, k, v, kpb, strat)
+    o2, lse2 = sfk.sparse_attention_fwd(q, k, v, kpb, strat)
+    o_ref, lse_ref = sfk.sparse_attention_fwd_plain(q, k, v, kpb, strat)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    torch.testing.assert_close(o.float(), o_ref.float(), rtol=2e-2,
+                               atol=2e-2)
+    torch.testing.assert_close(lse, lse_ref, rtol=2e-5, atol=2e-5)
+    if empty:
+        dead = slice(block, (3 if causal else 2) * block)
+        assert (lse[:, :, dead] == -1e30).all()
+        assert (o[:, :, dead] == 0).all()
+
+
+@pytest.mark.parametrize("path", ["bert", "bert_predicated", "gpt2"])
+def test_sparse_fwd_kernel_at_the_paths_shapes(gen, path):
+    """Full width: the sparse BERT path (Fixed, block 64, window 256, 1
+    global, B 4, H 16, S 2048; packed and raw lists) and the causal sparse
+    GPT-2 path (sparse:1024/128, B 2, S 4096, packed), D 64, bf16."""
+    H = 16
+    if path == "gpt2":
+        B, seq = 2, 4096
+        lay, block = sfk.sparse_mode_layout("sparse:1024/128", H, seq)
+        strat = sfk._get_plan(np.asarray(lay) != 0, block, True, None,
+                              "cuda").strat
+    else:
+        B, seq = 4, 2048
+        lay = ssc.FixedSparsityConfig(
+            num_heads=H, block=64, num_local_blocks=4,
+            num_global_blocks=1).make_layout(seq) != 0
+        strat = sfk._get_plan(lay, 64, False, None, "cuda").strat \
+            if path == "bert" else \
+            sfk._get_strategy(lay, 64, False, None, device="cuda")
+    q = _rand(gen, B, H, seq, 64, dtype=torch.bfloat16)
+    k, v = (_rand(gen, B, H, strat.Skv, 64, dtype=torch.bfloat16)
+            for _ in range(2))
+    o, lse = sfk.sparse_attention_fwd(q, k, v, None, strat)
+    o2, lse2 = sfk.sparse_attention_fwd(q, k, v, None, strat)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    o_ref, lse_ref = sfk.sparse_attention_fwd_plain(q, k, v, None, strat)
+    torch.testing.assert_close(o.float(), o_ref.float(), rtol=2e-2,
+                               atol=2e-2)
+    torch.testing.assert_close(lse, lse_ref, rtol=2e-5, atol=2e-5)
 
 
 def test_sparse_kernels_read_strided_views(gen):

@@ -226,3 +226,91 @@ def test_fp16_overflow_skips_the_quantizer():
     assert engine.skipped_steps == 1 and engine.quantizer.qsteps == 0
     for k, p in engine.params.items():
         assert torch.equal(p.detach(), before[k]), k
+
+
+class _PerTensorLoop(quantize.Quantizer):
+    """The schedule as it ran one quantize call a tensor, in name order
+    (before its tensors went to the kernel in one call): the reference for
+    the batched :meth:`Quantizer.quantize`."""
+
+    @torch.no_grad()
+    def quantize(self, params, overflow=False, eigenvalue_enabled=False,
+                 block_eigenvalue=None, transposed=()):
+        from deepspeed_tpu_torch.ops.quantizer.quantizer import quantize as q
+        if overflow and not eigenvalue_enabled:
+            return
+        self.qsteps += 1
+        if self.q_mixed_fp16:
+            self.quantize_real_ratio = max(
+                0.0, self.quantize_real_ratio - self.q_change_ratio)
+        for name in sorted(params):
+            x = params[name]
+            if x.dim() < 2 or x.numel() % self.q_groups:
+                continue
+            self._seen_blocks.add(0)
+            self._maybe_switch(0, 1)
+            bits = self.q_start_bits[0]
+            if bits >= 16:
+                continue
+            self.seed += 1
+            kw = dict(num_bits=bits, groups=self.q_groups,
+                      symmetric=self.q_type == 0,
+                      stochastic=self.q_rounding == 1, seed=self.seed,
+                      transposed=name in transposed)
+            ratio = self.quantize_real_ratio
+            if self.q_mixed_fp16 and ratio < 1.0:
+                qx = q(x, **kw)
+                x.copy_(ratio * x + (1.0 - ratio) * qx)
+            else:
+                q(x, out=x, **kw)
+
+
+@pytest.mark.parametrize("mixed,rounding,qtype", [
+    (False, 0, 0), (True, 0, 0), (False, 1, 0), (True, 1, 1), (False, 0, 1)])
+def test_batched_quantize_matches_the_per_tensor_loop_and_jax(mixed,
+                                                               rounding,
+                                                               qtype):
+    """Six steps of the tiny GPT-2's parameters (perturbed between steps
+    as an optimizer would), 8 -> 6 bits with period 2 (bit switches at
+    steps 2 and 4), groups 8, with and without ``q_mixed_fp16``: the
+    batched schedule leaves them bit-equal to the per-tensor loop, and,
+    for nearest rounding, to the JAX ``Quantizer`` over the flax layout."""
+    model = gpt2.GPT2LMHeadModel(gpt2.PRESETS["tiny"], device="cpu")
+    trans = quantize.transposed_weight_names(model)
+    names = dict(model.named_parameters())
+    rng = np.random.default_rng(7)
+    start = {k: rng.standard_normal(tuple(p.shape)).astype(np.float32) * 0.1
+             for k, p in names.items()}
+    kw = dict(q_groups=8, q_mixed_fp16=mixed, q_change_ratio=0.3,
+              q_type=qtype, q_rounding=rounding, q_start_bits=8,
+              q_target_bits=6, q_period=2)
+    got_q, loop_q = quantize.Quantizer(**kw), _PerTensorLoop(**kw)
+    jax_q = jax_quantize.Quantizer(**kw) if rounding == 0 else None
+    got = {k: torch.from_numpy(v.copy()) for k, v in start.items()}
+    loop = {k: torch.from_numpy(v.copy()) for k, v in start.items()}
+    jtree = {k: jnp.asarray(v.T if k in trans else v)
+             for k, v in start.items()}
+    for step in range(6):
+        got_q.quantize(got, transposed=trans)
+        loop_q.quantize(loop, transposed=trans)
+        assert got_q.q_start_bits == loop_q.q_start_bits
+        assert got_q.seed == loop_q.seed
+        for k in got:
+            assert torch.equal(got[k], loop[k]), (step, k)
+        if jax_q is not None:
+            jtree = jax_q.quantize(jtree)
+            for k in got:
+                want = np.asarray(jtree[k])
+                np.testing.assert_array_equal(
+                    got[k].numpy(), want.T if k in trans else want,
+                    err_msg=f"{step} {k}")
+        # an update of every parameter before the next step
+        noise = {k: rng.standard_normal(v.shape).astype(np.float32) * 1e-3
+                 for k, v in start.items()}
+        for k in got:
+            got[k] += torch.from_numpy(noise[k])
+            loop[k] += torch.from_numpy(noise[k])
+            if jax_q is not None:
+                jtree[k] = jtree[k] + jnp.asarray(
+                    noise[k].T if k in trans else noise[k])
+    assert got_q.current_bits() == 6

@@ -38,9 +38,10 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 B, H, S, D = 2, 2, 128, 16
 
 
-def _layout(name, block, mod=jsc, seq=S):
-    """(layout, causal) of a named config at (H, seq)."""
-    random.seed(7)
+def _layout(name, block, mod=jsc, seq=S, seed=7):
+    """(layout, causal) of a named config at (H, seq); ``seed`` seeds
+    BigBird's and Variable's random blocks."""
+    random.seed(seed)
     cfg = {
         "fixed": lambda: mod.FixedSparsityConfig(
             num_heads=H, block=block, num_local_blocks=4,
@@ -423,52 +424,10 @@ def _live(word, rl, cl, f, n):
     return ((word >> shift) & np.uint64(1)) == 1
 
 
-def _emulate_fwd(q, k, v, kpb, strat):
-    """The forward kernel's loop over the row-major lists, in numpy."""
-    Bq, Hq, Sq, _ = q.shape
-    Skv = k.shape[2]
-    ptr, idx, bits = strat.fwd_lists
-    T, f = fk.TILE, strat.fine
-    n = T // f
-    scale = D ** -0.5
-    o = np.zeros(q.shape, np.float64)
-    lse = np.zeros((Bq, Hq, Sq))
-    for b in range(Bq):
-        for h in range(Hq):
-            for it in range(strat.n_qtiles):
-                rows = np.arange(it * T, min((it + 1) * T, Sq))
-                m = np.full(len(rows), fk.NEG_INF)
-                l = np.zeros(len(rows))
-                acc = np.zeros((len(rows), D))
-                seg = h * strat.n_qtiles + it
-                for e in range(ptr[seg], ptr[seg + 1]):
-                    kt = idx[e]
-                    keys = np.arange(kt * T, min((kt + 1) * T, Skv))
-                    live = _live(bits[e], rows - it * T, keys - kt * T, f, n)
-                    if strat.causal and kt < strat.causal_ntiles:
-                        live &= keys[None, :] <= rows[:, None]
-                    x = np.where(live, q[b, h, rows] @ k[b, h, keys].T *
-                                 scale, fk.NEG_INF)
-                    if kpb is not None:
-                        x = x + kpb[b, keys][None, :]
-                    m_new = np.maximum(m, x.max(1))
-                    p = np.where((m_new <= fk.NEG_INF / 2)[:, None], 0.0,
-                                 np.exp(x - m_new[:, None]))
-                    alpha = np.exp(m - m_new)
-                    l = l * alpha + p.sum(1)
-                    acc = acc * alpha[:, None] + p @ v[b, h, keys]
-                    m = m_new
-                l_safe = np.where(l == 0, 1.0, l)
-                o[b, h, rows] = acc / l_safe[:, None]
-                lse[b, h, rows] = m + np.log(l_safe)
-    return o, lse
-
-
-# The bf16 backward kernels' walk (csrc/sparse_attention.cu): one CTA per
-# (output tile, batch element), the output tiles in the strategy's order
-# (longest segment first); the segment's streamed tiles come through the
-# flash backward's ring of 3 slots (``_Ring``); mask arithmetic runs only
-# on the flagged pairs.
+# The bf16 kernels' walk (csrc/sparse_attention.cu): one CTA per (output
+# tile, batch element), the output tiles in the strategy's order (longest
+# segment first); the segment's streamed tiles come through the ring of 3
+# slots (``_Ring``); mask arithmetic runs only on the flagged pairs.
 
 
 def _tile_rows(x, start):
@@ -505,6 +464,55 @@ def _pair_live(strat, e, bits, qt, kt):
     if strat.causal and kt < strat.causal_ntiles:
         live &= keys[None, :] <= rows[:, None]
     return live
+
+
+def _emulate_fwd(q, k, v, kpb, strat):
+    """o and lse of the bf16 forward kernel's walk over the row-major
+    lists: its CTA order, the ring, the online softmax in the log2 domain
+    (q k^T sm_scale log2e + bias log2e, exp2; lse = m ln2 + log l), and
+    mask code (-1e30, p = 0 while a row's max is -1e30) only on the
+    flagged pairs, whose unflagged neighbours must be live on every row of
+    the sequence."""
+    Bq, Hq, Sq, _ = q.shape
+    Skv, T = k.shape[2], fk.TILE
+    ptr, idx, bits = strat.fwd_lists
+    flags = strat.fwd_walk[0]
+    log2e = np.log2(np.e)
+    scale2 = D ** -0.5 * log2e
+    o, lse = np.zeros(q.shape), np.zeros((Bq, Hq, Sq))
+    for b, h, it, seg in _ctas(strat, strat.fwd_walk, strat.n_qtiles, Bq):
+        q0 = it * T
+        live_r = np.arange(q0, q0 + T) < Sq
+        Q = _tile_rows(q[b, h], q0)
+        m, l = np.full(T, fk.NEG_INF), np.zeros(T)
+        acc = np.zeros((T, q.shape[-1]))
+        e0, cnt = ptr[seg], ptr[seg + 1] - ptr[seg]
+        ring = _Ring(cnt)
+        for j in range(cnt):
+            ring.take(j)
+            e, kt = e0 + j, idx[e0 + j]
+            K, V = _tile_rows(k[b, h], kt * T), _tile_rows(v[b, h], kt * T)
+            bias = np.zeros(T) if kpb is None else _tile_vals(kpb[b], kt * T,
+                                                              0.0)
+            x = Q @ K.T * scale2 + bias[None, :] * log2e
+            live = _pair_live(strat, e, bits, it, kt)
+            if flags[e]:
+                x = np.where(live, x, fk.NEG_INF)   # the mask code
+            else:
+                assert live[live_r].all()           # no mask code
+            m_new = np.maximum(m, x.max(1))
+            dead = (m_new <= fk.NEG_INF / 2) & bool(flags[e])
+            p = np.where(dead[:, None], 0.0, np.exp2(x - m_new[:, None]))
+            alpha = np.exp2(m - m_new)
+            l = l * alpha + p.sum(1)
+            acc = acc * alpha[:, None] + p @ V
+            m = m_new
+        inv = np.where(l > 0, 1.0 / np.where(l > 0, l, 1.0), 0.0)
+        o[b, h, q0:q0 + T] = (acc * inv[:, None])[live_r]
+        lse[b, h, q0:q0 + T] = np.where(
+            l > 0, m * np.log(2.0) + np.log(np.where(l > 0, l, 1.0)),
+            fk.NEG_INF)[live_r]
+    return o, lse
 
 
 def _emulate_dq(q, k, v, kpb, do, o, lse, strat, g_lse=None):
@@ -699,6 +707,44 @@ def test_strategy_flags_and_orders_match_a_brute_force_count(
                                    (strat.bwd_walk, want["bwd"])):
         np.testing.assert_array_equal(got[0], flags)
         np.testing.assert_array_equal(got[1], order)
+
+
+@pytest.mark.parametrize("name,block,seq,seed", [
+    ("fixed", 64, 2048, 7),          # the sparse BERT path's layout
+    ("fixed", 16, 144, 7),           # a key tail in the raw lists
+    ("fixed-uni", 128, 1024, 7),
+    ("fixed-uni", 8, 136, 7),        # causal, ragged
+    ("bigbird", 32, 512, 0), ("bigbird", 32, 512, 17),
+    ("bigbird", 16, 208, 48), ("bigbird-uni", 32, 256, 3),
+    ("longformer", 16, 80, 7)])
+@pytest.mark.parametrize("packed", [True, False])
+def test_unflagged_pairs_are_all_live_in_the_element_mask(name, block, seq,
+                                                          seed, packed):
+    """The bf16 kernels run no mask code on a pair the host flags 0: on
+    every such pair of the row- and column-major lists each (row < Sq,
+    key) of the 64 x 64 tile is live in the strategy's element mask, and
+    every key lies before Skv."""
+    lay, causal = _layout(name, block, tsc, seq, seed)
+    lay = lay != 0
+    strat = fk._get_plan(lay, block, causal, D ** -0.5, "cpu").strat \
+        if packed else fk._get_strategy(lay, block, causal, D ** -0.5)
+    T = fk.TILE
+    mask = strat.element_mask("cpu").numpy()
+    unflagged = 0
+    for (ptr, idx, _), (flags, _), n_out, rows_out in (
+            (strat.fwd_lists, strat.fwd_walk, strat.n_qtiles, True),
+            (strat.bwd_lists, strat.bwd_walk, strat.n_ktiles, False)):
+        for seg in range(len(ptr) - 1):
+            h, out = divmod(seg, n_out)
+            for e in range(ptr[seg], ptr[seg + 1]):
+                if flags[e]:
+                    continue
+                qt, kt = (out, idx[e]) if rows_out else (idx[e], out)
+                assert (kt + 1) * T <= strat.Skv
+                assert mask[h, qt * T:(qt + 1) * T, kt * T:(kt + 1) * T].all()
+                unflagged += 1
+    if name == "fixed" and block == 64:
+        assert unflagged == 2 * strat.tile_pairs   # every pair, both lists
 
 
 def test_bert_path_dkv_lists_run_the_longest_first():
