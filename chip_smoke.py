@@ -140,10 +140,33 @@ Phases, each fatal on failure:
 14. GPT-2 medium with ``attention_mode="sparse:1024/128"`` (causal; a
    decomposition with dense global rows and packed global columns), bs 2
    × seq 4096, positions widened, bf16, Adam ``sweep``, 5 steps: exactly
-   24 sparse_fwd, 24 sparse_dq, 24 sparse_dkv and 1 adam a step.
+   24 sparse_fwd, 24 sparse_dq, 24 sparse_dkv and 1 adam a step;
+15. continuous-batching serving: GPT-2 medium at full width through
+   ``init_serving`` (bf16; max_batch 8, block 16, prefill_chunk 256,
+   max_model_len 1024, num_blocks 0, which sizes 513 blocks) on a trace of
+   32 requests all at t = 0 (prompts 8-896 tokens, 16-128 new, uniform
+   from seed 0, greedy): the ``paged`` impl, the ``gather`` impl eager
+   and graph-replayed (twice) and with an int8 KV cache. Launch counts
+   zeroed just before each run and read just after: on the gather impl
+   exactly 24 decode launches a decode dispatch and nothing else; every
+   request finishes by length (``max_tokens``); the graph run's tokens
+   equal the eager run's and the rerun's, with one capture; the first
+   decode step's logits within 0.1 of the same step with
+   ``decode_attention_plain``; the kernel on the pools' gathered view with
+   per-slot lengths including 0 against its plain version. Then a
+   profiled window of 16 decode steps per impl (device idle share,
+   kernels a dispatch, device ms by group, the tracer's spans in the
+   trace). Then the trace in fp32 with TF32 off four ways, each pair
+   equal request by request or first diverging at a near tie (top-2
+   logit gap < 1e-4, printed): paged against gather, num_blocks 129
+   (preempting) against auto, speculation (exact, k 4, self-draft)
+   against off, and the prefix cache on against off (and again on a
+   variant whose prompts share a 256-token prefix, where it hits).
 
 Prints an ``e2e`` JSON line, a ``train`` JSON line, a ``bert`` JSON line,
 a ``moq`` JSON line, an ``int8`` JSON line, a ``sparse`` JSON line, a
+``serving`` JSON line (per run: useful tokens/s, TTFT and inter-token
+latency p50/p99, decode ms a dispatch, launches a dispatch), a
 ``kernels`` JSON line (the softmax, on no path as in the JAX package,
 with 0 launches, and its C entry's and ``torch.softmax``'s device times
 from the profiler; the decode rows' ``single_stream`` and
@@ -2516,6 +2539,402 @@ def sparse_kernel_rows(torch, np, sfk, sk, ssc):
     return rows
 
 
+# phase 15, continuous-batching serving: GPT-2 medium through init_serving
+SERVE_CFG = {"max_batch": 8, "block_size": 16, "prefill_chunk": 256,
+             "max_model_len": 1024, "num_blocks": 0}
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 32, (8, 896), (16, 128)
+SERVE_PREEMPT_BLOCKS = 129   # 128 usable blocks: 2048 positions for 8 slots
+SERVE_SHARED_PREFIX = 256    # the prefix-cache pair's shared system prompt
+SERVE_TIE_GAP = 1e-4         # a divergence must be a near tie in fp32
+SERVE_LOGIT_TOL = 0.1        # first decode step, kernel against plain, bf16
+SERVE_WINDOW = 16            # steps in a profiled window of decode
+
+
+def serving_trace(np, vocab, shared_prefix=0):
+    """32 requests, all submitted at once: prompts of 8-896 tokens and
+    16-128 new tokens, uniform from seed 0 (with ``shared_prefix``, the
+    first that many tokens of every prompt are one seeded system
+    prompt, cut back to 896)."""
+    rng = np.random.default_rng(0)
+    prefix = np.random.default_rng(1).integers(0, vocab, shared_prefix)
+    trace = []
+    for _ in range(SERVE_REQUESTS):
+        p = int(rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1))
+        g = int(rng.integers(SERVE_NEW[0], SERVE_NEW[1] + 1))
+        ids = np.concatenate([prefix, rng.integers(0, vocab, p)])
+        trace.append((ids[:SERVE_PROMPT[1]], g))
+    return trace
+
+
+def serve_trace(torch, np, srv, trace):
+    """Drive ``trace`` through ``srv.serve_forever`` with every request
+    submitted at t = 0. Returns the tokens and finish reasons request by
+    request and the end-to-end numbers: useful tokens/s, TTFT and
+    inter-token latency p50/p99 (each token's delivery time, by wrapping
+    the server's ``_deliver``), decode ms a dispatch (host time of each
+    ``_run_decode``, which ends in the dispatch's one sync)."""
+    times, dispatch_s = {}, []
+    deliver, run_decode = srv._deliver, srv._run_decode
+
+    def timed_deliver(req, tokens, now):
+        n = deliver(req, tokens, now)
+        times.setdefault(req.req_id, []).extend([now] * n)
+        return n
+
+    def timed_decode(slots):
+        t0 = time.perf_counter()
+        run_decode(slots)
+        dispatch_s.append(time.perf_counter() - t0)
+
+    srv._deliver, srv._run_decode = timed_deliver, timed_decode
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [srv.submit(p, max_new_tokens=g) for p, g in trace]
+    outs = {o.req_id: o for o in srv.serve_forever()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    srv._deliver, srv._run_decode = deliver, run_decode
+    res = [outs[r] for r in rids]
+    ttft = [o.ttft_s * 1e3 for o in res]
+    itl = [(b - a) * 1e3 for r in rids
+           for a, b in zip(times[r], times[r][1:])]
+    n_tok = sum(len(o.tokens) for o in res)
+    return {"tokens": [o.tokens for o in res],
+            "reasons": [o.finish_reason for o in res],
+            "metrics": {
+                "wall_s": wall, "useful_tokens": n_tok,
+                "useful_tokens_per_s": n_tok / wall,
+                "ttft_ms_p50": float(np.percentile(ttft, 50)),
+                "ttft_ms_p99": float(np.percentile(ttft, 99)),
+                "itl_ms_p50": float(np.percentile(itl, 50)),
+                "itl_ms_p99": float(np.percentile(itl, 99)),
+                "decode_dispatches": len(dispatch_s),
+                "decode_ms_per_dispatch_median":
+                    statistics.median(dispatch_s) * 1e3,
+                "preemptions": srv.scheduler.preemptions_total,
+                "compile_stats": srv.compile_stats()}}
+
+
+def decode_window(torch, srv, trace, tracer_mod):
+    """Profile SERVE_WINDOW steps of pure decode: 8 requests of the
+    trace's first prompts cut to 32 tokens (128 new), stepped until every
+    slot decodes, then the window under ``torch.profiler`` with the
+    tracer's ``record_function`` spans on. Device idle share = 1 - the
+    kernels' summed device time over the window's wall time; kernels a
+    dispatch from the profiler's kernel count."""
+    from torch.profiler import ProfilerActivity, profile
+    for p, _ in trace[:srv.max_batch]:
+        srv.submit(p[:32], max_new_tokens=SERVE_NEW[1])
+    from deepspeed_tpu_torch.serving.scheduler import RequestState
+    while sum(r is not None and r.state is RequestState.RUNNING
+              for r in srv.scheduler.slots) < srv.max_batch:
+        srv.step()
+    srv.step()
+    old = tracer_mod.set_tracer(tracer_mod.Tracer(enabled=True,
+                                                  torch_annotations=True))
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(SERVE_WINDOW):
+                srv.step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        tracer_mod.set_tracer(old)
+    busy, kernels, groups, spans = 0.0, 0, {}, set()
+    for ev in prof.key_averages():
+        if ev.key in ("serving_step", "serving_decode", "serving_prefill"):
+            # the spans also show on the device timeline as annotations
+            # covering their kernels: not device work of their own
+            spans.add(ev.key)
+            continue
+        if ev.device_type != torch.autograd.DeviceType.CUDA or \
+                ev.self_device_time_total <= 0:
+            continue
+        ms = ev.self_device_time_total / 1e3
+        busy += ms
+        kernels += ev.count
+        name = ev.key.lower()
+        group = ("decode_attention" if "decode_kernel" in name else
+                 "matmul" if any(s in name for s in (
+                     "gemm", "gemv", "cutlass", "nvjet", "xmma")) else
+                 "memcpy" if "memcpy" in name else
+                 "index/gather" if "index" in name else "other")
+        groups[group] = groups.get(group, 0.0) + ms
+    srv.serve_forever()      # drain
+    return {"window_steps": SERVE_WINDOW, "wall_ms": wall_ms,
+            "device_busy_ms": busy, "device_idle_share": 1 - busy / wall_ms,
+            "kernels_per_dispatch": kernels / SERVE_WINDOW,
+            "device_ms_per_dispatch_by_group": {
+                k: v / SERVE_WINDOW for k, v in groups.items()},
+            "spans_in_trace": sorted(spans)}
+
+
+@contextlib.contextmanager
+def plain_decode(runner_mod, decode):
+    """Route the runner's decode attention through the plain version."""
+    saved = runner_mod.decode_attention
+    runner_mod.decode_attention = lambda q, k, v, lens, k_scale=None, \
+        v_scale=None: decode.decode_attention_plain(
+            q, k, v, lens, k_scale=k_scale, v_scale=v_scale)
+    try:
+        yield
+    finally:
+        runner_mod.decode_attention = saved
+
+
+def first_decode_check(torch, np, srv, trace, runner_mod, decode, vocab):
+    """The first decode dispatch's logits on the kernel against the same
+    step with ``decode_attention_plain``, on the card (bf16): the inputs
+    of the server's first decode call are kept and the one-token stack is
+    run again eagerly both ways. Returns (max abs err, max |logit|)."""
+    seen = {}
+    inner = srv._decode_fn
+
+    def spy(*args):
+        seen.setdefault("args", [np.array(a) for a in args])
+        return inner(*args)
+
+    srv._decode_fn = spy
+    for p, g in trace[:srv.max_batch]:
+        srv.submit(p, max_new_tokens=g)
+    while "args" not in seen:
+        srv.step()
+    srv._decode_fn = inner
+    bt, pos, active, tok, _, _, lanes, budget = seen["args"]
+    r = srv.runner
+    live = active & (budget > 0)
+
+    def logits():
+        ints = r.upload(r.step_inputs(tok, pos, live, bt, lanes))
+        rows = torch.from_numpy(live).cuda()
+        return r.stack_decode(ints, len(pos))[rows][:, :vocab]
+
+    got = logits()
+    with plain_decode(runner_mod, decode):
+        want = logits()
+    torch.cuda.synchronize()
+    srv.serve_forever()
+    return (got - want).abs().max().item(), want.abs().max().item()
+
+
+def check_gathered_view(torch, srv, decode):
+    """The decode kernel on the serving pools' gathered view (layer 0,
+    every slot's table of a finished run, a random query) with per-slot
+    lengths including 0, against its plain version (2e-2, bf16)."""
+    B, MB = srv.max_batch, srv.max_blocks_per_seq
+    bt = torch.arange(1, B * MB + 1, device="cuda").remainder(
+        srv.cache.num_blocks - 1).add(1).view(B, MB)
+    k, v, ks, vs = srv.cache.gather(0, bt)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q = torch.randn(B, srv.cache.n_head, 1, srv.cache.head_dim,
+                    generator=gen, device="cuda").to(k.dtype
+                                                     if ks is None
+                                                     else torch.bfloat16)
+    T = k.shape[2]
+    lens = torch.tensor([0, 1, 15, 16, 17, 513, T - 1, T][:B],
+                        dtype=torch.int32, device="cuda")
+    got = decode.decode_attention(q, k, v, lens, k_scale=ks, v_scale=vs)
+    want = decode.decode_attention_plain(q, k, v, lens, k_scale=ks,
+                                         v_scale=vs)
+    torch.cuda.synchronize()
+    # the plain version has no zero-length rule: slot 0 is checked alone
+    err, ok = close(got[1:], want[1:], 2e-2)
+    if not ok or not bool((got[0] == 0).all()):
+        raise AssertionError(f"decode kernel on the serving view disagrees "
+                             f"with its plain version: {err}")
+    return err
+
+
+def near_tie_gap(torch, model, prompt, tokens, j, vocab):
+    """Top-2 logit gap of the fp32 model at the position that produced
+    token j of a request (prompt + tokens[:j])."""
+    ids = torch.tensor(list(prompt) + list(tokens[:j]), device="cuda")
+    with torch.no_grad():
+        logits = model({"input_ids": ids[None]}, return_logits=True)[0, -1]
+    top = torch.topk(logits[:vocab].float(), 2).values
+    return (top[0] - top[1]).item()
+
+
+def compare_runs(torch, model, trace, a, b, what, vocab):
+    """Equal tokens request by request, or a first divergence at a near
+    tie (top-2 gap < SERVE_TIE_GAP), printed. Returns the gaps."""
+    gaps = []
+    for (prompt, _), ta, tb in zip(trace, a["tokens"], b["tokens"]):
+        if ta == tb:
+            continue
+        j = next(i for i, (x, y) in enumerate(zip(ta, tb)) if x != y)
+        gap = near_tie_gap(torch, model, prompt, ta, j, vocab)
+        print(f"serving {what}: first divergence at token {j}, top-2 "
+              f"logit gap {gap:.3g}", flush=True)
+        if gap >= SERVE_TIE_GAP:
+            raise AssertionError(f"serving {what}: tokens diverge at a "
+                                 f"logit gap of {gap} (not a near tie)")
+        gaps.append(gap)
+    return gaps
+
+
+def serving_phase(torch, np, deepspeed_tpu_torch, gpt2, decode, op_builder,
+                  cfg, card):
+    """Phase 15: GPT-2 medium through ``init_serving`` (see the module
+    docstring). Returns the ``serving`` line and the decode-kernel
+    launches of its main-path runs."""
+    import dataclasses
+    from deepspeed_tpu_torch.serving import runner as runner_mod
+    from deepspeed_tpu_torch.serving.server import ServingEngine
+    from deepspeed_tpu_torch.telemetry import tracer as tracer_mod
+    vocab, n_layer = cfg.vocab_size, cfg.n_layer
+    trace = serving_trace(np, vocab)
+    conf = {"serving": SERVE_CFG}
+    eng = deepspeed_tpu_torch.init_inference(gpt2.GPT2LMHeadModel(cfg, seed=0),
+                                             dtype=torch.bfloat16)
+    qeng = deepspeed_tpu_torch.init_inference(
+        gpt2.GPT2LMHeadModel(dataclasses.replace(cfg, kv_cache_dtype="int8"),
+                             seed=0), dtype=torch.bfloat16)
+    line = {"card": card, "config": dict(SERVE_CFG, model="gpt2-medium",
+                                         requests=SERVE_REQUESTS,
+                                         prompt=SERVE_PROMPT,
+                                         new=SERVE_NEW, greedy=True)}
+    counts = {}
+
+    def server(engine, impl, graph=True, **over):
+        c = {"serving": dict(SERVE_CFG, attention_impl=impl, **over)}
+        if graph:
+            return deepspeed_tpu_torch.init_serving(engine=engine, config=c)
+        return ServingEngine(engine, config=c, cuda_graph=False)
+
+    runs = {}
+    for name, engine, impl, graph, kernel in (
+            ("paged", eng, "paged", True, None),
+            ("gather_eager", eng, "gather", False, "decode_attention"),
+            ("gather_graph", eng, "gather", True, "decode_attention"),
+            ("gather_graph_rerun", eng, "gather", True, "decode_attention"),
+            ("int8_kv_gather_graph", qeng, "gather", True,
+             "decode_attention_int8")):
+        srv = server(engine, impl, graph)
+        if graph and impl == "gather" and \
+                srv.compile_stats().get("graph_captures") != 1:
+            raise AssertionError(f"serving {name}: {srv.compile_stats()}")
+        op_builder.reset_launch_counts()
+        res = serve_trace(torch, np, srv, trace)
+        launched = dict(op_builder.LAUNCHES)
+        m = res["metrics"]
+        m["launches"] = launched
+        if kernel is not None:
+            per = launched.get(kernel, 0) / m["decode_dispatches"]
+            m["decode_kernel_launches_per_dispatch"] = per
+            if per != n_layer or sum(launched.values()) != \
+                    launched.get(kernel, 0):
+                raise AssertionError(
+                    f"serving {name}: launches {launched} over "
+                    f"{m['decode_dispatches']} dispatches, expected "
+                    f"{n_layer} {kernel} a dispatch and nothing else")
+            counts[kernel] = counts.get(kernel, 0) + launched[kernel]
+        if set(res["reasons"]) != {"max_tokens"}:
+            raise AssertionError(f"serving {name}: finish reasons "
+                                 f"{sorted(set(res['reasons']))}")
+        runs[name] = res
+        print(f"serving {name}: {json.dumps(m)}", flush=True)
+        del srv
+        torch.cuda.empty_cache()
+    if runs["gather_graph"]["tokens"] != runs["gather_eager"]["tokens"]:
+        raise AssertionError("serving: the graph-replayed gather run's "
+                             "tokens differ from the eager run's")
+    if runs["gather_graph"]["tokens"] != \
+            runs["gather_graph_rerun"]["tokens"]:
+        raise AssertionError("serving: two runs of the trace differ")
+    line["runs"] = {k: v["metrics"] for k, v in runs.items()}
+    line["bf16_paged_vs_gather_equal_requests"] = sum(
+        a == b for a, b in zip(runs["paged"]["tokens"],
+                               runs["gather_graph"]["tokens"]))
+
+    # check 3: the first decode step, kernel against plain
+    err, scale = first_decode_check(torch, np, server(eng, "gather"), trace,
+                                    runner_mod, decode, vocab)
+    print(f"serving first decode step: logits max abs err {err:.4g} (max "
+          f"|logit| {scale:.3g})", flush=True)
+    if err > SERVE_LOGIT_TOL:
+        raise AssertionError(f"serving first decode step disagrees with "
+                             f"the plain version: {err}")
+    line["first_decode_step"] = {"max_abs_err": err, "logit_scale": scale,
+                                 "tolerance": SERVE_LOGIT_TOL}
+    line["gathered_view_max_abs_err"] = {
+        "bf16": check_gathered_view(torch, server(eng, "gather"), decode),
+        "int8": check_gathered_view(torch, server(qeng, "gather"), decode)}
+
+    # the profiled windows of decode
+    line["decode_windows"] = {}
+    for name, engine, impl, graph in (
+            ("paged", eng, "paged", True),
+            ("gather_eager", eng, "gather", False),
+            ("gather_graph", eng, "gather", True),
+            ("int8_kv_gather_graph", qeng, "gather", True)):
+        w = decode_window(torch, server(engine, impl, graph), trace,
+                          tracer_mod)
+        line["decode_windows"][name] = w
+        print(f"serving decode window {name}: {json.dumps(w)}", flush=True)
+        torch.cuda.empty_cache()
+    del eng, qeng
+    torch.cuda.empty_cache()
+
+    # check 5: fp32, TF32 off, four pairs
+    model32 = gpt2.GPT2LMHeadModel(cfg, seed=0)
+    eng32 = deepspeed_tpu_torch.init_inference(model32, dtype=torch.float32)
+    shared = serving_trace(np, vocab, SERVE_SHARED_PREFIX)
+    fp32 = {}
+    for name, impl, over, tr in (
+            ("paged", "paged", {}, trace),
+            ("gather", "gather", {}, trace),
+            ("paged_num_blocks_129", "paged",
+             {"num_blocks": SERVE_PREEMPT_BLOCKS}, trace),
+            ("paged_speculative_k4", "paged",
+             {"speculative": {"enabled": True, "k": 4,
+                              "acceptance": "exact"}}, trace),
+            ("paged_prefix_cache_on", "paged",
+             {"prefix_cache": {"enabled": True}}, trace),
+            ("paged_shared_prefix", "paged", {}, shared),
+            ("paged_shared_prefix_cache_on", "paged",
+             {"prefix_cache": {"enabled": True}}, shared)):
+        srv = server(eng32, impl, **over)
+        res = serve_trace(torch, np, srv, tr)
+        res["metrics"]["prefix_cache"] = (
+            None if srv.cache.prefix_cache is None
+            else srv.cache.prefix_cache.stats())
+        fp32[name] = res
+        print(f"serving fp32 {name}: {json.dumps(res['metrics'])}",
+              flush=True)
+        del srv
+        torch.cuda.empty_cache()
+    if fp32["paged_num_blocks_129"]["metrics"]["preemptions"] == 0:
+        raise AssertionError("serving: num_blocks 129 preempted nothing")
+    if fp32["paged_shared_prefix_cache_on"]["metrics"]["prefix_cache"][
+            "hits"] == 0:
+        raise AssertionError("serving: the prefix cache never hit")
+    pairs = {}
+    for what, a, b, tr in (
+            ("paged vs gather", "paged", "gather", trace),
+            ("num_blocks 129 vs auto", "paged", "paged_num_blocks_129",
+             trace),
+            ("speculative k4 vs off", "paged", "paged_speculative_k4",
+             trace),
+            ("prefix cache on vs off", "paged", "paged_prefix_cache_on",
+             trace),
+            ("prefix cache on vs off, shared prefix", "paged_shared_prefix",
+             "paged_shared_prefix_cache_on", shared)):
+        gaps = compare_runs(torch, model32, tr, fp32[a], fp32[b], what,
+                            vocab)
+        pairs[what] = {"equal_requests": sum(
+            x == y for x, y in zip(fp32[a]["tokens"], fp32[b]["tokens"])),
+            "near_tie_gaps": gaps}
+    line["fp32_pairs"] = pairs
+    line["fp32_runs"] = {k: v["metrics"] for k, v in fp32.items()}
+    del eng32, model32
+    torch.cuda.empty_cache()
+    return line, counts
+
+
 def finish_rows(rows, launches, max_err, card):
     """bound_ms (the larger of bytes at 3.35 TB/s and operations at the
     peak of their type), launches and max_abs_err for each row."""
@@ -2977,12 +3396,28 @@ def main():
                 "bert_sparse": sparse_counts[row["name"]],
                 "gpt2_sparse": gpt_counts[row["name"]]}
 
+    # 15. continuous-batching serving on GPT-2 medium. Last: run before
+    # the kernel timings, its profiled windows of graph replays were
+    # followed by a profiler session that recorded no kernel of the
+    # ctypes library, so it runs after every kernel timing; its decode
+    # launches join the decode rows' main-path counts
+    serving_line, serving_counts = serving_phase(
+        torch, np, deepspeed_tpu_torch, gpt2, decode, op_builder, cfg, card)
+    for row in rows:
+        if row["name"] in ("decode_attention", "decode_attention_int8"):
+            row["launches_by_path"] = {
+                "generate": gen_launches.get(row["name"], 0),
+                "int8_generate": int8_counts.get(row["name"], 0),
+                "serving": serving_counts.get(row["name"], 0)}
+            row["launches"] += serving_counts.get(row["name"], 0)
+
     print(json.dumps({"e2e": e2e}))
     print(json.dumps({"train": train}))
     print(json.dumps({"bert": bert_line}))
     print(json.dumps({"moq": moq_line}))
     print(json.dumps({"int8": int8_line}))
     print(json.dumps({"sparse": sparse_line}))
+    print(json.dumps({"serving": serving_line}))
     print(json.dumps({"kernels": rows}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -24,7 +24,12 @@ This package ports five paths, with hand-written CUDA kernels
 * block-sparse attention: BERT with ``sparse_attention_mode`` and GPT-2
   with ``attention_mode="sparse..."`` train through the same entry point
   on the block-sparse forward, dq and dk/dv kernels
-  (``ops.sparse_attention``).
+  (``ops.sparse_attention``);
+* continuous-batching serving: ``init_serving`` -> ``ServingEngine``
+  (``submit`` / ``step`` / ``collect`` / ``serve_forever``) over a paged
+  KV cache, with chunked prefill, preemption, the prefix cache and
+  speculative decoding; its ``gather`` impl runs the decode kernel, in
+  one CUDA graph a decode step (``serving``).
 
 It imports torch and numpy only; the JAX package ``deepspeed_tpu`` stays
 the reference and is never imported from here.
@@ -46,6 +51,30 @@ def init_inference(model, params=None, dtype=None, device=None, **kwargs):
     weights in int8 under bf16 activations."""
     return InferenceEngine(model, params=params, dtype=dtype, device=device,
                            **kwargs)
+
+
+def init_serving(model=None, engine=None, params=None, checkpoint=None,
+                 dtype=None, config=None, draft_params=None,
+                 draft_scales=None, **kwargs):
+    """Create a continuous-batching serving engine (serving/server.py;
+    reference: ``deepspeed_tpu.init_serving``).
+
+    Pass an existing ``InferenceEngine`` as ``engine``, or a model (and
+    ``params``, a state_dict, and ``dtype``) and one is built through
+    :func:`init_inference` (``device=None`` means CUDA and raises without
+    a card). ``config`` is a ds-config dict whose ``serving`` block sizes
+    the paged KV cache and the slot batch. ``draft_params`` is an explicit
+    small draft model's state_dict for ``serving.speculative`` (omit it to
+    self-draft from the target's first layers). The remaining keywords go
+    to :func:`init_inference`."""
+    if engine is None:
+        if model is None:
+            raise ValueError("init_serving needs a model or an engine")
+        engine = init_inference(model, params=params, checkpoint=checkpoint,
+                                dtype=dtype, **kwargs)
+    from deepspeed_tpu_torch.serving.server import ServingEngine
+    return ServingEngine(engine, config=config, draft_params=draft_params,
+                         draft_scales=draft_scales)
 
 
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,
@@ -87,4 +116,4 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
 
 
 __all__ = ["DeepSpeedConfig", "DeepSpeedEngine", "InferenceEngine",
-           "init_inference", "initialize", "__version__"]
+           "init_inference", "init_serving", "initialize", "__version__"]

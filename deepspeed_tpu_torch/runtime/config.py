@@ -12,9 +12,14 @@ A key that turns on something the port does not run yet raises
 ``NotImplementedError`` naming it, as the JAX ``initialize`` fails loudly
 on keys it does not implement; keys it does not know are ignored, as
 there. Every ``enabled`` block the JAX config reads that changes the
-step's math is either ported or in :data:`_UNPORTED_BLOCKS`; blocks that
-only observe (tensorboard, flops_profiler) and autotuning are ignored, as
-there. The keys the JAX config refuses off-default (``amp.enabled``,
+step's math, and the three observers the JAX engine acts on
+(``tensorboard``, ``flops_profiler``, ``wall_clock_breakdown``), is
+either ported or in :data:`_UNPORTED_BLOCKS`. The blocks the port does
+not run (checkpoint, autotuning, data_prefetch, comm_overlap, guardian,
+telemetry) are still validated by the JAX validators' rules
+(:data:`_RANGE_RULES`), so a config the JAX package refuses is refused
+here too. The ``serving`` block is :class:`DeepSpeedServingConfig`, read
+by ``init_serving``. The keys the JAX config refuses off-default (``amp.enabled``,
 ``prescale_gradients``, ``gradient_predivide_factor`` != 1,
 ``disable_allgather``, ``communication_data_type``,
 ``optimizer.legacy_fusion``, ``fp16.fp16_master_weights_and_grads``, a
@@ -49,7 +54,183 @@ _UNPORTED_BLOCKS = (
     ("elasticity", "elasticity"),
     # rolls the train state back and rescues the fp16 scale
     ("guardian", "the guardian"),
+    # observers the JAX engine acts on (runtime/engine.py:795-826)
+    (C.TENSORBOARD, "the TensorBoard/CSV monitor"),
+    (C.FLOPS_PROFILER, "the flops profiler"),
 )
+
+
+def _positive(v):
+    return v > 0
+
+
+def _non_negative(v):
+    return v >= 0
+
+
+def _at_least(n):
+    return lambda v: v >= n
+
+
+def _unit_interval(v):
+    return 0.0 < v <= 1.0
+
+
+def _open_unit_interval(v):
+    return 0.0 < v < 1.0
+
+
+def _autotuning_space(v):
+    return v is None or (isinstance(v, dict) and all(
+        isinstance(x, list) and x for x in v.values()))
+
+
+# The JAX validators of the blocks the port parses but does not run
+# (JAX runtime/config.py: telemetry :419-565, data_prefetch :585,
+# comm_overlap :613, guardian :690-717, autotuning :1028-1058,
+# checkpoint :1369-1382): (block path, key, default, cast, valid, what
+# a valid value is, environment override or None). Each raises
+# DeepSpeedConfigError on the value the JAX config refuses, whether or
+# not the block is enabled.
+_RANGE_RULES = (
+    (("checkpoint",), "rank_wait_timeout_s", 300.0, float, _positive,
+     "> 0", None),
+    (("checkpoint",), "persist_retries", 2, int, _non_negative, ">= 0",
+     "DS_CHECKPOINT_PERSIST_RETRIES"),
+    (("checkpoint",), "persist_retry_backoff_s", 0.05, float,
+     _non_negative, ">= 0", None),
+    (("data_prefetch",), "depth", 2, int, _at_least(1), ">= 1", None),
+    (("comm_overlap",), "bucket_mb", 4.0, float, _positive, "> 0", None),
+    (("guardian",), "action_cooldown_steps", 25, int, _non_negative,
+     ">= 0", "DS_GUARDIAN_COOLDOWN_STEPS"),
+    (("guardian",), "divergence_streak", 2, int, _at_least(1), ">= 1",
+     None),
+    (("guardian",), "divergence_window", 50, int, _at_least(1), ">= 1",
+     None),
+    (("guardian",), "max_rollbacks", 2, int, _non_negative, ">= 0",
+     "DS_GUARDIAN_MAX_ROLLBACKS"),
+    (("guardian",), "rollback_cooldown_steps", 200, int, _at_least(1),
+     ">= 1", None),
+    (("guardian",), "resume_clear_steps", 64, int, _at_least(1), ">= 1",
+     None),
+    (("autotuning",), "metric", "goodput", str,
+     lambda v: v in ("goodput", "step_time"), "'goodput' or 'step_time'",
+     None),
+    (("autotuning",), "top_k", 3, int, _at_least(1), ">= 1",
+     "DS_AUTOTUNING_TOP_K"),
+    (("autotuning",), "probe_steps", 8, int, _at_least(1), ">= 1", None),
+    (("autotuning",), "probe_warmup_steps", 2, int, _non_negative,
+     ">= 0", None),
+    (("autotuning",), "memory_headroom", 0.95, float, _unit_interval,
+     "in (0, 1]", None),
+    (("autotuning",), "hbm_budget_gb", 0.0, float, _non_negative,
+     ">= 0 (0 = detect)", None),
+    (("autotuning",), "space", None, None, _autotuning_space,
+     "a map of each dimension name to a non-empty list", None),
+    (("telemetry", "anatomy"), "capture_steps", 3, int, _at_least(1),
+     ">= 1", None),
+    (("telemetry", "anatomy"), "keep_raw_traces", 2, int, _non_negative,
+     ">= 0", None),
+    (("telemetry", "fleet"), "cadence", 0, int, _non_negative, ">= 0",
+     None),
+    (("telemetry", "fleet"), "desync_cadence", 0, int, _non_negative,
+     ">= 0", None),
+    (("telemetry", "fleet"), "step_time_skew_frac", 0.25, float,
+     _unit_interval, "in (0, 1]", None),
+    (("telemetry", "fleet"), "input_wait_skew_frac", 0.25, float,
+     _unit_interval, "in (0, 1]", None),
+    (("telemetry", "fleet"), "checkpoint_skew_frac", 0.5, float,
+     _unit_interval, "in (0, 1]", None),
+    (("telemetry", "fleet"), "window_ring", 128, int, _at_least(1),
+     ">= 1", None),
+    (("telemetry", "memory"), "cadence", 0, int, _non_negative, ">= 0",
+     None),
+    (("telemetry", "memory"), "leak_windows", 4, int, _at_least(2),
+     ">= 2", None),
+    (("telemetry", "memory"), "warmup_windows", 2, int, _non_negative,
+     ">= 0", None),
+    (("telemetry", "memory"), "drift_threshold", 0.25, float, _positive,
+     "> 0", None),
+    (("telemetry", "memory"), "frag_threshold", 0.5, float,
+     _unit_interval, "in (0, 1]", None),
+    (("telemetry", "memory"), "headroom", 0.92, float, _unit_interval,
+     "in (0, 1]", None),
+    (("telemetry", "memory"), "budget_bytes", 0, int, _non_negative,
+     ">= 0", None),
+    (("telemetry", "memory"), "ring_size", 64, int, _at_least(1), ">= 1",
+     None),
+    (("telemetry", "chronicle"), "max_events", 16384, int, _at_least(1),
+     ">= 1", None),
+    (("telemetry", "chronicle"), "step_window", 8, int, _non_negative,
+     ">= 0", None),
+    (("telemetry", "chronicle"), "time_window_s", 30.0, float, _positive,
+     "> 0", None),
+    (("telemetry", "server"), "port", 0, int, lambda v: 0 <= v <= 65535,
+     "in [0, 65535]", None),
+    (("telemetry", "server"), "events_tail", 256, int, _at_least(1),
+     ">= 1", None),
+    (("telemetry", "slo"), "fast_window_s", 300.0, float, _positive,
+     "> 0", None),
+    (("telemetry", "slo"), "burn_threshold", 1.0, float, _positive, "> 0",
+     None),
+    (("telemetry", "slo"), "eval_interval_s", 10.0, float, _positive,
+     "> 0", None),
+    (("telemetry", "slo"), "goodput_target", 0.90, float,
+     _open_unit_interval, "in (0, 1)", None),
+    (("telemetry", "slo"), "ttft_target", 0.99, float,
+     _open_unit_interval, "in (0, 1)", None),
+    (("telemetry", "slo"), "e2e_target", 0.99, float, _open_unit_interval,
+     "in (0, 1)", None),
+    (("telemetry", "slo"), "ttft_threshold_ms", 500.0, float, _positive,
+     "> 0", None),
+    (("telemetry", "slo"), "e2e_threshold_ms", 5000.0, float, _positive,
+     "> 0", None),
+    (("telemetry", "federation"), "aggregator", "auto", str,
+     lambda v: v in ("auto", "always", "never"),
+     "one of auto/always/never", None),
+    (("telemetry", "federation"), "scrape_interval_s", 2.0, float,
+     _positive, "> 0", None),
+    (("telemetry", "federation"), "timeout_s", 2.0, float, _positive,
+     "> 0", None),
+    (("telemetry", "federation"), "stale_after_s", 10.0, float, _positive,
+     "> 0", None),
+    (("telemetry", "federation"), "events_ring", 4096, int, _at_least(16),
+     ">= 16", None),
+    (("telemetry", "federation"), "goodput_target", 0.90, float,
+     _open_unit_interval, "in (0, 1)", None),
+    (("telemetry", "federation"), "ttft_target", 0.99, float,
+     _open_unit_interval, "in (0, 1)", None),
+    (("telemetry", "federation"), "peers", (), tuple,
+     lambda v: all(isinstance(p, str) and p.startswith("http") for p in v),
+     "http base urls", None),
+)
+
+
+def _block(pd, path):
+    node = pd
+    for key in path:
+        node = node.get(key, {}) or {}
+    return node
+
+
+def _check_ranges(pd):
+    """Apply :data:`_RANGE_RULES` (and the SLO window order) to ``pd``."""
+    for path, key, default, cast, valid, what, env in _RANGE_RULES:
+        value = _block(pd, path).get(key, default)
+        if env is not None and os.environ.get(env):
+            value = os.environ[env]
+        if cast is not None:
+            value = cast(value or ()) if cast is tuple else cast(value)
+        if not valid(value):
+            raise DeepSpeedConfigError(
+                f"{'.'.join(path)}.{key} must be {what}, got {value!r}")
+    slo = _block(pd, ("telemetry", "slo"))
+    fast = float(slo.get("fast_window_s", 300.0))
+    slow = float(slo.get("slow_window_s", 3600.0))
+    if not 0.0 < fast < slow:
+        raise DeepSpeedConfigError(
+            f"telemetry.slo windows must satisfy 0 < fast_window_s < "
+            f"slow_window_s, got {fast} / {slow}")
 
 
 class DeepSpeedConfigError(Exception):
@@ -58,6 +239,239 @@ class DeepSpeedConfigError(Exception):
 
 def _not_ported(what):
     raise NotImplementedError(f"{what} is not ported yet")
+
+
+def _env_flag(name, current):
+    """``current`` unless the environment variable ``name`` is set, then
+    whether it reads as true (1/true/yes/on)."""
+    env = os.environ.get(name)
+    if env is None:
+        return current
+    return env.lower() in ("1", "true", "yes", "on")
+
+
+class DeepSpeedServingObservabilityConfig:
+    """``serving.observability`` (JAX config.py:719-795). Validated as
+    there; ``enabled`` raises ``NotImplementedError`` (the serving
+    observatory is not ported yet). ``DS_SERVING_OBS`` = 1/0
+    force-toggles ``enabled``."""
+
+    def __init__(self, serving_dict):
+        o = serving_dict.get(C.SERVING_OBSERVABILITY, {}) or {}
+        self.enabled = _env_flag("DS_SERVING_OBS", o.get(
+            C.SERVING_OBS_ENABLED, C.SERVING_OBS_ENABLED_DEFAULT))
+        self.window = int(o.get(C.SERVING_OBS_WINDOW,
+                                C.SERVING_OBS_WINDOW_DEFAULT))
+        self.warmup_windows = int(o.get(C.SERVING_OBS_WARMUP,
+                                        C.SERVING_OBS_WARMUP_DEFAULT))
+        self.ttft_slo_ms = float(o.get(C.SERVING_OBS_TTFT_SLO_MS,
+                                       C.SERVING_OBS_TTFT_SLO_MS_DEFAULT))
+        self.ttft_breach_frac = float(
+            o.get(C.SERVING_OBS_TTFT_BREACH_FRAC,
+                  C.SERVING_OBS_TTFT_BREACH_FRAC_DEFAULT))
+        self.queue_growth_windows = int(
+            o.get(C.SERVING_OBS_QUEUE_GROWTH_WINDOWS,
+                  C.SERVING_OBS_QUEUE_GROWTH_WINDOWS_DEFAULT))
+        self.preemption_thrash = int(
+            o.get(C.SERVING_OBS_PREEMPTION_THRASH,
+                  C.SERVING_OBS_PREEMPTION_THRASH_DEFAULT))
+        self.no_progress_steps = int(
+            o.get(C.SERVING_OBS_NO_PROGRESS_STEPS,
+                  C.SERVING_OBS_NO_PROGRESS_STEPS_DEFAULT))
+        self.timeline_ring = int(o.get(C.SERVING_OBS_TIMELINE_RING,
+                                       C.SERVING_OBS_TIMELINE_RING_DEFAULT))
+        self.window_ring = int(o.get(C.SERVING_OBS_WINDOW_RING,
+                                     C.SERVING_OBS_WINDOW_RING_DEFAULT))
+        self.trace_lanes = o.get(C.SERVING_OBS_TRACE_LANES,
+                                 C.SERVING_OBS_TRACE_LANES_DEFAULT)
+        self.snapshot_file = o.get(C.SERVING_OBS_SNAPSHOT_FILE,
+                                   C.SERVING_OBS_SNAPSHOT_FILE_DEFAULT)
+        for name, ok, what in (
+                ("window", self.window >= 1, ">= 1"),
+                ("warmup_windows", self.warmup_windows >= 0, ">= 0"),
+                ("ttft_breach_frac", 0.0 < self.ttft_breach_frac <= 1.0,
+                 "in (0, 1]"),
+                ("no_progress_steps", self.no_progress_steps >= 1, ">= 1"),
+                ("queue_growth_windows", self.queue_growth_windows >= 1,
+                 ">= 1"),
+                # every window has >= 0 preemptions: a 0 threshold would
+                # fire the thrash rule on every window
+                ("preemption_thrash", self.preemption_thrash >= 1,
+                 ">= 1 (disable rules with enabled=false)"),
+                ("ttft_slo_ms", self.ttft_slo_ms > 0, "> 0")):
+            if not ok:
+                raise DeepSpeedConfigError(
+                    f"serving.observability.{name} must be {what}, got "
+                    f"{getattr(self, name)}")
+        if self.enabled:
+            _not_ported("the serving observatory "
+                        "(serving.observability.enabled)")
+
+
+class DeepSpeedServingPrefixCacheConfig:
+    """``serving.prefix_cache`` (JAX config.py:798-823): the
+    content-addressed LRU index of FULL KV blocks, mapped read-only at
+    admission with copy-on-write forks. ``capacity_blocks`` 0 leaves it
+    uncapped (still bounded by the pool). ``DS_SERVING_PREFIX_CACHE`` =
+    1/0 force-toggles ``enabled``."""
+
+    def __init__(self, serving_dict):
+        p = serving_dict.get(C.SERVING_PREFIX_CACHE, {}) or {}
+        self.enabled = _env_flag("DS_SERVING_PREFIX_CACHE", p.get(
+            C.SERVING_PREFIX_ENABLED, C.SERVING_PREFIX_ENABLED_DEFAULT))
+        self.capacity_blocks = int(
+            p.get(C.SERVING_PREFIX_CAPACITY_BLOCKS,
+                  C.SERVING_PREFIX_CAPACITY_BLOCKS_DEFAULT))
+        if self.capacity_blocks < 0:
+            raise DeepSpeedConfigError(
+                f"serving.prefix_cache.capacity_blocks must be >= 0 "
+                f"(0 = uncapped), got {self.capacity_blocks}")
+
+
+class DeepSpeedServingSpeculativeConfig:
+    """``serving.speculative`` (JAX config.py:826-885): draft/verify
+    speculative decoding. ``draft_layers`` 0 picks ``n_layer // 4``
+    (floor 1); ``draft_model`` null means the truncated-layer self-draft
+    (an explicit draft is passed as ``draft_params``). ``acceptance``
+    "exact" keeps outputs equal to the non-speculative engine's.
+    ``DS_SERVING_SPEC`` = 1/0 force-toggles ``enabled``."""
+
+    def __init__(self, serving_dict):
+        sp = serving_dict.get(C.SERVING_SPECULATIVE, {}) or {}
+        self.enabled = _env_flag("DS_SERVING_SPEC", sp.get(
+            C.SERVING_SPEC_ENABLED, C.SERVING_SPEC_ENABLED_DEFAULT))
+        self.k = int(sp.get(C.SERVING_SPEC_K, C.SERVING_SPEC_K_DEFAULT))
+        self.draft_layers = int(sp.get(C.SERVING_SPEC_DRAFT_LAYERS,
+                                       C.SERVING_SPEC_DRAFT_LAYERS_DEFAULT))
+        self.draft_model = sp.get(C.SERVING_SPEC_DRAFT_MODEL,
+                                  C.SERVING_SPEC_DRAFT_MODEL_DEFAULT)
+        self.acceptance = sp.get(C.SERVING_SPEC_ACCEPTANCE,
+                                 C.SERVING_SPEC_ACCEPTANCE_DEFAULT)
+        self.typical_threshold = float(
+            sp.get(C.SERVING_SPEC_TYPICAL_THRESHOLD,
+                   C.SERVING_SPEC_TYPICAL_THRESHOLD_DEFAULT))
+        self.acceptance_floor = float(
+            sp.get(C.SERVING_SPEC_ACCEPTANCE_FLOOR,
+                   C.SERVING_SPEC_ACCEPTANCE_FLOOR_DEFAULT))
+        if self.k < 1:
+            raise DeepSpeedConfigError(
+                f"serving.speculative.k must be >= 1, got {self.k}")
+        if self.draft_layers < 0:
+            raise DeepSpeedConfigError(
+                f"serving.speculative.draft_layers must be >= 0 "
+                f"(0 = auto), got {self.draft_layers}")
+        if self.acceptance not in ("exact", "typical"):
+            raise DeepSpeedConfigError(
+                f"serving.speculative.acceptance must be 'exact' or "
+                f"'typical', got {self.acceptance!r}")
+        if not 0.0 < self.typical_threshold <= 1.0:
+            raise DeepSpeedConfigError(
+                f"serving.speculative.typical_threshold must be in "
+                f"(0, 1], got {self.typical_threshold}")
+        if not 0.0 <= self.acceptance_floor <= 1.0:
+            raise DeepSpeedConfigError(
+                f"serving.speculative.acceptance_floor must be in "
+                f"[0, 1], got {self.acceptance_floor}")
+        if self.draft_model is not None and not isinstance(
+                self.draft_model, str):
+            raise DeepSpeedConfigError(
+                f"serving.speculative.draft_model must be null "
+                f"(self-draft) or a string tag, got "
+                f"{type(self.draft_model).__name__}")
+
+
+class DeepSpeedServingRouterConfig:
+    """``serving.router`` (JAX config.py:888-921). Validated as there;
+    ``replicas`` > 1 raises ``NotImplementedError`` (the router is not
+    ported yet)."""
+
+    def __init__(self, serving_dict):
+        r = serving_dict.get(C.SERVING_ROUTER, {}) or {}
+        self.replicas = int(r.get(C.SERVING_ROUTER_REPLICAS,
+                                  C.SERVING_ROUTER_REPLICAS_DEFAULT))
+        self.affinity_weight = float(
+            r.get(C.SERVING_ROUTER_AFFINITY_WEIGHT,
+                  C.SERVING_ROUTER_AFFINITY_WEIGHT_DEFAULT))
+        self.queue_weight = float(
+            r.get(C.SERVING_ROUTER_QUEUE_WEIGHT,
+                  C.SERVING_ROUTER_QUEUE_WEIGHT_DEFAULT))
+        self.occupancy_weight = float(
+            r.get(C.SERVING_ROUTER_OCCUPANCY_WEIGHT,
+                  C.SERVING_ROUTER_OCCUPANCY_WEIGHT_DEFAULT))
+        self.breach_penalty = float(
+            r.get(C.SERVING_ROUTER_BREACH_PENALTY,
+                  C.SERVING_ROUTER_BREACH_PENALTY_DEFAULT))
+        if self.replicas < 1:
+            raise DeepSpeedConfigError(
+                f"serving.router.replicas must be >= 1, got "
+                f"{self.replicas}")
+        for name in ("affinity_weight", "queue_weight",
+                     "occupancy_weight", "breach_penalty"):
+            if getattr(self, name) < 0:
+                raise DeepSpeedConfigError(
+                    f"serving.router.{name} must be >= 0, got "
+                    f"{getattr(self, name)}")
+        if self.replicas > 1:
+            _not_ported(f"the serving router (serving.router.replicas="
+                        f"{self.replicas})")
+
+
+class DeepSpeedServingConfig:
+    """``serving`` block (JAX config.py:924-981): the continuous-batching
+    server over a paged KV cache. ``num_blocks`` 0 auto-sizes the pool so
+    the full batch at full length fits; ``max_model_len`` 0 defers to the
+    model's ``n_positions``. ``DS_SERVING_MAX_BATCH`` /
+    ``DS_SERVING_BLOCK_SIZE`` / ``DS_SERVING_PREFILL_CHUNK`` override
+    their keys."""
+
+    def __init__(self, param_dict):
+        s = param_dict.get(C.SERVING, {}) or {}
+        self.block_size = int(s.get(C.SERVING_BLOCK_SIZE,
+                                    C.SERVING_BLOCK_SIZE_DEFAULT))
+        self.num_blocks = int(s.get(C.SERVING_NUM_BLOCKS,
+                                    C.SERVING_NUM_BLOCKS_DEFAULT))
+        self.max_batch = int(s.get(C.SERVING_MAX_BATCH,
+                                   C.SERVING_MAX_BATCH_DEFAULT))
+        self.prefill_chunk = int(s.get(C.SERVING_PREFILL_CHUNK,
+                                       C.SERVING_PREFILL_CHUNK_DEFAULT))
+        self.max_model_len = int(s.get(C.SERVING_MAX_MODEL_LEN,
+                                       C.SERVING_MAX_MODEL_LEN_DEFAULT))
+        self.attention_impl = s.get(C.SERVING_ATTENTION_IMPL,
+                                    C.SERVING_ATTENTION_IMPL_DEFAULT)
+        self.decode_steps = int(s.get(C.SERVING_DECODE_STEPS,
+                                      C.SERVING_DECODE_STEPS_DEFAULT))
+        self.observability = DeepSpeedServingObservabilityConfig(s)
+        self.prefix_cache = DeepSpeedServingPrefixCacheConfig(s)
+        self.router = DeepSpeedServingRouterConfig(s)
+        self.speculative = DeepSpeedServingSpeculativeConfig(s)
+        for env, attr in (("DS_SERVING_MAX_BATCH", "max_batch"),
+                          ("DS_SERVING_BLOCK_SIZE", "block_size"),
+                          ("DS_SERVING_PREFILL_CHUNK", "prefill_chunk")):
+            val = os.environ.get(env)
+            if val is not None:
+                setattr(self, attr, int(val))
+        if self.block_size < 1:
+            raise DeepSpeedConfigError(
+                f"serving.block_size must be >= 1, got {self.block_size}")
+        if self.max_batch < 1:
+            raise DeepSpeedConfigError(
+                f"serving.max_batch must be >= 1, got {self.max_batch}")
+        if self.prefill_chunk < 1:
+            raise DeepSpeedConfigError(
+                f"serving.prefill_chunk must be >= 1, got "
+                f"{self.prefill_chunk}")
+        if self.num_blocks < 0 or self.num_blocks == 1:
+            raise DeepSpeedConfigError(
+                f"serving.num_blocks must be 0 (auto) or >= 2 (1 usable "
+                f"+ the reserved null block), got {self.num_blocks}")
+        if self.attention_impl not in ("paged", "gather"):
+            raise DeepSpeedConfigError(
+                f"serving.attention_impl must be 'paged' or 'gather', "
+                f"got {self.attention_impl!r}")
+        if self.decode_steps < 1:
+            raise DeepSpeedConfigError(
+                f"serving.decode_steps must be >= 1, got "
+                f"{self.decode_steps}")
 
 
 class DeepSpeedFP16Config:
@@ -136,6 +550,7 @@ class DeepSpeedConfig:
         self._initialize_params(self._param_dict)
         self._configure_train_batch_size()
         self._do_sanity_check()
+        _check_ranges(self._param_dict)
         self._reject_unported(self._param_dict)
 
     def _initialize_params(self, pd):
@@ -204,6 +619,8 @@ class DeepSpeedConfig:
         self.eigenvalue_enabled = ev.get(C.EIGENVALUE_ENABLED,
                                          C.EIGENVALUE_ENABLED_DEFAULT)
         self.sparse_attention = pd.get(C.SPARSE_ATTENTION, None)
+        self.wall_clock_breakdown = pd.get(C.WALL_CLOCK_BREAKDOWN, False)
+        self.serving = DeepSpeedServingConfig(pd)
 
     # -- batch triangulation (JAX config.py:1403-1450) -----------------------
 
@@ -340,3 +757,5 @@ class DeepSpeedConfig:
         for key, what in _UNPORTED_BLOCKS:
             if (pd.get(key) or {}).get("enabled"):
                 _not_ported(f"{what} ({key}.enabled)")
+        if self.wall_clock_breakdown:
+            _not_ported("wall_clock_breakdown (the breakdown timers)")

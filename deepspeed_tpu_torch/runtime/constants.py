@@ -118,3 +118,105 @@ QUANTIZE_OFFSET_DEFAULT = 1000
 
 # block-sparse attention (kept raw, as the JAX config keeps it)
 SPARSE_ATTENTION = "sparse_attention"
+
+# observer blocks the JAX engine acts on (TensorBoard/CSV events, the
+# flops profiler, the breakdown timers); refused until they are ported
+WALL_CLOCK_BREAKDOWN = "wall_clock_breakdown"
+TENSORBOARD = "tensorboard"
+FLOPS_PROFILER = "flops_profiler"
+
+# serving: continuous-batching inference server (serving/). Paged KV
+# cache of `block_size`-token blocks (`num_blocks` 0 -> sized so
+# `max_batch` full-length sequences fit, i.e. preemption-free), a
+# `max_batch`-slot static decode batch, `prefill_chunk`-token chunked
+# prefill, and `max_model_len` (0 -> the model's n_positions) as the
+# per-request position cap.
+SERVING = "serving"
+SERVING_BLOCK_SIZE = "block_size"
+SERVING_BLOCK_SIZE_DEFAULT = 16
+SERVING_NUM_BLOCKS = "num_blocks"
+SERVING_NUM_BLOCKS_DEFAULT = 0
+SERVING_MAX_BATCH = "max_batch"
+SERVING_MAX_BATCH_DEFAULT = 8
+SERVING_PREFILL_CHUNK = "prefill_chunk"
+SERVING_PREFILL_CHUNK_DEFAULT = 32
+SERVING_MAX_MODEL_LEN = "max_model_len"
+SERVING_MAX_MODEL_LEN_DEFAULT = 0
+# "paged" attends over the LIVE KV blocks (serving/paged_attention.py);
+# "gather" materialises the block table into the contiguous view the
+# decode kernel reads (ops/transformer/decode.py)
+SERVING_ATTENTION_IMPL = "attention_impl"
+SERVING_ATTENTION_IMPL_DEFAULT = "paged"
+# tokens decoded per dispatch (>1 amortises the host dispatch and the
+# one device sync over K tokens)
+SERVING_DECODE_STEPS = "decode_steps"
+SERVING_DECODE_STEPS_DEFAULT = 1
+
+# serving.speculative: draft/verify speculative decoding
+# (serving/speculative.py); DS_SERVING_SPEC=1/0 force-toggles `enabled`
+SERVING_SPECULATIVE = "speculative"
+SERVING_SPEC_ENABLED = "enabled"
+SERVING_SPEC_ENABLED_DEFAULT = False
+SERVING_SPEC_K = "k"                        # drafted tokens per dispatch
+SERVING_SPEC_K_DEFAULT = 4
+SERVING_SPEC_DRAFT_LAYERS = "draft_layers"  # 0 -> n_layer // 4 (min 1)
+SERVING_SPEC_DRAFT_LAYERS_DEFAULT = 0
+SERVING_SPEC_DRAFT_MODEL = "draft_model"    # null -> self-draft
+SERVING_SPEC_DRAFT_MODEL_DEFAULT = None
+SERVING_SPEC_ACCEPTANCE = "acceptance"      # "exact" | "typical"
+SERVING_SPEC_ACCEPTANCE_DEFAULT = "exact"
+SERVING_SPEC_TYPICAL_THRESHOLD = "typical_threshold"
+SERVING_SPEC_TYPICAL_THRESHOLD_DEFAULT = 0.3
+SERVING_SPEC_ACCEPTANCE_FLOOR = "acceptance_floor"
+SERVING_SPEC_ACCEPTANCE_FLOOR_DEFAULT = 0.35
+
+# serving.prefix_cache: block-level shared-prefix KV reuse
+# (serving/kv_cache.py PrefixCache); DS_SERVING_PREFIX_CACHE=1/0
+# force-toggles `enabled`
+SERVING_PREFIX_CACHE = "prefix_cache"
+SERVING_PREFIX_ENABLED = "enabled"
+SERVING_PREFIX_ENABLED_DEFAULT = False
+SERVING_PREFIX_CAPACITY_BLOCKS = "capacity_blocks"
+SERVING_PREFIX_CAPACITY_BLOCKS_DEFAULT = 0
+
+# serving.router: multi-replica admission (not ported yet: replicas > 1
+# raises)
+SERVING_ROUTER = "router"
+SERVING_ROUTER_REPLICAS = "replicas"
+SERVING_ROUTER_REPLICAS_DEFAULT = 1
+SERVING_ROUTER_AFFINITY_WEIGHT = "affinity_weight"
+SERVING_ROUTER_AFFINITY_WEIGHT_DEFAULT = 4.0
+SERVING_ROUTER_QUEUE_WEIGHT = "queue_weight"
+SERVING_ROUTER_QUEUE_WEIGHT_DEFAULT = 1.0
+SERVING_ROUTER_OCCUPANCY_WEIGHT = "occupancy_weight"
+SERVING_ROUTER_OCCUPANCY_WEIGHT_DEFAULT = 2.0
+SERVING_ROUTER_BREACH_PENALTY = "breach_penalty"
+SERVING_ROUTER_BREACH_PENALTY_DEFAULT = 100.0
+
+# serving.observability: the serving observatory (not ported yet:
+# enabled raises); DS_SERVING_OBS=1/0 force-toggles `enabled`
+SERVING_OBSERVABILITY = "observability"
+SERVING_OBS_ENABLED = "enabled"
+SERVING_OBS_ENABLED_DEFAULT = False
+SERVING_OBS_WINDOW = "window"               # scheduler steps per window
+SERVING_OBS_WINDOW_DEFAULT = 32
+SERVING_OBS_WARMUP = "warmup_windows"       # windows before rules arm
+SERVING_OBS_WARMUP_DEFAULT = 1
+SERVING_OBS_TTFT_SLO_MS = "ttft_slo_ms"
+SERVING_OBS_TTFT_SLO_MS_DEFAULT = 1000.0
+SERVING_OBS_TTFT_BREACH_FRAC = "ttft_breach_frac"
+SERVING_OBS_TTFT_BREACH_FRAC_DEFAULT = 0.5
+SERVING_OBS_QUEUE_GROWTH_WINDOWS = "queue_growth_windows"
+SERVING_OBS_QUEUE_GROWTH_WINDOWS_DEFAULT = 3
+SERVING_OBS_PREEMPTION_THRASH = "preemption_thrash"  # per window
+SERVING_OBS_PREEMPTION_THRASH_DEFAULT = 8
+SERVING_OBS_NO_PROGRESS_STEPS = "no_progress_steps"
+SERVING_OBS_NO_PROGRESS_STEPS_DEFAULT = 200
+SERVING_OBS_TIMELINE_RING = "timeline_ring"  # finished timelines kept
+SERVING_OBS_TIMELINE_RING_DEFAULT = 64
+SERVING_OBS_WINDOW_RING = "window_ring"
+SERVING_OBS_WINDOW_RING_DEFAULT = 128
+SERVING_OBS_TRACE_LANES = "trace_lanes"     # per-slot Chrome lanes
+SERVING_OBS_TRACE_LANES_DEFAULT = True
+SERVING_OBS_SNAPSHOT_FILE = "snapshot_file"
+SERVING_OBS_SNAPSHOT_FILE_DEFAULT = "SERVING_HEALTH.json"

@@ -116,7 +116,22 @@ def test_file_roundtrip(tmp_path):
      "gradient_accumulation_steps": 2},
     {"train_batch_size": 0},
     basic(fp16={"enabled": True}, bf16={"enabled": True}),
-])
+    # the blocks the port parses but does not run, validated as in JAX
+    basic(serving={"block_size": -3}),
+    basic(serving={"attention_impl": "bogus"}),
+    basic(checkpoint={"rank_wait_timeout_s": -1}),
+    basic(autotuning={"metric": "bogus"}),
+    basic(autotuning={"top_k": 0}),
+    basic(data_prefetch={"depth": 0}),
+    basic(comm_overlap={"bucket_mb": 0}),
+    basic(guardian={"max_rollbacks": -1}),
+    basic(telemetry={"memory": {"cadence": -1}}),
+    basic(telemetry={"slo": {"fast_window_s": 10, "slow_window_s": 5}}),
+    basic(telemetry={"federation": {"aggregator": "sometimes"}}),
+    basic(serving={"speculative": {"k": 0}}),
+    basic(serving={"observability": {"window": 0}}),
+    basic(serving={"router": {"replicas": 0}}),
+], ids=lambda c: json.dumps(c)[:60])
 def test_invalid_configs_raise_like_jax(cfg):
     with pytest.raises(JaxError):
         JaxConfig(dict(cfg), data_parallel_size=1)
@@ -147,6 +162,11 @@ def test_invalid_configs_raise_like_jax(cfg):
       "eigenvalue": {"enabled": True, "layer_num": 2}}, "eigenvalue"),
     ({"elasticity": {"enabled": True}}, "elasticity"),
     ({"guardian": {"enabled": True}}, "guardian"),
+    ({"tensorboard": {"enabled": True}}, "TensorBoard"),
+    ({"flops_profiler": {"enabled": True}}, "flops profiler"),
+    ({"wall_clock_breakdown": True}, "wall_clock_breakdown"),
+    ({"serving": {"observability": {"enabled": True}}}, "observatory"),
+    ({"serving": {"router": {"replicas": 2}}}, "router"),
 ])
 def test_unported_keys_raise(over, what):
     with pytest.raises(NotImplementedError, match="not ported yet") as err:
@@ -161,6 +181,62 @@ def test_disabled_blocks_are_accepted():
                                                    "offload_optimizer": {
                                                        "device": "none"}}))
     assert cfg.zero_optimization_stage == 1
+    over = dict(tensorboard={"enabled": False},
+                flops_profiler={"enabled": False},
+                wall_clock_breakdown=False,
+                autotuning={"enabled": False, "top_k": 2},
+                guardian={"enabled": False, "max_rollbacks": 0},
+                checkpoint={"rank_wait_timeout_s": 5.0},
+                data_prefetch={"enabled": False, "depth": 1},
+                telemetry={"enabled": False, "memory": {"cadence": 0}},
+                serving={"max_batch": 4, "observability": {
+                    "enabled": False}, "router": {"replicas": 1}})
+    cfg = DeepSpeedConfig(basic(**over))
+    JaxConfig(basic(**over), data_parallel_size=1)
+    assert cfg.serving.max_batch == 4 and not cfg.wall_clock_breakdown
+
+
+SERVING_FIELDS = ("block_size", "num_blocks", "max_batch", "prefill_chunk",
+                  "max_model_len", "attention_impl", "decode_steps")
+
+
+@pytest.mark.parametrize("block", [
+    {}, {"block_size": 8, "max_batch": 4, "prefill_chunk": 6,
+         "num_blocks": 9, "max_model_len": 32, "attention_impl": "gather",
+         "decode_steps": 3},
+    {"prefix_cache": {"enabled": True, "capacity_blocks": 5}},
+    {"speculative": {"enabled": True, "k": 5, "draft_layers": 2,
+                     "acceptance": "typical", "typical_threshold": 0.5}},
+], ids=lambda b: json.dumps(b)[:50])
+def test_serving_block_matches_jax(block):
+    from deepspeed_tpu.runtime.config import DeepSpeedServingConfig as JaxS
+    from deepspeed_tpu_torch.runtime.config import DeepSpeedServingConfig
+    want = JaxS({"serving": block})
+    got = DeepSpeedServingConfig({"serving": block})
+    for f in SERVING_FIELDS:
+        assert getattr(got, f) == getattr(want, f), f
+    for sub, fields in (("prefix_cache", ("enabled", "capacity_blocks")),
+                        ("speculative", ("enabled", "k", "draft_layers",
+                                         "acceptance", "typical_threshold",
+                                         "acceptance_floor"))):
+        for f in fields:
+            assert getattr(getattr(got, sub), f) == \
+                getattr(getattr(want, sub), f), (sub, f)
+
+
+@pytest.mark.parametrize("env,value,attr,want", [
+    ("DS_SERVING_SPEC", "1", ("speculative", "enabled"), True),
+    ("DS_SERVING_PREFIX_CACHE", "on", ("prefix_cache", "enabled"), True),
+    ("DS_SERVING_MAX_BATCH", "3", ("max_batch",), 3),
+    ("DS_SERVING_BLOCK_SIZE", "4", ("block_size",), 4),
+])
+def test_serving_env_overrides(monkeypatch, env, value, attr, want):
+    from deepspeed_tpu_torch.runtime.config import DeepSpeedServingConfig
+    monkeypatch.setenv(env, value)
+    node = DeepSpeedServingConfig({"serving": {}})
+    for a in attr:
+        node = getattr(node, a)
+    assert node == want
 
 
 def test_sweep_needs_adam():

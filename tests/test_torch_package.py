@@ -69,6 +69,10 @@ def test_import_leaves_jax_out():
         "sparse_self_attention\n"
         "import deepspeed_tpu_torch.ops.sparse_attention."
         "sparse_attention_utils\n"
+        "import deepspeed_tpu_torch.serving\n"
+        "import deepspeed_tpu_torch.serving.speculative\n"
+        "import deepspeed_tpu_torch.telemetry.tracer\n"
+        "import deepspeed_tpu_torch.utils.logging\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'flax', 'deepspeed_tpu', 'triton')\n"
         "       or m == 'torch.utils.cpp_extension']\n"
@@ -85,6 +89,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     model = gpt2.GPT2LMHeadModel(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         deepspeed_tpu_torch.init_inference(model)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        deepspeed_tpu_torch.init_serving(model=model)
     with pytest.raises(RuntimeError, match="CUDA"):
         deepspeed_tpu_torch.initialize(model=model, config={
             "train_batch_size": 2})
