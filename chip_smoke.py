@@ -141,7 +141,28 @@ Phases, each fatal on failure:
    decomposition with dense global rows and packed global columns), bs 2
    × seq 4096, positions widened, bf16, Adam ``sweep``, 5 steps: exactly
    24 sparse_fwd, 24 sparse_dq, 24 sparse_dkv and 1 adam a step;
-15. continuous-batching serving: GPT-2 medium at full width through
+15. the training loop users write, at full width: GPT-2 medium through
+   ``engine.forward`` / ``backward`` / ``step`` (micro-batch 4 × 1024, gas
+   2, bf16, ZeRO 1, Adam ``sweep`` lr 1e-4, clip 1.0, dropout 0.1), 10
+   global steps with remat off and then 10 with remat on from the same
+   seed, each with exact launch counts (a step: 48 flash_fwd, 96 with
+   remat, whose recompute runs the forward again; 48 dq, 48 dk/dv, 1
+   adam), step ms (median of steps 3-10), tokens/s, MFU (the recompute's
+   flops not counted), peak memory and one more step profiled (device
+   busy ms, idle share); remat on against off in the
+   per-step losses and final params, bit-equal (a recompute that drew
+   other masks would differ); losses finite and falling. Then on the remat-on engine: one
+   site's keep share over a [4, 1024, 1024] activation within 0.9 ±
+   0.001; two forwards at one (seed, micro-step) equal, the next
+   micro-step's different; ``eval_batch`` twice equal and equal to the
+   same weights' eval at dropout 0. Then at dropout 0 without remat, the
+   loop against ``train_batch`` on the same micro-batches with the
+   per-tensor Adam (one multi-tensor launch a step), 3 steps, losses and
+   params bit-equal. Then BERT-large (bs 64 × 128, fused LAMB, hidden
+   and attention dropout 0.1) through the loop, 10 steps with remat off
+   and 10 with remat on each layer (a step on: 48 flash_fwd, 96 ln_fwd,
+   48 bias_gelu, 24 dq, 24 dk/dv, 48 ln_bwd, 1 lamb), held as GPT-2's;
+16. continuous-batching serving: GPT-2 medium at full width through
    ``init_serving`` (bf16; max_batch 8, block 16, prefill_chunk 256,
    max_model_len 1024, num_blocks 0, which sizes 513 blocks) on a trace of
    32 requests all at t = 0 (prompts 8-896 tokens, 16-128 new, uniform
@@ -165,7 +186,9 @@ Phases, each fatal on failure:
 
 Prints an ``e2e`` JSON line, a ``train`` JSON line, a ``bert`` JSON line,
 a ``moq`` JSON line, an ``int8`` JSON line, a ``sparse`` JSON line, a
-``serving`` JSON line (per run: useful tokens/s, TTFT and inter-token
+``loop`` JSON line (per model, remat off and on: losses, step ms,
+launches, peak memory; the checks), a ``serving`` JSON line (per run:
+useful tokens/s, TTFT and inter-token
 latency p50/p99, decode ms a dispatch, launches a dispatch), a
 ``kernels`` JSON line (the softmax, on no path as in the JAX package,
 with 0 launches, and its C entry's and ``torch.softmax``'s device times
@@ -182,6 +205,7 @@ stochastic rounding at 6 bits), the card line, and last ``{"ok": true,
 unavailable or any phase fails.
 """
 
+import collections
 import contextlib
 import json
 import math
@@ -654,6 +678,17 @@ def train_config(batch=B, **opt):
             "optimizer": {"type": "Adam", "params": {"lr": LR, **opt}}}
 
 
+def micro_batch_grads(engine, batch):
+    """The master gradients of one ``forward`` / ``backward`` of
+    ``batch``, cloned; ``.grad`` is cleared after, so the next step
+    starts from none."""
+    engine.backward(engine.forward(batch))
+    grads = {k: p.grad.clone() for k, p in engine.params.items()}
+    for p in engine.params.values():
+        p.grad = None
+    return grads
+
+
 def run_steps(torch, engine, batch, n):
     """n train_batch steps; (losses, synchronised host ms of each)."""
     losses, ms = [], []
@@ -701,8 +736,7 @@ def one_step_parity(torch, deepspeed_tpu_torch, gpt2, attn_mod, decode,
         ctx = (plain_training(gpt2, attn_mod, decode, fused_adam) if plain
                else contextlib.nullcontext())
         with ctx:
-            engine._micro_step(batch)
-            grads = {k: p.grad.clone() for k, p in engine.params.items()}
+            grads = micro_batch_grads(engine, batch)
             loss = float(engine.train_batch(batch=batch))
         params = {k: p.detach().clone() for k, p in engine.params.items()}
         return loss, grads, params
@@ -1348,8 +1382,7 @@ def bert_one_step_parity(torch, deepspeed_tpu_torch, bert, op_builder,
             config=bert_config(fused=True))
         op_builder.reset_launch_counts()
         with plain_ctx() if plain else contextlib.nullcontext():
-            engine._micro_step(batch)
-            grads = {k: p.grad.clone() for k, p in engine.params.items()}
+            grads = micro_batch_grads(engine, batch)
             loss = float(engine.train_batch(batch=batch))
         launched = sum(op_builder.LAUNCHES.values())
         if plain != (launched == 0):
@@ -2297,8 +2330,7 @@ def sparse_bert_parity(torch, os, deepspeed_tpu_torch, bert, op_builder, sfk,
             op_builder.reset_launch_counts()
             with plain_sparse(sfk, fused_lamb) if plain else \
                     contextlib.nullcontext():
-                engine._micro_step(batch)
-                grads = {k: p.grad.clone() for k, p in engine.params.items()}
+                grads = micro_batch_grads(engine, batch)
                 loss = float(engine.train_batch(batch=batch))
             counts = dict(op_builder.LAUNCHES)
         finally:
@@ -2539,7 +2571,267 @@ def sparse_kernel_rows(torch, np, sfk, sk, ssc):
     return rows
 
 
-# phase 15, continuous-batching serving: GPT-2 medium through init_serving
+# phase 15, the training loop users write: forward / backward / step with
+# dropout and remat, GPT-2 medium (gas 2) and BERT-large
+LOOP_MICRO, LOOP_GAS, LOOP_STEPS, LOOP_CHECK_STEPS = 4, 2, 10, 3
+LOOP_DROPOUT = 0.1
+LOOP_SHARE_TOL = 1e-3        # one site's keep share over 4M draws
+
+
+def loop_config(**opt):
+    """Phase 6's GPT-2 config at micro-batch 4 and gas 2 (train batch 8)."""
+    return dict(train_config(**opt),
+                train_micro_batch_size_per_gpu=LOOP_MICRO)
+
+
+def loop_steps(torch, engine, micros, n):
+    """n global steps of the user loop (``forward`` and ``backward`` over
+    the micro-batches, then ``step``); (mean losses, synchronised host ms
+    of each step)."""
+    losses, ms = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step = []
+        for micro in micros:
+            loss = engine.forward(micro)
+            engine.backward(loss)
+            step.append(loss.detach())
+        engine.step()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(torch.stack(step).mean()))
+    return losses, ms
+
+
+def check_counts(what, counts, per_step, steps):
+    """Exactly ``per_step`` launches of each kernel a step and no other."""
+    want = {k: c * steps for k, c in per_step.items()}
+    got = {k: counts.get(k, 0) for k in want}
+    if got != want or sum(counts.values()) != sum(want.values()):
+        raise AssertionError(f"{what}: launches {counts}, expected {want}")
+
+
+def remat_pair(torch, op_builder, make_engine, micros, per_step, what):
+    """The same run with remat off, then on (dropout on in both): per run
+    the losses, step ms, launches (checked exactly), the peak of device
+    memory from the model's build on, and the final params; the remat-on
+    engine is returned for the checks that follow."""
+    runs, engine = {}, None
+    for remat in (False, True):
+        del engine
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        engine = make_engine(remat)
+        op_builder.reset_launch_counts()
+        losses, ms = loop_steps(torch, engine, micros, LOOP_STEPS)
+        counts = dict(op_builder.LAUNCHES)
+        check_counts(f"{what} remat={remat}", counts, per_step[remat],
+                     LOOP_STEPS)
+        runs[remat] = {
+            "losses": losses, "step_ms": ms,
+            "step_ms_median_3_10": statistics.median(ms[2:LOOP_STEPS]),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": counts,
+            # on the host, out of the next run's peak
+            "params": {k: p.detach().cpu()
+                       for k, p in engine.params.items()}}
+        # where one more step's time goes (after the compared steps)
+        runs[remat]["profile_step"] = device_profile(
+            torch, lambda: loop_steps(torch, engine, micros, 1))
+    off, on = runs[False], runs[True]
+    loss_diff = max(abs(a - b) for a, b in zip(off["losses"], on["losses"]))
+    param_diff = max((off["params"][k] - on["params"][k]).abs().max().item()
+                     for k in off["params"])
+    bit_equal = loss_diff == 0 and param_diff == 0
+    print(f"loop {what}: remat on against off, losses max diff "
+          f"{loss_diff}, final params max diff {param_diff}, bit-equal "
+          f"{bit_equal}", flush=True)
+    if not bit_equal:
+        raise AssertionError(f"{what}: remat on and off not bit-equal: "
+                             f"losses {loss_diff}, params {param_diff}")
+    for run in (off, on):
+        if not all(math.isfinite(x) for x in run["losses"]) or \
+                not run["losses"][-1] < run["losses"][0]:
+            raise AssertionError(f"{what}: losses not finite and falling: "
+                                 f"{run['losses']}")
+        del run["params"]
+    return {"remat_off": off, "remat_on": on,
+            "remat_loss_max_diff": loss_diff,
+            "remat_param_max_diff": param_diff,
+            "remat_bit_equal": bit_equal,
+            "remat_step_cost": on["step_ms_median_3_10"]
+            / off["step_ms_median_3_10"] - 1,
+            "remat_peak_saving_gb": off["peak_mem_gb"] - on["peak_mem_gb"]}, \
+        engine
+
+
+def loop_phase(torch, deepspeed_tpu_torch, gpt2, bert, dropout, op_builder,
+               cfg, bert_cfg, card):
+    """Phase 15: the user loop at full width. Returns the ``loop`` line and
+    the phase's launches by kernel row."""
+    import dataclasses
+    rows = collections.Counter()
+    batch = gpt2.synthetic_batch(B, SEQ, cfg.vocab_size, seed=4)
+    micros = [{"input_ids": batch["input_ids"][i * LOOP_MICRO:
+                                              (i + 1) * LOOP_MICRO]}
+              for i in range(LOOP_GAS)]
+    layers = cfg.n_layer
+
+    def gpt_engine(remat, p=LOOP_DROPOUT, **opt):
+        model = gpt2.GPT2LMHeadModel(dataclasses.replace(
+            cfg, dropout=p, remat=remat), seed=0)
+        return deepspeed_tpu_torch.initialize(
+            model=model, config=loop_config(**(opt or {"sweep": True})))[0]
+
+    # (a) GPT-2 medium, dropout 0.1, remat off then on
+    per_micro = {False: layers, True: 2 * layers}    # the recompute's
+    per_step = {r: {"flash_fwd": LOOP_GAS * per_micro[r],
+                    "flash_bwd_dq": LOOP_GAS * layers,
+                    "flash_bwd_dkv": LOOP_GAS * layers, "adam": 1}
+                for r in (False, True)}
+    gpt_line, engine = remat_pair(torch, op_builder, gpt_engine, micros,
+                                  per_step, "gpt2-medium")
+    for run in (gpt_line["remat_off"], gpt_line["remat_on"]):
+        for k, n in run["launches"].items():
+            rows["adam_sweep" if k == "adam" else k] += n
+    n_params = sum(p.numel() for p in engine.params.values())
+    fpt = 6 * n_params + 12 * cfg.n_layer * cfg.n_embd * SEQ
+    med = gpt_line["remat_on"]["step_ms_median_3_10"]
+    gpt_line.update({
+        "config": f"gpt2-medium micro {LOOP_MICRO} x {SEQ}, gas "
+                  f"{LOOP_GAS}, bf16 zero1 adam-sweep lr {LR} clip 1.0, "
+                  f"dropout {LOOP_DROPOUT}, remat on (off for the "
+                  f"comparison)",
+        "tokens_per_s": B * SEQ / med * 1e3,
+        "tokens_per_s_remat_off": B * SEQ
+        / gpt_line["remat_off"]["step_ms_median_3_10"] * 1e3,
+        "flops_per_token": fpt,
+        "mfu": fpt * B * SEQ / (med / 1e3) / BF16_FLOPS,
+        "mfu_note": "6N + 12LES flops a token (bench.py:551), the "
+                    "recompute's flops not counted"})
+
+    # (b)3 one site's keep share over a [4, 1024, 1024] activation
+    site = engine.module.h[0].attn.drop
+    with dropout.key_scope((engine._seed, engine.micro_steps)):
+        kept = dropout.dropout(torch.ones(LOOP_MICRO, SEQ, cfg.n_embd,
+                                          device=engine.device,
+                                          dtype=torch.bfloat16),
+                               site.p, site.site)
+    share = (kept != 0).float().mean().item()
+    if abs(share - (1 - LOOP_DROPOUT)) > LOOP_SHARE_TOL:
+        raise AssertionError(f"keep share {share}, expected "
+                             f"{1 - LOOP_DROPOUT} ± {LOOP_SHARE_TOL}")
+    del kept
+
+    # (b)4 two forwards at one (seed, micro-step) agree, the next differs
+    with torch.no_grad():
+        first = engine.forward(micros[0])
+        again = engine.forward(micros[0])
+    engine.backward(engine.forward(micros[0]))     # the next micro-step
+    with torch.no_grad():
+        nxt = engine.forward(micros[0])
+    if not torch.equal(first, again) or torch.equal(first, nxt):
+        raise AssertionError(f"forwards at one key {float(first)}, "
+                             f"{float(again)}; next {float(nxt)}")
+    for p in engine.params.values():
+        p.grad = None
+
+    # (b)5 eval twice equal, and equal to the same weights at dropout 0
+    ev = [engine.eval_batch(batch) for _ in range(2)]
+    state = engine.module.state_dict()
+    del engine
+    torch.cuda.empty_cache()
+    plain = gpt_engine(False, p=0.0)
+    plain.module.load_state_dict(state)
+    ev0 = plain.eval_batch(batch)
+    if not (torch.equal(ev[0], ev[1]) and torch.equal(ev[0], ev0)):
+        raise AssertionError(f"eval {float(ev[0])}, {float(ev[1])}; at "
+                             f"dropout 0 {float(ev0)}")
+    del plain, state
+    torch.cuda.empty_cache()
+    op_builder.reset_launch_counts()
+
+    # (b)1 dropout 0, remat off: the loop against train_batch, per-tensor
+    # Adam (one multi-tensor launch a step), bit-equal
+    a, b = (gpt_engine(False, p=0.0, fused=True) for _ in range(2))
+    tb_losses, loop_ms = [], []
+    for _ in range(LOOP_CHECK_STEPS):
+        tb_losses.append(float(a.train_batch(data_iter=iter(micros))))
+        (loop_loss,), ms = loop_steps(torch, b, micros, 1)
+        loop_ms += ms
+        if loop_loss != tb_losses[-1]:
+            raise AssertionError(f"loop loss {loop_loss} != train_batch "
+                                 f"{tb_losses[-1]}")
+    same = all(torch.equal(x, y) for x, y in zip(a.module.parameters(),
+                                                 b.module.parameters()))
+    if not same:
+        raise AssertionError("loop and train_batch params differ")
+    check_counts("loop against train_batch", dict(op_builder.LAUNCHES),
+                 {"flash_fwd": 2 * LOOP_GAS * layers,
+                  "flash_bwd_dq": 2 * LOOP_GAS * layers,
+                  "flash_bwd_dkv": 2 * LOOP_GAS * layers, "adam": 2},
+                 LOOP_CHECK_STEPS)
+    for k, n in op_builder.LAUNCHES.items():
+        rows["adam_per_tensor" if k == "adam" else k] += n
+    gpt_line["loop_vs_train_batch"] = {
+        "steps": LOOP_CHECK_STEPS, "losses": tb_losses,
+        "params_bit_equal": same,
+        # gas 2 without dropout or remat, per-tensor Adam: beside phase
+        # 6's gas-1 fused steps, the cost of two half-size micro-batches
+        "loop_step_ms_dropout0_remat_off": loop_ms}
+    gpt_line["checks"] = {"keep_share": share, "same_key_loss": float(first),
+                          "next_micro_step_loss": float(nxt),
+                          "eval_loss": float(ev[0]),
+                          "eval_loss_dropout0": float(ev0)}
+    del a, b
+    torch.cuda.empty_cache()
+
+    # (c) BERT-large, hidden and attention dropout 0.1, remat off then on
+    bert_batch = bert.synthetic_mlm_batch(BERT_B, BERT_S,
+                                          bert_cfg.vocab_size, seed=6)
+    blayers = bert_cfg.num_hidden_layers
+
+    def bert_engine(remat):
+        model = bert.BertForPreTraining(dataclasses.replace(
+            bert_cfg, hidden_dropout_prob=LOOP_DROPOUT,
+            attention_probs_dropout_prob=LOOP_DROPOUT, remat=remat), seed=0)
+        return deepspeed_tpu_torch.initialize(
+            model=model, config=bert_config(fused=True))[0]
+
+    bper = {r: {"flash_fwd": blayers * (2 if r else 1),
+                "flash_bwd_dq": blayers, "flash_bwd_dkv": blayers,
+                "ln_fwd": 2 * blayers * (2 if r else 1),
+                "ln_bwd": 2 * blayers,
+                "bias_gelu": blayers * (2 if r else 1), "lamb": 1}
+            for r in (False, True)}
+    bert_line, engine = remat_pair(torch, op_builder, bert_engine,
+                                   [bert_batch], bper, "bert-large")
+    del engine
+    torch.cuda.empty_cache()
+    for run in (bert_line["remat_off"], bert_line["remat_on"]):
+        for k, n in run["launches"].items():
+            rows[k] += n
+    bmed = bert_line["remat_on"]["step_ms_median_3_10"]
+    bert_line.update({
+        "config": f"bert-large bs{BERT_B} seq{BERT_S} bf16 zero0 "
+                  f"lamb(fused) lr{LR}, hidden and attention dropout "
+                  f"{LOOP_DROPOUT}, remat on each layer (off for the "
+                  f"comparison)",
+        "tokens_per_s": BERT_B * BERT_S / bmed * 1e3,
+        "samples_per_s": BERT_B / bmed * 1e3})
+    line = {"card": card, "gpt2": gpt_line, "bert": bert_line,
+            "launches": dict(rows)}
+    print(f"loop: gpt2 step {med:.1f} ms remat on, "
+          f"{gpt_line['remat_off']['step_ms_median_3_10']:.1f} off; peak "
+          f"{gpt_line['remat_on']['peak_mem_gb']:.2f} / "
+          f"{gpt_line['remat_off']['peak_mem_gb']:.2f} GB; bert "
+          f"{bmed:.1f} / {bert_line['remat_off']['step_ms_median_3_10']:.1f}"
+          f" ms", flush=True)
+    return line, dict(rows)
+
+
+# phase 16, continuous-batching serving: GPT-2 medium through init_serving
 SERVE_CFG = {"max_batch": 8, "block_size": 16, "prefill_chunk": 256,
              "max_model_len": 1024, "num_blocks": 0}
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 32, (8, 896), (16, 128)
@@ -2778,7 +3070,7 @@ def compare_runs(torch, model, trace, a, b, what, vocab):
 
 def serving_phase(torch, np, deepspeed_tpu_torch, gpt2, decode, op_builder,
                   cfg, card):
-    """Phase 15: GPT-2 medium through ``init_serving`` (see the module
+    """Phase 16: GPT-2 medium through ``init_serving`` (see the module
     docstring). Returns the ``serving`` line and the decode-kernel
     launches of its main-path runs."""
     import dataclasses
@@ -2974,6 +3266,7 @@ def main():
     from deepspeed_tpu_torch.ops.transformer import attention as attn_mod
     from deepspeed_tpu_torch.ops.transformer import (decode, flash, fused,
                                                      transformer)
+    from deepspeed_tpu_torch.runtime import dropout
     from deepspeed_tpu_torch.runtime import quantize as quantize_mod
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3343,6 +3636,12 @@ def main():
         float((glay != 0).sum()) / glay.size, card)
     sparse_line["max_abs_err_bias_cotangent_bf16"] = sparse_dbias_err
 
+    # 15. the training loop users write (forward / backward / step) with
+    # dropout 0.1 and remat: GPT-2 medium at gas 2, BERT-large
+    loop_line, loop_counts = loop_phase(
+        torch, deepspeed_tpu_torch, gpt2, bert, dropout, op_builder, cfg,
+        bert_cfg, card)
+
     bert_all = {k: bert_counts.get(k, 0) + bert_plain_counts.get(k, 0)
                 + moq_counts.get(k, 0) for k in per_step}
     launches = {"flash_fwd": gen_launches.get("flash_fwd", 0) +
@@ -3367,6 +3666,8 @@ def main():
     for name in ("sparse_fwd", "sparse_dq", "sparse_dkv"):
         launches[name] = sparse_counts[name] + gpt_counts[name]
         launches[name + "_predicated"] = pred_counts[name]
+    for name, n in loop_counts.items():
+        launches[name] += n
     bert_fwd = sdpa["fwd"]
     flash_row["bert_shape"] = {
         key: bert_fwd[key] for key in (
@@ -3378,7 +3679,8 @@ def main():
         "bert": bert_counts.get("flash_fwd", 0)
         + bert_plain_counts.get("flash_fwd", 0),
         "moq": moq_counts.get("flash_fwd", 0),
-        "int8_generate": int8_counts.get("flash_fwd", 0)}
+        "int8_generate": int8_counts.get("flash_fwd", 0),
+        "loop": loop_counts.get("flash_fwd", 0)}
     for row in [flash_row] + decode_rows:
         row["peak"] = BF16_FLOPS
     rows = finish_rows(
@@ -3396,7 +3698,7 @@ def main():
                 "bert_sparse": sparse_counts[row["name"]],
                 "gpt2_sparse": gpt_counts[row["name"]]}
 
-    # 15. continuous-batching serving on GPT-2 medium. Last: run before
+    # 16. continuous-batching serving on GPT-2 medium. Last: run before
     # the kernel timings, its profiled windows of graph replays were
     # followed by a profiler session that recorded no kernel of the
     # ctypes library, so it runs after every kernel timing; its decode
@@ -3417,6 +3719,7 @@ def main():
     print(json.dumps({"moq": moq_line}))
     print(json.dumps({"int8": int8_line}))
     print(json.dumps({"sparse": sparse_line}))
+    print(json.dumps({"loop": loop_line}))
     print(json.dumps({"serving": serving_line}))
     print(json.dumps({"kernels": rows}))
     print(f"card: {card}")

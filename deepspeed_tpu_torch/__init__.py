@@ -7,10 +7,13 @@ This package ports five paths, with hand-written CUDA kernels
 * cached GPT-2 generation: ``init_inference`` ->
   ``InferenceEngine.generate``, on the flash-attention forward and KV-cache
   decode-attention kernels;
-* GPT-2 training: ``initialize`` -> ``DeepSpeedEngine.train_batch`` (bf16,
-  fp16 or fp32 compute over fp32 masters, Adam/AdamW, ZeRO stage 0/1 on
-  one rank), on the flash-attention forward and backward kernels and the
-  fused Adam kernel;
+* GPT-2 training: ``initialize`` -> ``DeepSpeedEngine`` (the loop users
+  write, ``forward`` / ``backward`` / ``step``, and ``train_batch`` over
+  it; ``eval_batch``; bf16, fp16 or fp32 compute over fp32 masters,
+  Adam/AdamW, LAMB, SGD, Adagrad or a client optimizer, ZeRO stage 0/1 on
+  one rank; dropout keyed by (seed, micro-step) and remat), on the
+  flash-attention forward and backward kernels and the fused Adam
+  kernel;
 * BERT MLM pretraining: the same entry point on
   ``models.bert.BertForPreTraining`` with LAMB, on the flash kernels
   (non-causal), the LayerNorm forward/backward and bias-GeLU kernels of
@@ -35,10 +38,15 @@ It imports torch and numpy only; the JAX package ``deepspeed_tpu`` stays
 the reference and is never imported from here.
 """
 
+import os
+
+import torch
+
 from deepspeed_tpu_torch.inference.engine import InferenceEngine
 from deepspeed_tpu_torch.ops._platform import resolve_device
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
+from deepspeed_tpu_torch.utils.logging import logger
 
 __version__ = "0.1.0"
 
@@ -77,9 +85,48 @@ def init_serving(model=None, engine=None, params=None, checkpoint=None,
                          draft_scales=draft_scales)
 
 
+def init_distributed(dist_backend=None, verbose=True, init_method=None,
+                     world_size=None, rank=None):
+    """Initialise ``torch.distributed`` (reference:
+    deepspeed.init_distributed; JAX ``__init__.py:32``). Safe to call
+    again once initialised.
+
+    ``dist_backend`` defaults to ``nccl``, which needs a card (it raises
+    without one); ``"gloo"`` runs on the CPU. The world size and rank come
+    from the arguments, else from a launcher's ``WORLD_SIZE`` / ``RANK``,
+    else 1 and 0. The rendezvous is ``init_method``, else ``env://`` when
+    ``MASTER_ADDR`` is set, else (one rank) an in-process store. The
+    engine still refuses a world size above 1."""
+    dist = torch.distributed
+    if dist.is_initialized():
+        return
+    if dist_backend is None:
+        resolve_device(None)        # nccl needs the card
+        dist_backend = "nccl"
+    if rank is None:
+        rank = int(os.environ.get("RANK", 0))
+    if world_size is None:
+        world_size = int(os.environ.get("WORLD_SIZE", 1))
+    kw = {}
+    if init_method is not None:
+        kw["init_method"] = init_method
+    elif os.environ.get("MASTER_ADDR") is not None:
+        kw["init_method"] = "env://"
+    elif world_size == 1:
+        kw["store"] = dist.HashStore()
+    else:
+        raise ValueError("init_distributed: a world of more than one rank "
+                         "needs init_method= or MASTER_ADDR/MASTER_PORT")
+    dist.init_process_group(dist_backend, world_size=world_size, rank=rank,
+                            **kw)
+    if verbose:
+        logger.info("initialised torch.distributed: backend %s, rank %d "
+                    "of %d", dist_backend, rank, world_size)
+
+
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                training_data=None, lr_scheduler=None, config=None,
-               config_params=None, device=None, **kwargs):
+               config_params=None, device=None, seed=42, **kwargs):
     """Create a training engine (reference: deepspeed.initialize).
 
     Returns ``(engine, optimizer, None, lr_scheduler)``, the tuple
@@ -88,14 +135,15 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     fp32 masters on ``device`` (``None`` means CUDA, and raises without a
     card). ``model_parameters``, when given, is a state_dict loaded into
     it (for example ``bridge.flax_to_state_dict`` or
-    ``bridge.bert_flax_to_state_dict`` of flax params).
-    Not ported yet: ``training_data`` (the dataloader), a client
-    ``optimizer`` or ``lr_scheduler``, and ``args`` carrying the
-    config."""
-    unported = {"training_data (the dataloader)": training_data,
-                "a client optimizer": optimizer,
-                "a client lr_scheduler": lr_scheduler,
-                "args": args}
+    ``bridge.bert_flax_to_state_dict`` of flax params). The config is
+    ``config``, else ``config_params``, else ``args.deepspeed_config`` (a
+    dict or a JSON path). ``optimizer`` is a client
+    ``runtime.optim.Optimizer(init, update)`` pair (anything else raises,
+    a ``torch.optim`` optimizer too), ``lr_scheduler`` a client schedule
+    (``runtime.lr_schedules``), ``seed`` the dropout seed (JAX default
+    42). Not ported yet: ``training_data`` (the dataloader) and the other
+    keywords of the JAX ``initialize``."""
+    unported = {"training_data (the dataloader)": training_data}
     unported.update({f"initialize({k}=...)": v for k, v in kwargs.items()})
     for what, value in unported.items():
         if value is not None:
@@ -104,16 +152,44 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
         raise ValueError("initialize needs model=")
     if config is None:
         config = config_params
+    if config is None and args is not None:
+        config = getattr(args, "deepspeed_config", None)
     if config is None:
-        raise ValueError("initialize needs config= (a dict or a JSON path)")
+        raise ValueError("initialize needs config= (a dict or a JSON path) "
+                         "or args.deepspeed_config")
     cfg = DeepSpeedConfig(config)
     dev = resolve_device(device)
     model = model.to(dev)
     if model_parameters is not None:
         model.load_state_dict(model_parameters)
-    engine = DeepSpeedEngine(model, cfg, dev)
+    engine = DeepSpeedEngine(model, cfg, dev, optimizer=optimizer,
+                             lr_scheduler=lr_scheduler, seed=seed)
     return engine, engine.optimizer, None, engine.lr_scheduler
 
 
+def add_config_arguments(parser):
+    """Add the DeepSpeed argument group to an ``argparse`` parser
+    (reference: deepspeed.add_config_arguments; the JAX package's
+    ``__init__.py:272``, copied)."""
+    group = parser.add_argument_group("DeepSpeed", "DeepSpeed configurations")
+    group.add_argument("--deepspeed", default=False, action="store_true",
+                       help="Enable DeepSpeed (helper flag to ease "
+                            "transition)")
+    group.add_argument("--deepspeed_config", default=None, type=str,
+                       help="DeepSpeed json configuration file.")
+    group.add_argument("--deepscale", default=False, action="store_true",
+                       help="Deprecated enable flag")
+    group.add_argument("--deepscale_config", default=None, type=str,
+                       help="Deprecated config path")
+    group.add_argument("--deepspeed_mpi", default=False, action="store_true",
+                       help="Run via MPI")
+    return parser
+
+
+# public module alias (reference: deepspeed.checkpointing)
+from deepspeed_tpu_torch.runtime.activation_checkpointing import \
+    checkpointing  # noqa: E402
+
 __all__ = ["DeepSpeedConfig", "DeepSpeedEngine", "InferenceEngine",
+           "add_config_arguments", "checkpointing", "init_distributed",
            "init_inference", "init_serving", "initialize", "__version__"]

@@ -9,8 +9,10 @@ Dense kernels go
 from flax's ``[in, out]`` to ``[out, in]`` (the fused QKV keeps its
 ``[q | k | v]`` column order as row order), LayerNorm ``scale``/``bias``
 become ``weight``/``bias``, flax block ``h_{i}`` becomes ``h.{i}``, and
-``wte`` keeps its padded vocab (it is also the tied LM head). This module
-imports neither jax nor flax.
+``wte`` keeps its padded vocab (it is also the tied LM head).
+:func:`simple_flax_to_state_dict` and :func:`cifar_flax_to_state_dict`
+carry the fixture models (``models/simple.py``) and the CIFAR net
+(``models/cifar.py``). This module imports neither jax nor flax.
 """
 
 import numpy as np
@@ -88,4 +90,38 @@ def bert_flax_to_state_dict(params) -> dict:
             _dense(lay[dense], f"{p}.{dense}", sd)
     _dense(params["mlm_dense"], "mlm_dense", sd)
     _norm(params["mlm_ln"], "mlm_ln", sd)
+    return sd
+
+
+def simple_flax_to_state_dict(params) -> dict:
+    """Convert the flax params of ``SimpleModel`` or ``LinearStack``
+    (denses ``Dense_{i}``) or ``EmbeddingModel`` (``wte`` and
+    ``Dense_0``) to the port model's state_dict: ``layers.{i}``, or
+    ``wte`` and ``dense``."""
+    if "params" in params:
+        params = params["params"]
+    sd = {}
+    if "wte" in params:
+        sd["wte.weight"] = _leaf(params["wte"]["embedding"])
+        _dense(params["Dense_0"], "dense", sd)
+        return sd
+    n = sum(1 for name in params if name.startswith("Dense_"))
+    for i in range(n):
+        _dense(params[f"Dense_{i}"], f"layers.{i}", sd)
+    return sd
+
+
+def cifar_flax_to_state_dict(params) -> dict:
+    """Convert the flax ``CifarNet`` params to the port net's state_dict:
+    conv kernels from ``[kh, kw, in, out]`` to ``[out, in, kh, kw]``,
+    dense kernels transposed."""
+    if "params" in params:
+        params = params["params"]
+    sd = {}
+    for conv in ("conv1", "conv2"):
+        sd[f"{conv}.weight"] = _leaf(
+            np.asarray(params[conv]["kernel"]).transpose(3, 2, 0, 1))
+        sd[f"{conv}.bias"] = _leaf(params[conv]["bias"])
+    for fc in ("fc1", "fc2", "fc3"):
+        _dense(params[fc], fc, sd)
     return sd

@@ -15,7 +15,12 @@ runs on those positions only), optionally ``attention_mask`` [B, S]; or a
 tuple ``(input_ids, labels)``. ``forward`` returns the MLM cross-entropy,
 or the logits when the batch has no labels.
 
-Not ported yet: dropout and remat.
+``hidden_dropout_prob`` masks the embeddings (after ``emb_ln``) and each
+layer's attention and MLP outputs; ``attention_probs_dropout_prob`` is
+the fused layer's attention dropout, on ``attn_out`` after its
+projection (the JAX sites, bert.py:139-148, 183-184; transformer.py:106,
+137). Sparse mode refuses attention dropout, as JAX does. ``remat``
+recomputes each layer in the backward (bert.py:194-195, 210-211).
 """
 
 import dataclasses
@@ -26,13 +31,17 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from deepspeed_tpu_torch.models.common import masked_next_token_ce
+from deepspeed_tpu_torch.models.common import (lecun_normal_,
+                                               masked_next_token_ce)
 from deepspeed_tpu_torch.ops._platform import resolve_device
 from deepspeed_tpu_torch.ops.sparse_attention import sparsity_config as sc
 from deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention import \
     BertSparseSelfAttention
 from deepspeed_tpu_torch.ops.transformer.transformer import (
     DeepSpeedTransformerConfig, DeepSpeedTransformerLayer)
+from deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing \
+    import remat
+from deepspeed_tpu_torch.runtime.dropout import Dropout
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,18 +80,15 @@ PRESETS = {
 }
 
 
-def _check_ported(cfg: BertConfig):
-    unported = {
-        "dropout > 0": cfg.hidden_dropout_prob > 0
-            or cfg.attention_probs_dropout_prob > 0,
-        "remat": cfg.remat,
-    }
-    for what, hit in unported.items():
-        if hit:
-            raise NotImplementedError(f"BERT {what} is not ported yet")
-    # the JAX model's assert (bert.py:190-192); its attention-dropout
-    # assert is covered by the dropout refusal above
-    if cfg.sparse_attention_mode is not None and cfg.pre_layer_norm:
+def _check_config(cfg: BertConfig):
+    """The JAX model's sparse-mode asserts (bert.py:186-192)."""
+    if cfg.sparse_attention_mode is None:
+        return
+    if cfg.attention_probs_dropout_prob != 0:
+        raise ValueError("the block-sparse kernel has no attention-dropout "
+                         "input; set attention_probs_dropout_prob=0 for "
+                         "sparse mode")
+    if cfg.pre_layer_norm:
         raise ValueError("BertSparseLayer is post-LN (classic BERT); "
                          "pre_layer_norm is not implemented for sparse mode")
 
@@ -91,25 +97,19 @@ class BertLayer(nn.Module):
     """The flax ``BertLayer``: a named holder of one fused layer."""
 
     def __init__(self, hidden_size, num_heads, intermediate_size,
-                 pre_layer_norm=False, layer_norm_eps=1e-12, *, device=None,
-                 dtype=torch.float32):
+                 pre_layer_norm=False, dropout=0.0, attn_dropout=0.0,
+                 layer_norm_eps=1e-12, *, device=None, dtype=torch.float32):
         super().__init__()
         cfg = DeepSpeedTransformerConfig(
             hidden_size=hidden_size, heads=num_heads,
             intermediate_size=intermediate_size,
-            pre_layer_norm=pre_layer_norm, layer_norm_eps=layer_norm_eps)
+            pre_layer_norm=pre_layer_norm, hidden_dropout_ratio=dropout,
+            attn_dropout_ratio=attn_dropout, layer_norm_eps=layer_norm_eps)
         self.layer = DeepSpeedTransformerLayer(cfg, device=device,
                                                dtype=dtype)
 
     def forward(self, x, mask=None):
         return self.layer(x, mask)
-
-
-def _lecun_normal_(weight, gen):
-    """flax ``lecun_normal``: a normal truncated at 2 std, rescaled so the
-    variance is 1 / fan_in (fan_in = weight.shape[1] for [out, in])."""
-    std = (1.0 / weight.shape[1]) ** 0.5 / .87962566103423978
-    nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std, generator=gen)
 
 
 def sparsity_config(mode, num_heads, block, num_local_blocks=4,
@@ -134,12 +134,12 @@ class BertSparseLayer(nn.Module):
     """Post-LN encoder layer whose self-attention is block-sparse (the JAX
     ``BertSparseLayer``, bert.py:87-170): ``attention`` (qkv + sparse
     attention), ``attn_out``, ``attn_ln``, ``fc``, tanh-GeLU, ``out``,
-    ``out_ln``."""
+    ``out_ln``; ``dropout`` masks the attention and MLP outputs."""
 
     def __init__(self, hidden_size, num_heads, intermediate_size,
                  sparsity_mode="fixed", block=16, num_local_blocks=4,
-                 num_global_blocks=1, layer_norm_eps=1e-12, *, device=None,
-                 dtype=torch.float32):
+                 num_global_blocks=1, layer_norm_eps=1e-12, dropout=0.0, *,
+                 device=None, dtype=torch.float32):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.attention = BertSparseSelfAttention(
@@ -151,12 +151,14 @@ class BertSparseLayer(nn.Module):
         self.fc = nn.Linear(hidden_size, intermediate_size, **kw)
         self.out = nn.Linear(intermediate_size, hidden_size, **kw)
         self.out_ln = nn.LayerNorm(hidden_size, eps=layer_norm_eps, **kw)
+        self.attn_drop = Dropout(dropout)
+        self.out_drop = Dropout(dropout)
 
     @torch.no_grad()
     def reset_parameters(self, gen):
         """The flax init: ``qkv`` LeCun-normal (nn.Dense's default), the
         other denses normal(0.02), zero biases, unit LayerNorm scales."""
-        _lecun_normal_(self.attention.qkv.weight, gen)
+        lecun_normal_(self.attention.qkv.weight, gen)
         for dense in (self.attn_out, self.fc, self.out):
             nn.init.normal_(dense.weight, 0.0, 0.02, generator=gen)
         for dense in (self.attention.qkv, self.attn_out, self.fc, self.out):
@@ -167,9 +169,9 @@ class BertSparseLayer(nn.Module):
 
     def forward(self, x, mask=None):
         ctx = self.attention(x, mask)
-        x = self.attn_ln(x + self.attn_out(ctx))
+        x = self.attn_ln(x + self.attn_drop(self.attn_out(ctx)))
         h = F.gelu(self.fc(x), approximate="tanh")
-        return self.out_ln(x + self.out(h))
+        return self.out_ln(x + self.out_drop(self.out(h)))
 
 
 def _unpack(batch):
@@ -194,7 +196,7 @@ class BertForPreTraining(nn.Module):
     def __init__(self, config: BertConfig, *, device=None,
                  dtype=torch.float32, seed: int = 0):
         super().__init__()
-        _check_ported(config)
+        _check_config(config)
         dev = resolve_device(device)
         self.config = config
         H = config.hidden_size
@@ -213,17 +215,20 @@ class BertForPreTraining(nn.Module):
                     config.sparse_attention_mode, config.sparse_block,
                     config.sparse_num_local_blocks,
                     config.sparse_num_global_blocks, config.layer_norm_eps,
-                    **kw)
+                    config.hidden_dropout_prob, **kw)
                 for _ in range(config.num_hidden_layers))
         else:
             self.layer = nn.ModuleList(
                 BertLayer(H, config.num_attention_heads,
                           config.intermediate_size, config.pre_layer_norm,
+                          config.hidden_dropout_prob,
+                          config.attention_probs_dropout_prob,
                           config.layer_norm_eps, **kw)
                 for _ in range(config.num_hidden_layers))
         self.mlm_dense = nn.Linear(H, H, **kw)
         self.mlm_ln = nn.LayerNorm(H, eps=config.layer_norm_eps, **kw)
         self.mlm_bias = nn.Parameter(torch.zeros(config.padded_vocab, **kw))
+        self.emb_drop = Dropout(config.hidden_dropout_prob)
         self.reset_parameters(seed)
 
     @torch.no_grad()
@@ -238,7 +243,7 @@ class BertForPreTraining(nn.Module):
                 blk.reset_parameters(gen)
             else:
                 blk.layer.reset_parameters(gen)
-        _lecun_normal_(self.mlm_dense.weight, gen)
+        lecun_normal_(self.mlm_dense.weight, gen)
         nn.init.zeros_(self.mlm_dense.bias)
         nn.init.zeros_(self.mlm_bias)
         for ln in (self.emb_ln, self.mlm_ln):
@@ -255,9 +260,11 @@ class BertForPreTraining(nn.Module):
                              f"({cfg.max_position_embeddings})")
         x = (F.embedding(input_ids, self.word_embeddings)
              + self.position_embeddings[:S] + self.token_type_embeddings[0])
-        x = self.emb_ln(x)
+        x = self.emb_drop(self.emb_ln(x))
+        # remat: each layer's activations are recomputed in the backward
+        recompute = cfg.remat and torch.is_grad_enabled()
         for blk in self.layer:
-            x = blk(x, mask)
+            x = remat(blk, x, mask) if recompute else blk(x, mask)
 
         # MLM transform + tied decoder; with masked_positions only those
         # positions reach the head

@@ -14,8 +14,15 @@ cache. The flax ``"cache"`` collection becomes an explicit
 Batch convention: a dict with ``input_ids`` [B, S] (and optionally
 ``labels``), a tuple ``(input_ids, labels)``, or the ids tensor itself.
 ``forward`` returns the mean next-token cross-entropy unless logits are
-asked for. Not ported yet: pipeline stages, ring/ulysses attention, MoE,
-rotary embeddings, dropout, remat.
+asked for.
+
+``dropout`` > 0 masks the embeddings, each attention projection's output
+and each MLP output (the JAX sites, gpt2.py:219-220, 237-238, 399-400)
+with :class:`~deepspeed_tpu_torch.runtime.dropout.Dropout`, active in
+training mode under the engine's (seed, micro-step) key. ``remat``
+recomputes each block in the backward (gpt2.py:424-426) through
+``runtime.activation_checkpointing.checkpointing.remat``. Not ported yet:
+pipeline stages, ring/ulysses attention, MoE, rotary embeddings.
 """
 
 import dataclasses
@@ -34,6 +41,9 @@ from deepspeed_tpu_torch.ops.transformer.attention import attention
 from deepspeed_tpu_torch.ops.transformer.decode import (
     aligned_cache_len, decode_attention, decode_attention_quantized,
     quantize_kv)
+from deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing \
+    import remat
+from deepspeed_tpu_torch.runtime.dropout import Dropout
 
 
 def _pad_vocab(v: int, multiple: int = 128) -> int:
@@ -87,8 +97,6 @@ def _check_ported(cfg: GPT2Config):
         "MoE": cfg.moe_num_experts > 0,
         f"position_embedding={cfg.position_embedding!r}":
             cfg.position_embedding != "learned",
-        "dropout > 0": cfg.dropout > 0,
-        "remat": cfg.remat,
     }
     for what, hit in unported.items():
         if hit:
@@ -151,6 +159,7 @@ class CausalSelfAttention(nn.Module):
         self.config = config
         self.qkv = QuantDense(E, 3 * E, device=device, dtype=dtype)
         self.proj = QuantDense(E, E, device=device, dtype=dtype)
+        self.drop = Dropout(config.dropout)
 
     def forward(self, x, cache: KVCache = None, layer: int = 0):
         cfg = self.config
@@ -187,7 +196,7 @@ class CausalSelfAttention(nn.Module):
                 out = decode_attention(q, cache.k[layer], cache.v[layer],
                                        cache.lens)
         out = out.transpose(1, 2).reshape(B, S, E)
-        return self.proj(out)
+        return self.drop(self.proj(out))
 
 
 class MLP(nn.Module):
@@ -196,9 +205,10 @@ class MLP(nn.Module):
         E = config.n_embd
         self.fc = QuantDense(E, 4 * E, device=device, dtype=dtype)
         self.proj = QuantDense(4 * E, E, device=device, dtype=dtype)
+        self.drop = Dropout(config.dropout)
 
     def forward(self, x):
-        return self.proj(F.gelu(self.fc(x), approximate="tanh"))
+        return self.drop(self.proj(F.gelu(self.fc(x), approximate="tanh")))
 
 
 class Block(nn.Module):
@@ -246,6 +256,7 @@ class GPT2LMHeadModel(nn.Module):
         self.h = nn.ModuleList(Block(config, dev, dtype)
                                for _ in range(config.n_layer))
         self.ln_f = nn.LayerNorm(E, eps=1e-5, device=dev, dtype=dtype)
+        self.drop = Dropout(config.dropout)
         self.reset_parameters(seed)
 
     @torch.no_grad()
@@ -282,13 +293,16 @@ class GPT2LMHeadModel(nn.Module):
         if pos + S > cfg.n_positions:
             raise ValueError(f"positions {pos}..{pos + S - 1} exceed "
                              f"n_positions ({cfg.n_positions})")
-        x = F.embedding(input_ids, self.wte) + self.wpe[pos:pos + S]
+        x = self.drop(F.embedding(input_ids, self.wte)
+                      + self.wpe[pos:pos + S])
         if cache is not None:
             return_logits = True
             cache.lens = torch.full((), pos + S, dtype=torch.int32,
                                     device=x.device)
+        # remat: each block's activations are recomputed in the backward
+        recompute = cfg.remat and cache is None and torch.is_grad_enabled()
         for i, blk in enumerate(self.h):
-            x = blk(x, cache, i)
+            x = remat(blk, x) if recompute else blk(x, cache, i)
         if cache is not None:
             cache.pos = pos + S
         x = self.ln_f(x)

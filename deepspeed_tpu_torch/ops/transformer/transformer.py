@@ -12,10 +12,15 @@ parameter, as in the flax layer; the other three projections are
 per-column scales in the ``inter_w_scale`` buffer) runs
 :func:`int8_matmul` (JAX transformer.py:120-133).
 
-Not ported yet: dropout (``attn_dropout_ratio`` or ``hidden_dropout_ratio``
-> 0), remat (``normalize_invertible``, ``gelu_checkpoint``,
-``attn_dropout_checkpoint``), and ``transformer_tp_rules`` (tensor
-parallelism).
+``attn_dropout_ratio`` masks ``attn_out`` after its projection (the JAX
+layer's attention dropout, transformer.py:106-107, not dropout on the
+probabilities) and ``hidden_dropout_ratio`` the MLP output (:137-138),
+with :class:`~deepspeed_tpu_torch.runtime.dropout.Dropout`: no kernel
+takes a mask, as no Pallas kernel does. Any of the memory knobs
+(``normalize_invertible``, ``gelu_checkpoint``,
+``attn_dropout_checkpoint``) recomputes the whole layer in the backward
+(the JAX ``nn.remat`` over the layer, :145). Not ported yet:
+``transformer_tp_rules`` (tensor parallelism).
 """
 
 import dataclasses
@@ -28,6 +33,9 @@ from deepspeed_tpu_torch.ops.quantizer.int8_linear import (QuantDense,
 from deepspeed_tpu_torch.ops.transformer.attention import attention
 from deepspeed_tpu_torch.ops.transformer.fused import (fused_bias_gelu,
                                                        fused_layer_norm)
+from deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing \
+    import remat
+from deepspeed_tpu_torch.runtime.dropout import Dropout
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,13 +81,6 @@ class DeepSpeedTransformerLayer(nn.Module):
     def __init__(self, config: DeepSpeedTransformerConfig, *, device=None,
                  dtype=torch.float32):
         super().__init__()
-        unported = {"dropout": config.attn_dropout_ratio > 0
-                    or config.hidden_dropout_ratio > 0,
-                    "remat": config.wants_remat}
-        for what, hit in unported.items():
-            if hit:
-                raise NotImplementedError(
-                    f"DeepSpeedTransformerLayer {what} is not ported yet")
         self.config = config
         H, inter = config.hidden_size, config.intermediate
         kw = dict(device=device, dtype=dtype)
@@ -92,6 +93,8 @@ class DeepSpeedTransformerLayer(nn.Module):
         self.inter_w = nn.Parameter(torch.empty((H, inter), **kw))
         self.inter_b = nn.Parameter(torch.zeros(inter, **kw))
         self.output_w = QuantDense(inter, H, **kw)
+        self.attn_drop = Dropout(config.attn_dropout_ratio)
+        self.out_drop = Dropout(config.hidden_dropout_ratio)
         self.reset_parameters()
 
     @torch.no_grad()
@@ -109,11 +112,16 @@ class DeepSpeedTransformerLayer(nn.Module):
         nn.init.ones_(self.ln_gamma)
 
     def forward(self, hidden_states, attention_mask=None):
-        cfg = self.config
         mask = attention_mask
         if mask is not None and mask.dim() == 2:
             mask = mask[:, None, None, :].bool()
-        x = hidden_states
+        if self.config.wants_remat and torch.is_grad_enabled():
+            return remat(self, hidden_states, mask, method="layer")
+        return self.layer(hidden_states, mask)
+
+    def layer(self, x, mask):
+        """The layer on [B, S, hidden] with a boolean mask or None."""
+        cfg = self.config
         B, S, H = x.shape
         nh = cfg.heads
         eps = cfg.layer_norm_eps
@@ -125,7 +133,7 @@ class DeepSpeedTransformerLayer(nn.Module):
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
         ctx = attention(q, k, v, causal=False, mask=mask)
         ctx = ctx.transpose(1, 2).reshape(B, S, H)
-        x = x + self.attn_out(ctx)
+        x = x + self.attn_drop(self.attn_out(ctx))
         if not cfg.pre_layer_norm:
             x = fused_layer_norm(x, self.attn_ln_gamma, self.attn_ln_beta,
                                  eps)
@@ -143,7 +151,7 @@ class DeepSpeedTransformerLayer(nn.Module):
                 int8_matmul(mlp_in, self.inter_w.t(), scale), self.inter_b)
         else:
             h = fused_bias_gelu(mlp_in @ self.inter_w, self.inter_b)
-        x = x + self.output_w(h)
+        x = x + self.out_drop(self.output_w(h))
         if not cfg.pre_layer_norm:
             x = fused_layer_norm(x, self.ln_gamma, self.ln_beta, eps)
         return x

@@ -1,8 +1,9 @@
 """The training config (counterpart of ``deepspeed_tpu/runtime/config.py``)
 over the keys the port's training path reads: the batch triad, optimizer,
 scheduler, fp16, bf16, gradient_clipping, zero_optimization.stage,
-steps_per_print, gradient_accumulation_dtype and the ``quantize_training``
-(MoQ) block. The raw
+steps_per_print, gradient_accumulation_dtype, the ``quantize_training``
+(MoQ) block and the ``activation_checkpointing`` block (read by
+``checkpointing.configure``). The raw
 ``sparse_attention`` block is kept as it is given, as the JAX config keeps
 it (the models read it through ``ops.sparse_attention.
 sparse_attention_utils``). The attribute
@@ -35,9 +36,13 @@ from deepspeed_tpu_torch.runtime import constants as C
 ADAM_OPTIMIZER = "adam"
 ADAMW_OPTIMIZER = "adamw"
 LAMB_OPTIMIZER = "lamb"
+SGD_OPTIMIZER = "sgd"
+ADAGRAD_OPTIMIZER = "adagrad"
 DEEPSPEED_OPTIMIZERS = [ADAM_OPTIMIZER, ADAMW_OPTIMIZER, LAMB_OPTIMIZER,
-                        "onebitadam", "onebitlamb", "sgd", "adagrad"]
-PORTED_OPTIMIZERS = (ADAM_OPTIMIZER, ADAMW_OPTIMIZER, LAMB_OPTIMIZER)
+                        "onebitadam", "onebitlamb", SGD_OPTIMIZER,
+                        ADAGRAD_OPTIMIZER]
+PORTED_OPTIMIZERS = (ADAM_OPTIMIZER, ADAMW_OPTIMIZER, LAMB_OPTIMIZER,
+                     SGD_OPTIMIZER, ADAGRAD_OPTIMIZER)
 
 # (top-level block, what it enables): rejected when enabled
 _UNPORTED_BLOCKS = (
@@ -530,6 +535,29 @@ class DeepSpeedQuantizeTrainingConfig:
                                          C.QUANTIZE_OFFSET_DEFAULT)
 
 
+class DeepSpeedActivationCheckpointingConfig:
+    """The ``activation_checkpointing`` block (JAX config.py:1075), read
+    by ``checkpointing.configure(deepspeed_config=...)``."""
+
+    def __init__(self, param_dict):
+        ac = param_dict.get(C.ACTIVATION_CHECKPOINTING, {}) or {}
+        self.partition_activations = ac.get(
+            C.ACT_CHKPT_PARTITION_ACTIVATIONS,
+            C.ACT_CHKPT_PARTITION_ACTIVATIONS_DEFAULT)
+        self.number_checkpoints = ac.get(
+            C.ACT_CHKPT_NUMBER_CHECKPOINTS,
+            C.ACT_CHKPT_NUMBER_CHECKPOINTS_DEFAULT)
+        self.contiguous_memory_optimization = ac.get(
+            C.ACT_CHKPT_CONTIGUOUS_MEMORY_OPTIMIZATION,
+            C.ACT_CHKPT_CONTIGUOUS_MEMORY_OPTIMIZATION_DEFAULT)
+        self.synchronize_checkpoint_boundary = ac.get(
+            C.ACT_CHKPT_SYNCHRONIZE_CHECKPOINT_BOUNDARY,
+            C.ACT_CHKPT_SYNCHRONIZE_CHECKPOINT_BOUNDARY_DEFAULT)
+        self.profile = ac.get(C.ACT_CHKPT_PROFILE, C.ACT_CHKPT_PROFILE_DEFAULT)
+        self.cpu_checkpointing = ac.get(C.ACT_CHKPT_CPU_CHECKPOINTING,
+                                        C.ACT_CHKPT_CPU_CHECKPOINTING_DEFAULT)
+
+
 class DeepSpeedConfig:
     """Parsed training config for one rank (world size 1)."""
 
@@ -613,6 +641,8 @@ class DeepSpeedConfig:
         self.scheduler_name = scheduler.get(C.TYPE, C.SCHEDULER_TYPE_DEFAULT)
         self.scheduler_params = scheduler.get(C.SCHEDULER_PARAMS, None)
 
+        self.activation_checkpointing_config = \
+            DeepSpeedActivationCheckpointingConfig(pd)
         self.quantize_training_config = DeepSpeedQuantizeTrainingConfig(pd)
         self.quantize_training_enabled = self.quantize_training_config.enabled
         ev = pd.get(C.EIGENVALUE, {}) or {}

@@ -83,6 +83,21 @@ EIGENVALUE_LAYER_NAME_DEFAULT = "bert.encoder.layer"
 EIGENVALUE_LAYER_NUM = "layer_num"
 EIGENVALUE_LAYER_NUM_DEFAULT = 0
 
+# Activation checkpointing (remat)
+ACTIVATION_CHECKPOINTING = "activation_checkpointing"
+ACT_CHKPT_PARTITION_ACTIVATIONS = "partition_activations"
+ACT_CHKPT_PARTITION_ACTIVATIONS_DEFAULT = False
+ACT_CHKPT_NUMBER_CHECKPOINTS = "number_checkpoints"
+ACT_CHKPT_NUMBER_CHECKPOINTS_DEFAULT = None
+ACT_CHKPT_CONTIGUOUS_MEMORY_OPTIMIZATION = "contiguous_memory_optimization"
+ACT_CHKPT_CONTIGUOUS_MEMORY_OPTIMIZATION_DEFAULT = False
+ACT_CHKPT_SYNCHRONIZE_CHECKPOINT_BOUNDARY = "synchronize_checkpoint_boundary"
+ACT_CHKPT_SYNCHRONIZE_CHECKPOINT_BOUNDARY_DEFAULT = False
+ACT_CHKPT_PROFILE = "profile"
+ACT_CHKPT_PROFILE_DEFAULT = False
+ACT_CHKPT_CPU_CHECKPOINTING = "cpu_checkpointing"
+ACT_CHKPT_CPU_CHECKPOINTING_DEFAULT = False
+
 # Quantize-aware training (MoQ)
 QUANTIZE_TRAINING = "quantize_training"
 QUANTIZE_TRAINING_ENABLED = "enabled"

@@ -1,16 +1,27 @@
 """The training engine, main path (counterpart of
 ``deepspeed_tpu/runtime/engine.py``'s ``DeepSpeedEngine``).
 
+The loop users write, with the JAX engine's contract:
+``loss = engine.forward(batch)`` (the unscaled loss of one micro-batch,
+with its graph, in training mode, dropout keyed by (seed, micro_steps)),
+``engine.backward(loss)`` (the loss-scaled backward divided by gas; it
+advances ``micro_steps``) and ``engine.step()`` (nothing off the
+gradient-accumulation boundary; on it the epilogue, the update, MoQ and
+the scheduler). ``train_batch`` is that loop over ``gas`` micro-batches.
+``eval_batch`` (and ``engine(batch)``, as in JAX) computes the loss
+without gradients or dropout.
+
 One rank: fp32 master parameters (the module's own), the forward in the
 compute dtype (bf16, fp16 or fp32) through ``torch.func.functional_call``
 so the gradients land on the fp32 masters, gradient accumulation over
 ``gas`` micro-batches (in fp32, or in the ``gradient_accumulation_dtype``
 bf16/fp16 buffer as the JAX micro-step casts into it, engine.py:1144-1150,
-1532-1535; at gas 1 the JAX fused step has no buffer, and neither has the
-port), then the epilogue and update of the JAX step in
-the same order (engine.py:1555-1628): unscale, the non-finite check
-(fp16 only), the global norm (fp16 or clipping only), the clip
-coefficient, the loss-scale update, the optimizer update, ``p += u``.
+1532-1535, at every gas; only ``train_batch`` at gas 1 keeps the fp32
+gradients, as the JAX fused gas-1 step has no buffer, engine.py:1702),
+then the epilogue and update of the JAX step in the same order
+(engine.py:1555-1628): unscale, the non-finite check (fp16 only), the
+global norm (fp16 or clipping only), the clip coefficient, the
+loss-scale update, the optimizer update, ``p += u``.
 
 ZeRO stages 0 and 1 at world size 1 are the same math: one rank's
 partition is the whole optimizer state, as on the JAX package's
@@ -22,17 +33,29 @@ the fp32 masters in place under ``no_grad`` (engine.py:3111-3130, where
 the JAX engine replaces the params pytree); an fp16 step that overflowed
 skips it.
 
-Host syncs: bf16 and fp32 steps make none. An fp16 step makes one, to read
-the overflow flag that decides whether the update is applied; this is the
-port's counterpart of the JAX ``lax.cond`` (engine.py:1627), which keeps
-that decision on the device.
+Host syncs: bf16 and fp32 steps make none, but for the grad-norm fetch of
+``get_global_grad_norm`` every ``steps_per_print`` steps when the step
+takes a norm (as in JAX). An fp16 step makes one, to read the overflow
+flag that decides whether the update is applied; this is the port's
+counterpart of the JAX ``lax.cond`` (engine.py:1627), which keeps that
+decision on the device.
+
+The engine numbers the module's dropout sites (``dropout.number_sites``)
+once, at construction, so layers a user stacks draw distinct masks.
+Remat and dropout live in the models (``models/gpt2.py``,
+``models/bert.py``, ``ops/transformer/transformer.py``); the casts of
+the masters stay outside every recomputed block (``runtime/
+activation_checkpointing/checkpointing.remat``).
 """
 
 import torch
 from torch.func import functional_call
 
+from deepspeed_tpu_torch.runtime import dropout as dropout_lib
 from deepspeed_tpu_torch.runtime import optim as optim_lib
-from deepspeed_tpu_torch.runtime.config import (LAMB_OPTIMIZER,
+from deepspeed_tpu_torch.runtime.config import (ADAGRAD_OPTIMIZER,
+                                                LAMB_OPTIMIZER,
+                                                SGD_OPTIMIZER,
                                                 DeepSpeedConfig)
 from deepspeed_tpu_torch.runtime.fp16.loss_scaler import (make_scale_state,
                                                           update_scale)
@@ -59,19 +82,26 @@ def _grad_of(name, p):
 
 
 class DeepSpeedEngine:
-    """``train_batch`` over a module whose ``forward(batch)`` returns the
-    loss. ``module`` holds the fp32 master parameters on ``device``."""
+    """The training loop over a module whose ``forward(batch)`` returns
+    the loss. ``module`` holds the fp32 master parameters on ``device``.
+    ``optimizer`` is a client ``optim.Optimizer(init, update)`` pair and
+    ``lr_scheduler`` a client schedule (``lr_at``, ``step``); ``seed``
+    keys the dropout masks (JAX engine.py:245)."""
 
     def __init__(self, module: torch.nn.Module, config: DeepSpeedConfig,
-                 device: torch.device):
+                 device: torch.device, optimizer=None, lr_scheduler=None,
+                 seed: int = 42):
         dist = torch.distributed
         if dist.is_available() and dist.is_initialized() and \
                 dist.get_world_size() > 1:
             raise NotImplementedError(
                 "ZeRO over torch.distributed is not ported yet")
-        self.module = module
+        self.module = dropout_lib.number_sites(module)
         self.config = config
         self.device = device
+        self.client_optimizer = optimizer
+        self.client_lr_scheduler = lr_scheduler
+        self._seed = int(seed)
         self.params = dict(module.named_parameters())
         for name, p in self.params.items():
             if p.dtype != torch.float32 or p.device.type != device.type:
@@ -93,11 +123,11 @@ class DeepSpeedEngine:
         self.scale = make_scale_state(init_scale,
                                       delayed_shift=config.fp16.hysteresis)
         # the accumulation buffer's dtype; None: the masters' fp32 .grad
-        acc = {"bf16": torch.bfloat16, "fp16": torch.float16}.get(
-            config.gradient_accumulation_dtype)
-        self._acc_dtype = acc if config.gradient_accumulation_steps > 1 \
-            else None
+        self._acc_dtype = {"bf16": torch.bfloat16,
+                           "fp16": torch.float16}.get(
+                               config.gradient_accumulation_dtype)
         self._acc = None
+        self._fused_gas1 = False   # inside train_batch at gas 1
 
         self.optimizer = self._configure_optimizer()
         self.opt_state = self.optimizer.init(
@@ -106,7 +136,11 @@ class DeepSpeedEngine:
         self.quantizer = self._configure_quantizer()
         self._transposed = transposed_weight_names(module)
 
-        self.global_grad_norm = None   # device scalar of the last step
+        # the last step's norm as a device scalar (None when the step
+        # takes none), and as a host float fetched at print cadence
+        self.global_grad_norm = None
+        self._last_grad_norm = None
+        self._pending_loss = None
         self.step_count = 0      # applied optimizer steps (indexes the lr)
         self.global_steps = 0
         self.micro_steps = 0
@@ -114,15 +148,31 @@ class DeepSpeedEngine:
 
     # ------------------------------------------------------------- config
     def _configure_optimizer(self):
-        """The optimizers the config lets through (engine.py:928-1009):
-        Adam/AdamW (``sweep`` -> the whole-state kernel, ``fused`` -> the
-        per-tensor kernel, else plain torch) and LAMB (``fused`` -> the
-        one-launch pass-1 kernel, else plain torch)."""
+        """A client optimizer, or the one the config names
+        (engine.py:922-1017): Adam/AdamW (``sweep`` -> the whole-state
+        kernel, ``fused`` -> the per-tensor kernel, else plain torch), LAMB
+        (``fused`` -> the one-launch pass-1 kernel, else plain torch), SGD
+        and Adagrad (plain torch)."""
+        if self.client_optimizer is not None:
+            if not isinstance(self.client_optimizer, optim_lib.Optimizer):
+                raise TypeError(
+                    "client optimizer must be a deepspeed_tpu_torch "
+                    "Optimizer(init, update) pair, got "
+                    f"{type(self.client_optimizer).__name__}")
+            return self.client_optimizer
         from deepspeed_tpu_torch.ops.adam import fused_adam
         from deepspeed_tpu_torch.ops.lamb import fused_lamb
         cfg = self.config
         params = dict(cfg.optimizer_params or {})
         betas = params.get("betas", (0.9, 0.999))
+        if cfg.optimizer_name == SGD_OPTIMIZER:
+            return optim_lib.sgd(momentum=params.get("momentum", 0.0),
+                                 weight_decay=params.get("weight_decay", 0.0),
+                                 nesterov=params.get("nesterov", False))
+        if cfg.optimizer_name == ADAGRAD_OPTIMIZER:
+            return optim_lib.adagrad(
+                eps=params.get("eps", 1e-8),
+                weight_decay=params.get("weight_decay", 0.0))
         if cfg.optimizer_name == LAMB_OPTIMIZER:
             kw = dict(b1=betas[0], b2=betas[1], eps=params.get("eps", 1e-6),
                       weight_decay=params.get("weight_decay", 0.0),
@@ -143,7 +193,18 @@ class DeepSpeedEngine:
         return optim_lib.adam(**kw)
 
     def _configure_lr_scheduler(self):
+        """A client schedule, the config's, or the constant base lr
+        (engine.py:1019-1028)."""
         base_lr = float((self.config.optimizer_params or {}).get("lr", 1e-3))
+        sched = self.client_lr_scheduler
+        if sched is not None:
+            if not (callable(getattr(sched, "lr_at", None))
+                    and callable(getattr(sched, "step", None))):
+                raise TypeError(
+                    "client lr_scheduler must be a deepspeed_tpu_torch "
+                    "schedule (lr_at(step) and step()), got "
+                    f"{type(sched).__name__}")
+            return sched, sched.lr_at
         if self.config.scheduler_name is not None:
             sched = get_lr_schedule(self.config.scheduler_name,
                                     self.config.scheduler_params)
@@ -169,6 +230,19 @@ class DeepSpeedEngine:
     def gradient_accumulation_steps(self):
         return self.config.gradient_accumulation_steps
 
+    def steps_per_print(self):
+        return self.config.steps_per_print
+
+    def is_gradient_accumulation_boundary(self):
+        return self.micro_steps % self.gradient_accumulation_steps() == 0
+
+    def get_global_grad_norm(self):
+        """The global gradient norm as a host float, fetched at
+        ``steps_per_print`` cadence (engine.py:883): None until the first
+        fetch, and always None when the step takes no norm (bf16/fp32
+        without clipping)."""
+        return self._last_grad_norm
+
     @property
     def loss_scale(self):
         return self.scale.loss_scale
@@ -183,30 +257,6 @@ class DeepSpeedEngine:
         the graph, so its gradient arrives on the fp32 master."""
         cparams = {k: p.to(self.compute_dtype) for k, p in self.params.items()}
         return functional_call(self.module, cparams, (batch,)).float()
-
-    def _micro_step(self, batch):
-        """Forward + backward of one micro-batch; grads accumulate in fp32
-        in each master's ``.grad``, or are cast into the bf16/fp16 buffer
-        and added there (``a + g.astype(a.dtype)``). Returns the unscaled
-        loss."""
-        gas = self.gradient_accumulation_steps()
-        scale = self.scale.loss_scale / gas
-        loss = self._compute_loss(_to_device(batch, self.device))
-        sloss = loss * scale
-        sloss.backward()
-        if self._acc_dtype is not None:
-            with torch.no_grad():
-                grads = {k: _grad_of(k, p).to(self._acc_dtype)
-                         for k, p in self.params.items()}
-                if self._acc is None:
-                    self._acc = grads
-                else:
-                    torch._foreach_add_(list(self._acc.values()),
-                                        [grads[k] for k in self._acc])
-            for p in self.params.values():
-                p.grad = None
-        self.micro_steps += 1
-        return sloss.detach() * gas / self.scale.loss_scale
 
     def _grad_epilogue(self, grads):
         """unscale, non-finite check, norm, clip coefficient, scale update
@@ -254,23 +304,63 @@ class DeepSpeedEngine:
                             [updates[k] for k in params])
         self.step_count += 1
 
-    def train_batch(self, data_iter=None, batch=None):
-        """One global step: ``gas`` micro-batches (each from ``data_iter``,
-        or ``batch`` every time), then the optimizer step. Returns the mean
-        micro-batch loss as a device fp32 scalar."""
-        if data_iter is None and batch is None:
-            raise ValueError("train_batch needs data_iter or batch")
-        for p in self.params.values():
-            p.grad = None
-        losses = []
-        for _ in range(self.gradient_accumulation_steps()):
-            micro = batch if batch is not None else next(data_iter)
-            losses.append(self._micro_step(micro))
+    # ------------------------------------------------------------- loop
+    def forward(self, batch):
+        """The loss of one micro-batch, unscaled, with its graph, in
+        training mode; the dropout masks are keyed by (seed,
+        ``micro_steps``) (engine.py:2757, 2770)."""
+        if not self.module.training:
+            self.module.train()
+        with dropout_lib.key_scope((self._seed, self.micro_steps)):
+            loss = self._compute_loss(_to_device(batch, self.device))
+        self._pending_loss = loss
+        return loss
+
+    def backward(self, loss=None, allreduce_gradients=True,
+                 release_loss=False):
+        """The backward of ``loss`` (by default the last ``forward``'s)
+        times loss_scale / gas; gradients accumulate in fp32 in each
+        master's ``.grad``, or are cast into the bf16/fp16 buffer and added
+        there (``a + g.astype(a.dtype)``), at every gas as in JAX, but in
+        ``train_batch`` at gas 1. Advances ``micro_steps`` (engine.py:3022).
+        The last two arguments are the reference's signature; one rank has
+        no allreduce to skip."""
+        if loss is None:
+            loss = self._pending_loss
+        if loss is None:
+            raise RuntimeError("backward() requires a prior forward()")
+        scale = self.scale.loss_scale / self.gradient_accumulation_steps()
+        (loss * scale).backward()
+        if self._acc_dtype is not None and not self._fused_gas1:
+            with torch.no_grad():
+                grads = {k: _grad_of(k, p).to(self._acc_dtype)
+                         for k, p in self.params.items()}
+                if self._acc is None:
+                    self._acc = grads
+                else:
+                    torch._foreach_add_(list(self._acc.values()),
+                                        [grads[k] for k in self._acc])
+            for p in self.params.values():
+                p.grad = None
+        self._pending_loss = None
+        self.micro_steps += 1
+        return loss
+
+    def step(self):
+        """The optimizer step on the gradient-accumulation boundary, else
+        nothing (engine.py:3071, 3096): unscale, the non-finite check, the
+        norm and clip, the update (skipped after an fp16 overflow), MoQ,
+        then the scheduler (which does not advance on a skipped step)."""
+        if not self.is_gradient_accumulation_boundary():
+            return
         if self._acc is not None:
             # the buffer, read back in fp32 and reset (engine.py:1596-1600)
             for k, p in self.params.items():
                 p.grad = self._acc[k].float()
             self._acc = None
+        if all(p.grad is None for p in self.params.values()):
+            raise RuntimeError("step() on the accumulation boundary needs "
+                               "the gradients of backward()")
         grads = {k: _grad_of(k, p) for k, p in self.params.items()}
         grads, finite, clip_coef = self._grad_epilogue(grads)
         if finite:
@@ -286,4 +376,46 @@ class DeepSpeedEngine:
             self.lr_scheduler.step()
         for p in self.params.values():
             p.grad = None
+        if self.global_steps % self.steps_per_print() == 0 \
+                and self.global_grad_norm is not None:
+            # the print cadence's one device fetch (engine.py:3161-3168)
+            self._last_grad_norm = float(self.global_grad_norm)
+
+    def train_batch(self, data_iter=None, batch=None):
+        """One global step: ``forward`` and ``backward`` over ``gas``
+        micro-batches (each from ``data_iter``, or ``batch`` every time),
+        then ``step`` (engine.py:3316-3345). At gas 1 the gradients skip
+        the ``gradient_accumulation_dtype`` buffer, as the JAX fused gas-1
+        step does (engine.py:1702). Returns the mean micro-batch loss as a
+        device fp32 scalar."""
+        if data_iter is None and batch is None:
+            raise ValueError("train_batch needs data_iter or batch")
+        gas = self.gradient_accumulation_steps()
+        losses = []
+        self._fused_gas1 = gas == 1
+        try:
+            for _ in range(gas):
+                micro = batch if batch is not None else next(data_iter)
+                loss = self.forward(micro)
+                self.backward(loss)
+                losses.append(loss.detach())
+            self.step()
+        finally:
+            self._fused_gas1 = False
         return torch.stack(losses).mean()
+
+    def eval_batch(self, batch):
+        """The loss of ``batch`` without gradients or dropout, the module
+        in eval mode for the call (engine.py:3401)."""
+        was_training = self.module.training
+        self.module.eval()
+        try:
+            with torch.no_grad(), dropout_lib.key_scope(None):
+                return self._compute_loss(_to_device(batch, self.device))
+        finally:
+            self.module.train(was_training)
+
+    def __call__(self, batch):
+        """``eval_batch``, as the JAX engine's ``__call__`` is
+        (engine.py:3407); the training forward is :meth:`forward`."""
+        return self.eval_batch(batch)

@@ -7,8 +7,7 @@ engine adds the updates to the fp32 master params. Params, grads and
 updates are dicts ``name -> tensor``; the applied-step count and the
 learning rate are host numbers, so the bias corrections are too. The
 arithmetic follows the JAX functions operation by operation, with the
-bias corrections taken in fp32 as ``1 - b ** step`` is there. ``sgd``
-and ``adagrad`` are not ported yet.
+bias corrections taken in fp32 as ``1 - b ** step`` is there.
 """
 
 from typing import Any, Callable, NamedTuple
@@ -122,6 +121,63 @@ def lamb(b1=0.9, b2=0.999, eps=1e-6, weight_decay=0.0, min_coeff=0.01,
                 torch.linalg.vector_norm(u.float()), min_coeff, max_coeff)
             updates[k] = -lr * ratio * u
         return updates, LambState(step=step, mu=mu, nu=nu)
+
+    return Optimizer(init, update)
+
+
+class SGDState(NamedTuple):
+    momentum: Any    # () without momentum, else the buffers
+
+
+def sgd(momentum=0.0, weight_decay=0.0, nesterov=False):
+    """SGD with optional momentum (Nesterov or heavy-ball) and L2 weight
+    decay folded into the gradient (JAX ``optim.sgd``)."""
+
+    def init(params):
+        if momentum == 0.0:
+            return SGDState(momentum=())
+        return SGDState(momentum={k: torch.zeros_like(p)
+                                  for k, p in params.items()})
+
+    def update(grads, state, params, lr):
+        lr = float(lr)
+        if weight_decay > 0.0:
+            grads = {k: g + weight_decay * params[k]
+                     for k, g in grads.items()}
+        if momentum == 0.0:
+            return {k: -lr * g for k, g in grads.items()}, state
+        buf = {k: momentum * state.momentum[k] + g for k, g in grads.items()}
+        if nesterov:
+            upd = {k: -lr * (g + momentum * buf[k]) for k, g in grads.items()}
+        else:
+            upd = {k: -lr * b for k, b in buf.items()}
+        return upd, SGDState(momentum=buf)
+
+    return Optimizer(init, update)
+
+
+class AdagradState(NamedTuple):
+    accum: Any
+
+
+def adagrad(eps=1e-8, weight_decay=0.0, initial_accumulator_value=0.0):
+    """Adagrad: the sum of squared gradients scales each step (JAX
+    ``optim.adagrad``)."""
+
+    def init(params):
+        return AdagradState(accum={
+            k: torch.full_like(p, initial_accumulator_value)
+            for k, p in params.items()})
+
+    def update(grads, state, params, lr):
+        lr = float(lr)
+        if weight_decay > 0.0:
+            grads = {k: g + weight_decay * params[k]
+                     for k, g in grads.items()}
+        accum = {k: state.accum[k] + g * g for k, g in grads.items()}
+        updates = {k: -lr * g / (torch.sqrt(accum[k]) + eps)
+                   for k, g in grads.items()}
+        return updates, AdagradState(accum=accum)
 
     return Optimizer(init, update)
 

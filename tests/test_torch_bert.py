@@ -22,6 +22,7 @@ from deepspeed_tpu.models import bert as jax_bert
 from deepspeed_tpu_torch.bridge import bert_flax_to_state_dict
 from deepspeed_tpu_torch.models import bert
 from deepspeed_tpu_torch.ops.transformer import transformer
+from deepspeed_tpu_torch.runtime import dropout
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 B, S = 4, 24
@@ -140,23 +141,46 @@ def test_seeded_init_statistics():
     ("sparse_attention_mode", "fixed"), ("hidden_dropout_prob", 0.1),
     ("attention_probs_dropout_prob", 0.1), ("remat", True)])
 def test_unported_options_raise(field, value):
+    """Each of these options is ported now (sparse attention, dropout,
+    remat): the model builds and the option acts. Sparse mode with hidden
+    dropout builds; with attention dropout it raises, as JAX asserts."""
     cfg = dataclasses.replace(bert.PRESETS["tiny"], **{field: value})
     if field == "sparse_attention_mode":
-        # ported: the sparse layers build; with dropout it still raises
         model = bert.BertForPreTraining(cfg, device="cpu")
         assert isinstance(model.layer[0], bert.BertSparseLayer)
         cfg = dataclasses.replace(cfg, hidden_dropout_prob=0.1)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        bert.BertForPreTraining(cfg, device="cpu")
+        with pytest.raises(ValueError, match="attention-dropout"):
+            bert.BertForPreTraining(dataclasses.replace(
+                cfg, attention_probs_dropout_prob=0.1), device="cpu")
+    model = dropout.number_sites(bert.BertForPreTraining(cfg, device="cpu"))
+    batch = bert.synthetic_mlm_batch(2, 16, 512, seed=0, device="cpu")
+    plain = model(batch)
+    with dropout.key_scope((0, 0)):
+        keyed = model(batch)
+    if field == "remat":
+        assert torch.equal(keyed, plain)          # no dropout configured
+    else:
+        assert not torch.equal(keyed, plain)      # masks drawn
 
 
 def test_layer_unported_options_and_long_sequences_raise():
+    """Dropout and the remat knobs are ported: the layer builds and, with a
+    key in scope, draws masks (dropout) or gives the plain layer's output
+    (remat); tensor-parallel rules and over-long sequences still raise."""
+    x = torch.randn(2, 8, 32)
+    base = transformer.DeepSpeedTransformerLayer(
+        transformer.DeepSpeedTransformerConfig(hidden_size=32, heads=2),
+        device="cpu")
     for over in ({"hidden_dropout_ratio": 0.1}, {"attn_dropout_ratio": 0.1},
                  {"normalize_invertible": True}, {"gelu_checkpoint": True}):
         cfg = transformer.DeepSpeedTransformerConfig(hidden_size=32, heads=2,
                                                      **over)
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            transformer.DeepSpeedTransformerLayer(cfg, device="cpu")
+        layer = dropout.number_sites(
+            transformer.DeepSpeedTransformerLayer(cfg, device="cpu"))
+        layer.load_state_dict(base.state_dict())
+        with dropout.key_scope((1, 0)):
+            out = layer(x)
+        assert torch.equal(out, base(x)) == cfg.wants_remat
     with pytest.raises(NotImplementedError, match="not ported yet"):
         transformer.transformer_tp_rules()
     model = bert.BertForPreTraining(bert.PRESETS["tiny"], device="cpu")

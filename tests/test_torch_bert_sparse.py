@@ -203,10 +203,16 @@ def test_sparse_bert_keeps_the_jax_asserts():
     with pytest.raises(ValueError, match="post-LN"):
         bert.BertForPreTraining(dataclasses.replace(
             cfg, pre_layer_norm=True), device="cpu")
+    with pytest.raises(ValueError, match="attention-dropout"):
+        bert.BertForPreTraining(dataclasses.replace(
+            cfg, attention_probs_dropout_prob=0.1), device="cpu")
+    # hidden dropout and remat are ported in sparse mode too
     for over in ({"hidden_dropout_prob": 0.1}, {"remat": True}):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            bert.BertForPreTraining(dataclasses.replace(cfg, **over),
-                                    device="cpu")
+        model = bert.BertForPreTraining(dataclasses.replace(cfg, **over),
+                                        device="cpu")
+        assert model.config.remat == ("remat" in over)
+        assert model.layer[0].out_drop.p == over.get("hidden_dropout_prob",
+                                                      0.0)
     for mode in ("bigbird", "bslongformer", "variable", "dense"):
         model = bert.BertForPreTraining(dataclasses.replace(
             cfg, sparse_attention_mode=mode), device="cpu")

@@ -149,8 +149,10 @@ def test_invalid_configs_raise_like_jax(cfg):
     ({"comm_overlap": {"enabled": True}}, "comm_overlap"),
     ({"optimizer": {"type": "OneBitAdam"}}, "onebitadam"),
     ({"optimizer": {"type": "OneBitLamb"}}, "onebitlamb"),
-    ({"optimizer": {"type": "SGD"}}, "sgd"),
-    ({"optimizer": {"type": "Adagrad"}}, "adagrad"),
+    ({"zero_optimization": {"stage": 1, "offload_param": {
+        "device": "cpu"}}}, "offload_param"),
+    ({"zero_optimization": {"stage": 1, "cpu_offload_params": True}},
+     "cpu_offload_params"),
     ({"pipeline": {"stages": 2}}, "pipeline"),
     ({"moe": {"enabled": True}}, "MoE"),
     ({"telemetry": {"enabled": True}}, "telemetry"),
@@ -172,6 +174,20 @@ def test_unported_keys_raise(over, what):
     with pytest.raises(NotImplementedError, match="not ported yet") as err:
         DeepSpeedConfig(basic(**over))
     assert what in str(err.value)
+
+
+@pytest.mark.parametrize("opt", [
+    {"type": "SGD", "params": {"lr": 0.1, "momentum": 0.9}},
+    {"type": "sgd"},
+    {"type": "Adagrad", "params": {"lr": 0.01}},
+])
+def test_sgd_and_adagrad_are_ported(opt):
+    cfg = DeepSpeedConfig(basic(optimizer=opt))
+    assert cfg.optimizer_name == opt["type"].lower()
+    assert cfg.optimizer_name == JaxConfig(
+        basic(optimizer=opt), data_parallel_size=1).optimizer_name
+    with pytest.raises(ValueError, match="sweep"):
+        DeepSpeedConfig(basic(optimizer=dict(opt, params={"sweep": True})))
 
 
 def test_disabled_blocks_are_accepted():

@@ -1,0 +1,149 @@
+"""The training loop's recompute on the card: what activation
+checkpointing needs of the kernels, and dropout on CUDA tensors. Every
+test carries the ``cuda`` marker and skips without a card. This file
+imports no JAX::
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_loop.py
+
+A recompute is exact only if each kernel's forward gives the same bits
+when it runs again: the flash forward (o and lse) and the fused layer's
+LayerNorm and bias-GeLU kernels. With that, gradients with and without
+checkpointing are bit-equal (atol 0) with dropout 0.1 on: the masks are
+drawn again from the same (seed, micro-step, site) key.
+"""
+
+import dataclasses
+
+import pytest
+import torch
+
+import deepspeed_tpu_torch
+from deepspeed_tpu_torch.models import gpt2
+from deepspeed_tpu_torch.ops import op_builder
+from deepspeed_tpu_torch.ops.transformer import flash, transformer
+from deepspeed_tpu_torch.runtime import dropout
+
+pytestmark = pytest.mark.cuda
+
+CFG = gpt2.GPT2Config(vocab_size=512, n_positions=256, n_embd=256,
+                      n_layer=2, n_head=4)
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+@pytest.mark.parametrize("causal,seq", [(True, 256), (False, 128),
+                                        (True, 200)])
+def test_flash_forward_is_bit_equal_on_rerun(gen, causal, seq):
+    q, k, v = (torch.randn(2, 4, seq, 64, generator=gen, device="cuda",
+                           dtype=torch.bfloat16) for _ in range(3))
+    o1, lse1 = flash.flash_attention_fwd(q, k, v, causal)
+    o2, lse2 = flash.flash_attention_fwd(q, k, v, causal)
+    assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
+
+
+@pytest.mark.parametrize("pre_ln", [False, True])
+def test_fused_layer_forward_is_bit_equal_on_rerun(gen, pre_ln):
+    cfg = transformer.DeepSpeedTransformerConfig(
+        hidden_size=256, heads=4, pre_layer_norm=pre_ln)
+    layer = transformer.DeepSpeedTransformerLayer(cfg, device="cuda",
+                                                  dtype=torch.bfloat16)
+    layer.reset_parameters(gen)
+    x = torch.randn(4, 128, 256, generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    op_builder.reset_launch_counts()
+    with torch.no_grad():
+        a, b = layer(x), layer(x)
+    assert torch.equal(a, b)
+    assert op_builder.LAUNCHES["ln_fwd"] == 4
+    assert op_builder.LAUNCHES["bias_gelu"] == 2
+    assert op_builder.LAUNCHES["flash_fwd"] == 2
+
+
+def _engine(remat, p=0.1):
+    model = gpt2.GPT2LMHeadModel(dataclasses.replace(CFG, dropout=p,
+                                                     remat=remat), seed=0)
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config={
+        "train_batch_size": 4, "bf16": {"enabled": True},
+        "optimizer": {"type": "Adam", "params": {"lr": 1e-3}}})
+    return engine
+
+
+def test_gpt2_block_gradients_bit_equal_with_checkpointing(gen):
+    """One micro-batch through the engine (bf16 over fp32 masters,
+    dropout 0.1): loss and every master gradient with each block
+    recomputed equal the stored-activation run's; the recompute runs the
+    flash forward again (two launches a block)."""
+    batch = gpt2.synthetic_batch(4, 256, CFG.vocab_size, seed=1)
+    out, launches = [], []
+    for remat in (False, True):
+        engine = _engine(remat)
+        op_builder.reset_launch_counts()
+        loss = engine.forward(batch)
+        engine.backward(loss)
+        torch.cuda.synchronize()
+        launches.append(dict(op_builder.LAUNCHES))
+        out.append((loss.detach(), {k: p.grad.clone()
+                                    for k, p in engine.params.items()}))
+    assert torch.equal(out[0][0], out[1][0])
+    for k in out[0][1]:
+        assert torch.equal(out[0][1][k], out[1][1][k]), k
+    n = CFG.n_layer
+    assert launches[0]["flash_fwd"] == n and launches[1]["flash_fwd"] == 2 * n
+    assert launches[0]["flash_bwd_dq"] == launches[1]["flash_bwd_dq"] == n
+
+
+@pytest.mark.parametrize("knob", ["normalize_invertible", "gelu_checkpoint"])
+def test_fused_layer_gradients_bit_equal_with_checkpointing(gen, knob):
+    base = transformer.DeepSpeedTransformerConfig(
+        hidden_size=256, heads=4, attn_dropout_ratio=0.1,
+        hidden_dropout_ratio=0.1)
+    x = torch.randn(4, 128, 256, generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    init = None
+    out = []
+    for cfg in (base, dataclasses.replace(base, **{knob: True})):
+        layer = dropout.number_sites(transformer.DeepSpeedTransformerLayer(
+            cfg, device="cuda", dtype=torch.bfloat16))
+        if init is None:
+            init = {k: v.clone() for k, v in layer.state_dict().items()}
+        layer.load_state_dict(init)
+        xs = x.clone().requires_grad_(True)
+        with dropout.key_scope((7, 3)):
+            y = layer(xs)
+        (y.float() ** 2).mean().backward()
+        out.append([y.detach(), xs.grad] + [p.grad for p in
+                                            layer.parameters()])
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+
+
+def test_dropout_on_cuda_tensors(gen):
+    x = torch.ones(4, 1024, 1024, device="cuda", dtype=torch.bfloat16)
+    with dropout.key_scope((42, 0)):
+        y = dropout.dropout(x, 0.1, site=0)
+        again = dropout.dropout(x, 0.1, site=0)
+        other = dropout.dropout(x, 0.1, site=1)
+    share = (y != 0).float().mean().item()
+    assert abs(share - 0.9) < 0.001
+    assert torch.equal(y, again) and not torch.equal(y, other)
+    kept = y[y != 0]
+    assert torch.equal(kept, torch.full_like(kept, 1.0 / 0.9))
+    assert y.dtype == torch.bfloat16 and y.is_cuda
+
+
+def test_loop_equals_train_batch_on_the_card(gen):
+    batch = gpt2.synthetic_batch(4, 256, CFG.vocab_size, seed=2)
+    a, b = _engine(False, p=0.0), _engine(False, p=0.0)
+    for _ in range(3):
+        want = a.train_batch(batch=batch)
+        loss = b.forward(batch)
+        b.backward(loss)
+        b.step()
+        assert torch.equal(loss.detach(), want)
+    for x, y in zip(a.module.parameters(), b.module.parameters()):
+        assert torch.equal(x, y)

@@ -209,9 +209,13 @@ def test_initialize_contract_and_unported_arguments(setup):
     assert isinstance(engine, deepspeed_tpu_torch.DeepSpeedEngine)
     assert loader is None and sched is None
     assert engine.get_lr() == [oracle.LR]
-    for kw in ({"training_data": [1]}, {"optimizer": object()},
-               {"lr_scheduler": object()}, {"mpu": object()}):
+    for kw in ({"training_data": [1]}, {"mpu": object()}):
         with pytest.raises(NotImplementedError, match="not ported yet"):
+            deepspeed_tpu_torch.initialize(model=model, config=_config(),
+                                           device="cpu", **kw)
+    # a client optimizer or scheduler is ported: a foreign one raises
+    for kw in ({"optimizer": object()}, {"lr_scheduler": object()}):
+        with pytest.raises(TypeError, match="client"):
             deepspeed_tpu_torch.initialize(model=model, config=_config(),
                                            device="cpu", **kw)
     with pytest.raises(ValueError, match="data_iter or batch"):

@@ -21,6 +21,7 @@ from deepspeed_tpu.ops.quantizer.int8_linear import QuantDense as JaxDense
 from deepspeed_tpu_torch.bridge import flax_to_state_dict
 from deepspeed_tpu_torch.models import common, gpt2
 from deepspeed_tpu_torch.ops.quantizer.int8_linear import QuantDense
+from deepspeed_tpu_torch.runtime import dropout
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -157,11 +158,23 @@ def test_cache_overflow_raises(tiny):
     ("attention_mode", "sparse"), ("moe_num_experts", 4),
     ("position_embedding", "rope"), ("dropout", 0.1), ("remat", True)])
 def test_unported_options_raise(field, value):
+    """Pipeline stages, ring attention, MoE and rope still raise. Sparse
+    attention, dropout and remat are ported: the model builds (sparse with
+    remat too) and the option acts: dropout draws masks under a key,
+    remat leaves the loss as it is."""
     cfg = dataclasses.replace(gpt2.PRESETS["tiny"], **{field: value})
     if value == "sparse":
-        # ported: sparse attention builds; with remat it still raises
         gpt2.GPT2LMHeadModel(cfg, device="cpu")
         cfg = dataclasses.replace(cfg, remat=True)
+    if value == "sparse" or field in ("dropout", "remat"):
+        model = dropout.number_sites(gpt2.GPT2LMHeadModel(cfg, device="cpu"))
+        seq = 128 if value == "sparse" else 32     # the default block
+        batch = gpt2.synthetic_batch(2, seq, 512, seed=0, device="cpu")
+        plain = model(batch)
+        with dropout.key_scope((0, 0)):
+            keyed = model(batch)
+        assert torch.equal(keyed, plain) == (field != "dropout")
+        return
     with pytest.raises(NotImplementedError, match="not ported yet"):
         gpt2.GPT2LMHeadModel(cfg, device="cpu")
 

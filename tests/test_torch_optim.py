@@ -60,6 +60,50 @@ def test_adam_matches_jax_over_steps(weight_decay, adam_w_mode,
     assert ts.step == int(js.step) == 5
 
 
+def _run_both(jopt, topt, steps=5):
+    """``steps`` updates of the same random grads through both rules,
+    params advanced by the updates; updates and states compared at TOL."""
+    jp, tp = _both(_tree(0))
+    js, ts = jopt.init(jp), topt.init(tp)
+    for step in range(steps):
+        jg, tg = _both(_tree(20 + step))
+        lr = np.float32(1e-2 * (step + 1))
+        ju, js = jopt.update(jg, js, jp, lr)
+        tu, ts = topt.update(tg, ts, tp, float(lr))
+        for k in SHAPES:
+            np.testing.assert_allclose(tu[k].numpy(), np.asarray(ju[k]),
+                                       **TOL)
+        jp = {k: jp[k] + ju[k] for k in jp}
+        tp = {k: tp[k] + tu[k] for k in tp}
+    return js, ts
+
+
+@pytest.mark.parametrize("momentum,weight_decay,nesterov", [
+    (0.0, 0.0, False), (0.0, 0.01, False), (0.9, 0.0, False),
+    (0.9, 0.01, False), (0.9, 0.01, True)])
+def test_sgd_matches_jax_over_steps(momentum, weight_decay, nesterov):
+    kw = dict(momentum=momentum, weight_decay=weight_decay,
+              nesterov=nesterov)
+    js, ts = _run_both(jax_optim.sgd(**kw), optim.sgd(**kw))
+    if momentum == 0.0:
+        assert ts.momentum == () == js.momentum
+    else:
+        for k in SHAPES:
+            np.testing.assert_allclose(ts.momentum[k].numpy(),
+                                       np.asarray(js.momentum[k]), **TOL)
+
+
+@pytest.mark.parametrize("eps,weight_decay,initial", [
+    (1e-8, 0.0, 0.0), (1e-6, 0.01, 0.0), (1e-8, 0.0, 0.1)])
+def test_adagrad_matches_jax_over_steps(eps, weight_decay, initial):
+    kw = dict(eps=eps, weight_decay=weight_decay,
+              initial_accumulator_value=initial)
+    js, ts = _run_both(jax_optim.adagrad(**kw), optim.adagrad(**kw))
+    for k in SHAPES:
+        np.testing.assert_allclose(ts.accum[k].numpy(),
+                                   np.asarray(js.accum[k]), **TOL)
+
+
 def test_bias_corrections_match_jax_fp32():
     for step in (1, 2, 10, 999, 5000):
         st = jnp.int32(step).astype(jnp.float32)

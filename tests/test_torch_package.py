@@ -73,6 +73,11 @@ def test_import_leaves_jax_out():
         "import deepspeed_tpu_torch.serving.speculative\n"
         "import deepspeed_tpu_torch.telemetry.tracer\n"
         "import deepspeed_tpu_torch.utils.logging\n"
+        "import deepspeed_tpu_torch.runtime.dropout\n"
+        "import deepspeed_tpu_torch.runtime.activation_checkpointing."
+        "checkpointing\n"
+        "import deepspeed_tpu_torch.models.simple\n"
+        "import deepspeed_tpu_torch.models.cifar\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'flax', 'deepspeed_tpu', 'triton')\n"
         "       or m == 'torch.utils.cpp_extension']\n"
@@ -114,6 +119,22 @@ def test_bert_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         deepspeed_tpu_torch.initialize(model=model, config={
             "train_batch_size": 2})
+
+
+def test_loop_entry_points_raise_without_cuda(monkeypatch):
+    """The fixture models, the CIFAR net and init_distributed's default
+    nccl backend need the card unless the CPU is asked for."""
+    from deepspeed_tpu_torch.models import cifar, simple
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: simple.SimpleModel(4), lambda: simple.LinearStack(),
+                 lambda: simple.EmbeddingModel(8, 4), cifar.CifarNet,
+                 lambda: simple.sample_batch(1, 4),
+                 lambda: cifar.synthetic_cifar_batch(1),
+                 deepspeed_tpu_torch.init_distributed):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    assert not torch.distributed.is_initialized()
+    simple.SimpleModel(4, device="cpu")
 
 
 def test_kernel_route_follows_tensor_device(monkeypatch):
