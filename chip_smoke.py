@@ -183,13 +183,33 @@ Phases, each fatal on failure:
    (preempting) against auto, speculation (exact, k 4, self-draft)
    against off, and the prefix cache on against off (and again on a
    variant whose prompts share a 256-token prefix, where it hits).
+17. checkpoints at full width, under ``build/ckpt_smoke`` (deleted at
+   the end; about 23 GB written): GPT-2 medium in phase 6's configuration
+   (Adam sweep) takes 3 steps, saves (sync), saves the same state again
+   under ``checkpoint.async_save`` and takes 3 more steps while that
+   persist runs; the async tag's files must equal the sync tag's byte for
+   byte. An engine built from another init seed loads the sync tag and
+   takes the same 3 steps: losses, masters and the flat moments
+   bit-equal, exactly phase 6's launches a step (24 flash_fwd, 24 dq, 24
+   dk/dv, 1 adam). ``zero_to_fp32`` on the tag equals the masters at the
+   save bit for bit, and ``init_inference(checkpoint=<tag>/mp_rank_00_
+   model_states.pt)`` generates phase 4's 8 x 896 prompts (16 greedy
+   tokens) as ``init_inference(params=<those masters>)`` does. The same
+   resume with per-tensor fused Adam, then ``save_16bit_model`` (every
+   tensor the master cast to bf16), then BERT-large in phase 9's
+   configuration with dropout 0.1 (fused LAMB; phase 9's launches a
+   step).
 
 Prints an ``e2e`` JSON line, a ``train`` JSON line, a ``bert`` JSON line,
 a ``moq`` JSON line, an ``int8`` JSON line, a ``sparse`` JSON line, a
 ``loop`` JSON line (per model, remat off and on: losses, step ms,
 launches, peak memory; the checks), a ``serving`` JSON line (per run:
 useful tokens/s, TTFT and inter-token
-latency p50/p99, decode ms a dispatch, launches a dispatch), a
+latency p50/p99, decode ms a dispatch, launches a dispatch), a ``ckpt``
+JSON line (tag bytes, sync save ms, the async save's snapshot and
+background persist ms, load ms, write and read GB/s, the steps' ms while
+the persist ran beside phase 6's median, the bytes the phase wrote, per
+model the losses and launches), a
 ``kernels`` JSON line (the softmax, on no path as in the JAX package,
 with 0 launches, and its C entry's and ``torch.softmax``'s device times
 from the profiler; the decode rows' ``single_stream`` and
@@ -209,6 +229,8 @@ import collections
 import contextlib
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -3227,6 +3249,304 @@ def serving_phase(torch, np, deepspeed_tpu_torch, gpt2, decode, op_builder,
     return line, counts
 
 
+# phase 17, checkpoints at full width: a tag saved after 3 steps loads
+# into a fresh engine built from another init seed, and its next 3 steps
+# are bit-equal to the uninterrupted run's on the training kernels
+CKPT_STEPS = 3
+CKPT_NEW = 16                 # new tokens of the load -> serve check
+
+
+def tag_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, names in os.walk(path) for f in names)
+
+
+def same_files(a, b):
+    """The tags' ``.pt`` files byte for byte (the manifests name their
+    tags, so they differ)."""
+    names = sorted(n for n in os.listdir(a) if n.endswith(".pt"))
+    if names != sorted(n for n in os.listdir(b) if n.endswith(".pt")):
+        return False
+    for name in names:
+        with open(os.path.join(a, name), "rb") as fa, \
+                open(os.path.join(b, name), "rb") as fb:
+            while True:
+                x, y = fa.read(1 << 26), fb.read(1 << 26)
+                if x != y:
+                    return False
+                if not x:
+                    break
+    return True
+
+
+def equal_states(torch, a, b, what):
+    """The masters and every optimizer leaf of two engines bit-equal."""
+    for k, p in a.params.items():
+        if not torch.equal(p, b.params[k]):
+            raise AssertionError(f"{what}: master {k} differs after resume")
+    for field in a.opt_state._fields:
+        x, y = getattr(a.opt_state, field), getattr(b.opt_state, field)
+        if isinstance(x, dict):
+            bad = [k for k in x if not torch.equal(x[k], y[k])]
+        elif isinstance(x, torch.Tensor):
+            bad = [] if torch.equal(x, y) else [field]
+        else:
+            bad = [] if x == y else [field]
+        if bad:
+            raise AssertionError(f"{what}: optimizer {field} differs after "
+                                 f"resume: {bad[:3]}")
+
+
+def resume_pair(torch, op_builder, checkpoint_io, make_engine, batch, root,
+                tag, per_step, what, rows, adam_row=None, overlap=False):
+    """The reference engine takes 3 steps, saves ``tag`` (sync) and takes 3
+    more; with ``overlap`` it also saves the same state again under
+    ``async_save`` while those 3 steps run, and that tag's files must equal
+    the sync tag's byte for byte. A fresh engine from another init seed
+    loads ``tag`` and takes the same 3 steps: losses, masters and the
+    optimizer state bit-equal, launches exactly ``per_step`` a step.
+    Returns (measurements, the reference's masters at the save, the
+    resumed engine); the launches go into ``rows``."""
+    def count(counts):
+        for k, n in counts.items():
+            rows[adam_row if k == "adam" else k] += n
+
+    timing = {}
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            t = time.perf_counter()
+            result = fn(*args, **kw)
+            timing[name] = timing.get(name, 0.0) + \
+                (time.perf_counter() - t) * 1e3
+            return result
+        return run
+
+    ref = make_engine(0)
+    op_builder.reset_launch_counts()
+    run_steps(torch, ref, batch, CKPT_STEPS)
+    count(op_builder.LAUNCHES)
+    at_save = {k: p.detach().clone() for k, p in ref.params.items()}
+    ref._snapshot_checkpoint = timed("snapshot", ref._snapshot_checkpoint)
+    ref._persist_checkpoint = timed("persist", ref._persist_checkpoint)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref.save_checkpoint(root, tag=tag)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    nbytes = tag_bytes(os.path.join(root, tag))
+    # the first snapshot also allocates the pinned host buffers
+    out = {"tag_bytes": nbytes, "save_ms": save_ms,
+           "save_snapshot_ms": timing.pop("snapshot"),
+           "save_persist_ms": timing.pop("persist"),
+           "write_gb_s": nbytes / save_ms / 1e6}
+    if overlap:
+        ref._ckpt_async = True
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref.save_checkpoint(root, tag=tag + "_async")
+        out["snapshot_ms"] = (time.perf_counter() - t0) * 1e3
+    op_builder.reset_launch_counts()
+    want, ms = run_steps(torch, ref, batch, CKPT_STEPS)
+    ref_counts = dict(op_builder.LAUNCHES)
+    count(ref_counts)
+    check_counts(f"{what} reference", ref_counts, per_step, CKPT_STEPS)
+    if overlap:
+        out["persist_in_flight_after_steps"] = ref._ckpt_writer.in_flight
+        ref._ckpt_writer.drain()
+        ref.close()
+        out.update(persist_ms=timing.pop("persist"),
+                   snapshot_only_ms=timing.pop("snapshot"),
+                   overlapped_step_ms=ms,
+                   async_tag_bytes=tag_bytes(os.path.join(root,
+                                                          tag + "_async")))
+        if not same_files(os.path.join(root, tag),
+                          os.path.join(root, tag + "_async")):
+            raise AssertionError(f"{what}: the async tag's files differ "
+                                 f"from the sync tag's")
+        print(f"ckpt {what}: the async tag's files equal the sync tag's "
+              f"byte for byte", flush=True)
+        shutil.rmtree(os.path.join(root, tag + "_async"))
+    else:
+        out["step_ms_after_save"] = ms
+    fresh = make_engine(1)
+    read = checkpoint_io.load_file
+    checkpoint_io.load_file = timed("read", read)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        fresh.load_checkpoint(root, tag=tag)
+        torch.cuda.synchronize()
+    finally:
+        checkpoint_io.load_file = read
+    out["load_ms"] = (time.perf_counter() - t0) * 1e3
+    out["load_unpickle_ms"] = timing.pop("read")
+    out["read_gb_s"] = nbytes / out["load_ms"] / 1e6
+    op_builder.reset_launch_counts()
+    got, got_ms = run_steps(torch, fresh, batch, CKPT_STEPS)
+    counts = dict(op_builder.LAUNCHES)
+    count(counts)
+    check_counts(f"{what} resumed", counts, per_step, CKPT_STEPS)
+    print(f"ckpt {what}: reference losses {want}, resumed {got}; save "
+          f"{save_ms:.0f} ms, load {out['load_ms']:.0f} ms, tag "
+          f"{nbytes / 1e9:.3f} GB; resumed launches {counts}", flush=True)
+    if got != want:
+        raise AssertionError(f"{what}: resumed losses {got} differ from the "
+                             f"uninterrupted run's {want}")
+    equal_states(torch, ref, fresh, what)
+    out.update(losses=want, resumed_losses=got, resumed_step_ms=got_ms,
+               resumed_launches=counts, bit_equal=True)
+    del ref
+    return out, at_save, fresh
+
+
+def checkpoint_phase(torch, deepspeed_tpu_torch, gpt2, bert, op_builder, cfg,
+                     bert_cfg, card, train_step_ms):
+    """Phase 17: checkpoints at full width. GPT-2 medium in phase 6's
+    configuration (sweep, with the async save overlapped; then per-tensor
+    fused Adam) and BERT-large in phase 9's with dropout 0.1 resume
+    bit-equal; then zero_to_fp32, init_inference(checkpoint=) and
+    save_16bit_model on the GPT-2 tag. Every tag lies under
+    ``build/ckpt_smoke`` and is deleted at the end. Returns the ``ckpt``
+    line and the phase's launches by kernel row."""
+    import dataclasses
+    from deepspeed_tpu_torch import bridge
+    from deepspeed_tpu_torch.runtime import checkpoint_io
+    from deepspeed_tpu_torch.utils import zero_to_fp32
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "ckpt_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    rows = collections.Counter()
+    written = 0
+    try:
+        batch = gpt2.synthetic_batch(B, SEQ, cfg.vocab_size, seed=4)
+        layers = cfg.n_layer
+        gpt_step = {"flash_fwd": layers, "flash_bwd_dq": layers,
+                    "flash_bwd_dkv": layers, "adam": 1}
+
+        def gpt_engine(**opt):
+            return lambda seed: deepspeed_tpu_torch.initialize(
+                model=gpt2.GPT2LMHeadModel(cfg, seed=seed),
+                config=train_config(**opt))[0]
+
+        sweep, at_save, resumed = resume_pair(
+            torch, op_builder, checkpoint_io, gpt_engine(sweep=True), batch,
+            root, "gpt2", gpt_step, "gpt2-medium sweep", rows, "adam_sweep",
+            overlap=True)
+        written += sweep["tag_bytes"] + sweep["async_tag_bytes"]
+
+        # load -> serve on the sweep's tag
+        fp32 = zero_to_fp32.get_fp32_state_dict_from_zero_checkpoint(
+            root, tag="gpt2")
+        table = bridge.layout_of(at_save)
+        for name, t in at_save.items():
+            arr = fp32[bridge.keystr(table[name][0])]
+            perm = table[name][1]
+            host = torch.from_numpy(arr if perm is None
+                                    else arr.transpose(perm))
+            if not torch.equal(host, t.cpu()):
+                raise AssertionError(f"zero_to_fp32: {name} differs from "
+                                     f"the master at the save")
+        del fp32
+        print("ckpt zero_to_fp32: every tensor bit-equal to the masters at "
+              "the save", flush=True)
+        ids = gpt2.synthetic_batch(B, 896, cfg.vocab_size, seed=1)[
+            "input_ids"]
+        del resumed
+        torch.cuda.empty_cache()
+        op_builder.reset_launch_counts()
+        tokens = {}
+        for how in ("checkpoint", "params"):
+            kw = ({"checkpoint": os.path.join(root, "gpt2",
+                                              "mp_rank_00_model_states.pt")}
+                  if how == "checkpoint" else {"params": at_save})
+            t0 = time.perf_counter()
+            eng = deepspeed_tpu_torch.init_inference(
+                gpt2.GPT2LMHeadModel(cfg, seed=3), dtype=torch.bfloat16,
+                **kw)
+            torch.cuda.synchronize()
+            build_ms = (time.perf_counter() - t0) * 1e3
+            tokens[how] = eng.generate(ids, max_new_tokens=CKPT_NEW)
+            del eng
+            torch.cuda.empty_cache()
+            if how == "checkpoint":
+                sweep["init_inference_checkpoint_ms"] = build_ms
+        for k, n in op_builder.LAUNCHES.items():
+            rows[k] += n
+        same = torch.equal(tokens["checkpoint"], tokens["params"])
+        print(f"ckpt init_inference(checkpoint=): {B} x 896 prompts, "
+              f"{CKPT_NEW} new greedy tokens equal to params=: {same}",
+              flush=True)
+        if not same:
+            raise AssertionError("init_inference(checkpoint=) generates "
+                                 "other tokens than params=")
+        del tokens, at_save
+        shutil.rmtree(os.path.join(root, "gpt2"))
+        torch.cuda.empty_cache()
+
+        fused, _, resumed = resume_pair(
+            torch, op_builder, checkpoint_io, gpt_engine(fused=True), batch,
+            root, "gpt2_fused", gpt_step, "gpt2-medium fused adam", rows,
+            "adam_per_tensor")
+        written += fused["tag_bytes"]
+        resumed.save_16bit_model(os.path.join(root, "bit16"))
+        path16 = os.path.join(root, "bit16", "pytorch_model.bin")
+        written += os.path.getsize(path16)
+        sd16 = torch.load(path16, weights_only=True)
+        for name, p in resumed.params.items():
+            if sd16[name].dtype != torch.bfloat16 or not torch.equal(
+                    sd16[name], p.detach().to(torch.bfloat16).cpu()):
+                raise AssertionError(f"save_16bit_model: {name} is not the "
+                                     f"master cast to bf16")
+        print("ckpt save_16bit_model: every tensor equals the master cast "
+              "to bf16", flush=True)
+        del resumed, sd16
+        shutil.rmtree(os.path.join(root, "gpt2_fused"))
+        torch.cuda.empty_cache()
+
+        blayers = bert_cfg.num_hidden_layers
+        bert_step = {"flash_fwd": blayers, "flash_bwd_dq": blayers,
+                     "flash_bwd_dkv": blayers, "ln_fwd": 2 * blayers,
+                     "ln_bwd": 2 * blayers, "bias_gelu": blayers, "lamb": 1}
+        bert_batch = bert.synthetic_mlm_batch(BERT_B, BERT_S,
+                                              bert_cfg.vocab_size, seed=6)
+        dropped = dataclasses.replace(
+            bert_cfg, hidden_dropout_prob=LOOP_DROPOUT,
+            attention_probs_dropout_prob=LOOP_DROPOUT)
+        bert_out, _, resumed = resume_pair(
+            torch, op_builder, checkpoint_io,
+            lambda seed: deepspeed_tpu_torch.initialize(
+                model=bert.BertForPreTraining(dropped, seed=seed),
+                config=bert_config(fused=True))[0],
+            bert_batch, root, "bert", bert_step,
+            "bert-large fused lamb dropout 0.1", rows)
+        written += bert_out["tag_bytes"]
+        del resumed
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    line = {
+        "card": card,
+        "gpt2_sweep": sweep, "gpt2_fused": fused, "bert_lamb": bert_out,
+        "tag_bytes": sweep["tag_bytes"], "save_ms": sweep["save_ms"],
+        "snapshot_ms": sweep["snapshot_ms"],
+        "persist_ms": sweep["persist_ms"], "load_ms": sweep["load_ms"],
+        "write_gb_s": sweep["write_gb_s"], "read_gb_s": sweep["read_gb_s"],
+        "overlapped_step_ms": sweep["overlapped_step_ms"],
+        "phase6_step_ms_median": train_step_ms,
+        "bytes_written": written,
+        "config": "gpt2-medium bs8 seq1024 bf16 zero1 adam sweep / fused, "
+                  "clip 1.0; bert-large bs64 seq128 fused lamb, dropout "
+                  "0.1; 3 steps, save, 3 steps",
+    }
+    print(f"ckpt: step-boundary pause (snapshot) {sweep['snapshot_ms']:.0f} "
+          f"ms, background persist {sweep['persist_ms']:.0f} ms, steps "
+          f"while it ran {[round(x, 1) for x in sweep['overlapped_step_ms']]}"
+          f" ms against phase 6's median {train_step_ms:.1f} ms; "
+          f"{written / 1e9:.2f} GB written", flush=True)
+    return line, rows
+
+
 def finish_rows(rows, launches, max_err, card):
     """bound_ms (the larger of bytes at 3.35 TB/s and operations at the
     peak of their type), launches and max_abs_err for each row."""
@@ -3249,7 +3569,6 @@ def main():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     import dataclasses
-    import os
 
     import numpy as np
 
@@ -3713,6 +4032,15 @@ def main():
                 "serving": serving_counts.get(row["name"], 0)}
             row["launches"] += serving_counts.get(row["name"], 0)
 
+    # 17. checkpoints: GPT-2 medium and BERT-large resume bit-equal, the
+    # async save overlapped with steps, then load -> serve
+    ckpt_line, ckpt_counts = checkpoint_phase(
+        torch, deepspeed_tpu_torch, gpt2, bert, op_builder, cfg, bert_cfg,
+        card, med)
+    for row in rows:
+        row["launches"] += ckpt_counts.get(row["name"], 0)
+    ckpt_line["launches_by_row"] = dict(ckpt_counts)
+
     print(json.dumps({"e2e": e2e}))
     print(json.dumps({"train": train}))
     print(json.dumps({"bert": bert_line}))
@@ -3721,6 +4049,7 @@ def main():
     print(json.dumps({"sparse": sparse_line}))
     print(json.dumps({"loop": loop_line}))
     print(json.dumps({"serving": serving_line}))
+    print(json.dumps({"ckpt": ckpt_line}))
     print(json.dumps({"kernels": rows}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """deepspeed_tpu_torch: the PyTorch + CUDA port of deepspeed_tpu for NVIDIA
 Hopper (H100).
 
-This package ports five paths, with hand-written CUDA kernels
+This package ports these paths, with hand-written CUDA kernels
 (``csrc/``):
 
 * cached GPT-2 generation: ``init_inference`` ->
@@ -28,6 +28,12 @@ This package ports five paths, with hand-written CUDA kernels
   with ``attention_mode="sparse..."`` train through the same entry point
   on the block-sparse forward, dq and dk/dv kernels
   (``ops.sparse_attention``);
+* checkpoints: ``DeepSpeedEngine.save_checkpoint`` / ``load_checkpoint``
+  / ``save_16bit_model`` in the JAX package's tag format (a tag written
+  by either engine loads into the other), with the background persist of
+  ``checkpoint.async_save``, ``utils.zero_to_fp32`` and
+  ``init_inference(checkpoint=)``; a resumed run is bit-equal to an
+  uninterrupted one on the training kernels;
 * continuous-batching serving: ``init_serving`` -> ``ServingEngine``
   (``submit`` / ``step`` / ``collect`` / ``serve_forever``) over a paged
   KV cache, with chunked prefill, preemption, the prefix cache and
@@ -51,14 +57,17 @@ from deepspeed_tpu_torch.utils.logging import logger
 __version__ = "0.1.0"
 
 
-def init_inference(model, params=None, dtype=None, device=None, **kwargs):
+def init_inference(model, params=None, dtype=None, device=None,
+                   checkpoint=None, **kwargs):
     """Create an inference engine (reference: deepspeed.init_inference).
 
     ``device=None`` means CUDA and raises when no card is present;
     ``dtype`` defaults to bfloat16; ``torch.int8`` stores the transformer
-    weights in int8 under bf16 activations."""
+    weights in int8 under bf16 activations. ``checkpoint`` is a
+    ``mp_rank_00_model_states.pt`` written by either engine, or a
+    ``save_16bit_model`` file, loaded when ``params`` is not given."""
     return InferenceEngine(model, params=params, dtype=dtype, device=device,
-                           **kwargs)
+                           checkpoint=checkpoint, **kwargs)
 
 
 def init_serving(model=None, engine=None, params=None, checkpoint=None,

@@ -1,96 +1,285 @@
-"""Flax GPT-2 and BERT parameters -> the port's ``state_dict``.
+"""The port's parameters <-> the JAX package's flax trees, both ways.
 
-:func:`flax_to_state_dict` takes the params pytree of
-``deepspeed_tpu.models.gpt2.GPT2LMHeadModel`` as nested dicts of numpy
-arrays (``jax.tree.map(np.asarray, params)``) and returns the state_dict
-of ``deepspeed_tpu_torch.models.gpt2.GPT2LMHeadModel``;
-:func:`bert_flax_to_state_dict` does the same for ``BertForPreTraining``.
-Dense kernels go
-from flax's ``[in, out]`` to ``[out, in]`` (the fused QKV keeps its
-``[q | k | v]`` column order as row order), LayerNorm ``scale``/``bias``
-become ``weight``/``bias``, flax block ``h_{i}`` becomes ``h.{i}``, and
-``wte`` keeps its padded vocab (it is also the tied LM head).
-:func:`simple_flax_to_state_dict` and :func:`cifar_flax_to_state_dict`
-carry the fixture models (``models/simple.py``) and the CIFAR net
-(``models/cifar.py``). This module imports neither jax nor flax.
+Each model family the two packages share has one layout table: a row per
+parameter, ``(torch name, flax key path, perm)``, where ``{i}`` stands for
+a layer index and ``perm`` takes the flax array's axes to the torch
+tensor's (``None``: the same array). Dense kernels go from flax's
+``[in, out]`` to ``[out, in]`` (the fused QKV keeps its ``[q | k | v]``
+column order as row order), convolution kernels from ``[kh, kw, in, out]``
+to ``[out, in, kh, kw]``, LayerNorm ``scale`` becomes ``weight``, a flax
+block ``h_{i}`` becomes ``h.{i}``, and ``wte`` keeps its padded vocab.
+Both directions come from the same rows:
+
+* :func:`flax_to_state_dict` (GPT-2), :func:`bert_flax_to_state_dict`,
+  :func:`simple_flax_to_state_dict` (``SimpleModel`` / ``LinearStack`` /
+  ``EmbeddingModel``) and :func:`cifar_flax_to_state_dict` take a flax
+  params tree of numpy arrays (``jax.tree.map(np.asarray, params)``) to
+  the port model's state_dict;
+* :func:`layout_of` finds the table that names every parameter of a port
+  module; with it the engine writes each per-parameter leaf (the params,
+  an optimizer's ``mu`` / ``nu`` / ``momentum`` / ``accum``) at its flax
+  key path and layout, and :func:`from_flax` reads a flax tree back;
+* :func:`flat_to_jax` / :func:`flat_from_jax` carry the Adam sweep's one
+  padded vector (``AdamSweepState.mu`` / ``nu``) between the port's leaf
+  order (``named_parameters()``, ``[out, in]`` weights) and JAX's (the
+  flax tree flattened with its dict keys sorted, so ``h_10`` comes before
+  ``h_2``; ``[in, out]`` kernels).
+
+This module imports neither jax nor flax.
 """
+
+import re
 
 import numpy as np
 import torch
+
+_T = (1, 0)                   # a dense kernel
+_CONV = (3, 2, 0, 1)          # a convolution kernel
+
+
+def _dense(t, f):
+    return ((f"{t}.weight", f"{f}/kernel", _T), (f"{t}.bias", f"{f}/bias",
+                                                 None))
+
+
+def _norm(t, f):
+    return ((f"{t}.weight", f"{f}/scale", None), (f"{t}.bias", f"{f}/bias",
+                                                  None))
+
+
+def _raw(*names, t="", f=""):
+    return tuple((t + n, f + n, None) for n in names)
+
+
+GPT2_LAYOUT = (
+    _raw("wte", "wpe")
+    + _norm("h.{i}.ln_1", "h_{i}/ln_1") + _norm("h.{i}.ln_2", "h_{i}/ln_2")
+    + _dense("h.{i}.attn.qkv", "h_{i}/attn/qkv")
+    + _dense("h.{i}.attn.proj", "h_{i}/attn/proj")
+    + _dense("h.{i}.mlp.fc", "h_{i}/mlp/fc")
+    + _dense("h.{i}.mlp.proj", "h_{i}/mlp/proj")
+    + _norm("ln_f", "ln_f"))
+
+BERT_LAYOUT = (
+    _raw("word_embeddings", "position_embeddings", "token_type_embeddings",
+         "mlm_bias")
+    + _norm("emb_ln", "emb_ln")
+    # the fused encoder layer: raw LayerNorm and intermediate params
+    + _raw("attn_ln_gamma", "attn_ln_beta", "ln_gamma", "ln_beta",
+           "inter_w", "inter_b", t="layer.{i}.layer.", f="layer_{i}/layer/")
+    + _dense("layer.{i}.layer.attn_qkv", "layer_{i}/layer/attn_qkv")
+    + _dense("layer.{i}.layer.attn_out", "layer_{i}/layer/attn_out")
+    + _dense("layer.{i}.layer.output_w", "layer_{i}/layer/output_w")
+    # the sparse layer: flax denses and LayerNorms
+    + _dense("layer.{i}.attention.qkv", "layer_{i}/attention/qkv")
+    + _dense("layer.{i}.attn_out", "layer_{i}/attn_out")
+    + _dense("layer.{i}.fc", "layer_{i}/fc")
+    + _dense("layer.{i}.out", "layer_{i}/out")
+    + _norm("layer.{i}.attn_ln", "layer_{i}/attn_ln")
+    + _norm("layer.{i}.out_ln", "layer_{i}/out_ln")
+    + _dense("mlm_dense", "mlm_dense") + _norm("mlm_ln", "mlm_ln"))
+
+# SimpleModel and LinearStack (flax Dense_{i}); EmbeddingModel
+SIMPLE_LAYOUT = _dense("layers.{i}", "Dense_{i}")
+EMBEDDING_LAYOUT = (("wte.weight", "wte/embedding", None),) + \
+    _dense("dense", "Dense_0")
+
+CIFAR_LAYOUT = (
+    ("conv1.weight", "conv1/kernel", _CONV), ("conv1.bias", "conv1/bias",
+                                              None),
+    ("conv2.weight", "conv2/kernel", _CONV), ("conv2.bias", "conv2/bias",
+                                              None),
+    *_dense("fc1", "fc1"), *_dense("fc2", "fc2"), *_dense("fc3", "fc3"))
+
+LAYOUTS = {"gpt2": GPT2_LAYOUT, "bert": BERT_LAYOUT,
+           "embedding": EMBEDDING_LAYOUT, "simple": SIMPLE_LAYOUT,
+           "cifar": CIFAR_LAYOUT}
+
+
+def _pattern(template):
+    return re.compile("^" + r"(\d+)".join(
+        re.escape(part) for part in template.split("{i}")) + "$")
+
+
+_PATTERNS = {family: [(_pattern(t), _pattern(f), t, f, perm)
+                      for t, f, perm in rows]
+             for family, rows in LAYOUTS.items()}
+
+
+def _translate(family, name, side):
+    """The other side's name and the perm of the row matching ``name``
+    (``side`` 0: a torch name, 1: a flax path "a/b/c"), or None."""
+    for row in _PATTERNS[family]:
+        m = row[side].match(name)
+        if m:
+            other = row[3 - side]
+            if m.groups():
+                other = other.replace("{i}", m.group(1))
+            return other, row[4]
+    return None
+
+
+def inverse(perm):
+    """The axes that undo ``perm``."""
+    return None if perm is None else tuple(int(a) for a in np.argsort(perm))
+
+
+def layout_of(names):
+    """``{torch name: (flax key path tuple, perm)}`` from the first family
+    whose table names every one of ``names``; None when none does (a
+    user module, saved under its own names)."""
+    names = list(names)
+    for family in LAYOUTS:
+        hits = [_translate(family, n, 0) for n in names]
+        if names and all(hits):
+            return {n: (tuple(f.split("/")), perm)
+                    for n, (f, perm) in zip(names, hits)}
+    return None
+
+
+def _flat_paths(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat_paths(v, prefix + (str(k),))
+        else:
+            yield prefix + (str(k),), v
+
+
+def _permute(x, perm):
+    if perm is None:
+        return x
+    if isinstance(x, torch.Tensor):
+        return x.permute(perm)
+    return np.transpose(x, perm)
+
+
+def nest(pairs):
+    """A nested dict from ``(key path tuple, leaf)`` pairs."""
+    out = {}
+    for path, leaf in pairs:
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out
+
+
+def get_path(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def from_flax(table, tree):
+    """The torch-named tree of ``table``'s parameters from a nested flax
+    dict, each leaf permuted to the torch layout; ``KeyError`` names the
+    first flax path the tree lacks."""
+    out = {}
+    for name, (path, perm) in table.items():
+        try:
+            leaf = get_path(tree, path)
+        except (KeyError, TypeError):
+            raise KeyError(f"flax tree has no leaf {'/'.join(path)} for "
+                           f"{name}") from None
+        out[name] = _permute(leaf, perm)
+    return out
+
+
+def keystr(path):
+    """``jax.tree_util.keystr`` of a dict key path: ``['h_0']['ln_1']...``."""
+    return "".join(f"[{k!r}]" for k in path)
+
+
+def jax_order(table, names):
+    """``names`` in the order JAX flattens their flax tree (dict keys
+    sorted at every level)."""
+    return sorted(names, key=lambda n: table[n][0])
+
+
+def flat_to_jax(vec, table, names, shapes):
+    """The sweep's flat vector from the port's leaf order (``names`` with
+    torch ``shapes``, back to back from 0) to JAX's: same padded length,
+    each leaf in the flax layout. Works on the vector's device."""
+    offs, off = {}, 0
+    for name, shape in zip(names, shapes):
+        size = int(np.prod(shape)) if shape else 1
+        offs[name] = (off, size, shape)
+        off += size
+    out = torch.zeros_like(vec)
+    dst = 0
+    for name in jax_order(table, names):
+        start, size, shape = offs[name]
+        leaf = vec[start:start + size].view(shape)
+        out[dst:dst + size].view(_flax_shape(table, name, shape)).copy_(
+            _permute(leaf, inverse(table[name][1])))
+        dst += size
+    return out
+
+
+def flat_from_jax(vec, table, names, shapes, n_pad):
+    """The inverse of :func:`flat_to_jax`, into a vector of ``n_pad``
+    (the port's own padded length; the saved vector's length is read from
+    the vector itself)."""
+    sizes = {n: (int(np.prod(s)) if s else 1) for n, s in zip(names, shapes)}
+    total = sum(sizes.values())
+    if vec.numel() < total:
+        raise ValueError(f"flat vector of {vec.numel()} elements holds "
+                         f"fewer than the model's {total}")
+    shape_of = dict(zip(names, shapes))
+    pieces, off = {}, 0
+    for name in jax_order(table, names):
+        size = sizes[name]
+        flax = vec[off:off + size].view(
+            _flax_shape(table, name, shape_of[name]))
+        pieces[name] = _permute(flax, table[name][1])
+        off += size
+    out = torch.zeros(n_pad, dtype=vec.dtype, device=vec.device)
+    dst = 0
+    for name in names:
+        out[dst:dst + sizes[name]].view(shape_of[name]).copy_(pieces[name])
+        dst += sizes[name]
+    return out
+
+
+def _flax_shape(table, name, shape):
+    perm = inverse(table[name][1])
+    return tuple(shape) if perm is None else tuple(shape[a] for a in perm)
 
 
 def _leaf(x):
     return torch.from_numpy(np.array(x, copy=True))
 
 
-def _dense(tree, prefix, out):
-    out[f"{prefix}.weight"] = _leaf(np.asarray(tree["kernel"]).T)
-    if "bias" in tree:
-        out[f"{prefix}.bias"] = _leaf(tree["bias"])
-
-
-def _norm(tree, prefix, out):
-    out[f"{prefix}.weight"] = _leaf(tree["scale"])
-    out[f"{prefix}.bias"] = _leaf(tree["bias"])
+def _from_flax_params(family, params):
+    """A flax params tree (numpy leaves) to the state_dict of the family's
+    port model, every leaf matched by a row."""
+    if "params" in params:
+        params = params["params"]
+    sd = {}
+    for path, leaf in _flat_paths(params):
+        hit = _translate(family, "/".join(path), 1)
+        if hit is None:
+            raise KeyError(f"no {family} layout row for flax leaf "
+                           f"{'/'.join(path)}")
+        name, perm = hit
+        sd[name] = _leaf(_permute(np.asarray(leaf), perm))
+    return sd
 
 
 def flax_to_state_dict(params) -> dict:
     """Convert a flax GPT-2 params tree (numpy leaves) to a state_dict."""
-    if "params" in params:
-        params = params["params"]
-    sd = {"wte": _leaf(params["wte"]), "wpe": _leaf(params["wpe"])}
-    n_layer = sum(1 for name in params if name.startswith("h_"))
-    for i in range(n_layer):
-        blk = params[f"h_{i}"]
-        p = f"h.{i}"
-        _norm(blk["ln_1"], f"{p}.ln_1", sd)
-        _norm(blk["ln_2"], f"{p}.ln_2", sd)
-        _dense(blk["attn"]["qkv"], f"{p}.attn.qkv", sd)
-        _dense(blk["attn"]["proj"], f"{p}.attn.proj", sd)
-        _dense(blk["mlp"]["fc"], f"{p}.mlp.fc", sd)
-        _dense(blk["mlp"]["proj"], f"{p}.mlp.proj", sd)
-    _norm(params["ln_f"], "ln_f", sd)
-    return sd
+    return _from_flax_params("gpt2", params)
 
 
 def bert_flax_to_state_dict(params) -> dict:
     """Convert a flax BERT params tree (numpy leaves) to the state_dict of
-    ``deepspeed_tpu_torch.models.bert.BertForPreTraining``. Dense kernels
-    are transposed to ``[out, in]`` and LayerNorm ``scale`` becomes
-    ``weight``; the raw params (embeddings, ``mlm_bias``, the fused
-    layer's ``inter_w`` [in, out], ``inter_b`` and LayerNorm
-    ``*_gamma``/``*_beta``) are carried across as they are. Flax layer
-    ``layer_{i}`` becomes ``layer.{i}``; a sparse layer's ``attention/qkv``,
-    ``attn_out``, ``fc`` and ``out`` denses and ``attn_ln``/``out_ln``
-    LayerNorms keep their names."""
-    if "params" in params:
-        params = params["params"]
-    sd = {k: _leaf(params[k]) for k in (
-        "word_embeddings", "position_embeddings", "token_type_embeddings",
-        "mlm_bias")}
-    _norm(params["emb_ln"], "emb_ln", sd)
-    n_layer = sum(1 for name in params if name.startswith("layer_"))
-    for i in range(n_layer):
-        if "attention" in params[f"layer_{i}"]:
-            # BertSparseLayer: flax denses and LayerNorms
-            lay = params[f"layer_{i}"]
-            p = f"layer.{i}"
-            _dense(lay["attention"]["qkv"], f"{p}.attention.qkv", sd)
-            for dense in ("attn_out", "fc", "out"):
-                _dense(lay[dense], f"{p}.{dense}", sd)
-            for norm in ("attn_ln", "out_ln"):
-                _norm(lay[norm], f"{p}.{norm}", sd)
-            continue
-        lay = params[f"layer_{i}"]["layer"]
-        p = f"layer.{i}.layer"
-        for raw in ("attn_ln_gamma", "attn_ln_beta", "ln_gamma", "ln_beta",
-                    "inter_w", "inter_b"):
-            sd[f"{p}.{raw}"] = _leaf(lay[raw])
-        for dense in ("attn_qkv", "attn_out", "output_w"):
-            _dense(lay[dense], f"{p}.{dense}", sd)
-    _dense(params["mlm_dense"], "mlm_dense", sd)
-    _norm(params["mlm_ln"], "mlm_ln", sd)
-    return sd
+    ``deepspeed_tpu_torch.models.bert.BertForPreTraining``: dense kernels
+    transposed, LayerNorm ``scale`` -> ``weight``, the fused layer's raw
+    params (``inter_w`` [in, out], ``*_gamma`` / ``*_beta``) as they are,
+    ``layer_{i}`` -> ``layer.{i}``; a sparse layer's ``attention/qkv``,
+    ``attn_out``, ``fc`` and ``out`` denses and ``attn_ln`` / ``out_ln``
+    keep their names."""
+    return _from_flax_params("bert", params)
 
 
 def simple_flax_to_state_dict(params) -> dict:
@@ -98,30 +287,13 @@ def simple_flax_to_state_dict(params) -> dict:
     (denses ``Dense_{i}``) or ``EmbeddingModel`` (``wte`` and
     ``Dense_0``) to the port model's state_dict: ``layers.{i}``, or
     ``wte`` and ``dense``."""
-    if "params" in params:
-        params = params["params"]
-    sd = {}
-    if "wte" in params:
-        sd["wte.weight"] = _leaf(params["wte"]["embedding"])
-        _dense(params["Dense_0"], "dense", sd)
-        return sd
-    n = sum(1 for name in params if name.startswith("Dense_"))
-    for i in range(n):
-        _dense(params[f"Dense_{i}"], f"layers.{i}", sd)
-    return sd
+    inner = params.get("params", params)
+    return _from_flax_params("embedding" if "wte" in inner else "simple",
+                             params)
 
 
 def cifar_flax_to_state_dict(params) -> dict:
     """Convert the flax ``CifarNet`` params to the port net's state_dict:
     conv kernels from ``[kh, kw, in, out]`` to ``[out, in, kh, kw]``,
     dense kernels transposed."""
-    if "params" in params:
-        params = params["params"]
-    sd = {}
-    for conv in ("conv1", "conv2"):
-        sd[f"{conv}.weight"] = _leaf(
-            np.asarray(params[conv]["kernel"]).transpose(3, 2, 0, 1))
-        sd[f"{conv}.bias"] = _leaf(params[conv]["bias"])
-    for fc in ("fc1", "fc2", "fc3"):
-        _dense(params[fc], fc, sd)
-    return sd
+    return _from_flax_params("cifar", params)

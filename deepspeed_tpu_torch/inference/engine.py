@@ -13,20 +13,78 @@ swaps the matched weights for int8 with per-output-unit fp32 scales
 beside them; ``int8_bytes_saved`` is the JAX counter
 ``inference_int8_bytes_saved_total``.
 
-Not ported yet: tensor parallelism (``mp_size > 1``), MoE inference,
-checkpoint loading, ``quantization_setting`` (the weight quantizer that
-rides on checkpoint loading) and a custom ``apply_fn``.
+``checkpoint=`` (JAX engine.py:130-215, the model-states and 16-bit
+forms) is a path to a ``mp_rank_00_model_states.pt`` written by either
+engine, or to the file ``save_16bit_model`` writes. Its ``module`` tree
+(a flax tree for a model family of ``bridge.LAYOUTS``, else the
+``state_dict`` names) is loaded into the model before the ``dtype`` cast
+or the int8 path; ``params`` wins when both are given, as in JAX.
+
+Not ported yet: tensor parallelism (``mp_size > 1``), MoE inference
+(and the MoE expert-file checkpoint layout), the Megatron checkpoint
+description JSON (``runtime/state_dict_factory.py``), the HF/Megatron
+naming conversions (the ``module_inject`` policies),
+``quantization_setting`` (``runtime/weight_quantizer.py``) and a custom
+``apply_fn``.
 """
 
 import inspect
+import os
+import zipfile
 
+import numpy as np
 import torch
 
+from deepspeed_tpu_torch import bridge
 from deepspeed_tpu_torch.ops._platform import resolve_device
+from deepspeed_tpu_torch.runtime.checkpoint_io import check_no_moe, load_file
+from deepspeed_tpu_torch.telemetry.metrics import get_registry
+from deepspeed_tpu_torch.telemetry.tracer import trace_span
 
 
 def _param_bytes(module):
     return sum(p.numel() * p.element_size() for p in module.parameters())
+
+
+def _tensor(x):
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def load_checkpoint_state_dict(path, model):
+    """``model``'s state_dict from a checkpoint file: a model-states
+    pickle of either engine (its ``module`` tree) or a ``torch.save``
+    state dict (``save_16bit_model``). A flax tree goes through the
+    layout table of ``model``'s family."""
+    path = str(path)
+    if path.endswith(".json"):
+        raise NotImplementedError(
+            "the Megatron checkpoint description JSON (SDLoaderFactory, "
+            "runtime/state_dict_factory.py) is not ported yet")
+    if zipfile.is_zipfile(path):
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+    else:
+        sd = load_file(path, kind="model_states")
+    if isinstance(sd, dict) and "module" in sd:
+        check_no_moe(sd, path)
+        sd = sd["module"]
+    names = list(model.state_dict())
+    if isinstance(sd, dict) and all(n in sd for n in names):
+        return {n: _tensor(sd[n]) for n in names}
+    table = bridge.layout_of(dict(model.named_parameters()))
+    if isinstance(sd, dict) and table is not None and \
+            set(table) == set(names):
+        try:
+            return {n: _tensor(x)
+                    for n, x in bridge.from_flax(table, sd).items()}
+        except KeyError:
+            pass
+    raise NotImplementedError(
+        f"{os.path.basename(path)}: its names match neither the model's "
+        f"state_dict nor the model family's flax tree; the HF/Megatron "
+        f"naming conversions (module_inject policies, "
+        f"state_dict_factory) are not ported yet")
 
 
 class InferenceEngine:
@@ -34,7 +92,9 @@ class InferenceEngine:
                  mp_size=1, checkpoint=None, moe=False, ep_size=1,
                  quantization_setting=None, apply_fn=None):
         """``params``: an optional state_dict loaded into ``model`` (e.g.
-        from :func:`deepspeed_tpu_torch.bridge.flax_to_state_dict`).
+        from :func:`deepspeed_tpu_torch.bridge.flax_to_state_dict`);
+        ``checkpoint``: a checkpoint file to load when ``params`` is not
+        given (:func:`load_checkpoint_state_dict`).
         ``dtype`` (default bfloat16) is the dtype of the floating
         parameters and activations, or ``torch.int8`` for int8
         transformer weights under bf16 activations; ``device=None`` means
@@ -48,15 +108,25 @@ class InferenceEngine:
                 "module_inject.quantize_transformer_layer")
         for what, hit in (("mp_size > 1", mp_size > 1),
                           ("MoE inference", bool(moe) or ep_size > 1),
-                          ("checkpoint loading", checkpoint is not None),
-                          ("quantization_setting (the checkpoint weight "
-                           "quantizer)", quantization_setting is not None),
+                          ("quantization_setting (the MoQ weight quantizer "
+                           "of checkpoint loading, "
+                           "runtime/weight_quantizer.py)",
+                           quantization_setting is not None),
                           ("a custom apply_fn", apply_fn is not None)):
             if hit:
                 raise NotImplementedError(f"{what} is not ported yet")
         self.device = resolve_device(device)
         self.dtype = torch.bfloat16 if self._int8_weights or dtype is None \
             else dtype
+        if params is None and checkpoint is not None:
+            with trace_span("inference_checkpoint_load",
+                            path=str(checkpoint)):
+                params = load_checkpoint_state_dict(checkpoint, model)
+            get_registry().counter(
+                "inference_checkpoint_bytes_total",
+                "param bytes materialised by inference checkpoint loads"
+            ).inc(sum(t.numel() * t.element_size()
+                      for t in params.values()))
         if params is not None:
             model.load_state_dict(params)
         self.module = model.to(device=self.device, dtype=self.dtype).eval()

@@ -1,7 +1,8 @@
 """The training config (counterpart of ``deepspeed_tpu/runtime/config.py``)
 over the keys the port's training path reads: the batch triad, optimizer,
 scheduler, fp16, bf16, gradient_clipping, zero_optimization.stage,
-steps_per_print, gradient_accumulation_dtype, the ``quantize_training``
+steps_per_print, gradient_accumulation_dtype, the ``checkpoint`` block
+(read by the engine's saves and loads), the ``quantize_training``
 (MoQ) block and the ``activation_checkpointing`` block (read by
 ``checkpointing.configure``). The raw
 ``sparse_attention`` block is kept as it is given, as the JAX config keeps
@@ -16,8 +17,8 @@ there. Every ``enabled`` block the JAX config reads that changes the
 step's math, and the three observers the JAX engine acts on
 (``tensorboard``, ``flops_profiler``, ``wall_clock_breakdown``), is
 either ported or in :data:`_UNPORTED_BLOCKS`. The blocks the port does
-not run (checkpoint, autotuning, data_prefetch, comm_overlap, guardian,
-telemetry) are still validated by the JAX validators' rules
+not run (autotuning, data_prefetch, comm_overlap, guardian, telemetry)
+are still validated by the JAX validators' rules
 (:data:`_RANGE_RULES`), so a config the JAX package refuses is refused
 here too. The ``serving`` block is :class:`DeepSpeedServingConfig`, read
 by ``init_serving``. The keys the JAX config refuses off-default (``amp.enabled``,
@@ -92,18 +93,12 @@ def _autotuning_space(v):
 
 # The JAX validators of the blocks the port parses but does not run
 # (JAX runtime/config.py: telemetry :419-565, data_prefetch :585,
-# comm_overlap :613, guardian :690-717, autotuning :1028-1058,
-# checkpoint :1369-1382): (block path, key, default, cast, valid, what
-# a valid value is, environment override or None). Each raises
+# comm_overlap :613, guardian :690-717, autotuning :1028-1058): (block
+# path, key, default, cast, valid, what a valid value is, environment
+# override or None). Each raises
 # DeepSpeedConfigError on the value the JAX config refuses, whether or
 # not the block is enabled.
 _RANGE_RULES = (
-    (("checkpoint",), "rank_wait_timeout_s", 300.0, float, _positive,
-     "> 0", None),
-    (("checkpoint",), "persist_retries", 2, int, _non_negative, ">= 0",
-     "DS_CHECKPOINT_PERSIST_RETRIES"),
-    (("checkpoint",), "persist_retry_backoff_s", 0.05, float,
-     _non_negative, ">= 0", None),
     (("data_prefetch",), "depth", 2, int, _at_least(1), ">= 1", None),
     (("comm_overlap",), "bucket_mb", 4.0, float, _positive, "> 0", None),
     (("guardian",), "action_cooldown_steps", 25, int, _non_negative,
@@ -649,8 +644,51 @@ class DeepSpeedConfig:
         self.eigenvalue_enabled = ev.get(C.EIGENVALUE_ENABLED,
                                          C.EIGENVALUE_ENABLED_DEFAULT)
         self.sparse_attention = pd.get(C.SPARSE_ATTENTION, None)
+        self._read_checkpoint(pd)
         self.wall_clock_breakdown = pd.get(C.WALL_CLOCK_BREAKDOWN, False)
         self.serving = DeepSpeedServingConfig(pd)
+
+    def _read_checkpoint(self, pd):
+        """The ``checkpoint`` block with the JAX defaults, attribute names,
+        environment overrides and errors (JAX config.py:1340-1382). Tag
+        validation keeps its mode; at world size 1 there is no other rank
+        to compare with."""
+        ckpt = pd.get(C.CHECKPOINT, {}) or {}
+        self.checkpoint_tag_validation_mode = ckpt.get(
+            C.CHECKPOINT_TAG_VALIDATION, C.CHECKPOINT_TAG_VALIDATION_DEFAULT)
+        self.checkpoint_tag_validation_enabled = \
+            self.checkpoint_tag_validation_mode != "Ignore"
+        self.checkpoint_tag_validation_fail = \
+            self.checkpoint_tag_validation_mode == "Fail"
+        self.load_universal_checkpoint = ckpt.get(
+            C.LOAD_UNIVERSAL_CHECKPOINT, C.LOAD_UNIVERSAL_CHECKPOINT_DEFAULT)
+        self.checkpoint_async_save = _env_flag(
+            "DS_CHECKPOINT_ASYNC_SAVE", bool(ckpt.get(
+                C.CHECKPOINT_ASYNC_SAVE, C.CHECKPOINT_ASYNC_SAVE_DEFAULT)))
+        self.checkpoint_fallback = _env_flag(
+            "DS_CHECKPOINT_FALLBACK", bool(ckpt.get(
+                C.CHECKPOINT_FALLBACK, C.CHECKPOINT_FALLBACK_DEFAULT)))
+        self.checkpoint_wait_timeout_s = float(ckpt.get(
+            C.CHECKPOINT_WAIT_TIMEOUT, C.CHECKPOINT_WAIT_TIMEOUT_DEFAULT))
+        self.checkpoint_persist_retries = int(os.environ.get(
+            "DS_CHECKPOINT_PERSIST_RETRIES", ckpt.get(
+                C.CHECKPOINT_PERSIST_RETRIES,
+                C.CHECKPOINT_PERSIST_RETRIES_DEFAULT)))
+        self.checkpoint_persist_backoff_s = float(ckpt.get(
+            C.CHECKPOINT_PERSIST_BACKOFF_S,
+            C.CHECKPOINT_PERSIST_BACKOFF_S_DEFAULT))
+        for key, value, ok, what in (
+                (C.CHECKPOINT_WAIT_TIMEOUT, self.checkpoint_wait_timeout_s,
+                 self.checkpoint_wait_timeout_s > 0, "> 0"),
+                (C.CHECKPOINT_PERSIST_RETRIES,
+                 self.checkpoint_persist_retries,
+                 self.checkpoint_persist_retries >= 0, ">= 0"),
+                (C.CHECKPOINT_PERSIST_BACKOFF_S,
+                 self.checkpoint_persist_backoff_s,
+                 self.checkpoint_persist_backoff_s >= 0, ">= 0")):
+            if not ok:
+                raise DeepSpeedConfigError(
+                    f"checkpoint.{key} must be {what}, got {value}")
 
     # -- batch triangulation (JAX config.py:1403-1450) -----------------------
 

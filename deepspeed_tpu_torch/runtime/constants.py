@@ -235,3 +235,33 @@ SERVING_OBS_TRACE_LANES = "trace_lanes"     # per-slot Chrome lanes
 SERVING_OBS_TRACE_LANES_DEFAULT = True
 SERVING_OBS_SNAPSHOT_FILE = "snapshot_file"
 SERVING_OBS_SNAPSHOT_FILE_DEFAULT = "SERVING_HEALTH.json"
+
+# Checkpoint files (JAX runtime/engine.py:69-71) and the ``checkpoint``
+# block (JAX constants.py:420-448)
+MODEL_FILE_SUFFIX = "_model_states.pt"
+OPTIM_FILE_SUFFIX = "_optim_states.pt"
+LATEST_FILE = "latest"
+CHECKPOINT = "checkpoint"
+CHECKPOINT_TAG_VALIDATION = "tag_validation"
+CHECKPOINT_TAG_VALIDATION_DEFAULT = "Warn"
+CHECKPOINT_TAG_VALIDATION_MODES = ["Warn", "Ignore", "Fail"]
+LOAD_UNIVERSAL_CHECKPOINT = "load_universal"
+LOAD_UNIVERSAL_CHECKPOINT_DEFAULT = False
+# async_save: save_checkpoint returns after the snapshot and a background
+# thread writes the files. DS_CHECKPOINT_ASYNC_SAVE=1/0 force-toggles it.
+CHECKPOINT_ASYNC_SAVE = "async_save"
+CHECKPOINT_ASYNC_SAVE_DEFAULT = False
+# fallback_to_intact: a ``latest`` pointer to a tag that fails manifest
+# verification loads the newest intact tag instead of raising; an explicit
+# tag= never falls back. DS_CHECKPOINT_FALLBACK=1/0.
+CHECKPOINT_FALLBACK = "fallback_to_intact"
+CHECKPOINT_FALLBACK_DEFAULT = True
+# how long the manifest writer waits for every rank's shard file
+CHECKPOINT_WAIT_TIMEOUT = "rank_wait_timeout_s"
+CHECKPOINT_WAIT_TIMEOUT_DEFAULT = 300.0
+# persist retries with jittered exponential backoff before the failure
+# surfaces at the next drain. DS_CHECKPOINT_PERSIST_RETRIES.
+CHECKPOINT_PERSIST_RETRIES = "persist_retries"
+CHECKPOINT_PERSIST_RETRIES_DEFAULT = 2
+CHECKPOINT_PERSIST_BACKOFF_S = "persist_retry_backoff_s"
+CHECKPOINT_PERSIST_BACKOFF_S_DEFAULT = 0.05

@@ -48,20 +48,35 @@ the masters stay outside every recomputed block (``runtime/
 activation_checkpointing/checkpointing.remat``).
 """
 
+import glob
+import os
+import re
+
+import numpy as np
 import torch
 from torch.func import functional_call
 
+from deepspeed_tpu_torch import bridge
+from deepspeed_tpu_torch.runtime import checkpoint_io
 from deepspeed_tpu_torch.runtime import dropout as dropout_lib
 from deepspeed_tpu_torch.runtime import optim as optim_lib
 from deepspeed_tpu_torch.runtime.config import (ADAGRAD_OPTIMIZER,
+                                                ADAMW_OPTIMIZER,
+                                                ADAM_OPTIMIZER,
                                                 LAMB_OPTIMIZER,
                                                 SGD_OPTIMIZER,
                                                 DeepSpeedConfig)
+from deepspeed_tpu_torch.runtime.constants import (LATEST_FILE,
+                                                   MODEL_FILE_SUFFIX,
+                                                   OPTIM_FILE_SUFFIX)
 from deepspeed_tpu_torch.runtime.fp16.loss_scaler import (make_scale_state,
                                                           update_scale)
 from deepspeed_tpu_torch.runtime.lr_schedules import get_lr_schedule
 from deepspeed_tpu_torch.runtime.quantize import (Quantizer,
                                                   transposed_weight_names)
+from deepspeed_tpu_torch.telemetry.metrics import get_registry
+from deepspeed_tpu_torch.telemetry.tracer import trace_span
+from deepspeed_tpu_torch.utils.logging import log_dist, logger
 
 
 def _to_device(batch, device):
@@ -143,8 +158,17 @@ class DeepSpeedEngine:
         self._pending_loss = None
         self.step_count = 0      # applied optimizer steps (indexes the lr)
         self.global_steps = 0
+        self.global_samples = 0
         self.micro_steps = 0
         self.skipped_steps = 0
+
+        # checkpoints: the JAX tag format; the layout table of a model
+        # family the JAX package shares (None: a user module, saved under
+        # its own parameter names)
+        self._ckpt_async = config.checkpoint_async_save
+        self._ckpt_writer = None
+        self._layout = bridge.layout_of(self.params)
+        self._pinned = {}        # reused pinned host buffers of snapshots
 
     # ------------------------------------------------------------- config
     def _configure_optimizer(self):
@@ -366,6 +390,7 @@ class DeepSpeedEngine:
         if finite:
             self._apply_update(grads, clip_coef)
         self.global_steps += 1
+        self.global_samples += self.config.train_batch_size
         if self.quantizer is not None:
             self.quantizer.quantize(self.params, overflow=not finite,
                                     transposed=self._transposed)
@@ -419,3 +444,507 @@ class DeepSpeedEngine:
         """``eval_batch``, as the JAX engine's ``__call__`` is
         (engine.py:3407); the training forward is :meth:`forward`."""
         return self.eval_batch(batch)
+
+    # ------------------------------------------------------------ checkpoints
+    # The JAX engine's tag format (runtime/engine.py:3628-4135): per tag
+    # ``mp_rank_00_model_states.pt`` (the ``module`` tree and the counters),
+    # ``zero_pp_rank_0_mp_rank_00_optim_states.pt`` (the shards-v1 payloads
+    # of the optimizer state and the fp32 masters, the loss-scale state),
+    # then ``manifest.json``, then the ``latest`` pointer. For a model
+    # family of ``bridge.LAYOUTS`` the trees carry the JAX engine's key
+    # paths and flax layouts, so either engine loads the other's tags.
+
+    def _get_ckpt_name(self, checkpoints_path, tag):
+        return os.path.join(checkpoints_path, str(tag),
+                            "mp_rank_00" + MODEL_FILE_SUFFIX)
+
+    def _get_zero_ckpt_name(self, checkpoints_path, tag):
+        return os.path.join(checkpoints_path, str(tag),
+                            "zero_pp_rank_0_mp_rank_00" + OPTIM_FILE_SUFFIX)
+
+    def _path(self, name):
+        """The JAX key path (``keystr``) of a parameter's leaf."""
+        if self._layout is None:
+            return bridge.keystr((name,))
+        return bridge.keystr(self._layout[name][0])
+
+    def _flax_view(self, name, t):
+        """``t`` (a tensor shaped like parameter ``name``) in the saved
+        layout: permuted to flax's for a model family, else as it is."""
+        if self._layout is None:
+            return t
+        perm = bridge.inverse(self._layout[name][1])
+        return t if perm is None else t.permute(perm)
+
+    def _opt_leaves(self, state, keys_only=False):
+        """``{key path: tensor or ndarray}`` of the optimizer state, in the
+        JAX tree's paths (``.step``, ``.mu['h_0']['ln_1']['scale']``, the
+        sweep's ``.mu`` vector in JAX's leaf order, ...); with
+        ``keys_only`` the values are None."""
+        from deepspeed_tpu_torch.ops.adam.fused_adam import AdamSweepState
+        if not hasattr(state, "_fields"):
+            raise TypeError(f"cannot checkpoint optimizer state of type "
+                            f"{type(state).__name__}: a NamedTuple of ints, "
+                            f"tensors and dicts of tensors is expected")
+        out = {}
+        for field in state._fields:
+            val = getattr(state, field)
+            if isinstance(val, (int, np.integer)):
+                out[f".{field}"] = np.asarray(val, np.int32)
+            elif isinstance(val, dict):
+                for name, t in val.items():
+                    out[f".{field}{self._path(name)}"] = \
+                        self._flax_view(name, t)
+            elif isinstance(val, torch.Tensor):
+                if isinstance(state, AdamSweepState) and \
+                        self._layout is not None and not keys_only:
+                    val = bridge.flat_to_jax(
+                        val, self._layout, list(self.params),
+                        [tuple(p.shape) for p in self.params.values()])
+                out[f".{field}"] = val
+            elif val != ():
+                raise TypeError(f"cannot checkpoint optimizer field "
+                                f"{field} of type {type(val).__name__}")
+        if keys_only:
+            return dict.fromkeys(out)
+        return out
+
+    def _restore_opt_state(self, arrays):
+        """The optimizer state rebuilt like the current one from
+        ``{key path: ndarray}``, on the engine's device."""
+        from deepspeed_tpu_torch.ops.adam.fused_adam import (AdamSweepState,
+                                                             sweep_pad)
+        state = self.opt_state
+        fields = {}
+        for field in state._fields:
+            val = getattr(state, field)
+            if isinstance(val, (int, np.integer)):
+                fields[field] = int(arrays[f".{field}"])
+            elif isinstance(val, dict):
+                fields[field] = {
+                    name: self._to_device(
+                        arrays[f".{field}{self._path(name)}"], name, t,
+                        self._perm(name))
+                    for name, t in val.items()}
+            elif isinstance(val, torch.Tensor):
+                vec = torch.from_numpy(np.require(
+                    arrays[f".{field}"], requirements=["C", "W"])).to(
+                        self.device)
+                if isinstance(state, AdamSweepState) and \
+                        vec.numel() >= val.numel() + sweep_pad():
+                    # the saved length is read, not recomputed; padding of
+                    # a whole quantum more is another model's leaves
+                    raise ValueError(
+                        f"optimizer leaf .{field} holds {vec.numel()} "
+                        f"elements, more than this model's sweep vector "
+                        f"of {val.numel()} and its padding")
+                if isinstance(state, AdamSweepState) and \
+                        self._layout is not None:
+                    vec = bridge.flat_from_jax(
+                        vec, self._layout, list(self.params),
+                        [tuple(p.shape) for p in self.params.values()],
+                        val.numel())
+                if vec.shape != val.shape or vec.dtype != val.dtype:
+                    raise ValueError(
+                        f"optimizer leaf .{field} is {vec.dtype} "
+                        f"{tuple(vec.shape)} in the checkpoint, "
+                        f"{val.dtype} {tuple(val.shape)} in this engine")
+                fields[field] = vec
+            else:
+                fields[field] = val
+        return type(state)(**fields)
+
+    def _to_device(self, arr, name, like, perm):
+        """A saved leaf (flax layout) as a tensor like ``like`` (torch
+        layout) on the engine's device, permuted there."""
+        t = torch.from_numpy(np.require(arr, requirements=["C", "W"])).to(
+            self.device)
+        if perm is not None:
+            t = t.permute(perm)
+        if tuple(t.shape) != tuple(like.shape):
+            raise ValueError(f"checkpoint leaf for {name} has shape "
+                             f"{tuple(t.shape)}, the model's is "
+                             f"{tuple(like.shape)}")
+        # contiguous as the live state is: a permuted view would change
+        # the order of LAMB's norm reductions, and with it the last bits
+        return t.to(like.dtype).contiguous()
+
+    def _host(self, key, t, copy):
+        """A host numpy array of tensor ``t``. CUDA tensors go into a
+        pinned buffer by a non-blocking copy (valid once the stream is
+        synchronised; the buffers are reused by the next snapshot, which
+        comes after the previous persist drained). CPU tensors: a
+        contiguous array, copied when ``copy`` (a view would alias the
+        masters, which the next step updates in place)."""
+        t = t.detach()
+        if t.device.type == "cuda":
+            buf = self._pinned.get(key)
+            if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
+                buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                self._pinned[key] = buf
+            buf.copy_(t, non_blocking=True)
+            return buf.numpy()
+        if copy:
+            return t.clone(memory_format=torch.contiguous_format).numpy()
+        return t.contiguous().numpy()
+
+    def _snapshot_checkpoint(self, client_state, data_iter):
+        """Device -> host copies of everything a save writes, and the
+        model-states metadata. Under ``async_save`` the host arrays own
+        their bytes (JAX engine.py:3743-3748): the masters are updated in
+        place (``p += u``), so a view would pickle the next step's
+        weights."""
+        copy = self._ckpt_async
+        with trace_span("checkpoint/gather_shards"):
+            params = {self._path(n): self._host(
+                ("p", n), self._flax_view(n, p), copy)
+                for n, p in self.params.items()}
+            opt = {k: (v if isinstance(v, np.ndarray)
+                       else self._host(("o", k), v, copy))
+                   for k, v in self._opt_leaves(self.opt_state).items()}
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+        zero_sd = {
+            "format": "shards-v1",
+            "optimizer_state_dict": checkpoint_io.tree_local_shards(opt),
+            "offload_optimizer_state": None,
+            "param_shards": checkpoint_io.tree_local_shards(params),
+            "scale_state": {
+                "loss_scale": np.array(self.scale.loss_scale, np.float32),
+                "good_steps": np.array(self.scale.good_steps, np.int32),
+                "hysteresis": np.array(self.scale.hysteresis, np.int32)},
+            "zero_stage": self.config.zero_optimization_stage,
+            "partition_count": 1,
+        }
+        # the module tree holds the same arrays as param_shards
+        by_path = {n: params[self._path(n)] for n in self.params}
+        module = (bridge.nest((self._layout[n][0], a)
+                              for n, a in by_path.items())
+                  if self._layout is not None else by_path)
+        it_state = None
+        if data_iter is not None:
+            sd_fn = getattr(data_iter, "state_dict", None)
+            if sd_fn is not None:
+                it_state = sd_fn()
+            else:
+                logger.warning(
+                    "save_checkpoint(data_iter=...): the iterator has no "
+                    "state_dict(); the data-stream position is NOT saved "
+                    "(wrap the loader in RepeatingLoader for "
+                    "deterministic resume)")
+        from deepspeed_tpu_torch import __version__
+        meta = {
+            "global_steps": self.global_steps,
+            "global_samples": self.global_samples,
+            "skipped_steps": self.skipped_steps,
+            "micro_steps": self.micro_steps,
+            "dp_world_size": 1,
+            "mp_world_size": 1,
+            "loss_scale": float(self.scale.loss_scale),
+            "lr_scheduler": (self.lr_scheduler.state_dict()
+                             if self.lr_scheduler is not None
+                             and hasattr(self.lr_scheduler, "state_dict")
+                             else None),
+            "data_iterator": it_state,
+            "ds_config": self.config._param_dict,
+            "ds_version": f"torch-{__version__}",
+            "client_state": client_state or {},
+        }
+        return {"zero_sd": zero_sd, "module": module, "meta": meta}
+
+    def _persist_checkpoint(self, save_dir, tag, snapshot, save_latest):
+        """The file half of a save, host I/O only (safe on the background
+        writer's thread). The order is the crash contract: the shard file,
+        the model states, the gate on every rank's shard file, the purge of
+        a larger world's stale rank files, the manifest, then ``latest``."""
+        tag_dir = os.path.join(save_dir, tag)
+        checkpoint_io.dump_file(snapshot["zero_sd"],
+                                self._get_zero_ckpt_name(save_dir, tag),
+                                kind="zero_states")
+        meta = snapshot["meta"]
+        sd = {"module": snapshot["module"], "has_moe_layers": False,
+              "moe_layer_prefixes": [], "moe_expert_counts": [], **meta}
+        checkpoint_io.dump_file(sd, self._get_ckpt_name(save_dir, tag),
+                                kind="model_states")
+        checkpoint_io.wait_for_files(
+            [self._get_zero_ckpt_name(save_dir, tag)],
+            timeout_s=self.config.checkpoint_wait_timeout_s,
+            describe=f"all 1 ranks' shard files of tag {tag!r}")
+        for f in glob.glob(os.path.join(tag_dir,
+                                        "zero_pp_rank_*" + OPTIM_FILE_SUFFIX)):
+            m = re.search(r"zero_pp_rank_(\d+)_", os.path.basename(f))
+            if m and int(m.group(1)) >= 1:
+                os.remove(f)
+        checkpoint_io.write_manifest(tag_dir, meta={
+            "tag": tag, "global_steps": meta["global_steps"],
+            "dp_world_size": 1, "processes": 1})
+        if save_latest:
+            checkpoint_io.write_latest(save_dir, LATEST_FILE, tag)
+
+    def _get_ckpt_writer(self):
+        if self._ckpt_writer is None:
+            from deepspeed_tpu_torch.runtime.async_checkpoint import \
+                AsyncCheckpointWriter
+            self._ckpt_writer = AsyncCheckpointWriter(
+                retries=self.config.checkpoint_persist_retries,
+                backoff_s=self.config.checkpoint_persist_backoff_s)
+        return self._ckpt_writer
+
+    def save_checkpoint(self, save_dir, tag=None, client_state=None,
+                        save_latest=True, data_iter=None):
+        """Save the engine to ``save_dir/tag`` (default tag
+        ``global_step{N}``), in two phases as in JAX (engine.py:3640):
+        the snapshot copies the device state to the host at the step
+        boundary; the persist writes the files. Under
+        ``checkpoint.async_save`` the persist runs on a background writer
+        while training goes on; the next save or load drains it, and a
+        failure there re-raises. ``data_iter``: anything with
+        ``state_dict()``, whose position is saved with the tag.
+
+        Tag validation (``checkpoint.tag_validation``) compares the tag
+        across ranks; at world size 1 there is no other rank, so the mode
+        is kept and nothing is compared."""
+        tag = str(f"global_step{self.global_steps}" if tag is None else tag)
+        if self._ckpt_writer is not None:
+            self._ckpt_writer.drain()
+        with trace_span("checkpoint/save", tag=tag):
+            os.makedirs(os.path.join(save_dir, tag), exist_ok=True)
+            snapshot = self._snapshot_checkpoint(client_state, data_iter)
+        if not self._ckpt_async:
+            with trace_span("checkpoint/persist", tag=tag):
+                self._persist_checkpoint(save_dir, tag, snapshot,
+                                         save_latest)
+            log_dist(f"saved checkpoint {save_dir}/{tag}", ranks=[0])
+            return True
+        get_registry().counter(
+            "checkpoint_async_saves_total",
+            "async (snapshot-then-persist) saves started").inc()
+        self._get_ckpt_writer().submit(
+            lambda: self._persist_checkpoint(save_dir, tag, snapshot,
+                                             save_latest), tag=tag)
+        log_dist(f"checkpoint {save_dir}/{tag}: snapshot taken, persisting "
+                 f"in background", ranks=[0])
+        return True
+
+    def _verify_load_tag(self, load_dir, tag, explicit_tag):
+        """The tag to load (JAX engine.py:3900): an intact tag as it is, a
+        tag without a manifest with a warning; a missing, empty or corrupt
+        tag raises, unless it came from ``latest`` and
+        ``checkpoint.fallback_to_intact`` finds the newest intact one."""
+        tag_dir = os.path.join(load_dir, tag)
+        status, detail = checkpoint_io.verify_tag(tag_dir)
+        if status == "intact":
+            return tag
+        if status == "legacy":
+            logger.warning(
+                f"checkpoint tag {tag!r} at {tag_dir} has no completeness "
+                f"manifest ({detail}); loading with per-file checks only")
+            return tag
+        source = ("requested" if explicit_tag
+                  else "named by the 'latest' pointer")
+        msg = (f"checkpoint tag {tag!r} ({source}) at {tag_dir} is not "
+               f"loadable: {detail}")
+        error = FileNotFoundError if status == "missing" else RuntimeError
+        if explicit_tag or not self.config.checkpoint_fallback:
+            raise error(msg)
+        fallback = checkpoint_io.newest_intact_tag(load_dir, exclude=(tag,))
+        if fallback is None:
+            raise error(msg + "; no intact fallback tag exists under "
+                        + str(load_dir))
+        logger.warning(f"{msg}; falling back to the newest intact tag "
+                       f"{fallback!r}")
+        return fallback
+
+    def _perm(self, name):
+        return None if self._layout is None else self._layout[name][1]
+
+    def _module_arrays(self, sd, zero_payloads, strict):
+        """``{parameter name: ndarray in the saved layout}`` from the model
+        states' ``module`` tree, or else from the shard files."""
+        tree = sd.get("module")
+        if tree is None:
+            paths = {n: self._path(n) for n in self.params}
+            merged = checkpoint_io.restore_tree(
+                list(paths.values()),
+                [z["param_shards"] for z in zero_payloads])
+            return {n: merged[paths[n]] for n in self.params}
+        if self._layout is None:
+            named = dict(tree)
+        else:
+            named = {}
+            for n, (path, _) in self._layout.items():
+                try:
+                    named[n] = bridge.get_path(tree, path)
+                except (KeyError, TypeError):
+                    if strict:
+                        raise KeyError(
+                            f"checkpoint module has no leaf "
+                            f"{'/'.join(path)} for parameter {n}") from None
+        missing = set(self.params) - set(named)
+        extra = set(named) - set(self.params)
+        if strict and (missing or extra):
+            raise KeyError(f"checkpoint module does not match the model: "
+                           f"missing {sorted(missing)[:4]}, unexpected "
+                           f"{sorted(extra)[:4]}")
+        return {n: a for n, a in named.items() if n in self.params}
+
+    def _check_optimizer_kind(self, sd, path):
+        """Refuse the moments of another optimizer (LAMB's into Adam has
+        the same key paths; JAX would load them silently)."""
+        family = {ADAMW_OPTIMIZER: ADAM_OPTIMIZER}
+        saved = ((sd.get("ds_config") or {}).get("optimizer") or {}).get(
+            "type")
+        ours = self.config.optimizer_name
+        if self.client_optimizer is not None or not saved or ours is None:
+            return
+        saved = saved.lower()
+        if family.get(saved, saved) != family.get(ours, ours):
+            raise ValueError(
+                f"{path} holds the state of optimizer {saved!r}; this "
+                f"engine runs {ours!r}, whose state it is not "
+                f"(load_optimizer_states=False starts fresh moments)")
+
+    def load_checkpoint(self, load_dir, tag=None, load_module_strict=True,
+                        load_optimizer_states=True,
+                        load_lr_scheduler_states=True,
+                        load_module_only=False, data_iter=None):
+        """Load a tag written by this engine or by the JAX engine
+        (engine.py:3925-4100): the ``latest`` tag unless ``tag`` is given
+        (verified, with the ``fallback_to_intact`` rule), the masters,
+        and unless ``load_module_only`` the counters, the loss-scale
+        state, the lr scheduler, the optimizer state (applied steps =
+        ``global_steps - skipped_steps``) and the data iterator's
+        position. Returns ``(model-states path, client_state)``, or
+        ``(None, {})`` when there is no ``latest``.
+
+        A resumed run draws the uninterrupted run's dropout masks when the
+        engine was built with the same ``seed`` (the seed is not saved,
+        as in JAX). MoQ keeps no schedule state in the tag (neither does
+        JAX's), so its bit width restarts from the config."""
+        if self._ckpt_writer is not None:
+            self._ckpt_writer.drain()
+        explicit_tag = tag is not None
+        if tag is None:
+            latest = os.path.join(load_dir, LATEST_FILE)
+            if not os.path.isfile(latest):
+                logger.warning(f"no 'latest' file at {latest}; nothing "
+                               f"loaded")
+                return None, {}
+            with open(latest) as f:
+                tag = f.read().strip()
+        tag = self._verify_load_tag(load_dir, str(tag), explicit_tag)
+        path = self._get_ckpt_name(load_dir, tag)
+        with trace_span("checkpoint/load", tag=tag):
+            sd = checkpoint_io.load_file(path, kind="model_states")
+            checkpoint_io.check_no_moe(sd, path)
+            zero_payloads = [
+                checkpoint_io.load_file(p, kind="zero_states")
+                for p in sorted(glob.glob(os.path.join(
+                    load_dir, tag, "zero_pp_rank_*" + OPTIM_FILE_SUFFIX)))]
+            saved_dp = (zero_payloads[0].get("partition_count")
+                        if zero_payloads else None)
+            if saved_dp is not None and saved_dp != 1:
+                # shards carry global indices: reassembly is elastic
+                log_dist(f"elastic checkpoint load: saved at dp={saved_dp}, "
+                         f"resuming at dp=1 (shard reassembly)", ranks=[0])
+            arrays = self._module_arrays(sd, zero_payloads,
+                                         load_module_strict)
+            if not load_module_only and load_optimizer_states and \
+                    zero_payloads:
+                self._check_optimizer_kind(sd, path)
+                if zero_payloads[0].get("format") != "shards-v1":
+                    raise NotImplementedError(
+                        f"{path}: optimizer state in the pre-shards format "
+                        f"is not ported")
+                want = list(self._opt_leaves(self.opt_state,
+                                             keys_only=True))
+                try:
+                    opt_arrays = checkpoint_io.restore_tree(
+                        want, [z["optimizer_state_dict"]
+                               for z in zero_payloads])
+                except KeyError as e:
+                    raise KeyError(
+                        f"{e.args[0]}: the tag's optimizer state does not "
+                        f"match this engine's "
+                        f"{type(self.opt_state).__name__}") from None
+                opt_state = self._restore_opt_state(opt_arrays)
+            with torch.no_grad():
+                for n, a in arrays.items():
+                    self.params[n].copy_(self._to_device(
+                        a, n, self.params[n], self._perm(n)))
+        client_state = sd.get("client_state", {})
+        if not load_module_only:
+            self.global_steps = sd.get("global_steps", 0)
+            self.global_samples = sd.get("global_samples", 0)
+            self.skipped_steps = sd.get("skipped_steps", 0)
+            self.micro_steps = sd.get("micro_steps", 0)
+            # applied steps index the lr (JAX's state.step)
+            self.step_count = self.global_steps - self.skipped_steps
+            self.scale = self.scale._replace(
+                loss_scale=float(sd.get("loss_scale", 1.0)))
+            if load_lr_scheduler_states and self.lr_scheduler is not None \
+                    and sd.get("lr_scheduler") is not None:
+                self.lr_scheduler.load_state_dict(sd["lr_scheduler"])
+            if load_optimizer_states:
+                if not zero_payloads:
+                    logger.warning(
+                        f"no zero_pp_rank files under {load_dir}/{tag}; "
+                        f"resuming with FRESH optimizer state and loss "
+                        f"scale")
+                else:
+                    self.opt_state = opt_state
+                    ss = zero_payloads[0].get("scale_state")
+                    if ss is not None:
+                        self.scale = self.scale._replace(
+                            loss_scale=float(ss["loss_scale"]),
+                            good_steps=int(ss["good_steps"]),
+                            hysteresis=int(ss["hysteresis"]))
+            if data_iter is not None:
+                it_state = sd.get("data_iterator")
+                restore = getattr(data_iter, "load_state_dict", None)
+                if it_state is None:
+                    logger.warning(
+                        "load_checkpoint(data_iter=...): the checkpoint "
+                        "carries no data-iterator state (saved without "
+                        "data_iter=); the stream is NOT rewound")
+                elif restore is None:
+                    logger.warning(
+                        "load_checkpoint(data_iter=...): the iterator has "
+                        "no load_state_dict(); the stream is NOT rewound")
+                else:
+                    restore(it_state)
+        log_dist(f"loaded checkpoint {load_dir}/{tag}", ranks=[0])
+        return path, client_state
+
+    def save_16bit_model(self, save_dir, save_filename="pytorch_model.bin"):
+        """One consolidated 16-bit weight file (JAX engine.py:4123): the
+        masters cast to bf16 (to fp16 when the compute dtype is fp16),
+        under their ``state_dict`` names, written with ``torch.save`` as
+        the reference DeepSpeed writes ``pytorch_model.bin``: numpy has no
+        bfloat16, and the JAX ``load_checkpoint_file`` reads this file
+        (widening bf16)."""
+        dtype = (torch.bfloat16 if self.compute_dtype == torch.float32
+                 else self.compute_dtype)
+        os.makedirs(save_dir, exist_ok=True)
+        path = os.path.join(save_dir, save_filename)
+        with trace_span("checkpoint/save_16bit_model"):
+            sd = {n: p.detach().to(dtype).cpu()
+                  for n, p in self.params.items()}
+
+            def write(f):
+                torch.save(sd, f)
+            nbytes = checkpoint_io._atomic_write(path, write)
+        get_registry().counter("checkpoint_write_bytes_total",
+                               "bytes written by checkpoint saves",
+                               labels={"kind": "bit16"}).inc(nbytes)
+        return True
+
+    def close(self):
+        """Drain the async writer (a failed background save re-raises
+        here, its last chance to surface) and release the pinned snapshot
+        buffers. Idempotent."""
+        try:
+            if self._ckpt_writer is not None:
+                self._ckpt_writer.close()
+        finally:
+            self._pinned = {}

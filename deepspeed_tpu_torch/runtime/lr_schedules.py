@@ -4,7 +4,8 @@
 
 Each is a function of the applied-step count, ``lr_at(step)``, computed on
 the host; the engine hands the result to the optimizer update. The
-stateful ``step()`` / ``get_lr()`` surface follows the JAX classes; the
+stateful ``step()`` / ``get_lr()`` / ``state_dict()`` /
+``load_state_dict()`` surface follows the JAX classes; the
 momentum cycle of ``OneCycle`` is not ported (the JAX engine never reads
 it).
 """
@@ -28,6 +29,12 @@ class _LRSchedule:
 
     def step(self):
         self.last_batch_iteration += 1
+
+    def state_dict(self):
+        return {"last_batch_iteration": self.last_batch_iteration}
+
+    def load_state_dict(self, sd):
+        self.last_batch_iteration = sd["last_batch_iteration"]
 
 
 class LRRangeTest(_LRSchedule):

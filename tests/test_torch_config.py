@@ -343,3 +343,50 @@ def test_refused_keys_at_their_defaults_parse(over):
     assert got.gradient_accumulation_dtype == \
         want.gradient_accumulation_dtype
     assert got.gradient_predivide_factor == want.gradient_predivide_factor
+
+
+CHECKPOINT_FIELDS = ("checkpoint_tag_validation_mode",
+                     "checkpoint_tag_validation_enabled",
+                     "checkpoint_tag_validation_fail",
+                     "load_universal_checkpoint", "checkpoint_async_save",
+                     "checkpoint_fallback", "checkpoint_wait_timeout_s",
+                     "checkpoint_persist_retries",
+                     "checkpoint_persist_backoff_s")
+
+
+@pytest.mark.parametrize("block,env", [
+    ({}, {}),
+    ({"tag_validation": "Fail", "load_universal": True, "async_save": True,
+      "fallback_to_intact": False, "rank_wait_timeout_s": 5.0,
+      "persist_retries": 0, "persist_retry_backoff_s": 0.5}, {}),
+    ({"tag_validation": "Ignore"}, {"DS_CHECKPOINT_ASYNC_SAVE": "1",
+                                    "DS_CHECKPOINT_FALLBACK": "0",
+                                    "DS_CHECKPOINT_PERSIST_RETRIES": "7"}),
+    ({"async_save": True, "fallback_to_intact": False},
+     {"DS_CHECKPOINT_ASYNC_SAVE": "off", "DS_CHECKPOINT_FALLBACK": "yes"}),
+], ids=["defaults", "every_key", "env_on", "env_off"])
+def test_checkpoint_block_matches_jax(monkeypatch, block, env):
+    """The ``checkpoint`` block the engine's saves read: the JAX
+    defaults, attribute names and environment overrides."""
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    want = JaxConfig(basic(checkpoint=block), data_parallel_size=1)
+    got = DeepSpeedConfig(basic(checkpoint=block))
+    for f in CHECKPOINT_FIELDS:
+        assert getattr(got, f) == getattr(want, f), f
+
+
+@pytest.mark.parametrize("block,env", [
+    ({"rank_wait_timeout_s": 0}, {}),
+    ({"persist_retries": -1}, {}),
+    ({"persist_retry_backoff_s": -0.1}, {}),
+    ({}, {"DS_CHECKPOINT_PERSIST_RETRIES": "-2"}),
+], ids=["timeout", "retries", "backoff", "env_retries"])
+def test_invalid_checkpoint_block_raises_like_jax(monkeypatch, block, env):
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(JaxError) as want:
+        JaxConfig(basic(checkpoint=block), data_parallel_size=1)
+    with pytest.raises(DeepSpeedConfigError) as got:
+        DeepSpeedConfig(basic(checkpoint=block))
+    assert str(got.value) == str(want.value)

@@ -10,9 +10,18 @@ when it runs again: the flash forward (o and lse) and the fused layer's
 LayerNorm and bias-GeLU kernels. With that, gradients with and without
 checkpointing are bit-equal (atol 0) with dropout 0.1 on: the masks are
 drawn again from the same (seed, micro-step, site) key.
+
+Checkpoints on the card: a tag saved after 3 steps loads into an engine
+built from another init seed, and its next 3 steps on the kernels (Adam's
+sweep, the fused per-tensor Adam, fused LAMB; dropout 0.1) are bit-equal
+to the uninterrupted run's, launches included. An async save's snapshot
+goes into pinned host buffers by non-blocking copies; the stream is
+synchronised before the background persist reads them, and the step after
+the save (which updates the masters in place) does not reach the files.
 """
 
 import dataclasses
+import time
 
 import pytest
 import torch
@@ -21,7 +30,7 @@ import deepspeed_tpu_torch
 from deepspeed_tpu_torch.models import gpt2
 from deepspeed_tpu_torch.ops import op_builder
 from deepspeed_tpu_torch.ops.transformer import flash, transformer
-from deepspeed_tpu_torch.runtime import dropout
+from deepspeed_tpu_torch.runtime import checkpoint_io, dropout
 
 pytestmark = pytest.mark.cuda
 
@@ -147,3 +156,83 @@ def test_loop_equals_train_batch_on_the_card(gen):
         assert torch.equal(loss.detach(), want)
     for x, y in zip(a.module.parameters(), b.module.parameters()):
         assert torch.equal(x, y)
+
+
+def _ckpt_engine(seed, opt, **over):
+    model = gpt2.GPT2LMHeadModel(dataclasses.replace(CFG, dropout=0.1),
+                                 seed=seed)
+    cfg = {"train_batch_size": 4, "bf16": {"enabled": True},
+           "steps_per_print": 10 ** 9, "gradient_clipping": 1.0,
+           "optimizer": opt}
+    cfg.update(over)
+    return deepspeed_tpu_torch.initialize(model=model, config=cfg)[0]
+
+
+def _ckpt_batches(n):
+    return [gpt2.synthetic_batch(4, 128, CFG.vocab_size, seed=10 + i)
+            for i in range(n)]
+
+
+@pytest.mark.parametrize("opt", [
+    {"type": "Adam", "params": {"lr": 1e-3, "sweep": True}},
+    {"type": "Adam", "params": {"lr": 1e-3, "fused": True}},
+    {"type": "Lamb", "params": {"lr": 1e-3, "fused": True}},
+], ids=["sweep", "fused_adam", "fused_lamb"])
+def test_resume_is_bit_equal_on_the_kernels(gen, tmp_path, opt):
+    batches = _ckpt_batches(6)
+    ref = _ckpt_engine(0, opt)
+    for b in batches[:3]:
+        ref.train_batch(batch=b)
+    ref.save_checkpoint(str(tmp_path))
+    op_builder.reset_launch_counts()
+    want = [ref.train_batch(batch=b) for b in batches[3:]]
+    want_counts = dict(op_builder.LAUNCHES)
+    resumed = _ckpt_engine(1, opt)
+    resumed.load_checkpoint(str(tmp_path))
+    op_builder.reset_launch_counts()
+    got = [resumed.train_batch(batch=b) for b in batches[3:]]
+    assert dict(op_builder.LAUNCHES) == want_counts
+    assert want_counts["flash_fwd"] == 3 * CFG.n_layer
+    assert want_counts[opt["type"].lower()] == 3
+    assert all(torch.equal(a, b) for a, b in zip(want, got))
+    for k, p in ref.params.items():
+        assert torch.equal(p, resumed.params[k]), k
+    mu_a, mu_b = ref.opt_state.mu, resumed.opt_state.mu
+    if isinstance(mu_a, dict):
+        assert all(torch.equal(mu_a[k], mu_b[k]) for k in mu_a)
+    else:
+        assert torch.equal(mu_a, mu_b)
+
+
+@pytest.mark.parametrize("delay_s", [0.0, 0.3])
+def test_async_snapshot_is_synchronised_and_owns_its_bytes(
+        gen, tmp_path, monkeypatch, delay_s):
+    """The persist starts at once (delay 0: it would read pinned buffers
+    a DMA is still filling if the stream were not synchronised) or after
+    the next step has updated the masters in place (delay 0.3 s): the
+    files hold the masters and moments at the save."""
+    opt = {"type": "Adam", "params": {"lr": 1e-3, "sweep": True}}
+    batches = _ckpt_batches(3)
+    eng = _ckpt_engine(0, opt, checkpoint={"async_save": True})
+    for b in batches[:2]:
+        eng.train_batch(batch=b)
+    at_save = {k: p.detach().clone() for k, p in eng.params.items()}
+    mu_at_save = eng.opt_state.mu.clone()
+    real_dump = checkpoint_io.dump_file
+
+    def late_dump(obj, path, kind="checkpoint"):
+        time.sleep(delay_s)
+        return real_dump(obj, path, kind)
+
+    monkeypatch.setattr(checkpoint_io, "dump_file", late_dump)
+    eng.save_checkpoint(str(tmp_path), tag="t")
+    assert all(buf.is_pinned() for buf in eng._pinned.values())
+    eng.train_batch(batch=batches[2])
+    eng._ckpt_writer.drain()
+    assert not torch.equal(eng.params["wte"], at_save["wte"])
+    resumed = _ckpt_engine(1, opt)
+    resumed.load_checkpoint(str(tmp_path), tag="t")
+    for k, p in at_save.items():
+        assert torch.equal(resumed.params[k], p), k
+    assert torch.equal(resumed.opt_state.mu, mu_at_save)
+    eng.close()

@@ -78,6 +78,9 @@ def test_import_leaves_jax_out():
         "checkpointing\n"
         "import deepspeed_tpu_torch.models.simple\n"
         "import deepspeed_tpu_torch.models.cifar\n"
+        "import deepspeed_tpu_torch.runtime.checkpoint_io\n"
+        "import deepspeed_tpu_torch.runtime.async_checkpoint\n"
+        "import deepspeed_tpu_torch.utils.zero_to_fp32\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'flax', 'deepspeed_tpu', 'triton')\n"
         "       or m == 'torch.utils.cpp_extension']\n"
@@ -186,3 +189,30 @@ def test_chip_smoke_fails_without_cuda():
                           timeout=120)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_zero_to_fp32_runs_as_a_module(tmp_path):
+    """``python -m deepspeed_tpu_torch.utils.zero_to_fp32`` as the JAX
+    module runs, on a tag of the port's engine, without jax."""
+    from deepspeed_tpu_torch.models import simple
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=simple.SimpleModel(8, nlayers=2, device="cpu"), device="cpu",
+        config={"train_batch_size": 2,
+                "optimizer": {"type": "Adam", "params": {"lr": 1e-2}}})
+    engine.save_checkpoint(str(tmp_path / "ck"))
+    code = (
+        "import sys, importlib.abc, runpy\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'flax', 'deepspeed_tpu'):\n"
+        "            raise ImportError('port imported ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "sys.argv = ['zero_to_fp32', sys.argv[1], sys.argv[2]]\n"
+        "runpy.run_module('deepspeed_tpu_torch.utils.zero_to_fp32', "
+        "run_name='__main__')\n")
+    out = tmp_path / "fp32.pkl"
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path / "ck"),
+                           str(out)], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "saved 4 tensors" in proc.stdout and out.is_file()
