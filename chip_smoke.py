@@ -199,6 +199,23 @@ Phases, each fatal on failure:
    tensor the master cast to bf16), then BERT-large in phase 9's
    configuration with dropout 0.1 (fused LAMB; phase 9's launches a
    step).
+18. data parallelism at world size 1 (the one card; NCCL refuses two
+   ranks on one device): GPT-2 medium in phase 6's configuration and
+   BERT-large in phase 9's at ZeRO 1 take 3 steps without a process
+   group, then ``init_distributed()`` (NCCL, world 1) and 3 steps with
+   one, through ``initialize`` -> ``train_batch``: losses, masters and
+   optimizer state bit-equal, exactly phases 6's and 9's launches a
+   step; the step times beside phases 6's and 9's medians. Then phase
+   17's resume over NCCL under ``checkpoint.tag_validation: "Fail"``,
+   sync and async, bit-equal, and the save's sweep-moment gather timed;
+   the lse gradient of ``flash_attention_with_lse`` at B 8, H 16, S 1024,
+   D 64, bf16, causal and not, random output and lse cotangents: the
+   kernels' dq, dk, dv against the plain backward on the same bf16
+   inputs (phase 3's 2e-2 of rows 3 and 4; the error against the inputs
+   upcast to fp32 printed), and with a zero lse cotangent bit-equal to
+   ``flash_attention``'s; ring and Ulysses
+   attention at world 1 bit-equal to ``flash_attention``, forward and
+   gradients. The process group is destroyed at the end.
 
 Prints an ``e2e`` JSON line, a ``train`` JSON line, a ``bert`` JSON line,
 a ``moq`` JSON line, an ``int8`` JSON line, a ``sparse`` JSON line, a
@@ -209,7 +226,10 @@ latency p50/p99, decode ms a dispatch, launches a dispatch), a ``ckpt``
 JSON line (tag bytes, sync save ms, the async save's snapshot and
 background persist ms, load ms, write and read GB/s, the steps' ms while
 the persist ran beside phase 6's median, the bytes the phase wrote, per
-model the losses and launches), a
+model the losses and launches), a ``dp`` JSON line (per model the NCCL
+world-1 losses, step ms beside the no-group run's and the phase median,
+the bit-equality checks and launches; the checkpoint's numbers and the
+sweep-moment gather; the lse-gradient errors; ring / Ulysses), a
 ``kernels`` JSON line (the softmax, on no path as in the JAX package,
 with 0 launches, and its C entry's and ``torch.softmax``'s device times
 from the profiler; the decode rows' ``single_stream`` and
@@ -3547,6 +3567,244 @@ def checkpoint_phase(torch, deepspeed_tpu_torch, gpt2, bert, op_builder, cfg,
     return line, rows
 
 
+# phase 18, data parallelism at world size 1 on the card: the NCCL path
+# against no process group, a checkpoint with tag validation, the lse
+# gradient and ring / Ulysses attention
+DP_STEPS = 3
+# the lse gradient against the plain backward on the same bf16 inputs
+# (its products in fp32; it rounds p and ds to bf16 where the kernels
+# do): phase 3's tolerance of rows 3 and 4. The error against the plain
+# backward on the inputs upcast to fp32 is printed, not held to a bound:
+# it is the rounding of p, ds and the outputs to bf16, which the kernels
+# and their plain version share
+LSE_TOL = 2e-2
+
+
+def dp_engines(torch, op_builder, make, batch, per_step, what):
+    """``make()`` built and run DP_STEPS steps, launches counted and held
+    to ``per_step``; (losses, step ms, the masters, launches)."""
+    engine = make()
+    op_builder.reset_launch_counts()
+    losses, ms = run_steps(torch, engine, batch, DP_STEPS)
+    counts = dict(op_builder.LAUNCHES)
+    check_counts(what, counts, per_step, DP_STEPS)
+    masters = {k: p.detach().clone() for k, p in engine.params.items()}
+    state = engine.opt_state
+    del engine
+    torch.cuda.empty_cache()
+    return losses, ms, masters, counts, state
+
+
+def same_state(torch, a, b):
+    """Two optimizer states bit-equal (tensors, dicts of them, ints)."""
+    for field in a._fields:
+        x, y = getattr(a, field), getattr(b, field)
+        if isinstance(x, dict):
+            if not all(torch.equal(x[k], y[k]) for k in x):
+                return False
+        elif isinstance(x, torch.Tensor):
+            if not torch.equal(x, y):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+def lse_grad_check(torch, flash, causal):
+    """The lse gradient at GPT-2 medium's attention shape (B 8, H 16, S
+    1024, D 64, bf16), random output and lse cotangents: the kernels'
+    dq, dk, dv against the plain backward on the same inputs, o and lse
+    (``close`` at LSE_TOL; the error against the fp32 upcast printed),
+    and with a zero lse cotangent bit for bit ``flash_attention``'s
+    gradients."""
+    gen = torch.Generator(device="cuda").manual_seed(18 + causal)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    q, k, v = (rnd(B, H, SEQ, D).requires_grad_() for _ in range(3))
+    g_out = rnd(B, H, SEQ, D)
+    g_lse = rnd(B, H, SEQ, dtype=torch.float32)
+    o, lse = flash.flash_attention_with_lse(q, k, v, causal)
+    got = torch.autograd.grad((o, lse), (q, k, v), (g_out, g_lse))
+    qd, kd, vd, od = (t.detach() for t in (q, k, v, o))
+    wants = {
+        "plain": flash.flash_attention_bwd_plain(
+            qd, kd, vd, od, lse.detach(), g_out, causal, g_lse=g_lse),
+        "fp32": flash.flash_attention_bwd_plain(
+            qd.float(), kd.float(), vd.float(), od.float(), lse.detach(),
+            g_out.float(), causal, g_lse=g_lse)}
+    torch.cuda.synchronize()
+    errs = {}
+    for ref, want in wants.items():
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            err, ok = close(g, w, LSE_TOL)
+            errs[f"{name}_vs_{ref}"] = err
+            if ref == "plain" and not ok:
+                raise AssertionError(
+                    f"lse gradient {name} (causal={causal}) off the plain "
+                    f"version: max abs err {err}, tolerance {LSE_TOL}")
+    o, lse = flash.flash_attention_with_lse(q, k, v, causal)
+    zero = torch.autograd.grad((o, lse), (q, k, v),
+                               (g_out, torch.zeros_like(g_lse)))
+    ref = torch.autograd.grad(flash.flash_attention(q, k, v, causal),
+                              (q, k, v), g_out)
+    if not all(torch.equal(a, b) for a, b in zip(zero, ref)):
+        raise AssertionError("with a zero lse cotangent the gradients "
+                             "differ from flash_attention's")
+    print(f"dp lse gradient causal={causal}: max abs err "
+          + ", ".join(f"{n} {e:.3g}" for n, e in errs.items())
+          + " against the plain version (bf16, fp32); g_lse = 0 "
+            "bit-equal to flash_attention", flush=True)
+    return errs
+
+
+def sequence_parallel_check(torch, flash, ring):
+    """Ring and Ulysses at world 1 (one chunk, no rotation; Ulysses' two
+    all-to-alls over NCCL): forward and gradients bit for bit
+    ``flash_attention``'s, causal and not."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    out = {}
+    for causal in (True, False):
+        q, k, v, do = (torch.randn(B, H, SEQ, D, generator=gen,
+                                   device="cuda").to(torch.bfloat16)
+                       for _ in range(4))
+        q, k, v = (t.requires_grad_() for t in (q, k, v))
+        ref = flash.flash_attention(q, k, v, causal)
+        ref_g = torch.autograd.grad(ref, (q, k, v), do)
+        for name, fn in (("ring", ring.ring_attention),
+                         ("ulysses", ring.ulysses_attention)):
+            got = fn(q, k, v, causal=causal)
+            got_g = torch.autograd.grad(got, (q, k, v), do)
+            same = torch.equal(got, ref) and all(
+                torch.equal(a, b) for a, b in zip(got_g, ref_g))
+            out[f"{name}_causal{causal}"] = same
+            if not same:
+                raise AssertionError(f"{name} attention at world 1 "
+                                     f"(causal={causal}) differs from "
+                                     f"flash_attention")
+    print(f"dp ring / ulysses at world 1: bit-equal to flash_attention "
+          f"{out}", flush=True)
+    return out
+
+
+def sweep_gather_ms(torch, engine):
+    """The save's sweep-moment gather on a sweep engine: all_gather of
+    the rank's chunk, then the reorder to JAX's leaf order (CUDA events,
+    one moment)."""
+    from deepspeed_tpu_torch import bridge
+    part, mu = engine._partition, engine.opt_state.mu
+    names = list(engine.params)
+    shapes = [tuple(p.shape) for p in engine.params.values()]
+    gather = cuda_ms(lambda: part.gather_flat(mu), iters=5, warmup=1)
+    full = part.gather_flat(mu)
+    reorder = cuda_ms(lambda: bridge.flat_to_jax(
+        full, engine._layout, names, shapes), iters=5, warmup=1)
+    return {"gather_ms": gather, "reorder_ms": reorder,
+            "moment_bytes": full.numel() * 4}
+
+
+def dp_phase(torch, deepspeed_tpu_torch, gpt2, bert, flash, ring,
+             op_builder, cfg, bert_cfg, card, train_step_ms, bert_step_ms):
+    """Phase 18: data parallelism at world size 1 over NCCL. GPT-2 medium
+    (phase 6's sweep config) and BERT-large (phase 9's fused LAMB at ZeRO
+    1) take 3 steps without a process group and 3 with one: losses,
+    masters and optimizer state bit-equal. A checkpoint under
+    ``tag_validation: Fail``, sync and async, resumes bit-equal. Then the
+    lse gradient and ring / Ulysses. Returns the ``dp`` line and the
+    main path's launches by kernel row."""
+    import torch.distributed as dist
+    from deepspeed_tpu_torch.runtime import checkpoint_io
+    rows = collections.Counter()
+    layers, blayers = cfg.n_layer, bert_cfg.num_hidden_layers
+    gpt_step = {"flash_fwd": layers, "flash_bwd_dq": layers,
+                "flash_bwd_dkv": layers, "adam": 1}
+    bert_step = {"flash_fwd": blayers, "flash_bwd_dq": blayers,
+                 "flash_bwd_dkv": blayers, "ln_fwd": 2 * blayers,
+                 "ln_bwd": 2 * blayers, "bias_gelu": blayers, "lamb": 1}
+    batch = gpt2.synthetic_batch(B, SEQ, cfg.vocab_size, seed=4)
+    bert_batch = bert.synthetic_mlm_batch(BERT_B, BERT_S,
+                                          bert_cfg.vocab_size, seed=6)
+    bert_z1 = dict(bert_config(fused=True), zero_optimization={"stage": 1})
+    models = {
+        "gpt2": (lambda: deepspeed_tpu_torch.initialize(
+            model=gpt2.GPT2LMHeadModel(cfg, seed=0),
+            config=train_config(sweep=True))[0], batch, gpt_step,
+            "adam_sweep"),
+        "bert": (lambda: deepspeed_tpu_torch.initialize(
+            model=bert.BertForPreTraining(bert_cfg, seed=0),
+            config=bert_z1)[0], bert_batch, bert_step, None)}
+    runs = {}
+    for name, (make, data, per_step, _) in models.items():
+        runs[name, "alone"] = dp_engines(torch, op_builder, make, data,
+                                         per_step,
+                                         f"dp {name} without a group")
+    if dist.is_initialized():
+        raise AssertionError("a process group exists before phase 18")
+    deepspeed_tpu_torch.init_distributed()         # NCCL, world 1
+    line = {"card": card, "backend": dist.get_backend(),
+            "world_size": dist.get_world_size()}
+    try:
+        for name, (make, data, per_step, adam_row) in models.items():
+            got = dp_engines(torch, op_builder, make, data, per_step,
+                             f"dp {name} over NCCL")
+            for k, n in got[3].items():
+                rows[adam_row if k == "adam" else k] += n
+            want = runs[name, "alone"]
+            equal = {
+                "losses": got[0] == want[0],
+                "masters": all(torch.equal(got[2][k], want[2][k])
+                               for k in want[2]),
+                "optimizer_state": same_state(torch, got[4], want[4])}
+            ref_ms = train_step_ms if name == "gpt2" else bert_step_ms
+            print(f"dp {name} world 1 over NCCL: losses {got[0]} (no group "
+                  f"{want[0]}); bit-equal {equal}; step ms {got[1]} against "
+                  f"{want[1]} without a group, phase {6 if name == 'gpt2' else 9}"
+                  f"'s median {ref_ms:.1f}", flush=True)
+            if not all(equal.values()):
+                raise AssertionError(f"dp {name}: the world-1 NCCL path is "
+                                     f"not bit-equal to no group: {equal}")
+            line[name] = {"losses": got[0], "step_ms": got[1],
+                          "no_group_step_ms": want[1],
+                          "phase_median_step_ms": ref_ms,
+                          "bit_equal": equal, "launches": got[3]}
+            del got, want
+            runs.pop((name, "alone"))
+            torch.cuda.empty_cache()
+
+        root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "dp_smoke")
+        shutil.rmtree(root, ignore_errors=True)
+        os.makedirs(root)
+        try:
+            make = lambda seed: deepspeed_tpu_torch.initialize(
+                model=gpt2.GPT2LMHeadModel(cfg, seed=seed),
+                config=dict(train_config(sweep=True),
+                            checkpoint={"tag_validation": "Fail"}))[0]
+            ckpt, _, resumed = resume_pair(
+                torch, op_builder, checkpoint_io, make, batch, root, "dp",
+                gpt_step, "dp gpt2-medium sweep, NCCL world 1, "
+                "tag_validation Fail", rows, "adam_sweep", overlap=True)
+            ckpt["sweep_gather"] = sweep_gather_ms(torch, resumed)
+            print(f"dp checkpoint: sync and async tags over NCCL resume "
+                  f"bit-equal; the save's sweep-moment gather "
+                  f"{ckpt['sweep_gather']}", flush=True)
+            del resumed
+            torch.cuda.empty_cache()
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        line["checkpoint"] = ckpt
+        line["lse_grad_max_abs_err"] = {
+            f"causal{c}": lse_grad_check(torch, flash, c)
+            for c in (True, False)}
+        line["lse_grad_tolerance"] = LSE_TOL
+        line["ring_ulysses_world1_bit_equal"] = sequence_parallel_check(
+            torch, flash, ring)
+    finally:
+        dist.destroy_process_group()
+    return line, rows
+
+
 def finish_rows(rows, launches, max_err, card):
     """bound_ms (the larger of bytes at 3.35 TB/s and operations at the
     peak of their type), launches and max_abs_err for each row."""
@@ -3584,7 +3842,7 @@ def main():
     from deepspeed_tpu_torch.ops.sparse_attention import sparsity_config as ssc
     from deepspeed_tpu_torch.ops.transformer import attention as attn_mod
     from deepspeed_tpu_torch.ops.transformer import (decode, flash, fused,
-                                                     transformer)
+                                                     ring, transformer)
     from deepspeed_tpu_torch.runtime import dropout
     from deepspeed_tpu_torch.runtime import quantize as quantize_mod
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4041,6 +4299,16 @@ def main():
         row["launches"] += ckpt_counts.get(row["name"], 0)
     ckpt_line["launches_by_row"] = dict(ckpt_counts)
 
+    # 18. data parallelism at world size 1 over NCCL: bit-equal to no
+    # process group; a checkpoint under tag validation; the lse gradient;
+    # ring and Ulysses
+    dp_line, dp_counts = dp_phase(
+        torch, deepspeed_tpu_torch, gpt2, bert, flash, ring, op_builder,
+        cfg, bert_cfg, card, med, bert_med)
+    for row in rows:
+        row["launches"] += dp_counts.get(row["name"], 0)
+    dp_line["launches_by_row"] = dict(dp_counts)
+
     print(json.dumps({"e2e": e2e}))
     print(json.dumps({"train": train}))
     print(json.dumps({"bert": bert_line}))
@@ -4050,6 +4318,7 @@ def main():
     print(json.dumps({"loop": loop_line}))
     print(json.dumps({"serving": serving_line}))
     print(json.dumps({"ckpt": ckpt_line}))
+    print(json.dumps({"dp": dp_line}))
     print(json.dumps({"kernels": rows}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -10,8 +10,8 @@ This package ports these paths, with hand-written CUDA kernels
 * GPT-2 training: ``initialize`` -> ``DeepSpeedEngine`` (the loop users
   write, ``forward`` / ``backward`` / ``step``, and ``train_batch`` over
   it; ``eval_batch``; bf16, fp16 or fp32 compute over fp32 masters,
-  Adam/AdamW, LAMB, SGD, Adagrad or a client optimizer, ZeRO stage 0/1 on
-  one rank; dropout keyed by (seed, micro-step) and remat), on the
+  Adam/AdamW, LAMB, SGD, Adagrad or a client optimizer, ZeRO stage 0/1;
+  dropout keyed by (seed, micro-step) and remat), on the
   flash-attention forward and backward kernels and the fused Adam
   kernel;
 * BERT MLM pretraining: the same entry point on
@@ -34,6 +34,12 @@ This package ports these paths, with hand-written CUDA kernels
   ``checkpoint.async_save``, ``utils.zero_to_fp32`` and
   ``init_inference(checkpoint=)``; a resumed run is bit-equal to an
   uninterrupted one on the training kernels;
+* data parallelism over ``torch.distributed`` (``init_distributed``,
+  ``utils.groups``): gradients averaged over the world, ZeRO-1's
+  optimizer-state slices (``runtime.zero.partition``) and their
+  all-gather, per-rank checkpoint shard files with tag validation, and
+  ring and Ulysses attention (``ops.transformer.ring``) on the flash
+  kernels' lse gradient;
 * continuous-batching serving: ``init_serving`` -> ``ServingEngine``
   (``submit`` / ``step`` / ``collect`` / ``serve_forever``) over a paged
   KV cache, with chunked prefill, preemption, the prefix cache and
@@ -104,8 +110,12 @@ def init_distributed(dist_backend=None, verbose=True, init_method=None,
     without one); ``"gloo"`` runs on the CPU. The world size and rank come
     from the arguments, else from a launcher's ``WORLD_SIZE`` / ``RANK``,
     else 1 and 0. The rendezvous is ``init_method``, else ``env://`` when
-    ``MASTER_ADDR`` is set, else (one rank) an in-process store. The
-    engine still refuses a world size above 1."""
+    ``MASTER_ADDR`` is set, else (one rank) an in-process store. Any
+    world size is valid: the engine averages the gradients over it and
+    shards the optimizer state at ZeRO stage 1 (``utils.groups``: the
+    data-parallel group is the world). One process drives one card; on
+    CUDA the rank's device is ``cuda:<LOCAL_RANK>`` (default the rank),
+    set here as NCCL needs it."""
     dist = torch.distributed
     if dist.is_initialized():
         return
@@ -126,6 +136,9 @@ def init_distributed(dist_backend=None, verbose=True, init_method=None,
     else:
         raise ValueError("init_distributed: a world of more than one rank "
                          "needs init_method= or MASTER_ADDR/MASTER_PORT")
+    if dist_backend == "nccl":
+        local = int(os.environ.get("LOCAL_RANK", rank))
+        torch.cuda.set_device(local % torch.cuda.device_count())
     dist.init_process_group(dist_backend, world_size=world_size, rank=rank,
                             **kw)
     if verbose:
@@ -150,8 +163,11 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     ``runtime.optim.Optimizer(init, update)`` pair (anything else raises,
     a ``torch.optim`` optimizer too), ``lr_scheduler`` a client schedule
     (``runtime.lr_schedules``), ``seed`` the dropout seed (JAX default
-    42). Not ported yet: ``training_data`` (the dataloader) and the other
-    keywords of the JAX ``initialize``."""
+    42). The data-parallel world (``utils.groups``) goes to the config,
+    as in JAX (engine.py:281-294); a pre-built ``DeepSpeedConfig`` whose
+    ``world_size`` differs raises. Each rank passes its own micro-batches
+    to the engine. Not ported yet: ``training_data`` (the dataloader) and
+    the other keywords of the JAX ``initialize``."""
     unported = {"training_data (the dataloader)": training_data}
     unported.update({f"initialize({k}=...)": v for k, v in kwargs.items()})
     for what, value in unported.items():
@@ -166,7 +182,19 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     if config is None:
         raise ValueError("initialize needs config= (a dict or a JSON path) "
                          "or args.deepspeed_config")
-    cfg = DeepSpeedConfig(config)
+    from deepspeed_tpu_torch.utils import groups
+    if not groups.mesh_is_initialized():
+        groups.initialize()
+    dp_world = groups.get_data_parallel_world_size()
+    if isinstance(config, DeepSpeedConfig):
+        if config.world_size != dp_world:
+            raise ValueError(
+                f"pre-built DeepSpeedConfig was triangulated for "
+                f"data-parallel world {config.world_size}, but the data "
+                f"group has {dp_world}")
+        cfg = config
+    else:
+        cfg = DeepSpeedConfig(config, data_parallel_size=dp_world)
     dev = resolve_device(device)
     model = model.to(dev)
     if model_parameters is not None:

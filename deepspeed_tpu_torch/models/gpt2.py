@@ -100,6 +100,10 @@ def _check_ported(cfg: GPT2Config):
     }
     for what, hit in unported.items():
         if hit:
+            if cfg.attention_mode.startswith(("ring:", "ulysses:")):
+                what += (" (ops.transformer.ring is ported; the model "
+                         "waits for how a rank's batch maps to sequence "
+                         "chunks, ROADMAP Queue A item 6)")
             raise NotImplementedError(f"GPT-2 {what} is not ported yet")
     if cfg.attention_mode.startswith("sparse"):
         parse_sparse_mode(cfg.attention_mode)

@@ -286,8 +286,17 @@ class AdamSweepState(NamedTuple):
 
 
 def fused_adam_sweep(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0,
-                     adam_w_mode=True, bias_correction=True):
+                     adam_w_mode=True, bias_correction=True, partition=None):
     """Adam as one whole-state sweep (config ``optimizer.params.sweep``).
+
+    ``partition`` (ZeRO 1 over a process group,
+    ``runtime.zero.partition.ZeroPartition``): the flat vectors are padded
+    to a multiple of ``sweep_pad() × world`` and each rank keeps and
+    updates its contiguous chunk (a multiple of the kernel's block, so
+    it starts on the kernel's 16-byte alignment); the chunks of the
+    update are then all-gathered into the whole vector. The clip
+    coefficient is the engine's, from the averaged gradients of the
+    whole model, the same on every rank.
 
     The grads are flattened into one padded vector each step (a flat
     grad buffer that ``.grad`` aliases would save that copy: a later
@@ -296,22 +305,29 @@ def fused_adam_sweep(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0,
     engine skips its own pass over the grads. The cast output is not
     used: the engine's forward casts the masters itself."""
 
+    pad = _SWEEP_PAD if partition is None else _SWEEP_PAD * partition.world
+    local = (lambda vec: vec) if partition is None else partition.chunk
+
     def init(params):
-        vec, _ = optim_lib.flatten_tree(params, pad_to=_SWEEP_PAD)
+        vec, _ = optim_lib.flatten_tree(params, pad_to=pad)
+        vec = local(vec)
         return AdamSweepState(step=0, mu=torch.zeros_like(vec),
                               nu=torch.zeros_like(vec))
 
     def update(grads, state, params, lr, clip_coef=None):
         step = state.step + 1
         bc1, bc2 = optim_lib.bias_corrections(b1, b2, step, bias_correction)
-        flat_g, spec = optim_lib.flatten_tree(grads, pad_to=_SWEEP_PAD)
-        flat_p = (optim_lib.flatten_tree(params, pad_to=_SWEEP_PAD)[0]
+        flat_g, spec = optim_lib.flatten_tree(grads, pad_to=pad)
+        flat_p = (local(optim_lib.flatten_tree(params, pad_to=pad)[0])
                   if weight_decay > 0.0 else None)
         u, mu, nu, _ = adam_sweep_apply(
-            flat_p, flat_g, state.mu, state.nu, lr, bc1, bc2,
+            flat_p, local(flat_g), state.mu, state.nu, lr, bc1, bc2,
             1.0 if clip_coef is None else clip_coef, b1=b1, b2=b2, eps=eps,
             weight_decay=weight_decay, adam_w_mode=adam_w_mode)
+        if partition is not None:
+            u = partition.gather_flat(u)
         updates = optim_lib.unflatten_tree(u, spec)
         return updates, AdamSweepState(step=step, mu=mu, nu=nu)
 
-    return optim_lib.Optimizer(init, update, fuses_clip=True)
+    return optim_lib.Optimizer(init, update, fuses_clip=True,
+                               partitions_state=partition is not None)

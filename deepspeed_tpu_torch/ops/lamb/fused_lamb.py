@@ -130,11 +130,17 @@ def fused_lamb_update(p, g, m, v, lr, bc1, bc2, *, b1=0.9, b2=0.999,
 
 
 def fused_lamb(b1=0.9, b2=0.999, eps=1e-6, weight_decay=0.0, min_coeff=0.01,
-               max_coeff=10.0, bias_correction=True):
+               max_coeff=10.0, bias_correction=True, partition=None):
     """Optimizer pair over :func:`lamb_pass1` (config ``fused: true``): on
     CUDA one kernel launch a step for all tensors. The engine applies the
     global-norm clip to the grads first (``fuses_clip`` False), as the JAX
-    engine does for LAMB."""
+    engine does for LAMB.
+
+    ``partition`` (ZeRO 1 over a process group): pass 1 runs on each
+    rank's slices, and a trust ratio needs the whole tensor's norms, so
+    the stacked sum(p²) and sum(u²) are summed over the ranks (each
+    replicated tensor counted once) before :func:`_scaled_updates`: one
+    small all-reduce a step."""
 
     def init(params):
         return optim_lib.lamb().init(params)
@@ -147,6 +153,9 @@ def fused_lamb(b1=0.9, b2=0.999, eps=1e-6, weight_decay=0.0, min_coeff=0.01,
             [params[k] for k in names], [grads[k] for k in names],
             [state.mu[k] for k in names], [state.nu[k] for k in names],
             bc1, bc2, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
+        if partition is not None:
+            wsq, usq = partition.sum_over_ranks(names,
+                                                torch.stack([wsq, usq]))
         updates = _scaled_updates(us, wsq, usq, lr, min_coeff, max_coeff)
         return (dict(zip(names, updates)),
                 optim_lib.LambState(step=step, mu=dict(zip(names, mu)),

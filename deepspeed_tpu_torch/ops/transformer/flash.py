@@ -117,10 +117,12 @@ def flash_attention_fwd(q, k, v, causal=True, sm_scale=None):
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True,
-                              sm_scale=None, return_delta=False):
+                              sm_scale=None, return_delta=False, g_lse=None):
     """(dq, dk, dv) in the input dtypes: the formulas of the JAX backward
     (``_flash_bwd``, flash.py:444-574) on dense matrices, not the autograd
-    of :func:`flash_attention_fwd_plain`. delta = rowsum(do·o) in fp32;
+    of :func:`flash_attention_fwd_plain`. delta = rowsum(do·o) in fp32,
+    minus ``g_lse`` (the lse cotangent [B, H, Sq], when given: since
+    ∂lse_i/∂s_ij = p_ij, it folds into ds = p·(dp − delta) exactly);
     p = exp(s − lse) with the offset causal mask, and p = 0 on a row with
     no visible key (Sq > Sk, causal: its lse is the -1e30 masking value);
     dp = do·vᵀ; ds = p·(dp − delta)·sm_scale; dv = pᵀ·do with p rounded to
@@ -132,6 +134,8 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True,
     dt = q.dtype
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     delta = (dof * o.float()).sum(-1)
+    if g_lse is not None:
+        delta = delta - g_lse.float()
     lse = lse.float()[..., None]
     p = torch.exp(_scores(q, k, causal, sm_scale) - lse)
     p = torch.where(lse <= NEG_INF / 2, 0.0, p)
@@ -146,20 +150,23 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True,
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, causal=True, sm_scale=None,
-                        return_delta=False):
-    """(dq, dk, dv) of flash attention, given the forward's o and lse.
+                        return_delta=False, g_lse=None):
+    """(dq, dk, dv) of flash attention, given the forward's o and lse, and
+    ``g_lse``, the cotangent of the lse output (fp32 [B, H, Sq]; None:
+    there is none).
 
     CUDA tensors launch the two kernels of ``csrc/flash_bwd.cu``: dq,
-    which also computes delta = rowsum(do·o) for its rows and writes it to
-    an fp32 [B, H, Sq] buffer, then dk/dv, which reads it; CPU tensors run
+    which also computes delta = rowsum(do·o) − g_lse for its rows and
+    writes it to an fp32 [B, H, Sq] buffer, then dk/dv, which reads it
+    (``g_lse`` None passes a null pointer); CPU tensors run
     :func:`flash_attention_bwd_plain`. q, k, v and o may be strided views
     with a contiguous head dim; ``do`` is made contiguous only when its
     head dim is not. ``return_delta`` appends that delta."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
-    if not use_kernel(q, k, v, o, lse, do):
+    if not use_kernel(q, k, v, o, lse, do, g_lse):
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal,
-                                         sm_scale, return_delta)
+                                         sm_scale, return_delta, g_lse)
     _check(q, k, v)
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
@@ -176,6 +183,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=True, sm_scale=None,
         raise ValueError(f"lse must be fp32 {(B, H, Sq)}, got "
                          f"{tuple(lse.shape)} {lse.dtype}")
     lse = lse.contiguous()
+    if g_lse is not None:
+        if g_lse.shape != (B, H, Sq):
+            raise ValueError(f"g_lse must be {(B, H, Sq)}, got "
+                             f"{tuple(g_lse.shape)}")
+        g_lse = g_lse.float().contiguous()
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     dq = _heads_view(B, Sq, H, D, q)
     dk = _heads_view(B, Sk, H, D, k)
@@ -193,7 +205,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=True, sm_scale=None,
     for name, fn in (("flash_bwd_dq", lib.ds_flash_bwd_dq),
                      ("flash_bwd_dkv", lib.ds_flash_bwd_dkv)):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 do.data_ptr(), lse.data_ptr(), None, delta.data_ptr(),
+                 do.data_ptr(), lse.data_ptr(),
+                 None if g_lse is None else g_lse.data_ptr(),
+                 delta.data_ptr(),
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                  _DTYPES[q.dtype], B, H, Sq, Sk, D, strides,
                  float(sm_scale), int(bool(causal)), vec, stream)
@@ -229,13 +243,36 @@ def flash_attention(q, k, v, causal=True, sm_scale=None):
     return FlashAttentionFunction.apply(q, k, v, causal, sm_scale)
 
 
-def flash_attention_with_lse(q, k, v, causal=True, sm_scale=None):
-    """``(out, lse)`` with lse [B, H, Sq] fp32, forward only.
+class FlashAttentionLseFunction(torch.autograd.Function):
+    """Flash attention with ``(out, lse)`` outputs, differentiable in both
+    (the ``custom_vjp`` of the JAX ``flash_attention_with_lse``,
+    flash.py:578-596): the backward kernels take the lse cotangent as
+    ``g_lse``. An output the loss does not reach gets no cotangent: no
+    lse gradient passes the null pointer, so the gradients are
+    :class:`FlashAttentionFunction`'s bit for bit."""
 
-    The JAX form is differentiable in both outputs; the lse cotangent
-    (flash.py:465-466, 594-596) matters only to ring attention, which comes
-    with the long-context work. The dq kernel already takes a ``g_lse``
-    pointer (null here) and subtracts it from the delta it computes, so
-    that gradient needs no kernel change: it is delta − g_lse."""
-    with torch.no_grad():
-        return flash_attention_fwd(q, k, v, causal, sm_scale)
+    @staticmethod
+    def forward(ctx, q, k, v, causal=True, sm_scale=None):
+        if sm_scale is None:
+            sm_scale = q.shape[-1] ** -0.5
+        o, lse = flash_attention_fwd(q, k, v, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        ctx.set_materialize_grads(False)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, g_lse):
+        q, k, v, o, lse = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(o)
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.causal,
+                                         ctx.sm_scale, g_lse=g_lse)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_with_lse(q, k, v, causal=True, sm_scale=None):
+    """``(out, lse)`` with lse [B, H, Sq] fp32, differentiable in q, k and
+    v through both outputs (the building block of ring attention's
+    lse-weighted merge, ``ops/transformer/ring.py``)."""
+    return FlashAttentionLseFunction.apply(q, k, v, causal, sm_scale)

@@ -7,6 +7,12 @@ only part the training loop waits for) and the persist (pickle, fsync,
 rename, manifest, ``latest``), which this writer runs on a background
 thread while training continues.
 
+Over a process group each rank runs its own writer and persists its own
+shard file; rank 0's persist writes the manifest and ``latest`` only once
+every rank's file is on disk (``checkpoint_io.wait_for_files``, file
+polling: the thread runs no collective). A failure on any rank is raised
+at that rank's next save, load or ``close``.
+
 The contract, as in JAX:
 
 * at most one persist is in flight: ``submit`` drains the previous one

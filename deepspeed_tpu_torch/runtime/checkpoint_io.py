@@ -11,9 +11,9 @@ pointer moves only after it.
 The optimizer and parameter payloads are the JAX ``shards-v1`` record:
 ``{path: {"shape", "dtype", "shards": [(key, ndarray)]}}``, each shard
 keyed by its global index range, so a load reassembles by index from any
-number of files, whatever the world size that wrote them. At world size
-1 each leaf is one shard with the full-range key JAX writes for an array
-on one device. Only numpy arrays and Python objects go into the pickles,
+number of files, whatever the world size that wrote them. Each rank's
+file holds its ZeRO-1 boxes; without a process group each leaf is one
+shard with the full-range key JAX writes for an array on one device. Only numpy arrays and Python objects go into the pickles,
 never a ``torch.Tensor``, so either package reads the other's files.
 
 Spans and byte counters go through the port's ``telemetry/tracer.py``
@@ -243,17 +243,25 @@ def full_key(shape):
     return tuple((0, int(d)) for d in shape)
 
 
-def tree_local_shards(tree):
+def tree_local_shards(tree, boxes=None):
     """The ``shards-v1`` payload of ``tree``, a mapping of leaf path to a
-    tensor, ndarray or number: each leaf one full-range shard (world size
-    1). A tensor's host array may share its memory: a payload that must
-    outlive the next in-place update is built from copies."""
+    tensor, ndarray or number. ``boxes`` maps a path to ``(key, shape)``
+    when its leaf is one rank's box of a larger array: ``key`` its global
+    index ranges, ``shape`` the whole array's; every other leaf is one
+    full-range shard. A tensor's host array may share its memory: a
+    payload that must outlive the next in-place update is built from
+    copies."""
     out = {}
+    boxes = boxes or {}
     for path, leaf in tree.items():
         arr = (leaf.detach().cpu().numpy() if hasattr(leaf, "detach")
                else np.asarray(leaf))
-        out[path] = {"shape": tuple(arr.shape), "dtype": str(arr.dtype),
-                     "shards": [(full_key(arr.shape), arr)]}
+        key, shape = boxes.get(path, (full_key(arr.shape), arr.shape))
+        if tuple(b - a for a, b in key) != tuple(arr.shape):
+            raise ValueError(f"leaf {path}: box {key} does not hold an "
+                             f"array of shape {tuple(arr.shape)}")
+        out[path] = {"shape": tuple(int(d) for d in shape),
+                     "dtype": str(arr.dtype), "shards": [(tuple(key), arr)]}
     return out
 
 

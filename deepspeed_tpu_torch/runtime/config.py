@@ -554,9 +554,12 @@ class DeepSpeedActivationCheckpointingConfig:
 
 
 class DeepSpeedConfig:
-    """Parsed training config for one rank (world size 1)."""
+    """Parsed training config. ``world_size`` is the data-parallel world:
+    ``data_parallel_size`` when given (as the JAX config takes it from the
+    engine's mesh), else the data group's (``utils.groups``; 1 without a
+    process group). The batch triad holds over it."""
 
-    def __init__(self, config):
+    def __init__(self, config, data_parallel_size=None):
         if isinstance(config, str):
             if not os.path.exists(config):
                 raise DeepSpeedConfigError(
@@ -569,7 +572,10 @@ class DeepSpeedConfig:
             raise DeepSpeedConfigError(
                 f"Expected a path or dict for the DeepSpeed config, got "
                 f"{type(config)}")
-        self.world_size = 1
+        if data_parallel_size is None:
+            from deepspeed_tpu_torch.utils import groups
+            data_parallel_size = groups.get_data_parallel_world_size()
+        self.world_size = int(data_parallel_size)
         self._initialize_params(self._param_dict)
         self._configure_train_batch_size()
         self._do_sanity_check()
@@ -650,9 +656,9 @@ class DeepSpeedConfig:
 
     def _read_checkpoint(self, pd):
         """The ``checkpoint`` block with the JAX defaults, attribute names,
-        environment overrides and errors (JAX config.py:1340-1382). Tag
-        validation keeps its mode; at world size 1 there is no other rank
-        to compare with."""
+        environment overrides and errors (JAX config.py:1340-1382). The
+        engine's save compares the tag across ranks under ``Warn`` and
+        ``Fail``."""
         ckpt = pd.get(C.CHECKPOINT, {}) or {}
         self.checkpoint_tag_validation_mode = ckpt.get(
             C.CHECKPOINT_TAG_VALIDATION, C.CHECKPOINT_TAG_VALIDATION_DEFAULT)
@@ -766,17 +772,19 @@ class DeepSpeedConfig:
         if self.prescale_gradients or self.gradient_predivide_factor != 1.0:
             raise DeepSpeedConfigError(
                 "prescale_gradients/gradient_predivide_factor rescale "
-                "gradients around an explicit allreduce; the step has none "
-                "to pre-scale — remove the key (fp16 overflow is handled by "
-                "the dynamic loss scaler)")
+                "gradients around the allreduce; the engine's is a plain "
+                "fp32 mean, as the JAX config requires — remove the key "
+                "(fp16 overflow is handled by the dynamic loss scaler)")
         if self.disable_allgather:
             raise DeepSpeedConfigError(
-                "disable_allgather selects the ZeRO-1 update's collective, "
-                "which the step does not expose — remove the key")
+                "disable_allgather selects the ZeRO-1 update's collective; "
+                "the engine always all-gathers the updates, as the JAX "
+                "config requires — remove the key")
         if self.communication_data_type is not None:
             raise DeepSpeedConfigError(
-                "communication_data_type casts gradients for an explicit "
-                "allreduce, which the step does not expose — remove the key")
+                "communication_data_type casts gradients for the "
+                "allreduce; the engine reduces them in fp32, as the JAX "
+                "config requires — remove the key")
         if self.optimizer_legacy_fusion:
             raise DeepSpeedConfigError(
                 "optimizer.legacy_fusion toggles a kernel-fusion fallback "

@@ -4,7 +4,11 @@ rng ``fold_in(PRNGKey(seed), micro_steps)``, JAX engine.py:2757).
 
 A :class:`Dropout` module is active only when the module is in training
 mode and a key is in scope (:func:`key_scope`); the engine opens the
-scope around each training forward with ``(seed, micro_steps)``. With no
+scope around each training forward with ``(seed, micro_steps)``, and
+with ``(seed, micro_steps, rank)`` when the data-parallel world is above
+one rank, so each rank draws its own masks for its own rows (world 1
+keeps the two-part key's masks bit for bit). JAX draws one mask over the
+global batch and slices it by rows; the port does not reproduce that. With no
 key in scope the model is deterministic, as a flax model applied without
 a ``dropout`` rng is (``deterministic = not self.has_rng("dropout")``).
 
@@ -40,25 +44,32 @@ def _mix64(z):
     return z ^ (z >> 31)
 
 
-def mask_seed(seed, micro_step, site):
-    """The generator seed of one mask: a 63-bit mix of the three keys."""
+def mask_seed(seed, micro_step, site, rank=None):
+    """The generator seed of one mask: a 63-bit mix of the keys (the
+    data-parallel ``rank`` folded in last, when given)."""
     z = _mix64(_mix64(_mix64(int(seed) & _M64) ^ (int(micro_step) & _M64))
                ^ (int(site) & _M64))
+    if rank is not None:
+        z = _mix64(z ^ (int(rank) & _M64))
     return z >> 1
 
 
 def current_key():
-    """The (seed, micro_step) in scope, or None."""
+    """The (seed, micro_step[, rank]) in scope, or None."""
     return _KEY
 
 
 @contextlib.contextmanager
 def key_scope(key):
-    """Make ``key`` (a (seed, micro_step) pair, or None for no dropout)
-    the key of the Dropout modules called inside."""
+    """Make ``key`` (a (seed, micro_step) pair or a (seed, micro_step,
+    rank) triple, or None for no dropout) the key of the Dropout modules
+    called inside."""
     global _KEY
+    if key is not None and len(key) not in (2, 3):
+        raise ValueError(f"a dropout key is (seed, micro_step[, rank]), "
+                         f"got {key!r}")
     saved, _KEY = _KEY, (None if key is None
-                         else (int(key[0]), int(key[1])))
+                         else tuple(int(x) for x in key))
     try:
         yield
     finally:
@@ -79,7 +90,7 @@ def dropout(x, p, site):
     if p == 0.0 or _KEY is None:
         return x
     gen = _generator(x.device)
-    gen.manual_seed(mask_seed(_KEY[0], _KEY[1], site))
+    gen.manual_seed(mask_seed(_KEY[0], _KEY[1], site, *_KEY[2:]))
     keep = torch.rand(x.shape, generator=gen, device=x.device) >= p
     return torch.where(keep, x / (1.0 - p), 0.0)
 

@@ -23,9 +23,24 @@ then the epilogue and update of the JAX step in the same order
 global norm (fp16 or clipping only), the clip coefficient, the
 loss-scale update, the optimizer update, ``p += u``.
 
-ZeRO stages 0 and 1 at world size 1 are the same math: one rank's
-partition is the whole optimizer state, as on the JAX package's
-one-device mesh.
+Data parallelism over ``torch.distributed`` (``utils/groups.py``: the
+data group is the world; one process a rank, each fed its own
+micro-batches). With a process group, at any world size, the engine
+broadcasts the masters from rank 0 at construction; averages the
+gradients over the group (one all-reduce over a flat buffer: on the
+accumulation boundary with fp32 accumulation, or each micro-step's fp32
+gradients before the cast into a bf16/fp16 ``gradient_accumulation_dtype``
+buffer, as JAX's psum precedes that cast, engine.py:1527-1536); takes the
+norm and the clip from the averaged gradients, so they are equal on every
+rank; agrees on an fp16 overflow (the flag is reduced with MAX before the
+host reads it); and returns losses averaged over the ranks, the mean over
+the global batch when every rank's loss is a mean over the same count
+(see README for masked losses). At ZeRO stage 1 each rank keeps and
+updates the optimizer state of its slices only
+(``runtime/zero/partition.py``) and the updates are all-gathered; at
+stage 0 every rank keeps the whole state. Without a process group the
+engine runs no collective: one rank's partition is the whole state, as on
+the JAX package's one-device mesh.
 
 MoQ (``quantize_training``): after an applied step and before the lr
 scheduler advances, the schedule of ``runtime/quantize.py`` fake-quantizes
@@ -74,8 +89,10 @@ from deepspeed_tpu_torch.runtime.fp16.loss_scaler import (make_scale_state,
 from deepspeed_tpu_torch.runtime.lr_schedules import get_lr_schedule
 from deepspeed_tpu_torch.runtime.quantize import (Quantizer,
                                                   transposed_weight_names)
+from deepspeed_tpu_torch.runtime.zero.partition import ZeroPartition
 from deepspeed_tpu_torch.telemetry.metrics import get_registry
 from deepspeed_tpu_torch.telemetry.tracer import trace_span
+from deepspeed_tpu_torch.utils import groups
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
 
 
@@ -106,11 +123,17 @@ class DeepSpeedEngine:
     def __init__(self, module: torch.nn.Module, config: DeepSpeedConfig,
                  device: torch.device, optimizer=None, lr_scheduler=None,
                  seed: int = 42):
-        dist = torch.distributed
-        if dist.is_available() and dist.is_initialized() and \
-                dist.get_world_size() > 1:
-            raise NotImplementedError(
-                "ZeRO over torch.distributed is not ported yet")
+        if not groups.mesh_is_initialized():
+            groups.initialize()
+        self._dist = groups.dist_active()
+        self.dp_group = groups.get_data_parallel_group()
+        self.dp_world_size = groups.get_data_parallel_world_size()
+        self.dp_rank = groups.get_data_parallel_rank()
+        if config.world_size != self.dp_world_size:
+            raise ValueError(
+                f"the config was triangulated for data-parallel world "
+                f"{config.world_size}, but the data group has "
+                f"{self.dp_world_size} ranks")
         self.module = dropout_lib.number_sites(module)
         self.config = config
         self.device = device
@@ -122,6 +145,16 @@ class DeepSpeedEngine:
             if p.dtype != torch.float32 or p.device.type != device.type:
                 raise ValueError(f"master parameter {name} must be fp32 on "
                                  f"{device}, got {p.dtype} on {p.device}")
+        if self._dist:
+            # the masters start equal on every rank
+            with torch.no_grad():
+                for p in self.params.values():
+                    torch.distributed.broadcast(p, 0, group=self.dp_group)
+        # ZeRO-1 over a process group: each rank's slices
+        self._partition = (ZeroPartition(
+            {n: p.shape for n, p in self.params.items()},
+            self.dp_world_size, self.dp_rank, self.dp_group)
+            if self._dist and config.zero_optimization_stage == 1 else None)
         if config.fp16_enabled:
             self.compute_dtype = torch.float16
         elif config.bfloat16_enabled:
@@ -143,10 +176,15 @@ class DeepSpeedEngine:
                                config.gradient_accumulation_dtype)
         self._acc = None
         self._fused_gas1 = False   # inside train_batch at gas 1
+        self._reduce_grads = True  # the last backward's allreduce_gradients
 
         self.optimizer = self._configure_optimizer()
-        self.opt_state = self.optimizer.init(
-            {k: p.detach() for k, p in self.params.items()})
+        # the engine hands the optimizer each rank's slices (ZeRO 1), unless
+        # it cuts its own state (the sweep)
+        self._sliced = self._partition is not None and \
+            not self.optimizer.partitions_state
+        self.opt_state = self.optimizer.init(self._local(
+            {k: p.detach() for k, p in self.params.items()}))
         self.lr_scheduler, self._lr_fn = self._configure_lr_scheduler()
         self.quantizer = self._configure_quantizer()
         self._transposed = transposed_weight_names(module)
@@ -176,7 +214,8 @@ class DeepSpeedEngine:
         (engine.py:922-1017): Adam/AdamW (``sweep`` -> the whole-state
         kernel, ``fused`` -> the per-tensor kernel, else plain torch), LAMB
         (``fused`` -> the one-launch pass-1 kernel, else plain torch), SGD
-        and Adagrad (plain torch)."""
+        and Adagrad (plain torch). At ZeRO 1 over a process group the sweep
+        and LAMB take the partition (their chunks, their norms)."""
         if self.client_optimizer is not None:
             if not isinstance(self.client_optimizer, optim_lib.Optimizer):
                 raise TypeError(
@@ -202,7 +241,8 @@ class DeepSpeedEngine:
                       weight_decay=params.get("weight_decay", 0.0),
                       min_coeff=params.get("min_coeff", 0.01),
                       max_coeff=params.get("max_coeff", 10.0),
-                      bias_correction=params.get("bias_correction", True))
+                      bias_correction=params.get("bias_correction", True),
+                      partition=self._partition)
             if cfg.optimizer_fused:
                 return fused_lamb.fused_lamb(**kw)
             return optim_lib.lamb(**kw)
@@ -211,7 +251,8 @@ class DeepSpeedEngine:
                   adam_w_mode=params.get("adam_w_mode", True),
                   bias_correction=params.get("bias_correction", True))
         if cfg.optimizer_sweep:
-            return fused_adam.fused_adam_sweep(**kw)
+            return fused_adam.fused_adam_sweep(**kw,
+                                               partition=self._partition)
         if cfg.optimizer_fused:
             return fused_adam.fused_adam(**kw)
         return optim_lib.adam(**kw)
@@ -275,6 +316,50 @@ class DeepSpeedEngine:
         """lr of the next applied step."""
         return [float(self._lr_fn(self.step_count))]
 
+    # ------------------------------------------------------ data parallel
+    def _local(self, tree):
+        """This rank's slices of a dict of parameter-shaped tensors when
+        the engine slices the optimizer's inputs (ZeRO 1 over a process
+        group), contiguous (a copy only for a slice cut off dimension 0);
+        else the dict itself."""
+        if not self._sliced:
+            return tree
+        part = self._partition
+        return {k: part.local(k, t).contiguous() for k, t in tree.items()}
+
+    def _average(self, grads):
+        """The gradients averaged over the data group: one all-reduce (SUM,
+        then × 1/world) over a flat fp32 buffer; the returned tensors are
+        views of it."""
+        flat = torch.cat([g.reshape(-1) for g in grads.values()])
+        torch.distributed.all_reduce(flat, group=self.dp_group)
+        flat.mul_(1.0 / self.dp_world_size)
+        out, off = {}, 0
+        for k, g in grads.items():
+            out[k] = flat[off:off + g.numel()].view(g.shape)
+            off += g.numel()
+        return out
+
+    def _mean_over_ranks(self, loss):
+        """A device scalar averaged over the data group (no host sync)."""
+        if not self._dist:
+            return loss
+        loss = loss.detach().clone()
+        torch.distributed.all_reduce(loss, group=self.dp_group)
+        return loss.mul_(1.0 / self.dp_world_size)
+
+    def allreduce_gradients(self):
+        """Average the masters' gradients over the data group now (the
+        reference's ``allreduce_gradients``), for a loop whose boundary
+        ``backward`` passed ``allreduce_gradients=False``. Without a
+        process group there is nothing to average."""
+        if not self._dist:
+            return
+        grads = self._average({k: _grad_of(k, p)
+                               for k, p in self.params.items()})
+        for k, p in self.params.items():
+            p.grad = grads[k]
+
     # ------------------------------------------------------------- step
     def _compute_loss(self, batch):
         """Forward in the compute dtype; the cast of each master is part of
@@ -294,7 +379,15 @@ class DeepSpeedEngine:
         if cfg.fp16_enabled:
             flags = torch.stack([torch.isfinite(g).all()
                                  for g in grads.values()])
-            finite = bool(flags.all())    # the fp16 step's one host sync
+            if self._dist:
+                # one rank's overflow skips the step on every rank
+                bad = (~flags.all()).float()
+                torch.distributed.all_reduce(
+                    bad, op=torch.distributed.ReduceOp.MAX,
+                    group=self.dp_group)
+                finite = not bool(bad)    # the fp16 step's one host sync
+            else:
+                finite = bool(flags.all())    # the fp16 step's one host sync
         # the norm is taken only where the step uses it (engine.py:1544)
         self.global_grad_norm = None
         if cfg.fp16_enabled or cfg.gradient_clipping > 0:
@@ -315,27 +408,38 @@ class DeepSpeedEngine:
     @torch.no_grad()
     def _apply_update(self, grads, clip_coef):
         """lr at the applied-step count, the optimizer update, p += u
-        (engine.py:1602-1621)."""
+        (engine.py:1602-1621). At ZeRO 1 the optimizer updates this rank's
+        slices and the whole update is all-gathered (the epilogue
+        all-gather of JAX's sharded update, partition.py:12-15) before
+        every rank adds it to its masters."""
         lr = self._lr_fn(self.step_count)
         params = {k: p.detach() for k, p in self.params.items()}
-        if self.optimizer.fuses_clip:
-            updates, self.opt_state = self.optimizer.update(
-                grads, self.opt_state, params, lr, clip_coef=clip_coef)
-        else:
-            updates, self.opt_state = self.optimizer.update(
-                grads, self.opt_state, params, lr)
+        kw = {"clip_coef": clip_coef} if self.optimizer.fuses_clip else {}
+        updates, self.opt_state = self.optimizer.update(
+            self._local(grads), self.opt_state, self._local(params), lr,
+            **kw)
+        if self._sliced:
+            updates = self._partition.all_gather(updates)
         torch._foreach_add_(list(params.values()),
                             [updates[k] for k in params])
         self.step_count += 1
 
     # ------------------------------------------------------------- loop
+    def _dropout_key(self):
+        """(seed, micro_steps), and the data-parallel rank when the world
+        is above one rank: each rank draws its own masks for its rows."""
+        key = (self._seed, self.micro_steps)
+        if self.dp_world_size > 1:
+            key += (self.dp_rank,)
+        return key
+
     def forward(self, batch):
         """The loss of one micro-batch, unscaled, with its graph, in
         training mode; the dropout masks are keyed by (seed,
         ``micro_steps``) (engine.py:2757, 2770)."""
         if not self.module.training:
             self.module.train()
-        with dropout_lib.key_scope((self._seed, self.micro_steps)):
+        with dropout_lib.key_scope(self._dropout_key()):
             loss = self._compute_loss(_to_device(batch, self.device))
         self._pending_loss = loss
         return loss
@@ -347,18 +451,26 @@ class DeepSpeedEngine:
         master's ``.grad``, or are cast into the bf16/fp16 buffer and added
         there (``a + g.astype(a.dtype)``), at every gas as in JAX, but in
         ``train_batch`` at gas 1. Advances ``micro_steps`` (engine.py:3022).
-        The last two arguments are the reference's signature; one rank has
-        no allreduce to skip."""
+        With a process group the gradients are averaged over the data
+        group: each micro-step's before the cast into the buffer, else
+        the accumulated ones at ``step()``. ``allreduce_gradients=False``
+        skips that averaging (for this micro-step's buffer cast, or at the
+        boundary ``step()`` after this call), as the reference's flag
+        does; :meth:`allreduce_gradients` runs it by hand.
+        ``release_loss`` is the reference's signature."""
         if loss is None:
             loss = self._pending_loss
         if loss is None:
             raise RuntimeError("backward() requires a prior forward()")
         scale = self.scale.loss_scale / self.gradient_accumulation_steps()
         (loss * scale).backward()
+        self._reduce_grads = bool(allreduce_gradients)
         if self._acc_dtype is not None and not self._fused_gas1:
             with torch.no_grad():
-                grads = {k: _grad_of(k, p).to(self._acc_dtype)
-                         for k, p in self.params.items()}
+                grads = {k: _grad_of(k, p) for k, p in self.params.items()}
+                if self._dist and allreduce_gradients:
+                    grads = self._average(grads)
+                grads = {k: g.to(self._acc_dtype) for k, g in grads.items()}
                 if self._acc is None:
                     self._acc = grads
                 else:
@@ -377,15 +489,20 @@ class DeepSpeedEngine:
         then the scheduler (which does not advance on a skipped step)."""
         if not self.is_gradient_accumulation_boundary():
             return
+        averaged = True      # the buffer holds averaged micro-steps
         if self._acc is not None:
             # the buffer, read back in fp32 and reset (engine.py:1596-1600)
             for k, p in self.params.items():
                 p.grad = self._acc[k].float()
             self._acc = None
+        else:
+            averaged = not self._reduce_grads
         if all(p.grad is None for p in self.params.values()):
             raise RuntimeError("step() on the accumulation boundary needs "
                                "the gradients of backward()")
         grads = {k: _grad_of(k, p) for k, p in self.params.items()}
+        if self._dist and not averaged:
+            grads = self._average(grads)
         grads, finite, clip_coef = self._grad_epilogue(grads)
         if finite:
             self._apply_update(grads, clip_coef)
@@ -412,7 +529,8 @@ class DeepSpeedEngine:
         then ``step`` (engine.py:3316-3345). At gas 1 the gradients skip
         the ``gradient_accumulation_dtype`` buffer, as the JAX fused gas-1
         step does (engine.py:1702). Returns the mean micro-batch loss as a
-        device fp32 scalar."""
+        device fp32 scalar, averaged over the data group's ranks (each
+        passes its own micro-batches)."""
         if data_iter is None and batch is None:
             raise ValueError("train_batch needs data_iter or batch")
         gas = self.gradient_accumulation_steps()
@@ -427,16 +545,18 @@ class DeepSpeedEngine:
             self.step()
         finally:
             self._fused_gas1 = False
-        return torch.stack(losses).mean()
+        return self._mean_over_ranks(torch.stack(losses).mean())
 
     def eval_batch(self, batch):
         """The loss of ``batch`` without gradients or dropout, the module
-        in eval mode for the call (engine.py:3401)."""
+        in eval mode for the call (engine.py:3401), averaged over the data
+        group's ranks."""
         was_training = self.module.training
         self.module.eval()
         try:
             with torch.no_grad(), dropout_lib.key_scope(None):
-                return self._compute_loss(_to_device(batch, self.device))
+                return self._mean_over_ranks(
+                    self._compute_loss(_to_device(batch, self.device)))
         finally:
             self.module.train(was_training)
 
@@ -447,20 +567,26 @@ class DeepSpeedEngine:
 
     # ------------------------------------------------------------ checkpoints
     # The JAX engine's tag format (runtime/engine.py:3628-4135): per tag
-    # ``mp_rank_00_model_states.pt`` (the ``module`` tree and the counters),
-    # ``zero_pp_rank_0_mp_rank_00_optim_states.pt`` (the shards-v1 payloads
-    # of the optimizer state and the fp32 masters, the loss-scale state),
-    # then ``manifest.json``, then the ``latest`` pointer. For a model
-    # family of ``bridge.LAYOUTS`` the trees carry the JAX engine's key
-    # paths and flax layouts, so either engine loads the other's tags.
+    # ``mp_rank_00_model_states.pt`` (the ``module`` tree and the counters,
+    # rank 0), ``zero_pp_rank_{r}_mp_rank_00_optim_states.pt`` a rank (the
+    # shards-v1 payloads of its part of the optimizer state and the fp32
+    # masters, the loss-scale state), then ``manifest.json``, then the
+    # ``latest`` pointer (rank 0, once every rank's file is there). A rank
+    # writes its ZeRO-1 slices as index-keyed boxes; a tensor every rank
+    # holds whole is written by rank 0. For a model family of
+    # ``bridge.LAYOUTS`` the trees carry the JAX engine's key paths and
+    # flax layouts, so either engine loads the other's tags, at any world
+    # size.
 
     def _get_ckpt_name(self, checkpoints_path, tag):
         return os.path.join(checkpoints_path, str(tag),
                             "mp_rank_00" + MODEL_FILE_SUFFIX)
 
-    def _get_zero_ckpt_name(self, checkpoints_path, tag):
+    def _get_zero_ckpt_name(self, checkpoints_path, tag, rank=None):
+        rank = self.dp_rank if rank is None else rank
         return os.path.join(checkpoints_path, str(tag),
-                            "zero_pp_rank_0_mp_rank_00" + OPTIM_FILE_SUFFIX)
+                            f"zero_pp_rank_{rank}_mp_rank_00"
+                            + OPTIM_FILE_SUFFIX)
 
     def _path(self, name):
         """The JAX key path (``keystr``) of a parameter's leaf."""
@@ -476,74 +602,115 @@ class DeepSpeedEngine:
         perm = bridge.inverse(self._layout[name][1])
         return t if perm is None else t.permute(perm)
 
-    def _opt_leaves(self, state, keys_only=False):
-        """``{key path: tensor or ndarray}`` of the optimizer state, in the
-        JAX tree's paths (``.step``, ``.mu['h_0']['ln_1']['scale']``, the
-        sweep's ``.mu`` vector in JAX's leaf order, ...); with
-        ``keys_only`` the values are None."""
-        from deepspeed_tpu_torch.ops.adam.fused_adam import AdamSweepState
+    def _opt_items(self, state):
+        """``(key path, parameter name or None, value)`` of every optimizer
+        leaf, in the JAX tree's paths (``.step``,
+        ``.mu['h_0']['ln_1']['scale']``, the sweep's ``.mu`` vector)."""
         if not hasattr(state, "_fields"):
             raise TypeError(f"cannot checkpoint optimizer state of type "
                             f"{type(state).__name__}: a NamedTuple of ints, "
                             f"tensors and dicts of tensors is expected")
-        out = {}
         for field in state._fields:
             val = getattr(state, field)
-            if isinstance(val, (int, np.integer)):
-                out[f".{field}"] = np.asarray(val, np.int32)
-            elif isinstance(val, dict):
+            if isinstance(val, dict):
                 for name, t in val.items():
-                    out[f".{field}{self._path(name)}"] = \
-                        self._flax_view(name, t)
-            elif isinstance(val, torch.Tensor):
-                if isinstance(state, AdamSweepState) and \
-                        self._layout is not None and not keys_only:
-                    val = bridge.flat_to_jax(
-                        val, self._layout, list(self.params),
-                        [tuple(p.shape) for p in self.params.values()])
-                out[f".{field}"] = val
+                    yield f".{field}{self._path(name)}", name, t
+            elif isinstance(val, (int, np.integer, torch.Tensor)):
+                yield f".{field}", None, val
             elif val != ():
                 raise TypeError(f"cannot checkpoint optimizer field "
                                 f"{field} of type {type(val).__name__}")
-        if keys_only:
-            return dict.fromkeys(out)
-        return out
 
-    def _restore_opt_state(self, arrays):
+    def _opt_leaves(self, state):
+        """The key paths of the optimizer state's leaves."""
+        return [path for path, _, _ in self._opt_items(state)]
+
+    def _box(self, name):
+        """The torch-layout index box of parameter ``name`` this rank
+        writes, or None (another rank writes it): its ZeRO-1 slice, or
+        the whole tensor on rank 0 (every tensor without a process
+        group)."""
+        part = self._partition
+        if part is not None and part.sharded(name):
+            return part.box(name)
+        if self.dp_rank != 0:
+            return None
+        return tuple((0, int(d)) for d in self.params[name].shape)
+
+    def _flax_record(self, name, t, box):
+        """(``t`` in the saved layout, its box there, the whole leaf's
+        saved shape)."""
+        full = tuple(int(d) for d in self.params[name].shape)
+        perm = (None if self._layout is None
+                else bridge.inverse(self._layout[name][1]))
+        if perm is None:
+            return t, box, full
+        return (t.permute(perm), tuple(box[a] for a in perm),
+                tuple(full[a] for a in perm))
+
+    def _sweep_full(self, vec):
+        """A sweep moment as the whole vector in the saved (JAX) leaf
+        order: gathered from every rank's chunk when the sweep is
+        partitioned, then reordered for a model family."""
+        if self._partition is not None and self.optimizer.partitions_state:
+            with trace_span("checkpoint/gather_sweep"):
+                vec = self._partition.gather_flat(vec)
+        if self._layout is not None:
+            vec = bridge.flat_to_jax(
+                vec, self._layout, list(self.params),
+                [tuple(p.shape) for p in self.params.values()])
+        return vec
+
+    def _restore_opt_state(self, arrays, saved_dp=1):
         """The optimizer state rebuilt like the current one from
-        ``{key path: ndarray}``, on the engine's device."""
+        ``{key path: ndarray}`` (whole leaves, reassembled from every
+        rank's boxes), on the engine's device: this rank's slices or
+        chunk of it. ``saved_dp``: the world size that wrote them."""
         from deepspeed_tpu_torch.ops.adam.fused_adam import (AdamSweepState,
                                                              sweep_pad)
         state = self.opt_state
+        sweep = isinstance(state, AdamSweepState)
+        split = sweep and self.optimizer.partitions_state
         fields = {}
         for field in state._fields:
             val = getattr(state, field)
             if isinstance(val, (int, np.integer)):
                 fields[field] = int(arrays[f".{field}"])
             elif isinstance(val, dict):
-                fields[field] = {
+                fields[field] = self._local({
                     name: self._to_device(
-                        arrays[f".{field}{self._path(name)}"], name, t,
-                        self._perm(name))
-                    for name, t in val.items()}
+                        arrays[f".{field}{self._path(name)}"], name,
+                        self.params[name], self._perm(name)).to(t.dtype)
+                    for name, t in val.items()})
             elif isinstance(val, torch.Tensor):
                 vec = torch.from_numpy(np.require(
                     arrays[f".{field}"], requirements=["C", "W"])).to(
                         self.device)
-                if isinstance(state, AdamSweepState) and \
-                        vec.numel() >= val.numel() + sweep_pad():
+                n_pad = val.numel() * (self.dp_world_size if split else 1)
+                if sweep:
                     # the saved length is read, not recomputed; padding of
-                    # a whole quantum more is another model's leaves
-                    raise ValueError(
-                        f"optimizer leaf .{field} holds {vec.numel()} "
-                        f"elements, more than this model's sweep vector "
-                        f"of {val.numel()} and its padding")
-                if isinstance(state, AdamSweepState) and \
-                        self._layout is not None:
-                    vec = bridge.flat_from_jax(
-                        vec, self._layout, list(self.params),
-                        [tuple(p.shape) for p in self.params.values()],
-                        val.numel())
+                    # a whole quantum more than the writer's world pads
+                    # to is another model's leaves
+                    n = sum(p.numel() for p in self.params.values())
+                    q = sweep_pad() * max(1, int(saved_dp))
+                    if vec.numel() >= -(-n // q) * q + q:
+                        raise ValueError(
+                            f"optimizer leaf .{field} holds {vec.numel()} "
+                            f"elements, more than this model's sweep "
+                            f"vector of {n} and its padding")
+                    if self._layout is not None:
+                        vec = bridge.flat_from_jax(
+                            vec, self._layout, list(self.params),
+                            [tuple(p.shape) for p in self.params.values()],
+                            n_pad)
+                    elif vec.numel() != n_pad and vec.numel() >= n:
+                        # another world's padding
+                        out = torch.zeros(n_pad, dtype=vec.dtype,
+                                          device=vec.device)
+                        out[:n] = vec[:n]
+                        vec = out
+                    if split:
+                        vec = self._partition.chunk(vec).contiguous()
                 if vec.shape != val.shape or vec.dtype != val.dtype:
                     raise ValueError(
                         f"optimizer leaf .{field} is {vec.dtype} "
@@ -594,30 +761,75 @@ class DeepSpeedEngine:
         their bytes (JAX engine.py:3743-3748): the masters are updated in
         place (``p += u``), so a view would pickle the next step's
         weights."""
+        from deepspeed_tpu_torch.ops.adam.fused_adam import AdamSweepState
         copy = self._ckpt_async
+        rank0 = self.dp_rank == 0
+        part = self._partition
         with trace_span("checkpoint/gather_shards"):
-            params = {self._path(n): self._host(
-                ("p", n), self._flax_view(n, p), copy)
-                for n, p in self.params.items()}
-            opt = {k: (v if isinstance(v, np.ndarray)
-                       else self._host(("o", k), v, copy))
-                   for k, v in self._opt_leaves(self.opt_state).items()}
+            params, p_boxes = {}, {}
+            for n, p in self.params.items():
+                box = self._box(n)
+                if box is None:
+                    continue
+                local = p if part is None else part.local(n, p)
+                t, key, full = self._flax_record(n, local, box)
+                params[self._path(n)] = self._host(("p", n), t, copy)
+                p_boxes[self._path(n)] = (key, full)
+            opt, o_boxes = {}, {}
+            for path, name, val in self._opt_items(self.opt_state):
+                if isinstance(val, (int, np.integer)):
+                    opt[path] = np.asarray(val, np.int32)
+                elif name is not None:
+                    # a sliced state holds this rank's slices; else the
+                    # whole tensors, which rank 0 writes
+                    box = self._box(name)
+                    if box is None:
+                        continue
+                    t, key, full = self._flax_record(name, val, box)
+                    opt[path] = self._host(("o", path), t, copy)
+                    o_boxes[path] = (key, full)
+                elif isinstance(self.opt_state, AdamSweepState):
+                    full = self._sweep_full(val)
+                    n = full.numel()
+                    if self.optimizer.partitions_state:
+                        c = n // self.dp_world_size
+                        r = self.dp_rank
+                        opt[path] = self._host(("o", path),
+                                               full[r * c:(r + 1) * c], copy)
+                        o_boxes[path] = (((r * c, (r + 1) * c),), (n,))
+                    elif rank0:
+                        opt[path] = self._host(("o", path), full, copy)
+                elif rank0:
+                    opt[path] = self._host(("o", path), val, copy)
             if self.device.type == "cuda":
                 torch.cuda.current_stream(self.device).synchronize()
         zero_sd = {
             "format": "shards-v1",
-            "optimizer_state_dict": checkpoint_io.tree_local_shards(opt),
+            "optimizer_state_dict": checkpoint_io.tree_local_shards(
+                opt, o_boxes),
             "offload_optimizer_state": None,
-            "param_shards": checkpoint_io.tree_local_shards(params),
+            "param_shards": checkpoint_io.tree_local_shards(params,
+                                                            p_boxes),
             "scale_state": {
                 "loss_scale": np.array(self.scale.loss_scale, np.float32),
                 "good_steps": np.array(self.scale.good_steps, np.int32),
                 "hysteresis": np.array(self.scale.hysteresis, np.int32)},
             "zero_stage": self.config.zero_optimization_stage,
-            "partition_count": 1,
+            "partition_count": self.dp_world_size,
         }
-        # the module tree holds the same arrays as param_shards
-        by_path = {n: params[self._path(n)] for n in self.params}
+        if not rank0:
+            return {"zero_sd": zero_sd, "module": None, "meta": None}
+        # the module tree: the whole masters (the param_shards arrays where
+        # rank 0 wrote a whole tensor)
+        by_path = {}
+        for n, p in self.params.items():
+            key, full = p_boxes[self._path(n)]
+            by_path[n] = (params[self._path(n)]
+                          if key == checkpoint_io.full_key(full)
+                          else self._host(("m", n), self._flax_view(n, p),
+                                          copy))
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
         module = (bridge.nest((self._layout[n][0], a)
                               for n, a in by_path.items())
                   if self._layout is not None else by_path)
@@ -638,7 +850,7 @@ class DeepSpeedEngine:
             "global_samples": self.global_samples,
             "skipped_steps": self.skipped_steps,
             "micro_steps": self.micro_steps,
-            "dp_world_size": 1,
+            "dp_world_size": self.dp_world_size,
             "mp_world_size": 1,
             "loss_scale": float(self.scale.loss_scale),
             "lr_scheduler": (self.lr_scheduler.state_dict()
@@ -653,31 +865,36 @@ class DeepSpeedEngine:
         return {"zero_sd": zero_sd, "module": module, "meta": meta}
 
     def _persist_checkpoint(self, save_dir, tag, snapshot, save_latest):
-        """The file half of a save, host I/O only (safe on the background
-        writer's thread). The order is the crash contract: the shard file,
-        the model states, the gate on every rank's shard file, the purge of
-        a larger world's stale rank files, the manifest, then ``latest``."""
+        """The file half of a save, host I/O only, no collective (safe on
+        the background writer's thread). The order is the crash contract:
+        each rank's shard file; then on rank 0 the model states, the gate
+        on every rank's shard file (file polling), the purge of a larger
+        world's stale rank files, the manifest, then ``latest``."""
         tag_dir = os.path.join(save_dir, tag)
         checkpoint_io.dump_file(snapshot["zero_sd"],
                                 self._get_zero_ckpt_name(save_dir, tag),
                                 kind="zero_states")
         meta = snapshot["meta"]
+        if meta is None:             # not rank 0
+            return
+        world = self.dp_world_size
         sd = {"module": snapshot["module"], "has_moe_layers": False,
               "moe_layer_prefixes": [], "moe_expert_counts": [], **meta}
         checkpoint_io.dump_file(sd, self._get_ckpt_name(save_dir, tag),
                                 kind="model_states")
         checkpoint_io.wait_for_files(
-            [self._get_zero_ckpt_name(save_dir, tag)],
+            [self._get_zero_ckpt_name(save_dir, tag, r)
+             for r in range(world)],
             timeout_s=self.config.checkpoint_wait_timeout_s,
-            describe=f"all 1 ranks' shard files of tag {tag!r}")
+            describe=f"all {world} ranks' shard files of tag {tag!r}")
         for f in glob.glob(os.path.join(tag_dir,
                                         "zero_pp_rank_*" + OPTIM_FILE_SUFFIX)):
             m = re.search(r"zero_pp_rank_(\d+)_", os.path.basename(f))
-            if m and int(m.group(1)) >= 1:
+            if m and int(m.group(1)) >= world:
                 os.remove(f)
         checkpoint_io.write_manifest(tag_dir, meta={
             "tag": tag, "global_steps": meta["global_steps"],
-            "dp_world_size": 1, "processes": 1})
+            "dp_world_size": world, "processes": world})
         if save_latest:
             checkpoint_io.write_latest(save_dir, LATEST_FILE, tag)
 
@@ -701,12 +918,22 @@ class DeepSpeedEngine:
         failure there re-raises. ``data_iter``: anything with
         ``state_dict()``, whose position is saved with the tag.
 
-        Tag validation (``checkpoint.tag_validation``) compares the tag
-        across ranks; at world size 1 there is no other rank, so the mode
-        is kept and nothing is compared."""
+        Each rank writes its own shard file; rank 0 writes the model
+        states, waits for every rank's file, then writes the manifest and
+        ``latest``. A sync save ends with a barrier, so no rank returns
+        before the tag is whole; an async save's next save or load drains
+        the writer (a load then waits at a barrier for every rank's).
+
+        Tag validation (``checkpoint.tag_validation``, JAX
+        engine.py:3717-3740): under ``Warn`` and ``Fail`` the ranks compare
+        the tag, ``[global_steps, micro_steps]`` and the masters' shapes
+        (``all_gather_object``, over a process group of any size); a
+        mismatch raises on every rank under ``Fail`` and logs once (rank
+        0) under ``Warn``; ``Ignore`` compares nothing."""
         tag = str(f"global_step{self.global_steps}" if tag is None else tag)
         if self._ckpt_writer is not None:
             self._ckpt_writer.drain()
+        self._validate_checkpoint_tag(tag)
         with trace_span("checkpoint/save", tag=tag):
             os.makedirs(os.path.join(save_dir, tag), exist_ok=True)
             snapshot = self._snapshot_checkpoint(client_state, data_iter)
@@ -714,6 +941,8 @@ class DeepSpeedEngine:
             with trace_span("checkpoint/persist", tag=tag):
                 self._persist_checkpoint(save_dir, tag, snapshot,
                                          save_latest)
+            if self._dist:
+                torch.distributed.barrier(group=self.dp_group)
             log_dist(f"saved checkpoint {save_dir}/{tag}", ranks=[0])
             return True
         get_registry().counter(
@@ -725,6 +954,32 @@ class DeepSpeedEngine:
         log_dist(f"checkpoint {save_dir}/{tag}: snapshot taken, persisting "
                  f"in background", ranks=[0])
         return True
+
+    def _validate_checkpoint_tag(self, tag):
+        """The cross-rank comparison of ``checkpoint.tag_validation``."""
+        if not (self._dist and self.config.checkpoint_tag_validation_enabled):
+            return
+        mine = {"tag": str(tag),
+                "counters": [self.global_steps, self.micro_steps],
+                "shapes": {n: tuple(p.shape)
+                           for n, p in self.params.items()}}
+        seen = [None] * self.dp_world_size
+        torch.distributed.all_gather_object(seen, mine, group=self.dp_group)
+        what = {"tag": "checkpoint tag", "counters":
+                "[global_steps, micro_steps]", "shapes": "parameter shapes"}
+        bad = [(key, r, o[key]) for key in what for r, o in enumerate(seen)
+               if o[key] != seen[0][key]]
+        if not bad:
+            return
+        key, r, theirs = bad[0]
+        msg = (f"cross-rank checkpoint mismatch: rank {r}'s {what[key]} "
+               f"{theirs if key != 'shapes' else '(differ)'} differs from "
+               f"rank 0's {seen[0][key] if key != 'shapes' else ''}")
+        if self.config.checkpoint_tag_validation_fail:
+            raise RuntimeError(msg + " (checkpoint.tag_validation: Fail)")
+        if self.dp_rank == 0:
+            logger.warning(msg + "; writing anyway (checkpoint."
+                                 "tag_validation: Warn)")
 
     def _verify_load_tag(self, load_dir, tag, explicit_tag):
         """The tag to load (JAX engine.py:3900): an intact tag as it is, a
@@ -815,7 +1070,10 @@ class DeepSpeedEngine:
         state, the lr scheduler, the optimizer state (applied steps =
         ``global_steps - skipped_steps``) and the data iterator's
         position. Returns ``(model-states path, client_state)``, or
-        ``(None, {})`` when there is no ``latest``.
+        ``(None, {})`` when there is no ``latest``. Any world size loads
+        a tag of any other: each rank reassembles every leaf from all the
+        rank files' index-keyed boxes (JAX's shard reassembly,
+        engine.py:3965-3990), then keeps its own slices.
 
         A resumed run draws the uninterrupted run's dropout masks when the
         engine was built with the same ``seed`` (the seed is not saved,
@@ -823,6 +1081,9 @@ class DeepSpeedEngine:
         JAX's), so its bit width restarts from the config."""
         if self._ckpt_writer is not None:
             self._ckpt_writer.drain()
+        if self._dist:
+            # every rank's async persist drained: the tag is whole
+            torch.distributed.barrier(group=self.dp_group)
         explicit_tag = tag is not None
         if tag is None:
             latest = os.path.join(load_dir, LATEST_FILE)
@@ -843,10 +1104,11 @@ class DeepSpeedEngine:
                     load_dir, tag, "zero_pp_rank_*" + OPTIM_FILE_SUFFIX)))]
             saved_dp = (zero_payloads[0].get("partition_count")
                         if zero_payloads else None)
-            if saved_dp is not None and saved_dp != 1:
+            if saved_dp is not None and saved_dp != self.dp_world_size:
                 # shards carry global indices: reassembly is elastic
                 log_dist(f"elastic checkpoint load: saved at dp={saved_dp}, "
-                         f"resuming at dp=1 (shard reassembly)", ranks=[0])
+                         f"resuming at dp={self.dp_world_size} (shard "
+                         f"reassembly)", ranks=[0])
             arrays = self._module_arrays(sd, zero_payloads,
                                          load_module_strict)
             if not load_module_only and load_optimizer_states and \
@@ -856,8 +1118,7 @@ class DeepSpeedEngine:
                     raise NotImplementedError(
                         f"{path}: optimizer state in the pre-shards format "
                         f"is not ported")
-                want = list(self._opt_leaves(self.opt_state,
-                                             keys_only=True))
+                want = self._opt_leaves(self.opt_state)
                 try:
                     opt_arrays = checkpoint_io.restore_tree(
                         want, [z["optimizer_state_dict"]
@@ -867,7 +1128,8 @@ class DeepSpeedEngine:
                         f"{e.args[0]}: the tag's optimizer state does not "
                         f"match this engine's "
                         f"{type(self.opt_state).__name__}") from None
-                opt_state = self._restore_opt_state(opt_arrays)
+                opt_state = self._restore_opt_state(opt_arrays,
+                                                    saved_dp or 1)
             with torch.no_grad():
                 for n, a in arrays.items():
                     self.params[n].copy_(self._to_device(

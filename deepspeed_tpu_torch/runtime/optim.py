@@ -23,6 +23,14 @@ class Optimizer(NamedTuple):
     # own sweep: update() accepts clip_coef= and the engine skips the
     # separate clip pass over the grads
     fuses_clip: bool = False
+    # partitions_state: the optimizer cuts its state by the ZeRO-1
+    # partition it was built with (the sweep's flat chunks) and gathers
+    # its own updates; the engine hands it whole gradients and params.
+    # Otherwise, at ZeRO 1 over a process group, the engine hands it each
+    # rank's slices (``runtime/zero/partition.py``) and gathers the
+    # updates, so its update must act on a tensor's slice as on the whole
+    # tensor, elementwise (LAMB's norms take ``partition=``)
+    partitions_state: bool = False
 
 
 class AdamState(NamedTuple):
@@ -93,10 +101,15 @@ def lamb_trust_ratio(w_norm, u_norm, min_coeff, max_coeff):
 
 
 def lamb(b1=0.9, b2=0.999, eps=1e-6, weight_decay=0.0, min_coeff=0.01,
-         max_coeff=10.0, bias_correction=True):
+         max_coeff=10.0, bias_correction=True, partition=None):
     """LAMB with a per-tensor trust ratio in plain torch (the JAX
     ``optim.lamb``, config ``fused: false``): Adam moments, the update
-    direction u = m̂ / (√v̂ + eps) (+ wd · p), and −lr · ratio · u."""
+    direction u = m̂ / (√v̂ + eps) (+ wd · p), and −lr · ratio · u.
+
+    ``partition`` (a ``runtime.zero.partition.ZeroPartition``): the
+    update sees each rank's slices, so the squared norms of the slices
+    are summed over the ranks (each replicated tensor once) before the
+    trust ratio, one all-reduce a step."""
 
     def init(params):
         zeros = {k: torch.zeros_like(p, dtype=torch.float32)
@@ -116,10 +129,25 @@ def lamb(b1=0.9, b2=0.999, eps=1e-6, weight_decay=0.0, min_coeff=0.01,
             u = (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + eps)
             if weight_decay > 0.0:
                 u = u + weight_decay * params[k]
-            ratio = lamb_trust_ratio(
-                torch.linalg.vector_norm(params[k].float()),
-                torch.linalg.vector_norm(u.float()), min_coeff, max_coeff)
-            updates[k] = -lr * ratio * u
+            updates[k] = u
+        if partition is None:
+            for k, u in updates.items():
+                ratio = lamb_trust_ratio(
+                    torch.linalg.vector_norm(params[k].float()),
+                    torch.linalg.vector_norm(u.float()), min_coeff,
+                    max_coeff)
+                updates[k] = -lr * ratio * u
+        else:
+            names = list(updates)
+            sq = partition.sum_over_ranks(names, torch.stack([
+                torch.stack([torch.sum(torch.square(params[k].float()))
+                             for k in names]),
+                torch.stack([torch.sum(torch.square(updates[k].float()))
+                             for k in names])]))
+            ratio = lamb_trust_ratio(torch.sqrt(sq[0]), torch.sqrt(sq[1]),
+                                     min_coeff, max_coeff)
+            for i, k in enumerate(names):
+                updates[k] = -lr * ratio[i] * updates[k]
         return updates, LambState(step=step, mu=mu, nu=nu)
 
     return Optimizer(init, update)

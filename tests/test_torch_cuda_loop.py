@@ -18,6 +18,10 @@ to the uninterrupted run's, launches included. An async save's snapshot
 goes into pinned host buffers by non-blocking copies; the stream is
 synchronised before the background persist reads them, and the step after
 the save (which updates the masters in place) does not reach the files.
+
+Data parallelism on the card's one device: the lse gradient's backward
+kernels against their plain version, and ZeRO 1 at world size 1 over
+NCCL bit-equal to the engine without a process group.
 """
 
 import dataclasses
@@ -236,3 +240,71 @@ def test_async_snapshot_is_synchronised_and_owns_its_bytes(
         assert torch.equal(resumed.params[k], p), k
     assert torch.equal(resumed.opt_state.mu, mu_at_save)
     eng.close()
+
+
+def _close(got, want, tol):
+    """|got - want| <= tol + tol * |want| everywhere (chip_smoke's form)."""
+    got, want = got.float(), want.float()
+    return bool(((got - want).abs() <= tol + tol * want.abs()).all())
+
+
+@pytest.mark.parametrize("B,H,S", [(2, 4, 200), (8, 16, 1024)],
+                         ids=["small", "gpt2_medium"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_lse_gradient_kernels_match_the_plain_version(gen, B, H, S, causal):
+    """``flash_attention_with_lse`` under random output and lse cotangents
+    (bf16, D 64): the backward kernels' dq, dk, dv against the plain
+    backward on the same inputs, o and lse (2e-2, the flash backward's
+    bf16 tolerance, as chip_smoke phase 18 holds them); with a zero lse
+    cotangent, ``flash_attention``'s gradients bit for bit."""
+    q, k, v, g_out = (torch.randn(B, H, S, 64, generator=gen, device="cuda",
+                                  dtype=torch.bfloat16) for _ in range(4))
+    g_lse = torch.randn(B, H, S, generator=gen, device="cuda")
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    o, lse = flash.flash_attention_with_lse(q, k, v, causal)
+    got = torch.autograd.grad((o, lse), (q, k, v), (g_out, g_lse))
+    qd, kd, vd, od = (t.detach() for t in (q, k, v, o))
+    plain = flash.flash_attention_bwd_plain(qd, kd, vd, od, lse.detach(),
+                                            g_out, causal, g_lse=g_lse)
+    for g, w in zip(got, plain):
+        assert _close(g, w, 2e-2)
+    zero = torch.autograd.grad(flash.flash_attention_with_lse(
+        q, k, v, causal), (q, k, v), (g_out, torch.zeros_like(g_lse)))
+    ref = torch.autograd.grad(flash.flash_attention(q, k, v, causal),
+                              (q, k, v), g_out)
+    assert all(torch.equal(a, b) for a, b in zip(zero, ref))
+
+
+@pytest.mark.parametrize("opt", [
+    {"type": "Adam", "params": {"lr": 1e-3, "sweep": True}},
+    {"type": "Adam", "params": {"lr": 1e-3, "fused": True}},
+    {"type": "Lamb", "params": {"lr": 1e-3, "fused": True}},
+], ids=["sweep", "fused_adam", "fused_lamb"])
+def test_world1_nccl_engine_equals_no_process_group(gen, opt):
+    """ZeRO 1 at world size 1 over NCCL (the gradient all-reduce, the
+    partition's all-gather, LAMB's norm all-reduce, the loss average)
+    takes the steps the engine takes without a process group, bit for
+    bit: losses, masters and optimizer state."""
+    import torch.distributed as dist
+    batches = _ckpt_batches(3)
+    runs = []
+    for grouped in (False, True):
+        if grouped:
+            deepspeed_tpu_torch.init_distributed()
+        try:
+            eng = _ckpt_engine(0, opt, zero_optimization={"stage": 1})
+            losses = [eng.train_batch(batch=b) for b in batches]
+            runs.append((losses, eng))
+        finally:
+            if grouped:
+                dist.destroy_process_group()
+    (a, ea), (b, eb) = runs
+    assert eb._partition is not None and ea._partition is None
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    for k, p in ea.params.items():
+        assert torch.equal(p, eb.params[k]), k
+    mu_a, mu_b = ea.opt_state.mu, eb.opt_state.mu
+    if isinstance(mu_a, dict):
+        assert all(torch.equal(mu_a[k], mu_b[k]) for k in mu_a)
+    else:
+        assert torch.equal(mu_a, mu_b)

@@ -224,11 +224,21 @@ def test_initialize_contract_and_unported_arguments(setup):
 
 
 def test_world_size_above_one_raises(monkeypatch):
-    """ZeRO over several ranks is not ported: an engine built inside an
-    initialised process group of more than one rank raises."""
+    """Inside an initialised process group of more than one rank the
+    config is triangulated over the data-parallel world (micro-batch =
+    train_batch_size / world), and ZeRO stages 2 and 3, not ported,
+    raise. (ZeRO 0/1 at world sizes above one run in
+    tests/test_torch_dist_engine.py.)"""
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
+    base = _config()
+    del base["train_micro_batch_size_per_gpu"]
+    cfg = deepspeed_tpu_torch.DeepSpeedConfig(base)
+    assert cfg.world_size == 2
+    assert cfg.train_micro_batch_size_per_gpu == oracle.BATCH_SIZE // 2
     model = gpt2.GPT2LMHeadModel(gpt2.PRESETS["tiny"], device="cpu")
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
-        deepspeed_tpu_torch.initialize(model=model, config=_config(),
-                                       device="cpu")
+    for stage in (2, 3):
+        with pytest.raises(NotImplementedError, match="stage"):
+            deepspeed_tpu_torch.initialize(
+                model=model, config=dict(
+                    base, zero_optimization={"stage": stage}), device="cpu")

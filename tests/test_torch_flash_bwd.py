@@ -99,11 +99,20 @@ def test_attention_cpu_gradients_match_jax():
 
 
 def test_flash_attention_with_lse_stays_forward_only():
-    q, k, v, _ = _inputs(1, 1, 8, 8, 16, seed=2)
+    """The name is from when the form was forward only; it is now
+    differentiable in both outputs (tests/test_torch_flash_lse.py holds
+    its lse gradient against JAX). With no lse cotangent its gradients
+    are ``flash_attention``'s bit for bit."""
+    q, k, v, do = _inputs(1, 1, 8, 8, 16, seed=2)
     tq = torch.from_numpy(q).requires_grad_()
     o, lse = flash.flash_attention_with_lse(tq, torch.from_numpy(k),
                                             torch.from_numpy(v))
-    assert not o.requires_grad and not lse.requires_grad
+    assert o.requires_grad and lse.requires_grad
+    got = torch.autograd.grad(o, tq, torch.from_numpy(do))[0]
+    want = torch.autograd.grad(flash.flash_attention(
+        tq, torch.from_numpy(k), torch.from_numpy(v)), tq,
+        torch.from_numpy(do))[0]
+    assert torch.equal(got, want)
 
 
 # The bf16 CUDA kernels' walk (csrc/flash_bwd.cu), emulated in numpy: a CTA

@@ -21,7 +21,7 @@ from deepspeed_tpu_torch.ops.transformer import decode, flash, fused
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "deepspeed_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dist_worker.py"]
 FORBIDDEN = ("jax", "flax", "deepspeed_tpu")
 
 
@@ -74,6 +74,10 @@ def test_import_leaves_jax_out():
         "import deepspeed_tpu_torch.telemetry.tracer\n"
         "import deepspeed_tpu_torch.utils.logging\n"
         "import deepspeed_tpu_torch.runtime.dropout\n"
+        "import deepspeed_tpu_torch.runtime.zero.partition\n"
+        "import deepspeed_tpu_torch.utils.groups\n"
+        "import deepspeed_tpu_torch.ops.transformer.ring\n"
+        "import tests.torch_dist_worker\n"
         "import deepspeed_tpu_torch.runtime.activation_checkpointing."
         "checkpointing\n"
         "import deepspeed_tpu_torch.models.simple\n"
