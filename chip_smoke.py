@@ -865,10 +865,11 @@ def kernel_device_ms(torch, fn, name, iters=20):
     ``name``, from ``torch.profiler`` over ``iters`` calls of ``fn`` (no
     host time in it, where CUDA events around a short kernel can time the
     host's enqueue). Divided by the launches the profiler recorded: it
-    can drop some of a window's kernel records, or all of them, and then
-    the window is profiled again (three windows at most)."""
-    for _ in range(3):
-        evs = [ev for ev in _device_kernels(torch, fn, iters)
+    can drop some of a window's kernel records, or all of them (seen in
+    all three windows of 5 calls of the per-tensor Adam step), and then a
+    longer window is profiled (five windows at most)."""
+    for attempt in range(5):
+        evs = [ev for ev in _device_kernels(torch, fn, iters * (1 + attempt))
                if name in ev[0]]
         count = sum(ev[1] for ev in evs)
         if count:

@@ -165,9 +165,10 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     (``runtime.lr_schedules``), ``seed`` the dropout seed (JAX default
     42). The data-parallel world (``utils.groups``) goes to the config,
     as in JAX (engine.py:281-294); a pre-built ``DeepSpeedConfig`` whose
-    ``world_size`` differs raises. Each rank passes its own micro-batches
-    to the engine. Not ported yet: ``training_data`` (the dataloader) and
-    the other keywords of the JAX ``initialize``."""
+    ``world_size`` differs raises (in the engine, which owns the group).
+    Each rank passes its own micro-batches to the engine. Not ported yet:
+    ``training_data`` (the dataloader) and the other keywords of the JAX
+    ``initialize``."""
     unported = {"training_data (the dataloader)": training_data}
     unported.update({f"initialize({k}=...)": v for k, v in kwargs.items()})
     for what, value in unported.items():
@@ -185,16 +186,10 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     from deepspeed_tpu_torch.utils import groups
     if not groups.mesh_is_initialized():
         groups.initialize()
-    dp_world = groups.get_data_parallel_world_size()
-    if isinstance(config, DeepSpeedConfig):
-        if config.world_size != dp_world:
-            raise ValueError(
-                f"pre-built DeepSpeedConfig was triangulated for "
-                f"data-parallel world {config.world_size}, but the data "
-                f"group has {dp_world}")
-        cfg = config
-    else:
-        cfg = DeepSpeedConfig(config, data_parallel_size=dp_world)
+    cfg = config
+    if not isinstance(cfg, DeepSpeedConfig):
+        cfg = DeepSpeedConfig(
+            cfg, data_parallel_size=groups.get_data_parallel_world_size())
     dev = resolve_device(device)
     model = model.to(dev)
     if model_parameters is not None:

@@ -281,6 +281,11 @@ class BertForPreTraining(nn.Module):
             return logits
         return masked_next_token_ce(logits, labels)
 
+    def loss_count(self, batch):
+        """The number of masked positions the MLM loss of ``batch``
+        averages (labels ≥ 0); the engine weights a rank's loss by it."""
+        return (_unpack(batch)[1] >= 0).sum()
+
 
 def synthetic_mlm_batch(batch_size, seq_len, vocab_size, mask_prob=0.15,
                         seed=0, masked_positions_format=False, device=None):

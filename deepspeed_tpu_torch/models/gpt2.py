@@ -320,6 +320,12 @@ class GPT2LMHeadModel(nn.Module):
         shift_logits = F.linear(x[:, :-1].float(), self.wte.float())
         return masked_next_token_ce(shift_logits, shift_labels)
 
+    def loss_count(self, batch):
+        """The number of next-token terms the loss of ``batch`` averages
+        (labels ≥ 0); the engine weights a rank's loss by it."""
+        input_ids, labels = _unpack(batch)
+        return ((input_ids if labels is None else labels)[:, 1:] >= 0).sum()
+
 
 def synthetic_batch(batch_size: int, seq_len: int, vocab_size: int, seed=0,
                     device=None):

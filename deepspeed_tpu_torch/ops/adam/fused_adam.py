@@ -251,7 +251,7 @@ def fused_adam(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0,
                 optim_lib.AdamState(step=step, mu=dict(zip(keys, mu)),
                                     nu=dict(zip(keys, nu))))
 
-    return optim_lib.Optimizer(init, update)
+    return optim_lib.Optimizer(init, update, takes_slices=True)
 
 
 def adam_sweep_apply(p, g, m, v, lr, bc1, bc2, clip_coef=1.0, *, b1=0.9,

@@ -161,7 +161,8 @@ def fused_lamb(b1=0.9, b2=0.999, eps=1e-6, weight_decay=0.0, min_coeff=0.01,
                 optim_lib.LambState(step=step, mu=dict(zip(names, mu)),
                                     nu=dict(zip(names, nu))))
 
-    return optim_lib.Optimizer(init, update)
+    return optim_lib.Optimizer(init, update,
+                               takes_slices=partition is not None)
 
 
 class FusedLamb:

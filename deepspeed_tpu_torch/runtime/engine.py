@@ -179,10 +179,11 @@ class DeepSpeedEngine:
         self._reduce_grads = True  # the last backward's allreduce_gradients
 
         self.optimizer = self._configure_optimizer()
-        # the engine hands the optimizer each rank's slices (ZeRO 1), unless
-        # it cuts its own state (the sweep)
+        # the engine hands the optimizer each rank's slices (ZeRO 1) when
+        # its update acts on slices; the sweep cuts its own state, and any
+        # other optimizer (a client's) sees whole tensors
         self._sliced = self._partition is not None and \
-            not self.optimizer.partitions_state
+            self.optimizer.takes_slices
         self.opt_state = self.optimizer.init(self._local(
             {k: p.detach() for k, p in self.params.items()}))
         self.lr_scheduler, self._lr_fn = self._configure_lr_scheduler()
@@ -194,6 +195,7 @@ class DeepSpeedEngine:
         self.global_grad_norm = None
         self._last_grad_norm = None
         self._pending_loss = None
+        self._pending_weight = None     # the last forward's loss weight
         self.step_count = 0      # applied optimizer steps (indexes the lr)
         self.global_steps = 0
         self.global_samples = 0
@@ -340,6 +342,24 @@ class DeepSpeedEngine:
             off += g.numel()
         return out
 
+    def _loss_weight(self, batch):
+        """This rank's weight in the mean over the data group, n_r · world
+        / Σ n, where n_r counts the terms its loss averages (the module's
+        ``loss_count(batch)``, the labels that are not ignored): the
+        ranks' mean of the weighted losses is then the mean over the
+        global batch, as JAX's loss of a global array is, and so is the
+        average of their gradients. One scalar all-reduce a micro-step;
+        exactly 1 when the ranks hold as many terms. None without a
+        process group, or for a module without ``loss_count`` (its loss
+        averages over its rows, and every rank holds as many)."""
+        count = getattr(self.module, "loss_count", None)
+        if not self._dist or count is None:
+            return None
+        n = count(batch).to(torch.float32).reshape(())
+        total = n.clone()
+        torch.distributed.all_reduce(total, group=self.dp_group)
+        return n * float(self.dp_world_size) / total.clamp(min=1.0)
+
     def _mean_over_ranks(self, loss):
         """A device scalar averaged over the data group (no host sync)."""
         if not self._dist:
@@ -367,10 +387,13 @@ class DeepSpeedEngine:
         cparams = {k: p.to(self.compute_dtype) for k, p in self.params.items()}
         return functional_call(self.module, cparams, (batch,)).float()
 
-    def _grad_epilogue(self, grads):
+    def _grad_epilogue(self, grads, per_rank=False):
         """unscale, non-finite check, norm, clip coefficient, scale update
         (engine.py:1555-1593). Returns (grads, finite, clip_coef);
-        ``finite`` is a host bool (fp16: read from the device)."""
+        ``finite`` is a host bool (fp16: read from the device).
+        ``per_rank``: the gradients were not averaged over the data
+        group, so one rank's overflow is agreed with a MAX all-reduce
+        (averaged, a non-finite value is already on every rank)."""
         cfg = self.config
         inv_scale = 1.0 / self.scale.loss_scale
         if inv_scale != 1.0:
@@ -379,7 +402,7 @@ class DeepSpeedEngine:
         if cfg.fp16_enabled:
             flags = torch.stack([torch.isfinite(g).all()
                                  for g in grads.values()])
-            if self._dist:
+            if per_rank:
                 # one rank's overflow skips the step on every rank
                 bad = (~flags.all()).float()
                 torch.distributed.all_reduce(
@@ -439,9 +462,11 @@ class DeepSpeedEngine:
         ``micro_steps``) (engine.py:2757, 2770)."""
         if not self.module.training:
             self.module.train()
+        batch = _to_device(batch, self.device)
         with dropout_lib.key_scope(self._dropout_key()):
-            loss = self._compute_loss(_to_device(batch, self.device))
+            loss = self._compute_loss(batch)
         self._pending_loss = loss
+        self._pending_weight = self._loss_weight(batch)
         return loss
 
     def backward(self, loss=None, allreduce_gradients=True,
@@ -453,17 +478,22 @@ class DeepSpeedEngine:
         ``train_batch`` at gas 1. Advances ``micro_steps`` (engine.py:3022).
         With a process group the gradients are averaged over the data
         group: each micro-step's before the cast into the buffer, else
-        the accumulated ones at ``step()``. ``allreduce_gradients=False``
-        skips that averaging (for this micro-step's buffer cast, or at the
-        boundary ``step()`` after this call), as the reference's flag
-        does; :meth:`allreduce_gradients` runs it by hand.
-        ``release_loss`` is the reference's signature."""
+        the accumulated ones at ``step()``; the last ``forward``'s loss
+        is weighted first by the rank's share of the global batch's terms
+        (:meth:`_loss_weight`). ``allreduce_gradients=False`` skips that
+        averaging (for this micro-step's buffer cast, or at the boundary
+        ``step()`` after this call), as the reference's flag does;
+        :meth:`allreduce_gradients` runs it by hand. ``release_loss`` is
+        the reference's signature."""
         if loss is None:
             loss = self._pending_loss
         if loss is None:
             raise RuntimeError("backward() requires a prior forward()")
+        weighted = loss
+        if loss is self._pending_loss and self._pending_weight is not None:
+            weighted = loss * self._pending_weight
         scale = self.scale.loss_scale / self.gradient_accumulation_steps()
-        (loss * scale).backward()
+        (weighted * scale).backward()
         self._reduce_grads = bool(allreduce_gradients)
         if self._acc_dtype is not None and not self._fused_gas1:
             with torch.no_grad():
@@ -478,7 +508,7 @@ class DeepSpeedEngine:
                                         [grads[k] for k in self._acc])
             for p in self.params.values():
                 p.grad = None
-        self._pending_loss = None
+        self._pending_loss = self._pending_weight = None
         self.micro_steps += 1
         return loss
 
@@ -489,21 +519,22 @@ class DeepSpeedEngine:
         then the scheduler (which does not advance on a skipped step)."""
         if not self.is_gradient_accumulation_boundary():
             return
-        averaged = True      # the buffer holds averaged micro-steps
+        # fp32 .grad is averaged here, unless the last backward said not
+        # to; the buffer's micro-steps were averaged before their cast
+        average_now = self._dist and self._acc is None and self._reduce_grads
         if self._acc is not None:
             # the buffer, read back in fp32 and reset (engine.py:1596-1600)
             for k, p in self.params.items():
                 p.grad = self._acc[k].float()
             self._acc = None
-        else:
-            averaged = not self._reduce_grads
         if all(p.grad is None for p in self.params.values()):
             raise RuntimeError("step() on the accumulation boundary needs "
                                "the gradients of backward()")
         grads = {k: _grad_of(k, p) for k, p in self.params.items()}
-        if self._dist and not averaged:
+        if average_now:
             grads = self._average(grads)
-        grads, finite, clip_coef = self._grad_epilogue(grads)
+        grads, finite, clip_coef = self._grad_epilogue(
+            grads, per_rank=self._dist and not self._reduce_grads)
         if finite:
             self._apply_update(grads, clip_coef)
         self.global_steps += 1
@@ -529,8 +560,8 @@ class DeepSpeedEngine:
         then ``step`` (engine.py:3316-3345). At gas 1 the gradients skip
         the ``gradient_accumulation_dtype`` buffer, as the JAX fused gas-1
         step does (engine.py:1702). Returns the mean micro-batch loss as a
-        device fp32 scalar, averaged over the data group's ranks (each
-        passes its own micro-batches)."""
+        device fp32 scalar; over a data group each micro-batch's is the
+        global micro-batch's (each rank passes its own rows)."""
         if data_iter is None and batch is None:
             raise ValueError("train_batch needs data_iter or batch")
         gas = self.gradient_accumulation_steps()
@@ -540,8 +571,10 @@ class DeepSpeedEngine:
             for _ in range(gas):
                 micro = batch if batch is not None else next(data_iter)
                 loss = self.forward(micro)
+                weight = self._pending_weight
                 self.backward(loss)
-                losses.append(loss.detach())
+                losses.append((loss if weight is None
+                               else loss * weight).detach())
             self.step()
         finally:
             self._fused_gas1 = False
@@ -549,14 +582,17 @@ class DeepSpeedEngine:
 
     def eval_batch(self, batch):
         """The loss of ``batch`` without gradients or dropout, the module
-        in eval mode for the call (engine.py:3401), averaged over the data
-        group's ranks."""
+        in eval mode for the call (engine.py:3401); over a data group the
+        loss of the ranks' batches together."""
         was_training = self.module.training
         self.module.eval()
         try:
             with torch.no_grad(), dropout_lib.key_scope(None):
+                batch = _to_device(batch, self.device)
+                loss = self._compute_loss(batch)
+                weight = self._loss_weight(batch)
                 return self._mean_over_ranks(
-                    self._compute_loss(_to_device(batch, self.device)))
+                    loss if weight is None else loss * weight)
         finally:
             self.module.train(was_training)
 
@@ -625,13 +661,14 @@ class DeepSpeedEngine:
         """The key paths of the optimizer state's leaves."""
         return [path for path, _, _ in self._opt_items(state)]
 
-    def _box(self, name):
+    def _box(self, name, sliced=True):
         """The torch-layout index box of parameter ``name`` this rank
         writes, or None (another rank writes it): its ZeRO-1 slice, or
         the whole tensor on rank 0 (every tensor without a process
-        group)."""
+        group, or with ``sliced`` False: an optimizer state the rank
+        keeps whole)."""
         part = self._partition
-        if part is not None and part.sharded(name):
+        if sliced and part is not None and part.sharded(name):
             return part.box(name)
         if self.dp_rank != 0:
             return None
@@ -782,7 +819,7 @@ class DeepSpeedEngine:
                 elif name is not None:
                     # a sliced state holds this rank's slices; else the
                     # whole tensors, which rank 0 writes
-                    box = self._box(name)
+                    box = self._box(name, sliced=self._sliced)
                     if box is None:
                         continue
                     t, key, full = self._flax_record(name, val, box)

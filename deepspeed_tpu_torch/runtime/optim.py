@@ -25,12 +25,17 @@ class Optimizer(NamedTuple):
     fuses_clip: bool = False
     # partitions_state: the optimizer cuts its state by the ZeRO-1
     # partition it was built with (the sweep's flat chunks) and gathers
-    # its own updates; the engine hands it whole gradients and params.
-    # Otherwise, at ZeRO 1 over a process group, the engine hands it each
-    # rank's slices (``runtime/zero/partition.py``) and gathers the
-    # updates, so its update must act on a tensor's slice as on the whole
-    # tensor, elementwise (LAMB's norms take ``partition=``)
+    # its own updates; the engine hands it whole gradients and params
     partitions_state: bool = False
+    # takes_slices: the update acts on a tensor's slice as on the whole
+    # tensor (elementwise, or LAMB built with ``partition=``, which sums
+    # its norms over the ranks). At ZeRO 1 over a process group the
+    # engine then hands it each rank's slices (``runtime/zero/
+    # partition.py``) and gathers the updates. Otherwise (a client
+    # optimizer by default) it gets whole tensors and keeps its state
+    # whole on every rank: under JAX's GSPMD a client's math sees whole
+    # tensors too
+    takes_slices: bool = False
 
 
 class AdamState(NamedTuple):
@@ -82,7 +87,7 @@ def adam(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0, adam_w_mode=True,
             updates[k] = u
         return updates, AdamState(step=step, mu=mu, nu=nu)
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, takes_slices=True)
 
 
 class LambState(NamedTuple):
@@ -150,7 +155,8 @@ def lamb(b1=0.9, b2=0.999, eps=1e-6, weight_decay=0.0, min_coeff=0.01,
                 updates[k] = -lr * ratio[i] * updates[k]
         return updates, LambState(step=step, mu=mu, nu=nu)
 
-    return Optimizer(init, update)
+    return Optimizer(init, update,
+                     takes_slices=partition is not None)
 
 
 class SGDState(NamedTuple):
@@ -181,7 +187,7 @@ def sgd(momentum=0.0, weight_decay=0.0, nesterov=False):
             upd = {k: -lr * b for k, b in buf.items()}
         return upd, SGDState(momentum=buf)
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, takes_slices=True)
 
 
 class AdagradState(NamedTuple):
@@ -207,7 +213,7 @@ def adagrad(eps=1e-8, weight_decay=0.0, initial_accumulator_value=0.0):
                    for k, g in grads.items()}
         return updates, AdagradState(accum=accum)
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, takes_slices=True)
 
 
 class FlatTreeSpec(NamedTuple):

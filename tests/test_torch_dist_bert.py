@@ -4,16 +4,15 @@ rank only, the dropout masks a rank draws, and the refusals. gloo ranks
 spawned by ``tests/torch_dist_worker.py`` against the JAX engine on a 2-
 and a 4-device mesh, on the CPU.
 
-The BERT batches are in the reference pretraining format, a fixed number
-of masked positions a row (``masked_positions`` / ``masked_labels``). The
-port averages the ranks' gradients, as DeepSpeed does, and each rank's
-loss is the mean over its own masked positions; JAX takes the mean over
-the global batch's. The two agree when every rank's rows hold as many
-masked positions, as here; with ``-100`` labels masked at random they
-differ by the ranks' count imbalance (README, "Data parallelism").
-Tolerances: fp32 losses and masters at rtol = atol = 1e-4
-(``tests/test_torch_engine.py``'s); fp16 at its single-rank test's
-envelope, rtol 0.03 / atol 0.08.
+The BERT batches mask 15% of the positions at random (``-100`` labels
+elsewhere), so the ranks' rows hold different numbers of labels: the
+engine weights each rank's loss by its share of the global batch's
+labels, and the losses and gradients are the global batch's mean, as
+JAX's. Each case runs at ZeRO 0 and 1, fused and plain LAMB, and each
+is held to the JAX engine; JAX's update does not depend on the stage,
+so one JAX run serves them all. Tolerances: fp32 losses and masters at
+rtol = atol = 1e-4 (``tests/test_torch_engine.py``'s); fp16 at its
+single-rank test's envelope, rtol 0.03 / atol 0.08.
 """
 
 import copy
@@ -71,7 +70,7 @@ MODELS = {"bert": oracle.TINY_BERT, "sparse": oracle.TINY_BERT_SPARSE}
 def _bert_batches():
     return [{k: np.asarray(v) for k, v in jax_bert.synthetic_mlm_batch(
         oracle.BATCH_SIZE, oracle.SEQ_LEN, oracle.TINY_BERT["vocab_size"],
-        seed=1000 + s, masked_positions_format=True).items()}
+        seed=1000 + s).items()}
         for s in range(STEPS)]
 
 
@@ -118,36 +117,61 @@ def _port_case(kind, cfg, setup):
         return dict(model="embedding", model_cfg=EMB, config=cfg, init=init,
                     batches=batches)
     return dict(model="bert", model_cfg=MODELS[kind], config=cfg, init=init,
-                batches=batches)
+                batches=batches, eval=True)
 
 
 @pytest.fixture(scope="module")
 def port(setup, tmp_path_factory):
-    """{world: {case: [rank results]}}, plus each world's dropout masks
-    and refusals: one spawn a world size."""
+    """{world: {case: [rank results]}}, with the dropout masks and the
+    refusals in the world-2 spawn: one spawn a world size."""
     out = {}
     for world in WORLDS:
         names = [n for n, c in CASES.items() if world in c[3]]
         cases = [_port_case(CASES[n][0], CASES[n][2], setup) for n in names]
+        if world == 2:
+            # fp16 without averaging, at ZeRO 0: each rank steps on its
+            # own gradients, and one rank's overflow still skips every rank
+            names.append("fp16_one_rank_overflows_no_allreduce")
+            cases.append(dict(_port_case("embedding", dict(
+                FP16, zero_optimization={"stage": 0}), setup),
+                no_allreduce=True))
+            names.append("dropout")
+            cases.append(dict(kind="dropout", seed=42, micro_step=3, p=0.1))
+            bert_cfg = dict(_lamb(False, 1))
+            for stage in (2, 3):
+                names.append(f"refuse_stage{stage}")
+                cases.append(dict(kind="refusal", model="gpt2", config=dict(
+                    bert_cfg, zero_optimization={"stage": stage})))
+            names.append("refuse_ring")
+            cases.append(dict(kind="refusal", model="gpt2", model_cfg={
+                "attention_mode": "ring:data"}, config=bert_cfg))
         res = worker.run("engine", world,
                          str(tmp_path_factory.mktemp(f"bert{world}")), cases)
         assert all(r["jax_modules"] == [] for r in res)
         out[world] = {n: [r["cases"][i] for r in res]
                       for i, n in enumerate(names)}
-    root = str(tmp_path_factory.mktemp("dropout"))
-    out["dropout"] = [r["cases"][0] for r in worker.run(
-        "dropout", 2, root, [dict(seed=42, micro_step=3, p=0.1)])]
-    bert_cfg = dict(_lamb(False, 1))
-    refusals = [dict(model="gpt2", config=dict(
-        bert_cfg, zero_optimization={"stage": s})) for s in (2, 3)]
-    refusals.append(dict(model="gpt2", model_cfg={
-        "attention_mode": "ring:data"}, config=bert_cfg))
-    out["refusals"] = [r["cases"] for r in worker.run(
-        "refusal", 2, str(tmp_path_factory.mktemp("refusal")), refusals)]
+    out["dropout"] = out[2]["dropout"]
+    out["refusals"] = [[out[2][n][r] for n in ("refuse_stage2",
+                                                "refuse_stage3",
+                                                "refuse_ring")]
+                       for r in range(2)]
     return out
 
 
+_JAX_RUNS = {}
+
+
 def _jax_engine(kind, cfg, ndev, batches):
+    """The JAX engine's run on an ``ndev``-device mesh, once for the ZeRO
+    stages of one configuration."""
+    cfg = dict(cfg, zero_optimization={"stage": 1})
+    key = (kind, repr(sorted(cfg.items())), ndev)
+    if key not in _JAX_RUNS:
+        _JAX_RUNS[key] = _run_jax_engine(kind, cfg, ndev, batches)
+    return _JAX_RUNS[key]
+
+
+def _run_jax_engine(kind, cfg, ndev, batches):
     groups.destroy()
     groups.initialize(devices=jax.devices()[:ndev])
     engine, *_ = deepspeed_tpu.initialize(
@@ -158,28 +182,32 @@ def _jax_engine(kind, cfg, ndev, batches):
              else bert_flax_to_state_dict)
     params = to_sd(jax.tree.map(np.asarray, engine.state.params))
     return (losses, {k: v.numpy() for k, v in params.items()},
-            int(engine.skipped_steps), float(engine.loss_scale))
+            int(engine.skipped_steps), float(engine.loss_scale),
+            float(engine.eval_batch(batches[0])))
 
 
-# against the JAX engine: fused LAMB at ZeRO 1 and the fp16 overflow on
-# the 2- and the 4-device mesh, sparse BERT on the 2-device one; ZeRO 0
-# and plain LAMB are held to the port's fused ZeRO-1 run below
-JAX_PAIRS = [(n, w) for w in WORLDS for n in (
-    "bert_fused_lamb_zero1", "fp16_one_rank_overflows")] + [
-    ("sparse_bert_fused_lamb_zero1", 2)]
+# against the JAX engine on the 2- and the 4-device mesh (plain LAMB and
+# sparse BERT on the 2-device one)
+JAX_PAIRS = [(n, w) for w in WORLDS for n, c in CASES.items() if w in c[3]]
 
 
 @pytest.mark.parametrize("name,world", JAX_PAIRS)
 def test_matches_jax_engine_on_a_mesh(setup, port, name, world):
     kind, jax_cfg = CASES[name][:2]
     batches = setup[kind][0]
-    want_losses, want_params, want_skipped, want_scale = _jax_engine(
-        kind, jax_cfg, world, batches)
+    want_losses, want_params, want_skipped, want_scale, want_eval = \
+        _jax_engine(kind, jax_cfg, world, batches)
     ranks = port[world][name]
     got = ranks[0]
     for r in ranks[1:]:
         for k, p in got["params"].items():
             assert np.array_equal(r["params"][k], p), k
+    if kind != "embedding":
+        # the ranks' rows hold different numbers of labels
+        counts = {int((worker.rank_rows(b, r, world, 1, 0)["labels"] >= 0)
+                      .sum()) for b in batches for r in range(world)}
+        assert len(counts) > 1
+        np.testing.assert_allclose(got["eval"], want_eval, **TOL)
     tol = TOL
     if kind == "embedding":
         # both engines skip the step one rank overflowed (hysteresis 2:
@@ -195,6 +223,21 @@ def test_matches_jax_engine_on_a_mesh(setup, port, name, world):
     np.testing.assert_allclose(got["losses"], want_losses, **tol)
     for k, w in want_params.items():
         np.testing.assert_allclose(got["params"][k], w, err_msg=k, **tol)
+
+
+def test_fp16_overflow_without_averaging_skips_on_every_rank(port):
+    """``backward(allreduce_gradients=False)`` then ``step()`` at ZeRO 0:
+    each rank steps on its own gradients, so only the last rank's
+    overflow; the flag is agreed over the group (MAX), and both ranks
+    skip step 1 and keep the same loss scale."""
+    ranks = port[2]["fp16_one_rank_overflows_no_allreduce"]
+    assert [r["skipped"] for r in ranks] == [1, 1]
+    assert ranks[0]["loss_scale"] == ranks[1]["loss_scale"]
+    assert np.isfinite(ranks[0]["losses"][1])
+    assert not np.isfinite(ranks[1]["losses"][1])
+    # the masters differ: nothing averaged the ranks' gradients
+    assert any(not np.array_equal(ranks[0]["params"][k], p)
+               for k, p in ranks[1]["params"].items())
 
 
 def _mask_before(seed, micro_step, site, p, shape):

@@ -79,9 +79,9 @@ def _assert_params(got, want, **tol):
 
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
-    """Every save and load, in three spawns (world 2 saves and loads
-    JAX's tags; world 4 loads; world 2 tag validation), the JAX engines
-    in this process, and the port at world 1."""
+    """Every save and load, in two spawns (world 2 saves, loads JAX's
+    tags and validates tags; world 4 loads), the JAX engines in this
+    process, and the port at world 1."""
     root = str(tmp_path_factory.mktemp("ckpt"))
     batches = [{"input_ids": np.array(b["input_ids"])}
                for b in oracle.make_batches(4)]
@@ -151,12 +151,12 @@ def run(tmp_path_factory):
                   ckpt={"tag_validation": "Warn"}),
              case("sweep", save=True, tag="ignore", rank_steps=True,
                   ckpt={"tag_validation": "Ignore"})]
-    for name, world, cases in (("w2", 2, w2), ("w4", 4, w4),
-                               ("valid", 2, valid)):
+    for name, world, cases in (("w2", 2, w2 + valid), ("w4", 4, w4)):
         res = worker.run("checkpoint", world,
                          str(tmp_path_factory.mktemp(name)), cases)
         assert all(r["jax_modules"] == [] for r in res)
         out[name] = [[r["cases"][i] for r in res] for i in range(len(cases))]
+    out["valid"] = out["w2"][len(w2):]
 
     # the JAX engine on a 2-device mesh loads the port's world-2 tags
     jax_loads = {}

@@ -10,10 +10,12 @@ GPT-2 from the flax init, 4 steps a case, bs 8 × seq 32. Tolerances are
 ``tests/test_torch_engine.py``'s: fp32 losses and masters at rtol = atol
 = 1e-4 (the Adam forms' normalised update turns a last-bit difference of
 two gradient sums into ~1e-5); the bf16 accumulator's losses at 1e-5 and
-masters at atol 1e-4, as its single-rank test. Every rank's masters must
-be equal, the optimizer state at ZeRO 1 a world'th of ZeRO 0's (up to the
-replicated tensors), and world 2 equal to the port's own world 1 on the
-same global batches.
+masters at atol 1e-4, as its single-rank test. Every case runs at ZeRO 0
+and ZeRO 1 and each is held to the JAX engine; JAX's update does not
+depend on the stage, so one JAX run serves both. Every rank's masters
+must be equal, the optimizer state at ZeRO 1 a world'th of ZeRO 0's (up
+to the replicated tensors), and world 2 equal to the port's own world 1
+on the same global batches.
 """
 
 import copy
@@ -105,9 +107,11 @@ def port(setup, tmp_path_factory):
     cases = [dict(model="gpt2", config=CASES[n][1], init=init,
                   batches=batches, eval=True) for n in names]
     cases.append(dict(model="gpt2", config=CASES["sgd_zero1"][1], init=init,
-                      batches=batches, client_sgd=True))
+                      batches=batches, client="sgd"))
     cases.append(dict(model="gpt2", config=CASES["sgd_zero1"][1], init=init,
                       batches=batches, manual_allreduce=True))
+    cases.append(dict(model="gpt2", config=CLIENT_LAMB_CONFIG, init=init,
+                      batches=batches, client="lamb"))
     out = {}
     for world in WORLDS:
         res = worker.run("engine", world,
@@ -116,11 +120,25 @@ def port(setup, tmp_path_factory):
         assert all(r["jax_modules"] == [] for r in res)
         out[world] = {n: [r["cases"][i] for r in res]
                       for i, n in enumerate(names + ["client_sgd_zero1",
-                                                     "manual_allreduce"])}
+                                                     "manual_allreduce",
+                                                     "client_lamb_zero1"])}
     return out
 
 
+_JAX_RUNS = {}
+
+
 def _jax_engine(cfg, ndev, batches):
+    """The JAX engine's losses and masters on an ``ndev``-device mesh,
+    run once for the ZeRO stages of one configuration."""
+    cfg = dict(cfg, zero_optimization={"stage": 1})
+    key = (repr(sorted(cfg.items())), ndev)
+    if key not in _JAX_RUNS:
+        _JAX_RUNS[key] = _run_jax_engine(cfg, ndev, batches)
+    return _JAX_RUNS[key]
+
+
+def _run_jax_engine(cfg, ndev, batches):
     groups.destroy()
     groups.initialize(devices=jax.devices()[:ndev])
     engine, *_ = deepspeed_tpu.initialize(
@@ -143,10 +161,9 @@ def _assert_params(got, want, **tol):
         np.testing.assert_allclose(got[k], w, err_msg=k, **tol)
 
 
-# against JAX's 2- and 4-device meshes (MoQ on the 2-device one); ZeRO 0
-# is held bit-equal to ZeRO 1 at both world sizes below
+# against JAX's 2- and 4-device meshes (MoQ on the 2-device one)
 JAX_PAIRS = [(n, w) for w in WORLDS for n in CASES
-             if "zero0" not in n and (w == 2 or n != "moq_zero1")]
+             if w == 2 or n != "moq_zero1"]
 
 
 @pytest.mark.parametrize("name,world", JAX_PAIRS)
@@ -237,9 +254,10 @@ def test_world2_equals_the_port_at_world1(setup, port):
 
 @pytest.mark.parametrize("world", WORLDS)
 def test_client_optimizer_runs_on_slices(port, world):
-    """A client ``Optimizer(init, update)`` at ZeRO 1 is handed each
-    rank's slices, as JAX's sharding rules shard any optimizer's
-    param-shaped state: client SGD equals the config's SGD bit for bit."""
+    """A client ``Optimizer(init, update)`` that declares
+    ``takes_slices`` (an elementwise update, as ``optim.sgd``'s) is handed
+    each rank's slices at ZeRO 1: client SGD equals the config's SGD bit
+    for bit, with as little state."""
     client = port[world]["client_sgd_zero1"][0]
     config = port[world]["sgd_zero1"][0]
     assert client["losses"] == config["losses"]
@@ -258,6 +276,44 @@ def test_backward_without_allreduce_then_allreduce_gradients(port, world):
     assert manual["losses"] == auto["losses"]
     for k, p in auto["params"].items():
         assert np.array_equal(manual["params"][k], p), k
+
+
+CLIENT_LAMB_CONFIG = _config({"type": "Adam", "params": {"lr": 2e-3}})
+
+
+def test_client_optimizer_with_norms_sees_whole_tensors(setup, port):
+    """A client optimizer that does not declare ``takes_slices`` (here
+    LAMB without ``partition=``, whose trust ratio is a per-tensor norm)
+    gets whole tensors at ZeRO 1 and keeps its state whole on every rank,
+    as under JAX's GSPMD its math sees whole tensors: world 2 and 4 take
+    the steps of world 1."""
+    from deepspeed_tpu_torch.runtime import optim
+    batches, init = setup
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=worker.make_model({"model": "gpt2"}),
+        config=copy.deepcopy(CLIENT_LAMB_CONFIG), model_parameters=init,
+        device="cpu", optimizer=optim.lamb(weight_decay=0.01))
+    losses = [float(engine.train_batch(batch=b)) for b in batches]
+    want = {k: p.detach().numpy() for k, p in engine.params.items()}
+    n = sum(p.size for p in want.values())
+    for world in WORLDS:
+        got = port[world]["client_lamb_zero1"]
+        for r in got:
+            np.testing.assert_allclose(r["losses"], losses, **TOL)
+            _assert_params(r["params"], want, **TOL)
+            # mu and nu of every whole tensor
+            assert r["state_numel"] == 2 * n
+
+
+def test_a_prebuilt_config_of_another_world_raises():
+    """A ``DeepSpeedConfig`` triangulated for a data-parallel world the
+    group does not have raises in the engine."""
+    from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+    cfg = DeepSpeedConfig(_config(SGD), data_parallel_size=2)
+    with pytest.raises(ValueError, match="data-parallel world 2"):
+        deepspeed_tpu_torch.initialize(
+            model=worker.make_model({"model": "gpt2"}), config=cfg,
+            device="cpu")
 
 
 def test_groups_without_a_process_group():
