@@ -216,6 +216,27 @@ Phases, each fatal on failure:
    ``flash_attention``'s; ring and Ulysses
    attention at world 1 bit-equal to ``flash_attention``, forward and
    gradients. The process group is destroyed at the end.
+19. MoE-GPT at full width, nothing cut (``bench.py``'s ``gpt2-moe`` row,
+   bench.py:158-160, 226-232): GPT-2 small (12 x 768, 12 heads, vocab
+   50304 padded) with 8 experts, top-1, on every 2nd block (6 MoE
+   blocks), capacity factor 1.25, bs 8 x 1024, ZeRO 0, Adam (the sweep),
+   bf16 over fp32 masters, clip 1.0, the scatter impl: 10 steps with
+   exactly 12 flash_fwd, 12 dq, 12 dkv and 1 adam a step (step ms, tokens
+   /s, MFU with bench.py:551-557's MoE accounting, peak memory, the idle
+   share of a profiled step, the last step's exp_counts a layer and its
+   dropped share); a save whose tag holds 48 expert files, then a fresh
+   engine from another seed resumes bit-equal (losses, masters, the
+   sweep's moments); ``init_inference(moe=True, checkpoint=)`` on that tag
+   generates 8 x 896 prompts, 64 new (12 flash_fwd and 12 decode launches
+   a token after the first; prefill and decode ms/token), and in fp32 its
+   greedy tokens (8 x 128, 16 new) equal a plain-attention run's; on 2
+   full-width layers the scatter and einsum impls give the same loss bit
+   for bit (gradients within 1e-2 relative L2), grouped within 0.02 and
+   2e-2, and in fp32 the kernels' loss and gradients within 1e-4 and
+   1e-3 (relative L2) of the plain versions'; top-2 takes 3
+   finite, falling steps; world 1 over NCCL, with the default groups and
+   with ``ep_size=1``, is bit-equal to no process group (ep > 1 needs
+   more than one card; the line says so).
 
 Prints an ``e2e`` JSON line, a ``train`` JSON line, a ``bert`` JSON line,
 a ``moq`` JSON line, an ``int8`` JSON line, a ``sparse`` JSON line, a
@@ -229,7 +250,8 @@ the persist ran beside phase 6's median, the bytes the phase wrote, per
 model the losses and launches), a ``dp`` JSON line (per model the NCCL
 world-1 losses, step ms beside the no-group run's and the phase median,
 the bit-equality checks and launches; the checkpoint's numbers and the
-sweep-moment gather; the lse-gradient errors; ring / Ulysses), a
+sweep-moment gather; the lse-gradient errors; ring / Ulysses), a ``moe``
+JSON line (phase 19's figures and checks, its launches by kernel row), a
 ``kernels`` JSON line (the softmax, on no path as in the JAX package,
 with 0 launches, and its C entry's and ``torch.softmax``'s device times
 from the profiler; the decode rows' ``single_stream`` and
@@ -3806,6 +3828,392 @@ def dp_phase(torch, deepspeed_tpu_torch, gpt2, bert, flash, ring,
     return line, rows
 
 
+# phase 19, MoE-GPT (bench.py's gpt2-moe row, nothing cut): GPT-2 small
+# (12 x 768, 12 heads, vocab 50304 padded) with 8 experts, top-1, on every
+# 2nd block (6 MoE blocks), capacity factor 1.25, bs 8 x 1024, ZeRO 0,
+# Adam (the sweep), bf16 over fp32 masters (bench.py:158-160, 226-232)
+MOE_EXPERTS, MOE_CF = 8, 1.25
+MOE_STEPS, MOE_TOP2_STEPS, MOE_RESUME_STEPS = 10, 3, 2
+MOE_NEW = 64                  # new tokens of the generation (phase 4's)
+MOE_CHECK_PROMPT, MOE_CHECK_NEW = 128, 16
+
+
+def moe_config(gpt2, **over):
+    import dataclasses
+    return dataclasses.replace(gpt2.PRESETS["gpt2"], **{
+        "moe_num_experts": MOE_EXPERTS, "moe_expert_interval": 2,
+        "moe_k": 1, "moe_capacity_factor": MOE_CF,
+        "moe_dispatch_impl": "scatter", **over})
+
+
+def moe_train_config():
+    return {"train_batch_size": B, "train_micro_batch_size_per_gpu": B,
+            "steps_per_print": 10 ** 9, "bf16": {"enabled": True},
+            "zero_optimization": {"stage": 0}, "gradient_clipping": 1.0,
+            "optimizer": {"type": "Adam", "params": {"lr": LR,
+                                                     "sweep": True}}}
+
+
+class ExpertCounts:
+    """Forward hooks on the MoE layers that keep each call's exp_counts
+    while ``on``."""
+
+    def __init__(self, model, moe_layer_cls):
+        self.on, self.counts = False, []
+        self.handles = [m.register_forward_hook(self._hook)
+                        for m in model.modules()
+                        if isinstance(m, moe_layer_cls)]
+
+    def _hook(self, module, args, out):
+        if self.on:
+            self.counts.append(out[2].detach())
+
+    def remove(self):
+        for h in self.handles:
+            h.remove()
+
+
+def moe_drop_share(counts, tokens, experts, cf, k=1):
+    """The share of routed tokens over capacity, from each layer's
+    exp_counts (top-1: every count above C is a dropped token)."""
+    cap = max(math.ceil(tokens / experts * cf * k), 4)
+    over = sum(float((c - cap).clamp(min=0).sum()) for c in counts)
+    return over / (len(counts) * tokens * k), cap
+
+
+def moe_impl_parity(torch, deepspeed_tpu_torch, gpt2, attn_mod, decode,
+                    fused_adam, batch):
+    """A 2-layer full-width MoE model (one MoE block): one micro-batch's
+    loss and gradients in bf16 with the scatter, einsum and grouped impls
+    on the kernels; then scatter in fp32 on the kernels and on the plain
+    versions. Tolerances: scatter = einsum bit for bit in the loss (each
+    token has one slot, so the one-hot products add exact zeros), the
+    gradients within 1e-2 relative in L2 (the backward's reductions
+    differ); grouped within 0.02 of the loss and 2e-2 of the gradients
+    (its GEMMs run on the routed rows only). The kernels against the
+    plain versions run in fp32 (loss within 1e-4, gradients within 1e-3
+    relative in L2): in bf16 a gate's argmax flips for the tokens whose
+    top two logits lie within the attention routes' rounding, and a
+    flipped token moves its expert's gradient (0.089 relative in L2 on
+    this model, on an NVIDIA H100 80GB HBM3 at 700 W), which says nothing
+    of the kernels."""
+
+    def one(impl, plain=False, fp32=False):
+        config = moe_train_config()
+        if fp32:
+            del config["bf16"]
+        engine, *_ = deepspeed_tpu_torch.initialize(
+            model=gpt2.GPT2LMHeadModel(moe_config(
+                gpt2, n_layer=2, moe_dispatch_impl=impl), seed=5),
+            config=config)
+        ctx = (plain_training(gpt2, attn_mod, decode, fused_adam) if plain
+               else contextlib.nullcontext())
+        with ctx:
+            loss = engine.forward(batch)
+            engine.backward(loss)
+        grads = {k: p.grad.clone() for k, p in engine.params.items()}
+        del engine
+        torch.cuda.empty_cache()
+        return loss.item(), grads
+
+    def rel(a, b):
+        num = sum((a[k] - b[k]).square().sum() for k in b)
+        return (num / sum(b[k].square().sum() for k in b)).sqrt().item()
+
+    runs = {impl: one(impl) for impl in ("scatter", "einsum", "grouped")}
+    base_loss, base_grads = runs["scatter"]
+    out = {name: {"loss": loss, "loss_abs_err": abs(loss - base_loss),
+                  "grad_rel_l2": rel(grads, base_grads)}
+           for name, (loss, grads) in runs.items() if name != "scatter"}
+    out["scatter_loss"] = base_loss
+    out["scatter_einsum_loss_bit_equal"] = runs["einsum"][0] == base_loss
+    k_loss, k_grads = one("scatter", fp32=True)
+    p_loss, p_grads = one("scatter", plain=True, fp32=True)
+    out["fp32_kernels_vs_plain"] = {
+        "loss": k_loss, "loss_abs_err": abs(k_loss - p_loss),
+        "grad_rel_l2": rel(k_grads, p_grads)}
+    print(f"moe impl parity 2-layer: {json.dumps(out)}", flush=True)
+    plain = out["fp32_kernels_vs_plain"]
+    if not (out["scatter_einsum_loss_bit_equal"]
+            and out["einsum"]["grad_rel_l2"] <= 1e-2
+            and out["grouped"]["loss_abs_err"] <= 0.02
+            and out["grouped"]["grad_rel_l2"] <= 2e-2
+            and plain["loss_abs_err"] <= 1e-4
+            and plain["grad_rel_l2"] <= 1e-3):
+        raise AssertionError(f"MoE dispatch impls disagree: {out}")
+    return out
+
+
+def moe_resume(torch, deepspeed_tpu_torch, gpt2, op_builder, engine, batch,
+               root):
+    """Save the engine's tag, take MOE_RESUME_STEPS steps; a fresh engine
+    from another init seed loads the tag and takes them too: losses,
+    masters and the sweep's moments bit-equal. Returns (line, tag path,
+    launches)."""
+    from deepspeed_tpu_torch.runtime import checkpoint_io
+    t0 = time.perf_counter()
+    engine.save_checkpoint(root, tag="moe")
+    save_s = time.perf_counter() - t0
+    tag_dir = os.path.join(root, "moe")
+    files = sorted(os.listdir(tag_dir))
+    experts = [f for f in files if f.startswith("layer_")]
+    sd = checkpoint_io.load_file(os.path.join(
+        tag_dir, "mp_rank_00_model_states.pt"))
+    op_builder.reset_launch_counts()
+    ref, _ = run_steps(torch, engine, batch, MOE_RESUME_STEPS)
+    masters = {k: p.detach().clone() for k, p in engine.params.items()}
+    state = engine.opt_state
+    fresh, *_ = deepspeed_tpu_torch.initialize(
+        model=gpt2.GPT2LMHeadModel(moe_config(gpt2), seed=1),
+        config=moe_train_config())
+    t0 = time.perf_counter()
+    fresh.load_checkpoint(root, tag="moe")
+    load_s = time.perf_counter() - t0
+    got, _ = run_steps(torch, fresh, batch, MOE_RESUME_STEPS)
+    counts = dict(op_builder.LAUNCHES)
+    equal = {"losses": got == ref,
+             "masters": all(torch.equal(fresh.params[k], masters[k])
+                            for k in masters),
+             "moments": same_state(torch, fresh.opt_state, state)}
+    line = {"expert_files": len(experts), "files": len(files),
+            "moe_layer_prefixes": sd["moe_layer_prefixes"],
+            "moe_expert_counts": sd["moe_expert_counts"],
+            "save_s": save_s, "load_s": load_s, "losses": ref,
+            "resumed_losses": got, "bit_equal": equal}
+    print(f"moe resume: {json.dumps(line)}", flush=True)
+    if len(experts) != 6 * MOE_EXPERTS or not all(equal.values()):
+        raise AssertionError(f"MoE resume failed: {line}")
+    del fresh
+    torch.cuda.empty_cache()
+    return line, os.path.join(tag_dir, "mp_rank_00_model_states.pt"), counts
+
+
+def moe_generation(torch, deepspeed_tpu_torch, gpt2, attn_mod, decode,
+                   op_builder, path):
+    """``init_inference(moe=True, checkpoint=)`` on the tag: bf16 greedy
+    generation at phase 4's shape (8 x 896, 64 new; its launches counted
+    and returned), timed; then fp32 greedy tokens (8 x 128, 16 new) on the
+    kernels equal to a plain-attention run's. Returns (line, launches)."""
+    cfg = moe_config(gpt2)
+    ids = gpt2.synthetic_batch(B, 896, cfg.vocab_size, seed=1)["input_ids"]
+    eng = deepspeed_tpu_torch.init_inference(
+        gpt2.GPT2LMHeadModel(cfg, seed=0), dtype=torch.bfloat16,
+        checkpoint=path, moe=True, moe_experts=MOE_EXPERTS)
+    eng.generate(ids[:, :32], max_new_tokens=4)          # warm-up
+    torch.cuda.synchronize()
+    op_builder.reset_launch_counts()
+    out = eng.generate(ids, max_new_tokens=MOE_NEW)
+    torch.cuda.synchronize()
+    counts = dict(op_builder.LAUNCHES)
+    want = {"flash_fwd": cfg.n_layer,
+            "decode_attention": cfg.n_layer * (MOE_NEW - 1)}
+    if {k: counts.get(k, 0) for k in want} != want:
+        raise AssertionError(f"MoE generation launches {counts}, expected "
+                             f"{want}")
+    if out.shape != (B, 896 + MOE_NEW) or int(out.max()) >= cfg.vocab_size:
+        raise AssertionError(f"MoE generation output {tuple(out.shape)}")
+    prefill_ms = host_ms(lambda: eng.generate(ids, max_new_tokens=1))
+    gen_ms = host_ms(lambda: eng.generate(ids, max_new_tokens=MOE_NEW),
+                     reps=2)
+    del eng
+    torch.cuda.empty_cache()
+    f32 = deepspeed_tpu_torch.init_inference(
+        gpt2.GPT2LMHeadModel(cfg, seed=0), dtype=torch.float32,
+        checkpoint=path, moe=True)
+    short = ids[:, :MOE_CHECK_PROMPT]
+    kern = f32.generate(short, max_new_tokens=MOE_CHECK_NEW)
+    with plain_attention(gpt2, attn_mod, decode):
+        plain = f32.generate(short, max_new_tokens=MOE_CHECK_NEW)
+    del f32
+    torch.cuda.empty_cache()
+    line = {"prompt": [B, 896], "new": MOE_NEW, "prefill_ms": prefill_ms,
+            "generate_ms": gen_ms,
+            "decode_ms_per_token": (gen_ms - prefill_ms) / (MOE_NEW - 1),
+            "tokens_per_s": B * MOE_NEW / gen_ms * 1e3,
+            "fp32_greedy_equal_plain": bool(torch.equal(kern, plain)),
+            "fp32_check_shape": [B, MOE_CHECK_PROMPT, MOE_CHECK_NEW]}
+    print(f"moe generation: {json.dumps(line)}", flush=True)
+    if not line["fp32_greedy_equal_plain"]:
+        raise AssertionError("MoE greedy tokens on the kernels differ from "
+                             "the plain-attention run's")
+    return line, counts
+
+
+def moe_world1(torch, deepspeed_tpu_torch, gpt2, op_builder, batch):
+    """World 1 over NCCL: 3 steps with the default groups (ep 1) and with
+    ``groups.initialize(ep_size=1)``, each bit-equal to 3 steps without a
+    process group (losses, masters, moments). Returns (line, launches)."""
+    import torch.distributed as dist
+    from deepspeed_tpu_torch.utils import groups
+
+    def make():
+        return deepspeed_tpu_torch.initialize(
+            model=gpt2.GPT2LMHeadModel(moe_config(gpt2), seed=0),
+            config=moe_train_config())[0]
+
+    per_step = {"flash_fwd": 12, "flash_bwd_dq": 12, "flash_bwd_dkv": 12,
+                "adam": 1}
+    rows = collections.Counter()
+    groups.destroy()
+    alone = dp_engines(torch, op_builder, make, batch, per_step,
+                       "moe without a group")
+    if dist.is_initialized():
+        raise AssertionError("a process group exists before phase 19")
+    deepspeed_tpu_torch.init_distributed()         # NCCL, world 1
+    line = {"backend": dist.get_backend(), "world_size": dist.get_world_size(),
+            "ep_gt_1": "not run: expert parallelism above 1 needs more than "
+                       "one card (tests/test_torch_dist_moe.py runs ep 2 "
+                       "and 4 over gloo on the CPU)"}
+    try:
+        for name, ep in (("default_groups", None), ("ep_size_1", 1)):
+            groups.destroy()
+            if ep is not None:
+                groups.initialize(ep_size=ep)
+            got = dp_engines(torch, op_builder, make, batch, per_step,
+                             f"moe over NCCL ({name})")
+            for k, n in got[3].items():
+                rows["adam_sweep" if k == "adam" else k] += n
+            equal = {"losses": got[0] == alone[0],
+                     "masters": all(torch.equal(got[2][k], alone[2][k])
+                                    for k in alone[2]),
+                     "optimizer_state": same_state(torch, got[4], alone[4])}
+            line[name] = {"losses": got[0], "step_ms": got[1],
+                          "bit_equal_no_group": equal}
+            print(f"moe world 1 over NCCL ({name}): {json.dumps(line[name])}",
+                  flush=True)
+            if not all(equal.values()):
+                raise AssertionError(f"moe {name}: not bit-equal to no "
+                                     f"group: {equal}")
+    finally:
+        groups.destroy()
+        dist.destroy_process_group()
+    line["no_group"] = {"losses": alone[0], "step_ms": alone[1]}
+    for k, n in alone[3].items():
+        rows["adam_sweep" if k == "adam" else k] += n
+    return line, rows
+
+
+def moe_phase(torch, deepspeed_tpu_torch, gpt2, attn_mod, decode, fused_adam,
+              op_builder, card):
+    """Phase 19: MoE-GPT at full width. Returns the ``moe`` line and the
+    phase's launches by kernel row."""
+    from deepspeed_tpu_torch.moe.sharded_moe import MOELayer
+    rows = collections.Counter()
+    cfg = moe_config(gpt2)
+    batch = gpt2.synthetic_batch(B, SEQ, cfg.vocab_size, seed=4)
+    per_step = {"flash_fwd": cfg.n_layer, "flash_bwd_dq": cfg.n_layer,
+                "flash_bwd_dkv": cfg.n_layer, "adam": 1}
+
+    def book(counts):
+        for k, n in counts.items():
+            rows["adam_sweep" if k == "adam" else k] += n
+
+    # 1. training, scatter: 10 steps, launches counted on the main path
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = gpt2.GPT2LMHeadModel(cfg, seed=0)
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model,
+                                                config=moe_train_config())
+    hooks = ExpertCounts(model, MOELayer)
+    op_builder.reset_launch_counts()
+    losses, step_ms = [], []
+    for i in range(MOE_STEPS):
+        hooks.on = i == MOE_STEPS - 1
+        got, ms = run_steps(torch, engine, batch, 1)
+        losses += got
+        step_ms += ms
+    hooks.on = False
+    counts = dict(op_builder.LAUNCHES)
+    check_counts("moe training", counts, per_step, MOE_STEPS)
+    book(counts)
+    peak = torch.cuda.max_memory_allocated()
+    profile = device_profile(torch, lambda: engine.train_batch(batch=batch))
+    drop, cap = moe_drop_share(hooks.counts, B * SEQ, MOE_EXPERTS, MOE_CF)
+    exp_counts = [[int(x) for x in c.tolist()] for c in hooks.counts]
+    hooks.remove()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"a MoE training loss is not finite: {losses}")
+    if not (abs(losses[0] - math.log(cfg.vocab_size)) < 0.5
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"MoE losses {losses}: not near ln(vocab) or "
+                             f"not falling")
+    med = statistics.median(step_ms[2:MOE_STEPS])
+    n_params = sum(p.numel() for p in engine.params.values())
+    width, n_moe = cfg.n_embd, cfg.n_layer // cfg.moe_expert_interval
+    # bench.py:551-557: (E - k) expert MLPs a MoE block do no work for a
+    # token
+    fpt = 6 * n_params + 12 * cfg.n_layer * width * SEQ \
+        - 6 * (MOE_EXPERTS - 1) * 8 * width * width * n_moe
+    line = {"card": card,
+            "config": "gpt2-moe: gpt2 12x768, 8 experts top-1 every 2nd "
+                      "layer, cf 1.25, bs8 seq1024 bf16 zero0 adam-sweep "
+                      "clip1.0, scatter",
+            "n_params": n_params, "step_ms_median_3_10": med,
+            "step_ms": step_ms, "tokens_per_s": B * SEQ / med * 1e3,
+            "flops_per_token": fpt,
+            "mfu": fpt * B * SEQ / (med / 1e3) / BF16_FLOPS,
+            "peak_mem_gb": peak / 1e9,
+            "device_idle_share": profile["device_idle_share"],
+            "losses": losses, "capacity": cap,
+            "exp_counts_last_step": exp_counts,
+            "dropped_share_last_step": drop,
+            "launches_training": counts, "profile_train_step": profile}
+    print(f"moe training: losses {losses}, step ms median {med:.2f}, "
+          f"dropped share {drop:.4f}, exp_counts {exp_counts}", flush=True)
+
+    # 4. the checkpoint, from the training engine (its steps join the
+    # training launches), then 5. generation from its tag
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "moe_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        line["resume"], path, counts = moe_resume(
+            torch, deepspeed_tpu_torch, gpt2, op_builder, engine, batch,
+            root)
+        check_counts("moe resume", counts, per_step, 2 * MOE_RESUME_STEPS)
+        book(counts)
+        del engine, model
+        torch.cuda.empty_cache()
+        line["generation"], counts = moe_generation(
+            torch, deepspeed_tpu_torch, gpt2, attn_mod, decode, op_builder,
+            path)
+        book(counts)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # 2. the dispatch impls on 2 full-width layers
+    line["impl_parity_2layer"] = moe_impl_parity(
+        torch, deepspeed_tpu_torch, gpt2, attn_mod, decode, fused_adam, batch)
+
+    # 3. top-2: 3 steps, finite and falling
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=gpt2.GPT2LMHeadModel(moe_config(gpt2, moe_k=2), seed=0),
+        config=moe_train_config())
+    op_builder.reset_launch_counts()
+    top2, top2_ms = run_steps(torch, engine, batch, MOE_TOP2_STEPS)
+    counts = dict(op_builder.LAUNCHES)
+    check_counts("moe top-2", counts, per_step, MOE_TOP2_STEPS)
+    book(counts)
+    del engine
+    torch.cuda.empty_cache()
+    line["top2"] = {"losses": top2, "step_ms": top2_ms}
+    print(f"moe top-2: {json.dumps(line['top2'])}", flush=True)
+    if not (all(math.isfinite(x) for x in top2) and top2[-1] < top2[0]):
+        raise AssertionError(f"MoE top-2 losses {top2}")
+
+    # 6. world 1 over NCCL
+    line["world1_nccl"], counts = moe_world1(
+        torch, deepspeed_tpu_torch, gpt2, op_builder, batch)
+    for k, n in counts.items():
+        rows[k] += n
+    for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "adam_sweep",
+              "decode_attention"):
+        if rows.get(k, 0) == 0:
+            raise AssertionError(f"kernel {k} never launched in phase 19")
+    return line, rows
+
+
 def finish_rows(rows, launches, max_err, card):
     """bound_ms (the larger of bytes at 3.35 TB/s and operations at the
     peak of their type), launches and max_abs_err for each row."""
@@ -4310,6 +4718,15 @@ def main():
         row["launches"] += dp_counts.get(row["name"], 0)
     dp_line["launches_by_row"] = dict(dp_counts)
 
+    # 19. MoE-GPT (bench.py's gpt2-moe row): training, the dispatch
+    # impls, top-2, a resume, generation from the tag, world 1 over NCCL
+    moe_line, moe_counts = moe_phase(
+        torch, deepspeed_tpu_torch, gpt2, attn_mod, decode, fused_adam,
+        op_builder, card)
+    for row in rows:
+        row["launches"] += moe_counts.get(row["name"], 0)
+    moe_line["launches_by_row"] = dict(moe_counts)
+
     print(json.dumps({"e2e": e2e}))
     print(json.dumps({"train": train}))
     print(json.dumps({"bert": bert_line}))
@@ -4320,6 +4737,7 @@ def main():
     print(json.dumps({"serving": serving_line}))
     print(json.dumps({"ckpt": ckpt_line}))
     print(json.dumps({"dp": dp_line}))
+    print(json.dumps({"moe": moe_line}))
     print(json.dumps({"kernels": rows}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -40,6 +40,13 @@ This package ports these paths, with hand-written CUDA kernels
   all-gather, per-rank checkpoint shard files with tag validation, and
   ring and Ulysses attention (``ops.transformer.ring``) on the flash
   kernels' lse gradient;
+* MoE-GPT (``moe``, ``comm.all_to_all``): top-1/top-2 gating over the
+  global batch, the scatter, einsum and grouped dispatch, expert
+  parallelism at any ``ep_size`` that divides the world
+  (``utils.groups.initialize(ep_size=)``), training through the same
+  entry point on the flash and Adam kernels, the per-expert checkpoint
+  files, and ``init_inference(moe=True)`` on the flash and decode
+  kernels;
 * continuous-batching serving: ``init_serving`` -> ``ServingEngine``
   (``submit`` / ``step`` / ``collect`` / ``serve_forever``) over a paged
   KV cache, with chunked prefill, preemption, the prefix cache and
@@ -157,7 +164,9 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     fp32 masters on ``device`` (``None`` means CUDA, and raises without a
     card). ``model_parameters``, when given, is a state_dict loaded into
     it (for example ``bridge.flax_to_state_dict`` or
-    ``bridge.bert_flax_to_state_dict`` of flax params). The config is
+    ``bridge.bert_flax_to_state_dict`` of flax params); at an
+    expert-parallel size above 1 each rank keeps its experts of a
+    whole-layer expert leaf. The config is
     ``config``, else ``config_params``, else ``args.deepspeed_config`` (a
     dict or a JSON path). ``optimizer`` is a client
     ``runtime.optim.Optimizer(init, update)`` pair (anything else raises,
@@ -193,7 +202,8 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     dev = resolve_device(device)
     model = model.to(dev)
     if model_parameters is not None:
-        model.load_state_dict(model_parameters)
+        from deepspeed_tpu_torch.moe.layer import localize_state_dict
+        model.load_state_dict(localize_state_dict(model_parameters, model))
     engine = DeepSpeedEngine(model, cfg, dev, optimizer=optimizer,
                              lr_scheduler=lr_scheduler, seed=seed)
     return engine, engine.optimizer, None, engine.lr_scheduler

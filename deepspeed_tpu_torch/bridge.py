@@ -10,7 +10,8 @@ to ``[out, in, kh, kw]``, LayerNorm ``scale`` becomes ``weight``, a flax
 block ``h_{i}`` becomes ``h.{i}``, and ``wte`` keeps its padded vocab.
 Both directions come from the same rows:
 
-* :func:`flax_to_state_dict` (GPT-2), :func:`bert_flax_to_state_dict`,
+* :func:`flax_to_state_dict` (GPT-2, MoE-GPT),
+  :func:`bert_flax_to_state_dict`, :func:`moe_inference_flax_to_state_dict`,
   :func:`simple_flax_to_state_dict` (``SimpleModel`` / ``LinearStack`` /
   ``EmbeddingModel``) and :func:`cifar_flax_to_state_dict` take a flax
   params tree of numpy arrays (``jax.tree.map(np.asarray, params)``) to
@@ -51,14 +52,43 @@ def _raw(*names, t="", f=""):
     return tuple((t + n, f + n, None) for n in names)
 
 
+def _moe(t, f):
+    """A ``moe.layer.MoE`` at torch prefix ``t`` and flax prefix ``f``: the
+    gate ``wg`` [M, E] and the stacked experts [E, in, out] keep flax's
+    layout; MoS's ``mlp`` and ``coefficient`` are plain denses."""
+    experts = tuple(
+        (f"{t}.deepspeed_moe.deepspeed_experts.{fc}.{p}",
+         f"{f}/deepspeed_moe/deepspeed_experts/{fc}/{q}", None)
+        for fc in ("fc1", "fc2") for p, q in (("weight", "kernel"),
+                                               ("bias", "bias")))
+    return ((f"{t}.deepspeed_moe.gate.wg", f"{f}/deepspeed_moe/gate/wg",
+             None),) + experts + _dense(f"{t}.mlp.fc1", f"{f}/mlp/fc1") \
+        + _dense(f"{t}.mlp.fc2", f"{f}/mlp/fc2") \
+        + _dense(f"{t}.coefficient", f"{f}/coefficient")
+
+
+def _attention_block(t, f):
+    return (_norm(f"{t}.ln_1", f"{f}/ln_1") + _norm(f"{t}.ln_2", f"{f}/ln_2")
+            + _dense(f"{t}.attn.qkv", f"{f}/attn/qkv")
+            + _dense(f"{t}.attn.proj", f"{f}/attn/proj"))
+
+
 GPT2_LAYOUT = (
     _raw("wte", "wpe")
-    + _norm("h.{i}.ln_1", "h_{i}/ln_1") + _norm("h.{i}.ln_2", "h_{i}/ln_2")
-    + _dense("h.{i}.attn.qkv", "h_{i}/attn/qkv")
-    + _dense("h.{i}.attn.proj", "h_{i}/attn/proj")
+    + _attention_block("h.{i}", "h_{i}")
     + _dense("h.{i}.mlp.fc", "h_{i}/mlp/fc")
     + _dense("h.{i}.mlp.proj", "h_{i}/mlp/proj")
+    # MoE-GPT's blocks (JAX gpt2.py:254-277)
+    + _moe("h.{i}.moe", "h_{i}/moe")
     + _norm("ln_f", "ln_f"))
+
+# a stack of ops.transformer.moe_inference.DeepSpeedMoEInference layers
+# (layers.{i} / layers_{i}), or one such layer at the top
+MOE_INFERENCE_LAYOUT = (_attention_block("layers.{i}", "layers_{i}")
+                        + _moe("layers.{i}.moe", "layers_{i}/moe"))
+MOE_LAYER_LAYOUT = (_norm("ln_1", "ln_1") + _norm("ln_2", "ln_2")
+                    + _dense("attn.qkv", "attn/qkv")
+                    + _dense("attn.proj", "attn/proj") + _moe("moe", "moe"))
 
 BERT_LAYOUT = (
     _raw("word_embeddings", "position_embeddings", "token_type_embeddings",
@@ -93,7 +123,8 @@ CIFAR_LAYOUT = (
 
 LAYOUTS = {"gpt2": GPT2_LAYOUT, "bert": BERT_LAYOUT,
            "embedding": EMBEDDING_LAYOUT, "simple": SIMPLE_LAYOUT,
-           "cifar": CIFAR_LAYOUT}
+           "cifar": CIFAR_LAYOUT, "moe_inference": MOE_INFERENCE_LAYOUT,
+           "moe_layer": MOE_LAYER_LAYOUT}
 
 
 def _pattern(template):
@@ -290,6 +321,15 @@ def simple_flax_to_state_dict(params) -> dict:
     inner = params.get("params", params)
     return _from_flax_params("embedding" if "wte" in inner else "simple",
                              params)
+
+
+def moe_inference_flax_to_state_dict(params) -> dict:
+    """Convert the flax params of one ``DeepSpeedMoEInference`` layer, or
+    of a stack of them named ``layers_{i}``, to the state_dict of the
+    port's layer (or of an ``nn.ModuleList`` named ``layers``)."""
+    inner = params.get("params", params)
+    return _from_flax_params("moe_inference" if "layers_0" in inner
+                             else "moe_layer", params)
 
 
 def cifar_flax_to_state_dict(params) -> dict:

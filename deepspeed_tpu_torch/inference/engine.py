@@ -20,10 +20,19 @@ engine, or to the file ``save_16bit_model`` writes. Its ``module`` tree
 ``state_dict`` names) is loaded into the model before the ``dtype`` cast
 or the int8 path; ``params`` wins when both are given, as in JAX.
 
-Not ported yet: tensor parallelism (``mp_size > 1``), MoE inference
-(and the MoE expert-file checkpoint layout), the Megatron checkpoint
-description JSON (``runtime/state_dict_factory.py``), the HF/Megatron
-naming conversions (the ``module_inject`` policies),
+MoE (JAX engine.py:42-80, 181-190): a MoE-GPT model, or a MoE tag whose
+expert files (``layer_*_expert_*_model_states.pt``) are stacked back
+into the ``module`` tree, generates through the same cached loop, on the
+flash (prefill) and decode kernels; its MoE blocks gate each call's
+tokens with the eval capacity factor. ``moe``, ``moe_experts`` and
+``moe_type`` are kept as JAX keeps them (the expert tables carry their
+own count). ``ep_size > 1`` raises: this engine has no process group
+(ROADMAP Queue A, MoE's rest).
+
+Not ported yet: tensor parallelism (``mp_size > 1``), expert parallelism
+at inference, the Megatron checkpoint description JSON
+(``runtime/state_dict_factory.py``), the HF/Megatron naming conversions
+(the ``module_inject`` policies),
 ``quantization_setting`` (``runtime/weight_quantizer.py``) and a custom
 ``apply_fn``.
 """
@@ -37,7 +46,7 @@ import torch
 
 from deepspeed_tpu_torch import bridge
 from deepspeed_tpu_torch.ops._platform import resolve_device
-from deepspeed_tpu_torch.runtime.checkpoint_io import check_no_moe, load_file
+from deepspeed_tpu_torch.runtime.checkpoint_io import load_file, module_tree
 from deepspeed_tpu_torch.telemetry.metrics import get_registry
 from deepspeed_tpu_torch.telemetry.tracer import trace_span
 
@@ -67,8 +76,7 @@ def load_checkpoint_state_dict(path, model):
     else:
         sd = load_file(path, kind="model_states")
     if isinstance(sd, dict) and "module" in sd:
-        check_no_moe(sd, path)
-        sd = sd["module"]
+        sd = module_tree(sd, path)
     names = list(model.state_dict())
     if isinstance(sd, dict) and all(n in sd for n in names):
         return {n: _tensor(sd[n]) for n in names}
@@ -90,6 +98,7 @@ def load_checkpoint_state_dict(path, model):
 class InferenceEngine:
     def __init__(self, model, params=None, dtype=None, device=None,
                  mp_size=1, checkpoint=None, moe=False, ep_size=1,
+                 moe_experts=1, moe_type="standard",
                  quantization_setting=None, apply_fn=None):
         """``params``: an optional state_dict loaded into ``model`` (e.g.
         from :func:`deepspeed_tpu_torch.bridge.flax_to_state_dict`);
@@ -107,7 +116,8 @@ class InferenceEngine:
                 "bypass it — drop apply_fn or quantize explicitly via "
                 "module_inject.quantize_transformer_layer")
         for what, hit in (("mp_size > 1", mp_size > 1),
-                          ("MoE inference", bool(moe) or ep_size > 1),
+                          ("ep_size > 1 (expert parallelism at inference)",
+                           ep_size > 1),
                           ("quantization_setting (the MoQ weight quantizer "
                            "of checkpoint loading, "
                            "runtime/weight_quantizer.py)",
@@ -115,6 +125,9 @@ class InferenceEngine:
                           ("a custom apply_fn", apply_fn is not None)):
             if hit:
                 raise NotImplementedError(f"{what} is not ported yet")
+        self.moe = bool(moe)
+        self.ep_size, self.moe_experts = ep_size, moe_experts
+        self.moe_type = moe_type
         self.device = resolve_device(device)
         self.dtype = torch.bfloat16 if self._int8_weights or dtype is None \
             else dtype

@@ -21,8 +21,17 @@ and each MLP output (the JAX sites, gpt2.py:219-220, 237-238, 399-400)
 with :class:`~deepspeed_tpu_torch.runtime.dropout.Dropout`, active in
 training mode under the engine's (seed, micro-step) key. ``remat``
 recomputes each block in the backward (gpt2.py:424-426) through
-``runtime.activation_checkpointing.checkpointing.remat``. Not ported yet:
-pipeline stages, ring/ulysses attention, MoE, rotary embeddings.
+``runtime.activation_checkpointing.checkpointing.remat``.
+
+MoE-GPT (``moe_num_experts`` > 0, JAX gpt2.py:60-70): every
+``moe_expert_interval``-th block, counting from the first, is a
+:class:`MoEBlock` whose MLP is a ``moe.layer.MoE`` (JAX :428-436); the
+loss is ``ce + moe_aux_loss_coef · Σ l_aux`` (:402, :460), and remat
+recomputes MoE blocks too (:423-426). In decode a step routes its B
+tokens with ``moe_eval_capacity_factor`` and ``min_capacity`` 4, so a
+step can drop tokens, as in JAX. Not ported yet: pipeline stages (MoE with
+them raises, as JAX asserts, :403-406), ring/ulysses attention, rotary
+embeddings.
 """
 
 import dataclasses
@@ -33,6 +42,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from deepspeed_tpu_torch.models.common import masked_next_token_ce
+from deepspeed_tpu_torch.moe.layer import MoE
 from deepspeed_tpu_torch.ops._platform import resolve_device
 from deepspeed_tpu_torch.ops.quantizer.int8_linear import QuantDense
 from deepspeed_tpu_torch.ops.sparse_attention.fused_kernels import (
@@ -61,7 +71,15 @@ class GPT2Config:
     remat: bool = False
     pp_stages: int = 1
     attention_mode: str = "auto"
+    # MoE-GPT: >0 turns every moe_expert_interval-th block's MLP into a
+    # MoE layer (experts on alternate layers at interval 2)
     moe_num_experts: int = 0
+    moe_expert_interval: int = 2
+    moe_k: int = 1
+    moe_capacity_factor: float = 1.25
+    moe_eval_capacity_factor: float = 1.25
+    moe_aux_loss_coef: float = 0.01
+    moe_dispatch_impl: str = "scatter"  # 'grouped' | 'scatter' | 'einsum'
     # "auto" keeps K/V in the activation dtype; "int8" stores the decode
     # cache quantized with one fp32 absmax scale per cached row
     kv_cache_dtype: str = "auto"
@@ -94,7 +112,6 @@ def _check_ported(cfg: GPT2Config):
         f"attention_mode={cfg.attention_mode!r}":
             cfg.attention_mode != "auto"
             and not cfg.attention_mode.startswith("sparse"),
-        "MoE": cfg.moe_num_experts > 0,
         f"position_embedding={cfg.position_embedding!r}":
             cfg.position_embedding != "learned",
     }
@@ -104,6 +121,9 @@ def _check_ported(cfg: GPT2Config):
                 what += (" (ops.transformer.ring is ported; the model "
                          "waits for how a rank's batch maps to sequence "
                          "chunks, ROADMAP Queue A item 6)")
+            if what == "pp_stages > 1" and cfg.moe_num_experts > 0:
+                what += (" with MoE (MoE blocks are not expressible in "
+                         "the uniform GPipe stack; JAX refuses it too)")
             raise NotImplementedError(f"GPT-2 {what} is not ported yet")
     if cfg.attention_mode.startswith("sparse"):
         parse_sparse_mode(cfg.attention_mode)
@@ -229,6 +249,38 @@ class Block(nn.Module):
         return x + self.mlp(self.ln_2(x))
 
 
+class MoEBlock(nn.Module):
+    """A block whose MLP is a mixture of experts (JAX ``MoEBlock``);
+    ``forward`` returns (x, l_aux)."""
+
+    def __init__(self, config: GPT2Config, device=None, dtype=torch.float32):
+        super().__init__()
+        E = config.n_embd
+        self.ln_1 = nn.LayerNorm(E, eps=1e-5, device=device, dtype=dtype)
+        self.attn = CausalSelfAttention(config, device, dtype)
+        self.ln_2 = nn.LayerNorm(E, eps=1e-5, device=device, dtype=dtype)
+        self.moe = MoE(E, num_experts=config.moe_num_experts,
+                       k=config.moe_k,
+                       capacity_factor=config.moe_capacity_factor,
+                       eval_capacity_factor=config.moe_eval_capacity_factor,
+                       dispatch_impl=config.moe_dispatch_impl,
+                       device=device, dtype=dtype)
+
+    def forward(self, x, cache: KVCache = None, layer: int = 0):
+        x = x + self.attn(self.ln_1(x), cache, layer)
+        h = self.ln_2(x)
+        B, S, E = h.shape
+        out, l_aux, _ = self.moe(h.reshape(B * S, E))
+        return x + out.reshape(B, S, E), l_aux
+
+
+def is_moe_layer(config: GPT2Config, i: int) -> bool:
+    """Block ``i`` is a MoE block: every interval-th, counting from the
+    first, so interval 1 means every block (JAX gpt2.py:428-436)."""
+    return config.moe_num_experts > 0 and \
+        (i + 1) % config.moe_expert_interval == 0
+
+
 def _unpack(batch):
     if isinstance(batch, (tuple, list)):
         return batch[0], (batch[1] if len(batch) > 1 else None)
@@ -257,8 +309,10 @@ class GPT2LMHeadModel(nn.Module):
             (config.padded_vocab, E), device=dev, dtype=dtype))
         self.wpe = nn.Parameter(torch.empty(
             (config.n_positions, E), device=dev, dtype=dtype))
-        self.h = nn.ModuleList(Block(config, dev, dtype)
-                               for _ in range(config.n_layer))
+        self.h = nn.ModuleList(
+            (MoEBlock if is_moe_layer(config, i) else Block)(config, dev,
+                                                             dtype)
+            for i in range(config.n_layer))
         self.ln_f = nn.LayerNorm(E, eps=1e-5, device=dev, dtype=dtype)
         self.drop = Dropout(config.dropout)
         self.reset_parameters(seed)
@@ -270,10 +324,15 @@ class GPT2LMHeadModel(nn.Module):
         nn.init.normal_(self.wte, 0.0, 0.02, generator=gen)
         nn.init.normal_(self.wpe, 0.0, 0.01, generator=gen)
         for blk in self.h:
-            for layer, std in ((blk.attn.qkv, 0.02), (blk.attn.proj, proj_std),
-                               (blk.mlp.fc, 0.02), (blk.mlp.proj, proj_std)):
+            moe = isinstance(blk, MoEBlock)
+            dense = ((blk.attn.qkv, 0.02), (blk.attn.proj, proj_std))
+            if not moe:
+                dense += ((blk.mlp.fc, 0.02), (blk.mlp.proj, proj_std))
+            for layer, std in dense:
                 nn.init.normal_(layer.weight, 0.0, std, generator=gen)
                 nn.init.zeros_(layer.bias)
+            if moe:
+                blk.moe.reset_parameters(gen)
             for ln in (blk.ln_1, blk.ln_2):
                 nn.init.ones_(ln.weight)
                 nn.init.zeros_(ln.bias)
@@ -305,8 +364,12 @@ class GPT2LMHeadModel(nn.Module):
                                     device=x.device)
         # remat: each block's activations are recomputed in the backward
         recompute = cfg.remat and cache is None and torch.is_grad_enabled()
+        moe_aux = None
         for i, blk in enumerate(self.h):
             x = remat(blk, x) if recompute else blk(x, cache, i)
+            if isinstance(blk, MoEBlock):
+                x, l_aux = x
+                moe_aux = l_aux if moe_aux is None else moe_aux + l_aux
         if cache is not None:
             cache.pos = pos + S
         x = self.ln_f(x)
@@ -318,7 +381,10 @@ class GPT2LMHeadModel(nn.Module):
             return F.linear(x.float(), self.wte.float())
         shift_labels = (input_ids if labels is None else labels)[:, 1:]
         shift_logits = F.linear(x[:, :-1].float(), self.wte.float())
-        return masked_next_token_ce(shift_logits, shift_labels)
+        ce = masked_next_token_ce(shift_logits, shift_labels)
+        if moe_aux is None:
+            return ce
+        return ce + cfg.moe_aux_loss_coef * moe_aux
 
     def loss_count(self, batch):
         """The number of next-token terms the loss of ``batch`` averages

@@ -285,6 +285,75 @@ class AdamSweepState(NamedTuple):
     nu: torch.Tensor
 
 
+def _sweep_parts(names, partition):
+    """[(names, expert)]: the sweep's flat vectors, one, or at a partition
+    with expert leaves (expert parallelism) the dense leaves' and the
+    experts'."""
+    names = list(names)
+    if partition is None or not partition.expert:
+        return [(names, False)]
+    parts = [([n for n in names if n not in partition.expert], False),
+             ([n for n in names if n in partition.expert], True)]
+    return [(ns, expert) for ns, expert in parts if ns]
+
+
+def _quantum(partition, expert):
+    """A flat vector's padding: the kernel's block times the ranks it is
+    cut over."""
+    return _SWEEP_PAD * (1 if partition is None
+                         else partition.group_world(expert))
+
+
+def sweep_specs(shapes, partition=None):
+    """The specs of :func:`sweep_flatten` from ``{name: shape}`` alone:
+    ``[(FlatTreeSpec, expert)]``, one a flat vector."""
+    specs = []
+    for names, expert in _sweep_parts(shapes, partition):
+        q = _quantum(partition, expert)
+        sizes = [int(np.prod(shapes[n])) if shapes[n] else 1 for n in names]
+        n = sum(sizes)
+        specs.append((optim_lib.FlatTreeSpec(
+            names=tuple(names), shapes=tuple(tuple(shapes[k])
+                                             for k in names),
+            dtypes=(torch.float32,) * len(names), n=n,
+            n_pad=-(-n // q) * q), expert))
+    return specs
+
+
+def sweep_flatten(tree, partition=None):
+    """This rank's flat fp32 vector of ``tree`` in the sweep's state layout
+    and its specs (:func:`sweep_specs`): the tree back to back in key
+    order, zero-padded to a multiple of ``sweep_pad()`` (× the world it is
+    cut over, with a ``partition``), and this rank's chunk of it. With
+    expert leaves in the partition, the dense leaves' chunk (cut over the
+    world) then the experts' (cut over the expert-data group)."""
+    vecs, specs = [], []
+    for names, expert in _sweep_parts(tree, partition):
+        vec, spec = optim_lib.flatten_tree({k: tree[k] for k in names},
+                                           pad_to=_quantum(partition, expert))
+        if partition is not None:
+            vec = partition.chunk(vec, expert)
+        vecs.append(vec)
+        specs.append((spec, expert))
+    return (vecs[0] if len(vecs) == 1 else torch.cat(vecs)), specs
+
+
+def sweep_unflatten(vec, specs, partition=None):
+    """The whole tree of this rank's sweep vector ``vec`` (the inverse of
+    :func:`sweep_flatten`): each part's chunks gathered over its group,
+    then cut into the leaves (views)."""
+    out, off = {}, 0
+    for spec, expert in specs:
+        n = spec.n_pad // (1 if partition is None
+                           else partition.group_world(expert))
+        piece = vec[off:off + n]
+        off += n
+        if partition is not None:
+            piece = partition.gather_flat(piece, expert)
+        out.update(optim_lib.unflatten_tree(piece, spec))
+    return out
+
+
 def fused_adam_sweep(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0,
                      adam_w_mode=True, bias_correction=True, partition=None):
     """Adam as one whole-state sweep (config ``optimizer.params.sweep``).
@@ -294,7 +363,10 @@ def fused_adam_sweep(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0,
     to a multiple of ``sweep_pad() × world`` and each rank keeps and
     updates its contiguous chunk (a multiple of the kernel's block, so
     it starts on the kernel's 16-byte alignment); the chunks of the
-    update are then all-gathered into the whole vector. The clip
+    update are then all-gathered into the whole vector. At an
+    expert-parallel partition the state is two chunks back to back, the
+    dense leaves' and the experts' (:func:`sweep_flatten`), swept in one
+    launch and gathered over their own groups. The clip
     coefficient is the engine's, from the averaged gradients of the
     whole model, the same on every rank.
 
@@ -305,29 +377,23 @@ def fused_adam_sweep(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0,
     engine skips its own pass over the grads. The cast output is not
     used: the engine's forward casts the masters itself."""
 
-    pad = _SWEEP_PAD if partition is None else _SWEEP_PAD * partition.world
-    local = (lambda vec: vec) if partition is None else partition.chunk
-
     def init(params):
-        vec, _ = optim_lib.flatten_tree(params, pad_to=pad)
-        vec = local(vec)
+        vec, _ = sweep_flatten(params, partition)
         return AdamSweepState(step=0, mu=torch.zeros_like(vec),
                               nu=torch.zeros_like(vec))
 
     def update(grads, state, params, lr, clip_coef=None):
         step = state.step + 1
         bc1, bc2 = optim_lib.bias_corrections(b1, b2, step, bias_correction)
-        flat_g, spec = optim_lib.flatten_tree(grads, pad_to=pad)
-        flat_p = (local(optim_lib.flatten_tree(params, pad_to=pad)[0])
+        flat_g, specs = sweep_flatten(grads, partition)
+        flat_p = (sweep_flatten(params, partition)[0]
                   if weight_decay > 0.0 else None)
         u, mu, nu, _ = adam_sweep_apply(
-            flat_p, local(flat_g), state.mu, state.nu, lr, bc1, bc2,
+            flat_p, flat_g, state.mu, state.nu, lr, bc1, bc2,
             1.0 if clip_coef is None else clip_coef, b1=b1, b2=b2, eps=eps,
             weight_decay=weight_decay, adam_w_mode=adam_w_mode)
-        if partition is not None:
-            u = partition.gather_flat(u)
-        updates = optim_lib.unflatten_tree(u, spec)
-        return updates, AdamSweepState(step=step, mu=mu, nu=nu)
+        return (sweep_unflatten(u, specs, partition),
+                AdamSweepState(step=step, mu=mu, nu=nu))
 
     return optim_lib.Optimizer(init, update, fuses_clip=True,
                                partitions_state=partition is not None)

@@ -19,9 +19,16 @@ never a ``torch.Tensor``, so either package reads the other's files.
 Spans and byte counters go through the port's ``telemetry/tracer.py``
 and ``telemetry/metrics.py`` (``checkpoint_write_bytes_total{kind}``,
 ``checkpoint_read_bytes_total{kind}``). The JAX goodput ledger's
-attribution calls are left out: the ledger is not ported. The MoE expert
-file layout is not ported either: a tag with ``has_moe_layers`` raises
-``NotImplementedError`` (:func:`check_no_moe`).
+attribution calls are left out: the ledger is not ported.
+
+MoE tags keep the JAX layout (JAX ``checkpoint_io.py:357-466``): each MoE
+layer's experts go one file per *global* expert,
+``layer_{L}_expert_{E}_mp_rank_00_model_states.pt``, holding that
+expert's leaves under their ``/``-joined paths, and the model-states
+``module`` tree keeps the rest (``has_moe_layers``,
+``moe_layer_prefixes``, ``moe_expert_counts`` beside it). ``L`` orders
+the layers by their sorted path prefixes. The shard payloads hold the
+expert leaves whole-layer shaped ``[E, ...]``, as JAX's do.
 """
 
 import json
@@ -322,9 +329,149 @@ def restore_tree(paths, files_payloads):
     return out
 
 
-def check_no_moe(sd, path):
-    """Refuse a model-states dict that uses the MoE expert-file layout."""
-    if isinstance(sd, dict) and sd.get("has_moe_layers"):
-        raise NotImplementedError(
-            f"{path}: the MoE expert-file checkpoint layout "
-            f"(layer_*_expert_*_model_states.pt) is not ported yet")
+# ------------------------------------------------------- MoE expert files
+
+MOE_EXPERT_KEY = "deepspeed_experts"
+
+
+def moe_expert_file(tag_dir, layer_id, expert_id, mp_rank=0):
+    return os.path.join(
+        tag_dir,
+        f"layer_{layer_id}_expert_{expert_id}_mp_rank_{mp_rank:02d}"
+        "_model_states.pt")
+
+
+def _expert_files(tag_dir, layer_id="*", mp_rank=0):
+    import glob
+    return glob.glob(os.path.join(
+        tag_dir, f"layer_{layer_id}_expert_*_mp_rank_{mp_rank:02d}"
+        "_model_states.pt"))
+
+
+def walk_paths(tree, prefix=()):
+    """``("a/b/c", leaf)`` for every leaf of a nested dict."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from walk_paths(v, prefix + (str(k),))
+    else:
+        yield "/".join(prefix), tree
+
+
+def moe_prefix(path):
+    """The MoE layer of a ``/``-joined leaf path (the part before
+    ``deepspeed_experts``), or None for a leaf that is not an expert's."""
+    parts = path.split("/")
+    if MOE_EXPERT_KEY not in parts:
+        return None
+    return "/".join(parts[:parts.index(MOE_EXPERT_KEY)])
+
+
+def split_moe_state(params_np):
+    """(non_moe_tree, prefixes, experts): ``experts`` lists, a layer in
+    the order of the sorted ``prefixes``, ``{path: stacked [E, ...]
+    array}`` (JAX ``split_moe_state``)."""
+    by_prefix = {}
+    for path, leaf in walk_paths(params_np):
+        prefix = moe_prefix(path)
+        if prefix is not None:
+            by_prefix.setdefault(prefix, {})[path] = leaf
+    prefixes = sorted(by_prefix)
+
+    def strip(tree):
+        if isinstance(tree, dict):
+            return {k: strip(v) for k, v in tree.items()
+                    if str(k) != MOE_EXPERT_KEY}
+        return tree
+
+    return strip(params_np), prefixes, [by_prefix[p] for p in prefixes]
+
+
+def remove_stale_expert_files(tag_dir, counts, mp_rank=0):
+    """Remove this mp rank's expert files that a save with ``counts``
+    experts a layer does not write (a re-save of a tag with fewer layers
+    or experts must not leave orphans for a restore to glob). The files
+    it writes are left alone, so other writers' files may land
+    meanwhile."""
+    import re
+    for f in _expert_files(tag_dir, mp_rank=mp_rank):
+        m = re.search(r"layer_(\d+)_expert_(\d+)_", os.path.basename(f))
+        lid, eid = int(m.group(1)), int(m.group(2))
+        if lid >= len(counts) or eid >= counts[lid]:
+            os.remove(f)
+
+
+def write_expert_files(tag_dir, experts, block=0, mp_rank=0):
+    """One file an expert: ``experts`` lists a layer's ``{path: [n, ...]
+    array}``, the ``block``-th run of n of the layer's experts (global ids
+    ``block · n .. block · n + n - 1``: an expert-parallel rank's)."""
+    with trace_span("checkpoint/save_moe_experts"):
+        for lid, layer in enumerate(experts):
+            num = next(iter(layer.values())).shape[0]
+            for j in range(num):
+                sd = {path: np.asarray(leaf[j])
+                      for path, leaf in layer.items()}
+                dump_file(sd, moe_expert_file(tag_dir, lid, block * num + j,
+                                              mp_rank), kind="moe_expert")
+
+
+def save_moe_experts(tag_dir, params_np, mp_rank=0):
+    """Write every expert's file from a whole tree; returns (non_moe_tree,
+    prefixes, expert_counts) for the model-states metadata (JAX
+    ``save_moe_experts``)."""
+    non_moe, prefixes, experts = split_moe_state(params_np)
+    counts = [next(iter(layer.values())).shape[0] for layer in experts]
+    if experts:
+        remove_stale_expert_files(tag_dir, counts, mp_rank)
+    write_expert_files(tag_dir, experts, mp_rank=mp_rank)
+    return non_moe, prefixes, counts
+
+
+def restore_moe_experts(tag_dir, module_np, prefixes, mp_rank=0,
+                        expert_counts=None):
+    """Re-stack the per-expert files into the module tree (JAX
+    ``restore_moe_experts``). Expert ids must run contiguously from 0 (a
+    missing file would shift every later expert), and with
+    ``expert_counts`` (the tag's metadata) the count must match."""
+    import re
+    for lid in range(len(prefixes)):
+        files = _expert_files(tag_dir, lid, mp_rank)
+        pat = os.path.join(tag_dir, f"layer_{lid}_expert_*_mp_rank_"
+                                    f"{mp_rank:02d}_model_states.pt")
+        if not files:
+            raise FileNotFoundError(
+                f"MoE checkpoint is missing expert files: {pat}")
+        by_eid = sorted(
+            (int(re.search(r"_expert_(\d+)_", os.path.basename(f)).group(1)),
+             f) for f in files)
+        eids = [e for e, _ in by_eid]
+        if eids != list(range(len(eids))):
+            raise FileNotFoundError(
+                f"MoE checkpoint layer {lid} has non-contiguous expert "
+                f"files (ids {eids}); a partial checkpoint would silently "
+                "index-shift experts")
+        if expert_counts is not None and len(eids) != expert_counts[lid]:
+            raise FileNotFoundError(
+                f"MoE checkpoint layer {lid} has {len(eids)} expert files "
+                f"but the checkpoint metadata records "
+                f"{expert_counts[lid]} experts")
+        payloads = [load_file(f, kind="moe_expert") for _, f in by_eid]
+        for path in payloads[0]:
+            stacked = np.stack([p[path] for p in payloads], axis=0)
+            node = module_np
+            parts = path.split("/")
+            for k in parts[:-1]:
+                node = node.setdefault(k, {})
+            node[parts[-1]] = stacked
+    return module_np
+
+
+def module_tree(sd, path):
+    """The whole ``module`` tree of a model-states dict read from
+    ``path``: the expert files of its tag stacked back in."""
+    module = sd.get("module")
+    if module is not None and sd.get("has_moe_layers"):
+        module = restore_moe_experts(
+            os.path.dirname(str(path)), module,
+            sd.get("moe_layer_prefixes", []),
+            expert_counts=sd.get("moe_expert_counts"))
+    return module

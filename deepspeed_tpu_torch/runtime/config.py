@@ -52,7 +52,6 @@ _UNPORTED_BLOCKS = (
     ("data_prefetch", "data_prefetch"),
     ("curriculum_learning", "curriculum learning"),
     ("progressive_layer_drop", "progressive layer drop"),
-    ("moe", "MoE"),
     # eigenvalue-guided MoQ needs Hessian-vector products (a double
     # backward through the flash kernels, which have none)
     (C.EIGENVALUE, "eigenvalue-guided MoQ"),

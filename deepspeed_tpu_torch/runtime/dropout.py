@@ -121,8 +121,13 @@ class Dropout(nn.Module):
 
 def number_sites(model: nn.Module):
     """Number ``model``'s Dropout modules 0, 1, ... in ``named_modules``
-    order, so each draws its own mask; returns ``model``."""
+    order, so each draws its own mask, and its MoE gates (modules with
+    ``numbered_gate``, ``moe.sharded_moe.TopKGate``) 0, 1, ... apart, so
+    each draws its own noise; returns ``model``."""
     for site, mod in enumerate(m for m in model.modules()
                                if isinstance(m, Dropout)):
+        mod.site = site
+    for site, mod in enumerate(m for m in model.modules()
+                               if getattr(m, "numbered_gate", False)):
         mod.site = site
     return model

@@ -42,6 +42,20 @@ stage 0 every rank keeps the whole state. Without a process group the
 engine runs no collective: one rank's partition is the whole state, as on
 the JAX package's one-device mesh.
 
+Expert parallelism (``utils.groups.initialize(ep_size=)``; MoE models,
+``moe/``): each rank holds E / ep experts of each MoE layer. The expert
+masters are broadcast from their expert-data rank 0; expert gradients
+are summed over the expert-data group and divided by the world (each
+already holds its expert-parallel group's tokens, through the
+all-to-all's backward), so they are the global batch's, as JAX's are;
+the clip's norm counts each expert once (the expert squares summed over
+the expert-parallel group); ZeRO-1 cuts expert tensors over the
+expert-data group; an fp16 overflow is agreed over the world. A tag
+holds each global expert's file (``checkpoint_io``'s MoE layout) and
+whole-layer expert leaves in the shard payloads, so it loads at any
+expert-parallel size (the Adam sweep's moments too: a save gathers
+every expert's leaves into JAX's whole vector, a load cuts them back).
+
 MoQ (``quantize_training``): after an applied step and before the lr
 scheduler advances, the schedule of ``runtime/quantize.py`` fake-quantizes
 the fp32 masters in place under ``no_grad`` (engine.py:3111-3130, where
@@ -72,6 +86,8 @@ import torch
 from torch.func import functional_call
 
 from deepspeed_tpu_torch import bridge
+from deepspeed_tpu_torch.moe.layer import is_moe_param
+from deepspeed_tpu_torch.moe.sharded_moe import MOELayer
 from deepspeed_tpu_torch.runtime import checkpoint_io
 from deepspeed_tpu_torch.runtime import dropout as dropout_lib
 from deepspeed_tpu_torch.runtime import optim as optim_lib
@@ -135,26 +151,45 @@ class DeepSpeedEngine:
                 f"{config.world_size}, but the data group has "
                 f"{self.dp_world_size} ranks")
         self.module = dropout_lib.number_sites(module)
+        # expert parallelism: this rank holds E / ep experts of each MoE
+        # layer; their gradients are summed over the expert-data group
+        self.ep_size = groups.get_expert_parallel_world_size()
+        self.ep_rank = groups.get_expert_parallel_rank()
+        for m in module.modules():
+            if isinstance(m, MOELayer) and m.ep_size != self.ep_size:
+                raise ValueError(
+                    f"the model's MoE layers were built for expert-parallel "
+                    f"size {m.ep_size}, the groups have {self.ep_size}: "
+                    f"call utils.groups.initialize(ep_size=...) first")
         self.config = config
         self.device = device
         self.client_optimizer = optimizer
         self.client_lr_scheduler = lr_scheduler
         self._seed = int(seed)
         self.params = dict(module.named_parameters())
+        self._experts = frozenset(n for n in self.params if is_moe_param(n))
+        self._edp_group = groups.get_expert_data_parallel_group()
         for name, p in self.params.items():
             if p.dtype != torch.float32 or p.device.type != device.type:
                 raise ValueError(f"master parameter {name} must be fp32 on "
                                  f"{device}, got {p.dtype} on {p.device}")
         if self._dist:
-            # the masters start equal on every rank
+            # the masters start equal on every rank (the experts on the
+            # ranks that hold the same ones)
             with torch.no_grad():
-                for p in self.params.values():
-                    torch.distributed.broadcast(p, 0, group=self.dp_group)
-        # ZeRO-1 over a process group: each rank's slices
-        self._partition = (ZeroPartition(
-            {n: p.shape for n, p in self.params.items()},
-            self.dp_world_size, self.dp_rank, self.dp_group)
-            if self._dist and config.zero_optimization_stage == 1 else None)
+                for n, p in self.params.items():
+                    if self._local_expert(n):
+                        torch.distributed.broadcast(
+                            p, groups.expert_data_parallel_src(),
+                            group=self._edp_group)
+                    else:
+                        torch.distributed.broadcast(p, 0,
+                                                    group=self.dp_group)
+        # ZeRO-1 over a process group: each rank's slices (experts over
+        # the expert-data group at ep > 1)
+        self._partition = (self._make_partition()
+                           if self._dist and config.zero_optimization_stage
+                           == 1 else None)
         if config.fp16_enabled:
             self.compute_dtype = torch.float16
         elif config.bfloat16_enabled:
@@ -210,6 +245,17 @@ class DeepSpeedEngine:
         self._layout = bridge.layout_of(self.params)
         self._pinned = {}        # reused pinned host buffers of snapshots
 
+    def _make_partition(self, cut=True):
+        kw = {}
+        if self.ep_size > 1:
+            kw = dict(expert_names=self._experts,
+                      expert_world=groups.get_expert_data_parallel_world_size(),
+                      expert_rank=groups.get_expert_data_parallel_rank(),
+                      expert_group=self._edp_group)
+        return ZeroPartition({n: p.shape for n, p in self.params.items()},
+                             self.dp_world_size, self.dp_rank, self.dp_group,
+                             cut=cut, **kw)
+
     # ------------------------------------------------------------- config
     def _configure_optimizer(self):
         """A client optimizer, or the one the config names
@@ -239,12 +285,18 @@ class DeepSpeedEngine:
                 eps=params.get("eps", 1e-8),
                 weight_decay=params.get("weight_decay", 0.0))
         if cfg.optimizer_name == LAMB_OPTIMIZER:
+            # a trust ratio takes the norm of a whole expert leaf, all
+            # the layer's experts: at ep > 1 LAMB sums it over the ranks
+            # even with nothing cut (ZeRO 0)
+            partition = self._partition
+            if partition is None and self.ep_size > 1 and self._experts:
+                partition = self._make_partition(cut=False)
             kw = dict(b1=betas[0], b2=betas[1], eps=params.get("eps", 1e-6),
                       weight_decay=params.get("weight_decay", 0.0),
                       min_coeff=params.get("min_coeff", 0.01),
                       max_coeff=params.get("max_coeff", 10.0),
                       bias_correction=params.get("bias_correction", True),
-                      partition=self._partition)
+                      partition=partition)
             if cfg.optimizer_fused:
                 return fused_lamb.fused_lamb(**kw)
             return optim_lib.lamb(**kw)
@@ -332,15 +384,42 @@ class DeepSpeedEngine:
     def _average(self, grads):
         """The gradients averaged over the data group: one all-reduce (SUM,
         then × 1/world) over a flat fp32 buffer; the returned tensors are
-        views of it."""
-        flat = torch.cat([g.reshape(-1) for g in grads.values()])
-        torch.distributed.all_reduce(flat, group=self.dp_group)
-        flat.mul_(1.0 / self.dp_world_size)
-        out, off = {}, 0
-        for k, g in grads.items():
-            out[k] = flat[off:off + g.numel()].view(g.shape)
-            off += g.numel()
-        return out
+        views of it. At ep > 1 the expert gradients are one more flat
+        buffer, summed over the expert-data group and also divided by the
+        world: each already sums the tokens of its expert-parallel group
+        (the all-to-all's backward brings them), so that is the gradient
+        of the global batch's mean loss, as JAX's is."""
+        out = {}
+        for expert, group in ((False, self.dp_group),
+                              (True, self._edp_group)):
+            names = [k for k in grads if self._local_expert(k) == expert]
+            if not names:
+                continue
+            flat = torch.cat([grads[k].reshape(-1) for k in names])
+            torch.distributed.all_reduce(flat, group=group)
+            flat.mul_(1.0 / self.dp_world_size)
+            off = 0
+            for k in names:
+                g = grads[k]
+                out[k] = flat[off:off + g.numel()].view(g.shape)
+                off += g.numel()
+        return {k: out[k] for k in grads}
+
+    def _global_norm(self, grads):
+        """The global gradient norm; at ep > 1 each expert counted once:
+        the squares of this rank's experts summed over its
+        expert-parallel group (every rank then holds the same norm)."""
+        if self.ep_size == 1 or not self._experts:
+            return optim_lib.global_norm(grads)
+        sq = [torch.sum(torch.square(g.float())) for g in grads.values()]
+        dense = torch.stack([s for k, s in zip(grads, sq)
+                             if k not in self._experts]
+                            or [sq[0].new_zeros(())]).sum()
+        expert = torch.stack([s for k, s in zip(grads, sq)
+                              if k in self._experts]).sum()
+        torch.distributed.all_reduce(
+            expert, group=groups.get_expert_parallel_group())
+        return torch.sqrt(dense + expert)
 
     def _loss_weight(self, batch):
         """This rank's weight in the mean over the data group, n_r · world
@@ -402,8 +481,9 @@ class DeepSpeedEngine:
         if cfg.fp16_enabled:
             flags = torch.stack([torch.isfinite(g).all()
                                  for g in grads.values()])
-            if per_rank:
-                # one rank's overflow skips the step on every rank
+            if per_rank or self.ep_size > 1:
+                # one rank's overflow skips the step on every rank (at
+                # ep > 1 an expert's lies only on its holders)
                 bad = (~flags.all()).float()
                 torch.distributed.all_reduce(
                     bad, op=torch.distributed.ReduceOp.MAX,
@@ -414,7 +494,7 @@ class DeepSpeedEngine:
         # the norm is taken only where the step uses it (engine.py:1544)
         self.global_grad_norm = None
         if cfg.fp16_enabled or cfg.gradient_clipping > 0:
-            self.global_grad_norm = optim_lib.global_norm(grads)
+            self.global_grad_norm = self._global_norm(grads)
         clip_coef = None
         if cfg.gradient_clipping > 0:
             clip_coef = optim_lib.clip_coefficient(self.global_grad_norm,
@@ -661,23 +741,50 @@ class DeepSpeedEngine:
         """The key paths of the optimizer state's leaves."""
         return [path for path, _, _ in self._opt_items(state)]
 
+    def _local_expert(self, name):
+        """True for an expert parameter this rank holds a part of (ep >
+        1): its leaf is ``ep`` times as long on dimension 0."""
+        return self.ep_size > 1 and name in self._experts
+
+    def _global_shape(self, name):
+        shape = tuple(int(d) for d in self.params[name].shape)
+        if self._local_expert(name):
+            shape = (shape[0] * self.ep_size,) + shape[1:]
+        return shape
+
     def _box(self, name, sliced=True):
-        """The torch-layout index box of parameter ``name`` this rank
-        writes, or None (another rank writes it): its ZeRO-1 slice, or
-        the whole tensor on rank 0 (every tensor without a process
-        group, or with ``sliced`` False: an optimizer state the rank
-        keeps whole)."""
+        """The torch-layout index box (in the whole leaf) of parameter
+        ``name`` this rank writes, or None (another rank writes it): its
+        ZeRO-1 slice, or the whole tensor on rank 0 (every tensor without
+        a process group, or with ``sliced`` False: an optimizer state the
+        rank keeps whole). At ep > 1 an expert tensor's whole is this
+        rank's experts, written by its expert-data rank 0, at their
+        place in the layer's."""
         part = self._partition
+        expert = self._local_expert(name)
         if sliced and part is not None and part.sharded(name):
-            return part.box(name)
-        if self.dp_rank != 0:
+            box = part.box(name)
+        elif (groups.get_expert_data_parallel_rank() if expert
+              else self.dp_rank) != 0:
             return None
-        return tuple((0, int(d)) for d in self.params[name].shape)
+        else:
+            box = tuple((0, int(d)) for d in self.params[name].shape)
+        if expert:
+            off = self.ep_rank * int(self.params[name].shape[0])
+            box = ((box[0][0] + off, box[0][1] + off),) + tuple(box[1:])
+        return box
+
+    def _local_leaf(self, name, arr):
+        """A whole saved leaf cut to this rank's experts (ep > 1)."""
+        if not self._local_expert(name):
+            return arr
+        n = int(self.params[name].shape[0])
+        return arr[self.ep_rank * n:(self.ep_rank + 1) * n]
 
     def _flax_record(self, name, t, box):
         """(``t`` in the saved layout, its box there, the whole leaf's
         saved shape)."""
-        full = tuple(int(d) for d in self.params[name].shape)
+        full = self._global_shape(name)
         perm = (None if self._layout is None
                 else bridge.inverse(self._layout[name][1]))
         if perm is None:
@@ -685,10 +792,52 @@ class DeepSpeedEngine:
         return (t.permute(perm), tuple(box[a] for a in perm),
                 tuple(full[a] for a in perm))
 
+    def _sweep_part(self):
+        """The partition the sweep's state is cut by, or None."""
+        return self._partition if self.optimizer.partitions_state else None
+
+    def _sweep_global(self, vec):
+        """A sweep moment of an expert-parallel engine as the whole
+        vector of every layer's experts in the port's leaf order, padded
+        to ``sweep_pad() × world`` (what an engine at ep 1 holds): the
+        leaves gathered from the ranks' chunks, then each expert leaf
+        from the expert-parallel group (collectives: every rank calls
+        it)."""
+        from deepspeed_tpu_torch.ops.adam import fused_adam
+        part = self._sweep_part()
+        specs = fused_adam.sweep_specs(
+            {n: tuple(p.shape) for n, p in self.params.items()}, part)
+        leaves = fused_adam.sweep_unflatten(vec, specs, part)
+        whole = {n: self._whole_experts(n, leaves[n]) for n in self.params}
+        return optim_lib.flatten_tree(
+            whole, pad_to=fused_adam.sweep_pad() * self.dp_world_size)[0]
+
+    def _sweep_local(self, vec, n_pad):
+        """The inverse of :meth:`_sweep_global`: this rank's state vector
+        from the whole port-order vector (``n_pad`` long)."""
+        from deepspeed_tpu_torch.ops.adam import fused_adam
+        names = list(self.params)
+        shapes = [self._global_shape(n) for n in names]
+        n = sum(int(np.prod(s)) for s in shapes)
+        whole = optim_lib.unflatten_tree(vec, optim_lib.FlatTreeSpec(
+            names=tuple(names), shapes=tuple(shapes),
+            dtypes=(torch.float32,) * len(names), n=n, n_pad=n_pad))
+        local = {k: self._local_leaf(k, t) for k, t in whole.items()}
+        return fused_adam.sweep_flatten(local, self._sweep_part())[0] \
+            .contiguous()
+
     def _sweep_full(self, vec):
         """A sweep moment as the whole vector in the saved (JAX) leaf
         order: gathered from every rank's chunk when the sweep is
-        partitioned, then reordered for a model family."""
+        partitioned, then reordered for a model family. At ep > 1 every
+        expert's leaves are gathered in (:meth:`_sweep_global`)."""
+        if self.ep_size > 1 and self._experts:
+            vec = self._sweep_global(vec)
+            if self._layout is not None:
+                vec = bridge.flat_to_jax(
+                    vec, self._layout, list(self.params),
+                    [self._global_shape(n) for n in self.params])
+            return vec
         if self._partition is not None and self.optimizer.partitions_state:
             with trace_span("checkpoint/gather_sweep"):
                 vec = self._partition.gather_flat(vec)
@@ -716,7 +865,9 @@ class DeepSpeedEngine:
             elif isinstance(val, dict):
                 fields[field] = self._local({
                     name: self._to_device(
-                        arrays[f".{field}{self._path(name)}"], name,
+                        self._local_leaf(
+                            name, arrays[f".{field}{self._path(name)}"]),
+                        name,
                         self.params[name], self._perm(name)).to(t.dtype)
                     for name, t in val.items()})
             elif isinstance(val, torch.Tensor):
@@ -728,17 +879,21 @@ class DeepSpeedEngine:
                     # the saved length is read, not recomputed; padding of
                     # a whole quantum more than the writer's world pads
                     # to is another model's leaves
-                    n = sum(p.numel() for p in self.params.values())
+                    shapes = [self._global_shape(k) for k in self.params]
+                    n = sum(int(np.prod(s)) for s in shapes)
                     q = sweep_pad() * max(1, int(saved_dp))
                     if vec.numel() >= -(-n // q) * q + q:
                         raise ValueError(
                             f"optimizer leaf .{field} holds {vec.numel()} "
                             f"elements, more than this model's sweep "
                             f"vector of {n} and its padding")
+                    experts = self.ep_size > 1 and bool(self._experts)
+                    if experts:
+                        # every layer's experts: cut to this rank's below
+                        n_pad = -(-n // sweep_pad()) * sweep_pad()
                     if self._layout is not None:
                         vec = bridge.flat_from_jax(
-                            vec, self._layout, list(self.params),
-                            [tuple(p.shape) for p in self.params.values()],
+                            vec, self._layout, list(self.params), shapes,
                             n_pad)
                     elif vec.numel() != n_pad and vec.numel() >= n:
                         # another world's padding
@@ -746,7 +901,9 @@ class DeepSpeedEngine:
                                           device=vec.device)
                         out[:n] = vec[:n]
                         vec = out
-                    if split:
+                    if experts:
+                        vec = self._sweep_local(vec, n_pad)
+                    elif split:
                         vec = self._partition.chunk(vec).contiguous()
                 if vec.shape != val.shape or vec.dtype != val.dtype:
                     raise ValueError(
@@ -840,6 +997,15 @@ class DeepSpeedEngine:
                     opt[path] = self._host(("o", path), val, copy)
             if self.device.type == "cuda":
                 torch.cuda.current_stream(self.device).synchronize()
+        # the expert files: each rank that is its expert-data group's rank
+        # 0 writes its experts' (every expert once)
+        experts = None
+        if self._experts and \
+                groups.get_expert_data_parallel_rank() == 0:
+            experts = {n: self._host(("x", n), self._flax_view(
+                n, self.params[n]), copy) for n in self._experts}
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
         zero_sd = {
             "format": "shards-v1",
             "optimizer_state_dict": checkpoint_io.tree_local_shards(
@@ -855,11 +1021,14 @@ class DeepSpeedEngine:
             "partition_count": self.dp_world_size,
         }
         if not rank0:
-            return {"zero_sd": zero_sd, "module": None, "meta": None}
+            return {"zero_sd": zero_sd, "module": None, "meta": None,
+                    "experts": experts}
         # the module tree: the whole masters (the param_shards arrays where
-        # rank 0 wrote a whole tensor)
+        # rank 0 wrote a whole tensor), the experts apart
         by_path = {}
         for n, p in self.params.items():
+            if n in self._experts:
+                continue
             key, full = p_boxes[self._path(n)]
             by_path[n] = (params[self._path(n)]
                           if key == checkpoint_io.full_key(full)
@@ -899,7 +1068,30 @@ class DeepSpeedEngine:
             "ds_version": f"torch-{__version__}",
             "client_state": client_state or {},
         }
-        return {"zero_sd": zero_sd, "module": module, "meta": meta}
+        return {"zero_sd": zero_sd, "module": module, "meta": meta,
+                "experts": experts}
+
+    def _expert_layers(self):
+        """(prefixes, counts, names): the MoE layers' ``/``-joined path
+        prefixes in sorted order (the file layer ids), each layer's
+        global expert count, and its parameter names."""
+        by_prefix = {}
+        for n in self._experts:
+            path = "/".join(self._layout[n][0]) if self._layout is not None \
+                else n.replace(".", "/")
+            by_prefix.setdefault(checkpoint_io.moe_prefix(path), []).append(
+                (path, n))
+        prefixes = sorted(by_prefix)
+        counts = [self._global_shape(by_prefix[p][0][1])[0]
+                  for p in prefixes]
+        return prefixes, counts, [by_prefix[p] for p in prefixes]
+
+    def _write_expert_files(self, tag_dir, experts):
+        """This rank's experts' files (``experts``: host arrays by name)."""
+        _, _, layers = self._expert_layers()
+        checkpoint_io.write_expert_files(
+            tag_dir, [{path: experts[name] for path, name in layer}
+                      for layer in layers], block=self.ep_rank)
 
     def _persist_checkpoint(self, save_dir, tag, snapshot, save_latest):
         """The file half of a save, host I/O only, no collective (safe on
@@ -912,18 +1104,30 @@ class DeepSpeedEngine:
                                 self._get_zero_ckpt_name(save_dir, tag),
                                 kind="zero_states")
         meta = snapshot["meta"]
+        prefixes, counts = [], []
+        if self._experts:
+            prefixes, counts, _ = self._expert_layers()
+            if meta is not None:
+                checkpoint_io.remove_stale_expert_files(tag_dir, counts)
+            if snapshot["experts"] is not None:
+                self._write_expert_files(tag_dir, snapshot["experts"])
         if meta is None:             # not rank 0
             return
         world = self.dp_world_size
-        sd = {"module": snapshot["module"], "has_moe_layers": False,
-              "moe_layer_prefixes": [], "moe_expert_counts": [], **meta}
+        sd = {"module": snapshot["module"],
+              "has_moe_layers": bool(prefixes),
+              "moe_layer_prefixes": prefixes, "moe_expert_counts": counts,
+              **meta}
         checkpoint_io.dump_file(sd, self._get_ckpt_name(save_dir, tag),
                                 kind="model_states")
         checkpoint_io.wait_for_files(
             [self._get_zero_ckpt_name(save_dir, tag, r)
-             for r in range(world)],
+             for r in range(world)]
+            + [checkpoint_io.moe_expert_file(tag_dir, lid, e)
+               for lid, c in enumerate(counts) for e in range(c)],
             timeout_s=self.config.checkpoint_wait_timeout_s,
-            describe=f"all {world} ranks' shard files of tag {tag!r}")
+            describe=f"all {world} ranks' shard and expert files of tag "
+                     f"{tag!r}")
         for f in glob.glob(os.path.join(tag_dir,
                                         "zero_pp_rank_*" + OPTIM_FILE_SUFFIX)):
             m = re.search(r"zero_pp_rank_(\d+)_", os.path.basename(f))
@@ -1061,7 +1265,9 @@ class DeepSpeedEngine:
                 [z["param_shards"] for z in zero_payloads])
             return {n: merged[paths[n]] for n in self.params}
         if self._layout is None:
-            named = dict(tree)
+            # a user module's names; its expert leaves come back nested
+            named = {p.replace("/", "."): leaf
+                     for p, leaf in checkpoint_io.walk_paths(tree)}
         else:
             named = {}
             for n, (path, _) in self._layout.items():
@@ -1134,7 +1340,8 @@ class DeepSpeedEngine:
         path = self._get_ckpt_name(load_dir, tag)
         with trace_span("checkpoint/load", tag=tag):
             sd = checkpoint_io.load_file(path, kind="model_states")
-            checkpoint_io.check_no_moe(sd, path)
+            if sd.get("has_moe_layers"):
+                sd = dict(sd, module=checkpoint_io.module_tree(sd, path))
             zero_payloads = [
                 checkpoint_io.load_file(p, kind="zero_states")
                 for p in sorted(glob.glob(os.path.join(
@@ -1170,7 +1377,8 @@ class DeepSpeedEngine:
             with torch.no_grad():
                 for n, a in arrays.items():
                     self.params[n].copy_(self._to_device(
-                        a, n, self.params[n], self._perm(n)))
+                        self._local_leaf(n, a), n, self.params[n],
+                        self._perm(n)))
         client_state = sd.get("client_state", {})
         if not load_module_only:
             self.global_steps = sd.get("global_steps", 0)
@@ -1221,13 +1429,14 @@ class DeepSpeedEngine:
         under their ``state_dict`` names, written with ``torch.save`` as
         the reference DeepSpeed writes ``pytorch_model.bin``: numpy has no
         bfloat16, and the JAX ``load_checkpoint_file`` reads this file
-        (widening bf16)."""
+        (widening bf16). At ep > 1 the experts are gathered, so every rank
+        calls it."""
         dtype = (torch.bfloat16 if self.compute_dtype == torch.float32
                  else self.compute_dtype)
         os.makedirs(save_dir, exist_ok=True)
         path = os.path.join(save_dir, save_filename)
         with trace_span("checkpoint/save_16bit_model"):
-            sd = {n: p.detach().to(dtype).cpu()
+            sd = {n: self._whole_experts(n, p.detach()).to(dtype).cpu()
                   for n, p in self.params.items()}
 
             def write(f):
@@ -1237,6 +1446,17 @@ class DeepSpeedEngine:
                                "bytes written by checkpoint saves",
                                labels={"kind": "bit16"}).inc(nbytes)
         return True
+
+    def _whole_experts(self, name, t):
+        """An expert tensor with every rank's experts of the layer (one
+        all-gather over the expert-parallel group; ep > 1), else ``t``."""
+        if not self._local_expert(name):
+            return t
+        out = torch.empty((self.ep_size * t.shape[0],) + tuple(t.shape[1:]),
+                          dtype=t.dtype, device=t.device)
+        torch.distributed.all_gather_into_tensor(
+            out, t.contiguous(), group=groups.get_expert_parallel_group())
+        return out
 
     def close(self):
         """Drain the async writer (a failed background save re-raises

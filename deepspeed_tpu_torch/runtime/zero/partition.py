@@ -32,6 +32,19 @@ The port does that by hand, one process a rank:
 At world size 1 with a process group every tensor is "cut" into one
 slice, the whole tensor, so the single-card run goes through the same
 collectives as a larger world.
+
+**Experts** (JAX ``partition.py:119-209``, ``_default_expert_filter``
+:205). At an expert-parallel size ep > 1 the expert parameters (this
+rank's E / ep experts of each layer) are cut over the expert-data group
+(the world / ep ranks that hold the same experts) and the dense ones
+over the world; the updates are gathered over the same groups, one
+collective each. The boxes of an expert tensor are in its local
+coordinates: the engine offsets them to the global expert range. LAMB's
+per-tensor norms are the whole leaf's, all experts of a layer, as JAX's
+are: :meth:`ZeroPartition.sum_over_ranks` counts each expert slice once
+over the world. The sweep keeps two flat vectors back to back a moment,
+the dense leaves' (cut over the world) and the experts' (cut over the
+expert-data group): ``ops/adam/fused_adam.sweep_flatten``.
 """
 
 import torch
@@ -55,14 +68,31 @@ def choose_dim(shape, world):
 class ZeroPartition:
     """The slices of one rank: ``shapes`` maps each parameter name to its
     (torch) shape. ``group`` is the data-parallel process group (None:
-    the world)."""
+    the world). ``expert_names`` are cut over ``expert_group`` instead,
+    of ``expert_world`` ranks, this one ``expert_rank`` (ep > 1).
+    ``cut=False`` cuts nothing (a ZeRO-0 engine's LAMB at ep > 1 sums its
+    norms through it)."""
 
-    def __init__(self, shapes, world, rank, group=None):
+    def __init__(self, shapes, world, rank, group=None, expert_names=(),
+                 expert_world=None, expert_rank=None, expert_group=None,
+                 cut=True):
         self.world, self.rank, self.group = int(world), int(rank), group
+        self.expert = frozenset(expert_names)
+        self.expert_world = self.world if expert_world is None \
+            else int(expert_world)
+        self.expert_rank = self.rank if expert_rank is None \
+            else int(expert_rank)
+        self.expert_group = expert_group
         self.shapes = {n: tuple(s) for n, s in shapes.items()}
-        self.dims = {n: choose_dim(s, self.world)
+        self.dims = {n: (choose_dim(s, self._world(n)) if cut else None)
                      for n, s in self.shapes.items()}
         self._masks = {}
+
+    def _world(self, name):
+        return self.expert_world if name in self.expert else self.world
+
+    def _rank(self, name):
+        return self.expert_rank if name in self.expert else self.rank
 
     def sharded(self, name):
         return self.dims[name] is not None
@@ -74,8 +104,8 @@ class ZeroPartition:
         d = self.dims[name]
         if d is None:
             return t
-        n = t.shape[d] // self.world
-        return t.narrow(d, self.rank * n, n)
+        n = t.shape[d] // self._world(name)
+        return t.narrow(d, self._rank(name) * n, n)
 
     def box(self, name):
         """The index ranges ``((start, stop), ...)`` of this rank's slice of
@@ -84,59 +114,75 @@ class ZeroPartition:
         shape, d = self.shapes[name], self.dims[name]
         key = [(0, s) for s in shape]
         if d is not None:
-            n = shape[d] // self.world
-            key[d] = (self.rank * n, (self.rank + 1) * n)
+            n = shape[d] // self._world(name)
+            r = self._rank(name)
+            key[d] = (r * n, (r + 1) * n)
         return tuple(key)
 
     def all_gather(self, local):
         """The whole tensors from every rank's slices: ``local`` maps names
         to this rank's slices (replicated tensors whole, passed through).
-        One collective over a flat buffer of all the slices."""
-        names = [n for n in local if self.dims[n] is not None]
+        One collective over a flat buffer of all the slices of each group
+        (the world's; the expert-data group's)."""
         out = dict(local)
-        if not names:
-            return out
-        send = torch.cat([local[n].reshape(-1) for n in names])
-        recv = torch.empty(self.world * send.numel(), dtype=send.dtype,
-                           device=send.device)
-        torch.distributed.all_gather_into_tensor(recv, send,
-                                                 group=self.group)
-        recv = recv.view(self.world, send.numel())
-        off = 0
-        for n in names:
-            t = local[n]
-            size = t.numel()
-            out[n] = torch.cat([recv[r, off:off + size].view(t.shape)
-                                for r in range(self.world)],
-                               dim=self.dims[n])
-            off += size
+        for expert, world, group in ((False, self.world, self.group),
+                                     (True, self.expert_world,
+                                      self.expert_group)):
+            names = [n for n in local if self.dims[n] is not None
+                     and (n in self.expert) == expert]
+            if not names:
+                continue
+            send = torch.cat([local[n].reshape(-1) for n in names])
+            recv = torch.empty(world * send.numel(), dtype=send.dtype,
+                               device=send.device)
+            torch.distributed.all_gather_into_tensor(recv, send, group=group)
+            recv = recv.view(world, send.numel())
+            off = 0
+            for n in names:
+                t = local[n]
+                size = t.numel()
+                out[n] = torch.cat([recv[r, off:off + size].view(t.shape)
+                                    for r in range(world)], dim=self.dims[n])
+                off += size
         return out
 
     def sum_over_ranks(self, names, values):
         """Per-tensor sums (``values[..., i]`` belongs to ``names[i]``: a
         squared norm of this rank's slice) summed over the ranks, each
-        replicated tensor counted once (rank 0's): one all-reduce."""
+        replicated tensor counted once (rank 0's; an expert tensor's once
+        per expert, its expert-data rank 0's): one all-reduce over the
+        world. An expert tensor's sum spans all the layer's experts."""
         key = tuple(names)
         mask = self._masks.get(key)
         if mask is None or mask.device != values.device:
             mask = torch.tensor(
-                [1.0 if self.dims[n] is not None or self.rank == 0 else 0.0
-                 for n in names], dtype=values.dtype, device=values.device)
+                [1.0 if self.dims[n] is not None or self._rank(n) == 0
+                 else 0.0 for n in names], dtype=values.dtype,
+                device=values.device)
             self._masks[key] = mask
         values = values * mask
         torch.distributed.all_reduce(values, group=self.group)
         return values
 
     # -------------------------------------------------- the sweep's vector
-    def chunk(self, vec):
-        """This rank's contiguous chunk of a flat vector."""
-        n = vec.numel() // self.world
-        return vec.narrow(0, self.rank * n, n)
+    def group_world(self, expert=False):
+        """The ranks a flat vector of dense (or expert) leaves is cut
+        over."""
+        return self.expert_world if expert else self.world
 
-    def gather_flat(self, chunk):
-        """The whole flat vector from every rank's chunk."""
-        out = torch.empty(self.world * chunk.numel(), dtype=chunk.dtype,
-                          device=chunk.device)
-        torch.distributed.all_gather_into_tensor(out, chunk.contiguous(),
-                                                 group=self.group)
+    def chunk(self, vec, expert=False):
+        """This rank's contiguous chunk of a flat vector (of expert leaves:
+        its chunk over the expert-data group)."""
+        world = self.group_world(expert)
+        rank = self.expert_rank if expert else self.rank
+        n = vec.numel() // world
+        return vec.narrow(0, rank * n, n)
+
+    def gather_flat(self, chunk, expert=False):
+        """The whole flat vector from every rank's chunk (of its group)."""
+        out = torch.empty(self.group_world(expert) * chunk.numel(),
+                          dtype=chunk.dtype, device=chunk.device)
+        torch.distributed.all_gather_into_tensor(
+            out, chunk.contiguous(),
+            group=self.expert_group if expert else self.group)
         return out

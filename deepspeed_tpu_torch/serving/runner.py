@@ -138,10 +138,14 @@ class PagedGPT2Runner:
                 raise ValueError(
                     f"serving needs a GPT2Config-like model config (missing "
                     f"{attr!r}); got {type(cfg).__name__}")
+        if getattr(cfg, "moe_num_experts", 0) != 0:
+            # the JAX runner refuses MoE too (serving/runner.py:100-101)
+            raise NotImplementedError(
+                "MoE serving is not supported: the paged runner decodes "
+                "dense GPT-2 blocks; generate through init_inference")
         unsupported = {
             "position_embedding != 'learned'":
                 getattr(cfg, "position_embedding", "learned") != "learned",
-            "MoE": getattr(cfg, "moe_num_experts", 0) != 0,
             "pipeline stages": getattr(cfg, "pp_stages", 1) != 1,
             f"attention_mode={getattr(cfg, 'attention_mode', 'auto')!r}":
                 getattr(cfg, "attention_mode", "auto") != "auto",

@@ -18,7 +18,6 @@ refusals of what is not ported.
 """
 
 import dataclasses
-import pickle
 import time
 
 import pytest
@@ -405,16 +404,37 @@ def test_user_module_saves_under_its_state_dict_names(tmp_path):
 
 
 def test_moe_layout_is_refused(tmp_path):
-    a = _engine(_config("Adam"))
+    """The MoE expert-file layout, refused before MoE was ported, now
+    round-trips: a tiny MoE-GPT tag holds one file an expert, the
+    model-states tree holds the rest, and a fresh engine resumes
+    bit-equal. A tag that lost an expert file is refused."""
+    moe = dataclasses.replace(gpt2.PRESETS["tiny"], moe_num_experts=4,
+                              moe_expert_interval=1)
+    a = _engine(_config("Adam"), model_cfg=moe)
+    _steps(a, BATCHES[:2])
     a.save_checkpoint(str(tmp_path), tag="t")
-    path = tmp_path / "t" / "mp_rank_00_model_states.pt"
-    sd = checkpoint_io.load_file(str(path))
-    sd["has_moe_layers"] = True
-    with open(path, "wb") as f:
-        pickle.dump(sd, f)
+    files = sorted(p.name for p in (tmp_path / "t").iterdir())
+    assert [f for f in files if f.startswith("layer_")] == [
+        f"layer_{lid}_expert_{e}_mp_rank_00_model_states.pt"
+        for lid in range(2) for e in range(4)]
+    sd = checkpoint_io.load_file(str(tmp_path / "t" /
+                                     "mp_rank_00_model_states.pt"))
+    assert sd["has_moe_layers"] and sd["moe_expert_counts"] == [4, 4]
+    assert sd["moe_layer_prefixes"] == ["h_0/moe/deepspeed_moe",
+                                        "h_1/moe/deepspeed_moe"]
+    assert "deepspeed_experts" not in sd["module"]["h_0"]["moe"][
+        "deepspeed_moe"]
+    ref = _steps(a, BATCHES[2:4])
+    r = _engine(_config("Adam"), seed=1, model_cfg=moe)
+    r.load_checkpoint(str(tmp_path), tag="t")
+    assert all(torch.equal(x, y)
+               for x, y in zip(ref, _steps(r, BATCHES[2:4])))
+    _assert_bit_equal(a, r)
+    (tmp_path / "t" / "layer_1_expert_2_mp_rank_00_model_states.pt").unlink()
     (tmp_path / "t" / "manifest.json").unlink()
-    with pytest.raises(NotImplementedError, match="MoE"):
-        _engine(_config("Adam")).load_checkpoint(str(tmp_path), tag="t")
+    with pytest.raises(FileNotFoundError, match="non-contiguous"):
+        _engine(_config("Adam"), model_cfg=moe).load_checkpoint(
+            str(tmp_path), tag="t")
 
 
 def test_save_16bit_model_dtype_follows_compute(tmp_path):

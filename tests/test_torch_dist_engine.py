@@ -318,8 +318,9 @@ def test_a_prebuilt_config_of_another_world_raises():
 
 def test_groups_without_a_process_group():
     """No process group: a world of one rank, rank 0; the data group is
-    the world, and expert, model or pipe sizes above 1 raise naming their
-    ROADMAP item."""
+    the world, and model or pipe sizes above 1 raise naming their ROADMAP
+    item; an expert size above 1 does not divide the world of one
+    rank."""
     from deepspeed_tpu_torch.utils import groups as tgroups
     tgroups.destroy()
     assert not tgroups.mesh_is_initialized()
@@ -329,10 +330,15 @@ def test_groups_without_a_process_group():
             tgroups.get_data_parallel_rank(),
             tgroups.get_model_parallel_world_size()) == (1, 1, 0, 1)
     assert tgroups.MESH_AXES == groups.MESH_AXES
-    for kw, item in (("ep_size", "item 8"), ("mp_size", "item 11"),
-                     ("pp_size", "item 9")):
+    assert (tgroups.get_expert_parallel_world_size(),
+            tgroups.get_expert_parallel_rank(),
+            tgroups.get_expert_data_parallel_world_size(),
+            tgroups.get_expert_data_parallel_rank()) == (1, 0, 1, 0)
+    for kw, item in (("mp_size", "item 11"), ("pp_size", "item 9")):
         with pytest.raises(NotImplementedError, match=item):
             tgroups.initialize(**{kw: 2})
+    with pytest.raises(ValueError, match="not divisible"):
+        tgroups.initialize(ep_size=2)
     tgroups.destroy()
 
 

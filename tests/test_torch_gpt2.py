@@ -158,11 +158,19 @@ def test_cache_overflow_raises(tiny):
     ("attention_mode", "sparse"), ("moe_num_experts", 4),
     ("position_embedding", "rope"), ("dropout", 0.1), ("remat", True)])
 def test_unported_options_raise(field, value):
-    """Pipeline stages, ring attention, MoE and rope still raise. Sparse
-    attention, dropout and remat are ported: the model builds (sparse with
-    remat too) and the option acts: dropout draws masks under a key,
-    remat leaves the loss as it is."""
+    """Pipeline stages, ring attention and rope still raise. Sparse
+    attention, dropout, remat and MoE are ported: the model builds (sparse
+    with remat too) and the option acts: dropout draws masks under a key,
+    remat leaves the loss as it is, MoE's loss carries the aux term."""
     cfg = dataclasses.replace(gpt2.PRESETS["tiny"], **{field: value})
+    if field == "moe_num_experts":
+        batch = gpt2.synthetic_batch(2, 32, 512, seed=0, device="cpu")
+        loss = gpt2.GPT2LMHeadModel(cfg, device="cpu")(batch)
+        ce = gpt2.GPT2LMHeadModel(dataclasses.replace(
+            cfg, moe_aux_loss_coef=0.0), device="cpu")(batch)
+        l_aux = (loss - ce).item() / cfg.moe_aux_loss_coef
+        assert torch.isfinite(loss) and 0.5 < l_aux <= value
+        return
     if value == "sparse":
         gpt2.GPT2LMHeadModel(cfg, device="cpu")
         cfg = dataclasses.replace(cfg, remat=True)

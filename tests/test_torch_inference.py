@@ -140,7 +140,7 @@ def test_engine_casts_dtype_and_forward(weights):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"mp_size": 2}, {"moe": True}, {"quantization_setting": 8},
+    {"mp_size": 2}, {"ep_size": 2}, {"quantization_setting": 8},
     {"checkpoint": "ckpt.json"}])
 def test_unported_engine_options_raise(kwargs):
     model = gpt2.GPT2LMHeadModel(gpt2.PRESETS["tiny"], device="cpu")

@@ -122,7 +122,13 @@ def _state_numel(state):
 
 
 def _engine(case, seed=0):
+    """An engine for ``case`` on this rank: the groups at the case's
+    ``ep_size`` (default 1) first, as the MoE layers read them when
+    built."""
     import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.utils import groups
+    groups.destroy()
+    groups.initialize(ep_size=case.get("ep_size", 1))
     model = make_model(case, seed)
     kw = {}
     if case.get("client"):
@@ -177,6 +183,8 @@ def engine_case(rank, world, case, root):
            "loss_scale": float(engine.loss_scale),
            "global_samples": engine.global_samples,
            "grad_norm": engine.get_global_grad_norm(),
+           "last_norm": (None if engine.global_grad_norm is None
+                         else float(engine.global_grad_norm)),
            "state_numel": _state_numel(engine.opt_state),
            "micro_batch": engine.config.train_micro_batch_size_per_gpu}
     if case.get("eval"):
@@ -282,6 +290,40 @@ def ring_case(rank, world, case, root):
             "grads": [g.numpy() for g in grads]}
 
 
+def groups_case(rank, world, case, root):
+    """The groups at ``case["ep_size"]``: sizes, ranks and the global
+    ranks of the expert-parallel and expert-data groups."""
+    from deepspeed_tpu_torch.utils import groups
+    groups.destroy()
+    groups.initialize(ep_size=case["ep_size"])
+
+    def ranks(g):
+        return (None if g is None
+                else torch.distributed.get_process_group_ranks(g))
+    return {"ep": groups.get_expert_parallel_world_size(),
+            "ep_rank": groups.get_expert_parallel_rank(),
+            "edp": groups.get_expert_data_parallel_world_size(),
+            "edp_rank": groups.get_expert_data_parallel_rank(),
+            "ep_ranks": ranks(groups.get_expert_parallel_group()),
+            "edp_ranks": ranks(groups.get_expert_data_parallel_group())}
+
+
+def all_to_all_case(rank, world, case, root):
+    """``comm.all_to_all`` over the expert-parallel group (ep = world) of
+    x = [[10·rank], [10·rank + 1]] (3 columns), and x's gradient under a
+    cotangent of rank + 1."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.utils import groups
+    groups.destroy()
+    groups.initialize(ep_size=world)
+    x = (torch.arange(world, dtype=torch.float32)[:, None] + 10 * rank) \
+        .repeat(1, 3).requires_grad_()
+    out = comm.all_to_all(x, groups.get_expert_parallel_group())
+    (out * (rank + 1.0)).sum().backward()
+    return {"out": out.detach().numpy(), "grad": x.grad.numpy()}
+
+
 KINDS = {"engine": engine_case, "dropout": dropout_case,
          "refusal": refusal_case, "checkpoint": checkpoint_case,
-         "ring": ring_case}
+         "ring": ring_case, "groups": groups_case,
+         "all_to_all": all_to_all_case}
