@@ -237,6 +237,20 @@ Phases, each fatal on failure:
    finite, falling steps; world 1 over NCCL, with the default groups and
    with ``ep_size=1``, is bit-equal to no process group (ep > 1 needs
    more than one card; the line says so).
+20. ZeRO stages 2 and 3 and the optimizer offload at GPT-2 XL width
+   (``bench.py``'s gpt2-xl row, bench.py:154: 48 x 1600, 25 heads, vocab
+   50257 padded, bs 4 x 1024, bf16 over fp32 masters, Adam lr 1e-4 with
+   ``fused: true``), 3 steps each: (a) stage 0 without a process group;
+   (b) stage 2 and (c) stage 3 over an NCCL world-1 group, losses and
+   masters bit-equal to (a), exactly 48 flash_fwd, 48 dq, 48 dk/dv and 2
+   adam launches a step (580 tensors, 448 a launch); (d) stage 3 with
+   ``offload_optimizer: cpu`` (the host CPU-Adam, moments in pinned host
+   RAM), losses within 2e-4 relative of (a), the flash launches only;
+   (e) NVMe offload at GPT-2 medium, stage 2, 2 steps, moments in files
+   under ``build/zero_nvme`` (deleted after), bit-equal to the same run
+   offloaded to RAM. For each run: step ms, CPU-Adam host ms, peak
+   device memory beside ``estimate_zero_mem``, the whole compute-dtype
+   copy's size, launches; the host's RAM; which aio engine ran.
 
 Prints an ``e2e`` JSON line, a ``train`` JSON line, a ``bert`` JSON line,
 a ``moq`` JSON line, an ``int8`` JSON line, a ``sparse`` JSON line, a
@@ -252,9 +266,10 @@ world-1 losses, step ms beside the no-group run's and the phase median,
 the bit-equality checks and launches; the checkpoint's numbers and the
 sweep-moment gather; the lse-gradient errors; ring / Ulysses), a ``moe``
 JSON line (phase 19's figures and checks, its launches by kernel row), a
-``kernels`` JSON line (the softmax, on no path as in the JAX package,
-with 0 launches, and its C entry's and ``torch.softmax``'s device times
-from the profiler; the decode rows' ``single_stream`` and
+``zero`` JSON line (phase 20's runs and checks), a ``kernels`` JSON
+line (the softmax, on no path as in the JAX package, with 0 launches,
+and its C entry's and ``torch.softmax``'s device times from the
+profiler; the decode rows' ``single_stream`` and
 ``serving_batch`` shapes beside the main path's; the sparse kernels'
 predicated rows with the launches of phase 13's predicated step; the
 sparse rows' SDPA yardstick is the masked
@@ -4214,6 +4229,200 @@ def moe_phase(torch, deepspeed_tpu_torch, gpt2, attn_mod, decode, fused_adam,
     return line, rows
 
 
+# phase 20, ZeRO stages 2 and 3 and the optimizer offload at GPT-2 XL
+# width (bench.py's gpt2-xl row, bench.py:154): bs 4 x 1024, bf16 over
+# fp32 masters, Adam lr 1e-4, fused; then NVMe offload at GPT-2 medium
+ZERO_B, ZERO_STEPS, NVME_STEPS = 4, 3, 2
+OFFLOAD_RTOL = 2e-4      # tests/model/test_loss_parity.py:124
+
+
+def zero_train_config(stage, offload=None, batch=ZERO_B):
+    zero = {"stage": stage}
+    if offload is not None:
+        zero["offload_optimizer"] = offload
+    return {"train_batch_size": batch,
+            "train_micro_batch_size_per_gpu": batch,
+            "steps_per_print": 10 ** 9, "bf16": {"enabled": True},
+            "zero_optimization": zero,
+            "optimizer": {"type": "Adam", "params": {"lr": LR,
+                                                     "fused": True}}}
+
+
+def host_ram_gb():
+    """(total, available) host RAM in GB, from /proc/meminfo."""
+    info = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, val = line.split(":", 1)
+            info[key] = int(val.split()[0]) * 1024 / 1e9
+    return info["MemTotal"], info["MemAvailable"]
+
+
+def zero_run(torch, deepspeed_tpu_torch, gpt2, op_builder, cfg, config,
+             batch, steps, per_step, what):
+    """One engine of phase 20 built and run ``steps`` steps, its launches
+    held to ``per_step``. Returns (figures, the whole masters on the
+    host)."""
+    from deepspeed_tpu_torch import zero
+    from deepspeed_tpu_torch.runtime.zero.partition import estimate_zero_mem
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    engine = deepspeed_tpu_torch.initialize(
+        model=gpt2.GPT2LMHeadModel(cfg, seed=0), config=config)[0]
+    op_builder.reset_launch_counts()
+    losses, ms = run_steps(torch, engine, batch, steps)
+    counts = dict(op_builder.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() - base
+    check_counts(what, counts, per_step, steps)
+    n = sum(math.prod(s) for s in engine._shapes.values())
+    off = engine._offload_opt
+    figures = {
+        "losses": losses, "step_ms": ms,
+        "step_ms_median": statistics.median(ms[1:]),
+        "cpu_adam_host_ms": None if off is None else off.last_host_ms,
+        "peak_mem_gb": peak / 1e9,
+        # the JAX package's model: bf16 params, fp32 grads, masters and
+        # m + v (none of the moments on the card under offload)
+        "estimate_zero_mem_gb": estimate_zero_mem(
+            n, engine.dp_world_size, engine.zero_stage,
+            optimizer_mult=0 if off is not None else 2) / 1e9,
+        "gathered_compute_copy_gb": n * 2 / 1e9,
+        "n_params": n, "n_tensors": len(engine._shapes),
+        "launches": counts, "process_group": engine._dist,
+        "zero_stage": engine.zero_stage}
+    with zero.GatheredParameters(dict(engine.params)) as whole:
+        masters = {k: t.cpu() for k, t in whole.items()}
+    del engine, whole
+    torch.cuda.empty_cache()
+    print(f"zero {what}: {json.dumps(figures)}", flush=True)
+    return figures, masters
+
+
+def zero_phase(torch, deepspeed_tpu_torch, gpt2, op_builder, card):
+    """Phase 20: GPT-2 XL at stages 0, 2 and 3 and stage 3 offloaded to
+    host RAM, then GPT-2 medium offloaded to NVMe. Returns the ``zero``
+    line and the main path's launches by kernel row."""
+    import torch.distributed as dist
+    from deepspeed_tpu_torch.ops.adam import fused_adam
+    from deepspeed_tpu_torch.ops.aio.aio_handle import AsyncIOHandle
+    t0 = time.perf_counter()
+    cfg = gpt2.PRESETS["gpt2-xl"]
+    layers = cfg.n_layer
+    batch = gpt2.synthetic_batch(ZERO_B, SEQ, cfg.vocab_size, seed=8)
+    n_tensors = 4 + 12 * layers     # wte, wpe, ln_f's two; 12 a block
+    adam = -(-n_tensors // fused_adam.MULTI_MAX_TENSORS)
+    flash = {"flash_fwd": layers, "flash_bwd_dq": layers,
+             "flash_bwd_dkv": layers}
+    total, avail = host_ram_gb()
+    line = {"card": card, "config": "gpt2-xl bs4 seq1024 bf16 "
+            "adam(fused) lr1e-4",
+            "host_ram_gb": {"total": total, "available_at_start": avail}}
+    print(f"zero: host RAM {total:.1f} GB, {avail:.1f} GB available",
+          flush=True)
+    rows = collections.Counter()
+    runs = {}
+    if dist.is_initialized():
+        raise AssertionError("a process group exists before phase 20")
+    runs["a_stage0_no_group"], want = zero_run(
+        torch, deepspeed_tpu_torch, gpt2, op_builder, cfg,
+        zero_train_config(0), batch, ZERO_STEPS, dict(flash, adam=adam),
+        "(a) gpt2-xl stage 0, no process group")
+    if len(want) != n_tensors:
+        raise AssertionError(f"gpt2-xl holds {len(want)} tensors, "
+                             f"expected {n_tensors}")
+    # random init: the first loss near ln(vocab), as phase 6 checks
+    first = runs["a_stage0_no_group"]["losses"]
+    if not all(math.isfinite(x) for x in first) or \
+            abs(first[0] - math.log(cfg.vocab_size)) > 0.5:
+        raise AssertionError(f"gpt2-xl losses {first}: not finite, or the "
+                             f"first not near ln(vocab)")
+    deepspeed_tpu_torch.init_distributed()         # NCCL, world 1
+    bit_equal = {}
+    try:
+        for key, stage in (("b_stage2_nccl", 2), ("c_stage3_nccl", 3)):
+            runs[key], got = zero_run(
+                torch, deepspeed_tpu_torch, gpt2, op_builder, cfg,
+                zero_train_config(stage), batch, ZERO_STEPS,
+                dict(flash, adam=adam), f"({key[0]}) gpt2-xl stage {stage} "
+                f"over NCCL world 1")
+            bit_equal[key] = {
+                "losses": runs[key]["losses"]
+                == runs["a_stage0_no_group"]["losses"],
+                "masters": all(torch.equal(got[k], want[k]) for k in want),
+                "max_abs_master_diff": max(
+                    float((got[k] - want[k]).abs().max()) for k in want)}
+            print(f"zero ({key[0]}) against (a): {bit_equal[key]}",
+                  flush=True)
+            if not (bit_equal[key]["losses"] and bit_equal[key]["masters"]):
+                raise AssertionError(f"gpt2-xl stage {stage} is not "
+                                     f"bit-equal to stage 0: "
+                                     f"{bit_equal[key]}")
+            del got
+        runs["d_stage3_offload_cpu"], got = zero_run(
+            torch, deepspeed_tpu_torch, gpt2, op_builder, cfg,
+            zero_train_config(3, {"device": "cpu"}), batch, ZERO_STEPS,
+            flash, "(d) gpt2-xl stage 3, offload_optimizer cpu")
+        ref = runs["a_stage0_no_group"]["losses"]
+        rel = max(abs(a - b) / abs(b) for a, b in
+                  zip(runs["d_stage3_offload_cpu"]["losses"], ref))
+        line["offload_cpu_max_rel_loss_diff"] = rel
+        line["offload_cpu_max_abs_master_diff"] = max(
+            float((got[k] - want[k]).abs().max()) for k in want)
+        del got, want
+        if not rel <= OFFLOAD_RTOL:
+            raise AssertionError(f"gpt2-xl offloaded losses differ from "
+                                 f"stage 0 by {rel} relative (tolerance "
+                                 f"{OFFLOAD_RTOL})")
+        # (e) NVMe: GPT-2 medium, stage 2, against the same run offloaded
+        # to host RAM
+        mcfg = gpt2.PRESETS["gpt2-medium"]
+        mbatch = gpt2.synthetic_batch(B, SEQ, mcfg.vocab_size, seed=4)
+        mflash = {k: mcfg.n_layer for k in flash}
+        root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "zero_nvme")
+        shutil.rmtree(root, ignore_errors=True)
+        os.makedirs(root)
+        try:
+            handle = AsyncIOHandle()
+            handle.reset_max_inflight()
+            runs["e_medium_stage2_offload_nvme"], nvme = zero_run(
+                torch, deepspeed_tpu_torch, gpt2, op_builder, mcfg,
+                zero_train_config(2, {"device": "nvme", "nvme_path": root},
+                                  batch=B), mbatch, NVME_STEPS, mflash,
+                "(e) gpt2-medium stage 2, offload_optimizer nvme")
+            line["nvme"] = {
+                "kernel_aio": handle.kernel_aio_available(root),
+                "max_inflight": handle.max_inflight(),
+                "swap_path": "build/zero_nvme"}
+            runs["e_ref_medium_stage2_offload_cpu"], ram = zero_run(
+                torch, deepspeed_tpu_torch, gpt2, op_builder, mcfg,
+                zero_train_config(2, {"device": "cpu"}, batch=B), mbatch,
+                NVME_STEPS, mflash,
+                "(e) reference: gpt2-medium stage 2, offload_optimizer cpu")
+            same = (runs["e_medium_stage2_offload_nvme"]["losses"]
+                    == runs["e_ref_medium_stage2_offload_cpu"]["losses"]
+                    and all(torch.equal(nvme[k], ram[k]) for k in ram))
+            line["nvme"]["bit_equal_to_ram_offload"] = same
+            del nvme, ram
+            if not same:
+                raise AssertionError("NVMe offload is not bit-equal to "
+                                     "the same run offloaded to RAM")
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        line["nvme"]["swap_folder_removed"] = not os.path.exists(root)
+    finally:
+        dist.destroy_process_group()
+    for figures in runs.values():
+        for k, v in figures["launches"].items():
+            rows["adam_per_tensor" if k == "adam" else k] += v
+    line.update(runs=runs, bit_equal_to_stage0=bit_equal,
+                offload_rtol=OFFLOAD_RTOL,
+                phase_s=time.perf_counter() - t0)
+    print(f"zero: phase 20 took {line['phase_s']:.1f} s", flush=True)
+    return line, rows
+
+
 def finish_rows(rows, launches, max_err, card):
     """bound_ms (the larger of bytes at 3.35 TB/s and operations at the
     peak of their type), launches and max_abs_err for each row."""
@@ -4231,6 +4440,7 @@ def finish_rows(rows, launches, max_err, card):
 
 
 def main():
+    script_t0 = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4727,6 +4937,15 @@ def main():
         row["launches"] += moe_counts.get(row["name"], 0)
     moe_line["launches_by_row"] = dict(moe_counts)
 
+    # 20. ZeRO stages 2 and 3 and the optimizer offload at GPT-2 XL
+    # width (bench.py's gpt2-xl row); NVMe offload at GPT-2 medium
+    zero_line, zero_counts = zero_phase(torch, deepspeed_tpu_torch, gpt2,
+                                        op_builder, card)
+    for row in rows:
+        row["launches"] += zero_counts.get(row["name"], 0)
+    zero_line["launches_by_row"] = dict(zero_counts)
+    zero_line["script_s"] = time.perf_counter() - script_t0
+
     print(json.dumps({"e2e": e2e}))
     print(json.dumps({"train": train}))
     print(json.dumps({"bert": bert_line}))
@@ -4738,6 +4957,7 @@ def main():
     print(json.dumps({"ckpt": ckpt_line}))
     print(json.dumps({"dp": dp_line}))
     print(json.dumps({"moe": moe_line}))
+    print(json.dumps({"zero": zero_line}))
     print(json.dumps({"kernels": rows}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -231,7 +231,9 @@ def add_config_arguments(parser):
 # public module alias (reference: deepspeed.checkpointing)
 from deepspeed_tpu_torch.runtime.activation_checkpointing import \
     checkpointing  # noqa: E402
+# public subpackage (reference: deepspeed.zero)
+from deepspeed_tpu_torch import zero  # noqa: E402
 
 __all__ = ["DeepSpeedConfig", "DeepSpeedEngine", "InferenceEngine",
-           "add_config_arguments", "checkpointing", "init_distributed",
+           "add_config_arguments", "checkpointing", "init_distributed", "zero",
            "init_inference", "init_serving", "initialize", "__version__"]

@@ -2,8 +2,9 @@
 
 Each model family the two packages share has one layout table: a row per
 parameter, ``(torch name, flax key path, perm)``, where ``{i}`` stands for
-a layer index and ``perm`` takes the flax array's axes to the torch
-tensor's (``None``: the same array). Dense kernels go from flax's
+a layer index (several in a row: one index each, in order) and ``perm``
+takes the flax array's axes to the torch tensor's (``None``: the same
+array). Dense kernels go from flax's
 ``[in, out]`` to ``[out, in]`` (the fused QKV keeps its ``[q | k | v]``
 column order as row order), convolution kernels from ``[kh, kw, in, out]``
 to ``[out, in, kh, kw]``, LayerNorm ``scale`` becomes ``weight``, a flax
@@ -13,7 +14,8 @@ Both directions come from the same rows:
 * :func:`flax_to_state_dict` (GPT-2, MoE-GPT),
   :func:`bert_flax_to_state_dict`, :func:`moe_inference_flax_to_state_dict`,
   :func:`simple_flax_to_state_dict` (``SimpleModel`` / ``LinearStack`` /
-  ``EmbeddingModel``) and :func:`cifar_flax_to_state_dict` take a flax
+  ``EmbeddingModel``), :func:`cifar_flax_to_state_dict` and
+  :func:`tiled_flax_to_state_dict` take a flax
   params tree of numpy arrays (``jax.tree.map(np.asarray, params)``) to
   the port model's state_dict;
 * :func:`layout_of` finds the table that names every parameter of a port
@@ -121,10 +123,16 @@ CIFAR_LAYOUT = (
                                               None),
     *_dense("fc1", "fc1"), *_dense("fc2", "fc2"), *_dense("fc3", "fc3"))
 
+# runtime/zero/tiling.py: TiledLinear's tile grid (tile_{ic}_{oc}, the
+# bias on the last input tile) and TiledLinearReturnBias's
+TILED_LAYOUT = (_dense("tile_{i}_{i}", "tile_{i}_{i}")
+                + _dense("tiles.tile_{i}_{i}", "tiles/tile_{i}_{i}")
+                + _raw("bias"))
+
 LAYOUTS = {"gpt2": GPT2_LAYOUT, "bert": BERT_LAYOUT,
            "embedding": EMBEDDING_LAYOUT, "simple": SIMPLE_LAYOUT,
            "cifar": CIFAR_LAYOUT, "moe_inference": MOE_INFERENCE_LAYOUT,
-           "moe_layer": MOE_LAYER_LAYOUT}
+           "moe_layer": MOE_LAYER_LAYOUT, "tiled": TILED_LAYOUT}
 
 
 def _pattern(template):
@@ -144,8 +152,8 @@ def _translate(family, name, side):
         m = row[side].match(name)
         if m:
             other = row[3 - side]
-            if m.groups():
-                other = other.replace("{i}", m.group(1))
+            for index in m.groups():
+                other = other.replace("{i}", index, 1)
             return other, row[4]
     return None
 
@@ -337,3 +345,10 @@ def cifar_flax_to_state_dict(params) -> dict:
     conv kernels from ``[kh, kw, in, out]`` to ``[out, in, kh, kw]``,
     dense kernels transposed."""
     return _from_flax_params("cifar", params)
+
+
+def tiled_flax_to_state_dict(params) -> dict:
+    """Convert the flax params of a ``TiledLinear`` (``tile_{ic}_{oc}``
+    denses) or ``TiledLinearReturnBias`` (``tiles`` and ``bias``) to the
+    state_dict of ``runtime.zero.tiling``'s module."""
+    return _from_flax_params("tiled", params)

@@ -358,7 +358,7 @@ def fused_adam_sweep(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0,
                      adam_w_mode=True, bias_correction=True, partition=None):
     """Adam as one whole-state sweep (config ``optimizer.params.sweep``).
 
-    ``partition`` (ZeRO 1 over a process group,
+    ``partition`` (ZeRO >= 1 over a process group,
     ``runtime.zero.partition.ZeroPartition``): the flat vectors are padded
     to a multiple of ``sweep_pad() × world`` and each rank keeps and
     updates its contiguous chunk (a multiple of the kernel's block, so
@@ -372,7 +372,10 @@ def fused_adam_sweep(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0,
 
     The grads are flattened into one padded vector each step (a flat
     grad buffer that ``.grad`` aliases would save that copy: a later
-    change); the params are flattened only for weight decay. The
+    change); at ZeRO 2 ``update`` takes, in place of the dict, the
+    chunk of that vector the engine reduce-scattered (the flatten is
+    then the reduce-scatter's input). The params are flattened only for
+    weight decay. The
     global-norm clip rides inside the sweep (``fuses_clip``), so the
     engine skips its own pass over the grads. The cast output is not
     used: the engine's forward casts the masters itself."""
@@ -385,7 +388,14 @@ def fused_adam_sweep(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0,
     def update(grads, state, params, lr, clip_coef=None):
         step = state.step + 1
         bc1, bc2 = optim_lib.bias_corrections(b1, b2, step, bias_correction)
-        flat_g, specs = sweep_flatten(grads, partition)
+        if isinstance(grads, torch.Tensor):
+            # ZeRO 2: the engine reduce-scattered the flat gradient
+            # vector straight into this rank's chunk
+            flat_g = grads
+            specs = sweep_specs({k: tuple(p.shape)
+                                 for k, p in params.items()}, partition)
+        else:
+            flat_g, specs = sweep_flatten(grads, partition)
         flat_p = (sweep_flatten(params, partition)[0]
                   if weight_decay > 0.0 else None)
         u, mu, nu, _ = adam_sweep_apply(

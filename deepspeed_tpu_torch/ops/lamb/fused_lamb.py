@@ -136,7 +136,7 @@ def fused_lamb(b1=0.9, b2=0.999, eps=1e-6, weight_decay=0.0, min_coeff=0.01,
     global-norm clip to the grads first (``fuses_clip`` False), as the JAX
     engine does for LAMB.
 
-    ``partition`` (ZeRO 1 over a process group): pass 1 runs on each
+    ``partition`` (ZeRO >= 1 over a process group): pass 1 runs on each
     rank's slices, and a trust ratio needs the whole tensor's norms, so
     the stacked sum(p²) and sum(u²) are summed over the ranks (each
     replicated tensor counted once) before :func:`_scaled_updates`: one

@@ -1,4 +1,5 @@
-"""Just-in-time build of the package's CUDA kernels (``csrc/*.cu``).
+"""Just-in-time build of the package's CUDA kernels (``csrc/*.cu``) and
+of its host libraries (``csrc/cpu_adam.cpp``, ``csrc/aio.cpp``).
 
 The kernels are compiled for Hopper (``sm_90a``) by
 ``torch.utils.cpp_extension.load`` into ``build/torch_ext/`` at the
@@ -11,12 +12,22 @@ package imports on machines without ``nvcc``. A failed build raises.
 Every wrapper that launches a kernel adds one to its entry in
 :data:`LAUNCHES` at the launch and nowhere else, so a run can show that
 its main path went through the kernels.
+
+The host libraries of the optimizer offload (CPU-Adam and the async IO
+engine) are plain C++ with a C interface and no CUDA: :func:`load_host`
+compiles one with the host compiler (``g++``, the flags of the JAX
+package's ``CPUAdamBuilder``, ``-march=native`` dropped if the compiler
+refuses it) into ``build/torch_ext/`` on first use, keyed by the
+source's content, and loads it through ``ctypes``; it needs no ``nvcc``.
 """
 
 import collections
 import ctypes
+import hashlib
 import os
 import pathlib
+import shutil
+import subprocess
 
 _CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "torch_ext"
@@ -99,3 +110,74 @@ def check_launch(err: int, name: str):
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     LAUNCHES[name] += 1
+
+
+# ------------------------------------------------------------ host libraries
+HOST_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-march=native",
+              "-fopenmp", "-pthread"]
+_PF = ctypes.POINTER(ctypes.c_float)
+_I64 = ctypes.c_int64
+# library -> (source, {entry: (argtypes, restype)})
+HOST_LIBRARIES = {
+    "cpu_adam": ("cpu_adam.cpp", {
+        "ds_adam_create": ([_I, _F, _F, _F, _F, _I], _I),
+        "ds_adam_step": ([_I, _I64, _F, _PF, _PF, _PF, _PF, _I64], _I),
+        "ds_adam_destroy": ([_I], _I),
+        "ds_adagrad_step": ([_F, _F, _F, _PF, _PF, _PF, _I64], _I),
+        "ds_has_avx2": ([], _I)}),
+    "aio": ("aio.cpp", {
+        "aio_handle_create": ([_I] * 5, _I64),
+        "aio_handle_destroy": ([_I64], _I),
+        "aio_async_pread": ([_I64, _P, ctypes.c_char_p, _I64, _I64], _I64),
+        "aio_async_pwrite": ([_I64, _P, ctypes.c_char_p, _I64, _I64], _I64),
+        "aio_sync_pread": ([_I64, _P, ctypes.c_char_p, _I64, _I64], _I64),
+        "aio_sync_pwrite": ([_I64, _P, ctypes.c_char_p, _I64, _I64], _I64),
+        "aio_wait": ([_I64, _I64], _I64),
+        "aio_pending": ([_I64], _I64),
+        "aio_kernel_available": ([ctypes.c_char_p], _I),
+        "aio_max_inflight": ([], _I64),
+        "aio_reset_max_inflight": ([], None)}),
+}
+_host = {}
+
+
+def host_compiler_available():
+    """True when the host compiler the host libraries need is on PATH."""
+    return shutil.which("g++") is not None
+
+
+def load_host(name):
+    """Build (once, cached on disk by the source's content) and load host
+    library ``name`` of :data:`HOST_LIBRARIES`; returns the ``ctypes.CDLL``.
+    Processes that build at once (the ranks of one machine) each write a
+    file of their own and rename it into place."""
+    if name in _host:
+        return _host[name]
+    source, entries = HOST_LIBRARIES[name]
+    src = _CSRC / source
+    if not host_compiler_available():
+        raise RuntimeError(f"host library {name}: no g++ on PATH")
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(HOST_FLAGS).encode()).hexdigest()[:16]
+    lib_path = BUILD_DIR / f"ds_host_{name}_{digest}.so"
+    if not lib_path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = ["g++", *HOST_FLAGS, str(src), "-o", str(tmp)]
+        done = subprocess.run(cmd, capture_output=True, text=True)
+        if done.returncode != 0:
+            # a compiler that refuses -march=native: without it, as the
+            # JAX package's build does
+            done = subprocess.run([c for c in cmd if c != "-march=native"],
+                                  capture_output=True, text=True)
+        if done.returncode != 0:
+            raise RuntimeError(f"building host library {name} failed:\n"
+                               f"{done.stderr}")
+        os.replace(tmp, lib_path)
+    lib = ctypes.CDLL(os.fspath(lib_path))
+    for entry, (argtypes, restype) in entries.items():
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    _host[name] = lib
+    return lib

@@ -1,6 +1,8 @@
 """The training config (counterpart of ``deepspeed_tpu/runtime/config.py``)
 over the keys the port's training path reads: the batch triad, optimizer,
-scheduler, fp16, bf16, gradient_clipping, zero_optimization.stage,
+scheduler, fp16, bf16, gradient_clipping, the ``zero_optimization``
+block (``zero_config``, a ``runtime/zero/config.py``
+``DeepSpeedZeroConfig``: the stage and the optimizer offload),
 steps_per_print, gradient_accumulation_dtype, the ``checkpoint`` block
 (read by the engine's saves and loads), the ``quantize_training``
 (MoQ) block and the ``activation_checkpointing`` block (read by
@@ -33,6 +35,7 @@ import json
 import os
 
 from deepspeed_tpu_torch.runtime import constants as C
+from deepspeed_tpu_torch.runtime.zero.config import DeepSpeedZeroConfig
 
 ADAM_OPTIMIZER = "adam"
 ADAMW_OPTIMIZER = "adamw"
@@ -593,9 +596,11 @@ class DeepSpeedConfig:
         self.steps_per_print = pd.get(C.STEPS_PER_PRINT,
                                       C.STEPS_PER_PRINT_DEFAULT)
 
-        zero = pd.get(C.ZERO_OPTIMIZATION) or {}
-        self.zero_optimization_stage = zero.get(C.ZERO_STAGE,
-                                                C.ZERO_STAGE_DEFAULT)
+        try:
+            self.zero_config = DeepSpeedZeroConfig.from_dict(pd)
+        except AssertionError as e:
+            raise DeepSpeedConfigError(str(e)) from None
+        self.zero_optimization_stage = self.zero_config.stage
         self.zero_enabled = self.zero_optimization_stage > 0
 
         self.fp16 = DeepSpeedFP16Config(pd)
@@ -803,18 +808,25 @@ class DeepSpeedConfig:
 
     def _reject_unported(self, pd):
         stage = self.zero_optimization_stage
-        if stage not in (0, 1, 2, 3):
-            raise DeepSpeedConfigError(f"invalid ZeRO stage {stage}")
-        if stage >= 2:
-            _not_ported(f"zero_optimization.stage={stage}")
-        zero = pd.get(C.ZERO_OPTIMIZATION) or {}
-        for key in ("offload_optimizer", "offload_param"):
-            device = (zero.get(key) or {}).get("device")
-            if device not in (None, "none"):
-                _not_ported(f"zero_optimization.{key} (device={device!r})")
-        for key in ("cpu_offload", "cpu_offload_params"):
-            if zero.get(key):
-                _not_ported(f"zero_optimization.{key}")
+        zero = pd.get(C.ZERO_OPTIMIZATION)
+        zero = zero if isinstance(zero, dict) else {}
+        device = self.zero_config.offload_optimizer.device
+        if device not in (None, "none", "cpu", "nvme"):
+            raise DeepSpeedConfigError(
+                f"zero_optimization.offload_optimizer.device must be one of "
+                f"none|cpu|nvme, got {device!r}")
+        # parameter offload is the layered engine (JAX routes it in
+        # deepspeed_tpu/__init__.py:90-145); the deprecated
+        # cpu_offload_params asks for it only at stage 3, below that the
+        # flag is the historical no-op JAX keeps
+        device = (zero.get("offload_param") or {}).get("device")
+        if device not in (None, "none"):
+            _not_ported(f"zero_optimization.offload_param (device="
+                        f"{device!r}, the layered Zero3OffloadEngine)")
+        if zero.get("cpu_offload_params") and stage == 3:
+            _not_ported("zero_optimization.cpu_offload_params at stage 3 "
+                        "(parameter offload, the layered "
+                        "Zero3OffloadEngine)")
         if self.optimizer_name is not None and \
                 self.optimizer_name not in PORTED_OPTIMIZERS:
             _not_ported(f"optimizer {self.optimizer_name!r}")

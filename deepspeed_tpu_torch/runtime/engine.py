@@ -42,6 +42,33 @@ stage 0 every rank keeps the whole state. Without a process group the
 engine runs no collective: one rank's partition is the whole state, as on
 the JAX package's one-device mesh.
 
+ZeRO 2 (JAX ``grad_shardings``, engine.py:1116-1129): the gradients are
+reduce-scattered instead of all-reduced, at the same points (one
+``reduce_scatter_tensor`` a group over a rank-major packed buffer; the
+Adam sweep's padded flat vector straight into its chunk), so every rank
+holds only its slices' gradients, kept apart from the whole masters'
+``.grad``: the epilogue's norm sums the slices' squares over the ranks
+(each replicated tensor once) and the fp16 flag is agreed with MAX.
+ZeRO 3 also cuts the fp32 masters: each rank keeps its slices as the
+module's parameters (``ds_shape`` holds the whole shape), but a tensor
+below ``param_persistence_threshold`` elements, which stays whole (its
+gradient is all-reduced). The forward gathers the compute-dtype slices
+into whole tensors through one autograd Function (:class:`_GatherParams`)
+whose backward reduce-scatters the whole gradients, upcast to fp32, into
+the slices' ``.grad``; the update is added to the slices in place, with
+nothing gathered. Autograd keeps that whole compute-dtype copy from the
+forward to the backward (gathering and freeing a block at a time is
+ROADMAP work). The sweep and MoQ at stage 3 raise.
+
+Optimizer offload (``offload_optimizer.device`` cpu or nvme, at any
+stage; ``runtime/zero/offload.py``): the device half of the step
+(unscale, overflow, norm, clip) stays on the card, as JAX's
+``offload_pre_step``; the gradients of this rank's layout go to pinned
+host buffers, the host CPU-Adam updates host masters and moments (RAM,
+or files through the async IO engine), and the updated masters come back
+(all-gathered at stage 2). Adam/AdamW only: another optimizer raises
+(the JAX engine builds CPU-Adam whatever ``optimizer.type`` says).
+
 Expert parallelism (``utils.groups.initialize(ep_size=)``; MoE models,
 ``moe/``): each rank holds E / ep experts of each MoE layer. The expert
 masters are broadcast from their expert-data rank 0; expert gradients
@@ -49,7 +76,7 @@ are summed over the expert-data group and divided by the world (each
 already holds its expert-parallel group's tokens, through the
 all-to-all's backward), so they are the global batch's, as JAX's are;
 the clip's norm counts each expert once (the expert squares summed over
-the expert-parallel group); ZeRO-1 cuts expert tensors over the
+the expert-parallel group); ZeRO cuts expert tensors over the
 expert-data group; an fp16 overflow is agreed over the world. A tag
 holds each global expert's file (``checkpoint_io``'s MoE layout) and
 whole-layer expert leaves in the shard payloads, so it loads at any
@@ -80,6 +107,7 @@ activation_checkpointing/checkpointing.remat``).
 import glob
 import os
 import re
+import tempfile
 
 import numpy as np
 import torch
@@ -127,6 +155,33 @@ def _grad_of(name, p):
         raise RuntimeError(f"no gradient reached {name}: the loss graph is "
                            f"cut")
     return p.grad
+
+
+# the key of the Adam sweep's stage-2 gradient chunk (Engine._reduce)
+_FLAT = "<sweep chunk>"
+
+
+class _GatherParams(torch.autograd.Function):
+    """Stage 3's gather of the masters into the forward's whole tensors.
+    Forward: ``(partition, names, dtype, *slices)`` -> the whole tensors,
+    the fp32 slices cast to ``dtype`` and gathered by one
+    ``all_gather_into_tensor`` a group. Backward: the whole gradients
+    upcast to fp32 (JAX's are gradients of the fp32 masters) and
+    reduce-scattered, one ``reduce_scatter_tensor`` a group, × 1/world,
+    into the slices' gradients."""
+
+    @staticmethod
+    def forward(ctx, part, names, dtype, *slices):
+        ctx.part, ctx.names = part, names
+        whole = part.all_gather({n: s.to(dtype)
+                                 for n, s in zip(names, slices)})
+        return tuple(whole[n] for n in names)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        out = ctx.part.reduce_scatter({n: g.float()
+                                       for n, g in zip(ctx.names, grads)})
+        return (None, None, None) + tuple(out[n] for n in ctx.names)
 
 
 class DeepSpeedEngine:
@@ -185,11 +240,23 @@ class DeepSpeedEngine:
                     else:
                         torch.distributed.broadcast(p, 0,
                                                     group=self.dp_group)
-        # ZeRO-1 over a process group: each rank's slices (experts over
-        # the expert-data group at ep > 1)
-        self._partition = (self._make_partition()
-                           if self._dist and config.zero_optimization_stage
-                           == 1 else None)
+        # ZeRO over a process group: each rank's slices (experts over the
+        # expert-data group at ep > 1): of the optimizer state from stage
+        # 1, of the gradients from stage 2, of the masters at stage 3
+        self.zero_stage = config.zero_optimization_stage
+        self._shapes = {n: tuple(p.shape) for n, p in self.params.items()}
+        self._partition = None
+        if self._dist and self.zero_stage >= 1:
+            self._partition = self._make_partition(
+                min_numel=(config.zero_config.param_persistence_threshold
+                           if self.zero_stage == 3 else 0))
+        self._grads_sliced = self._partition is not None and \
+            self.zero_stage >= 2
+        self._masters_sliced = self._partition is not None and \
+            self.zero_stage == 3
+        self._offload_device = config.zero_config.offload_optimizer.device
+        self._offload = self._offload_device in ("cpu", "nvme")
+        self._offload_opt = None
         if config.fp16_enabled:
             self.compute_dtype = torch.float16
         elif config.bfloat16_enabled:
@@ -210,20 +277,36 @@ class DeepSpeedEngine:
                            "fp16": torch.float16}.get(
                                config.gradient_accumulation_dtype)
         self._acc = None
+        self._reduced = None       # stage 2: allreduce_gradients()'s slices
         self._fused_gas1 = False   # inside train_batch at gas 1
         self._reduce_grads = True  # the last backward's allreduce_gradients
 
         self.optimizer = self._configure_optimizer()
-        # the engine hands the optimizer each rank's slices (ZeRO 1) when
-        # its update acts on slices; the sweep cuts its own state, and any
-        # other optimizer (a client's) sees whole tensors
+        # the engine hands the optimizer each rank's slices (ZeRO >= 1)
+        # when its update acts on slices; the sweep cuts its own state,
+        # and any other optimizer (a client's) sees whole tensors
         self._sliced = self._partition is not None and \
             self.optimizer.takes_slices
-        self.opt_state = self.optimizer.init(self._local(
-            {k: p.detach() for k, p in self.params.items()}))
+        # the sweep's stage-2 gradients: its own flat chunk
+        self._flat_grads = self._grads_sliced and \
+            self.optimizer.partitions_state
         self.lr_scheduler, self._lr_fn = self._configure_lr_scheduler()
         self.quantizer = self._configure_quantizer()
         self._transposed = transposed_weight_names(module)
+        self._check_zero_combinations()
+        # checkpoints: the JAX tag format; the layout table of a model
+        # family the JAX package shares (None: a user module, saved under
+        # its own parameter names)
+        self._layout = bridge.layout_of(self.params)
+        if self._masters_sliced:
+            self._cut_masters()
+        if self._offload:
+            # the moments live on the host (or NVMe): nothing on the card
+            self.opt_state = None
+            self._offload_opt = self._make_offload_optimizer()
+        else:
+            self.opt_state = self.optimizer.init(self._optimizer_view(
+                {k: p.detach() for k, p in self.params.items()}))
 
         # the last step's norm as a device scalar (None when the step
         # takes none), and as a host float fetched at print cadence
@@ -237,24 +320,97 @@ class DeepSpeedEngine:
         self.micro_steps = 0
         self.skipped_steps = 0
 
-        # checkpoints: the JAX tag format; the layout table of a model
-        # family the JAX package shares (None: a user module, saved under
-        # its own parameter names)
         self._ckpt_async = config.checkpoint_async_save
         self._ckpt_writer = None
-        self._layout = bridge.layout_of(self.params)
         self._pinned = {}        # reused pinned host buffers of snapshots
 
-    def _make_partition(self, cut=True):
+    def _make_partition(self, cut=True, min_numel=0):
         kw = {}
         if self.ep_size > 1:
             kw = dict(expert_names=self._experts,
                       expert_world=groups.get_expert_data_parallel_world_size(),
                       expert_rank=groups.get_expert_data_parallel_rank(),
                       expert_group=self._edp_group)
-        return ZeroPartition({n: p.shape for n, p in self.params.items()},
-                             self.dp_world_size, self.dp_rank, self.dp_group,
-                             cut=cut, **kw)
+        return ZeroPartition(self._shapes, self.dp_world_size, self.dp_rank,
+                             self.dp_group, cut=cut, min_numel=min_numel,
+                             **kw)
+
+    def _check_zero_combinations(self):
+        """Refuse what this engine does not run, naming it."""
+        if self._masters_sliced and self.optimizer.partitions_state:
+            raise NotImplementedError(
+                "the Adam sweep (optimizer.params.sweep) at ZeRO stage 3 "
+                "is not ported yet: its flat chunks do not match the "
+                "per-tensor slices of the masters (use fused: true)")
+        if self._masters_sliced and self.quantizer is not None:
+            raise NotImplementedError(
+                "MoQ (quantize_training) at ZeRO stage 3 is not ported "
+                "yet: its groups span whole tensors")
+        if not self._offload:
+            return
+        cfg = self.config
+        if self.client_optimizer is not None or cfg.optimizer_name not in (
+                ADAM_OPTIMIZER, ADAMW_OPTIMIZER):
+            what = ("a client optimizer" if self.client_optimizer is not None
+                    else f"optimizer {cfg.optimizer_name!r}")
+            raise NotImplementedError(
+                f"zero_optimization.offload_optimizer runs the host CPU-Adam;"
+                f" {what} is not ported there (the JAX engine builds "
+                f"CPU-Adam whatever optimizer.type says)")
+        if not (cfg.optimizer_params or {}).get("bias_correction", True):
+            raise NotImplementedError(
+                "zero_optimization.offload_optimizer with Adam "
+                "bias_correction false is not ported (CPU-Adam corrects)")
+        if self.quantizer is not None:
+            raise NotImplementedError(
+                "MoQ (quantize_training) with zero_optimization."
+                "offload_optimizer is not ported yet")
+
+    def _cut_masters(self):
+        """Stage 3: each master this rank keeps only its slice of becomes
+        a leaf of that slice, in the module too (every place a tied
+        tensor sits); ``ds_shape`` holds the whole shape (the reference's
+        attribute name) for ``zero.GatheredParameters``. A tensor below
+        the persistence threshold stays whole."""
+        part = self._partition
+        slots = {}
+        for _, mod in self.module.named_modules(remove_duplicate=False):
+            for attr, p in mod.named_parameters(prefix="", recurse=False):
+                slots.setdefault(id(p), []).append((mod, attr))
+        for n, p in list(self.params.items()):
+            if not part.sharded(n):
+                continue
+            piece = torch.nn.Parameter(
+                part.local(n, p.detach()).clone(
+                    memory_format=torch.contiguous_format))
+            piece.ds_shape = self._shapes[n]
+            piece.ds_name = n
+            piece.ds_partition = part
+            for mod, attr in slots[id(p)]:
+                setattr(mod, attr, piece)
+            self.params[n] = piece
+
+    def _make_offload_optimizer(self):
+        """The host CPU-Adam over this rank's gradient layout: whole
+        tensors at stages 0-1, the slices from stage 2 (JAX
+        engine.py:1032-1045)."""
+        from deepspeed_tpu_torch.runtime.zero.offload import \
+            OffloadedOptimizer
+        op = dict(self.config.optimizer_params or {})
+        params = {k: p.detach() for k, p in self.params.items()}
+        if self._grads_sliced and not self._masters_sliced:
+            params = {k: self._partition.local(k, p)
+                      for k, p in params.items()}
+        nvme_path = None
+        if self._offload_device == "nvme":
+            nvme_path = (self.config.zero_config.offload_optimizer.nvme_path
+                         or tempfile.gettempdir())
+        return OffloadedOptimizer(
+            params, lr=float(op.get("lr", 1e-3)),
+            betas=tuple(op.get("betas", (0.9, 0.999))),
+            eps=op.get("eps", 1e-8),
+            weight_decay=op.get("weight_decay", 0.0),
+            adam_w_mode=op.get("adam_w_mode", True), nvme_path=nvme_path)
 
     # ------------------------------------------------------------- config
     def _configure_optimizer(self):
@@ -262,8 +418,8 @@ class DeepSpeedEngine:
         (engine.py:922-1017): Adam/AdamW (``sweep`` -> the whole-state
         kernel, ``fused`` -> the per-tensor kernel, else plain torch), LAMB
         (``fused`` -> the one-launch pass-1 kernel, else plain torch), SGD
-        and Adagrad (plain torch). At ZeRO 1 over a process group the sweep
-        and LAMB take the partition (their chunks, their norms)."""
+        and Adagrad (plain torch). At ZeRO >= 1 over a process group the
+        sweep and LAMB take the partition (their chunks, their norms)."""
         if self.client_optimizer is not None:
             if not isinstance(self.client_optimizer, optim_lib.Optimizer):
                 raise TypeError(
@@ -373,13 +529,23 @@ class DeepSpeedEngine:
     # ------------------------------------------------------ data parallel
     def _local(self, tree):
         """This rank's slices of a dict of parameter-shaped tensors when
-        the engine slices the optimizer's inputs (ZeRO 1 over a process
-        group), contiguous (a copy only for a slice cut off dimension 0);
-        else the dict itself."""
+        the engine slices the optimizer's inputs (ZeRO >= 1 over a
+        process group), contiguous (a copy only for a slice cut off
+        dimension 0); else the dict itself."""
         if not self._sliced:
             return tree
         part = self._partition
         return {k: part.local(k, t).contiguous() for k, t in tree.items()}
+
+    def _optimizer_view(self, masters):
+        """The optimizer's view of the masters (``{name: tensor}`` as the
+        engine holds them: whole, or this rank's slices at stage 3): the
+        slices when the optimizer takes slices, else whole tensors (a
+        stage-3 engine gathers them for a client optimizer)."""
+        if self._masters_sliced:
+            return masters if self._sliced else \
+                self._partition.all_gather(masters)
+        return self._local(masters)
 
     def _average(self, grads):
         """The gradients averaged over the data group: one all-reduce (SUM,
@@ -405,10 +571,62 @@ class DeepSpeedEngine:
                 off += g.numel()
         return {k: out[k] for k in grads}
 
+    def _reduce(self, grads):
+        """The gradients averaged over the data group in this rank's
+        layout: whole tensors at stages 0-1 (:meth:`_average`); from
+        stage 2 this rank's slices (``ZeroPartition.reduce_scatter``; a
+        replicated tensor all-reduced whole), or the sweep's chunk of its
+        padded flat vector (``{_FLAT: chunk}``: the gradients flattened
+        once in ``fused_adam.sweep_flatten``'s layout and reduce-scattered
+        straight into the chunk the sweep reads). At stage 3 the cut
+        tensors were reduce-scattered in the backward
+        (:class:`_GatherParams`): ``grads`` holds them as slices, and
+        only the persistent (whole) ones are averaged here."""
+        part = self._partition
+        if not self._grads_sliced:
+            return self._average(grads)
+        if self._flat_grads:
+            from deepspeed_tpu_torch.ops.adam import fused_adam
+            chunks = []
+            for spec, expert in fused_adam.sweep_specs(self._shapes, part):
+                vec = optim_lib.flatten_tree(
+                    {k: grads[k] for k in spec.names}, pad_to=spec.n_pad)[0]
+                chunks.append(part.reduce_scatter_flat(vec, expert))
+            return {_FLAT: chunks[0] if len(chunks) == 1
+                    else torch.cat(chunks)}
+        if self._masters_sliced:
+            whole = {k: g for k, g in grads.items() if not part.sharded(k)}
+            if whole:
+                whole = part.reduce_scatter(whole)
+            return {k: whole.get(k, g) for k, g in grads.items()}
+        return part.reduce_scatter(grads)
+
+    def _rank_grads(self, grads):
+        """A rank's own gradients (not averaged: a ``backward`` passed
+        ``allreduce_gradients=False``) in the reduced layout."""
+        if not self._grads_sliced or self._masters_sliced:
+            return grads
+        if self._flat_grads:
+            from deepspeed_tpu_torch.ops.adam import fused_adam
+            return {_FLAT: fused_adam.sweep_flatten(grads,
+                                                    self._partition)[0]}
+        return {k: self._partition.local(k, g) for k, g in grads.items()}
+
     def _global_norm(self, grads):
         """The global gradient norm; at ep > 1 each expert counted once:
         the squares of this rank's experts summed over its
-        expert-parallel group (every rank then holds the same norm)."""
+        expert-parallel group (every rank then holds the same norm).
+        From stage 2 the squares of this rank's slices summed over the
+        world, each replicated tensor once (``sum_over_ranks``), or of
+        the sweep's chunk (every element lies in one rank's chunk)."""
+        if self._grads_sliced:
+            sq = torch.stack([torch.sum(torch.square(g.float()))
+                              for g in grads.values()])
+            if self._flat_grads:
+                torch.distributed.all_reduce(sq, group=self.dp_group)
+            else:
+                sq = self._partition.sum_over_ranks(list(grads), sq)
+            return torch.sqrt(sq.sum())
         if self.ep_size == 1 or not self._experts:
             return optim_lib.global_norm(grads)
         sq = [torch.sum(torch.square(g.float())) for g in grads.values()]
@@ -452,19 +670,42 @@ class DeepSpeedEngine:
         reference's ``allreduce_gradients``), for a loop whose boundary
         ``backward`` passed ``allreduce_gradients=False``. Without a
         process group there is nothing to average."""
-        if not self._dist:
+        if not self._dist or self._masters_sliced:
+            # stage 3 reduce-scatters in the backward itself
             return
-        grads = self._average({k: _grad_of(k, p)
-                               for k, p in self.params.items()})
+        grads = self._reduce({k: _grad_of(k, p)
+                              for k, p in self.params.items()})
+        if self._grads_sliced:
+            # slices do not fit the whole masters' .grad: step() reads them
+            self._reduced = grads
+            for p in self.params.values():
+                p.grad = None
+            return
         for k, p in self.params.items():
             p.grad = grads[k]
 
     # ------------------------------------------------------------- step
+    def _compute_params(self):
+        """The compute-dtype tensors the forward runs on: each master cast
+        (the cast is part of the graph, so its gradient arrives on the
+        fp32 master); at stage 3 the slices cast and gathered into whole
+        tensors by :class:`_GatherParams`, one ``all_gather_into_tensor``
+        a group, whose backward reduce-scatters the gradients into the
+        slices' ``.grad``."""
+        dtype = self.compute_dtype
+        if not self._masters_sliced:
+            return {k: p.to(dtype) for k, p in self.params.items()}
+        part = self._partition
+        cut = tuple(k for k in self.params if part.sharded(k))
+        whole = dict(zip(cut, _GatherParams.apply(
+            part, cut, dtype, *[self.params[k] for k in cut])))
+        return {k: whole[k] if k in whole else p.to(dtype)
+                for k, p in self.params.items()}
+
     def _compute_loss(self, batch):
-        """Forward in the compute dtype; the cast of each master is part of
-        the graph, so its gradient arrives on the fp32 master."""
-        cparams = {k: p.to(self.compute_dtype) for k, p in self.params.items()}
-        return functional_call(self.module, cparams, (batch,)).float()
+        """Forward in the compute dtype (:meth:`_compute_params`)."""
+        return functional_call(self.module, self._compute_params(),
+                               (batch,)).float()
 
     def _grad_epilogue(self, grads, per_rank=False):
         """unscale, non-finite check, norm, clip coefficient, scale update
@@ -481,9 +722,10 @@ class DeepSpeedEngine:
         if cfg.fp16_enabled:
             flags = torch.stack([torch.isfinite(g).all()
                                  for g in grads.values()])
-            if per_rank or self.ep_size > 1:
+            if per_rank or self.ep_size > 1 or self._grads_sliced:
                 # one rank's overflow skips the step on every rank (at
-                # ep > 1 an expert's lies only on its holders)
+                # ep > 1 an expert's lies only on its holders, from stage
+                # 2 each rank holds its own slices)
                 bad = (~flags.all()).float()
                 torch.distributed.all_reduce(
                     bad, op=torch.distributed.ReduceOp.MAX,
@@ -499,7 +741,7 @@ class DeepSpeedEngine:
         if cfg.gradient_clipping > 0:
             clip_coef = optim_lib.clip_coefficient(self.global_grad_norm,
                                                    cfg.gradient_clipping)
-            if not self.optimizer.fuses_clip:
+            if not self._fuses_clip():
                 torch._foreach_mul_(list(grads.values()), clip_coef)
         self.scale = update_scale(
             self.scale, not finite, dynamic=self._dynamic_scale,
@@ -508,24 +750,61 @@ class DeepSpeedEngine:
             delayed_shift=cfg.fp16.hysteresis)
         return grads, finite, clip_coef
 
+    def _fuses_clip(self):
+        """The optimizer applies the clip itself (the sweep); under
+        offload the device clips the gradients first, as JAX's
+        ``offload_pre_step`` does."""
+        return self.optimizer.fuses_clip and not self._offload
+
     @torch.no_grad()
     def _apply_update(self, grads, clip_coef):
         """lr at the applied-step count, the optimizer update, p += u
-        (engine.py:1602-1621). At ZeRO 1 the optimizer updates this rank's
+        (engine.py:1602-1621). ``grads`` are in this rank's reduced layout
+        (:meth:`_reduce`). At ZeRO 1-2 the optimizer updates this rank's
         slices and the whole update is all-gathered (the epilogue
         all-gather of JAX's sharded update, partition.py:12-15) before
-        every rank adds it to its masters."""
+        every rank adds it to its masters; at stage 3 each rank adds its
+        slices' updates to its slices, and nothing is gathered. A client
+        optimizer that does not take slices gets whole gradients (and at
+        stage 3 whole masters, its update then cut to the slices). Under
+        offload the host CPU-Adam updates its masters (:meth:
+        `_offload_update`)."""
         lr = self._lr_fn(self.step_count)
+        if self._offload:
+            self._offload_update(grads, lr)
+            self.step_count += 1
+            return
+        part = self._partition
         params = {k: p.detach() for k, p in self.params.items()}
         kw = {"clip_coef": clip_coef} if self.optimizer.fuses_clip else {}
+        if self._flat_grads:
+            g_in = grads[_FLAT]
+        elif self._grads_sliced:
+            g_in = grads if self._sliced else part.all_gather(grads)
+        else:
+            g_in = self._local(grads)
         updates, self.opt_state = self.optimizer.update(
-            self._local(grads), self.opt_state, self._local(params), lr,
-            **kw)
-        if self._sliced:
-            updates = self._partition.all_gather(updates)
+            g_in, self.opt_state, self._optimizer_view(params), lr, **kw)
+        if self._masters_sliced:
+            if not self._sliced:
+                updates = {k: part.local(k, u) for k, u in updates.items()}
+        elif self._sliced:
+            updates = part.all_gather(updates)
         torch._foreach_add_(list(params.values()),
                             [updates[k] for k in params])
         self.step_count += 1
+
+    def _offload_update(self, grads, lr):
+        """The host half of an offloaded step (JAX ``_offload_step``,
+        engine.py:3058-3069): the unscaled, clipped gradients of this
+        rank's layout go to the host, CPU-Adam updates the host masters,
+        which come back to the card; at stage 2 the slices are then
+        all-gathered into the whole masters."""
+        new = self._offload_opt.step(grads, lr)
+        if self._grads_sliced and not self._masters_sliced:
+            new = self._partition.all_gather(new)
+        torch._foreach_copy_([self.params[k].detach() for k in new],
+                             list(new.values()))
 
     # ------------------------------------------------------------- loop
     def _dropout_key(self):
@@ -574,12 +853,16 @@ class DeepSpeedEngine:
             weighted = loss * self._pending_weight
         scale = self.scale.loss_scale / self.gradient_accumulation_steps()
         (weighted * scale).backward()
-        self._reduce_grads = bool(allreduce_gradients)
+        # stage 3 reduce-scatters in the backward whatever the flag says
+        # (JAX ignores it), and averages its persistent tensors with them
+        self._reduce_grads = bool(allreduce_gradients) or \
+            self._masters_sliced
         if self._acc_dtype is not None and not self._fused_gas1:
             with torch.no_grad():
                 grads = {k: _grad_of(k, p) for k, p in self.params.items()}
-                if self._dist and allreduce_gradients:
-                    grads = self._average(grads)
+                if self._dist:
+                    grads = (self._reduce(grads) if self._reduce_grads
+                             else self._rank_grads(grads))
                 grads = {k: g.to(self._acc_dtype) for k, g in grads.items()}
                 if self._acc is None:
                     self._acc = grads
@@ -600,19 +883,22 @@ class DeepSpeedEngine:
         if not self.is_gradient_accumulation_boundary():
             return
         # fp32 .grad is averaged here, unless the last backward said not
-        # to; the buffer's micro-steps were averaged before their cast
-        average_now = self._dist and self._acc is None and self._reduce_grads
+        # to; the buffer's micro-steps were averaged before their cast,
+        # and allreduce_gradients() may have reduced them already
         if self._acc is not None:
             # the buffer, read back in fp32 and reset (engine.py:1596-1600)
-            for k, p in self.params.items():
-                p.grad = self._acc[k].float()
+            grads = {k: a.float() for k, a in self._acc.items()}
             self._acc = None
-        if all(p.grad is None for p in self.params.values()):
-            raise RuntimeError("step() on the accumulation boundary needs "
-                               "the gradients of backward()")
-        grads = {k: _grad_of(k, p) for k, p in self.params.items()}
-        if average_now:
-            grads = self._average(grads)
+        elif self._reduced is not None:
+            grads, self._reduced = self._reduced, None
+        else:
+            if all(p.grad is None for p in self.params.values()):
+                raise RuntimeError("step() on the accumulation boundary "
+                                   "needs the gradients of backward()")
+            grads = {k: _grad_of(k, p) for k, p in self.params.items()}
+            if self._dist:
+                grads = (self._reduce(grads) if self._reduce_grads
+                         else self._rank_grads(grads))
         grads, finite, clip_coef = self._grad_epilogue(
             grads, per_rank=self._dist and not self._reduce_grads)
         if finite:
@@ -646,7 +932,8 @@ class DeepSpeedEngine:
             raise ValueError("train_batch needs data_iter or batch")
         gas = self.gradient_accumulation_steps()
         losses = []
-        self._fused_gas1 = gas == 1
+        # JAX's offloaded step has no fused gas-1 form (engine.py:1702)
+        self._fused_gas1 = gas == 1 and not self._offload
         try:
             for _ in range(gas):
                 micro = batch if batch is not None else next(data_iter)
@@ -686,10 +973,13 @@ class DeepSpeedEngine:
     # ``mp_rank_00_model_states.pt`` (the ``module`` tree and the counters,
     # rank 0), ``zero_pp_rank_{r}_mp_rank_00_optim_states.pt`` a rank (the
     # shards-v1 payloads of its part of the optimizer state and the fp32
-    # masters, the loss-scale state), then ``manifest.json``, then the
+    # masters, the loss-scale state, ``zero_stage``, ``partition_count``,
+    # the host moments under offload), then ``manifest.json``, then the
     # ``latest`` pointer (rank 0, once every rank's file is there). A rank
-    # writes its ZeRO-1 slices as index-keyed boxes; a tensor every rank
-    # holds whole is written by rank 0. For a model family of
+    # writes its slices as index-keyed boxes; a tensor every rank holds
+    # whole is written by rank 0. At stage 3 over a process group rank 0
+    # writes no ``module`` tree and a load reassembles the masters from
+    # the shard files. For a model family of
     # ``bridge.LAYOUTS`` the trees carry the JAX engine's key paths and
     # flax layouts, so either engine loads the other's tags, at any world
     # size.
@@ -721,7 +1011,10 @@ class DeepSpeedEngine:
     def _opt_items(self, state):
         """``(key path, parameter name or None, value)`` of every optimizer
         leaf, in the JAX tree's paths (``.step``,
-        ``.mu['h_0']['ln_1']['scale']``, the sweep's ``.mu`` vector)."""
+        ``.mu['h_0']['ln_1']['scale']``, the sweep's ``.mu`` vector); none
+        under offload, whose moments are not on the card (JAX's ``()``)."""
+        if state is None:
+            return
         if not hasattr(state, "_fields"):
             raise TypeError(f"cannot checkpoint optimizer state of type "
                             f"{type(state).__name__}: a NamedTuple of ints, "
@@ -747,7 +1040,7 @@ class DeepSpeedEngine:
         return self.ep_size > 1 and name in self._experts
 
     def _global_shape(self, name):
-        shape = tuple(int(d) for d in self.params[name].shape)
+        shape = tuple(int(d) for d in self._shapes[name])
         if self._local_expert(name):
             shape = (shape[0] * self.ep_size,) + shape[1:]
         return shape
@@ -755,7 +1048,7 @@ class DeepSpeedEngine:
     def _box(self, name, sliced=True):
         """The torch-layout index box (in the whole leaf) of parameter
         ``name`` this rank writes, or None (another rank writes it): its
-        ZeRO-1 slice, or the whole tensor on rank 0 (every tensor without
+        ZeRO slice, or the whole tensor on rank 0 (every tensor without
         a process group, or with ``sliced`` False: an optimizer state the
         rank keeps whole). At ep > 1 an expert tensor's whole is this
         rank's experts, written by its expert-data rank 0, at their
@@ -768,9 +1061,9 @@ class DeepSpeedEngine:
               else self.dp_rank) != 0:
             return None
         else:
-            box = tuple((0, int(d)) for d in self.params[name].shape)
+            box = tuple((0, int(d)) for d in self._shapes[name])
         if expert:
-            off = self.ep_rank * int(self.params[name].shape[0])
+            off = self.ep_rank * int(self._shapes[name][0])
             box = ((box[0][0] + off, box[0][1] + off),) + tuple(box[1:])
         return box
 
@@ -778,7 +1071,7 @@ class DeepSpeedEngine:
         """A whole saved leaf cut to this rank's experts (ep > 1)."""
         if not self._local_expert(name):
             return arr
-        n = int(self.params[name].shape[0])
+        n = int(self._shapes[name][0])
         return arr[self.ep_rank * n:(self.ep_rank + 1) * n]
 
     def _flax_record(self, name, t, box):
@@ -805,8 +1098,7 @@ class DeepSpeedEngine:
         it)."""
         from deepspeed_tpu_torch.ops.adam import fused_adam
         part = self._sweep_part()
-        specs = fused_adam.sweep_specs(
-            {n: tuple(p.shape) for n, p in self.params.items()}, part)
+        specs = fused_adam.sweep_specs(self._shapes, part)
         leaves = fused_adam.sweep_unflatten(vec, specs, part)
         whole = {n: self._whole_experts(n, leaves[n]) for n in self.params}
         return optim_lib.flatten_tree(
@@ -844,7 +1136,7 @@ class DeepSpeedEngine:
         if self._layout is not None:
             vec = bridge.flat_to_jax(
                 vec, self._layout, list(self.params),
-                [tuple(p.shape) for p in self.params.values()])
+                list(self._shapes.values()))
         return vec
 
     def _restore_opt_state(self, arrays, saved_dp=1):
@@ -867,8 +1159,7 @@ class DeepSpeedEngine:
                     name: self._to_device(
                         self._local_leaf(
                             name, arrays[f".{field}{self._path(name)}"]),
-                        name,
-                        self.params[name], self._perm(name)).to(t.dtype)
+                        name, self._perm(name)).to(t.dtype)
                     for name, t in val.items()})
             elif isinstance(val, torch.Tensor):
                 vec = torch.from_numpy(np.require(
@@ -915,20 +1206,21 @@ class DeepSpeedEngine:
                 fields[field] = val
         return type(state)(**fields)
 
-    def _to_device(self, arr, name, like, perm):
-        """A saved leaf (flax layout) as a tensor like ``like`` (torch
-        layout) on the engine's device, permuted there."""
+    def _to_device(self, arr, name, perm):
+        """A saved leaf (flax layout) as the fp32 tensor of parameter
+        ``name``'s whole shape (torch layout) on the engine's device,
+        permuted there."""
         t = torch.from_numpy(np.require(arr, requirements=["C", "W"])).to(
             self.device)
         if perm is not None:
             t = t.permute(perm)
-        if tuple(t.shape) != tuple(like.shape):
+        if tuple(t.shape) != self._shapes[name]:
             raise ValueError(f"checkpoint leaf for {name} has shape "
                              f"{tuple(t.shape)}, the model's is "
-                             f"{tuple(like.shape)}")
+                             f"{self._shapes[name]}")
         # contiguous as the live state is: a permuted view would change
         # the order of LAMB's norm reductions, and with it the last bits
-        return t.to(like.dtype).contiguous()
+        return t.to(torch.float32).contiguous()
 
     def _host(self, key, t, copy):
         """A host numpy array of tensor ``t``. CUDA tensors go into a
@@ -965,7 +1257,8 @@ class DeepSpeedEngine:
                 box = self._box(n)
                 if box is None:
                     continue
-                local = p if part is None else part.local(n, p)
+                local = p if part is None or self._masters_sliced \
+                    else part.local(n, p)
                 t, key, full = self._flax_record(n, local, box)
                 params[self._path(n)] = self._host(("p", n), t, copy)
                 p_boxes[self._path(n)] = (key, full)
@@ -998,19 +1291,22 @@ class DeepSpeedEngine:
             if self.device.type == "cuda":
                 torch.cuda.current_stream(self.device).synchronize()
         # the expert files: each rank that is its expert-data group's rank
-        # 0 writes its experts' (every expert once)
+        # 0 writes its experts' (every expert once; at stage 3 gathered
+        # over the expert-data group first, which every rank joins)
         experts = None
-        if self._experts and \
-                groups.get_expert_data_parallel_rank() == 0:
-            experts = {n: self._host(("x", n), self._flax_view(
-                n, self.params[n]), copy) for n in self._experts}
-            if self.device.type == "cuda":
-                torch.cuda.current_stream(self.device).synchronize()
+        if self._experts:
+            whole = self._whole_masters(sorted(self._experts))
+            if groups.get_expert_data_parallel_rank() == 0:
+                experts = {n: self._host(("x", n), self._flax_view(n, t),
+                                         copy) for n, t in whole.items()}
+                if self.device.type == "cuda":
+                    torch.cuda.current_stream(self.device).synchronize()
+            del whole
         zero_sd = {
             "format": "shards-v1",
             "optimizer_state_dict": checkpoint_io.tree_local_shards(
                 opt, o_boxes),
-            "offload_optimizer_state": None,
+            "offload_optimizer_state": self._offload_state_for_save(),
             "param_shards": checkpoint_io.tree_local_shards(params,
                                                             p_boxes),
             "scale_state": {
@@ -1024,10 +1320,13 @@ class DeepSpeedEngine:
             return {"zero_sd": zero_sd, "module": None, "meta": None,
                     "experts": experts}
         # the module tree: the whole masters (the param_shards arrays where
-        # rank 0 wrote a whole tensor), the experts apart
+        # rank 0 wrote a whole tensor), the experts apart. At stage 3 over
+        # a process group rank 0 does not hold them: no module, as JAX
+        # writes when process 0 cannot address every shard
+        # (engine.py:3774-3785); a load reassembles the param_shards
         by_path = {}
         for n, p in self.params.items():
-            if n in self._experts:
+            if n in self._experts or self._masters_sliced:
                 continue
             key, full = p_boxes[self._path(n)]
             by_path[n] = (params[self._path(n)]
@@ -1036,8 +1335,9 @@ class DeepSpeedEngine:
                                           copy))
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
-        module = (bridge.nest((self._layout[n][0], a)
-                              for n, a in by_path.items())
+        module = (None if self._masters_sliced
+                  else bridge.nest((self._layout[n][0], a)
+                                   for n, a in by_path.items())
                   if self._layout is not None else by_path)
         it_state = None
         if data_iter is not None:
@@ -1070,6 +1370,132 @@ class DeepSpeedEngine:
         }
         return {"zero_sd": zero_sd, "module": module, "meta": meta,
                 "experts": experts}
+
+    def _whole_masters(self, names):
+        """``{name: the whole master}`` (this rank's experts of an expert
+        tensor): gathered from every rank's slices at stage 3 (a
+        collective: every rank calls it), else the masters themselves."""
+        masters = {n: self.params[n].detach() for n in names}
+        if not self._masters_sliced:
+            return masters
+        return self._partition.all_gather(masters)
+
+    def _jax_leaf_order(self):
+        """The parameter names in the order JAX flattens its tree (the
+        order of the offload state's lists)."""
+        if self._layout is None:
+            return sorted(self.params)
+        return bridge.jax_order(self._layout, list(self.params))
+
+    def _offload_state_for_save(self):
+        """The zero file's ``offload_optimizer_state`` (JAX offload.py
+        :172-185): the host moments of this rank's pieces in JAX's leaf
+        order and flax layout, one piece a leaf, and ``step``; beside
+        them each piece's key path and box (JAX reads neither), so a
+        load at another world size or stage reassembles them. None
+        without offload."""
+        if self._offload_opt is None:
+            return None
+        sd = self._offload_opt.state_dict()
+        index = {n: i for i, n in enumerate(self._offload_opt.names)}
+        part = self._partition
+        out = {"exp_avg": [], "exp_avg_sq": [], "step": int(sd["step"]),
+               "paths": [], "boxes": []}
+        for n in self._jax_leaf_order():
+            i = index[n]
+            if self._grads_sliced and part.sharded(n):
+                box = part.box(n)
+            else:
+                box = tuple((0, int(d)) for d in self._shapes[n])
+            if self._local_expert(n):
+                off = self.ep_rank * int(self._shapes[n][0])
+                box = ((box[0][0] + off, box[0][1] + off),) + tuple(box[1:])
+            for field in ("exp_avg", "exp_avg_sq"):
+                t, key, full = self._flax_record(n, sd[field][i], box)
+                out[field].append(t.contiguous().numpy())
+            out["paths"].append(self._path(n))
+            out["boxes"].append((key, full))
+        return out
+
+    def _restore_offload_state(self, zero_payloads, saved_stage):
+        """This rank's host moments (the ``OffloadedOptimizer``'s order
+        and pieces) from the tag's ``offload_optimizer_state``: the pieces
+        of every rank file reassembled into whole leaves by their boxes,
+        or, from a JAX tag (one process, no boxes), by the JAX grad
+        layout's rule (each leaf whole below stage 2, else cut into
+        ``partition_count`` pieces on the largest dimension that number
+        divides, JAX partition.py:51-75), then cut to this rank's. None
+        when the tag holds none."""
+        states = [z.get("offload_optimizer_state") for z in zero_payloads]
+        if not states or any(st is None for st in states):
+            return None
+        order = self._jax_leaf_order()
+        payloads = []
+        for z, st in zip(zero_payloads, states):
+            if "boxes" in st:
+                pieces = list(zip(st["paths"], st["boxes"],
+                                  st["exp_avg"], st["exp_avg_sq"]))
+            elif len(states) == 1:
+                pieces = self._jax_offload_pieces(
+                    st, order, int(z.get("partition_count") or 1),
+                    saved_stage)
+            else:
+                raise NotImplementedError(
+                    "a multi-process JAX offload tag (its per-process "
+                    "moments carry no indices) is not ported")
+            payload = {}
+            for path, (key, full), m, v in pieces:
+                for field, arr in ((".exp_avg", m), (".exp_avg_sq", v)):
+                    rec = payload.setdefault(field + path, {
+                        "shape": tuple(full), "dtype": str(arr.dtype),
+                        "shards": []})
+                    rec["shards"].append((tuple(key), np.asarray(arr)))
+            payloads.append(payload)
+        merged = checkpoint_io.assemble(payloads)
+        part = self._partition
+        out = {"exp_avg": [], "exp_avg_sq": [],
+               "step": int(states[0]["step"])}
+        for n in self._offload_opt.names:
+            for field in ("exp_avg", "exp_avg_sq"):
+                arr = merged.get(f".{field}{self._path(n)}")
+                if arr is None:
+                    raise KeyError(f"offload state has no {field} for {n}")
+                t = self._to_device(self._local_leaf(n, arr), n,
+                                    self._perm(n)).cpu()
+                if self._grads_sliced:
+                    t = part.local(n, t)
+                out[field].append(t.contiguous())
+        return out
+
+    def _jax_offload_pieces(self, st, order, saved_dp, saved_stage):
+        """``[(path, (key, full), m, v)]`` of a JAX offload state: its
+        lists run over the leaves in JAX's order, each leaf's pieces in
+        device order."""
+        pieces, i = [], 0
+        for n in order:
+            full = self._flax_record(
+                n, torch.empty(self._global_shape(n), device="meta"),
+                tuple((0, int(d)) for d in self._global_shape(n)))[2]
+            dim = None
+            if saved_stage >= 2 and saved_dp > 1:
+                best = 0
+                for d, size in enumerate(full):
+                    if size % saved_dp == 0 and size > best:
+                        dim, best = d, size
+            count = 1 if dim is None else saved_dp
+            for r in range(count):
+                key = [(0, int(s)) for s in full]
+                if dim is not None:
+                    c = full[dim] // count
+                    key[dim] = (r * c, (r + 1) * c)
+                pieces.append((self._path(n), (tuple(key), full),
+                               st["exp_avg"][i], st["exp_avg_sq"][i]))
+                i += 1
+        if i != len(st["exp_avg"]):
+            raise ValueError(f"the JAX offload state holds "
+                             f"{len(st['exp_avg'])} pieces, this model's "
+                             f"layout {i}")
+        return pieces
 
     def _expert_layers(self):
         """(prefixes, counts, names): the MoE layers' ``/``-joined path
@@ -1202,8 +1628,7 @@ class DeepSpeedEngine:
             return
         mine = {"tag": str(tag),
                 "counters": [self.global_steps, self.micro_steps],
-                "shapes": {n: tuple(p.shape)
-                           for n, p in self.params.items()}}
+                "shapes": dict(self._shapes)}
         seen = [None] * self.dp_world_size
         torch.distributed.all_gather_object(seen, mine, group=self.dp_group)
         what = {"tag": "checkpoint tag", "counters":
@@ -1355,7 +1780,18 @@ class DeepSpeedEngine:
                          f"reassembly)", ranks=[0])
             arrays = self._module_arrays(sd, zero_payloads,
                                          load_module_strict)
+            offload_sd = None
             if not load_module_only and load_optimizer_states and \
+                    zero_payloads and self._offload:
+                self._check_optimizer_kind(sd, path)
+                offload_sd = self._restore_offload_state(
+                    zero_payloads, int(zero_payloads[0].get("zero_stage")
+                                       or 0))
+                if offload_sd is None:
+                    logger.warning(
+                        f"{load_dir}/{tag} holds no offloaded optimizer "
+                        f"state; resuming with FRESH moments")
+            elif not load_module_only and load_optimizer_states and \
                     zero_payloads:
                 self._check_optimizer_kind(sd, path)
                 if zero_payloads[0].get("format") != "shards-v1":
@@ -1376,9 +1812,18 @@ class DeepSpeedEngine:
                                                     saved_dp or 1)
             with torch.no_grad():
                 for n, a in arrays.items():
-                    self.params[n].copy_(self._to_device(
-                        self._local_leaf(n, a), n, self.params[n],
-                        self._perm(n)))
+                    t = self._to_device(self._local_leaf(n, a), n,
+                                        self._perm(n))
+                    if self._masters_sliced:
+                        t = self._partition.local(n, t)
+                    self.params[n].copy_(t)
+            if self._offload:
+                # host masters from the loaded ones (JAX rebuilds its
+                # offload optimizer on load, engine.py:4088-4095)
+                self._offload_opt = None      # its swap files go with it
+                self._offload_opt = self._make_offload_optimizer()
+                if offload_sd is not None:
+                    self._offload_opt.load_state_dict(offload_sd)
         client_state = sd.get("client_state", {})
         if not load_module_only:
             self.global_steps = sd.get("global_steps", 0)
@@ -1399,7 +1844,8 @@ class DeepSpeedEngine:
                         f"resuming with FRESH optimizer state and loss "
                         f"scale")
                 else:
-                    self.opt_state = opt_state
+                    if not self._offload:
+                        self.opt_state = opt_state
                     ss = zero_payloads[0].get("scale_state")
                     if ss is not None:
                         self.scale = self.scale._replace(
@@ -1429,15 +1875,18 @@ class DeepSpeedEngine:
         under their ``state_dict`` names, written with ``torch.save`` as
         the reference DeepSpeed writes ``pytorch_model.bin``: numpy has no
         bfloat16, and the JAX ``load_checkpoint_file`` reads this file
-        (widening bf16). At ep > 1 the experts are gathered, so every rank
+        (widening bf16). At ep > 1 the experts are gathered, and at
+        stage 3 every master (JAX engine.py:4104-4135), so every rank
         calls it."""
         dtype = (torch.bfloat16 if self.compute_dtype == torch.float32
                  else self.compute_dtype)
         os.makedirs(save_dir, exist_ok=True)
         path = os.path.join(save_dir, save_filename)
         with trace_span("checkpoint/save_16bit_model"):
-            sd = {n: self._whole_experts(n, p.detach()).to(dtype).cpu()
-                  for n, p in self.params.items()}
+            whole = self._whole_masters(list(self.params))
+            sd = {n: self._whole_experts(n, p).to(dtype).cpu()
+                  for n, p in whole.items()}
+            del whole
 
             def write(f):
                 torch.save(sd, f)

@@ -23,13 +23,14 @@ class Optimizer(NamedTuple):
     # own sweep: update() accepts clip_coef= and the engine skips the
     # separate clip pass over the grads
     fuses_clip: bool = False
-    # partitions_state: the optimizer cuts its state by the ZeRO-1
+    # partitions_state: the optimizer cuts its state by the ZeRO
     # partition it was built with (the sweep's flat chunks) and gathers
     # its own updates; the engine hands it whole gradients and params
+    # (at ZeRO 2 its chunk of the reduce-scattered flat gradients)
     partitions_state: bool = False
     # takes_slices: the update acts on a tensor's slice as on the whole
     # tensor (elementwise, or LAMB built with ``partition=``, which sums
-    # its norms over the ranks). At ZeRO 1 over a process group the
+    # its norms over the ranks). At ZeRO >= 1 over a process group the
     # engine then hands it each rank's slices (``runtime/zero/
     # partition.py``) and gathers the updates. Otherwise (a client
     # optimizer by default) it gets whole tensors and keeps its state

@@ -1,2 +1,3 @@
-"""ZeRO for the PyTorch port: stage 1 over ``torch.distributed``
-(``partition.py``); stages 2 and 3 are not ported yet."""
+"""ZeRO for the PyTorch port over ``torch.distributed``: the config block
+(``config.py``), the partition of stages 1-3 (``partition.py``), the
+optimizer offload (``offload.py``) and ``TiledLinear`` (``tiling.py``)."""

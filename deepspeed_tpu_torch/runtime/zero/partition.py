@@ -1,4 +1,4 @@
-"""ZeRO-1's partition rule over ``torch.distributed`` (counterpart of
+"""ZeRO's partition rule over ``torch.distributed`` (counterpart of
 ``deepspeed_tpu/runtime/zero/partition.py``).
 
 The JAX package shards optimizer state by sharding annotations: each
@@ -33,6 +33,17 @@ At world size 1 with a process group every tensor is "cut" into one
 slice, the whole tensor, so the single-card run goes through the same
 collectives as a larger world.
 
+**Stages 2 and 3.** The gradients take the same slices
+(:meth:`ZeroPartition.reduce_scatter`: one ``reduce_scatter_tensor`` a
+group over a rank-major packed fp32 buffer, then × 1/world, as the
+reference's reduce-scatter of its IPG buckets; a replicated tensor is
+all-reduced whole). At stage 3 the fp32 masters are cut too, except a
+tensor below ``param_persistence_threshold`` elements, which stays whole
+on every rank (the reference's ``ds_persist``, JAX ``partition.py:66-68``:
+the partition's ``min_numel``); the optimizer's and the gradients'
+partition cuts every tensor it can (``min_numel`` 0, JAX
+``engine.py:1116-1129``).
+
 **Experts** (JAX ``partition.py:119-209``, ``_default_expert_filter``
 :205). At an expert-parallel size ep > 1 the expert parameters (this
 rank's E / ep experts of each layer) are cut over the expert-data group
@@ -48,6 +59,13 @@ expert-data group): ``ops/adam/fused_adam.sweep_flatten``.
 """
 
 import torch
+
+
+def _numel(shape):
+    n = 1
+    for d in shape:
+        n *= int(d)
+    return n
 
 
 def choose_dim(shape, world):
@@ -71,11 +89,12 @@ class ZeroPartition:
     the world). ``expert_names`` are cut over ``expert_group`` instead,
     of ``expert_world`` ranks, this one ``expert_rank`` (ep > 1).
     ``cut=False`` cuts nothing (a ZeRO-0 engine's LAMB at ep > 1 sums its
-    norms through it)."""
+    norms through it); a tensor of fewer than ``min_numel`` elements
+    stays whole (stage 3's persistence threshold)."""
 
     def __init__(self, shapes, world, rank, group=None, expert_names=(),
                  expert_world=None, expert_rank=None, expert_group=None,
-                 cut=True):
+                 cut=True, min_numel=0):
         self.world, self.rank, self.group = int(world), int(rank), group
         self.expert = frozenset(expert_names)
         self.expert_world = self.world if expert_world is None \
@@ -84,7 +103,9 @@ class ZeroPartition:
             else int(expert_rank)
         self.expert_group = expert_group
         self.shapes = {n: tuple(s) for n, s in shapes.items()}
-        self.dims = {n: (choose_dim(s, self._world(n)) if cut else None)
+        self.dims = {n: (choose_dim(s, self._world(n))
+                         if cut and _numel(s) >= max(int(min_numel), 1)
+                         else None)
                      for n, s in self.shapes.items()}
         self._masks = {}
 
@@ -106,6 +127,13 @@ class ZeroPartition:
             return t
         n = t.shape[d] // self._world(name)
         return t.narrow(d, self._rank(name) * n, n)
+
+    def local_shape(self, name):
+        """The shape of this rank's slice of parameter ``name``."""
+        shape, d = list(self.shapes[name]), self.dims[name]
+        if d is not None:
+            shape[d] //= self._world(name)
+        return tuple(shape)
 
     def box(self, name):
         """The index ranges ``((start, stop), ...)`` of this rank's slice of
@@ -145,6 +173,69 @@ class ZeroPartition:
                                     for r in range(world)], dim=self.dims[n])
                 off += size
         return out
+
+    def _rank_major(self, name, t):
+        """``t`` (shaped like parameter ``name``) as ``[world, slice
+        numel]``, row r rank r's slice: a view when it is cut on
+        dimension 0, else a copy."""
+        d, world = self.dims[name], self._world(name)
+        if d == 0:
+            return t.reshape(world, -1)
+        return t.unflatten(d, (world, t.shape[d] // world)).movedim(
+            d, 0).reshape(world, -1)
+
+    def reduce_scatter(self, grads):
+        """This rank's slices of the gradients averaged over the ranks:
+        ``grads`` maps names to whole fp32 gradients. Over each group (the
+        world's; the expert-data group's) one ``reduce_scatter_tensor`` of
+        a rank-major packed buffer of the cut tensors, and one all-reduce
+        of the replicated ones, then × 1/world: the expert gradients are
+        divided by the data world too, as each already sums its
+        expert-parallel group's tokens (the engine's ``_average`` rule).
+        Returns ``{name: slice}`` (a replicated tensor whole), views of
+        the reduced buffers."""
+        out = {}
+        for expert, world, group in ((False, self.world, self.group),
+                                     (True, self.expert_world,
+                                      self.expert_group)):
+            names = [n for n in grads if (n in self.expert) == expert]
+            cut = [n for n in names if self.dims[n] is not None]
+            if cut:
+                send = torch.cat([self._rank_major(n, grads[n])
+                                  for n in cut], dim=1)
+                recv = torch.empty(send.shape[1], dtype=send.dtype,
+                                   device=send.device)
+                torch.distributed.reduce_scatter_tensor(
+                    recv, send.reshape(-1), group=group)
+                recv.mul_(1.0 / self.world)
+                off = 0
+                for n in cut:
+                    shape = self.local_shape(n)
+                    size = _numel(shape)
+                    out[n] = recv[off:off + size].view(shape)
+                    off += size
+            whole = [n for n in names if self.dims[n] is None]
+            if whole:
+                flat = torch.cat([grads[n].reshape(-1) for n in whole])
+                torch.distributed.all_reduce(flat, group=group)
+                flat.mul_(1.0 / self.world)
+                off = 0
+                for n in whole:
+                    g = grads[n]
+                    out[n] = flat[off:off + g.numel()].view(g.shape)
+                    off += g.numel()
+        return {n: out[n] for n in grads}
+
+    def reduce_scatter_flat(self, vec, expert=False):
+        """This rank's chunk (:meth:`chunk`) of the flat vector ``vec``
+        averaged over the ranks: one ``reduce_scatter_tensor`` over its
+        group, then × 1/world (the sweep's padded gradient vector)."""
+        world = self.group_world(expert)
+        out = torch.empty(vec.numel() // world, dtype=vec.dtype,
+                          device=vec.device)
+        torch.distributed.reduce_scatter_tensor(
+            out, vec, group=self.expert_group if expert else self.group)
+        return out.mul_(1.0 / self.world)
 
     def sum_over_ranks(self, names, values):
         """Per-tensor sums (``values[..., i]`` belongs to ``names[i]``: a
@@ -186,3 +277,25 @@ class ZeroPartition:
             out, chunk.contiguous(),
             group=self.expert_group if expert else self.group)
         return out
+
+
+def estimate_zero_mem(num_params: int, dp_world: int, stage: int,
+                      bytes_per_param_fp32=4, bytes_per_param_bf16=2,
+                      optimizer_mult=2):
+    """Bytes a rank holds for the model states at a ZeRO ``stage`` (the
+    JAX package's model, after the reference's
+    ``estimate_zero{2,3}_model_states_mem_needs``): the compute-dtype
+    params, fp32 gradients, fp32 masters and ``optimizer_mult`` fp32
+    moments, each divided by ``dp_world`` from the stage that cuts it."""
+    p = num_params
+    opt_bytes = optimizer_mult * bytes_per_param_fp32 * p  # m+v fp32
+    master_bytes = bytes_per_param_fp32 * p
+    grad_bytes = bytes_per_param_fp32 * p
+    model_bytes = bytes_per_param_bf16 * p
+    if stage == 0:
+        return model_bytes + grad_bytes + master_bytes + opt_bytes
+    if stage == 1:
+        return model_bytes + grad_bytes + (master_bytes + opt_bytes) / dp_world
+    if stage == 2:
+        return model_bytes + (grad_bytes + master_bytes + opt_bytes) / dp_world
+    return (model_bytes + grad_bytes + master_bytes + opt_bytes) / dp_world

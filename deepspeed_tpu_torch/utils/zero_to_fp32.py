@@ -4,8 +4,9 @@ deepspeed/utils/zero_to_fp32.py).
 
 Rebuilds the full fp32 parameters from the ``zero_pp_rank_*`` shard files
 of a tag written by either engine, without an engine or a device: one
-file a rank (each holding its ZeRO-1 boxes of the masters) or one file
-of every device's shards. The shards carry their global indices
+file a rank (each holding its boxes of the masters: its slices at stage
+3, whose model states hold no ``module``) or one file of every device's
+shards. The shards carry their global indices
 (``runtime/checkpoint_io.py``), so the result does not depend on the
 world size that wrote them. Keys are the
 JAX key paths of the tag (``['h_0']['attn']['qkv']['kernel']`` for a

@@ -153,6 +153,8 @@ def test_invalid_configs_raise_like_jax(cfg):
         "device": "cpu"}}}, "offload_param"),
     ({"zero_optimization": {"stage": 1, "cpu_offload_params": True}},
      "cpu_offload_params"),
+    ({"zero_optimization": {"stage": 3, "cpu_offload_params": True}},
+     "cpu_offload_params at stage 3"),
     ({"pipeline": {"stages": 2}}, "pipeline"),
     ({"moe": {"enabled": True}}, "MoE"),
     ({"telemetry": {"enabled": True}}, "telemetry"),
@@ -177,6 +179,20 @@ def test_unported_keys_raise(over, what):
         cfg = DeepSpeedConfig(basic(**over))
         JaxConfig(basic(**over), data_parallel_size=1)
         assert cfg._param_dict["moe"] == {"enabled": True}
+        return
+    if what in ("stage=2", "stage=3", "offload_optimizer", "cpu_offload",
+                "cpu_offload_params"):
+        # ported: ZeRO stages 2 and 3 and the optimizer offload are
+        # accepted with JAX's parse of the block; cpu_offload_params below
+        # stage 3 is JAX's historical no-op (deepspeed_tpu/__init__.py:
+        # 95-100), parameter offload only at stage 3
+        cfg = DeepSpeedConfig(basic(**over))
+        jax_cfg = JaxConfig(basic(**over), data_parallel_size=1)
+        assert cfg.zero_optimization_stage == jax_cfg.zero_optimization_stage
+        assert cfg.zero_config.offload_optimizer.device == \
+            jax_cfg.zero_config.offload_optimizer.device == (
+                "cpu" if "offload_optimizer" in what
+                or what == "cpu_offload" else "none")
         return
     with pytest.raises(NotImplementedError, match="not ported yet") as err:
         DeepSpeedConfig(basic(**over))

@@ -226,9 +226,10 @@ def test_initialize_contract_and_unported_arguments(setup):
 def test_world_size_above_one_raises(monkeypatch):
     """Inside an initialised process group of more than one rank the
     config is triangulated over the data-parallel world (micro-batch =
-    train_batch_size / world), and ZeRO stages 2 and 3, not ported,
-    raise. (ZeRO 0/1 at world sizes above one run in
-    tests/test_torch_dist_engine.py.)"""
+    train_batch_size / world), at ZeRO stages 2 and 3 too, and parameter
+    offload (the layered engine), not ported, raises. (ZeRO 0-3 at world
+    sizes above one run in tests/test_torch_dist_engine.py and
+    tests/test_torch_dist_zero.py.)"""
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
     base = _config()
@@ -238,7 +239,12 @@ def test_world_size_above_one_raises(monkeypatch):
     assert cfg.train_micro_batch_size_per_gpu == oracle.BATCH_SIZE // 2
     model = gpt2.GPT2LMHeadModel(gpt2.PRESETS["tiny"], device="cpu")
     for stage in (2, 3):
-        with pytest.raises(NotImplementedError, match="stage"):
+        staged = deepspeed_tpu_torch.DeepSpeedConfig(
+            dict(base, zero_optimization={"stage": stage}))
+        assert staged.zero_optimization_stage == stage
+        assert staged.train_micro_batch_size_per_gpu == oracle.BATCH_SIZE // 2
+        with pytest.raises(NotImplementedError, match="offload_param"):
             deepspeed_tpu_torch.initialize(
-                model=model, config=dict(
-                    base, zero_optimization={"stage": stage}), device="cpu")
+                model=model, config=dict(base, zero_optimization={
+                    "stage": stage, "offload_param": {"device": "cpu"}}),
+                device="cpu")

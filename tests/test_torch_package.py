@@ -85,6 +85,10 @@ def test_import_leaves_jax_out():
         "import deepspeed_tpu_torch.runtime.checkpoint_io\n"
         "import deepspeed_tpu_torch.runtime.async_checkpoint\n"
         "import deepspeed_tpu_torch.utils.zero_to_fp32\n"
+        "import deepspeed_tpu_torch.zero\n"
+        "import deepspeed_tpu_torch.runtime.zero.offload\n"
+        "import deepspeed_tpu_torch.runtime.swap_tensor.swapper\n"
+        "import deepspeed_tpu_torch.ops.adagrad.cpu_adagrad\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'flax', 'deepspeed_tpu', 'triton')\n"
         "       or m == 'torch.utils.cpp_extension']\n"

@@ -36,8 +36,21 @@ def _entry(rank, world, root, kind):
     try:
         with open(os.path.join(root, "cases.pkl"), "rb") as f:
             cases = pickle.load(f)
-        out = [KINDS[case.get("kind", kind)](rank, world, case, root)
-               for case in cases]
+        out = []
+        for case in cases:
+            # a case's environment (DS_AIO_DISABLE_KERNEL, read at each
+            # transfer) holds for that case only
+            saved = {k: os.environ.get(k) for k in case.get("env", {})}
+            os.environ.update(case.get("env", {}))
+            try:
+                out.append(KINDS[case.get("kind", kind)](rank, world, case,
+                                                         root))
+            finally:
+                for k, v in saved.items():
+                    if v is None:
+                        os.environ.pop(k, None)
+                    else:
+                        os.environ[k] = v
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "flax",
                                                "deepspeed_tpu"))
@@ -111,7 +124,10 @@ def rank_rows(batch, rank, world, gas, micro):
 
 
 def _state_numel(state):
+    """The optimizer state's elements on the card (none under offload)."""
     n = 0
+    if state is None:
+        return n
     for field in state._fields:
         val = getattr(state, field)
         if isinstance(val, dict):
@@ -167,7 +183,11 @@ def _train(engine, batches, rank, world, manual_allreduce=False,
 
 
 def _params(engine):
-    return {k: p.detach().clone().numpy() for k, p in engine.params.items()}
+    """The whole masters (gathered from every rank's slices at stage 3: a
+    collective, every rank calls it)."""
+    from deepspeed_tpu_torch import zero
+    with zero.GatheredParameters(dict(engine.params)) as whole:
+        return {k: p.numpy() for k, p in whole.items()}
 
 
 # ---------------------------------------------------------------- cases
@@ -186,6 +206,7 @@ def engine_case(rank, world, case, root):
            "last_norm": (None if engine.global_grad_norm is None
                          else float(engine.global_grad_norm)),
            "state_numel": _state_numel(engine.opt_state),
+           "masters_numel": sum(p.numel() for p in engine.params.values()),
            "micro_batch": engine.config.train_micro_batch_size_per_gpu}
     if case.get("eval"):
         out["eval"] = float(engine.eval_batch(rank_rows(
