@@ -248,9 +248,33 @@ Phases, each fatal on failure:
    RAM), losses within 2e-4 relative of (a), the flash launches only;
    (e) NVMe offload at GPT-2 medium, stage 2, 2 steps, moments in files
    under ``build/zero_nvme`` (deleted after), bit-equal to the same run
-   offloaded to RAM. For each run: step ms, CPU-Adam host ms, peak
-   device memory beside ``estimate_zero_mem``, the whole compute-dtype
-   copy's size, launches; the host's RAM; which aio engine ran.
+   offloaded to RAM; (f) GPT-2 XL with the Adam sweep (``sweep: true``)
+   at stage 3 over NCCL, the sweep's vector this rank's master slices,
+   bit-equal to stage 0 with the sweep (1 adam launch a step); (g)
+   BERT-large with MoQ (fused LAMB, ``moq_block()``) at stage 3 over
+   NCCL, the cut masters gathered, quantized whole and cut back,
+   bit-equal to stage 0 with MoQ (1 quantize call a step). For each run:
+   step ms, CPU-Adam host ms, peak device memory beside
+   ``estimate_zero_mem``, the whole compute-dtype copy's size, launches;
+   the host's RAM; which aio engine ran.
+21. ZeRO-3 parameter offload (``runtime/zero/param_offload.py``) at GPT-2
+   XL width, ``bench.py``'s gpt2-xl row at bs 4 x 1024 through
+   ``initialize(model=gpt2_offload_layers(cfg), config=bench.py:370-378's
+   config, sample_batch=, input_fn=)``: 3 steps (a batch of its own
+   each) streamed a layer at a time from pinned host RAM (the masters born on the host, CPU-Adam on
+   the host) against (a) the same layers all resident on the card (plain
+   autograd, Adam with CPU-Adam's formula), losses within
+   ``OFFLOAD_RTOL`` and the masters after the last update within
+   ``OFFLOAD_MASTER_RTOL`` of the oracle's change, leaf by leaf; (b)
+   ``peak_live_bytes`` at most 2 × the largest layer's bf16 bytes,
+   beside ``torch.cuda.max_memory_allocated``; (c)
+   exactly 96 flash_fwd (the sweep and the recompute), 48 dq and 48 dk/dv
+   a step and no Adam launch; (d) NVMe masters (``build/param_offload``,
+   deleted after) at 8 blocks of XL width bit-equal to RAM, 2 steps; (e)
+   a tag saved after step 2 resumes bit-equal in a fresh engine. Step ms,
+   H2D and D2H GB a step, CPU-Adam ms, peak memory, and one more step
+   under the profiler: its compute kernels' ms, the H2D and D2H copies'
+   ms (side streams) and the CPU-Adam ms beside its wall ms.
 
 Prints an ``e2e`` JSON line, a ``train`` JSON line, a ``bert`` JSON line,
 a ``moq`` JSON line, an ``int8`` JSON line, a ``sparse`` JSON line, a
@@ -266,7 +290,8 @@ world-1 losses, step ms beside the no-group run's and the phase median,
 the bit-equality checks and launches; the checkpoint's numbers and the
 sweep-moment gather; the lse-gradient errors; ring / Ulysses), a ``moe``
 JSON line (phase 19's figures and checks, its launches by kernel row), a
-``zero`` JSON line (phase 20's runs and checks), a ``kernels`` JSON
+``zero`` JSON line (phase 20's runs and checks), an ``offload`` JSON
+line (phase 21's figures and checks), a ``kernels`` JSON
 line (the softmax, on no path as in the JAX package, with 0 launches,
 and its C entry's and ``torch.softmax``'s device times from the
 profiler; the decode rows' ``single_stream`` and
@@ -407,6 +432,8 @@ def device_profile(torch, fn):
                  "softmax" if "softmax_" in name else
                  "decode_attention" if "decode_kernel" in name else
                  "sparse_attention" if "sparse_" in name else
+                 "memcpy_htod" if "memcpy htod" in name else
+                 "memcpy_dtoh" if "memcpy dtoh" in name else
                  "matmul" if any(s in name for s in (
                      "gemm", "gemv", "cutlass", "nvjet", "xmma")) else
                  "other")
@@ -4234,9 +4261,17 @@ def moe_phase(torch, deepspeed_tpu_torch, gpt2, attn_mod, decode, fused_adam,
 # fp32 masters, Adam lr 1e-4, fused; then NVMe offload at GPT-2 medium
 ZERO_B, ZERO_STEPS, NVME_STEPS = 4, 3, 2
 OFFLOAD_RTOL = 2e-4      # tests/model/test_loss_parity.py:124
+# the streamed masters against the resident oracle's, a leaf at a time, as
+# a share of the oracle's change over the steps (master_gaps): twice the
+# largest gap measured on an H100 at GPT-2 XL width, a batch of its own
+# each step (0.0497, wte; 0.0213 at the card test's 4 blocks). A gradient
+# read a step stale gave 0.69 on a tiny model, a skipped last update 0.36
+OFFLOAD_MASTER_RTOL = 0.1
 
 
-def zero_train_config(stage, offload=None, batch=ZERO_B):
+def zero_train_config(stage, offload=None, batch=ZERO_B, form="fused"):
+    """bench.py's gpt2-xl config at ZeRO ``stage``; Adam in ``form``
+    (``fused``: the per-tensor kernel, ``sweep``: the whole-state one)."""
     zero = {"stage": stage}
     if offload is not None:
         zero["offload_optimizer"] = offload
@@ -4244,8 +4279,7 @@ def zero_train_config(stage, offload=None, batch=ZERO_B):
             "train_micro_batch_size_per_gpu": batch,
             "steps_per_print": 10 ** 9, "bf16": {"enabled": True},
             "zero_optimization": zero,
-            "optimizer": {"type": "Adam", "params": {"lr": LR,
-                                                     "fused": True}}}
+            "optimizer": {"type": "Adam", "params": {"lr": LR, form: True}}}
 
 
 def host_ram_gb():
@@ -4259,9 +4293,10 @@ def host_ram_gb():
 
 
 def zero_run(torch, deepspeed_tpu_torch, gpt2, op_builder, cfg, config,
-             batch, steps, per_step, what):
+             batch, steps, per_step, what, model=None):
     """One engine of phase 20 built and run ``steps`` steps, its launches
-    held to ``per_step``. Returns (figures, the whole masters on the
+    held to ``per_step``. ``model`` builds the module (default GPT-2 of
+    ``cfg`` from seed 0). Returns (figures, the whole masters on the
     host)."""
     from deepspeed_tpu_torch import zero
     from deepspeed_tpu_torch.runtime.zero.partition import estimate_zero_mem
@@ -4269,7 +4304,8 @@ def zero_run(torch, deepspeed_tpu_torch, gpt2, op_builder, cfg, config,
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     engine = deepspeed_tpu_torch.initialize(
-        model=gpt2.GPT2LMHeadModel(cfg, seed=0), config=config)[0]
+        model=(model or (lambda: gpt2.GPT2LMHeadModel(cfg, seed=0)))(),
+        config=config)[0]
     op_builder.reset_launch_counts()
     losses, ms = run_steps(torch, engine, batch, steps)
     counts = dict(op_builder.LAUNCHES)
@@ -4290,7 +4326,8 @@ def zero_run(torch, deepspeed_tpu_torch, gpt2, op_builder, cfg, config,
         "gathered_compute_copy_gb": n * 2 / 1e9,
         "n_params": n, "n_tensors": len(engine._shapes),
         "launches": counts, "process_group": engine._dist,
-        "zero_stage": engine.zero_stage}
+        "zero_stage": engine.zero_stage,
+        "adam": "sweep" if engine.config.optimizer_sweep else "fused"}
     with zero.GatheredParameters(dict(engine.params)) as whole:
         masters = {k: t.cpu() for k, t in whole.items()}
     del engine, whole
@@ -4299,10 +4336,26 @@ def zero_run(torch, deepspeed_tpu_torch, gpt2, op_builder, cfg, config,
     return figures, masters
 
 
-def zero_phase(torch, deepspeed_tpu_torch, gpt2, op_builder, card):
+def bit_equal_runs(torch, runs, want, key, ref, got, what):
+    """Phase 20's check: run ``key``'s losses and masters (``got``) equal
+    run ``ref``'s (``want``) bit for bit; returns the comparison."""
+    out = {"losses": runs[key]["losses"] == runs[ref]["losses"],
+           "masters": all(torch.equal(got[k], want[k]) for k in want),
+           "max_abs_master_diff": max(
+               float((got[k] - want[k]).abs().max()) for k in want)}
+    print(f"zero ({key[0]}) against ({ref[0]}): {out}", flush=True)
+    if not (out["losses"] and out["masters"]):
+        raise AssertionError(f"{what} is not bit-equal: {out}")
+    return out
+
+
+def zero_phase(torch, deepspeed_tpu_torch, gpt2, bert, op_builder, card,
+               bert_cfg, bert_batch):
     """Phase 20: GPT-2 XL at stages 0, 2 and 3 and stage 3 offloaded to
-    host RAM, then GPT-2 medium offloaded to NVMe. Returns the ``zero``
-    line and the main path's launches by kernel row."""
+    host RAM, then GPT-2 medium offloaded to NVMe; GPT-2 XL with the Adam
+    sweep and BERT-large with MoQ, each at stage 3 against stage 0.
+    Returns the ``zero`` line and the main path's launches by kernel
+    row."""
     import torch.distributed as dist
     from deepspeed_tpu_torch.ops.adam import fused_adam
     from deepspeed_tpu_torch.ops.aio.aio_handle import AsyncIOHandle
@@ -4337,27 +4390,54 @@ def zero_phase(torch, deepspeed_tpu_torch, gpt2, op_builder, card):
             abs(first[0] - math.log(cfg.vocab_size)) > 0.5:
         raise AssertionError(f"gpt2-xl losses {first}: not finite, or the "
                              f"first not near ln(vocab)")
+    # the stage-0 references of the sweep and of MoQ (no process group)
+    runs["f_ref_stage0_sweep"], want_sweep = zero_run(
+        torch, deepspeed_tpu_torch, gpt2, op_builder, cfg,
+        zero_train_config(0, form="sweep"), batch, ZERO_STEPS,
+        dict(flash, adam=1), "(f) reference: gpt2-xl stage 0, Adam sweep")
+    bert_model = lambda: bert.BertForPreTraining(bert_cfg, seed=0)
+    bert_per_step = {"flash_fwd": 24, "flash_bwd_dq": 24,
+                     "flash_bwd_dkv": 24, "ln_fwd": 48, "ln_bwd": 48,
+                     "bias_gelu": 24, "lamb": 1, "quantize": 1}
+    moq_cfg = lambda stage: dict(
+        bert_config(fused=True), quantize_training=moq_block(),
+        zero_optimization={"stage": stage})
+    runs["g_ref_bert_stage0_moq"], want_moq = zero_run(
+        torch, deepspeed_tpu_torch, gpt2, op_builder, bert_cfg, moq_cfg(0),
+        bert_batch, ZERO_STEPS, bert_per_step,
+        "(g) reference: bert-large stage 0, MoQ", model=bert_model)
     deepspeed_tpu_torch.init_distributed()         # NCCL, world 1
     bit_equal = {}
     try:
+        # the sweep at stage 3: one flat vector of the rank's slices
+        runs["f_stage3_sweep_nccl"], got = zero_run(
+            torch, deepspeed_tpu_torch, gpt2, op_builder, cfg,
+            zero_train_config(3, form="sweep"), batch, ZERO_STEPS,
+            dict(flash, adam=1), "(f) gpt2-xl stage 3, Adam sweep, over "
+            "NCCL world 1")
+        bit_equal["f_stage3_sweep_nccl"] = bit_equal_runs(
+            torch, runs, want_sweep, "f_stage3_sweep_nccl",
+            "f_ref_stage0_sweep", got, "gpt2-xl stage 3 with the sweep")
+        del got, want_sweep
+        # MoQ at stage 3: gathered, quantized whole, cut back
+        runs["g_bert_stage3_moq_nccl"], got = zero_run(
+            torch, deepspeed_tpu_torch, gpt2, op_builder, bert_cfg,
+            moq_cfg(3), bert_batch, ZERO_STEPS, bert_per_step,
+            "(g) bert-large stage 3, MoQ, over NCCL world 1",
+            model=bert_model)
+        bit_equal["g_bert_stage3_moq_nccl"] = bit_equal_runs(
+            torch, runs, want_moq, "g_bert_stage3_moq_nccl",
+            "g_ref_bert_stage0_moq", got, "bert-large stage 3 with MoQ")
+        del got, want_moq
         for key, stage in (("b_stage2_nccl", 2), ("c_stage3_nccl", 3)):
             runs[key], got = zero_run(
                 torch, deepspeed_tpu_torch, gpt2, op_builder, cfg,
                 zero_train_config(stage), batch, ZERO_STEPS,
                 dict(flash, adam=adam), f"({key[0]}) gpt2-xl stage {stage} "
                 f"over NCCL world 1")
-            bit_equal[key] = {
-                "losses": runs[key]["losses"]
-                == runs["a_stage0_no_group"]["losses"],
-                "masters": all(torch.equal(got[k], want[k]) for k in want),
-                "max_abs_master_diff": max(
-                    float((got[k] - want[k]).abs().max()) for k in want)}
-            print(f"zero ({key[0]}) against (a): {bit_equal[key]}",
-                  flush=True)
-            if not (bit_equal[key]["losses"] and bit_equal[key]["masters"]):
-                raise AssertionError(f"gpt2-xl stage {stage} is not "
-                                     f"bit-equal to stage 0: "
-                                     f"{bit_equal[key]}")
+            bit_equal[key] = bit_equal_runs(
+                torch, runs, want, key, "a_stage0_no_group", got,
+                f"gpt2-xl stage {stage} against stage 0")
             del got
         runs["d_stage3_offload_cpu"], got = zero_run(
             torch, deepspeed_tpu_torch, gpt2, op_builder, cfg,
@@ -4414,12 +4494,317 @@ def zero_phase(torch, deepspeed_tpu_torch, gpt2, op_builder, card):
     finally:
         dist.destroy_process_group()
     for figures in runs.values():
+        adam = "adam_sweep" if figures["adam"] == "sweep" \
+            else "adam_per_tensor"
         for k, v in figures["launches"].items():
-            rows["adam_per_tensor" if k == "adam" else k] += v
+            rows[adam if k == "adam" else k] += v
     line.update(runs=runs, bit_equal_to_stage0=bit_equal,
                 offload_rtol=OFFLOAD_RTOL,
                 phase_s=time.perf_counter() - t0)
     print(f"zero: phase 20 took {line['phase_s']:.1f} s", flush=True)
+    return line, rows
+
+
+# phase 21, ZeRO-3 parameter offload: bench.py's gpt2-xl row streamed a
+# layer at a time from host RAM (bench.py:275-420, BENCH_OFFLOAD=layered)
+OFFLOAD_STEPS = 3
+OFFLOAD_NVME_LAYERS = 8      # the NVMe and resume checks' depth
+
+
+def offload_config(nvme_path=None):
+    """bench.py:370-378's config: ZeRO 3 with offload_param, bf16, Adam."""
+    off = ({"device": "cpu"} if nvme_path is None
+           else {"device": "nvme", "nvme_path": nvme_path})
+    return {"train_batch_size": ZERO_B, "steps_per_print": 10 ** 9,
+            "bf16": {"enabled": True},
+            "zero_optimization": {"stage": 3, "offload_param": off},
+            "optimizer": {"type": "Adam", "params": {"lr": LR}}}
+
+
+def layered_engine(deepspeed_tpu_torch, gpt2, cfg, batch, nvme_path=None):
+    return deepspeed_tpu_torch.initialize(
+        model=gpt2.gpt2_offload_layers(cfg), config=offload_config(nvme_path),
+        sample_batch=batch, input_fn=lambda b: b["input_ids"])[0]
+
+
+def resident_oracle(torch, engine, batches, lr=LR):
+    """The layered engine's layers all resident on the card, from its
+    initial masters, one step a batch of ``batches``: plain autograd over the whole stack (the same
+    modules through ``functional_call``, bf16 over fp32 masters), then
+    Adam with CPU-Adam's formula (csrc/cpu_adam.cpp: step size lr / bc1,
+    denominator sqrt(v) / sqrt(bc2) + eps). Returns (the losses, the
+    initial masters, the final masters): the masters a dict a layer of
+    fp32 tensors on the card, for :func:`master_gaps`."""
+    from torch.func import functional_call
+    dev, dt = engine.device, engine.compute_dtype
+    masters = [{n: h.to(dev, copy=True).requires_grad_() for n, h in zip(
+        engine.store.names[i], engine.store.host_leaves(i))}
+        for i in range(len(engine._mods))]
+    initial = [{n: p.detach().clone() for n, p in layer.items()}
+               for layer in masters]
+    state = [{n: (torch.zeros_like(p), torch.zeros_like(p))
+              for n, p in layer.items()} for layer in masters]
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    losses = []
+    for step, batch in enumerate(batches, 1):
+        x = batch["input_ids"]
+        for mod, layer in zip(engine._mods[:-1], masters[:-1]):
+            x = functional_call(mod, {n: p.to(dt) for n, p in layer.items()},
+                                (x,))
+        loss = functional_call(engine._mods[-1], {
+            n: p.to(dt) for n, p in masters[-1].items()}, (x, batch))
+        loss.backward()
+        losses.append(float(loss.detach()))
+        bc1, bc2 = 1 - b1 ** step, 1 - b2 ** step
+        with torch.no_grad():
+            for layer, st in zip(masters, state):
+                for n, p in layer.items():
+                    m, v = st[n]
+                    g = p.grad
+                    m.mul_(b1).add_(g, alpha=1 - b1)
+                    v.mul_(b2).addcmul_(g, g, value=1 - b2)
+                    p.addcdiv_(m, v.sqrt().mul_(1 / math.sqrt(bc2)).add_(eps),
+                               value=-lr / bc1)
+                    p.grad = None
+    final = [{n: p.detach() for n, p in layer.items()} for layer in masters]
+    del masters, state
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return losses, initial, final
+
+
+def master_gaps(torch, engine, initial, final):
+    """The streamed masters (the engine's host fp32, after its steps)
+    against the resident oracle's, leaf by leaf: for each leaf name the
+    largest relative L2 gap over the layers, ||streamed - oracle|| over
+    the oracle's change ||oracle - initial||. The key third of the qkv
+    bias is a kind of its own (``...qkv.bias[k]``): softmax does not see a
+    constant added to a row's scores, so its gradient is zero but for
+    rounding and Adam's normalised step moves it at random in both runs;
+    it is reported, not held to the tolerance."""
+    gaps = {}
+    for i, (p0, want) in enumerate(zip(initial, final)):
+        for n, h in zip(engine.store.names[i], engine.store.host_leaves(i)):
+            o = want[n].reshape(-1)
+            got = h.to(o.device).reshape(-1)
+            d0 = p0[n].reshape(-1)
+            parts = {n: slice(None)}
+            if n.endswith("attn.qkv.bias"):
+                e = o.numel() // 3
+                parts = {n + "[q,v]": torch.cat([
+                    torch.arange(0, e), torch.arange(2 * e, 3 * e)]).to(
+                    o.device), n + "[k]": slice(e, 2 * e)}
+            for kind, idx in parts.items():
+                moved = float(torch.linalg.vector_norm(o[idx] - d0[idx]))
+                off = float(torch.linalg.vector_norm(got[idx] - o[idx]))
+                gap = (off / moved if moved else
+                       (0.0 if off == 0 else math.inf))
+                gaps[kind] = max(gaps.get(kind, 0.0), gap)
+    return gaps
+
+
+def check_master_gaps(gaps, rtol, what):
+    """Every leaf kind but the qkv bias's key third within ``rtol``."""
+    bad = {k: g for k, g in gaps.items()
+           if not k.endswith("[k]") and not g <= rtol}
+    if bad:
+        raise AssertionError(f"{what}: the streamed masters differ from the "
+                             f"resident oracle's beyond {rtol} of the "
+                             f"oracle's change: {bad} (all: {gaps})")
+
+
+def layered_steps(torch, engine, batches):
+    """A layered step a batch: (losses, host ms of each, CPU-Adam ms of
+    each)."""
+    losses, ms, adam_ms = [], [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        adam_ms.append(engine.last_host_ms)
+    return losses, ms, adam_ms
+
+
+def offload_phase(torch, deepspeed_tpu_torch, gpt2, op_builder, card):
+    """Phase 21: ZeRO-3 parameter offload at GPT-2 XL width. Returns the
+    ``offload`` line and the main path's launches by kernel row."""
+    import dataclasses
+    t0 = time.perf_counter()
+    cfg = gpt2.PRESETS["gpt2-xl"]
+    L = cfg.n_layer
+    batch = gpt2.synthetic_batch(ZERO_B, SEQ, cfg.vocab_size, seed=8)
+    total, avail = host_ram_gb()
+    line = {"card": card, "config": "gpt2-xl bs4 seq1024 bf16 zero3 "
+            "offload_param cpu, Adam (host CPU-Adam) lr1e-4",
+            "host_ram_gb": {"total": total, "available_at_start": avail}}
+    rows = collections.Counter()
+    torch.cuda.empty_cache()
+    t_init = time.perf_counter()
+    engine = layered_engine(deepspeed_tpu_torch, gpt2, cfg, batch)
+    line["init_s"] = time.perf_counter() - t_init
+    store = engine.store
+    if len({id(m) for m in engine._mods}) != 3:
+        raise AssertionError("the layered engine keeps one module a layer "
+                             "kind: embed, block, head")
+    # (a) the oracle: every layer resident, plain autograd, CPU-Adam's rule
+    op_builder.reset_launch_counts()
+    # a batch of its own each step: a gradient copy that CPU-Adam read a
+    # step stale would not show with one batch repeated
+    batches = [gpt2.synthetic_batch(ZERO_B, SEQ, cfg.vocab_size, seed=8 + k)
+               for k in range(OFFLOAD_STEPS)]
+    want, oracle_p0, oracle_final = resident_oracle(torch, engine, batches)
+    oracle_counts = dict(op_builder.LAUNCHES)
+    check_counts("(a) resident oracle", oracle_counts,
+                 {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L},
+                 OFFLOAD_STEPS)
+    rows.update(oracle_counts)
+    # the streamed run: launches zeroed just before, read just after
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    h2d0, d2h0 = store.h2d_bytes, engine.d2h_bytes
+    op_builder.reset_launch_counts()
+    losses, ms, adam_ms = layered_steps(torch, engine, batches)
+    counts = dict(op_builder.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() - base
+    # (c) the flash forward twice a block (the sweep and the recompute),
+    # the backward once; no device Adam (rows 12 and 13)
+    check_counts("(c) layered gpt2-xl", counts,
+                 {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L},
+                 OFFLOAD_STEPS)
+    rows.update(counts)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+    print(f"offload: streamed losses {losses}, resident oracle {want}, "
+          f"max rel diff {rel:.3g}", flush=True)
+    if not (all(math.isfinite(x) for x in losses) and rel <= OFFLOAD_RTOL):
+        raise AssertionError(f"(a) layered losses {losses} differ from the "
+                             f"resident oracle's {want} by {rel} relative "
+                             f"(tolerance {OFFLOAD_RTOL})")
+    # ... and the masters after the last update, leaf by leaf
+    gaps = master_gaps(torch, engine, oracle_p0, oracle_final)
+    del oracle_p0, oracle_final
+    torch.cuda.empty_cache()
+    print(f"offload: master gaps to the resident oracle by leaf (of the "
+          f"oracle's change): {json.dumps(gaps, sort_keys=True)}",
+          flush=True)
+    check_master_gaps(gaps, OFFLOAD_MASTER_RTOL, "(a) layered gpt2-xl")
+    layer_bf16 = [sum(math.prod(s) for s in meta) * 2 for meta in store._meta]
+    bound = 2 * max(layer_bf16)
+    print(f"offload: peak_live_bytes {store.peak_live_bytes / 1e9:.4f} GB "
+          f"(bound {bound / 1e9:.4f}, model {sum(layer_bf16) / 1e9:.3f} GB "
+          f"bf16); torch.cuda.max_memory_allocated "
+          f"{peak / 1e9:.3f} GB", flush=True)
+    # (b) two layers at most on the card
+    if not (store.peak_live_bytes <= bound and store.live_bytes == 0):
+        raise AssertionError(f"(b) peak_live_bytes {store.peak_live_bytes} "
+                             f"above 2 layers ({bound})")
+    h2d = (store.h2d_bytes - h2d0) / OFFLOAD_STEPS
+    d2h = (engine.d2h_bytes - d2h0) / OFFLOAD_STEPS
+    # where a streamed step goes: one more step under the profiler (its
+    # launches are not the counted run's); the copies run on the two side
+    # streams beside the compute stream's kernels
+    prof = device_profile(torch, lambda: engine.train_batch(batch))
+    by = prof["device_ms_by_group"]
+    copy_ms = {k: by.get(k, 0.0) for k in ("memcpy_htod", "memcpy_dtoh")}
+    compute_ms = prof["device_busy_ms"] - sum(copy_ms.values())
+    prof.update(compute_ms=compute_ms,
+                compute_idle_share=1 - compute_ms / prof["wall_ms"],
+                cpu_adam_ms=engine.last_host_ms,
+                h2d_gb_per_s=h2d / 1e9 / (copy_ms["memcpy_htod"] / 1e3)
+                if copy_ms["memcpy_htod"] else None,
+                d2h_gb_per_s=d2h / 1e9 / (copy_ms["memcpy_dtoh"] / 1e3)
+                if copy_ms["memcpy_dtoh"] else None)
+    print(f"offload profile: wall {prof['wall_ms']:.1f} ms, compute "
+          f"{compute_ms:.1f} ms, H2D copies {copy_ms['memcpy_htod']:.1f} "
+          f"ms, D2H {copy_ms['memcpy_dtoh']:.1f} ms, CPU-Adam "
+          f"{engine.last_host_ms:.1f} ms", flush=True)
+    line.update({
+        "losses": losses, "oracle_losses": want, "max_rel_loss_diff": rel,
+        "offload_rtol": OFFLOAD_RTOL, "master_gap_by_leaf": gaps,
+        "master_rtol": OFFLOAD_MASTER_RTOL, "step_ms": ms,
+        "step_ms_median": statistics.median(ms[1:]),
+        "cpu_adam_ms": adam_ms, "h2d_gb_per_step": h2d / 1e9,
+        "d2h_gb_per_step": d2h / 1e9,
+        "h2d_d2h_gb_per_s_if_serial": (h2d + d2h) / 1e9 / (
+            statistics.median(ms[1:]) / 1e3),
+        "peak_live_bytes": store.peak_live_bytes,
+        "peak_live_bound_2_layers": bound,
+        "model_bf16_bytes": sum(layer_bf16),
+        "model_fp32_bytes": store.total_param_bytes,
+        "peak_mem_gb": peak / 1e9, "n_layers": len(engine._mods),
+        "distinct_modules": 3, "launches": counts,
+        "launches_oracle": oracle_counts, "profile_step": prof})
+    print(f"offload (gpt2-xl): step {line['step_ms_median']:.1f} ms, "
+          f"CPU-Adam {adam_ms} ms, H2D {h2d / 1e9:.2f} GB and D2H "
+          f"{d2h / 1e9:.2f} GB a step", flush=True)
+    del engine, store
+    torch.cuda.empty_cache()
+
+    # (d) NVMe against RAM and (e) a resume, at 8 blocks of XL width
+    small = dataclasses.replace(cfg, n_layer=OFFLOAD_NVME_LAYERS)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "param_offload")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        op_builder.reset_launch_counts()
+        ram = layered_engine(deepspeed_tpu_torch, gpt2, small, batch)
+        ram_losses, _, _ = layered_steps(torch, ram, [batch] * 2)
+        ram.save_checkpoint(os.path.join(root, "tags"), tag="step2")
+        at_save = ram.state_dict()["params"]
+        ram_losses += layered_steps(torch, ram, [batch])[0]
+        final = ram.state_dict()["params"]
+        del ram
+        nvme = layered_engine(deepspeed_tpu_torch, gpt2, small, batch,
+                              nvme_path=os.path.join(root, "nvme"))
+        t_n = time.perf_counter()
+        nvme_losses, nvme_ms, nvme_adam = layered_steps(torch, nvme,
+                                                        [batch] * 2)
+        nvme_params = nvme.state_dict()["params"]
+        folder = nvme.store._swap_folder
+        nvme.close()
+        same = nvme_losses == ram_losses[:2] and all(
+            (a == b).all() for la, lb in zip(nvme_params, at_save)
+            for a, b in zip(la, lb))
+        line["nvme_8_blocks"] = {
+            "losses": nvme_losses, "ram_losses": ram_losses[:2],
+            "bit_equal_to_ram": bool(same), "step_ms": nvme_ms,
+            "adam_and_swap_ms": nvme_adam,
+            "s": time.perf_counter() - t_n,
+            "swap_folder_removed": not os.path.exists(folder)}
+        print(f"offload (d) nvme, 8 blocks: {line['nvme_8_blocks']}",
+              flush=True)
+        if not same or os.path.exists(folder):
+            raise AssertionError(f"(d) NVMe is not bit-equal to RAM, or its "
+                                 f"folder was left: {line['nvme_8_blocks']}")
+        del nvme, nvme_params
+        fresh = layered_engine(deepspeed_tpu_torch, gpt2, small, batch)
+        path, _ = fresh.load_checkpoint(os.path.join(root, "tags"))
+        tag_bytes = os.path.getsize(path)
+        resumed = layered_steps(torch, fresh, [batch])[0]
+        same = resumed == ram_losses[2:] and all(
+            (a == b).all() for la, lb in zip(fresh.state_dict()["params"],
+                                             final) for a, b in zip(la, lb))
+        line["resume_8_blocks"] = {"loss": resumed, "want": ram_losses[2:],
+                                   "bit_equal": bool(same),
+                                   "tag_bytes": tag_bytes}
+        print(f"offload (e) resume, 8 blocks: {line['resume_8_blocks']}",
+              flush=True)
+        if not same:
+            raise AssertionError(f"(e) the resumed step is not bit-equal: "
+                                 f"{line['resume_8_blocks']}")
+        del fresh
+        small_counts = dict(op_builder.LAUNCHES)
+        n = OFFLOAD_NVME_LAYERS
+        check_counts("(d, e) layered 8 blocks", small_counts,
+                     {"flash_fwd": 2 * n, "flash_bwd_dq": n,
+                      "flash_bwd_dkv": n}, 3 + 2 + 1)
+        rows.update(small_counts)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    line["launches_by_row"] = dict(rows)
+    line["phase_s"] = time.perf_counter() - t0
+    print(f"offload: phase 21 took {line['phase_s']:.1f} s", flush=True)
     return line, rows
 
 
@@ -4940,11 +5325,20 @@ def main():
     # 20. ZeRO stages 2 and 3 and the optimizer offload at GPT-2 XL
     # width (bench.py's gpt2-xl row); NVMe offload at GPT-2 medium
     zero_line, zero_counts = zero_phase(torch, deepspeed_tpu_torch, gpt2,
-                                        op_builder, card)
+                                        bert, op_builder, card, bert_cfg,
+                                        bert_batch)
     for row in rows:
         row["launches"] += zero_counts.get(row["name"], 0)
     zero_line["launches_by_row"] = dict(zero_counts)
-    zero_line["script_s"] = time.perf_counter() - script_t0
+
+    # 21. ZeRO-3 parameter offload: GPT-2 XL streamed a layer at a time
+    # from host RAM against the resident oracle; NVMe and a resume at 8
+    # blocks of XL width
+    offload_line, offload_counts = offload_phase(
+        torch, deepspeed_tpu_torch, gpt2, op_builder, card)
+    for row in rows:
+        row["launches"] += offload_counts.get(row["name"], 0)
+    offload_line["script_s"] = time.perf_counter() - script_t0
 
     print(json.dumps({"e2e": e2e}))
     print(json.dumps({"train": train}))
@@ -4958,6 +5352,7 @@ def main():
     print(json.dumps({"dp": dp_line}))
     print(json.dumps({"moe": moe_line}))
     print(json.dumps({"zero": zero_line}))
+    print(json.dumps({"offload": offload_line}))
     print(json.dumps({"kernels": rows}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,7 @@ This package ports these paths, with hand-written CUDA kernels
 * GPT-2 training: ``initialize`` -> ``DeepSpeedEngine`` (the loop users
   write, ``forward`` / ``backward`` / ``step``, and ``train_batch`` over
   it; ``eval_batch``; bf16, fp16 or fp32 compute over fp32 masters,
-  Adam/AdamW, LAMB, SGD, Adagrad or a client optimizer, ZeRO stage 0/1;
+  Adam/AdamW, LAMB, SGD, Adagrad or a client optimizer, ZeRO stages 0-3;
   dropout keyed by (seed, micro-step) and remat), on the
   flash-attention forward and backward kernels and the fused Adam
   kernel;
@@ -47,6 +47,11 @@ This package ports these paths, with hand-written CUDA kernels
   entry point on the flash and Adam kernels, the per-expert checkpoint
   files, and ``init_inference(moe=True)`` on the flash and decode
   kernels;
+* ZeRO-3 parameter offload: ``initialize`` on a layered model
+  (``models.gpt2.gpt2_offload_layers``) with
+  ``zero_optimization.offload_param`` streams the layers from host RAM or
+  NVMe one at a time on the flash kernels, the host CPU-Adam updating
+  the masters (``runtime.zero.param_offload``);
 * continuous-batching serving: ``init_serving`` -> ``ServingEngine``
   (``submit`` / ``step`` / ``collect`` / ``serve_forever``) over a paged
   KV cache, with chunked prefill, preemption, the prefix cache and
@@ -175,9 +180,24 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     42). The data-parallel world (``utils.groups``) goes to the config,
     as in JAX (engine.py:281-294); a pre-built ``DeepSpeedConfig`` whose
     ``world_size`` differs raises (in the engine, which owns the group).
-    Each rank passes its own micro-batches to the engine. Not ported yet:
-    ``training_data`` (the dataloader) and the other keywords of the JAX
-    ``initialize``."""
+    Each rank passes its own micro-batches to the engine.
+
+    ZeRO-3 parameter offload (``zero_optimization.offload_param.device``
+    cpu or nvme, or the deprecated ``cpu_offload_params: true`` at stage
+    3) takes the layered engine, as in JAX (``__init__.py:84-155``):
+    ``model`` is a sequence of layers (``models.gpt2
+    .gpt2_offload_layers``), ``sample_batch=`` is required and
+    ``input_fn=`` takes the first layer's input from a batch; it returns
+    ``(runtime.zero.param_offload.Zero3OffloadEngine, None, None,
+    None)``. Not ported yet: ``training_data`` (the dataloader) and the
+    other keywords of the JAX ``initialize``."""
+    cfg_dict = _config_dict(config if config is not None else config_params)
+    from deepspeed_tpu_torch.runtime.zero.config import param_offload_device
+    offload = param_offload_device(cfg_dict)
+    if offload is not None:
+        return _initialize_param_offload(
+            model, optimizer, lr_scheduler, training_data, cfg_dict,
+            offload, device, kwargs)
     unported = {"training_data (the dataloader)": training_data}
     unported.update({f"initialize({k}=...)": v for k, v in kwargs.items()})
     for what, value in unported.items():
@@ -207,6 +227,90 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     engine = DeepSpeedEngine(model, cfg, dev, optimizer=optimizer,
                              lr_scheduler=lr_scheduler, seed=seed)
     return engine, engine.optimizer, None, engine.lr_scheduler
+
+
+def _config_dict(config):
+    """The raw config dict of ``config`` (a dict, a JSON path or a
+    ``DeepSpeedConfig``), or None."""
+    if isinstance(config, DeepSpeedConfig):
+        return config._param_dict
+    if isinstance(config, str) and os.path.exists(config):
+        import json
+        with open(config) as f:
+            return json.load(f)
+    return config if isinstance(config, dict) else None
+
+
+def _initialize_param_offload(model, optimizer, lr_scheduler, training_data,
+                              cfg, device_kind, device, kwargs):
+    """JAX ``initialize``'s parameter-offload branch: its refusals, with
+    the exception classes its tests expect, then the layered engine."""
+    import torch
+    from deepspeed_tpu_torch.runtime.config import DeepSpeedConfigError
+    from deepspeed_tpu_torch.runtime.zero.param_offload import \
+        Zero3OffloadEngine
+    if not isinstance(model, (list, tuple)):
+        raise AssertionError(
+            "offload_param requires a layered model: pass model as a "
+            "sequence of torch modules (body layers x->x, final layer "
+            "(x, batch)->loss), e.g. models.gpt2.gpt2_offload_layers(cfg)")
+    if "sample_batch" not in kwargs:
+        raise AssertionError("offload_param requires sample_batch= for "
+                             "shape init")
+    if optimizer is not None or lr_scheduler is not None or \
+            training_data is not None:
+        raise AssertionError(
+            "offload_param drives its own host CPU-Adam; client "
+            "optimizer/lr_scheduler/training_data are unsupported")
+    unknown = set(kwargs) - {"sample_batch", "input_fn"}
+    if unknown:
+        raise NotImplementedError(
+            f"initialize({', '.join(sorted(unknown))}=...) is not ported "
+            f"yet")
+    opt_cfg = cfg.get("optimizer", {}) or {}
+    if str(opt_cfg.get("type", "Adam")).lower() not in ("adam", "adamw"):
+        raise AssertionError(
+            f"offload_param drives the host CPU-Adam; optimizer type "
+            f"{opt_cfg.get('type')!r} is unsupported on this path")
+    off = (cfg.get("zero_optimization") or {}).get("offload_param") or {}
+    if device_kind == "nvme" and not off.get("nvme_path"):
+        raise AssertionError("offload_param.device='nvme' requires "
+                             "nvme_path")
+    unsupported = []
+    if (cfg.get("scheduler", {}) or {}).get("type"):
+        unsupported.append("scheduler")
+    if cfg.get("gradient_clipping", 0):
+        unsupported.append("gradient_clipping")
+    if (cfg.get("fp16", {}) or {}).get("enabled"):
+        unsupported.append("fp16 dynamic loss scaling (bf16 is supported)")
+    if cfg.get("sparse_gradients"):
+        unsupported.append("sparse_gradients")
+    if unsupported:
+        raise DeepSpeedConfigError(
+            "the layered Zero3OffloadEngine does not implement: "
+            + ", ".join(unsupported)
+            + "; remove these keys or use the monolithic engine "
+            "(offload_optimizer instead of offload_param)")
+    from deepspeed_tpu_torch.utils import groups
+    world = groups.get_data_parallel_world_size()
+    if world > 1:
+        raise NotImplementedError(
+            f"offload_param at a data-parallel world of {world} ranks: the "
+            f"layered Zero3OffloadEngine trains one rank (JAX's "
+            f"param_offload.py scope) and would not average the ranks' "
+            f"gradients; data parallelism runs through the monolithic "
+            f"engine (offload_optimizer)")
+    params = opt_cfg.get("params", {}) or {}
+    dtype = (torch.bfloat16 if (cfg.get("bf16", {}) or {}).get("enabled")
+             else torch.float32)
+    engine = Zero3OffloadEngine(
+        model, kwargs["sample_batch"], lr=params.get("lr", 1e-3),
+        betas=tuple(params.get("betas", (0.9, 0.999))),
+        eps=params.get("eps", 1e-8),
+        weight_decay=params.get("weight_decay", 0.0),
+        nvme_path=off.get("nvme_path") if device_kind == "nvme" else None,
+        compute_dtype=dtype, input_fn=kwargs.get("input_fn"), device=device)
+    return engine, None, None, None
 
 
 def add_config_arguments(parser):

@@ -22,6 +22,10 @@ Both directions come from the same rows:
   module; with it the engine writes each per-parameter leaf (the params,
   an optimizer's ``mu`` / ``nu`` / ``momentum`` / ``accum``) at its flax
   key path and layout, and :func:`from_flax` reads a flax tree back;
+* :func:`layer_to_jax` / :func:`layer_from_jax` carry one layer's leaves
+  of the layered ``Zero3OffloadEngine`` (its ``state_dict``: masters and
+  moments, a list a layer) between the port's order and layout and
+  JAX's (the layer's flax tree flattened with its keys sorted);
 * :func:`flat_to_jax` / :func:`flat_from_jax` carry the Adam sweep's one
   padded vector (``AdamSweepState.mu`` / ``nu``) between the port's leaf
   order (``named_parameters()``, ``[out, in]`` weights) and JAX's (the
@@ -129,10 +133,20 @@ TILED_LAYOUT = (_dense("tile_{i}_{i}", "tile_{i}_{i}")
                 + _dense("tiles.tile_{i}_{i}", "tiles/tile_{i}_{i}")
                 + _raw("bias"))
 
+# the layers of models/gpt2.gpt2_offload_layers (JAX gpt2.py:280-345):
+# the embedding is GPT2_LAYOUT's wte and wpe; a _PipeBlock holds the GPT-2
+# block under "block"; the head its ln_f and the untied lm_head [V, E]
+OFFLOAD_BLOCK_LAYOUT = (_attention_block("block", "block")
+                        + _dense("block.mlp.fc", "block/mlp/fc")
+                        + _dense("block.mlp.proj", "block/mlp/proj"))
+OFFLOAD_HEAD_LAYOUT = _norm("ln_f", "ln_f") + _raw("lm_head")
+
 LAYOUTS = {"gpt2": GPT2_LAYOUT, "bert": BERT_LAYOUT,
            "embedding": EMBEDDING_LAYOUT, "simple": SIMPLE_LAYOUT,
            "cifar": CIFAR_LAYOUT, "moe_inference": MOE_INFERENCE_LAYOUT,
-           "moe_layer": MOE_LAYER_LAYOUT, "tiled": TILED_LAYOUT}
+           "moe_layer": MOE_LAYER_LAYOUT, "tiled": TILED_LAYOUT,
+           "offload_block": OFFLOAD_BLOCK_LAYOUT,
+           "offload_head": OFFLOAD_HEAD_LAYOUT}
 
 
 def _pattern(template):
@@ -352,3 +366,37 @@ def tiled_flax_to_state_dict(params) -> dict:
     denses) or ``TiledLinearReturnBias`` (``tiles`` and ``bias``) to the
     state_dict of ``runtime.zero.tiling``'s module."""
     return _from_flax_params("tiled", params)
+
+
+def layer_to_jax(table, names, leaves):
+    """One layer's leaves (``leaves[i]`` of torch parameter ``names[i]``,
+    numpy or torch) in JAX's order and flax's layout, as the JAX
+    ``Zero3OffloadEngine`` lists them (``jax.tree.leaves`` of the layer's
+    params); ``table`` is :func:`layout_of` the names, or None for a
+    layer no family names (kept in the port's order and layout)."""
+    if table is None:
+        return list(leaves)
+    at = dict(zip(names, leaves))
+    return [_permute(at[n], inverse(table[n][1]))
+            for n in jax_order(table, names)]
+
+
+def layer_from_jax(table, names, shapes, leaves):
+    """The inverse of :func:`layer_to_jax`: the leaves in ``names``' order
+    and the torch layout (views of the arrays given), each checked
+    against its torch shape in ``shapes``."""
+    leaves = list(leaves)
+    if len(leaves) != len(names):
+        raise ValueError(f"a layer of {len(names)} tensors got "
+                         f"{len(leaves)} leaves")
+    if table is None:
+        got = dict(zip(names, leaves))
+    else:
+        got = {n: _permute(np.asarray(x), table[n][1])
+               for n, x in zip(jax_order(table, names), leaves)}
+    for n, shape in zip(names, shapes):
+        if tuple(np.shape(got[n])) != tuple(shape):
+            raise ValueError(f"leaf for {n} has shape "
+                             f"{tuple(np.shape(got[n]))}, the layer's is "
+                             f"{tuple(shape)}")
+    return [got[n] for n in names]

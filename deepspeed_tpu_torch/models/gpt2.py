@@ -29,7 +29,12 @@ MoE-GPT (``moe_num_experts`` > 0, JAX gpt2.py:60-70): every
 loss is ``ce + moe_aux_loss_coef · Σ l_aux`` (:402, :460), and remat
 recomputes MoE blocks too (:423-426). In decode a step routes its B
 tokens with ``moe_eval_capacity_factor`` and ``min_capacity`` 4, so a
-step can drop tokens, as in JAX. Not ported yet: pipeline stages (MoE with
+step can drop tokens, as in JAX.
+
+:func:`gpt2_offload_layers` is the layered decomposition (embedding,
+blocks, an untied loss head) that ZeRO-3 parameter offload streams one
+layer at a time (``runtime/zero/param_offload.py``). Not ported yet:
+pipeline stages (MoE with
 them raises, as JAX asserts, :403-406), ring/ulysses attention, rotary
 embeddings.
 """
@@ -274,6 +279,26 @@ class MoEBlock(nn.Module):
         return x + out.reshape(B, S, E), l_aux
 
 
+@torch.no_grad()
+def _init_block(blk, n_layer, generator):
+    """The flax init of one block, drawn from ``generator``: normal(0.02),
+    the residual projections normal(0.02/sqrt(2·n_layer)), zero biases,
+    unit LayerNorm scales (a MoE block's experts by ``MoE``'s own)."""
+    proj_std = 0.02 / np.sqrt(2 * n_layer)
+    moe = isinstance(blk, MoEBlock)
+    dense = ((blk.attn.qkv, 0.02), (blk.attn.proj, proj_std))
+    if not moe:
+        dense += ((blk.mlp.fc, 0.02), (blk.mlp.proj, proj_std))
+    for layer, std in dense:
+        nn.init.normal_(layer.weight, 0.0, std, generator=generator)
+        nn.init.zeros_(layer.bias)
+    if moe:
+        blk.moe.reset_parameters(generator)
+    for ln in (blk.ln_1, blk.ln_2):
+        nn.init.ones_(ln.weight)
+        nn.init.zeros_(ln.bias)
+
+
 def is_moe_layer(config: GPT2Config, i: int) -> bool:
     """Block ``i`` is a MoE block: every interval-th, counting from the
     first, so interval 1 means every block (JAX gpt2.py:428-436)."""
@@ -293,8 +318,8 @@ class GPT2LMHeadModel(nn.Module):
     """GPT-2 causal LM with a tied LM head; ``forward`` returns the mean
     next-token cross-entropy, or fp32 logits over the padded vocab.
 
-    ``device=None`` means CUDA (raises without a card); weights are drawn
-    from ``seed`` as the flax init draws them: normal(0.02), residual
+    ``device=None`` means CUDA (raises without a card), ``"meta"`` shapes
+    without storage; weights are drawn from ``seed`` as the flax init draws them: normal(0.02), residual
     projections normal(0.02/sqrt(2·n_layer)), wpe normal(0.01), zero
     biases, unit LayerNorm scales."""
 
@@ -315,27 +340,16 @@ class GPT2LMHeadModel(nn.Module):
             for i in range(config.n_layer))
         self.ln_f = nn.LayerNorm(E, eps=1e-5, device=dev, dtype=dtype)
         self.drop = Dropout(config.dropout)
-        self.reset_parameters(seed)
+        if dev.type != "meta":       # a meta model holds shapes only
+            self.reset_parameters(seed)
 
     @torch.no_grad()
     def reset_parameters(self, seed: int = 0):
         gen = torch.Generator(device=self.wte.device).manual_seed(seed)
-        proj_std = 0.02 / np.sqrt(2 * self.config.n_layer)
         nn.init.normal_(self.wte, 0.0, 0.02, generator=gen)
         nn.init.normal_(self.wpe, 0.0, 0.01, generator=gen)
         for blk in self.h:
-            moe = isinstance(blk, MoEBlock)
-            dense = ((blk.attn.qkv, 0.02), (blk.attn.proj, proj_std))
-            if not moe:
-                dense += ((blk.mlp.fc, 0.02), (blk.mlp.proj, proj_std))
-            for layer, std in dense:
-                nn.init.normal_(layer.weight, 0.0, std, generator=gen)
-                nn.init.zeros_(layer.bias)
-            if moe:
-                blk.moe.reset_parameters(gen)
-            for ln in (blk.ln_1, blk.ln_2):
-                nn.init.ones_(ln.weight)
-                nn.init.zeros_(ln.bias)
+            _init_block(blk, self.config.n_layer, gen)
         nn.init.ones_(self.ln_f.weight)
         nn.init.zeros_(self.ln_f.bias)
 
@@ -391,6 +405,101 @@ class GPT2LMHeadModel(nn.Module):
         (labels ≥ 0); the engine weights a rank's loss by it."""
         input_ids, labels = _unpack(batch)
         return ((input_ids if labels is None else labels)[:, 1:] >= 0).sum()
+
+
+class _PipeBlock(nn.Module):
+    """A :class:`Block` under the name ``block``, mapping ``x -> x``: a
+    body layer of :func:`gpt2_offload_layers` (JAX ``_PipeBlock``,
+    gpt2.py:280-289, deterministic: the layered engine passes no dropout
+    key)."""
+
+    def __init__(self, config: GPT2Config, device=None, dtype=torch.float32):
+        super().__init__()
+        self.config = config
+        self.block = Block(config, device, dtype)
+
+    def forward(self, x):
+        return self.block(x)
+
+    def reset_parameters(self, generator=None):
+        """:class:`GPT2LMHeadModel`'s init of one block."""
+        _init_block(self.block, self.config.n_layer, generator)
+
+
+class _OffloadEmbed(nn.Module):
+    """The first layer of the layered decomposition: ids -> hidden (JAX
+    ``_OffloadEmbed``, gpt2.py:292-307)."""
+
+    def __init__(self, config: GPT2Config, device=None, dtype=torch.float32):
+        super().__init__()
+        E = config.n_embd
+        self.wte = nn.Parameter(torch.empty(
+            (config.padded_vocab, E), device=device, dtype=dtype))
+        self.wpe = nn.Parameter(torch.empty(
+            (config.n_positions, E), device=device, dtype=dtype))
+
+    def forward(self, input_ids):
+        S = input_ids.shape[1]
+        return F.embedding(input_ids, self.wte) + self.wpe[:S]
+
+    @torch.no_grad()
+    def reset_parameters(self, generator=None):
+        nn.init.normal_(self.wte, 0.0, 0.02, generator=generator)
+        nn.init.normal_(self.wpe, 0.0, 0.01, generator=generator)
+
+
+class _OffloadHead(nn.Module):
+    """The loss head of the layered decomposition: (hidden, batch) -> the
+    mean next-token cross-entropy (JAX ``_OffloadHead``, gpt2.py:
+    310-332). The LM head is untied from the embedding, so that each
+    layer's tensors stream on their own; the logits are fp32 from
+    :class:`GPT2LMHeadModel`'s head (``x.float()`` times the weight
+    upcast)."""
+
+    def __init__(self, config: GPT2Config, device=None, dtype=torch.float32):
+        super().__init__()
+        E = config.n_embd
+        self.ln_f = nn.LayerNorm(E, eps=1e-5, device=device, dtype=dtype)
+        self.lm_head = nn.Parameter(torch.empty(
+            (config.padded_vocab, E), device=device, dtype=dtype))
+
+    def forward(self, x, batch):
+        input_ids, labels = _unpack(batch)
+        shift_labels = (input_ids if labels is None else labels)[:, 1:]
+        x = self.ln_f(x)
+        shift_logits = F.linear(x[:, :-1].float(), self.lm_head.float())
+        return masked_next_token_ce(shift_logits, shift_labels)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator=None):
+        nn.init.ones_(self.ln_f.weight)
+        nn.init.zeros_(self.ln_f.bias)
+        nn.init.normal_(self.lm_head, 0.0, 0.02, generator=generator)
+
+
+def gpt2_offload_layers(cfg: GPT2Config, deterministic: bool = True):
+    """The layered decomposition for ``runtime.zero.param_offload
+    .Zero3OffloadEngine`` (parameters beyond the card's memory, streamed
+    from host RAM or NVMe): ``[embed, block × n_layer, head]`` on the
+    ``meta`` device, the body one block module ``n_layer`` times (the
+    engine keeps one skeleton a distinct module and draws each layer's
+    tensors on the host). Drive it through ``deepspeed_tpu_torch
+    .initialize(model=gpt2_offload_layers(cfg), config={
+    "zero_optimization": {"stage": 3, "offload_param": {"device":
+    "cpu"}}, ...}, sample_batch=..., input_fn=lambda b:
+    b["input_ids"])`` (JAX gpt2.py:335-345)."""
+    _check_ported(cfg)
+    if not deterministic:
+        raise ValueError("the layered engine passes no dropout key: "
+                         "gpt2_offload_layers runs deterministic=True only")
+    if cfg.moe_num_experts > 0:
+        raise ValueError("gpt2_offload_layers stacks dense blocks: a MoE "
+                         "config would train without its experts (JAX's "
+                         "stacks dense blocks whatever moe_num_experts "
+                         "says)")
+    block = _PipeBlock(cfg, device="meta")
+    return ([_OffloadEmbed(cfg, device="meta")] + [block] * cfg.n_layer
+            + [_OffloadHead(cfg, device="meta")])
 
 
 def synthetic_batch(batch_size: int, seq_len: int, vocab_size: int, seed=0,

@@ -13,13 +13,14 @@ import torch
 def resolve_device(device=None) -> torch.device:
     """``None`` -> ``cuda``. Raises when CUDA is asked for (explicitly or
     by default) and no card is present; ``device="cpu"`` must be asked
-    for by name."""
+    for by name. ``"meta"`` builds a model of shapes only (no storage:
+    ``runtime/zero/aot_check``); nothing runs on it."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "deepspeed_tpu_torch runs on a CUDA device by default and none "
             "is available; pass device='cpu' to run the plain PyTorch path")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 

@@ -355,7 +355,8 @@ def sweep_unflatten(vec, specs, partition=None):
 
 
 def fused_adam_sweep(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0,
-                     adam_w_mode=True, bias_correction=True, partition=None):
+                     adam_w_mode=True, bias_correction=True, partition=None,
+                     slices=False):
     """Adam as one whole-state sweep (config ``optimizer.params.sweep``).
 
     ``partition`` (ZeRO >= 1 over a process group,
@@ -369,6 +370,13 @@ def fused_adam_sweep(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0,
     launch and gathered over their own groups. The clip
     coefficient is the engine's, from the averaged gradients of the
     whole model, the same on every rank.
+
+    ``slices`` (ZeRO 3): the engine hands the update this rank's slices
+    of the masters and gradients (a tensor below the persistence
+    threshold whole), and the state is one padded vector of those slices
+    back to back, with nothing gathered: each rank adds its slices'
+    updates to its slices. The engine's clip coefficient comes from the
+    slices' squares summed over the ranks (each whole tensor once).
 
     The grads are flattened into one padded vector each step (a flat
     grad buffer that ``.grad`` aliases would save that copy: a later
@@ -406,4 +414,5 @@ def fused_adam_sweep(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0,
                 AdamSweepState(step=step, mu=mu, nu=nu))
 
     return optim_lib.Optimizer(init, update, fuses_clip=True,
-                               partitions_state=partition is not None)
+                               partitions_state=partition is not None,
+                               takes_slices=bool(slices))

@@ -807,26 +807,16 @@ class DeepSpeedConfig:
                 f"{self.optimizer_name!r}")
 
     def _reject_unported(self, pd):
-        stage = self.zero_optimization_stage
-        zero = pd.get(C.ZERO_OPTIMIZATION)
-        zero = zero if isinstance(zero, dict) else {}
         device = self.zero_config.offload_optimizer.device
         if device not in (None, "none", "cpu", "nvme"):
             raise DeepSpeedConfigError(
                 f"zero_optimization.offload_optimizer.device must be one of "
                 f"none|cpu|nvme, got {device!r}")
-        # parameter offload is the layered engine (JAX routes it in
-        # deepspeed_tpu/__init__.py:90-145); the deprecated
-        # cpu_offload_params asks for it only at stage 3, below that the
-        # flag is the historical no-op JAX keeps
-        device = (zero.get("offload_param") or {}).get("device")
-        if device not in (None, "none"):
-            _not_ported(f"zero_optimization.offload_param (device="
-                        f"{device!r}, the layered Zero3OffloadEngine)")
-        if zero.get("cpu_offload_params") and stage == 3:
-            _not_ported("zero_optimization.cpu_offload_params at stage 3 "
-                        "(parameter offload, the layered "
-                        "Zero3OffloadEngine)")
+        # parameter offload (offload_param, or the deprecated
+        # cpu_offload_params at stage 3) is the layered engine, which
+        # initialize() routes to before it parses a config (JAX
+        # deepspeed_tpu/__init__.py:84-155); the monolithic engine refuses
+        # it (runtime/engine.py)
         if self.optimizer_name is not None and \
                 self.optimizer_name not in PORTED_OPTIMIZERS:
             _not_ported(f"optimizer {self.optimizer_name!r}")

@@ -58,7 +58,19 @@ whose backward reduce-scatters the whole gradients, upcast to fp32, into
 the slices' ``.grad``; the update is added to the slices in place, with
 nothing gathered. Autograd keeps that whole compute-dtype copy from the
 forward to the backward (gathering and freeing a block at a time is
-ROADMAP work). The sweep and MoQ at stage 3 raise.
+ROADMAP work). The Adam sweep at stage 3 keeps one padded flat vector of
+this rank's slices a moment (a whole tensor below the threshold
+included) and adds its slices' updates in place; its clip coefficient is
+the slices' squares summed over the group, each whole tensor once; a
+saved tag holds the whole vector in JAX's leaf order. MoQ at stage 3
+gathers the cut masters, quantizes the whole tensors in one call (a
+quantize group spans a whole tensor) and keeps this rank's slices of the
+result, JAX's order (quantize, then put into the shardings,
+engine.py:3111-3130).
+
+Parameter offload (``offload_param``) is the layered engine,
+``runtime/zero/param_offload.py``, which ``initialize`` routes to; this
+engine refuses it.
 
 Optimizer offload (``offload_optimizer.device`` cpu or nvme, at any
 stage; ``runtime/zero/offload.py``): the device half of the step
@@ -337,15 +349,15 @@ class DeepSpeedEngine:
 
     def _check_zero_combinations(self):
         """Refuse what this engine does not run, naming it."""
-        if self._masters_sliced and self.optimizer.partitions_state:
-            raise NotImplementedError(
-                "the Adam sweep (optimizer.params.sweep) at ZeRO stage 3 "
-                "is not ported yet: its flat chunks do not match the "
-                "per-tensor slices of the masters (use fused: true)")
-        if self._masters_sliced and self.quantizer is not None:
-            raise NotImplementedError(
-                "MoQ (quantize_training) at ZeRO stage 3 is not ported "
-                "yet: its groups span whole tensors")
+        from deepspeed_tpu_torch.runtime.zero.config import \
+            param_offload_device
+        device = param_offload_device(self.config._param_dict)
+        if device is not None:
+            raise ValueError(
+                f"zero_optimization.offload_param (device {device!r}) is "
+                f"parameter offload, the layered Zero3OffloadEngine: pass "
+                f"a layered model (models.gpt2.gpt2_offload_layers) to "
+                f"deepspeed_tpu_torch.initialize, which routes it there")
         if not self._offload:
             return
         cfg = self.config
@@ -364,7 +376,9 @@ class DeepSpeedEngine:
         if self.quantizer is not None:
             raise NotImplementedError(
                 "MoQ (quantize_training) with zero_optimization."
-                "offload_optimizer is not ported yet")
+                "offload_optimizer is not ported: the JAX engine's host "
+                "masters overwrite the quantized device params after the "
+                "step, so the two do not compose there either")
 
     def _cut_masters(self):
         """Stage 3: each master this rank keeps only its slice of becomes
@@ -461,6 +475,9 @@ class DeepSpeedEngine:
                   adam_w_mode=params.get("adam_w_mode", True),
                   bias_correction=params.get("bias_correction", True))
         if cfg.optimizer_sweep:
+            if self._masters_sliced:
+                # stage 3: one flat vector of this rank's master slices
+                return fused_adam.fused_adam_sweep(**kw, slices=True)
             return fused_adam.fused_adam_sweep(**kw,
                                                partition=self._partition)
         if cfg.optimizer_fused:
@@ -906,8 +923,7 @@ class DeepSpeedEngine:
         self.global_steps += 1
         self.global_samples += self.config.train_batch_size
         if self.quantizer is not None:
-            self.quantizer.quantize(self.params, overflow=not finite,
-                                    transposed=self._transposed)
+            self._quantize(overflow=not finite)
         if not finite:
             # the scheduler does not advance on a skipped step
             self.skipped_steps += 1
@@ -919,6 +935,28 @@ class DeepSpeedEngine:
                 and self.global_grad_norm is not None:
             # the print cadence's one device fetch (engine.py:3161-3168)
             self._last_grad_norm = float(self.global_grad_norm)
+
+    @torch.no_grad()
+    def _quantize(self, overflow):
+        """MoQ over the masters in place. At stage 3 the cut masters are
+        gathered, the whole tensors quantized in the one call (its groups
+        span a whole tensor) and each rank keeps its slices of the result:
+        JAX quantizes the whole params and puts them back into their
+        shardings (engine.py:3111-3130)."""
+        if not self._masters_sliced:
+            self.quantizer.quantize(self.params, overflow=overflow,
+                                    transposed=self._transposed)
+            return
+        part = self._partition
+        cut = {k: p.detach() for k, p in self.params.items()
+               if part.sharded(k)}
+        whole = part.all_gather(cut) if cut else {}
+        tensors = {k: whole.get(k, p.detach())
+                   for k, p in self.params.items()}
+        self.quantizer.quantize(tensors, overflow=overflow,
+                                transposed=self._transposed)
+        for k, t in cut.items():
+            t.copy_(part.local(k, whole[k]))
 
     def train_batch(self, data_iter=None, batch=None):
         """One global step: ``forward`` and ``backward`` over ``gas``
@@ -1089,6 +1127,12 @@ class DeepSpeedEngine:
         """The partition the sweep's state is cut by, or None."""
         return self._partition if self.optimizer.partitions_state else None
 
+    def _sweep_on_slices(self):
+        """The stage-3 sweep: its vector is this rank's slices back to
+        back (``fused_adam_sweep(slices=True)``)."""
+        return self._masters_sliced and self.config.optimizer_sweep and \
+            self.client_optimizer is None
+
     def _sweep_global(self, vec):
         """A sweep moment of an expert-parallel engine as the whole
         vector of every layer's experts in the port's leaf order, padded
@@ -1097,9 +1141,16 @@ class DeepSpeedEngine:
         from the expert-parallel group (collectives: every rank calls
         it)."""
         from deepspeed_tpu_torch.ops.adam import fused_adam
-        part = self._sweep_part()
-        specs = fused_adam.sweep_specs(self._shapes, part)
-        leaves = fused_adam.sweep_unflatten(vec, specs, part)
+        if self._sweep_on_slices():
+            # the slices' vector: each slice gathered into its tensor
+            part = self._partition
+            specs = fused_adam.sweep_specs(
+                {n: part.local_shape(n) for n in self.params})
+            leaves = part.all_gather(fused_adam.sweep_unflatten(vec, specs))
+        else:
+            part = self._sweep_part()
+            specs = fused_adam.sweep_specs(self._shapes, part)
+            leaves = fused_adam.sweep_unflatten(vec, specs, part)
         whole = {n: self._whole_experts(n, leaves[n]) for n in self.params}
         return optim_lib.flatten_tree(
             whole, pad_to=fused_adam.sweep_pad() * self.dp_world_size)[0]
@@ -1115,6 +1166,9 @@ class DeepSpeedEngine:
             names=tuple(names), shapes=tuple(shapes),
             dtypes=(torch.float32,) * len(names), n=n, n_pad=n_pad))
         local = {k: self._local_leaf(k, t) for k, t in whole.items()}
+        if self._sweep_on_slices():
+            part = self._partition
+            local = {k: part.local(k, t) for k, t in local.items()}
         return fused_adam.sweep_flatten(local, self._sweep_part())[0] \
             .contiguous()
 
@@ -1122,22 +1176,24 @@ class DeepSpeedEngine:
         """A sweep moment as the whole vector in the saved (JAX) leaf
         order: gathered from every rank's chunk when the sweep is
         partitioned, then reordered for a model family. At ep > 1 every
-        expert's leaves are gathered in (:meth:`_sweep_global`)."""
-        if self.ep_size > 1 and self._experts:
+        expert's leaves are gathered in, and at stage 3 every slice
+        (:meth:`_sweep_global`). Its length is JAX's, the leaves padded to
+        a multiple of ``sweep_pad()`` whatever the world (the port's
+        vector pads to ``sweep_pad() × world``; the tail is zeros), so the
+        JAX engine loads it at any mesh size."""
+        from deepspeed_tpu_torch.ops.adam.fused_adam import sweep_pad
+        shapes = [self._global_shape(n) for n in self.params]
+        n = sum(int(np.prod(s)) for s in shapes)
+        if self.ep_size > 1 and self._experts or self._sweep_on_slices():
             vec = self._sweep_global(vec)
-            if self._layout is not None:
-                vec = bridge.flat_to_jax(
-                    vec, self._layout, list(self.params),
-                    [self._global_shape(n) for n in self.params])
-            return vec
-        if self._partition is not None and self.optimizer.partitions_state:
+        elif self._partition is not None and \
+                self.optimizer.partitions_state:
             with trace_span("checkpoint/gather_sweep"):
                 vec = self._partition.gather_flat(vec)
         if self._layout is not None:
-            vec = bridge.flat_to_jax(
-                vec, self._layout, list(self.params),
-                list(self._shapes.values()))
-        return vec
+            vec = bridge.flat_to_jax(vec, self._layout, list(self.params),
+                                     shapes)
+        return vec[:-(-n // sweep_pad()) * sweep_pad()]
 
     def _restore_opt_state(self, arrays, saved_dp=1):
         """The optimizer state rebuilt like the current one from
@@ -1178,9 +1234,11 @@ class DeepSpeedEngine:
                             f"optimizer leaf .{field} holds {vec.numel()} "
                             f"elements, more than this model's sweep "
                             f"vector of {n} and its padding")
-                    experts = self.ep_size > 1 and bool(self._experts)
+                    # every layer's experts, or every slice: the whole
+                    # vector, cut to this rank's below
+                    experts = self.ep_size > 1 and bool(self._experts) \
+                        or self._sweep_on_slices()
                     if experts:
-                        # every layer's experts: cut to this rank's below
                         n_pad = -(-n // sweep_pad()) * sweep_pad()
                     if self._layout is not None:
                         vec = bridge.flat_from_jax(
@@ -1279,11 +1337,12 @@ class DeepSpeedEngine:
                     full = self._sweep_full(val)
                     n = full.numel()
                     if self.optimizer.partitions_state:
-                        c = n // self.dp_world_size
-                        r = self.dp_rank
-                        opt[path] = self._host(("o", path),
-                                               full[r * c:(r + 1) * c], copy)
-                        o_boxes[path] = (((r * c, (r + 1) * c),), (n,))
+                        c = -(-n // self.dp_world_size)
+                        lo = min(self.dp_rank * c, n)
+                        hi = min(lo + c, n)
+                        opt[path] = self._host(("o", path), full[lo:hi],
+                                               copy)
+                        o_boxes[path] = (((lo, hi),), (n,))
                     elif rank0:
                         opt[path] = self._host(("o", path), full, copy)
                 elif rank0:

@@ -10,6 +10,8 @@ the same JSON keys, defaults and deprecated spellings
 as typed dataclasses. The bucket-size and prefetch knobs are parsed and
 kept; the engine's collectives are one per process group a step
 (``runtime/zero/partition.py``), so it reads none of them.
+:func:`param_offload_device` says whether a config asks for parameter
+offload, the layered engine (``runtime/zero/param_offload.py``).
 """
 
 from dataclasses import dataclass, field
@@ -158,3 +160,20 @@ class DeepSpeedZeroConfig:
             legacy_stage1=z.get("legacy_stage1", False),
             round_robin_gradients=z.get("round_robin_gradients", False),
         )
+
+
+def param_offload_device(config_dict):
+    """``"cpu"`` or ``"nvme"`` when the raw config asks for parameter
+    offload, else None: ``offload_param.device``, or the deprecated
+    ``cpu_offload_params`` at stage 3 only (below, JAX keeps the flag a
+    no-op, deepspeed_tpu/__init__.py:95-100)."""
+    z = (config_dict or {}).get(ZERO_OPTIMIZATION)
+    if not isinstance(z, dict):
+        return None
+    off = dict(z.get("offload_param") or {})
+    if z.get("cpu_offload_params") and not off.get("device") and \
+            z.get("stage") == 3:
+        off["device"] = OFFLOAD_DEVICE_CPU
+    device = off.get("device")
+    return device if device in (OFFLOAD_DEVICE_CPU, OFFLOAD_DEVICE_NVME) \
+        else None

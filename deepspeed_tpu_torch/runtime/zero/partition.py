@@ -22,7 +22,8 @@ The port does that by hand, one process a rank:
 * **The sweep** (``optimizer.params.sweep``) keeps one padded flat
   vector a moment. It is padded to a multiple of ``sweep_pad() × world``
   and cut into ``world`` equal contiguous chunks, each a multiple of the
-  kernel's block.
+  kernel's block. At stage 3 it is instead one padded vector of the
+  rank's master slices back to back (``fused_adam_sweep(slices=True)``).
 * **The epilogue.** Each rank updates its slices; one
   ``all_gather_into_tensor`` over a flat buffer of all slices then gives
   every rank the whole update, which it adds to its fp32 masters: the

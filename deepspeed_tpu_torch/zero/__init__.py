@@ -5,7 +5,10 @@
 
 The engine cuts the fp32 masters at stage 3 when it is built
 (``runtime/engine.py``), so ``Init`` has nothing to patch at module
-construction: it is a no-op context, as the JAX one is. ``GatheredParameters`` yields whole detached copies: a
+construction: it is a no-op context, as the JAX one is. Its
+``remote_device`` cpu/nvme is parameter offload, the layered
+``Zero3OffloadEngine`` (re-exported here with ``HostParamStore``), which
+``initialize`` selects from ``zero_optimization.offload_param``. ``GatheredParameters`` yields whole detached copies: a
 stage-3 slice (a parameter carrying ``ds_shape``) is gathered from every
 rank's (a collective: every rank of the group enters the context), any
 other tensor is copied; nothing is written back, as in JAX.
@@ -17,6 +20,8 @@ import enum
 import torch
 
 from deepspeed_tpu_torch.runtime.zero.config import DeepSpeedZeroConfig  # noqa: F401
+from deepspeed_tpu_torch.runtime.zero.param_offload import (  # noqa: F401
+    HostParamStore, Zero3OffloadEngine)
 from deepspeed_tpu_torch.runtime.zero.partition import estimate_zero_mem  # noqa: F401
 from deepspeed_tpu_torch.runtime.zero.tiling import (  # noqa: F401
     TiledLinear, TiledLinearReturnBias)
@@ -56,8 +61,10 @@ def unregister_external_parameter(module, parameter):
 class Init:
     """The reference's ``zero.Init`` context: the engine cuts the masters
     when it is built, so entering it does nothing. A cpu/nvme
-    ``remote_device`` is parameter offload, the layered engine, which is
-    not ported (``zero_optimization.offload_param`` raises)."""
+    ``remote_device`` is parameter offload: the config's
+    ``zero_optimization.offload_param`` and a layered model take
+    ``initialize`` to the ``Zero3OffloadEngine``, whose masters are born
+    on the host."""
 
     def __init__(self, module=None, data_parallel_group=None,
                  mem_efficient_linear=True, remote_device=None,
@@ -67,9 +74,10 @@ class Init:
         self.enabled = enabled
         if enabled and remote_device in ("cpu", "nvme"):
             logger.info(
-                f"zero.Init(remote_device={remote_device!r}): parameter "
-                f"offload is zero_optimization.offload_param, the layered "
-                f"engine, which is not ported yet")
+                f"zero.Init(remote_device={remote_device!r}): pass "
+                "zero_optimization.offload_param.device in the config and "
+                "a layered model to initialize() — the Zero3OffloadEngine "
+                "streams layers from host/NVMe (param_offload.py)")
 
     def __enter__(self):
         return self

@@ -17,6 +17,7 @@ from deepspeed_tpu.ops.adam import fused_adam as jax_fa
 from deepspeed_tpu.runtime import optim as jax_optim
 from deepspeed_tpu_torch.ops.adam import fused_adam
 from deepspeed_tpu_torch.runtime import optim
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-6, atol=1e-7)
 LR, BC1, BC2 = np.float32(1e-3), np.float32(0.271), np.float32(0.002997)

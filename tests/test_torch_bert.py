@@ -23,6 +23,7 @@ from deepspeed_tpu_torch.bridge import bert_flax_to_state_dict
 from deepspeed_tpu_torch.models import bert
 from deepspeed_tpu_torch.ops.transformer import transformer
 from deepspeed_tpu_torch.runtime import dropout
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 B, S = 4, 24

@@ -15,8 +15,8 @@ package, on the CPU.
 * ``SparseAttentionUtils`` and ``get_sparse_attention_config`` mirror
   ``tests/unit/test_sparse_attention_utils.py``.
 
-The JAX side runs its Pallas kernels in interpret mode; the port the plain
-versions of its kernels.
+The JAX side runs its Pallas kernels in interpret mode, its inits and
+gradients jitted; the port the plain versions of its kernels.
 """
 
 import dataclasses
@@ -44,6 +44,7 @@ from deepspeed_tpu_torch.ops.sparse_attention.sparse_attention_utils import (
 from deepspeed_tpu_torch.ops.sparse_attention.sparsity_config import \
     FixedSparsityConfig
 from tests.model import oracle
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 BASELINE = os.path.join(os.path.dirname(__file__), "model", "baselines",
@@ -58,7 +59,8 @@ def setup():
                for b in oracle.make_bert_batches(STEPS)]
     jm = jax_bert.BertForPreTraining(
         jax_bert.BertConfig(**oracle.TINY_BERT_SPARSE))
-    params = jm.init(jax.random.PRNGKey(oracle.SEED), batches[0])["params"]
+    params = jax.jit(jm.init)(jax.random.PRNGKey(oracle.SEED),
+                              batches[0])["params"]
     return jm, jax.tree.map(np.asarray, params), batches
 
 
@@ -90,9 +92,9 @@ def test_loss_and_gradients_match_jax(setup, masked):
         mask[3, -3:] = 0
         batch["attention_mask"] = mask
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    want_loss, want_grads = jax.value_and_grad(
-        lambda p: jm.apply({"params": p}, jb))(
-            jax.tree.map(jnp.asarray, params))
+    want_loss, want_grads = jax.jit(jax.value_and_grad(
+        lambda p, b: jm.apply({"params": p}, b)))(
+            jax.tree.map(jnp.asarray, params), jb)
     model = _port_model(params)
     loss = model({k: torch.from_numpy(v).long() for k, v in batch.items()})
     loss.backward()
@@ -170,9 +172,10 @@ def test_sparse_gpt2_matches_jax():
     ids = np.random.default_rng(3).integers(0, jcfg.vocab_size, (2, seq),
                                             dtype=np.int32)
     jm = jax_gpt2.GPT2LMHeadModel(jcfg)
-    params = jm.init(jax.random.PRNGKey(1), {"input_ids": jnp.asarray(ids)})
-    want_loss, want_grads = jax.value_and_grad(
-        lambda p: jm.apply(p, {"input_ids": jnp.asarray(ids)}))(params)
+    jb = {"input_ids": jnp.asarray(ids)}
+    params = jax.jit(jm.init)(jax.random.PRNGKey(1), jb)
+    want_loss, want_grads = jax.jit(jax.value_and_grad(
+        lambda p, b: jm.apply(p, b)))(params, jb)
     tm = gpt2.GPT2LMHeadModel(dataclasses.replace(
         gpt2.PRESETS["tiny"], attention_mode=mode), device="cpu")
     tm.load_state_dict(flax_to_state_dict(jax.tree.map(np.asarray,
@@ -284,8 +287,8 @@ def test_padded_sparse_bert_trains_through_the_utils():
     jb = {"input_ids": jnp.asarray(pids.numpy()),
           "attention_mask": jnp.asarray(pmask.numpy()),
           "labels": jnp.asarray(plabels.numpy())}
-    params = jm.init(jax.random.PRNGKey(2), jb)["params"]
-    want = float(jm.apply({"params": params}, jb))
+    params = jax.jit(jm.init)(jax.random.PRNGKey(2), jb)["params"]
+    want = float(jax.jit(jm.apply)({"params": params}, jb))
     model = _port_model(jax.tree.map(np.asarray, params))
     got = model({"input_ids": pids, "attention_mask": pmask,
                  "labels": plabels})

@@ -12,6 +12,7 @@ from deepspeed_tpu.runtime.config import DeepSpeedConfig as JaxConfig
 from deepspeed_tpu.runtime.config import DeepSpeedConfigError as JaxError
 from deepspeed_tpu_torch.runtime.config import (DeepSpeedConfig,
                                                 DeepSpeedConfigError)
+from deepspeed_tpu_torch.runtime.zero.config import param_offload_device
 
 FIELDS = ("train_batch_size", "train_micro_batch_size_per_gpu",
           "gradient_accumulation_steps", "steps_per_print", "fp16_enabled",
@@ -181,11 +182,14 @@ def test_unported_keys_raise(over, what):
         assert cfg._param_dict["moe"] == {"enabled": True}
         return
     if what in ("stage=2", "stage=3", "offload_optimizer", "cpu_offload",
-                "cpu_offload_params"):
-        # ported: ZeRO stages 2 and 3 and the optimizer offload are
-        # accepted with JAX's parse of the block; cpu_offload_params below
-        # stage 3 is JAX's historical no-op (deepspeed_tpu/__init__.py:
-        # 95-100), parameter offload only at stage 3
+                "cpu_offload_params", "offload_param",
+                "cpu_offload_params at stage 3"):
+        # ported: ZeRO stages 2 and 3, the optimizer offload and the
+        # parameter offload are accepted with JAX's parse of the block.
+        # Parameter offload is the layered engine, which initialize()
+        # routes to (tests/test_torch_param_offload.py): offload_param, or
+        # cpu_offload_params at stage 3 only (below, JAX's historical
+        # no-op, deepspeed_tpu/__init__.py:95-100)
         cfg = DeepSpeedConfig(basic(**over))
         jax_cfg = JaxConfig(basic(**over), data_parallel_size=1)
         assert cfg.zero_optimization_stage == jax_cfg.zero_optimization_stage
@@ -193,6 +197,11 @@ def test_unported_keys_raise(over, what):
             jax_cfg.zero_config.offload_optimizer.device == (
                 "cpu" if "offload_optimizer" in what
                 or what == "cpu_offload" else "none")
+        assert cfg.zero_config.offload_param.device == \
+            jax_cfg.zero_config.offload_param.device
+        assert param_offload_device(basic(**over)) == (
+            "cpu" if what in ("offload_param",
+                              "cpu_offload_params at stage 3") else None)
         return
     with pytest.raises(NotImplementedError, match="not ported yet") as err:
         DeepSpeedConfig(basic(**over))

@@ -15,6 +15,7 @@ import torch
 
 from deepspeed_tpu.ops.transformer import decode as jax_decode
 from deepspeed_tpu_torch.ops.transformer import attention, decode
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 

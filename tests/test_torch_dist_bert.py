@@ -1,7 +1,7 @@
 """Data parallelism in the PyTorch port, second part: BERT with LAMB (fused
 and plain) and with the Fixed block-sparse layout, an fp16 overflow on one
-rank only, the dropout masks a rank draws, and the refusals (what ZeRO
-3 does not run yet). gloo ranks spawned by ``tests/torch_dist_worker.py``
+rank only, the dropout masks a rank draws, the Adam sweep and MoQ at
+ZeRO 3 against stage 0, and the ring refusal. gloo ranks spawned by ``tests/torch_dist_worker.py``
 against the JAX engine on a 2- and a 4-device mesh, on the CPU.
 
 The BERT batches mask 15% of the positions at random (``-100`` labels
@@ -46,6 +46,12 @@ def _lamb(fused, stage):
             "optimizer": {"type": "Lamb", "params": params},
             "zero_optimization": {"stage": stage}}
 
+
+# MoQ at 12 bits over the 3 steps: one rounding flip moves a master a
+# level, inside TOL
+MOQ = {"enabled": True, "quantize_groups": 8,
+       "quantize_bits": {"start_bits": 12, "target_bits": 8},
+       "quantize_schedule": {"quantize_period": 100}}
 
 FP16 = {"train_batch_size": oracle.BATCH_SIZE, "steps_per_print": 10 ** 9,
         "optimizer": {"type": "Adam", "params": {"lr": 1e-2}},
@@ -138,15 +144,18 @@ def port(setup, tmp_path_factory):
             names.append("dropout")
             cases.append(dict(kind="dropout", seed=42, micro_step=3, p=0.1))
             bert_cfg = dict(_lamb(False, 1))
-            # what ZeRO 3 does not run yet: the Adam sweep and MoQ
-            names.append("refuse_sweep_stage3")
-            cases.append(dict(kind="refusal", model="gpt2", config=dict(
-                bert_cfg, optimizer={"type": "Adam", "params": {
-                    "sweep": True}}, zero_optimization={"stage": 3})))
-            names.append("refuse_moq_stage3")
-            cases.append(dict(kind="refusal", model="gpt2", config=dict(
-                bert_cfg, zero_optimization={"stage": 3},
-                quantize_training={"enabled": True})))
+            # what ZeRO 3 used to refuse, the Adam sweep (with the clip)
+            # and MoQ, run at stage 3 and at stage 0 on BERT
+            sweep = {"type": "Adam", "params": {"lr": 2e-3, "sweep": True}}
+            for stage in (3, 0):
+                names.append(f"sweep_stage{stage}")
+                cases.append(_port_case("bert", dict(
+                    bert_cfg, optimizer=sweep,
+                    zero_optimization={"stage": stage}), setup))
+                names.append(f"moq_stage{stage}")
+                cases.append(_port_case("bert", dict(
+                    bert_cfg, zero_optimization={"stage": stage},
+                    quantize_training=MOQ), setup))
             names.append("refuse_ring")
             cases.append(dict(kind="refusal", model="gpt2", model_cfg={
                 "attention_mode": "ring:data"}, config=bert_cfg))
@@ -156,10 +165,11 @@ def port(setup, tmp_path_factory):
         out[world] = {n: [r["cases"][i] for r in res]
                       for i, n in enumerate(names)}
     out["dropout"] = out[2]["dropout"]
-    out["refusals"] = [[out[2][n][r] for n in ("refuse_sweep_stage3",
-                                                "refuse_moq_stage3",
+    out["refusals"] = [[out[2][n][r] for n in ("sweep_stage3", "moq_stage3",
                                                 "refuse_ring")]
                        for r in range(2)]
+    out["stage0"] = [[out[2][n][r] for n in ("sweep_stage0", "moq_stage0")]
+                     for r in range(2)]
     return out
 
 
@@ -274,18 +284,24 @@ def test_dropout_masks_differ_by_rank_and_world1_keeps_its_masks(port):
 
 
 def test_refusals_at_world_two(port):
-    """What ZeRO 3 does not run yet (the Adam sweep, MoQ) and GPT-2's
-    ring/Ulysses modes raise on every rank of a real two-rank group,
-    naming themselves (stages 2 and 3 themselves run in
-    tests/test_torch_dist_zero.py)."""
-    for rank_out in port["refusals"]:
-        sweep, moq, ring_mode = rank_out
-        assert sweep.startswith("NotImplementedError") and "sweep" in \
-            sweep and "stage 3" in sweep
-        assert moq.startswith("NotImplementedError") and "MoQ" in moq \
-            and "stage 3" in moq
+    """GPT-2's ring/Ulysses modes raise on every rank of a real two-rank
+    group, naming themselves. The Adam sweep (clip 0.5) and MoQ, which
+    ZeRO 3 used to refuse, run there on BERT: losses and masters equal on
+    both ranks and within 1e-4 of the same run at stage 0 (the JAX
+    engine holds both on a mesh in tests/test_torch_dist_zero.py)."""
+    for rank_out, rank_ref in zip(port["refusals"], port["stage0"]):
+        *runs, ring_mode = rank_out
+        for got, want in zip(runs, rank_ref):
+            assert np.all(np.isfinite(got["losses"]))
+            np.testing.assert_allclose(got["losses"], want["losses"], **TOL)
+            for k, p in want["params"].items():
+                np.testing.assert_allclose(got["params"][k], p, err_msg=k,
+                                           **TOL)
         assert ring_mode.startswith("NotImplementedError") and "ring" in \
             ring_mode
+    a, b = port["refusals"]
+    for got, other in zip(a[:2], b[:2]):
+        assert got["losses"] == other["losses"]
 
 
 @pytest.mark.parametrize("name,world", [("bert_fused_lamb_zero0", 2),

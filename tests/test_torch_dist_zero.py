@@ -11,6 +11,9 @@ fp32 masters, gathers them for the forward and reduce-scatters in the
 backward. The stage-3 persistence threshold is set so that both kinds of
 tensor occur: GPT-2's [64]-long LayerNorm and bias tensors (and the
 embedding model's bias) stay whole on every rank, the matrices are cut.
+At stage 3 the Adam sweep (its vector: each rank's slices back to back,
+the clip's norm summed over the ranks) and MoQ (the cut masters
+gathered, quantized whole, cut back) run at world 2, MoQ at 12 bits.
 Every case is held to the JAX engine at ZeRO 3 with the same threshold
 (JAX's update does not depend on the stage; one JAX run a configuration
 and mesh serves both stages). Tolerances: fp32 losses and masters at
@@ -66,6 +69,11 @@ ADAMW = {"type": "AdamW", "params": {"lr": 2e-3, "weight_decay": 0.01}}
 LAMB = {"type": "Lamb", "params": {"lr": 2e-3, "weight_decay": 0.01}}
 ADAM = {"type": "Adam", "params": {"lr": 2e-3}}
 FP16 = {"fp16": {"enabled": True, "loss_scale": 0, "initial_scale_power": 8}}
+# MoQ at 12 bits over the 4 steps (period 100): a rounding flip between
+# the two packages moves a master one level, ~3e-5, inside TOL
+MOQ = {"enabled": True, "quantize_groups": 8,
+       "quantize_bits": {"start_bits": 12, "target_bits": 8},
+       "quantize_schedule": {"quantize_period": 100}}
 
 
 def _with(opt, **params):
@@ -99,15 +107,25 @@ def _cases():
             "embedding", _config(fp16, 3, "embedding", **FP16),
             _config(fp16, stage, "embedding", **FP16))
     # the sweep reduce-scatters its flat gradient vector into its chunk
-    # (stage 2; at stage 3 it raises, tests/test_torch_dist_bert.py)
-    out["sweep_clip_zero2"] = ("gpt2", _config(ADAMW, 3,
-                                               gradient_clipping=0.5),
-                               _config(_with(ADAMW, sweep=True), 2,
-                                       gradient_clipping=0.5))
+    # (stage 2); at stage 3 its vector is the rank's master slices, the
+    # clip's norm the slices' squares summed over the ranks
+    for stage in (2, 3):
+        out[f"sweep_clip_zero{stage}"] = (
+            "gpt2", _config(ADAMW, 3, gradient_clipping=0.5),
+            _config(_with(ADAMW, sweep=True), stage, gradient_clipping=0.5))
+    # MoQ at stage 3: the cut masters gathered, quantized whole, cut back
+    out["moq_zero3"] = ("gpt2", _config(ADAM, 3, quantize_training=MOQ),
+                        _config(ADAM, 3, quantize_training=MOQ))
     return out
 
 
 CASES = _cases()
+# the stage-3 sweep and MoQ run at world 2 only (a 2-device mesh)
+WORLD2_ONLY = ("sweep_clip_zero3", "moq_zero3")
+
+
+def _world_cases(world):
+    return [n for n in CASES if world == 2 or n not in WORLD2_ONLY]
 
 
 def _emb_batches():
@@ -170,7 +188,7 @@ def port(setup, tmp_path_factory):
     """{world: {case: [rank results]}}: one spawn a world size."""
     out = {}
     for world in WORLDS:
-        names = list(CASES)
+        names = _world_cases(world)
         cases = [_port_case(CASES[n][0], CASES[n][2], setup) for n in names]
         for stage in (2, 3):
             names.append(f"golden_zero{stage}")
@@ -232,7 +250,7 @@ def _assert_params(got, want, **tol):
         np.testing.assert_allclose(got[k], w, err_msg=k, **tol)
 
 
-JAX_PAIRS = [(n, w) for w in WORLDS for n in CASES]
+JAX_PAIRS = [(n, w) for w in WORLDS for n in _world_cases(w)]
 
 
 @pytest.mark.parametrize("name,world", JAX_PAIRS)

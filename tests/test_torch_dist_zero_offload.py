@@ -54,13 +54,16 @@ MOE = dict(moe_num_experts=4, moe_k=1, moe_capacity_factor=4.0,
            moe_eval_capacity_factor=0.5)
 
 
-def _config(stage, offload=None, fused=False, clip=0.5, lr=2e-3, wd=0.01):
+def _config(stage, offload=None, fused=False, clip=0.5, lr=2e-3, wd=0.01,
+            sweep=False):
     zero = {"stage": stage, "stage3_param_persistence_threshold": PERSIST}
     if offload is not None:
         zero["offload_optimizer"] = offload
     params = {"lr": lr, "weight_decay": wd}
     if fused:
         params["fused"] = True
+    if sweep:
+        params["sweep"] = True
     cfg = {"train_batch_size": oracle.BATCH_SIZE, "steps_per_print": 10 ** 9,
            "optimizer": {"type": "AdamW", "params": params},
            "zero_optimization": zero}
@@ -180,6 +183,15 @@ def port(setup, jax_tags, tmp_path_factory):
                                       config=_config(3, fused=True),
                                       load=True, load_tag="z3", seed=1,
                                       batches=after)),
+                # the stage-3 sweep: its vector of slices saved whole
+                ("save_sweep_zero3", dict(gpt, kind="checkpoint", dir=tags,
+                                          config=_config(3, sweep=True),
+                                          batches=first, save=True,
+                                          tag="sweep3", after=after)),
+                ("resume_sweep_zero3", dict(
+                    gpt, kind="checkpoint", dir=tags,
+                    config=_config(3, sweep=True), load=True,
+                    load_tag="sweep3", seed=1, batches=after)),
                 ("save_cpu_zero2", dict(gpt, kind="checkpoint", dir=tags,
                                         config=_config(2, CPU),
                                         batches=first, save=True,
@@ -209,11 +221,15 @@ def port(setup, jax_tags, tmp_path_factory):
             ]
         else:
             named += [
-                # the world-2 stage-3 tag at world 4
+                # the world-2 stage-3 tags at world 4
                 ("resume_zero3", dict(gpt, kind="checkpoint", dir=tags,
                                       config=_config(3, fused=True),
                                       load=True, load_tag="z3", seed=1,
                                       batches=after)),
+                ("resume_sweep_zero3", dict(
+                    gpt, kind="checkpoint", dir=tags,
+                    config=_config(3, sweep=True), load=True,
+                    load_tag="sweep3", seed=1, batches=after)),
             ] + [(f"moe_zero{stage}", dict(
                 model="gpt2", model_cfg=MOE, init=inits["moe"], ep_size=2,
                 config=_config(stage, fused=True), batches=batches[:STEPS]))
@@ -309,7 +325,8 @@ def test_moe_at_ep2_matches_jax_engine(port, stage):
     _assert_params(_whole(ranks, 2), want_params, **TOL)
 
 
-@pytest.mark.parametrize("name", ("zero3", "cpu_zero2", "nvme_zero3"))
+@pytest.mark.parametrize("name", ("zero3", "cpu_zero2", "nvme_zero3",
+                                  "sweep_zero3"))
 def test_port_tag_resumes_bit_equal(port, name):
     """A fresh engine (another init seed) loads the tag at the world that
     wrote it and takes the saving run's next 2 steps bit for bit: losses
@@ -348,23 +365,37 @@ def test_stage3_tag_holds_shards_and_no_module(port):
                                   at_save["h.1.attn.qkv.weight"].T)
 
 
+def _resumes_at_world4_and_in_jax(port, name, tag):
+    """The world-2 stage-3 tag ``tag`` (run ``save_{name}``) at world 4
+    and in the JAX engine on a 2-device mesh: the next 2 steps at 1e-4
+    of the saving run's, and JAX's masters at 1e-4 of its."""
+    tags, out = port
+    want = out[2][f"save_{name}"][0]["after"]
+    for r in out[4][f"resume_{name}"]:
+        np.testing.assert_allclose(r["losses"], want, **TOL)
+    batches = [{"input_ids": np.array(b["input_ids"])}
+               for b in oracle.make_batches(STEPS)]
+    engine = _jax_engine(_config(3, sweep=name.startswith("sweep")), 2)
+    engine.load_checkpoint(tags, tag=tag)
+    got = [float(engine.train_batch(batch=b)) for b in batches[2:]]
+    groups.destroy()
+    np.testing.assert_allclose(got, want, **TOL)
+    _assert_params(out[2][f"save_{name}"][0]["params"], _masters(engine),
+                   **TOL)
+
+
 def test_stage3_tag_resumes_at_world4_and_in_jax(port):
     """The world-2 stage-3 tag at world 4 (elastic reassembly of the
     shards) and in the JAX engine on a 2-device mesh: the next 2 steps
     at 1e-4 of the saving run's."""
-    tags, out = port
-    want = out[2]["save_zero3"][0]["after"]
-    for r in out[4]["resume_zero3"]:
-        np.testing.assert_allclose(r["losses"], want, **TOL)
-    batches = [{"input_ids": np.array(b["input_ids"])}
-               for b in oracle.make_batches(STEPS)]
-    engine = _jax_engine(_config(3), 2)
-    engine.load_checkpoint(tags, tag="z3")
-    got = [float(engine.train_batch(batch=b)) for b in batches[2:]]
-    groups.destroy()
-    np.testing.assert_allclose(got, want, **TOL)
-    _assert_params(out[2]["save_zero3"][0]["params"], _masters(engine),
-                   **TOL)
+    _resumes_at_world4_and_in_jax(port, "zero3", "z3")
+
+
+def test_stage3_sweep_tag_resumes_at_world4_and_in_jax(port):
+    """The Adam sweep's stage-3 tag: its moments are JAX's one vector in
+    JAX's leaf order, gathered from the ranks' vectors of slices; it
+    resumes at world 4 and in JAX's own sweep on a 2-device mesh."""
+    _resumes_at_world4_and_in_jax(port, "sweep_zero3", "sweep3")
 
 
 @pytest.mark.parametrize("name,tol", [("zero3", TOL),

@@ -40,6 +40,7 @@ from deepspeed_tpu_torch.runtime.activation_checkpointing import \
     checkpointing
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from tests.model import oracle
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

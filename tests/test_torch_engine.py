@@ -31,6 +31,7 @@ from deepspeed_tpu.utils import groups
 from deepspeed_tpu_torch.bridge import flax_to_state_dict
 from deepspeed_tpu_torch.models import gpt2
 from tests.model import oracle
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 BASELINE = os.path.join(os.path.dirname(__file__), "model", "baselines",
                         "gpt2_tiny_fp32_adam.json")
@@ -45,7 +46,8 @@ def setup():
     batches = [{"input_ids": np.array(b["input_ids"])}
                for b in oracle.make_batches(STEPS)]
     model = jax_gpt2.GPT2LMHeadModel(jax_gpt2.GPT2Config(**oracle.TINY))
-    params = model.init(jax.random.PRNGKey(oracle.SEED), batches[0])
+    params = jax.jit(model.init)(jax.random.PRNGKey(oracle.SEED),
+                                 batches[0])
     init = flax_to_state_dict(jax.tree.map(np.asarray, params["params"]))
     return golden, batches, init
 
@@ -222,14 +224,15 @@ def test_initialize_contract_and_unported_arguments(setup):
         engine.train_batch()
 
 
-
 def test_world_size_above_one_raises(monkeypatch):
     """Inside an initialised process group of more than one rank the
     config is triangulated over the data-parallel world (micro-batch =
     train_batch_size / world), at ZeRO stages 2 and 3 too, and parameter
-    offload (the layered engine), not ported, raises. (ZeRO 0-3 at world
-    sizes above one run in tests/test_torch_dist_engine.py and
-    tests/test_torch_dist_zero.py.)"""
+    offload routes to the layered engine, which takes a layered model: a
+    whole GPT-2 module is refused as in JAX. (ZeRO 0-3 at world sizes
+    above one run in tests/test_torch_dist_engine.py and
+    tests/test_torch_dist_zero.py; the layered engine in
+    tests/test_torch_param_offload.py.)"""
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
     base = _config()
@@ -243,8 +246,9 @@ def test_world_size_above_one_raises(monkeypatch):
             dict(base, zero_optimization={"stage": stage}))
         assert staged.zero_optimization_stage == stage
         assert staged.train_micro_batch_size_per_gpu == oracle.BATCH_SIZE // 2
-        with pytest.raises(NotImplementedError, match="offload_param"):
+        with pytest.raises(AssertionError, match="offload_param requires "
+                                                 "a layered model"):
             deepspeed_tpu_torch.initialize(
                 model=model, config=dict(base, zero_optimization={
                     "stage": stage, "offload_param": {"device": "cpu"}}),
-                device="cpu")
+                device="cpu", sample_batch=None)

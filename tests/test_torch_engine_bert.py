@@ -31,6 +31,7 @@ from deepspeed_tpu.utils import groups
 from deepspeed_tpu_torch.bridge import bert_flax_to_state_dict
 from deepspeed_tpu_torch.models import bert
 from tests.model import oracle
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 BASELINE = os.path.join(os.path.dirname(__file__), "model", "baselines",
                         "bert_tiny_fp32_lamb.json")

@@ -37,6 +37,7 @@ from deepspeed_tpu_torch.bridge import (bert_flax_to_state_dict,
 from deepspeed_tpu_torch.models import bert, gpt2
 from deepspeed_tpu_torch.module_inject import module_quantize
 from deepspeed_tpu_torch.ops.quantizer import int8_linear
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 

@@ -44,20 +44,11 @@ from deepspeed_tpu_torch.bridge import (bert_flax_to_state_dict,
 from deepspeed_tpu_torch.models import bert, gpt2, simple
 from deepspeed_tpu_torch.runtime import lr_schedules, optim
 from tests.model import oracle
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 BASELINE = os.path.join(os.path.dirname(__file__), "model", "baselines",
                         "gpt2_tiny_fp32_adam.json")
 TOL = dict(rtol=1e-5, atol=1e-5)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The tiny model's ops are microseconds long: one intra-op thread
-    keeps parallel test workers from oversubscribing the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

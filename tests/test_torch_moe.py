@@ -36,6 +36,7 @@ from deepspeed_tpu_torch import bridge
 from deepspeed_tpu_torch.models import gpt2
 from deepspeed_tpu_torch.moe import layer, sharded_moe
 from tests.model import oracle
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 S, E, M = 24, 4, 16
 

@@ -31,6 +31,7 @@ from deepspeed_tpu_torch import bridge
 from deepspeed_tpu_torch.models import gpt2
 from deepspeed_tpu_torch.ops.transformer import moe_inference
 from tests.model import oracle
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 NEW = 6
 

@@ -37,6 +37,7 @@ from deepspeed_tpu_torch.bridge import (bert_flax_to_state_dict,
 from deepspeed_tpu_torch.models import bert, gpt2
 from deepspeed_tpu_torch.runtime import quantize
 from tests.model import oracle
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 STEPS = 5
 

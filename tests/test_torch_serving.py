@@ -30,16 +30,7 @@ from deepspeed_tpu_torch.serving.scheduler import (
     ContinuousBatchingScheduler, Request, RequestState)
 from deepspeed_tpu_torch.serving.server import ServingEngine
 from deepspeed_tpu_torch.telemetry.metrics import MetricsRegistry
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The tiny model's ops are microseconds long: one intra-op thread
-    keeps parallel test workers from oversubscribing the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 # ------------------------------------------------------- block allocator
@@ -292,8 +283,6 @@ def test_submit_validation():
         sched.submit(_req(0, 0))
     with pytest.raises(ValueError):
         sched.submit(_req(1, 9))
-
-
 
 
 def test_server_submit_rejects_top_p_zero(tiny_serving):

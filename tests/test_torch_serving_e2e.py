@@ -26,16 +26,7 @@ from deepspeed_tpu_torch.telemetry.metrics import MetricsRegistry
 from tests.test_torch_serving_parity import (BASE, TINY, counters,
                                              jax_params, mixed_trace, serve,
                                              tiny_pair)
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The tiny model's ops are microseconds long: one intra-op thread
-    keeps parallel test workers from oversubscribing the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -37,19 +37,10 @@ from deepspeed_tpu_torch.serving import kv_cache, paged_attention, sampling
 from deepspeed_tpu_torch.serving import scheduler as sched
 from deepspeed_tpu_torch.serving.server import ServingEngine
 from deepspeed_tpu_torch.telemetry.metrics import MetricsRegistry
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TINY = dict(vocab_size=128, n_positions=128, n_embd=64, n_layer=2, n_head=4)
 BASE = {"max_batch": 4, "block_size": 8, "prefill_chunk": 8}
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The tiny model's ops are microseconds long: one intra-op thread
-    keeps parallel test workers from oversubscribing the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
 
 
 def jax_params(cfg_kw, seed):

@@ -26,20 +26,11 @@ from deepspeed_tpu_torch.serving.speculative import (SpeculativeDecoder,
                                                      default_draft_layers,
                                                      validate_draft_params)
 from deepspeed_tpu_torch.telemetry.metrics import MetricsRegistry
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SPEC_COMPILE = {"decode_signatures": 0, "prefill_signatures": 1,
                 "retraces": 0, "draft_signatures": 1,
                 "verify_signatures": 1}
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The tiny model's ops are microseconds long: one intra-op thread
-    keeps parallel test workers from oversubscribing the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
 
 
 def _make_engine(seed=0, n_layer=4, kv="auto", dtype=torch.float32):

@@ -20,6 +20,7 @@ from deepspeed_tpu.utils import groups
 from deepspeed_tpu_torch.bridge import (cifar_flax_to_state_dict,
                                         simple_flax_to_state_dict)
 from deepspeed_tpu_torch.models import cifar, simple
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -33,6 +33,7 @@ from deepspeed_tpu_torch.ops.sparse_attention import kernels as tk
 from deepspeed_tpu_torch.ops.sparse_attention import sparse_self_attention
 from deepspeed_tpu_torch.ops.sparse_attention import sparsity_config as tsc
 from tests.test_torch_flash_bwd import _Ring
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 B, H, S, D = 2, 2, 128, 16
@@ -79,16 +80,19 @@ def _inputs(seed, bias):
 
 
 def _jax_grads(fn, q, k, v, w, kpb):
+    """JAX's output and gradients of sum(fn(...) · w), jitted (the
+    interpret-mode kernels run op by op in Python otherwise)."""
     def loss(q, k, v, kpb):
         return jnp.sum(fn(q, k, v, kpb) * w)
     args = tuple(jnp.asarray(x) for x in (q, k, v))
     if kpb is None:
-        out = fn(*args, None)
-        grads = jax.grad(lambda q, k, v: loss(q, k, v, None),
-                         argnums=(0, 1, 2))(*args)
+        out = jax.jit(lambda q, k, v: fn(q, k, v, None))(*args)
+        grads = jax.jit(jax.grad(lambda q, k, v: loss(q, k, v, None),
+                                 argnums=(0, 1, 2)))(*args)
     else:
-        out = fn(*args, jnp.asarray(kpb))
-        grads = jax.grad(loss, argnums=(0, 1, 2, 3))(*args, jnp.asarray(kpb))
+        out = jax.jit(fn)(*args, jnp.asarray(kpb))
+        grads = jax.jit(jax.grad(loss, argnums=(0, 1, 2, 3)))(
+            *args, jnp.asarray(kpb))
     return np.asarray(out), [np.asarray(g) for g in grads]
 
 
