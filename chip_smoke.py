@@ -275,6 +275,22 @@ Phases, each fatal on failure:
    H2D and D2H GB a step, CPU-Adam ms, peak memory, and one more step
    under the profiler: its compute kernels' ms, the H2D and D2H copies'
    ms (side streams) and the CPU-Adam ms beside its wall ms.
+22. the data path (``bench.py``'s gpt2-medium row fed as
+   bench.py:444-470 feeds it: ``initialize(training_data=)`` on a per-row
+   dataset over a pool of 8 batches, ``deepspeed_io(...,
+   num_local_io_workers=2)``, ``RepeatingLoader``; bf16, ZeRO 1, Adam
+   ``fused: true``, ``data_prefetch`` depth 2, whose device stage copies
+   pinned batches on a copy stream): (a) 6 steps through the prefetched
+   loader against the same 6 batches pre-placed on the card, losses and
+   masters bit-equal; each path's step ms, the hits and misses, the host
+   share of the steps' wall spent in ``next()``; (b) a tag saved with
+   ``data_iter=`` after step 3 (under ``build/data_smoke``, deleted
+   after) resumes in a fresh engine and loader, steps 4-6 bit-equal; (c)
+   curriculum ``fixed_linear`` 64 -> 1024, step 8, over 4 steps: the
+   lengths JAX's schedule gives (304, 544, 784, 1024), exactly 24
+   flash_fwd, 24 dq, 24 dk/dv and 1 adam a step, and phase 7's 2-layer
+   parity at S 72 and S 200 (the engine cuts the 1024 batch); (d) no
+   ``ds-prefetch-*`` thread alive after ``close()``.
 
 Prints an ``e2e`` JSON line, a ``train`` JSON line, a ``bert`` JSON line,
 a ``moq`` JSON line, an ``int8`` JSON line, a ``sparse`` JSON line, a
@@ -291,7 +307,8 @@ the bit-equality checks and launches; the checkpoint's numbers and the
 sweep-moment gather; the lse-gradient errors; ring / Ulysses), a ``moe``
 JSON line (phase 19's figures and checks, its launches by kernel row), a
 ``zero`` JSON line (phase 20's runs and checks), an ``offload`` JSON
-line (phase 21's figures and checks), a ``kernels`` JSON
+line (phase 21's figures and checks), a ``data`` JSON line (phase 22's
+figures and checks, its launches by kernel row), a ``kernels`` JSON
 line (the softmax, on no path as in the JAX package, with 0 launches,
 and its C entry's and ``torch.softmax``'s device times from the
 profiler; the decode rows' ``single_stream`` and
@@ -821,9 +838,10 @@ def plain_training(gpt2, attn_mod, decode, fused_adam):
 
 
 def one_step_parity(torch, deepspeed_tpu_torch, gpt2, attn_mod, decode,
-                    fused_adam, cfg, batch):
+                    fused_adam, cfg, batch, config=None, what="2-layer"):
     """Phase 7: a 2-layer full-width model, one step on the kernels and
-    one on the plain versions, from the same seed and batch.
+    one on the plain versions, from the same seed and batch, in
+    ``config`` (default: phase 6's with the sweep).
 
     Tolerances (bf16): loss within 0.02 absolute (the forward kernel keeps
     the softmax weights in fp32, the plain version rounds them); the
@@ -838,7 +856,7 @@ def one_step_parity(torch, deepspeed_tpu_torch, gpt2, attn_mod, decode,
     def one(plain):
         model = gpt2.GPT2LMHeadModel(cfg2, seed=5)
         engine, *_ = deepspeed_tpu_torch.initialize(
-            model=model, config=train_config(sweep=True))
+            model=model, config=config or train_config(sweep=True))
         ctx = (plain_training(gpt2, attn_mod, decode, fused_adam) if plain
                else contextlib.nullcontext())
         with ctx:
@@ -864,7 +882,7 @@ def one_step_parity(torch, deepspeed_tpu_torch, gpt2, attn_mod, decode,
            "loss_abs_err": abs(loss_k - loss_p), "grad_rel_l2": grad_rel,
            "grad_rel_l2_worst_tensor": worst, "param_max_abs_diff": dmax,
            "param_share_differing": n_diff / n_all}
-    print(f"parity 2-layer one step: {json.dumps(out)}", flush=True)
+    print(f"parity {what} one step: {json.dumps(out)}", flush=True)
     if not (math.isfinite(loss_k) and abs(loss_k - loss_p) <= 0.02
             and grad_rel <= 2e-2 and dmax <= 2 * LR * 1.001
             and n_diff / n_all <= 0.05):
@@ -4808,6 +4826,290 @@ def offload_phase(torch, deepspeed_tpu_torch, gpt2, op_builder, card):
     return line, rows
 
 
+# phase 22, the data path: bench.py's gpt2-medium row (bench.py:153,
+# 340-348) fed as bench.py:444-470 feeds it, initialize(training_data=) ->
+# RepeatingLoader(training_dataloader) behind data_prefetch depth 2 with
+# 2 I/O workers; Adam's fused form (BENCH_FUSED_OPT=1), so row 12 runs
+DATA_STEPS, DATA_SAVE_AT, DATA_WORKERS = 6, 3, 2
+# JAX's CurriculumScheduler for fixed_linear 64 -> 1024, difficulty_step
+# 8, total_curriculum_step 4, at steps 1-4
+# (tests/test_torch_data_engine.py holds the port's schedule to it)
+CURRICULUM_LENS = [304, 544, 784, 1024]
+CURRICULUM_PARITY_LENS = (72, 200)
+
+
+class RowDataset:
+    """bench.py's ``_RowDataset`` (bench.py:455-467): ``n_batches`` x B
+    rows that index a pool of 8 synthetic batches modulo."""
+    POOL = 8
+
+    def __init__(self, gpt2, cfg, n_batches):
+        self._batches = [gpt2.synthetic_batch(B, SEQ, cfg.vocab_size,
+                                              seed=100 + i, device="cpu")
+                         for i in range(self.POOL)]
+        self._rows = B * n_batches
+
+    def __len__(self):
+        return self._rows
+
+    def __getitem__(self, i):
+        b, r = divmod(i % (B * self.POOL), B)
+        return {k: v[r] for k, v in self._batches[b].items()}
+
+
+def data_config(prefetch=True, **over):
+    """bench.py:340-348 for the gpt2-medium row (bf16, ZeRO 1,
+    data_prefetch depth 2) with Adam's fused form."""
+    config = {"train_batch_size": B, "train_micro_batch_size_per_gpu": B,
+              "steps_per_print": 10 ** 9, "bf16": {"enabled": True},
+              "zero_optimization": {"stage": 1},
+              "optimizer": {"type": "Adam",
+                            "params": {"lr": LR, "fused": True}},
+              "data_prefetch": {"enabled": prefetch, "depth": 2}}
+    config.update(over)
+    return config
+
+
+def curriculum_block(schedule):
+    return {"enabled": True, "min_difficulty": 64, "max_difficulty": SEQ,
+            **schedule}
+
+
+def timed_steps(torch, engine, feed, n):
+    """n steps of ``engine.train_batch(**feed())``; (losses,
+    synchronised host ms of each)."""
+    losses, ms = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = engine.train_batch(**feed())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    return losses, ms
+
+
+def prefetch_threads():
+    import threading
+    return [t.name for t in threading.enumerate()
+            if t.is_alive() and t.name.startswith("ds-prefetch")]
+
+
+def data_phase(torch, deepspeed_tpu_torch, gpt2, attn_mod, decode,
+               fused_adam, op_builder, cfg, card):
+    """Phase 22: the data path at GPT-2 medium width. (a) 6 steps through
+    the prefetched loader against the same 6 batches pre-placed on the
+    card, losses and masters bit-equal; (b) a tag saved with data_iter=
+    after step 3 resumes in a fresh engine and loader, steps 4-6
+    bit-equal; (c) curriculum fixed_linear 64 -> 1024 over 4 steps, each
+    step's length JAX's schedule, rows 1, 3 and 4 24 a step, and a
+    2-layer step at S 72 and S 200 on the kernels against the plain
+    versions; (d) no pipeline thread after close(). Returns the ``data``
+    line and the launches by kernel row."""
+    from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
+    from deepspeed_tpu_torch.runtime.prefetch import CudaBatchPlacer
+    from deepspeed_tpu_torch.telemetry.metrics import get_registry
+
+    class TimedLoader(RepeatingLoader):
+        """A RepeatingLoader that keeps the host ms of each next()."""
+
+        def __init__(self, loader):
+            super().__init__(loader)
+            self.next_ms = []
+
+        def __next__(self):
+            t0 = time.perf_counter()
+            try:
+                return super().__next__()
+            finally:
+                self.next_ms.append((time.perf_counter() - t0) * 1e3)
+
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "data_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    rows = collections.Counter()
+    L = cfg.n_layer
+    step = {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+            "adam": 1}
+    # bench.py's epoch outlasts every pull: steps * 8 + 4 batches
+    data = RowDataset(gpt2, cfg, 10 * 8 + 4)
+    line = {"card": card,
+            "config": "gpt2-medium bs8 seq1024 bf16 zero1 adam(fused) "
+                      "lr1e-4, data_prefetch depth 2, 2 io workers",
+            "dataset_rows": len(data)}
+
+    def count(what, per_step, steps):
+        counts = dict(op_builder.LAUNCHES)
+        check_counts(what, counts, per_step, steps)
+        for k, n in counts.items():
+            rows["adam_per_tensor" if k == "adam" else k] += n
+
+    try:
+        # (a) the prefetched loader
+        reg = get_registry()
+        hits = reg.counter("prefetch_hits_total")
+        misses = reg.counter("prefetch_misses_total")
+        h0, m0 = hits.value, misses.value
+        engine, _, loader, _ = deepspeed_tpu_torch.initialize(
+            model=gpt2.GPT2LMHeadModel(cfg, seed=0), config=data_config(),
+            training_data=data)
+        # bench.py:469-470: the row's loader from deepspeed_io with 2 I/O
+        # workers (initialize's has one; (b) and (c) feed through it)
+        loader = engine.deepspeed_io(data, num_local_io_workers=DATA_WORKERS)
+        if not isinstance(loader.place_fn, CudaBatchPlacer) or not \
+                isinstance(engine.training_dataloader.place_fn,
+                           CudaBatchPlacer):
+            raise AssertionError("the device stage is not the copy stream")
+        it = TimedLoader(loader)
+        feed = lambda: {"data_iter": it}       # noqa: E731
+        op_builder.reset_launch_counts()
+        losses, ms = timed_steps(torch, engine, feed, DATA_SAVE_AT)
+        tag = engine.save_checkpoint(root, tag="data3", data_iter=it)
+        more, more_ms = timed_steps(torch, engine, feed,
+                                    DATA_STEPS - DATA_SAVE_AT)
+        count("(a) prefetched", step, DATA_STEPS)
+        losses += more
+        ms += more_ms
+        state = it.state_dict()
+        final = {k: p.detach().clone() for k, p in engine.params.items()}
+        prefetched = {
+            "losses": losses, "step_ms": ms,
+            "step_ms_median_2_6": statistics.median(ms[1:]),
+            "hits": hits.value - h0, "misses": misses.value - m0,
+            "next_ms": it.next_ms,
+            "next_share": sum(it.next_ms) / sum(ms),
+            "next_share_2_6": sum(it.next_ms[1:]) / sum(ms[1:]),
+            "loader_state": state}
+        engine.close()
+        del engine, loader, it
+        torch.cuda.empty_cache()
+
+        # the pre-placed path (bench.py's BENCH_PREFETCH=0): the same
+        # batches, in the plain loader's order, on the card first
+        ref, _, plain, _ = deepspeed_tpu_torch.initialize(
+            model=gpt2.GPT2LMHeadModel(cfg, seed=0),
+            config=data_config(prefetch=False), training_data=data)
+        plain_it = RepeatingLoader(plain)
+        batches = [{k: v.to("cuda") for k, v in next(plain_it).items()}
+                   for _ in range(DATA_STEPS)]
+        torch.cuda.synchronize()
+        feed_iter = iter(batches)
+        op_builder.reset_launch_counts()
+        want, want_ms = timed_steps(torch, ref, lambda: {
+            "batch": next(feed_iter)}, DATA_STEPS)
+        count("(a) pre-placed", step, DATA_STEPS)
+        same_masters = all(torch.equal(p, final[k])
+                           for k, p in ref.params.items())
+        preplaced = {"losses": want, "step_ms": want_ms,
+                     "step_ms_median_2_6": statistics.median(want_ms[1:])}
+        del ref, plain, plain_it, batches
+        torch.cuda.empty_cache()
+        line["a_prefetched"] = prefetched
+        line["a_preplaced"] = preplaced
+        line["a_bit_equal"] = losses == want and same_masters
+        print(f"data (a) prefetched: steps {ms} ms (median "
+              f"{prefetched['step_ms_median_2_6']:.2f}), hits "
+              f"{prefetched['hits']}, misses {prefetched['misses']}, "
+              f"next() {prefetched['next_ms']} ms "
+              f"({prefetched['next_share']:.5f} "
+              f"of the steps' wall, {prefetched['next_share_2_6']:.6f} "
+              f"over steps 2-6); "
+              f"pre-placed: {want_ms} ms (median "
+              f"{preplaced['step_ms_median_2_6']:.2f}); losses {losses}; "
+              f"bit-equal {line['a_bit_equal']}", flush=True)
+        if not line["a_bit_equal"]:
+            raise AssertionError(f"(a) prefetched losses {losses} are not "
+                                 f"bit-equal to the pre-placed {want}")
+        if state != {"epoch": 0, "batch_in_epoch": DATA_STEPS}:
+            raise AssertionError(f"(a) the loader's state {state}")
+
+        # (b) a fresh engine and loader resume from the tag
+        fresh, _, fresh_loader, _ = deepspeed_tpu_torch.initialize(
+            model=gpt2.GPT2LMHeadModel(cfg, seed=1), config=data_config(),
+            training_data=data)
+        fresh_it = RepeatingLoader(fresh_loader)
+        fresh.load_checkpoint(root, tag="data3", data_iter=fresh_it)
+        resumed_state = fresh_it.state_dict()
+        op_builder.reset_launch_counts()
+        resumed, _ = timed_steps(torch, fresh, lambda: {
+            "data_iter": fresh_it}, DATA_STEPS - DATA_SAVE_AT)
+        count("(b) resumed", step, DATA_STEPS - DATA_SAVE_AT)
+        same = resumed == losses[DATA_SAVE_AT:] and all(
+            torch.equal(p, final[k]) for k, p in fresh.params.items())
+        line["b_resume"] = {"saved": bool(tag),
+                            "loaded_state": resumed_state,
+                            "losses": resumed, "bit_equal": same}
+        print(f"data (b) resume: {line['b_resume']}", flush=True)
+        fresh.close()
+        del fresh, fresh_loader, fresh_it, final
+        torch.cuda.empty_cache()
+        if resumed_state != {"epoch": 0, "batch_in_epoch": DATA_SAVE_AT} \
+                or not same:
+            raise AssertionError(f"(b) the resume is not bit-equal: "
+                                 f"{line['b_resume']}")
+
+        # (c) curriculum: the device stage off, the lengths JAX's
+        linear = curriculum_block({
+            "schedule_type": "fixed_linear",
+            "schedule_config": {"total_curriculum_step": 4,
+                                "difficulty_step": 8}})
+        cur, _, cur_loader, _ = deepspeed_tpu_torch.initialize(
+            model=gpt2.GPT2LMHeadModel(cfg, seed=0),
+            config=data_config(curriculum_learning=linear),
+            training_data=data)
+        if cur_loader.place_fn is not None:
+            raise AssertionError("(c) the device stage is on under "
+                                 "curriculum learning")
+        cur_it = RepeatingLoader(cur_loader)
+        lens, cur_losses, cur_ms = [], [], []
+        op_builder.reset_launch_counts()
+        for _ in CURRICULUM_LENS:
+            loss, t = timed_steps(torch, cur, lambda: {"data_iter": cur_it},
+                                  1)
+            cur_losses += loss
+            cur_ms += t
+            lens.append(cur.curriculum_scheduler.get_current_difficulty())
+        count("(c) curriculum", step, len(CURRICULUM_LENS))
+        cur.close()
+        del cur, cur_loader, cur_it
+        torch.cuda.empty_cache()
+        parity = {}
+        for S in CURRICULUM_PARITY_LENS:
+            at_s = curriculum_block({
+                "schedule_type": "fixed_discrete",
+                "schedule_config": {"difficulty": [S, SEQ],
+                                    "max_step": [1]}})
+            parity[f"S{S}"] = one_step_parity(
+                torch, deepspeed_tpu_torch, gpt2, attn_mod, decode,
+                fused_adam, cfg, data._batches[0],
+                config=train_config(sweep=True, batch=B) | {
+                    "curriculum_learning": at_s},
+                what=f"2-layer curriculum S {S}")
+        line["c_curriculum"] = {"lens": lens, "want": CURRICULUM_LENS,
+                                "losses": cur_losses, "step_ms": cur_ms,
+                                "parity_2layer": parity}
+        print(f"data (c) curriculum: lengths {lens}, losses {cur_losses}, "
+              f"step ms {cur_ms}", flush=True)
+        if lens != CURRICULUM_LENS or not all(
+                math.isfinite(x) for x in cur_losses):
+            raise AssertionError(f"(c) curriculum lengths {lens}, expected "
+                                 f"{CURRICULUM_LENS}; losses {cur_losses}")
+
+        # (d) every pipeline stopped
+        alive = prefetch_threads()
+        line["d_threads_after_close"] = alive
+        if alive:
+            raise AssertionError(f"(d) pipeline threads alive after "
+                                 f"close(): {alive}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    line["launches_by_row"] = dict(rows)
+    line["phase_s"] = time.perf_counter() - t_phase
+    print(f"data: phase 22 took {line['phase_s']:.1f} s", flush=True)
+    return line, rows
+
+
 def finish_rows(rows, launches, max_err, card):
     """bound_ms (the larger of bytes at 3.35 TB/s and operations at the
     peak of their type), launches and max_abs_err for each row."""
@@ -5340,6 +5642,16 @@ def main():
         row["launches"] += offload_counts.get(row["name"], 0)
     offload_line["script_s"] = time.perf_counter() - script_t0
 
+    # 22. the data path: bench.py's gpt2-medium row through
+    # initialize(training_data=) / deepspeed_io, the prefetch pipeline's
+    # copy-stream device stage, a resume, curriculum learning
+    data_line, data_counts = data_phase(
+        torch, deepspeed_tpu_torch, gpt2, attn_mod, decode, fused_adam,
+        op_builder, cfg, card)
+    for row in rows:
+        row["launches"] += data_counts.get(row["name"], 0)
+    data_line["script_s"] = time.perf_counter() - script_t0
+
     print(json.dumps({"e2e": e2e}))
     print(json.dumps({"train": train}))
     print(json.dumps({"bert": bert_line}))
@@ -5353,6 +5665,7 @@ def main():
     print(json.dumps({"moe": moe_line}))
     print(json.dumps({"zero": zero_line}))
     print(json.dumps({"offload": offload_line}))
+    print(json.dumps({"data": data_line}))
     print(json.dumps({"kernels": rows}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

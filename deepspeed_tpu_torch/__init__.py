@@ -47,6 +47,12 @@ This package ports these paths, with hand-written CUDA kernels
   entry point on the flash and Adam kernels, the per-expert checkpoint
   files, and ``init_inference(moe=True)`` on the flash and decode
   kernels;
+* the data path: ``initialize(training_data=)`` and
+  ``DeepSpeedEngine.deepspeed_io`` build a ``DeepSpeedDataLoader``
+  (``RepeatingLoader`` around it, with its resume state in checkpoints),
+  the ``data_prefetch`` pipeline (host collate workers and a
+  copy-stream device stage, ``runtime.prefetch``), curriculum learning
+  and progressive layer drop;
 * ZeRO-3 parameter offload: ``initialize`` on a layered model
   (``models.gpt2.gpt2_offload_layers``) with
   ``zero_optimization.offload_param`` streams the layers from host RAM or
@@ -159,13 +165,15 @@ def init_distributed(dist_backend=None, verbose=True, init_method=None,
 
 
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,
-               training_data=None, lr_scheduler=None, config=None,
-               config_params=None, device=None, seed=42, **kwargs):
+               training_data=None, lr_scheduler=None, collate_fn=None,
+               config=None, config_params=None, device=None, seed=42,
+               **kwargs):
     """Create a training engine (reference: deepspeed.initialize).
 
-    Returns ``(engine, optimizer, None, lr_scheduler)``, the tuple
-    contract of the JAX ``initialize``. ``model`` is a port ``nn.Module``
-    whose ``forward(batch)`` returns the loss; its parameters become the
+    Returns ``(engine, optimizer, training_dataloader, lr_scheduler)``,
+    the tuple contract of the JAX ``initialize``. ``model`` is a port
+    ``nn.Module`` whose ``forward(batch)`` returns the loss; its
+    parameters become the
     fp32 masters on ``device`` (``None`` means CUDA, and raises without a
     card). ``model_parameters``, when given, is a state_dict loaded into
     it (for example ``bridge.flax_to_state_dict`` or
@@ -182,6 +190,13 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     ``world_size`` differs raises (in the engine, which owns the group).
     Each rank passes its own micro-batches to the engine.
 
+    ``training_data`` is an indexable dataset (``len`` and ``[i]``): the
+    engine's ``deepspeed_io`` wraps it into the returned loader, this
+    rank's micro-batches collated by ``collate_fn`` (default: stacked
+    into CPU tensors), behind the ``data_prefetch`` pipeline when that
+    block is on; feed it as ``train_batch(data_iter=RepeatingLoader(
+    loader))``. It is None without ``training_data``.
+
     ZeRO-3 parameter offload (``zero_optimization.offload_param.device``
     cpu or nvme, or the deprecated ``cpu_offload_params: true`` at stage
     3) takes the layered engine, as in JAX (``__init__.py:84-155``):
@@ -189,8 +204,8 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     .gpt2_offload_layers``), ``sample_batch=`` is required and
     ``input_fn=`` takes the first layer's input from a batch; it returns
     ``(runtime.zero.param_offload.Zero3OffloadEngine, None, None,
-    None)``. Not ported yet: ``training_data`` (the dataloader) and the
-    other keywords of the JAX ``initialize``."""
+    None)``, and refuses ``training_data`` as JAX's does. Not ported
+    yet: the other keywords of the JAX ``initialize`` (``mpu``, ...)."""
     cfg_dict = _config_dict(config if config is not None else config_params)
     from deepspeed_tpu_torch.runtime.zero.config import param_offload_device
     offload = param_offload_device(cfg_dict)
@@ -198,11 +213,10 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
         return _initialize_param_offload(
             model, optimizer, lr_scheduler, training_data, cfg_dict,
             offload, device, kwargs)
-    unported = {"training_data (the dataloader)": training_data}
-    unported.update({f"initialize({k}=...)": v for k, v in kwargs.items()})
-    for what, value in unported.items():
+    for key, value in kwargs.items():
         if value is not None:
-            raise NotImplementedError(f"{what} is not ported yet")
+            raise NotImplementedError(
+                f"initialize({key}=...) is not ported yet")
     if model is None:
         raise ValueError("initialize needs model=")
     if config is None:
@@ -225,8 +239,11 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
         from deepspeed_tpu_torch.moe.layer import localize_state_dict
         model.load_state_dict(localize_state_dict(model_parameters, model))
     engine = DeepSpeedEngine(model, cfg, dev, optimizer=optimizer,
-                             lr_scheduler=lr_scheduler, seed=seed)
-    return engine, engine.optimizer, None, engine.lr_scheduler
+                             lr_scheduler=lr_scheduler, seed=seed,
+                             training_data=training_data,
+                             collate_fn=collate_fn)
+    return (engine, engine.optimizer, engine.training_dataloader,
+            engine.lr_scheduler)
 
 
 def _config_dict(config):

@@ -7,7 +7,6 @@ Weights are drawn from ``seed`` with the flax initialisers' statistics
 variance 1 / dim); ``bridge.simple_flax_to_state_dict`` carries flax
 params across. Flax's ``Dense_{i}`` becomes ``layers.{i}`` and
 ``EmbeddingModel``'s ``wte`` / ``Dense_0`` become ``wte`` / ``dense``.
-``random_dataloader`` waits for the dataloader (``runtime/dataloader.py``).
 """
 
 import numpy as np
@@ -101,6 +100,17 @@ def random_dataset(total_samples, hidden_dim, seed=0, dtype=np.float32):
     xs = rng.standard_normal((total_samples, hidden_dim)).astype(dtype)
     ys = rng.standard_normal((total_samples, hidden_dim)).astype(dtype)
     return [(xs[i], ys[i]) for i in range(total_samples)]
+
+
+def random_dataloader(model_engine, total_samples, hidden_dim, seed=0,
+                      dtype=np.float32):
+    """A ``DeepSpeedDataLoader`` of this rank's micro-batches over
+    :func:`random_dataset` (JAX ``random_dataloader``, whose one process
+    loads the global batch)."""
+    from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
+    ds = random_dataset(total_samples, hidden_dim, seed=seed, dtype=dtype)
+    return DeepSpeedDataLoader(
+        ds, batch_size=model_engine.train_micro_batch_size_per_gpu())
 
 
 def sample_batch(batch_size, hidden_dim, dtype=torch.float32, device=None):

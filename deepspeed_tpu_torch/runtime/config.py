@@ -5,8 +5,11 @@ block (``zero_config``, a ``runtime/zero/config.py``
 ``DeepSpeedZeroConfig``: the stage and the optimizer offload),
 steps_per_print, gradient_accumulation_dtype, the ``checkpoint`` block
 (read by the engine's saves and loads), the ``quantize_training``
-(MoQ) block and the ``activation_checkpointing`` block (read by
-``checkpointing.configure``). The raw
+(MoQ) block, the ``activation_checkpointing`` block (read by
+``checkpointing.configure``) and the data path's ``data_prefetch``,
+``dataloader_drop_last``, ``curriculum_learning`` and
+``progressive_layer_drop`` (read by the engine's ``deepspeed_io`` and
+``forward``). The raw
 ``sparse_attention`` block is kept as it is given, as the JAX config keeps
 it (the models read it through ``ops.sparse_attention.
 sparse_attention_utils``). The attribute
@@ -19,8 +22,8 @@ there. Every ``enabled`` block the JAX config reads that changes the
 step's math, and the three observers the JAX engine acts on
 (``tensorboard``, ``flops_profiler``, ``wall_clock_breakdown``), is
 either ported or in :data:`_UNPORTED_BLOCKS`. The blocks the port does
-not run (autotuning, data_prefetch, comm_overlap, guardian, telemetry)
-are still validated by the JAX validators' rules
+not run (autotuning, comm_overlap, guardian, telemetry) are still
+validated by the JAX validators' rules
 (:data:`_RANGE_RULES`), so a config the JAX package refuses is refused
 here too. The ``serving`` block is :class:`DeepSpeedServingConfig`, read
 by ``init_serving``. The keys the JAX config refuses off-default (``amp.enabled``,
@@ -52,9 +55,6 @@ PORTED_OPTIMIZERS = (ADAM_OPTIMIZER, ADAMW_OPTIMIZER, LAMB_OPTIMIZER,
 _UNPORTED_BLOCKS = (
     ("comm_overlap", "comm_overlap"),
     ("telemetry", "telemetry"),
-    ("data_prefetch", "data_prefetch"),
-    ("curriculum_learning", "curriculum learning"),
-    ("progressive_layer_drop", "progressive layer drop"),
     # eigenvalue-guided MoQ needs Hessian-vector products (a double
     # backward through the flash kernels, which have none)
     (C.EIGENVALUE, "eigenvalue-guided MoQ"),
@@ -94,14 +94,13 @@ def _autotuning_space(v):
 
 
 # The JAX validators of the blocks the port parses but does not run
-# (JAX runtime/config.py: telemetry :419-565, data_prefetch :585,
-# comm_overlap :613, guardian :690-717, autotuning :1028-1058): (block
-# path, key, default, cast, valid, what a valid value is, environment
-# override or None). Each raises
+# (JAX runtime/config.py: telemetry :419-565, comm_overlap :613,
+# guardian :690-717, autotuning :1028-1058): (block path, key, default,
+# cast, valid, what a valid value is, environment override or None).
+# Each raises
 # DeepSpeedConfigError on the value the JAX config refuses, whether or
 # not the block is enabled.
 _RANGE_RULES = (
-    (("data_prefetch",), "depth", 2, int, _at_least(1), ">= 1", None),
     (("comm_overlap",), "bucket_mb", 4.0, float, _positive, "> 0", None),
     (("guardian",), "action_cooldown_steps", 25, int, _non_negative,
      ">= 0", "DS_GUARDIAN_COOLDOWN_STEPS"),
@@ -476,6 +475,49 @@ class DeepSpeedServingConfig:
                 f"{self.decode_steps}")
 
 
+class DeepSpeedDataPrefetchConfig:
+    """``data_prefetch`` (JAX config.py:566-588; ``runtime/prefetch.py``):
+    the background input pipeline, host collate workers and the
+    copy-stream device stage. ``DS_DATA_PREFETCH`` = 1/0 force-toggles
+    ``enabled`` after the JSON is read."""
+
+    def __init__(self, param_dict):
+        p = param_dict.get(C.DATA_PREFETCH, {}) or {}
+        self.enabled = p.get(C.DATA_PREFETCH_ENABLED,
+                             C.DATA_PREFETCH_ENABLED_DEFAULT)
+        self.depth = int(p.get(C.DATA_PREFETCH_DEPTH,
+                               C.DATA_PREFETCH_DEPTH_DEFAULT))
+        self.to_device = p.get(C.DATA_PREFETCH_TO_DEVICE,
+                               C.DATA_PREFETCH_TO_DEVICE_DEFAULT)
+        self.enabled = _env_flag("DS_DATA_PREFETCH", self.enabled)
+        if self.depth < 1:
+            raise DeepSpeedConfigError(
+                f"data_prefetch.depth must be >= 1, got {self.depth}")
+
+
+class DeepSpeedPLDConfig:
+    """``progressive_layer_drop`` (JAX config.py:1118-1123)."""
+
+    def __init__(self, param_dict):
+        pld = param_dict.get(C.PROGRESSIVE_LAYER_DROP, {}) or {}
+        self.enabled = pld.get(C.PLD_ENABLED, C.PLD_ENABLED_DEFAULT)
+        self.theta = pld.get(C.PLD_THETA, C.PLD_THETA_DEFAULT)
+        self.gamma = pld.get(C.PLD_GAMMA, C.PLD_GAMMA_DEFAULT)
+
+
+class DeepSpeedCurriculumConfig:
+    """``curriculum_learning`` (JAX config.py:1126-1131): ``params`` is
+    the block without ``enabled``, the ``CurriculumScheduler``'s
+    config."""
+
+    def __init__(self, param_dict):
+        cl = param_dict.get(C.CURRICULUM_LEARNING, {}) or {}
+        self.enabled = cl.get(C.CURRICULUM_ENABLED,
+                              C.CURRICULUM_ENABLED_DEFAULT)
+        self.params = {k: v for k, v in cl.items()
+                       if k != C.CURRICULUM_ENABLED}
+
+
 class DeepSpeedFP16Config:
     def __init__(self, param_dict):
         fp16 = param_dict.get(C.FP16, {}) or {}
@@ -654,6 +696,12 @@ class DeepSpeedConfig:
         self.eigenvalue_enabled = ev.get(C.EIGENVALUE_ENABLED,
                                          C.EIGENVALUE_ENABLED_DEFAULT)
         self.sparse_attention = pd.get(C.SPARSE_ATTENTION, None)
+        self.pld_config = DeepSpeedPLDConfig(pd)
+        self.pld_enabled = self.pld_config.enabled
+        self.curriculum_config = DeepSpeedCurriculumConfig(pd)
+        self.curriculum_enabled = self.curriculum_config.enabled
+        self.dataloader_drop_last = pd.get(C.DATALOADER_DROP_LAST, None)
+        self.data_prefetch = DeepSpeedDataPrefetchConfig(pd)
         self._read_checkpoint(pd)
         self.wall_clock_breakdown = pd.get(C.WALL_CLOCK_BREAKDOWN, False)
         self.serving = DeepSpeedServingConfig(pd)

@@ -265,3 +265,40 @@ CHECKPOINT_PERSIST_RETRIES = "persist_retries"
 CHECKPOINT_PERSIST_RETRIES_DEFAULT = 2
 CHECKPOINT_PERSIST_BACKOFF_S = "persist_retry_backoff_s"
 CHECKPOINT_PERSIST_BACKOFF_S_DEFAULT = 0.05
+
+# Data routes of ``engine.deepspeed_io`` (JAX constants.py:9-10)
+ROUTE_TRAIN = "train"
+ROUTE_EVAL = "eval"
+
+# Dataloader
+DATALOADER_DROP_LAST = "dataloader_drop_last"
+DATALOADER_DROP_LAST_DEFAULT = False
+
+# data_prefetch: the background input pipeline (runtime/prefetch.py).
+# When enabled, deepspeed_io-built loaders (and iterators handed to
+# train_batch) are wrapped in a bounded pipeline: host worker threads
+# fetch and collate the next `depth` batches, and a device stage copies
+# batch N+1 to the card on a copy stream while step N computes.
+# `num_local_io_workers` (deepspeed_io argument) sets the host-stage
+# worker count. DS_DATA_PREFETCH=1/0 force-toggles `enabled`.
+DATA_PREFETCH = "data_prefetch"
+DATA_PREFETCH_ENABLED = "enabled"
+DATA_PREFETCH_ENABLED_DEFAULT = False
+DATA_PREFETCH_DEPTH = "depth"               # max batches in the pipeline
+DATA_PREFETCH_DEPTH_DEFAULT = 2
+DATA_PREFETCH_TO_DEVICE = "to_device"       # arm the device stage
+DATA_PREFETCH_TO_DEVICE_DEFAULT = True
+
+# Progressive layer drop
+PROGRESSIVE_LAYER_DROP = "progressive_layer_drop"
+PLD_ENABLED = "enabled"
+PLD_ENABLED_DEFAULT = False
+PLD_THETA = "theta"
+PLD_THETA_DEFAULT = 1.0
+PLD_GAMMA = "gamma"
+PLD_GAMMA_DEFAULT = 0.001
+
+# Curriculum learning
+CURRICULUM_LEARNING = "curriculum_learning"
+CURRICULUM_ENABLED = "enabled"
+CURRICULUM_ENABLED_DEFAULT = False

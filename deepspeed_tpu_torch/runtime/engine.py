@@ -101,6 +101,14 @@ the fp32 masters in place under ``no_grad`` (engine.py:3111-3130, where
 the JAX engine replaces the params pytree); an fp16 step that overflowed
 skips it.
 
+The data path (JAX engine.py:3411-3537): ``deepspeed_io`` builds this
+rank's ``DeepSpeedDataLoader`` (``runtime/dataloader.py``), behind the
+``data_prefetch`` pipeline (``runtime/prefetch.py``: host workers, and
+on a card a copy stream whose batches the step's stream waits for);
+``train_batch`` wraps a plain ``data_iter`` in a pipeline; ``forward``
+cuts the batch to the curriculum's length and passes PLD's θ to the
+module; ``close()`` stops the pipelines.
+
 Host syncs: bf16 and fp32 steps make none, but for the grad-norm fetch of
 ``get_global_grad_norm`` every ``steps_per_print`` steps when the step
 takes a norm (as in JAX). An fp16 step makes one, to read the overflow
@@ -116,6 +124,7 @@ the masters stay outside every recomputed block (``runtime/
 activation_checkpointing/checkpointing.remat``).
 """
 
+import functools
 import glob
 import os
 import re
@@ -140,9 +149,17 @@ from deepspeed_tpu_torch.runtime.config import (ADAGRAD_OPTIMIZER,
 from deepspeed_tpu_torch.runtime.constants import (LATEST_FILE,
                                                    MODEL_FILE_SUFFIX,
                                                    OPTIM_FILE_SUFFIX)
+from deepspeed_tpu_torch.runtime.data_pipeline.curriculum_scheduler import (
+    CurriculumScheduler, apply_seqlen_truncation)
+from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
 from deepspeed_tpu_torch.runtime.fp16.loss_scaler import (make_scale_state,
                                                           update_scale)
 from deepspeed_tpu_torch.runtime.lr_schedules import get_lr_schedule
+from deepspeed_tpu_torch.runtime.prefetch import (CudaBatchPlacer,
+                                                  PrefetchIterator,
+                                                  PrefetchLoader)
+from deepspeed_tpu_torch.runtime.progressive_layer_drop import \
+    ProgressiveLayerDrop
 from deepspeed_tpu_torch.runtime.quantize import (Quantizer,
                                                   transposed_weight_names)
 from deepspeed_tpu_torch.runtime.zero.partition import ZeroPartition
@@ -152,8 +169,22 @@ from deepspeed_tpu_torch.utils import groups
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
 
 
+def _on_device(t, device):
+    """``t`` already lies on ``device`` (a CUDA device without an index
+    is the current one)."""
+    if t.device.type != device.type:
+        return False
+    if device.index is None and device.type == "cuda":
+        return t.device.index == torch.cuda.current_device()
+    return device.index is None or t.device.index == device.index
+
+
 def _to_device(batch, device):
+    """``batch`` with every leaf on ``device``; a tensor already there
+    (a batch the prefetch device stage placed) is left as it is."""
     if isinstance(batch, torch.Tensor):
+        if _on_device(batch, device):
+            return batch
         return batch.to(device, non_blocking=True)
     if isinstance(batch, dict):
         return {k: _to_device(v, device) for k, v in batch.items()}
@@ -201,11 +232,13 @@ class DeepSpeedEngine:
     the loss. ``module`` holds the fp32 master parameters on ``device``.
     ``optimizer`` is a client ``optim.Optimizer(init, update)`` pair and
     ``lr_scheduler`` a client schedule (``lr_at``, ``step``); ``seed``
-    keys the dropout masks (JAX engine.py:245)."""
+    keys the dropout masks (JAX engine.py:245). ``training_data``, when
+    given, is wrapped by :meth:`deepspeed_io` into
+    ``training_dataloader``, its batches collated by ``collate_fn``."""
 
     def __init__(self, module: torch.nn.Module, config: DeepSpeedConfig,
                  device: torch.device, optimizer=None, lr_scheduler=None,
-                 seed: int = 42):
+                 seed: int = 42, training_data=None, collate_fn=None):
         if not groups.mesh_is_initialized():
             groups.initialize()
         self._dist = groups.dist_active()
@@ -335,6 +368,28 @@ class DeepSpeedEngine:
         self._ckpt_async = config.checkpoint_async_save
         self._ckpt_writer = None
         self._pinned = {}        # reused pinned host buffers of snapshots
+
+        # the data path (JAX engine.py:386-400, 775-793): PLD, the
+        # curriculum, the prefetch pipelines and the training loader
+        self.progressive_layer_drop = None
+        if config.pld_enabled:
+            self.progressive_layer_drop = ProgressiveLayerDrop(
+                theta=config.pld_config.theta,
+                gamma=config.pld_config.gamma)
+        self.curriculum_scheduler = None
+        if config.curriculum_enabled:
+            self.curriculum_scheduler = CurriculumScheduler(
+                config.curriculum_config.params)
+        self.collate_fn = collate_fn
+        self._prefetch_cfg = config.data_prefetch
+        self._prefetchers = []
+        self._prefetch_wrap_cache = {}
+        self._warned_io_workers = False
+        self._warned_prefetch_host_only = False
+        self._warned_prefetch_stateful = False
+        self.training_dataloader = None
+        if training_data is not None:
+            self.training_dataloader = self.deepspeed_io(training_data)
 
     def _make_partition(self, cut=True, min_numel=0):
         kw = {}
@@ -521,6 +576,10 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------- queries
     def gradient_accumulation_steps(self):
         return self.config.gradient_accumulation_steps
+
+    def train_micro_batch_size_per_gpu(self):
+        """This rank's micro-batch rows."""
+        return self.config.train_micro_batch_size_per_gpu
 
     def steps_per_print(self):
         return self.config.steps_per_print
@@ -719,10 +778,11 @@ class DeepSpeedEngine:
         return {k: whole[k] if k in whole else p.to(dtype)
                 for k, p in self.params.items()}
 
-    def _compute_loss(self, batch):
-        """Forward in the compute dtype (:meth:`_compute_params`)."""
+    def _compute_loss(self, batch, kwargs=None):
+        """Forward in the compute dtype (:meth:`_compute_params`);
+        ``kwargs`` go to the module's forward (PLD's)."""
         return functional_call(self.module, self._compute_params(),
-                               (batch,)).float()
+                               (batch,), kwargs).float()
 
     def _grad_epilogue(self, grads, per_rank=False):
         """unscale, non-finite check, norm, clip coefficient, scale update
@@ -835,12 +895,25 @@ class DeepSpeedEngine:
     def forward(self, batch):
         """The loss of one micro-batch, unscaled, with its graph, in
         training mode; the dropout masks are keyed by (seed,
-        ``micro_steps``) (engine.py:2757, 2770)."""
+        ``micro_steps``) (engine.py:2757, 2770). Under curriculum
+        learning the batch's sequence axis is first cut to the scheduled
+        length; under PLD the module's forward also takes
+        ``progressive_layer_drop=True, pld_theta=θ(global_steps)``, as
+        in JAX (engine.py:2761-2781, 1307-1310): a module that does not
+        take them raises."""
         if not self.module.training:
             self.module.train()
+        if self.curriculum_scheduler is not None:
+            batch = apply_seqlen_truncation(self.curriculum_scheduler,
+                                            self.global_steps, batch)
+        kwargs = None
+        if self.progressive_layer_drop is not None:
+            self.progressive_layer_drop.update_state(self.global_steps)
+            kwargs = {"progressive_layer_drop": True,
+                      "pld_theta": self.progressive_layer_drop.get_theta()}
         batch = _to_device(batch, self.device)
         with dropout_lib.key_scope(self._dropout_key()):
-            loss = self._compute_loss(batch)
+            loss = self._compute_loss(batch, kwargs)
         self._pending_loss = loss
         self._pending_weight = self._loss_weight(batch)
         return loss
@@ -965,9 +1038,13 @@ class DeepSpeedEngine:
         the ``gradient_accumulation_dtype`` buffer, as the JAX fused gas-1
         step does (engine.py:1702). Returns the mean micro-batch loss as a
         device fp32 scalar; over a data group each micro-batch's is the
-        global micro-batch's (each rank passes its own rows)."""
+        global micro-batch's (each rank passes its own rows). With
+        ``data_prefetch`` on, ``data_iter`` is pulled through a prefetch
+        pipeline (:meth:`_maybe_prefetch_iter`)."""
         if data_iter is None and batch is None:
             raise ValueError("train_batch needs data_iter or batch")
+        if data_iter is not None:
+            data_iter = self._maybe_prefetch_iter(data_iter)
         gas = self.gradient_accumulation_steps()
         losses = []
         # JAX's offloaded step has no fused gas-1 form (engine.py:1702)
@@ -1005,6 +1082,119 @@ class DeepSpeedEngine:
         """``eval_batch``, as the JAX engine's ``__call__`` is
         (engine.py:3407); the training forward is :meth:`forward`."""
         return self.eval_batch(batch)
+
+    # ------------------------------------------------------------------ data
+    def deepspeed_io(self, dataset, batch_size=None, route=None,
+                     data_sampler=None, collate_fn=None,
+                     num_local_io_workers=None):
+        """A ``DeepSpeedDataLoader`` over ``dataset`` (JAX
+        engine.py:3411-3449): this rank's slice of each epoch's order
+        (the data group's rank and size), micro-batches of
+        ``train_micro_batch_size_per_gpu`` rows unless ``batch_size``
+        says otherwise, shuffled (seed 0 + epoch) unless a
+        ``data_sampler`` gives the order, ``dataloader_drop_last``
+        (default true). With ``data_prefetch`` on it is wrapped in a
+        ``PrefetchLoader`` of ``num_local_io_workers`` host workers and
+        the device stage (:meth:`_prefetch_place_fn`), which ``close()``
+        stops. ``route`` (``ROUTE_TRAIN`` / ``ROUTE_EVAL``) changes
+        nothing: JAX places an eval batch with other shardings, but a
+        rank's batch is placed whole either way here."""
+        drop_last = self.config.dataloader_drop_last
+        loader = DeepSpeedDataLoader(
+            dataset,
+            batch_size=batch_size or self.train_micro_batch_size_per_gpu(),
+            shuffle=data_sampler is None,
+            drop_last=True if drop_last is None else drop_last,
+            collate_fn=collate_fn or self.collate_fn,
+            data_sampler=data_sampler,
+            num_local_io_workers=num_local_io_workers,
+            process_index=self.dp_rank,
+            process_count=self.dp_world_size)
+        if not self._prefetch_cfg.enabled:
+            if num_local_io_workers and not self._warned_io_workers:
+                self._warned_io_workers = True
+                logger.warning(
+                    f"num_local_io_workers={num_local_io_workers} has no "
+                    f"effect while data_prefetch is disabled: the loader "
+                    f"collates synchronously on the consumer thread. "
+                    f"Enable the 'data_prefetch' config block (or set "
+                    f"DS_DATA_PREFETCH=1) to run the input pipeline in "
+                    f"the background with that worker count.")
+            return loader
+        wrapped = PrefetchLoader(
+            loader, depth=self._prefetch_cfg.depth,
+            num_workers=num_local_io_workers or 1,
+            place_fn=self._prefetch_place_fn())
+        self._prefetchers.append(wrapped)
+        return wrapped
+
+    def _prefetch_place_fn(self):
+        """The prefetch device stage's placement (JAX engine.py:3454-3490):
+        on a card, a :class:`~deepspeed_tpu_torch.runtime.prefetch.
+        CudaBatchPlacer` (pinned copies on a copy stream of the engine's
+        device, handed to the consumer's stream at ``next()``); on the
+        CPU, :func:`_to_device`. None when the stage stays off:
+        ``data_prefetch.to_device`` false, or curriculum learning (the
+        scheduled truncation slices the host batch at each step; warned
+        once). Placement runs no collective."""
+        if not self._prefetch_cfg.to_device:
+            return None
+        if self.curriculum_scheduler is not None:
+            if not self._warned_prefetch_host_only:
+                self._warned_prefetch_host_only = True
+                logger.warning(
+                    "data_prefetch: device stage disabled under "
+                    "curriculum learning (the scheduled truncation "
+                    "slices the host batch per step); host-side "
+                    "prefetch stays on")
+            return None
+        if self.device.type == "cuda":
+            return CudaBatchPlacer(self.device)
+        return functools.partial(_to_device, device=self.device)
+
+    def _maybe_prefetch_iter(self, data_iter):
+        """Wrap an iterator given to ``train_batch`` in a prefetch
+        pipeline, one a source (cached by identity; JAX
+        engine.py:3492-3537). A pipeline already, or a ``RepeatingLoader``
+        over a ``deepspeed_io`` ``PrefetchLoader``, passes through. A
+        stateful iterator (``state_dict`` / ``load_state_dict``) is not
+        wrapped (warned once): a puller outside it would move its resume
+        position up to ``depth`` batches past what training consumed, so
+        ``save_checkpoint(data_iter=)`` would record a future position.
+        The pipeline belongs inside the counter: a ``RepeatingLoader``
+        over a prefetch-enabled ``deepspeed_io`` loader."""
+        if data_iter is None or not self._prefetch_cfg.enabled:
+            return data_iter
+        if isinstance(data_iter, PrefetchIterator):
+            return data_iter
+        if isinstance(getattr(data_iter, "loader", None), PrefetchLoader):
+            return data_iter
+        if hasattr(data_iter, "state_dict") \
+                and hasattr(data_iter, "load_state_dict"):
+            if not self._warned_prefetch_stateful:
+                self._warned_prefetch_stateful = True
+                logger.warning(
+                    f"data_prefetch: not wrapping the stateful iterator "
+                    f"{type(data_iter).__name__!r} passed to train_batch "
+                    f"(a background puller would advance its resume "
+                    f"counters ahead of consumption); build the loader "
+                    f"via engine.deepspeed_io(...) and wrap THAT in "
+                    f"RepeatingLoader to get prefetch AND deterministic "
+                    f"resume")
+            return data_iter
+        cached = self._prefetch_wrap_cache.get(id(data_iter))
+        if cached is not None and cached[0] is data_iter:
+            return cached[1]
+        # drop closed pipelines (the source held in the cache keeps its
+        # id() valid while its pipeline lives)
+        self._prefetch_wrap_cache = {
+            k: v for k, v in self._prefetch_wrap_cache.items()
+            if not v[1]._closed}
+        wrapped = PrefetchIterator(
+            data_iter, depth=self._prefetch_cfg.depth,
+            place_fn=self._prefetch_place_fn())
+        self._prefetch_wrap_cache[id(data_iter)] = (data_iter, wrapped)
+        return wrapped
 
     # ------------------------------------------------------------ checkpoints
     # The JAX engine's tag format (runtime/engine.py:3628-4135): per tag
@@ -1968,10 +2158,17 @@ class DeepSpeedEngine:
 
     def close(self):
         """Drain the async writer (a failed background save re-raises
-        here, its last chance to surface) and release the pinned snapshot
-        buffers. Idempotent."""
+        here, its last chance to surface), release the pinned snapshot
+        buffers and stop every prefetch pipeline (their threads joined).
+        Idempotent."""
         try:
             if self._ckpt_writer is not None:
                 self._ckpt_writer.close()
         finally:
             self._pinned = {}
+            for loader in self._prefetchers:
+                loader.close()
+            self._prefetchers = []
+            for _, wrapped in self._prefetch_wrap_cache.values():
+                wrapped.close()
+            self._prefetch_wrap_cache = {}

@@ -181,6 +181,20 @@ def test_unported_keys_raise(over, what):
         JaxConfig(basic(**over), data_parallel_size=1)
         assert cfg._param_dict["moe"] == {"enabled": True}
         return
+    if what in ("data_prefetch", "curriculum", "layer drop"):
+        # ported: the data path's blocks are read as the JAX config reads
+        # them (the engine's deepspeed_io and forward act on them)
+        cfg = DeepSpeedConfig(basic(**over))
+        jax_cfg = JaxConfig(basic(**over), data_parallel_size=1)
+        for mine, ref in ((cfg.data_prefetch, jax_cfg.data_prefetch),
+                          (cfg.curriculum_config,
+                           jax_cfg.curriculum_config),
+                          (cfg.pld_config, jax_cfg.pld_config)):
+            assert vars(mine) == vars(ref)
+        assert (cfg.curriculum_enabled, cfg.pld_enabled) == \
+            (jax_cfg.curriculum_enabled, jax_cfg.pld_enabled)
+        assert cfg.dataloader_drop_last is jax_cfg.dataloader_drop_last
+        return
     if what in ("stage=2", "stage=3", "offload_optimizer", "cpu_offload",
                 "cpu_offload_params", "offload_param",
                 "cpu_offload_params at stage 3"):

@@ -30,6 +30,7 @@ from deepspeed_tpu.models import gpt2 as jax_gpt2
 from deepspeed_tpu.utils import groups
 from deepspeed_tpu_torch.bridge import flax_to_state_dict
 from deepspeed_tpu_torch.models import gpt2
+from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
 from tests.model import oracle
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
@@ -211,10 +212,17 @@ def test_initialize_contract_and_unported_arguments(setup):
     assert isinstance(engine, deepspeed_tpu_torch.DeepSpeedEngine)
     assert loader is None and sched is None
     assert engine.get_lr() == [oracle.LR]
-    for kw in ({"training_data": [1]}, {"mpu": object()}):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            deepspeed_tpu_torch.initialize(model=model, config=_config(),
-                                           device="cpu", **kw)
+    # the dataloader is ported: training_data comes back as the loader
+    # of this rank's micro-batches (tests/test_torch_data_engine.py)
+    rows = [{"input_ids": np.arange(32) % 512}] * (2 * oracle.BATCH_SIZE)
+    engine, _, loader, _ = deepspeed_tpu_torch.initialize(
+        model=model, config=_config(), device="cpu", training_data=rows)
+    assert isinstance(loader, DeepSpeedDataLoader)
+    assert loader is engine.training_dataloader and len(loader) == 2
+    assert next(iter(loader))["input_ids"].shape == (oracle.BATCH_SIZE, 32)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        deepspeed_tpu_torch.initialize(model=model, config=_config(),
+                                       device="cpu", mpu=object())
     # a client optimizer or scheduler is ported: a foreign one raises
     for kw in ({"optimizer": object()}, {"lr_scheduler": object()}):
         with pytest.raises(TypeError, match="client"):
