@@ -290,7 +290,36 @@ Phases, each fatal on failure:
    lengths JAX's schedule gives (304, 544, 784, 1024), exactly 24
    flash_fwd, 24 dq, 24 dk/dv and 1 adam a step, and phase 7's 2-layer
    parity at S 72 and S 200 (the engine cuts the 1024 batch); (d) no
-   ``ds-prefetch-*`` thread alive after ``close()``.
+   ``ds-prefetch-*`` thread alive after ``close()``;
+23. the serving observatory and the router (GPT-2 medium, bf16, phase
+   16's ``SERVE_CFG`` with the gather impl replayed as a CUDA graph;
+   every file in a ``tempfile.mkdtemp()`` directory, removed at the
+   end): (a) phase 16's 32-request trace with ``serving.observability``
+   on (window 16, trace lanes, an enabled tracer), off, on with its hooks
+   timed, off: tokens equal request by request, the slot ledger summing
+   exactly to steps x 8 x 1 with every kept token one ``decode_useful``
+   unit, every timeline queued -> admitted -> first_token -> finished in
+   order, the snapshot strict JSON with the JAX schema string, and under
+   ``torch.cuda.set_sync_debug_mode("warn")`` the same count of
+   synchronizing calls in 16 steps of decode on as off; useful tokens/s
+   each way, the hooks' host ms a step, ``wasted_fraction``; (b) phase
+   16's undersized pool (129 blocks) observed: the report's preemption
+   reasons and recompute tokens equal the server's counters, and
+   ``close()`` writes the final snapshot; (c) two ``ServingEngine``
+   replicas of the one engine (each its own KV pool, the prefix cache
+   on) behind ``ServingRouter``, observed under an SLO no run can breach:
+   two seeded 256-token system prompts, 16 requests each (phase 16's
+   tails and lengths), one warm-up request a group submitted together and
+   served, then the other 30 at once; the two warm-ups land on different
+   replicas, each group's 15 on the replica that holds its prefix with
+   16 affinity blocks, no ``ttft_slo_breach`` / ``queue_growth``, router
+   ids unique and each collected once, tokens equal one engine's for the
+   same requests (a divergence only at a near tie, checked in fp32 as in
+   phase 16); ``routed_by_replica``, prefix hits a replica, useful
+   tokens/s, TTFT and inter-token latency p50/p99; (d) a ``RunChronicle``
+   armed for (c): one ``router`` event a request, its report strict JSON,
+   no writer thread after ``close()`` and the global chronicle disabled
+   again.
 
 Prints an ``e2e`` JSON line, a ``train`` JSON line, a ``bert`` JSON line,
 a ``moq`` JSON line, an ``int8`` JSON line, a ``sparse`` JSON line, a
@@ -308,7 +337,8 @@ sweep-moment gather; the lse-gradient errors; ring / Ulysses), a ``moe``
 JSON line (phase 19's figures and checks, its launches by kernel row), a
 ``zero`` JSON line (phase 20's runs and checks), an ``offload`` JSON
 line (phase 21's figures and checks), a ``data`` JSON line (phase 22's
-figures and checks, its launches by kernel row), a ``kernels`` JSON
+figures and checks, its launches by kernel row), a ``serve_obs`` JSON
+line (phase 23's figures and checks), a ``kernels`` JSON
 line (the softmax, on no path as in the JAX package, with 0 launches,
 and its C entry's and ``torch.softmax``'s device times from the
 profiler; the decode rows' ``single_stream`` and
@@ -2998,9 +3028,9 @@ def serve_trace(torch, np, srv, trace):
         times.setdefault(req.req_id, []).extend([now] * n)
         return n
 
-    def timed_decode(slots):
+    def timed_decode(*args):
         t0 = time.perf_counter()
-        run_decode(slots)
+        run_decode(*args)
         dispatch_s.append(time.perf_counter() - t0)
 
     srv._deliver, srv._run_decode = timed_deliver, timed_decode
@@ -5110,6 +5140,403 @@ def data_phase(torch, deepspeed_tpu_torch, gpt2, attn_mod, decode,
     return line, rows
 
 
+# phase 23, the serving observatory and the router: GPT-2 medium with
+# phase 16's server configuration (the gather impl replayed as a CUDA
+# graph), nothing cut
+OBS_WINDOW = 16              # scheduler steps a window of the observatory
+ROUTER_PREFIX = 256          # each group's system prompt
+ROUTER_GROUP = 16            # requests a group (one warm-up + 15)
+OBS_HOOKS = ("record_submit", "on_admit", "on_preempt",
+             "on_admission_fail", "record_prefill", "record_decode",
+             "record_first_token", "record_finish", "end_step")
+
+
+def obs_block(tmp, name, **over):
+    """A ``serving.observability`` block writing under ``tmp``."""
+    return dict({"enabled": True, "window": OBS_WINDOW, "trace_lanes": True,
+                 "snapshot_file": os.path.join(tmp, name)}, **over)
+
+
+@contextlib.contextmanager
+def timed_hooks(obs):
+    """Host seconds spent inside the observatory's hooks (the scheduler
+    holds the same object as its observer, so instance attributes catch
+    both call sites)."""
+    spent = [0.0]
+
+    def wrap(fn):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[0] += time.perf_counter() - t0
+        return timed
+
+    for name in OBS_HOOKS:
+        setattr(obs, name, wrap(getattr(obs, name)))
+    try:
+        yield spent
+    finally:
+        for name in OBS_HOOKS:
+            delattr(obs, name)
+
+
+def count_syncs(torch, srv, trace):
+    """Synchronizing calls in SERVE_WINDOW steps of pure decode (8
+    requests of the trace's first prompts cut to 32 tokens), counted by
+    ``torch.cuda.set_sync_debug_mode("warn")``'s warnings (its one-time
+    notice that the mode is a prototype is not a call)."""
+    import warnings
+    from deepspeed_tpu_torch.serving.scheduler import RequestState
+    for p, _ in trace[:srv.max_batch]:
+        srv.submit(p[:32], max_new_tokens=SERVE_NEW[1])
+    while sum(r is not None and r.state is RequestState.RUNNING
+              for r in srv.scheduler.slots) < srv.max_batch:
+        srv.step()
+    srv.step()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(SERVE_WINDOW):
+                srv.step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    srv.serve_forever()      # drain
+    return sum("called a synchronizing cuda operation" in
+               str(w.message).lower() for w in seen)
+
+
+def check_timelines(report, n):
+    """Every request's timeline reads queued -> admitted -> first_token
+    -> finished in order, with monotonic times."""
+    tls = report["timelines"]["recent"]
+    if len(tls) != n or report["timelines"]["active"]:
+        raise AssertionError(f"serve_obs: {len(tls)} finished timelines, "
+                             f"expected {n}")
+    for tl in tls:
+        names = [e["event"] for e in tl["events"]]
+        at = [names.index(k) if k in names else -1 for k in (
+            "queued", "admitted", "first_token", "finished")]
+        ts = [e["t_ms"] for e in tl["events"]]
+        if at[0] != 0 or not 0 < at[1] < at[2] < at[3] or \
+                at[3] != len(names) - 1 or ts != sorted(ts):
+            raise AssertionError(f"serve_obs: timeline of request "
+                                 f"{tl['req_id']} out of order: {names}")
+
+
+def load_strict(path):
+    with open(path) as f:
+        return json.load(f, parse_constant=lambda tok: (_ for _ in ()).throw(
+            AssertionError(f"{path} carries a bare {tok}")))
+
+
+def router_trace(np, vocab):
+    """Two groups of ROUTER_GROUP requests, each behind its own seeded
+    ROUTER_PREFIX-token system prompt (seeds 1 and 2), interleaved; the
+    tails and lengths drawn as in :func:`serving_trace`. Returns the
+    trace and each request's group."""
+    rng = np.random.default_rng(0)
+    heads = [np.random.default_rng(s).integers(0, vocab, ROUTER_PREFIX)
+             for s in (1, 2)]
+    trace, groups = [], []
+    for i in range(2 * ROUTER_GROUP):
+        p = int(rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1))
+        g = int(rng.integers(SERVE_NEW[0], SERVE_NEW[1] + 1))
+        ids = np.concatenate([heads[i % 2], rng.integers(0, vocab, p)])
+        trace.append((ids[:SERVE_PROMPT[1]], g))
+        groups.append(i % 2)
+    return trace, groups
+
+
+def route_trace(torch, np, router, trace, warm):
+    """The warm-up (the requests ``warm``, submitted together, served to
+    completion), then the other requests submitted at once and served.
+    Returns tokens request by request, each submit's decision and the
+    end-to-end numbers of the second part (as :func:`serve_trace`)."""
+    times, saved = {}, []
+    for ri, srv in enumerate(router.engines):
+        deliver = srv._deliver
+
+        def timed(req, tokens, now, deliver=deliver, ri=ri):
+            n = deliver(req, tokens, now)
+            times.setdefault((ri, req.req_id), []).extend([now] * n)
+            return n
+        saved.append(deliver)
+        srv._deliver = timed
+    rest = [i for i in range(len(trace)) if i not in warm]
+    rid, decisions, outs = {}, {}, {}
+
+    def submit(idx):
+        for i in idx:
+            rid[i] = router.submit(trace[i][0], max_new_tokens=trace[i][1])
+            decisions[i] = router.last_decision
+
+    def drain():
+        for o in router.serve_forever():
+            if o.req_id in outs:
+                raise AssertionError(f"serve_obs: router id {o.req_id} "
+                                     f"collected twice")
+            outs[o.req_id] = o
+
+    try:
+        submit(warm)
+        drain()
+        times.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        submit(rest)
+        drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for srv, deliver in zip(router.engines, saved):
+            srv._deliver = deliver
+    if sorted(outs) != list(range(len(trace))) or \
+            sorted(rid.values()) != list(range(len(trace))):
+        raise AssertionError("serve_obs: router ids not unique or not "
+                             "all collected once")
+    ttft = [outs[rid[i]].ttft_s * 1e3 for i in rest]
+    itl = [(b - a) * 1e3 for ts in times.values()
+           for a, b in zip(ts, ts[1:])]
+    n_tok = sum(len(outs[rid[i]].tokens) for i in rest)
+    return {"tokens": [outs[rid[i]].tokens for i in range(len(trace))],
+            "reasons": [outs[rid[i]].finish_reason
+                        for i in range(len(trace))],
+            "decisions": decisions,
+            "metrics": {
+                "wall_s": wall, "useful_tokens": n_tok,
+                "useful_tokens_per_s": n_tok / wall,
+                "ttft_ms_p50": float(np.percentile(ttft, 50)),
+                "ttft_ms_p99": float(np.percentile(ttft, 99)),
+                "itl_ms_p50": float(np.percentile(itl, 50)),
+                "itl_ms_p99": float(np.percentile(itl, 99))}}
+
+
+def serve_obs_phase(torch, np, deepspeed_tpu_torch, gpt2, op_builder, cfg,
+                    card):
+    """Phase 23: the serving observatory and ``ServingRouter`` on GPT-2
+    medium (see the module docstring). Returns the ``serve_obs`` line and
+    the decode-kernel launches of its main-path runs."""
+    import tempfile
+    import threading
+    from deepspeed_tpu_torch.serving import ServingRouter
+    from deepspeed_tpu_torch.telemetry import chronicle as chron_mod
+    from deepspeed_tpu_torch.telemetry import tracer as tracer_mod
+    t_phase = time.perf_counter()
+    vocab = cfg.vocab_size
+    tmp = tempfile.mkdtemp(prefix="serve_obs_")
+    trace = serving_trace(np, vocab)
+    eng = deepspeed_tpu_torch.init_inference(gpt2.GPT2LMHeadModel(cfg, seed=0),
+                                             dtype=torch.bfloat16)
+    line = {"card": card, "config": dict(SERVE_CFG, attention_impl="gather",
+                                         model="gpt2-medium",
+                                         requests=SERVE_REQUESTS,
+                                         prompt=SERVE_PROMPT, new=SERVE_NEW,
+                                         obs_window=OBS_WINDOW)}
+    counts = collections.Counter()
+
+    def server(**over):
+        c = dict(SERVE_CFG, attention_impl="gather", **over)
+        srv = deepspeed_tpu_torch.init_serving(engine=eng,
+                                               config={"serving": c})
+        if srv.compile_stats().get("graph_captures") != 1:
+            raise AssertionError(f"serve_obs: {srv.compile_stats()}")
+        return srv
+
+    def main_path(srv, tr):
+        op_builder.reset_launch_counts()
+        res = serve_trace(torch, np, srv, tr)
+        launched = dict(op_builder.LAUNCHES)
+        counts.update(launched)
+        res["metrics"]["launches"] = launched
+        if set(launched) != {"decode_attention"}:
+            raise AssertionError(f"serve_obs: launches {launched}")
+        return res
+
+    try:
+        # (a) the observatory on one engine, in turns: off, on (an
+        # enabled tracer taking the lanes), on with its hooks timed, off
+        off = server()
+        runs = {"off": main_path(off, trace)}
+        tracer = tracer_mod.Tracer(enabled=True)
+        old_tracer = tracer_mod.set_tracer(tracer)
+        try:
+            on = server(observability=obs_block(tmp, "a.json"))
+            runs["on"] = main_path(on, trace)
+        finally:
+            tracer_mod.set_tracer(old_tracer)
+        on2 = server(observability=obs_block(tmp, "a2.json"))
+        with timed_hooks(on2.observatory) as spent:
+            runs["on_timed"] = main_path(on2, trace)
+        runs["off_again"] = main_path(off, trace)
+        for name in ("off", "on_timed", "off_again"):
+            if runs[name]["tokens"] != runs["on"]["tokens"]:
+                raise AssertionError(f"serve_obs: tokens of the {name} run "
+                                     f"differ from the observed run's")
+        rep = on.serving_report(write=True)
+        led = rep["slot_ledger"]
+        if led["total_units"] != led["steps"] * SERVE_CFG["max_batch"] * 1 \
+                or sum(led["units"].values()) != led["total_units"] or \
+                led["units"]["decode_useful"] != sum(
+                    len(t) for t in runs["on"]["tokens"]):
+            raise AssertionError(f"serve_obs: slot ledger {led}")
+        check_timelines(rep, SERVE_REQUESTS)
+        snap = load_strict(on.observatory.snapshot_path)
+        if snap["schema"] != "deepspeed_tpu.serving_health/3":
+            raise AssertionError(f"serve_obs: schema {snap['schema']}")
+        lanes = [e for e in tracer.events()
+                 if 0 <= e.get("tid", 0) - tracer_mod._LANE_TID_BASE < 1000]
+        syncs = {"on": count_syncs(torch, server(observability=obs_block(
+            tmp, "sync.json")), trace), "off": count_syncs(torch, server(),
+                                                           trace)}
+        if syncs["on"] != syncs["off"] or syncs["on"] == 0:
+            raise AssertionError(f"serve_obs: synchronizing calls {syncs}")
+        steps = on2.observatory.steps_seen
+        tps = {k: v["metrics"]["useful_tokens_per_s"] for k, v in runs.items()}
+        line["observatory"] = {
+            "useful_tokens_per_s": tps,
+            "on_vs_off": (tps["on"] + tps["on_timed"])
+            / (tps["off"] + tps["off_again"]) - 1,
+            "obs_host_ms_per_step": spent[0] * 1e3 / steps,
+            "steps": steps, "wasted_fraction": led["wasted_frac"],
+            "slot_ledger_units": led["units"], "ledger_steps": led["steps"],
+            "verdict": rep["verdict"],
+            "anomaly_counts": rep["counters"]["anomaly_counts"],
+            "lane_events": len(lanes),
+            "syncs_in_16_decode_steps": syncs,
+            "runs": {k: v["metrics"] for k, v in runs.items()}}
+        print(f"serve_obs (a): {json.dumps(line['observatory'])}",
+              flush=True)
+        del on, off, on2
+        torch.cuda.empty_cache()
+
+        # (b) preemption under the observatory: phase 16's undersized pool
+        pre = server(num_blocks=SERVE_PREEMPT_BLOCKS,
+                     observability=obs_block(tmp, "b.json",
+                                             warmup_windows=0,
+                                             preemption_thrash=1))
+        # the process registry's counter also holds phase 16's runs
+        burned = -pre.registry.counter("serving_recompute_tokens_total").value
+        res = main_path(pre, trace)
+        rep = pre.serving_report()
+        burned += pre.registry.counter("serving_recompute_tokens_total").value
+        if pre.scheduler.preemptions_total == 0 or \
+                rep["counters"]["preemptions_by_reason"] != \
+                dict(pre.scheduler.preemptions_by_reason) or \
+                rep["counters"]["recompute_tokens"] != burned:
+            raise AssertionError(f"serve_obs: preemption counters "
+                                 f"{rep['counters']} against the server's "
+                                 f"{dict(pre.scheduler.preemptions_by_reason)}"
+                                 f", {burned} recompute tokens")
+        before = pre.observatory._snapshots_written
+        pre.close()
+        if pre.observatory._snapshots_written != before + 1:
+            raise AssertionError("serve_obs: close() wrote no snapshot")
+        closed = load_strict(pre.observatory.snapshot_path)
+        line["preemption"] = {
+            "preemptions_by_reason": rep["counters"]["preemptions_by_reason"],
+            "recompute_tokens": rep["counters"]["recompute_tokens"],
+            "anomaly_counts": closed["counters"]["anomaly_counts"],
+            "wasted_fraction": rep["slot_ledger"]["wasted_frac"],
+            "slot_ledger_units": rep["slot_ledger"]["units"],
+            "metrics": res["metrics"]}
+        print(f"serve_obs (b): {json.dumps(line['preemption'])}", flush=True)
+        del pre
+        torch.cuda.empty_cache()
+
+        # (c) + (d): two replicas behind the router, a chronicle armed
+        rtrace, groups = router_trace(np, vocab)
+        warm = [groups.index(0), groups.index(1)]
+        ch = chron_mod.RunChronicle(run_dir=os.path.join(tmp, "chronicle"))
+        old_chron = chron_mod.set_chronicle(ch)
+        try:
+            reps = [server(prefix_cache={"enabled": True},
+                           observability=obs_block(
+                               tmp, f"replica{i}.json", ttft_slo_ms=1e9,
+                               trace_lanes=False))
+                    for i in range(2)]
+            router = ServingRouter(reps)
+            op_builder.reset_launch_counts()
+            routed = route_trace(torch, np, router, rtrace, warm)
+            launched = dict(op_builder.LAUNCHES)
+        finally:
+            chron_mod.set_chronicle(old_chron)
+            ch.close()
+        counts.update(launched)
+        fired = [a["rule"] for r in reps for a in r.observatory.anomalies]
+        if {"ttft_slo_breach", "queue_growth"} & set(fired):
+            raise AssertionError(f"serve_obs: SLO rules fired: {fired}")
+        if sorted(routed["decisions"][i].replica for i in warm) != [0, 1]:
+            raise AssertionError("serve_obs: the warm-up requests share a "
+                                 "replica")
+        home = {groups[i]: routed["decisions"][i].replica for i in warm}
+        for i, d in routed["decisions"].items():
+            if i in warm:
+                continue
+            want = ROUTER_PREFIX // SERVE_CFG["block_size"]
+            if d.replica != home[groups[i]] or d.affinity_blocks != want:
+                raise AssertionError(
+                    f"serve_obs: request {i} of group {groups[i]} went to "
+                    f"replica {d.replica} with {d.affinity_blocks} affinity "
+                    f"blocks (its prefix is on {home[groups[i]]})")
+        # the same requests through one engine, in the same order
+        single = server(prefix_cache={"enabled": True})
+        alone = ServingRouter([single])
+        op_builder.reset_launch_counts()
+        one = route_trace(torch, np, alone, rtrace, warm)
+        counts.update(op_builder.LAUNCHES)
+        del alone, single
+        gaps = []
+        if one["tokens"] != routed["tokens"]:
+            model32 = gpt2.GPT2LMHeadModel(cfg, seed=0)
+            deepspeed_tpu_torch.init_inference(model32, dtype=torch.float32)
+            gaps = compare_runs(torch, model32, rtrace, one, routed,
+                                "router vs one engine", vocab)
+            del model32
+        stats = router.stats()
+        line["router"] = {
+            "routed_by_replica": list(router.routed_by_replica),
+            "prefix_hits_by_replica": [
+                r["prefix_cache"]["hits"] for r in stats["replicas"]],
+            "prefix_stats": [r["prefix_cache"] for r in stats["replicas"]],
+            "affinity_blocks": sorted({d.affinity_blocks for d in
+                                       routed["decisions"].values()}),
+            "equal_requests_vs_one_engine": sum(
+                a == b for a, b in zip(one["tokens"], routed["tokens"])),
+            "near_tie_gaps": gaps,
+            "metrics": routed["metrics"],
+            "one_engine_metrics": one["metrics"],
+            "anomalies": fired}
+        print(f"serve_obs (c): {json.dumps(line['router'])}", flush=True)
+        rep = ch.report()
+        json.dumps(rep, allow_nan=False)
+        n_router = sum(e["source"] == "router" for e in rep["events"])
+        alive = [t.name for t in threading.enumerate()
+                 if t.name.startswith("ds-chronicle")]
+        if n_router != len(rtrace) or alive or ch._wthread.is_alive() or \
+                chron_mod.get_chronicle().enabled:
+            raise AssertionError(f"serve_obs: {n_router} router events, "
+                                 f"writer threads {alive}, global "
+                                 f"{chron_mod.get_chronicle().enabled}")
+        line["chronicle"] = {"n_events": rep["n_events"],
+                             "counts_by_source": rep["counts_by_source"],
+                             "router_events": n_router}
+        router.close()
+        del router, reps
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        del eng
+        torch.cuda.empty_cache()
+    line["launches_by_row"] = dict(counts)
+    line["phase_s"] = time.perf_counter() - t_phase
+    print(f"serve_obs: phase 23 took {line['phase_s']:.1f} s", flush=True)
+    return line, dict(counts)
+
+
+
 def finish_rows(rows, launches, max_err, card):
     """bound_ms (the larger of bytes at 3.35 TB/s and operations at the
     peak of their type), launches and max_abs_err for each row."""
@@ -5652,6 +6079,17 @@ def main():
         row["launches"] += data_counts.get(row["name"], 0)
     data_line["script_s"] = time.perf_counter() - script_t0
 
+    # 23. the serving observatory on phase 16's server, preemption under
+    # it, ServingRouter over two replicas on the card, the run chronicle
+    serve_obs_line, serve_obs_counts = serve_obs_phase(
+        torch, np, deepspeed_tpu_torch, gpt2, op_builder, cfg, card)
+    for row in rows:
+        n = serve_obs_counts.get(row["name"], 0)
+        row["launches"] += n
+        if n:
+            row.setdefault("launches_by_path", {})["serve_obs"] = n
+    serve_obs_line["script_s"] = time.perf_counter() - script_t0
+
     print(json.dumps({"e2e": e2e}))
     print(json.dumps({"train": train}))
     print(json.dumps({"bert": bert_line}))
@@ -5666,6 +6104,7 @@ def main():
     print(json.dumps({"zero": zero_line}))
     print(json.dumps({"offload": offload_line}))
     print(json.dumps({"data": data_line}))
+    print(json.dumps({"serve_obs": serve_obs_line}))
     print(json.dumps({"kernels": rows}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

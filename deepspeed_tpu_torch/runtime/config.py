@@ -252,10 +252,11 @@ def _env_flag(name, current):
 
 
 class DeepSpeedServingObservabilityConfig:
-    """``serving.observability`` (JAX config.py:719-795). Validated as
-    there; ``enabled`` raises ``NotImplementedError`` (the serving
-    observatory is not ported yet). ``DS_SERVING_OBS`` = 1/0
-    force-toggles ``enabled``."""
+    """``serving.observability`` (JAX config.py:719-795): the serving
+    observatory (telemetry/serving_observatory.py) — per-request
+    timelines and per-slot trace lanes, the slot-step ledger and the
+    windowed SLO rules escalating to ``snapshot_file``.
+    ``DS_SERVING_OBS`` = 1/0 force-toggles ``enabled``."""
 
     def __init__(self, serving_dict):
         o = serving_dict.get(C.SERVING_OBSERVABILITY, {}) or {}
@@ -304,9 +305,6 @@ class DeepSpeedServingObservabilityConfig:
                 raise DeepSpeedConfigError(
                     f"serving.observability.{name} must be {what}, got "
                     f"{getattr(self, name)}")
-        if self.enabled:
-            _not_ported("the serving observatory "
-                        "(serving.observability.enabled)")
 
 
 class DeepSpeedServingPrefixCacheConfig:
@@ -382,9 +380,12 @@ class DeepSpeedServingSpeculativeConfig:
 
 
 class DeepSpeedServingRouterConfig:
-    """``serving.router`` (JAX config.py:888-921). Validated as there;
-    ``replicas`` > 1 raises ``NotImplementedError`` (the router is not
-    ported yet)."""
+    """``serving.router`` (JAX config.py:888-921): the scoring weights of
+    ``ServingRouter`` (serving/router.py) over per-replica signals and
+    prefix affinity. ``breach_penalty`` dominates the load terms, so a
+    breaching replica only receives work when every replica breaches.
+    ``replicas`` is validated only: the caller builds the replicas and
+    hands them to ``ServingRouter``."""
 
     def __init__(self, serving_dict):
         r = serving_dict.get(C.SERVING_ROUTER, {}) or {}
@@ -412,9 +413,6 @@ class DeepSpeedServingRouterConfig:
                 raise DeepSpeedConfigError(
                     f"serving.router.{name} must be >= 0, got "
                     f"{getattr(self, name)}")
-        if self.replicas > 1:
-            _not_ported(f"the serving router (serving.router.replicas="
-                        f"{self.replicas})")
 
 
 class DeepSpeedServingConfig:

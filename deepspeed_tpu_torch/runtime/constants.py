@@ -194,8 +194,13 @@ SERVING_PREFIX_ENABLED_DEFAULT = False
 SERVING_PREFIX_CAPACITY_BLOCKS = "capacity_blocks"
 SERVING_PREFIX_CAPACITY_BLOCKS_DEFAULT = 0
 
-# serving.router: multi-replica admission (not ported yet: replicas > 1
-# raises)
+# serving.router: SLO-aware multi-replica admission (serving/router.py).
+# Each request is scored per replica as
+#   affinity_weight * matched-prefix-blocks
+#   - queue_weight * (queue_depth + active) - occupancy_weight * kv_occupancy
+#   - breach_penalty * (recent ttft_slo_breach or queue_growth)
+# and lands on the argmax. `replicas` is validated only: the caller builds
+# the replica engines and hands them to ServingRouter
 SERVING_ROUTER = "router"
 SERVING_ROUTER_REPLICAS = "replicas"
 SERVING_ROUTER_REPLICAS_DEFAULT = 1
@@ -208,8 +213,9 @@ SERVING_ROUTER_OCCUPANCY_WEIGHT_DEFAULT = 2.0
 SERVING_ROUTER_BREACH_PENALTY = "breach_penalty"
 SERVING_ROUTER_BREACH_PENALTY_DEFAULT = 100.0
 
-# serving.observability: the serving observatory (not ported yet:
-# enabled raises); DS_SERVING_OBS=1/0 force-toggles `enabled`
+# serving.observability: the serving observatory
+# (telemetry/serving_observatory.py); DS_SERVING_OBS=1/0 force-toggles
+# `enabled`
 SERVING_OBSERVABILITY = "observability"
 SERVING_OBS_ENABLED = "enabled"
 SERVING_OBS_ENABLED_DEFAULT = False

@@ -1,7 +1,7 @@
 """Continuous-batching scheduler — admit/evict between decode steps
 (counterpart of ``deepspeed_tpu/serving/scheduler.py``, ported as it is:
-pure host bookkeeping; the lifecycle ``observer`` hook stays ``None``
-until the serving observatory is ported).
+pure host bookkeeping; the lifecycle ``observer`` hook is the serving
+observatory when ``serving.observability`` is on).
 
 Orca-style iteration-level scheduling (OSDI '22) over a slot-based static
 batch: the decode step always runs ``max_batch`` slots; the

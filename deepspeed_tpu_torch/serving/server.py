@@ -17,9 +17,17 @@ signature-watched (telemetry/compile_watch.py), which is how the tests
 pin "exactly one decode program across a heterogeneous trace"; on CUDA
 the gather impl's decode is one captured graph, counted as a capture.
 
-Not ported yet: the serving observatory (``serving.observability``), the
-guardian, the mission-control server and SLO monitor, the HBM residency
-observatory, the run chronicle and ``profile_window``. Passing
+With ``serving.observability`` on, the serving observatory
+(telemetry/serving_observatory.py) books per-request timelines, the
+slot-step ledger and the windowed SLO rules from host values the server
+already holds; ``router_signals`` reads its recent anomalies for
+``ServingRouter`` (serving/router.py). Preemptions, the livelock last
+rites and refused submits go into the process-global run chronicle
+(telemetry/chronicle.py) when one is armed.
+
+Not ported yet: the guardian (and with it the pause / resume /
+speculation-disable hooks), the mission-control server and SLO monitor,
+the HBM residency observatory and ``profile_window``. Passing
 ``guardian``, ``obs_server`` or ``slo`` raises ``NotImplementedError``.
 """
 
@@ -36,24 +44,26 @@ from deepspeed_tpu_torch.serving.runner import PagedGPT2Runner
 from deepspeed_tpu_torch.serving.sampling import make_rng_lane
 from deepspeed_tpu_torch.serving.scheduler import (
     ContinuousBatchingScheduler, Request, RequestState)
+from deepspeed_tpu_torch.telemetry import chronicle as _chronicle
 from deepspeed_tpu_torch.telemetry import metrics as _metrics
 from deepspeed_tpu_torch.telemetry.compile_watch import CompileWatch
+from deepspeed_tpu_torch.telemetry.serving_observatory import (
+    SERVING_HEALTH_SCHEMA, ServingObservatory)
 from deepspeed_tpu_torch.telemetry.tracer import trace_span
 from deepspeed_tpu_torch.utils.logging import log_dist
 
 # latency histograms: serving cares about the 0.1 ms .. 10 s band
 _LAT_BUCKETS = (0.5, 1, 2.5, 5, 10, 25, 50, 100, 250, 500, 1000, 2500,
                 5000, 10000)
-# the report schema of the JAX package's observability-off branch
-SERVING_HEALTH_SCHEMA = "deepspeed_tpu.serving_health/3"
 _DECODE, _PREFILL = "serving_decode_step", "serving_prefill_chunk"
 _DRAFT, _VERIFY = "serving_draft_step", "serving_verify_step"
 
 
 class ServingLivelockError(RuntimeError):
     """serve_forever made no progress for its hard limit of iterations.
-    Carries the ``serving_report()`` dict (the scheduler/slot/KV state
-    dump) in ``.report``."""
+    Carries the ``serving_report()`` dict in ``.report``: the
+    scheduler/slot/KV state dump and, with observability on, the
+    slot-step ledger, windows and timelines."""
 
     def __init__(self, message, report=None):
         super().__init__(message)
@@ -61,9 +71,9 @@ class ServingLivelockError(RuntimeError):
 
 
 class ServingAdmissionPausedError(RuntimeError):
-    """``submit()`` refused a request because admission is paused (the
-    guardian's overload action, not ported yet). ``.rule`` names the
-    rule that paused it."""
+    """``submit()`` refused a request because admission is paused
+    (``_admission_pause_rule`` set; the guardian that sets it is not
+    ported yet). ``.rule`` names the rule that paused it."""
 
     def __init__(self, rule):
         super().__init__(
@@ -170,6 +180,23 @@ class ServingEngine:
             self.cache, max_batch=self.max_batch,
             max_model_len=self.max_model_len,
             decode_steps=dispatch_tokens)
+        # serving observatory: host bookkeeping only (timelines, the
+        # slot-step ledger, SLO rules); None when disabled, so every call
+        # site is one attribute check
+        obs_cfg = config.observability
+        self.observatory = None
+        if obs_cfg.enabled:
+            self.observatory = ServingObservatory.from_config(
+                obs_cfg, max_batch=self.max_batch,
+                decode_steps=dispatch_tokens, registry=self.registry,
+                engine_state_fn=self._engine_state,
+                spec_acceptance_floor=(spec_cfg.acceptance_floor
+                                       if self.speculative is not None
+                                       else None))
+            self.scheduler.observer = self.observatory
+        # None = admission open (the guardian that pauses it is not
+        # ported yet)
+        self._admission_pause_rule = None
         # shared-prefix KV reuse: the scheduler reads cache.prefix_cache
         # at admission; the server runs the planned COW forks and
         # registers full blocks as prefill/decode completes them
@@ -219,7 +246,16 @@ class ServingEngine:
                top_p=1.0, seed=0, eos_token_id=None) -> int:
         """Enqueue one request; returns its id. ``temperature<=0`` is
         greedy; otherwise temperature+top-p sampling on the request's own
-        seeded RNG lane."""
+        seeded RNG lane. Raises :class:`ServingAdmissionPausedError`
+        while admission is paused."""
+        if self._admission_pause_rule is not None:
+            self.registry.counter(
+                "serving_requests_rejected_total",
+                "submits refused while admission was paused",
+                labels={"reason": "admission_paused"}).inc()
+            self._chronicle_serving("submit_refused", severity="watch",
+                                    rule=self._admission_pause_rule)
+            raise ServingAdmissionPausedError(self._admission_pause_rule)
         prompt = [int(t) for t in np.asarray(prompt).reshape(-1)]
         vs = self.engine.module.config.vocab_size
         if prompt and (min(prompt) < 0 or max(prompt) >= vs):
@@ -239,6 +275,8 @@ class ServingEngine:
         self._next_id += 1
         self.scheduler.submit(req)
         self._lanes[req.req_id] = make_rng_lane(seed)
+        if self.observatory is not None:
+            self.observatory.record_submit(req)
         self.registry.counter("serving_requests_submitted_total",
                               "requests accepted by submit()").inc()
         self._publish_gauges()
@@ -252,16 +290,30 @@ class ServingEngine:
         with trace_span("serving_step"):
             plan = self.scheduler.schedule()
             progress = self._drain_failed()
+            # acts: slot -> what it did this step (the slot-step ledger's
+            # input), collected during the step because finished requests
+            # vacate their slots before it ends
+            acts = {}
             # COW forks first: a forked request may decode THIS step, and
             # its table already names the fork target
             for req in plan.cow_forks:
                 progress |= self._run_cow_fork(req)
             for req in plan.prefill:
-                progress |= self._run_prefill(req)
+                progress |= self._run_prefill(req, acts)
             if plan.decode_slots:
-                self._run_decode(plan.decode_slots)
+                self._run_decode(plan.decode_slots, acts)
                 progress = True
             self._publish_gauges()
+            if self.observatory is not None:
+                occupied = {i for i, r in enumerate(self.scheduler.slots)
+                            if r is not None}
+                self.observatory.end_step(
+                    acts, occupied,
+                    queue_depth=self.scheduler.num_waiting,
+                    active=self.scheduler.num_active,
+                    kv_occupancy=self.cache.allocator.occupancy(),
+                    kv_fragmentation=self._kv_fragmentation(),
+                    progress=progress)
         return progress
 
     def _fail_all_pending(self, reason):
@@ -276,11 +328,13 @@ class ServingEngine:
             req.finish_t = time.perf_counter()
             self._finished.append(req)
             count += 1
-        for req in self.scheduler.slots:
+        for slot, req in enumerate(self.scheduler.slots):
             if req is None:
                 continue
             self.scheduler.finish(req, reason)
             self._finished.append(req)
+            if self.observatory is not None:
+                self.observatory.record_finish(req, reason, slot)
             count += 1
         if count:
             self.registry.counter(
@@ -339,10 +393,13 @@ class ServingEngine:
                 req.block_table[b])
             req.indexed_blocks += 1
 
-    def _run_prefill(self, req) -> bool:
+    def _run_prefill(self, req, acts=None) -> bool:
+        slot, start = req.slot, req.cached_len
+        t0 = time.perf_counter_ns()
         with trace_span("serving_prefill", req=req.req_id):
             n_valid, n_recompute, done = self.prefill.run(
                 req, self.max_blocks_per_seq)
+        t1 = time.perf_counter_ns()
         self.registry.counter("serving_prefill_chunks_total",
                               "prefill chunks executed").inc()
         self.registry.counter("serving_prefill_tokens_total",
@@ -354,12 +411,21 @@ class ServingEngine:
                 "serving_recompute_tokens_total",
                 "tokens re-prefilled because a preemption evicted their "
                 "KV").inc(n_recompute)
+        if acts is not None:
+            # cached_prefill: the tail of a prefix-hit admission (useful
+            # work; recompute outranks it)
+            acts[slot] = ("recompute" if n_recompute
+                          else ("cached_prefill" if req.prefix_hit_blocks
+                                else "prefill"), n_valid)
         self._index_blocks(req)
+        if self.observatory is not None:
+            self.observatory.record_prefill(req, slot, start, n_valid,
+                                            n_recompute, t0, t1, done)
         if done:
             req.state = RequestState.RUNNING
         return True
 
-    def _run_decode(self, decode_slots):
+    def _run_decode(self, decode_slots, acts=None):
         B = self.max_batch
         MB = self.max_blocks_per_seq
         slots = self.scheduler.slots
@@ -383,6 +449,7 @@ class ServingEngine:
             lanes[i] = self._lanes[r.req_id]
             budget[i] = r.step_budget
         spec = self.speculative
+        t0 = time.perf_counter_ns()
         with trace_span("serving_decode", batch=len(decode_slots)):
             if spec is not None:
                 # draft -> verify, device to device: the drafted tokens
@@ -396,12 +463,24 @@ class ServingEngine:
             else:
                 toks = self._decode_fn(bt, pos, active, tok, temp, top_p,
                                        lanes, budget).cpu().numpy()
+        # after the token read above, the dispatch's one sync: the
+        # observatory's stamps add none
+        t1 = time.perf_counter_ns()
         now = time.perf_counter()
         self.registry.counter("serving_decode_steps_total",
                               "decode dispatches executed").inc()
+        if self.observatory is not None:
+            # before delivery, so each timeline's decode_begin precedes
+            # its first_token
+            self.observatory.record_decode(
+                {i: (slots[i], int(budget[i])) for i in decode_slots},
+                t0, t1)
         if spec is None:
             for i in decode_slots:
-                self._deliver(slots[i], toks[:budget[i], i].tolist(), now)
+                delivered = self._deliver(slots[i],
+                                          toks[:budget[i], i].tolist(), now)
+                if acts is not None:
+                    acts[i] = ("decode", delivered)
             return
         # speculative delivery: per slot, min(accepted+1, budget) tokens
         # are real (accepted drafts + the target's bonus token); the rest
@@ -411,13 +490,16 @@ class ServingEngine:
             r = slots[i]
             b = int(budget[i])
             cap = min(int(accepted[i]) + 1, b)
-            self._deliver(r, toks[:cap, i].tolist(), now)
+            delivered = self._deliver(r, toks[:cap, i].tolist(), now)
             considered = min(spec.k, max(b - 1, 0))
+            rejected = considered - (cap - 1)
             r.spec_drafted += considered
             r.spec_accepted += cap - 1
             drafted_t += considered
             accepted_t += cap - 1
-            rejected_t += considered - (cap - 1)
+            rejected_t += rejected
+            if acts is not None:
+                acts[i] = ("decode", delivered, rejected)
         if drafted_t:
             drafted_c = self.registry.counter(
                 "serving_spec_drafted_total",
@@ -440,7 +522,8 @@ class ServingEngine:
     def _deliver(self, req, tokens, now):
         """Hand a dispatch's tokens to the request (anything it samples
         past eos/max_tokens/model_len is discarded). Returns the KEPT
-        token count."""
+        token count (the slot-step ledger's ``decode_useful``)."""
+        slot = req.slot
         prev = req.last_token_t if req.first_token_t is not None else None
         delivered = 0
         reason = None
@@ -465,9 +548,12 @@ class ServingEngine:
         req.last_token_t = now
         if req.first_token_t is None:
             req.first_token_t = now
+            ttft_ms = (now - req.submit_t) * 1e3
             self.registry.histogram(
                 "serving_ttft_ms", "submit -> first generated token",
-                buckets=_LAT_BUCKETS).observe((now - req.submit_t) * 1e3)
+                buckets=_LAT_BUCKETS).observe(ttft_ms)
+            if self.observatory is not None:
+                self.observatory.record_first_token(req, ttft_ms)
             extra = 0      # same-dispatch tokens are part of the TTFT
         else:
             extra = delivered
@@ -487,6 +573,8 @@ class ServingEngine:
         if reason is not None:
             self.scheduler.finish(req, reason)
             self._finished.append(req)
+            if self.observatory is not None:
+                self.observatory.record_finish(req, reason, slot)
             self.registry.counter(
                 "serving_requests_finished_total",
                 "requests completed", labels={"reason": reason}).inc()
@@ -509,6 +597,12 @@ class ServingEngine:
         self.registry.gauge("serving_kv_free_blocks",
                             "usable KV blocks currently free").set(
                                 self.cache.allocator.num_free)
+        if self.observatory is not None:
+            self.registry.gauge(
+                "serving_kv_fragmentation",
+                "fraction of allocated KV positions no token has been "
+                "written to (block-granularity over-allocation)").set(
+                    self._kv_fragmentation())
         pc = self.cache.prefix_cache
         if pc is not None:
             for name, help_, total in (
@@ -530,8 +624,11 @@ class ServingEngine:
                 "serving_preemptions_total",
                 "evictions under block pressure, by reason",
                 labels={"reason": reason})
-            if total > pre.value:
-                pre.inc(total - pre.value)
+            delta = total - pre.value
+            if delta > 0:
+                pre.inc(delta)
+                self._chronicle_serving("preemption", severity="watch",
+                                        reason=reason, count=delta)
 
     # ----------------------------------------------------------- collect
     def collect(self) -> List[RequestOutput]:
@@ -561,6 +658,7 @@ class ServingEngine:
         idle = 0
         while True:
             while source is not None and \
+                    self._admission_pause_rule is None and \
                     self.scheduler.num_waiting < 2 * self.max_batch:
                 try:
                     self.submit(**next(source))
@@ -573,9 +671,14 @@ class ServingEngine:
             if idle > 1000:
                 # the scheduler guarantees forward progress; a long idle
                 # spin means that invariant broke: every pending request
-                # fails with a structured reason, and the state dump
-                # rides the exception
+                # fails with a structured reason, the forensics snapshot
+                # is forced to disk, and the report rides the exception
                 n = self._fail_all_pending("livelock")
+                self._chronicle_serving(
+                    "livelock", severity="critical", failed=n,
+                    detail=f"no progress for 1000 iterations; failed {n} "
+                           f"pending request(s)")
+                report = self.serving_report(write=True)
                 raise ServingLivelockError(
                     "serving made no progress for 1000 iterations — "
                     f"failed {n} pending request(s) with reason "
@@ -583,7 +686,7 @@ class ServingEngine:
                     f"kv_free={self.cache.allocator.num_free}/"
                     f"{self.cache.allocator.num_usable} blocks "
                     "(scheduler/slot/KV state dump attached as "
-                    ".report)", report=self.serving_report())
+                    ".report)", report=report)
             outputs.extend(self.collect())
             steps += 1
             if max_steps is not None and steps >= max_steps:
@@ -643,22 +746,69 @@ class ServingEngine:
         }
 
     def router_signals(self):
-        """The per-replica admission signals a router scores. With the
-        observatory not ported the SLO flags stay False, so routing
-        reads load and affinity only."""
-        return {
+        """The per-replica admission signals a :class:`ServingRouter`
+        scores: queue and occupancy pressure, and whether the observatory
+        fired ``ttft_slo_breach`` or ``queue_growth`` within its last two
+        windows. With observability off the SLO flags stay False and
+        routing reads load and affinity only."""
+        sig = {
             "queue_depth": self.scheduler.num_waiting,
             "active": self.scheduler.num_active,
             "kv_occupancy": self.cache.allocator.occupancy(),
             "ttft_slo_breach": False,
             "queue_growth": False,
         }
+        obs = self.observatory
+        if obs is not None:
+            horizon = obs.steps_seen - 2 * obs.window
+            for a in obs.anomalies:
+                if a.get("step", 0) >= horizon and \
+                        a.get("rule") in ("ttft_slo_breach",
+                                          "queue_growth"):
+                    sig[a["rule"]] = True
+        return sig
 
-    def serving_report(self):
-        """The serving forensics dict of the observability-off branch:
-        the live scheduler/slot/KV dump under ``engine_state``."""
+    def _chronicle_serving(self, event, severity=None, detail=None,
+                           **data):
+        """A serving event into the run chronicle (preemption, livelock
+        last rites, a refused submit). ``step`` is the serving step
+        clock, which the guardian and SLO ticks advance (not ported: 0),
+        not a training step."""
+        chron = _chronicle.get_chronicle()
+        if chron.enabled:
+            chron.emit("serving", source="serving", step=0,
+                       severity=severity, detail=detail, event=event,
+                       **data)
+
+    def chronicle_report(self, write=False):
+        """The wrapped engine's ``chronicle_report`` where it has one
+        (the chronicle is process-global; the serving events above are in
+        the same timeline), else ``{"enabled": False}``."""
+        fn = getattr(self.engine, "chronicle_report", None)
+        if fn is not None:
+            return fn(write=write)
+        return {"enabled": False}
+
+    def serving_report(self, write=False):
+        """The serving forensics dict: the observatory's report
+        (slot-step ledger, windows, SLO anomalies, per-request timelines)
+        with the live scheduler/slot/KV dump under ``engine_state``. With
+        observability off, the dump alone. ``write=True`` also writes it
+        to the observatory's ``snapshot_file`` (observability on only)."""
+        if self.observatory is not None:
+            report = self.observatory.report()
+            if write:
+                self.observatory.write_snapshot(report=report, force=True)
+            return report
         return {"schema": SERVING_HEALTH_SCHEMA, "enabled": False,
                 "engine_state": self._engine_state()}
+
+    def close(self):
+        """Teardown: force the observatory's final snapshot, so anomalies
+        whose repeat firings all landed inside the snapshot throttle
+        still reach ``snapshot_file``. Safe with observability off."""
+        if self.observatory is not None:
+            self.observatory.close()
 
     def compile_stats(self):
         """Signature counts per entry point (the 'one decode program'

@@ -8,6 +8,11 @@ a ``torch.profiler`` trace (the JAX form annotates ``jax.profiler``).
 
 The disabled tracer is the hot path: ``trace_span`` returns one shared
 no-op context manager, with no allocation and no clock read.
+
+Synthetic lanes (the serving observatory's per-slot lanes) go in through
+``emit`` with a tid from :func:`allocate_lane_tid`, and name themselves
+with "M" thread-name events; ``set_process_label`` tags the export with
+process metadata.
 """
 
 import json
@@ -67,6 +72,15 @@ class Tracer:
         self._events = []
         self._lock = threading.Lock()
         self._pid = os.getpid()
+        self._process_label = None
+        self._process_sort = None
+
+    def set_process_label(self, name, sort_index=None):
+        """Tag this process's trace: ``export`` prepends
+        ``process_name`` / ``process_sort_index`` metadata, so per-rank
+        trace files carry their identity when concatenated."""
+        self._process_label = str(name)
+        self._process_sort = sort_index
 
     def span(self, name, **args):
         if not self.enabled:
@@ -85,9 +99,39 @@ class Tracer:
                 return
             self._events.append(ev)
 
+    def emit(self, event):
+        """Append a pre-built Chrome-trace event dict verbatim (lane
+        events carry their own pid/tid and cannot go through ``span`` /
+        ``instant``, which stamp the current thread)."""
+        if not self.enabled:
+            return
+        with self._lock:
+            if len(self._events) >= self.max_events:
+                self.dropped += 1
+                return
+            self._events.append(event)
+
+    def instant(self, name, **args):
+        """Zero-duration marker event (ph="i")."""
+        if not self.enabled:
+            return
+        ev = {"name": name, "ph": "i", "s": "t",
+              "ts": time.perf_counter_ns() // 1000,
+              "pid": self._pid, "tid": threading.get_ident()}
+        if args:
+            ev["args"] = args
+        with self._lock:
+            if len(self._events) >= self.max_events:
+                self.dropped += 1
+                return
+            self._events.append(ev)
+
     def events(self):
         with self._lock:
             return list(self._events)
+
+    def event_count(self):
+        return len(self._events)   # len() is atomic; no copy needed
 
     def clear(self):
         with self._lock:
@@ -96,7 +140,17 @@ class Tracer:
 
     def export(self, path):
         """Write the Chrome-trace JSON object format; returns the path."""
-        doc = {"traceEvents": self.events(), "displayTimeUnit": "ms"}
+        events = self.events()
+        if self._process_label is not None:
+            meta = [{"name": "process_name", "ph": "M", "pid": self._pid,
+                     "args": {"name": self._process_label}}]
+            if self._process_sort is not None:
+                meta.append({"name": "process_sort_index", "ph": "M",
+                             "pid": self._pid,
+                             "args": {"sort_index":
+                                      int(self._process_sort)}})
+            events = meta + events
+        doc = {"traceEvents": events, "displayTimeUnit": "ms"}
         if self.dropped:
             doc["metadata"] = {"dropped_events": self.dropped}
         d = os.path.dirname(path)
@@ -107,6 +161,38 @@ class Tracer:
             json.dump(doc, f)
         os.replace(tmp, path)
         return path
+
+
+# ---------------------------------------------------------------- lane tids
+#
+# Synthetic trace lanes need tids that cannot collide with real thread
+# idents or with each other: one process-scoped registry hands out a
+# stable tid per lane key (the same key always maps to the same tid,
+# distinct keys never share one).
+
+_LANE_TID_BASE = 1_000_000
+_LANE_LOCK = threading.Lock()
+_LANE_TIDS = {}
+_LANE_NEXT = [_LANE_TID_BASE]
+
+
+def allocate_lane_tid(key):
+    """Return the process-unique synthetic tid for lane *key* (any
+    hashable; repeated calls with the same key return the same tid)."""
+    with _LANE_LOCK:
+        tid = _LANE_TIDS.get(key)
+        if tid is None:
+            tid = _LANE_NEXT[0]
+            _LANE_NEXT[0] += 1
+            _LANE_TIDS[key] = tid
+        return tid
+
+
+def _reset_lane_tids():
+    """Test hook: forget all lane-tid assignments."""
+    with _LANE_LOCK:
+        _LANE_TIDS.clear()
+        _LANE_NEXT[0] = _LANE_TID_BASE
 
 
 # disabled until a caller installs an enabled tracer (set_tracer)

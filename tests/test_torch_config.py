@@ -181,6 +181,19 @@ def test_unported_keys_raise(over, what):
         JaxConfig(basic(**over), data_parallel_size=1)
         assert cfg._param_dict["moe"] == {"enabled": True}
         return
+    if what in ("observatory", "router"):
+        # ported: the serving observatory and the router's block are read
+        # as the JAX config reads them (init_serving builds the
+        # observatory; ServingRouter reads the weights)
+        cfg = DeepSpeedConfig(basic(**over))
+        jax_cfg = JaxConfig(basic(**over), data_parallel_size=1)
+        for block in ("observability", "router", "prefix_cache",
+                      "speculative"):
+            assert vars(getattr(cfg.serving, block)) == \
+                vars(getattr(jax_cfg.serving, block))
+        assert cfg.serving.observability.enabled is (what == "observatory")
+        assert cfg.serving.router.replicas == (2 if what == "router" else 1)
+        return
     if what in ("data_prefetch", "curriculum", "layer drop"):
         # ported: the data path's blocks are read as the JAX config reads
         # them (the engine's deepspeed_io and forward act on them)

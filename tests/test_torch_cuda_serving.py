@@ -168,3 +168,100 @@ def test_sampling_bits_equal_on_cpu_and_card(gen):
     cpu = sampling.uniform_noise(lanes, pos, 50304)
     card = sampling.uniform_noise(lanes.cuda(), pos.cuda(), 50304).cpu()
     assert torch.equal(cpu, card)
+
+
+def _decode_window_syncs(srv, n_steps=8):
+    """Synchronizing calls in ``n_steps`` steps of pure decode, counted
+    by ``torch.cuda.set_sync_debug_mode("warn")``'s warnings (its
+    one-time notice that the mode is a prototype is not a call)."""
+    import warnings
+    from deepspeed_tpu_torch.serving.scheduler import RequestState
+    rng = np.random.default_rng(1)
+    for _ in range(srv.max_batch):
+        srv.submit(rng.integers(0, CFG.vocab_size, 12), max_new_tokens=40)
+    while sum(r is not None and r.state is RequestState.RUNNING
+              for r in srv.scheduler.slots) < srv.max_batch:
+        srv.step()
+    srv.step()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(n_steps):
+                srv.step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    srv.serve_forever()
+    return sum("called a synchronizing cuda operation" in
+               str(w.message).lower() for w in seen)
+
+
+def test_observatory_adds_no_synchronizing_call(gen, tmp_path):
+    """The serving observatory books host values the server already
+    holds: a window of graph-replayed decode makes the same synchronizing
+    calls with observability on as off, and the same tokens."""
+    eng = deepspeed_tpu_torch.init_inference(gpt2.GPT2LMHeadModel(CFG),
+                                             dtype=torch.bfloat16)
+    conf = {"max_batch": 4, "block_size": 16, "prefill_chunk": 32,
+            "attention_impl": "gather"}
+    obs = dict(conf, observability={
+        "enabled": True, "window": 4,
+        "snapshot_file": str(tmp_path / "SERVING_HEALTH.json")})
+    on = ServingEngine(eng, config=obs, registry=MetricsRegistry())
+    off = ServingEngine(eng, config=conf, registry=MetricsRegistry())
+    assert on.compile_stats()["graph_captures"] == 1
+    counts = {"on": _decode_window_syncs(on),
+              "off": _decode_window_syncs(off)}
+    assert counts["on"] == counts["off"] > 0
+    trace = _trace(seed=3)
+    assert _serve(on, trace) == _serve(off, trace)
+    led = on.serving_report()["slot_ledger"]
+    assert led["total_units"] == led["steps"] * 4
+
+
+def test_router_places_by_prefix_affinity_on_the_card(gen, tmp_path):
+    """Two replicas of one engine (their own pools, the prefix cache on,
+    observed) behind ServingRouter: after one warm-up request a group on
+    different replicas, each group's requests go to the replica holding
+    its prefix, and every request's tokens equal one engine's."""
+    from deepspeed_tpu_torch.serving import ServingRouter
+    eng = deepspeed_tpu_torch.init_inference(gpt2.GPT2LMHeadModel(CFG),
+                                             dtype=torch.bfloat16)
+
+    def replica(i=None):
+        conf = {"max_batch": 4, "block_size": 16, "prefill_chunk": 32,
+                "attention_impl": "gather",
+                "prefix_cache": {"enabled": True}}
+        if i is not None:
+            conf["observability"] = {
+                "enabled": True, "window": 4, "ttft_slo_ms": 1e9,
+                "snapshot_file": str(tmp_path / f"replica{i}.json")}
+        return ServingEngine(eng, config=conf, registry=MetricsRegistry())
+
+    rng = np.random.default_rng(5)
+    heads = [rng.integers(0, CFG.vocab_size, 32) for _ in range(2)]
+    reqs = [(np.concatenate([heads[i % 2], rng.integers(
+        0, CFG.vocab_size, int(rng.integers(1, 30)))]),
+        int(rng.integers(4, 16))) for i in range(12)]
+
+    def run(router):
+        rids = [router.submit(p, max_new_tokens=g) for p, g in reqs[:2]]
+        first = [router.last_decision]
+        outs = {o.req_id: o for o in router.serve_forever()}
+        decisions = []
+        for p, g in reqs[2:]:
+            rids.append(router.submit(p, max_new_tokens=g))
+            decisions.append(router.last_decision)
+        outs.update({o.req_id: o for o in router.serve_forever()})
+        assert sorted(outs) == sorted(rids) == list(range(len(reqs)))
+        return [outs[r].tokens for r in rids], first, decisions
+
+    router = ServingRouter([replica(0), replica(1)])
+    tokens, _, decisions = run(router)
+    assert router.routed_by_replica == [6, 6]
+    for i, d in enumerate(decisions, start=2):
+        assert d.replica == i % 2 and d.affinity_blocks == 2
+    alone, _, _ = run(ServingRouter([replica()]))
+    assert tokens == alone
+    router.close()

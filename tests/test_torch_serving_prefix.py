@@ -1,6 +1,7 @@
 """Shared-prefix KV reuse tests of the port (the cases of
 tests/unit/test_prefix_cache.py on ``deepspeed_tpu_torch.serving``,
-except the router's, which is not ported yet).
+except the router's, which tests/test_torch_serving_router.py holds
+to the JAX router).
 
 Host-side invariants run with no device work: refcount share/release
 churn never leaks, the null block is never refcounted, the double-free
@@ -475,8 +476,14 @@ def test_prefix_cache_config_block(monkeypatch):
     monkeypatch.setenv("DS_SERVING_PREFIX_CACHE", "0")
     assert not DeepSpeedServingConfig({"serving": {"prefix_cache": {
         "enabled": True}}}).prefix_cache.enabled
-    with pytest.raises(NotImplementedError, match="router"):
-        DeepSpeedServingConfig({"serving": {"router": {"replicas": 2}}})
+    # ported: the router's block is accepted and parsed as the JAX
+    # config parses it
+    from deepspeed_tpu.runtime.config import \
+        DeepSpeedServingConfig as JaxServingConfig
+    block = {"serving": {"router": {"replicas": 2}}}
+    assert vars(DeepSpeedServingConfig(block).router) == \
+        vars(JaxServingConfig(block).router)
+    assert DeepSpeedServingConfig(block).router.replicas == 2
     with pytest.raises(DeepSpeedConfigError):
         DeepSpeedServingConfig({"serving": {"router": {
             "queue_weight": -1}}})
