@@ -319,7 +319,36 @@ Phases, each fatal on failure:
    tokens/s, TTFT and inter-token latency p50/p99; (d) a ``RunChronicle``
    armed for (c): one ``router`` event a request, its report strict JSON,
    no writer thread after ``close()`` and the global chronicle disabled
-   again.
+   again;
+24. the mission-control plane (a temporary folder, removed): (a) phase
+   16's GPT-2 medium server (gather impl, one CUDA graph) with the
+   observatory (windows of 2 steps, queue growth over 1 window, the TTFT
+   rule parked), a ``Guardian`` (cooldown 0, resume after 3 quiet serving
+   steps), an ``SloMonitor`` from a ``telemetry`` block (the server adds
+   its TTFT and end-to-end objectives) and a token-guarded ``ObsServer``
+   on 127.0.0.1, port 0; a second thread scrapes ``/metrics``,
+   ``/healthz``, ``/api/report/serving``, ``/api/report/guardian`` and
+   ``/api/report/slo`` throughout. The overload cycle of JAX's
+   ``test_e2e_overload_pause_recovery``: ``PoolStarvationChaos``
+   (hold_frac 1.0) grows the queue until admission pauses on
+   ``queue_growth``, a submit is refused with that rule, the chaos is
+   lifted, the backlog drains without the livelock guard and admission
+   resumes; ``serving_admission_paused`` reads 1 then 0 on ``/metrics``;
+   every scrape answers 200; the guardian journals one pause and one
+   resume; the greedy tokens equal an unarmed server's on the same
+   requests in the same groups; 16 decode steps make the same
+   synchronizing calls armed as unarmed; the pause and resume serving
+   steps, the scrape latencies and the host ms a step of ``slo.tick`` +
+   ``guardian.serving_tick``; (b) GPT-2 medium width at 2 layers (bs 8 x
+   1024, bf16, fused Adam) with ``telemetry`` (trace, JSONL, Prometheus,
+   compile watch), ``tensorboard`` (its event files where the package
+   imports, else the CSV file),
+   ``wall_clock_breakdown``, ``steps_per_print`` 2 and the guardian: 3
+   steps, a user tag, 3 recorded steps, the ``loss_spike`` +
+   ``nonfinite_grads`` streak notified, the step that rolls back to the
+   tag, the 3 steps replayed bit-equal; exactly 2 flash_fwd, 2 dq, 2 dkv
+   and 1 adam launch a step; the trace, JSONL, ``.prom``, CSV (or
+   TensorBoard) and ``GUARDIAN.json`` files parse strictly.
 
 Prints an ``e2e`` JSON line, a ``train`` JSON line, a ``bert`` JSON line,
 a ``moq`` JSON line, an ``int8`` JSON line, a ``sparse`` JSON line, a
@@ -338,7 +367,8 @@ JSON line (phase 19's figures and checks, its launches by kernel row), a
 ``zero`` JSON line (phase 20's runs and checks), an ``offload`` JSON
 line (phase 21's figures and checks), a ``data`` JSON line (phase 22's
 figures and checks, its launches by kernel row), a ``serve_obs`` JSON
-line (phase 23's figures and checks), a ``kernels`` JSON
+line (phase 23's figures and checks), a ``mission`` JSON line (phase
+24's figures and checks, the card beside them), a ``kernels`` JSON
 line (the softmax, on no path as in the JAX package, with 0 launches,
 and its C entry's and ``torch.softmax``'s device times from the
 profiler; the decode rows' ``single_stream`` and
@@ -5537,6 +5567,414 @@ def serve_obs_phase(torch, np, deepspeed_tpu_torch, gpt2, op_builder, cfg,
 
 
 
+# phase 24, the mission-control plane: GPT-2 medium served with phase 16's
+# server configuration (the gather impl replayed as a CUDA graph) under a
+# guardian, an SLO monitor and the HTTP obs server; GPT-2 medium width at
+# 2 layers trained under the telemetry manager, the monitor, the
+# breakdown timers and the guardian (depth cut only to keep the tag
+# small: the training path is phase 6's)
+MC_TOKEN = "chip-smoke"
+MC_ROUTES = ("/metrics", "/healthz", "/api/report/serving",
+             "/api/report/guardian", "/api/report/slo")
+MC_RESUME_STEPS = 3          # quiet serving steps before admission resumes
+MC_PROMPT, MC_NEW = 64, 8    # the overload cycle's requests
+MC_TRAIN_LAYERS = 2
+
+
+class Scraper:
+    """A thread that scrapes every route of :data:`MC_ROUTES` in turn
+    (with the token) until stopped, keeping each answer's status and
+    latency and every ``serving_admission_paused`` value ``/metrics``
+    shows."""
+
+    def __init__(self, url):
+        import threading
+        self.url = url
+        self.ms = collections.defaultdict(list)
+        self.status = collections.defaultdict(set)
+        self.paused = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop,
+                                        name="chip-smoke-scraper")
+
+    def get(self, route):
+        import urllib.error
+        import urllib.request
+        req = urllib.request.Request(self.url + route)
+        req.add_header("Authorization", f"Bearer {MC_TOKEN}")
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=10) as r:
+                body = r.read()
+                status = r.status
+        except urllib.error.HTTPError as e:
+            body, status = e.read(), e.code
+        self.ms[route].append((time.perf_counter() - t0) * 1e3)
+        self.status[route].add(status)
+        if route == "/metrics":
+            for line in body.decode().splitlines():
+                if line.startswith("serving_admission_paused "):
+                    v = float(line.split()[1])
+                    if not self.paused or self.paused[-1] != v:
+                        self.paused.append(v)
+        return body
+
+    def _loop(self):
+        while not self._stop.is_set():
+            for route in MC_ROUTES:
+                self.get(route)
+            self._stop.wait(0.01)
+
+    def wait_paused(self, value, timeout=10.0):
+        """Block until /metrics has shown ``serving_admission_paused``
+        at ``value`` (the thread keeps scraping)."""
+        t_end = time.perf_counter() + timeout
+        while not (self.paused and self.paused[-1] == value):
+            if time.perf_counter() > t_end or not self._thread.is_alive():
+                raise AssertionError(f"mission: /metrics never showed "
+                                     f"serving_admission_paused {value}: "
+                                     f"{self.paused}")
+            time.sleep(0.01)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=30)
+        if self._thread.is_alive():
+            raise AssertionError("mission: the scraper thread hung")
+        return False
+
+
+@contextlib.contextmanager
+def timed_ticks(srv):
+    """Host seconds spent in the server's ``slo.tick`` and
+    ``guardian.serving_tick`` (instance attributes wrap both)."""
+    spent = [0.0, 0]
+
+    def wrap(obj, name):
+        fn = getattr(obj, name)
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[0] += time.perf_counter() - t0
+        setattr(obj, name, timed)
+
+    wrap(srv._slo, "tick")
+    wrap(srv.guardian, "serving_tick")
+    try:
+        yield spent
+    finally:
+        del srv._slo.tick
+        del srv.guardian.serving_tick
+
+
+def mission_serving(torch, np, deepspeed_tpu_torch, gpt2, op_builder, cfg,
+                    tmp, counts):
+    """Phase 24 (a): the overload cycle of JAX's
+    ``test_e2e_overload_pause_recovery`` on GPT-2 medium, scraped."""
+    import threading
+    from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+    from deepspeed_tpu_torch.runtime.guardian import Guardian
+    from deepspeed_tpu_torch.serving.server import (
+        ServingAdmissionPausedError, ServingEngine)
+    from deepspeed_tpu_torch.telemetry.metrics import MetricsRegistry
+    from deepspeed_tpu_torch.telemetry.obs_server import ObsServer
+    from deepspeed_tpu_torch.telemetry.slo import SloMonitor
+    from deepspeed_tpu_torch.testing.chaos import PoolStarvationChaos
+    vocab = cfg.vocab_size
+    eng = deepspeed_tpu_torch.init_inference(gpt2.GPT2LMHeadModel(cfg, seed=0),
+                                             dtype=torch.bfloat16)
+    conf = dict(SERVE_CFG, attention_impl="gather")
+    obs = {"enabled": True, "window": 2, "warmup_windows": 0,
+           "queue_growth_windows": 1, "ttft_slo_ms": 1e9,
+           "trace_lanes": False}
+    tcfg = DeepSpeedConfig({"train_batch_size": 1, "telemetry": {
+        "enabled": True, "output_path": tmp, "job_name": "mission",
+        "slo": {"enabled": True}}}).telemetry
+
+    def armed(name):
+        reg = MetricsRegistry()
+        g = Guardian(action_cooldown_steps=0,
+                     resume_clear_steps=MC_RESUME_STEPS,
+                     journal_path=os.path.join(tmp, f"{name}.GUARDIAN.json"),
+                     registry=reg)
+        slo = SloMonitor.from_config(tcfg, output_path=tmp,
+                                     job_name=name, registry=reg)
+        slo.on_anomaly = g.hook("slo")
+        http = ObsServer(registry=reg, host="127.0.0.1", port=0,
+                         token=MC_TOKEN)
+        http.register("guardian", g.report)
+        http.register("slo", slo.report, age_s_fn=slo.last_eval_age_s)
+        srv = ServingEngine(eng, config=dict(conf, observability=dict(
+            obs, snapshot_file=os.path.join(tmp, f"{name}.json"))),
+            registry=reg, guardian=g, slo=slo, obs_server=http)
+        if srv.compile_stats().get("graph_captures") != 1:
+            raise AssertionError(f"mission: {srv.compile_stats()}")
+        return srv, g, http
+
+    srv, g, http = armed("cycle")
+    rng = np.random.default_rng(24)
+    prompts = [rng.integers(0, vocab, MC_PROMPT) for _ in range(64)]
+    feed = iter(prompts)
+    accepted, refused = {}, []
+    op_builder.reset_launch_counts()
+    with Scraper(http.url) as scraper, timed_ticks(srv) as spent:
+        chaos = PoolStarvationChaos(srv.cache.allocator, hold_frac=1.0)
+        chaos.install()
+        try:
+            for _ in range(32):
+                if srv._admission_pause_rule is not None:
+                    break
+                p = next(feed)
+                accepted[srv.submit(p, max_new_tokens=MC_NEW)] = p
+                srv.step()
+            pause_step = srv._serving_steps
+            if srv._admission_pause_rule != "queue_growth":
+                raise AssertionError(f"mission: admission not paused on "
+                                     f"queue_growth: "
+                                     f"{srv._admission_pause_rule}")
+            try:
+                srv.submit(next(feed), max_new_tokens=MC_NEW)
+                raise AssertionError("mission: a submit was accepted while "
+                                     "admission was paused")
+            except ServingAdmissionPausedError as e:
+                refused.append(e.rule)
+            scraper.wait_paused(1.0)
+        finally:
+            chaos.uninstall()
+        outs = {o.req_id: o for o in srv.serve_forever()}
+        if sorted(outs) != sorted(accepted):
+            raise AssertionError("mission: the backlog did not drain")
+        for _ in range(4 * MC_RESUME_STEPS):
+            if srv._admission_pause_rule is None:
+                break
+            srv.step()
+        if srv._admission_pause_rule is not None:
+            raise AssertionError("mission: admission never resumed")
+        resume_steps = [a["step"] for a in g.actions
+                        if a["action"] == "serving_resume"]
+        scraper.wait_paused(0.0)
+        last = next(feed)
+        rid = srv.submit(last, max_new_tokens=MC_NEW)
+        accepted[rid] = last
+        outs.update({o.req_id: o for o in srv.serve_forever()})
+        steps = srv._serving_steps
+        reports = {r: json.loads(scraper.get(r)) for r in MC_ROUTES[1:]}
+    counts.update(op_builder.LAUNCHES)
+    launched = dict(op_builder.LAUNCHES)
+    if g.action_counts != {"serving_pause": 1, "serving_resume": 1}:
+        raise AssertionError(f"mission: guardian actions {g.actions}")
+    if any(s != {200} for s in scraper.status.values()) or \
+            set(scraper.ms) != set(MC_ROUTES):
+        raise AssertionError(f"mission: scrapes {dict(scraper.status)}")
+    if scraper.paused != [1.0, 0.0]:
+        raise AssertionError(f"mission: serving_admission_paused went "
+                             f"{scraper.paused}, not 1 then 0")
+    if reports["/api/report/guardian"]["action_counts"] != g.action_counts \
+            or reports["/api/report/slo"]["schema"] != "deepspeed_tpu.slo/1" \
+            or sorted(reports["/api/report/slo"]["objectives"]) != [
+                "serving_e2e", "serving_ttft"]:
+        raise AssertionError(f"mission: reports {reports}")
+    srv.close()
+    http.close()
+    if any(t.name.startswith("ds-obs-server") or t.name ==
+           "chip-smoke-scraper" for t in threading.enumerate()):
+        raise AssertionError("mission: a server thread outlived close()")
+    journal = load_strict(g.journal_path)
+    # the same requests through an unarmed server, in the same groups
+    plain = ServingEngine(eng, config=conf)
+    order = sorted(accepted)
+    got = {}
+    for group in (order[:-1], order[-1:]):
+        ids = {plain.submit(accepted[r], max_new_tokens=MC_NEW): r
+               for r in group}
+        got.update({ids[o.req_id]: o.tokens for o in plain.serve_forever()})
+    armed_tokens = {r: outs[r].tokens for r in order}
+    if got != armed_tokens:
+        raise AssertionError("mission: the armed server's greedy tokens "
+                             "differ from an unarmed server's")
+    # synchronizing calls in 16 decode steps, armed and not
+    on, _, http_on = armed("sync")
+    syncs = {"armed": count_syncs(torch, on, serving_trace(np, vocab)),
+             "unarmed": count_syncs(torch, ServingEngine(eng, config=conf),
+                                    serving_trace(np, vocab))}
+    on.close()
+    http_on.close()
+    if syncs["armed"] != syncs["unarmed"] or syncs["armed"] == 0:
+        raise AssertionError(f"mission: synchronizing calls {syncs}")
+    return {
+        "pause_serving_step": pause_step,
+        "resume_serving_step": resume_steps[0],
+        "serving_steps": steps, "accepted": len(accepted),
+        "refused_submits": refused,
+        "journal_actions": [(a["action"], a["rule"], a["step"])
+                            for a in journal["actions"]],
+        "admission_paused_seen": scraper.paused,
+        "scrapes": {r: len(v) for r, v in scraper.ms.items()},
+        "scrape_ms_p50": {r: statistics.median(v)
+                          for r, v in scraper.ms.items()},
+        "scrape_ms_max": {r: max(v) for r, v in scraper.ms.items()},
+        "tick_host_ms_per_step": spent[0] * 1e3 / steps,
+        "syncs_in_16_decode_steps": syncs,
+        "tokens_equal_unarmed": len(armed_tokens),
+        "greedy_tokens": [armed_tokens[r] for r in order],
+        "launches": launched}
+
+
+def mission_training(torch, deepspeed_tpu_torch, gpt2, op_builder, cfg, tmp,
+                     counts):
+    """Phase 24 (b): GPT-2 medium width at 2 layers under the telemetry
+    manager, the monitor (CSV where the card has no ``tensorboard``), the
+    breakdown timers and the guardian: 3 steps, a user tag, 3 recorded
+    steps, the ``loss_spike`` + ``nonfinite_grads`` streak the rollback
+    rule needs, the step that rolls back, the 3 steps replayed
+    bit-equal."""
+    import dataclasses
+    from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
+    out = os.path.join(tmp, "train")
+    config = train_config(fused=True)
+    config.update({
+        "steps_per_print": 2, "wall_clock_breakdown": True,
+        "telemetry": {"enabled": True, "output_path": out,
+                      "job_name": "mission", "trace": True, "jsonl": True,
+                      "prometheus": True, "compile_watch": True},
+        "tensorboard": {"enabled": True, "output_path": out,
+                        "job_name": "monitor"},
+        "guardian": {"enabled": True, "action_cooldown_steps": 0,
+                     "emergency_checkpoint": False}})
+    mcfg = dataclasses.replace(cfg, n_layer=MC_TRAIN_LAYERS)
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=gpt2.GPT2LMHeadModel(mcfg, seed=0), config=config)
+    batches = [gpt2.synthetic_batch(B, SEQ, cfg.vocab_size, seed=40 + i)
+               for i in range(8)]
+    loader = RepeatingLoader(batches)
+    op_builder.reset_launch_counts()
+    for _ in range(3):
+        engine.train_batch(data_iter=loader)
+    engine.save_checkpoint(os.path.join(out, "ckpt"), tag="user",
+                           data_iter=loader)
+    recorded = [float(engine.train_batch(data_iter=loader))
+                for _ in range(3)]
+    s = engine.global_steps
+    engine._guardian.notify("health", [
+        {"rule": "nonfinite_grads", "step": s - 1, "severity": "critical"},
+        {"rule": "nonfinite_grads", "step": s, "severity": "critical"},
+        {"rule": "loss_spike", "step": s, "severity": "critical"}])
+    engine.train_batch(data_iter=loader)
+    rolled_to = engine.global_steps
+    replayed = [float(engine.train_batch(data_iter=loader))
+                for _ in range(3)]
+    torch.cuda.synchronize()
+    launched = dict(op_builder.LAUNCHES)
+    counts.update(launched)
+    backends = [type(m).__name__ for m in engine.monitor.monitors]
+    report = engine.guardian_report()
+    engine.close()
+    steps = 3 + 3 + 1 + 3
+    want = {"flash_fwd": MC_TRAIN_LAYERS * steps,
+            "flash_bwd_dq": MC_TRAIN_LAYERS * steps,
+            "flash_bwd_dkv": MC_TRAIN_LAYERS * steps, "adam": steps}
+    if launched != want:
+        raise AssertionError(f"mission: training launches {launched}, "
+                             f"expected {want}")
+    if rolled_to != 3 or replayed != recorded:
+        raise AssertionError(f"mission: the rollback went to step "
+                             f"{rolled_to}; replayed {replayed} against "
+                             f"recorded {recorded}")
+    if [(a["action"], a["outcome"], a.get("result"))
+            for a in report["actions"]] != [("rollback", "ok", "user")]:
+        raise AssertionError(f"mission: guardian {report['actions']}")
+    files = sorted(os.listdir(out))
+    trace = load_strict(os.path.join(out, "mission.trace.json"))
+    with open(os.path.join(out, "mission.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    with open(os.path.join(out, "mission.prom")) as f:
+        prom = f.read()
+    families = sorted({line.split()[2] for line in prom.splitlines()
+                       if line.startswith("# TYPE")})
+    journal = load_strict(os.path.join(out, "GUARDIAN.json"))
+    # the monitor's first backend: TensorBoard where the package imports,
+    # else the CSV file (JAX monitor.py:73-77)
+    monitor_rows = monitor_events = None
+    if "CSVMonitor" in backends:
+        import csv
+        with open(os.path.join(out, "monitor.csv")) as f:
+            monitor_rows = list(csv.reader(f))
+        if monitor_rows[0] != ["step", "name", "value"] or \
+                len(monitor_rows) < 2:
+            raise AssertionError(f"mission: CSV {monitor_rows[:3]}")
+    else:
+        tb_dir = os.path.join(out, "monitor")
+        monitor_events = [f for f in os.listdir(tb_dir)
+                          if f.startswith("events.out.tfevents")]
+        if not monitor_events or not all(
+                os.path.getsize(os.path.join(tb_dir, f))
+                for f in monitor_events):
+            raise AssertionError(f"mission: TensorBoard files "
+                                 f"{os.listdir(tb_dir)}")
+    names = {e["name"] for e in events}
+    need = {"Train/Samples/train_loss", "Train/Samples/lr",
+            "Train/Samples/loss_scale", "Train/Samples/skipped_steps",
+            "Train/Samples/elapsed_time_ms_forward",
+            "Train/Samples/elapsed_time_ms_backward",
+            "Train/Samples/elapsed_time_ms_step"}
+    spans = {e["name"] for e in trace["traceEvents"]}
+    if not need <= names or "train_steps_total" not in families or \
+            not {"train_batch", "forward", "backward", "step",
+                 "guardian/rollback"} <= spans or \
+            journal["action_counts"] != {"rollback": 1}:
+        raise AssertionError(f"mission: files {files}, events {names}, "
+                             f"families {families}, spans {spans}")
+    return {"config": f"gpt2-medium width, {MC_TRAIN_LAYERS} layers, bs {B}"
+                      f" x {SEQ}, bf16, fused Adam",
+            "recorded_losses": recorded, "replayed_losses": replayed,
+            "replay_bit_equal": replayed == recorded,
+            "rolled_back_to_step": rolled_to, "files": files,
+            "monitor_backends": backends,
+            "jsonl_events": len(events), "prom_families": len(families),
+            "trace_events": len(trace["traceEvents"]),
+            "csv_rows": None if monitor_rows is None else len(monitor_rows),
+            "tensorboard_event_files": monitor_events,
+            "launches": launched}
+
+
+def mission_phase(torch, np, deepspeed_tpu_torch, gpt2, op_builder, cfg,
+                  card):
+    """Phase 24: the mission-control plane (see the module docstring).
+    Returns the ``mission`` line and the launches by kernel row."""
+    import tempfile
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="mission_")
+    counts = collections.Counter()
+    line = {"card": card}
+    try:
+        line["serving"] = mission_serving(torch, np, deepspeed_tpu_torch,
+                                          gpt2, op_builder, cfg, tmp, counts)
+        print(f"mission (a): {json.dumps(line['serving'])}", flush=True)
+        torch.cuda.empty_cache()
+        line["training"] = mission_training(torch, deepspeed_tpu_torch,
+                                            gpt2, op_builder, cfg, tmp,
+                                            counts)
+        print(f"mission (b): {json.dumps(line['training'])}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    rows = collections.Counter()
+    for k, n in counts.items():
+        rows["adam_per_tensor" if k == "adam" else k] += n
+    line["launches_by_row"] = dict(rows)
+    line["phase_s"] = time.perf_counter() - t_phase
+    print(f"mission: phase 24 took {line['phase_s']:.1f} s ({card})",
+          flush=True)
+    return line, dict(rows)
+
+
 def finish_rows(rows, launches, max_err, card):
     """bound_ms (the larger of bytes at 3.35 TB/s and operations at the
     peak of their type), launches and max_abs_err for each row."""
@@ -6090,6 +6528,19 @@ def main():
             row.setdefault("launches_by_path", {})["serve_obs"] = n
     serve_obs_line["script_s"] = time.perf_counter() - script_t0
 
+    # 24. the mission-control plane: the overload cycle under a guardian,
+    # an SLO monitor and the HTTP obs server on phase 16's server, scraped
+    # from a second thread; training under the telemetry manager, the
+    # monitor, the breakdown timers and a guardian rollback
+    mission_line, mission_counts = mission_phase(
+        torch, np, deepspeed_tpu_torch, gpt2, op_builder, cfg, card)
+    for row in rows:
+        n = mission_counts.get(row["name"], 0)
+        row["launches"] += n
+        if n:
+            row.setdefault("launches_by_path", {})["mission"] = n
+    mission_line["script_s"] = time.perf_counter() - script_t0
+
     print(json.dumps({"e2e": e2e}))
     print(json.dumps({"train": train}))
     print(json.dumps({"bert": bert_line}))
@@ -6105,6 +6556,7 @@ def main():
     print(json.dumps({"offload": offload_line}))
     print(json.dumps({"data": data_line}))
     print(json.dumps({"serve_obs": serve_obs_line}))
+    print(json.dumps({"mission": mission_line}))
     print(json.dumps({"kernels": rows}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,10 @@ steps_per_print, gradient_accumulation_dtype, the ``checkpoint`` block
 ``checkpointing.configure``) and the data path's ``data_prefetch``,
 ``dataloader_drop_last``, ``curriculum_learning`` and
 ``progressive_layer_drop`` (read by the engine's ``deepspeed_io`` and
-``forward``). The raw
+``forward``), and the observers: ``telemetry`` (the telemetry manager,
+the SLO monitor and the obs server), ``guardian``, ``tensorboard``,
+``wall_clock_breakdown`` and ``memory_breakdown`` (read by the engine and
+the serving engine). The raw
 ``sparse_attention`` block is kept as it is given, as the JAX config keeps
 it (the models read it through ``ops.sparse_attention.
 sparse_attention_utils``). The attribute
@@ -19,14 +22,14 @@ A key that turns on something the port does not run yet raises
 ``NotImplementedError`` naming it, as the JAX ``initialize`` fails loudly
 on keys it does not implement; keys it does not know are ignored, as
 there. Every ``enabled`` block the JAX config reads that changes the
-step's math, and the three observers the JAX engine acts on
-(``tensorboard``, ``flops_profiler``, ``wall_clock_breakdown``), is
-either ported or in :data:`_UNPORTED_BLOCKS`. The blocks the port does
-not run (autotuning, comm_overlap, guardian, telemetry) are still
-validated by the JAX validators' rules
-(:data:`_RANGE_RULES`), so a config the JAX package refuses is refused
-here too. The ``serving`` block is :class:`DeepSpeedServingConfig`, read
-by ``init_serving``. The keys the JAX config refuses off-default (``amp.enabled``,
+step's math, and every observer the JAX engine acts on, is either ported,
+in :data:`_UNPORTED_BLOCKS` (``flops_profiler`` among them) or, for the
+telemetry sub-blocks, in :data:`_UNPORTED_TELEMETRY`. The JAX validators
+of the telemetry and guardian blocks, and of the blocks the port does not
+run (autotuning, comm_overlap), are table rules (:data:`_RANGE_RULES`),
+so a config the JAX package refuses is refused here too. The
+``serving`` block is :class:`DeepSpeedServingConfig`, read by
+``init_serving``. The keys the JAX config refuses off-default (``amp.enabled``,
 ``prescale_gradients``, ``gradient_predivide_factor`` != 1,
 ``disable_allgather``, ``communication_data_type``,
 ``optimizer.legacy_fusion``, ``fp16.fp16_master_weights_and_grads``, a
@@ -54,16 +57,12 @@ PORTED_OPTIMIZERS = (ADAM_OPTIMIZER, ADAMW_OPTIMIZER, LAMB_OPTIMIZER,
 # (top-level block, what it enables): rejected when enabled
 _UNPORTED_BLOCKS = (
     ("comm_overlap", "comm_overlap"),
-    ("telemetry", "telemetry"),
     # eigenvalue-guided MoQ needs Hessian-vector products (a double
     # backward through the flash kernels, which have none)
     (C.EIGENVALUE, "eigenvalue-guided MoQ"),
     # rewrites the batch triad before triangulation (JAX config.py:1202)
     ("elasticity", "elasticity"),
-    # rolls the train state back and rescues the fp16 scale
-    ("guardian", "the guardian"),
-    # observers the JAX engine acts on (runtime/engine.py:795-826)
-    (C.TENSORBOARD, "the TensorBoard/CSV monitor"),
+    # an observer the JAX engine acts on (runtime/engine.py:803-808)
     (C.FLOPS_PROFILER, "the flops profiler"),
 )
 
@@ -93,9 +92,10 @@ def _autotuning_space(v):
         isinstance(x, list) and x for x in v.values()))
 
 
-# The JAX validators of the blocks the port parses but does not run
-# (JAX runtime/config.py: telemetry :419-565, comm_overlap :613,
-# guardian :690-717, autotuning :1028-1058): (block path, key, default,
+# The JAX validators of the telemetry and guardian blocks and of the
+# blocks the port parses but does not run (JAX runtime/config.py:
+# telemetry :290-434, comm_overlap :484, guardian :562-587, autotuning
+# :1028-1058): (block path, key, default,
 # cast, valid, what a valid value is, environment override or None).
 # Each raises
 # DeepSpeedConfigError on the value the JAX config refuses, whether or
@@ -595,6 +595,383 @@ class DeepSpeedActivationCheckpointingConfig:
                                         C.ACT_CHKPT_CPU_CHECKPOINTING_DEFAULT)
 
 
+class DeepSpeedTensorboardConfig:
+    """``tensorboard`` (JAX config.py:81-87): the monitor's TensorBoard
+    writer, or its CSV fallback (monitor/monitor.py)."""
+
+    def __init__(self, param_dict):
+        tb = param_dict.get(C.TENSORBOARD, {}) or {}
+        self.enabled = tb.get(C.TENSORBOARD_ENABLED,
+                              C.TENSORBOARD_ENABLED_DEFAULT)
+        self.output_path = tb.get(C.TENSORBOARD_OUTPUT_PATH,
+                                  C.TENSORBOARD_OUTPUT_PATH_DEFAULT)
+        self.job_name = tb.get(C.TENSORBOARD_JOB_NAME,
+                               C.TENSORBOARD_JOB_NAME_DEFAULT)
+
+
+# (attribute, sub-block or None for the block itself, key, default, cast)
+# of the ``telemetry`` block, in the JAX config's order (config.py:90-328)
+_TELEMETRY_FIELDS = (
+    ("enabled", None, C.TELEMETRY_ENABLED, C.TELEMETRY_ENABLED_DEFAULT, None),
+    ("output_path", None, C.TELEMETRY_OUTPUT_PATH,
+     C.TELEMETRY_OUTPUT_PATH_DEFAULT, None),
+    ("job_name", None, C.TELEMETRY_JOB_NAME,
+     C.TELEMETRY_JOB_NAME_DEFAULT, None),
+    ("trace", None, C.TELEMETRY_TRACE, C.TELEMETRY_TRACE_DEFAULT, None),
+    ("jax_annotations", None, C.TELEMETRY_JAX_ANNOTATIONS,
+     C.TELEMETRY_JAX_ANNOTATIONS_DEFAULT, None),
+    ("compile_watch", None, C.TELEMETRY_COMPILE_WATCH,
+     C.TELEMETRY_COMPILE_WATCH_DEFAULT, None),
+    ("jsonl", None, C.TELEMETRY_JSONL, C.TELEMETRY_JSONL_DEFAULT, None),
+    ("prometheus", None, C.TELEMETRY_PROMETHEUS,
+     C.TELEMETRY_PROMETHEUS_DEFAULT, None),
+    ("memory_metrics", None, C.TELEMETRY_MEMORY_METRICS,
+     C.TELEMETRY_MEMORY_METRICS_DEFAULT, None),
+    ("max_trace_events", None, C.TELEMETRY_MAX_TRACE_EVENTS,
+     C.TELEMETRY_MAX_TRACE_EVENTS_DEFAULT, None),
+    ("cost_explorer_enabled", C.COST_EXPLORER, C.COST_EXPLORER_ENABLED,
+     C.COST_EXPLORER_ENABLED_DEFAULT, None),
+    ("cost_explorer_peak_tflops", C.COST_EXPLORER, C.COST_EXPLORER_PEAK_TFLOPS,
+     C.COST_EXPLORER_PEAK_TFLOPS_DEFAULT, None),
+    ("cost_explorer_peak_hbm_gbps", C.COST_EXPLORER,
+     C.COST_EXPLORER_PEAK_HBM_GBPS,
+     C.COST_EXPLORER_PEAK_HBM_GBPS_DEFAULT, None),
+    ("cost_explorer_ici_gbps", C.COST_EXPLORER, C.COST_EXPLORER_ICI_GBPS,
+     C.COST_EXPLORER_ICI_GBPS_DEFAULT, None),
+    ("cost_explorer_hbm_gb", C.COST_EXPLORER, C.COST_EXPLORER_HBM_GB,
+     C.COST_EXPLORER_HBM_GB_DEFAULT, None),
+    ("cost_explorer_preflight", C.COST_EXPLORER, C.COST_EXPLORER_PREFLIGHT,
+     C.COST_EXPLORER_PREFLIGHT_DEFAULT, None),
+    ("cost_explorer_preflight_threshold", C.COST_EXPLORER,
+     C.COST_EXPLORER_PREFLIGHT_THRESHOLD,
+     C.COST_EXPLORER_PREFLIGHT_THRESHOLD_DEFAULT, None),
+    ("health_enabled", C.TELEMETRY_HEALTH, C.HEALTH_ENABLED,
+     C.HEALTH_ENABLED_DEFAULT, None),
+    ("health_bucket_depth", C.TELEMETRY_HEALTH, C.HEALTH_BUCKET_DEPTH,
+     C.HEALTH_BUCKET_DEPTH_DEFAULT, None),
+    ("health_cadence", C.TELEMETRY_HEALTH, C.HEALTH_CADENCE,
+     C.HEALTH_CADENCE_DEFAULT, None),
+    ("health_ewma_alpha", C.TELEMETRY_HEALTH, C.HEALTH_EWMA_ALPHA,
+     C.HEALTH_EWMA_ALPHA_DEFAULT, None),
+    ("health_loss_spike_zscore", C.TELEMETRY_HEALTH,
+     C.HEALTH_LOSS_SPIKE_ZSCORE, C.HEALTH_LOSS_SPIKE_ZSCORE_DEFAULT, None),
+    ("health_grad_spike_zscore", C.TELEMETRY_HEALTH,
+     C.HEALTH_GRAD_SPIKE_ZSCORE, C.HEALTH_GRAD_SPIKE_ZSCORE_DEFAULT, None),
+    ("health_warmup_samples", C.TELEMETRY_HEALTH, C.HEALTH_WARMUP_SAMPLES,
+     C.HEALTH_WARMUP_SAMPLES_DEFAULT, None),
+    ("health_overflow_streak", C.TELEMETRY_HEALTH, C.HEALTH_OVERFLOW_STREAK,
+     C.HEALTH_OVERFLOW_STREAK_DEFAULT, None),
+    ("health_stall_window", C.TELEMETRY_HEALTH, C.HEALTH_STALL_WINDOW,
+     C.HEALTH_STALL_WINDOW_DEFAULT, None),
+    ("health_stall_rel_delta", C.TELEMETRY_HEALTH, C.HEALTH_STALL_REL_DELTA,
+     C.HEALTH_STALL_REL_DELTA_DEFAULT, None),
+    ("health_ring_size", C.TELEMETRY_HEALTH, C.HEALTH_RING_SIZE,
+     C.HEALTH_RING_SIZE_DEFAULT, None),
+    ("health_snapshot_file", C.TELEMETRY_HEALTH, C.HEALTH_SNAPSHOT_FILE,
+     C.HEALTH_SNAPSHOT_FILE_DEFAULT, None),
+    ("health_trace_on_anomaly", C.TELEMETRY_HEALTH, C.HEALTH_TRACE_ON_ANOMALY,
+     C.HEALTH_TRACE_ON_ANOMALY_DEFAULT, None),
+    ("goodput_enabled", C.TELEMETRY_GOODPUT, C.GOODPUT_ENABLED,
+     C.GOODPUT_ENABLED_DEFAULT, None),
+    ("goodput_cadence", C.TELEMETRY_GOODPUT, C.GOODPUT_CADENCE,
+     C.GOODPUT_CADENCE_DEFAULT, None),
+    ("goodput_input_wait_frac", C.TELEMETRY_GOODPUT, C.GOODPUT_INPUT_WAIT_FRAC,
+     C.GOODPUT_INPUT_WAIT_FRAC_DEFAULT, None),
+    ("goodput_unattributed_frac", C.TELEMETRY_GOODPUT,
+     C.GOODPUT_UNATTRIBUTED_FRAC, C.GOODPUT_UNATTRIBUTED_FRAC_DEFAULT, None),
+    ("goodput_warmup_windows", C.TELEMETRY_GOODPUT, C.GOODPUT_WARMUP_WINDOWS,
+     C.GOODPUT_WARMUP_WINDOWS_DEFAULT, None),
+    ("goodput_window_ring", C.TELEMETRY_GOODPUT, C.GOODPUT_WINDOW_RING,
+     C.GOODPUT_WINDOW_RING_DEFAULT, None),
+    ("goodput_snapshot_file", C.TELEMETRY_GOODPUT, C.GOODPUT_SNAPSHOT_FILE,
+     C.GOODPUT_SNAPSHOT_FILE_DEFAULT, None),
+    ("goodput_profiler_capture", C.TELEMETRY_GOODPUT,
+     C.GOODPUT_PROFILER_CAPTURE, C.GOODPUT_PROFILER_CAPTURE_DEFAULT, None),
+    ("goodput_profiler_capture_steps", C.TELEMETRY_GOODPUT,
+     C.GOODPUT_PROFILER_CAPTURE_STEPS,
+     C.GOODPUT_PROFILER_CAPTURE_STEPS_DEFAULT, None),
+    ("goodput_profiler_max_captures", C.TELEMETRY_GOODPUT,
+     C.GOODPUT_PROFILER_MAX_CAPTURES,
+     C.GOODPUT_PROFILER_MAX_CAPTURES_DEFAULT, None),
+    ("goodput_profiler_dir", C.TELEMETRY_GOODPUT, C.GOODPUT_PROFILER_DIR,
+     C.GOODPUT_PROFILER_DIR_DEFAULT, None),
+    ("anatomy_enabled", C.TELEMETRY_ANATOMY, C.ANATOMY_ENABLED,
+     C.ANATOMY_ENABLED_DEFAULT, None),
+    ("anatomy_capture_steps", C.TELEMETRY_ANATOMY, C.ANATOMY_CAPTURE_STEPS,
+     C.ANATOMY_CAPTURE_STEPS_DEFAULT, int),
+    ("anatomy_keep_raw_traces", C.TELEMETRY_ANATOMY, C.ANATOMY_KEEP_RAW_TRACES,
+     C.ANATOMY_KEEP_RAW_TRACES_DEFAULT, int),
+    ("anatomy_report_file", C.TELEMETRY_ANATOMY, C.ANATOMY_REPORT_FILE,
+     C.ANATOMY_REPORT_FILE_DEFAULT, None),
+    ("fleet_enabled", C.TELEMETRY_FLEET, C.FLEET_ENABLED,
+     C.FLEET_ENABLED_DEFAULT, None),
+    ("fleet_run_dir", C.TELEMETRY_FLEET, C.FLEET_RUN_DIR,
+     C.FLEET_RUN_DIR_DEFAULT, None),
+    ("fleet_rank", C.TELEMETRY_FLEET, C.FLEET_RANK, C.FLEET_RANK_DEFAULT, int),
+    ("fleet_cadence", C.TELEMETRY_FLEET, C.FLEET_CADENCE,
+     C.FLEET_CADENCE_DEFAULT, int),
+    ("fleet_desync", C.TELEMETRY_FLEET, C.FLEET_DESYNC,
+     C.FLEET_DESYNC_DEFAULT, None),
+    ("fleet_desync_cadence", C.TELEMETRY_FLEET, C.FLEET_DESYNC_CADENCE,
+     C.FLEET_DESYNC_CADENCE_DEFAULT, int),
+    ("fleet_step_time_skew_frac", C.TELEMETRY_FLEET,
+     C.FLEET_STEP_TIME_SKEW_FRAC, C.FLEET_STEP_TIME_SKEW_FRAC_DEFAULT, float),
+    ("fleet_input_wait_skew_frac", C.TELEMETRY_FLEET,
+     C.FLEET_INPUT_WAIT_SKEW_FRAC,
+     C.FLEET_INPUT_WAIT_SKEW_FRAC_DEFAULT, float),
+    ("fleet_checkpoint_skew_frac", C.TELEMETRY_FLEET,
+     C.FLEET_CHECKPOINT_SKEW_FRAC,
+     C.FLEET_CHECKPOINT_SKEW_FRAC_DEFAULT, float),
+    ("fleet_checkpoint_skew_floor_ms", C.TELEMETRY_FLEET,
+     C.FLEET_CHECKPOINT_SKEW_FLOOR_MS,
+     C.FLEET_CHECKPOINT_SKEW_FLOOR_MS_DEFAULT, float),
+    ("fleet_warmup_windows", C.TELEMETRY_FLEET, C.FLEET_WARMUP_WINDOWS,
+     C.FLEET_WARMUP_WINDOWS_DEFAULT, int),
+    ("fleet_window_ring", C.TELEMETRY_FLEET, C.FLEET_WINDOW_RING,
+     C.FLEET_WINDOW_RING_DEFAULT, int),
+    ("fleet_snapshot_file", C.TELEMETRY_FLEET, C.FLEET_SNAPSHOT_FILE,
+     C.FLEET_SNAPSHOT_FILE_DEFAULT, None),
+    ("fleet_background_ship", C.TELEMETRY_FLEET, C.FLEET_BACKGROUND_SHIP,
+     C.FLEET_BACKGROUND_SHIP_DEFAULT, None),
+    ("memory_enabled", C.TELEMETRY_MEMORY, C.MEMORY_ENABLED,
+     C.MEMORY_ENABLED_DEFAULT, None),
+    ("memory_cadence", C.TELEMETRY_MEMORY, C.MEMORY_CADENCE,
+     C.MEMORY_CADENCE_DEFAULT, int),
+    ("memory_snapshot_file", C.TELEMETRY_MEMORY, C.MEMORY_SNAPSHOT_FILE,
+     C.MEMORY_SNAPSHOT_FILE_DEFAULT, None),
+    ("memory_report_file", C.TELEMETRY_MEMORY, C.MEMORY_REPORT_FILE,
+     C.MEMORY_REPORT_FILE_DEFAULT, None),
+    ("memory_leak_windows", C.TELEMETRY_MEMORY, C.MEMORY_LEAK_WINDOWS,
+     C.MEMORY_LEAK_WINDOWS_DEFAULT, int),
+    ("memory_warmup_windows", C.TELEMETRY_MEMORY, C.MEMORY_WARMUP_WINDOWS,
+     C.MEMORY_WARMUP_WINDOWS_DEFAULT, int),
+    ("memory_drift_threshold", C.TELEMETRY_MEMORY, C.MEMORY_DRIFT_THRESHOLD,
+     C.MEMORY_DRIFT_THRESHOLD_DEFAULT, float),
+    ("memory_frag_threshold", C.TELEMETRY_MEMORY, C.MEMORY_FRAG_THRESHOLD,
+     C.MEMORY_FRAG_THRESHOLD_DEFAULT, float),
+    ("memory_headroom", C.TELEMETRY_MEMORY, C.MEMORY_HEADROOM,
+     C.MEMORY_HEADROOM_DEFAULT, float),
+    ("memory_budget_bytes", C.TELEMETRY_MEMORY, C.MEMORY_BUDGET_BYTES,
+     C.MEMORY_BUDGET_BYTES_DEFAULT, int),
+    ("memory_ring_size", C.TELEMETRY_MEMORY, C.MEMORY_RING_SIZE,
+     C.MEMORY_RING_SIZE_DEFAULT, int),
+    ("chronicle_enabled", C.TELEMETRY_CHRONICLE, C.CHRONICLE_ENABLED,
+     C.CHRONICLE_ENABLED_DEFAULT, None),
+    ("chronicle_run_dir", C.TELEMETRY_CHRONICLE, C.CHRONICLE_RUN_DIR,
+     C.CHRONICLE_RUN_DIR_DEFAULT, None),
+    ("chronicle_max_events", C.TELEMETRY_CHRONICLE, C.CHRONICLE_MAX_EVENTS,
+     C.CHRONICLE_MAX_EVENTS_DEFAULT, int),
+    ("chronicle_summary_file", C.TELEMETRY_CHRONICLE, C.CHRONICLE_SUMMARY_FILE,
+     C.CHRONICLE_SUMMARY_FILE_DEFAULT, None),
+    ("chronicle_incidents_file", C.TELEMETRY_CHRONICLE,
+     C.CHRONICLE_INCIDENTS_FILE, C.CHRONICLE_INCIDENTS_FILE_DEFAULT, None),
+    ("chronicle_step_window", C.TELEMETRY_CHRONICLE, C.CHRONICLE_STEP_WINDOW,
+     C.CHRONICLE_STEP_WINDOW_DEFAULT, int),
+    ("chronicle_time_window_s", C.TELEMETRY_CHRONICLE,
+     C.CHRONICLE_TIME_WINDOW_S, C.CHRONICLE_TIME_WINDOW_S_DEFAULT, float),
+    ("chronicle_background", C.TELEMETRY_CHRONICLE, C.CHRONICLE_BACKGROUND,
+     C.CHRONICLE_BACKGROUND_DEFAULT, None),
+    ("server_enabled", C.TELEMETRY_SERVER, C.SERVER_ENABLED,
+     C.SERVER_ENABLED_DEFAULT, None),
+    ("server_host", C.TELEMETRY_SERVER, C.SERVER_HOST,
+     C.SERVER_HOST_DEFAULT, None),
+    ("server_port", C.TELEMETRY_SERVER, C.SERVER_PORT,
+     C.SERVER_PORT_DEFAULT, int),
+    ("server_token", C.TELEMETRY_SERVER, C.SERVER_TOKEN,
+     C.SERVER_TOKEN_DEFAULT, None),
+    ("server_events_tail", C.TELEMETRY_SERVER, C.SERVER_EVENTS_TAIL,
+     C.SERVER_EVENTS_TAIL_DEFAULT, int),
+    ("slo_enabled", C.TELEMETRY_SLO, C.SLO_ENABLED,
+     C.SLO_ENABLED_DEFAULT, None),
+    ("slo_fast_window_s", C.TELEMETRY_SLO, C.SLO_FAST_WINDOW_S,
+     C.SLO_FAST_WINDOW_S_DEFAULT, float),
+    ("slo_slow_window_s", C.TELEMETRY_SLO, C.SLO_SLOW_WINDOW_S,
+     C.SLO_SLOW_WINDOW_S_DEFAULT, float),
+    ("slo_burn_threshold", C.TELEMETRY_SLO, C.SLO_BURN_THRESHOLD,
+     C.SLO_BURN_THRESHOLD_DEFAULT, float),
+    ("slo_eval_interval_s", C.TELEMETRY_SLO, C.SLO_EVAL_INTERVAL_S,
+     C.SLO_EVAL_INTERVAL_S_DEFAULT, float),
+    ("slo_objectives", C.TELEMETRY_SLO, C.SLO_OBJECTIVES,
+     C.SLO_OBJECTIVES_DEFAULT, tuple),
+    ("slo_goodput_target", C.TELEMETRY_SLO, C.SLO_GOODPUT_TARGET,
+     C.SLO_GOODPUT_TARGET_DEFAULT, float),
+    ("slo_ttft_target", C.TELEMETRY_SLO, C.SLO_TTFT_TARGET,
+     C.SLO_TTFT_TARGET_DEFAULT, float),
+    ("slo_ttft_threshold_ms", C.TELEMETRY_SLO, C.SLO_TTFT_THRESHOLD_MS,
+     C.SLO_TTFT_THRESHOLD_MS_DEFAULT, float),
+    ("slo_e2e_target", C.TELEMETRY_SLO, C.SLO_E2E_TARGET,
+     C.SLO_E2E_TARGET_DEFAULT, float),
+    ("slo_e2e_threshold_ms", C.TELEMETRY_SLO, C.SLO_E2E_THRESHOLD_MS,
+     C.SLO_E2E_THRESHOLD_MS_DEFAULT, float),
+    ("slo_snapshot_file", C.TELEMETRY_SLO, C.SLO_SNAPSHOT_FILE,
+     C.SLO_SNAPSHOT_FILE_DEFAULT, None),
+    ("federation_enabled", C.TELEMETRY_FEDERATION, C.FEDERATION_ENABLED,
+     C.FEDERATION_ENABLED_DEFAULT, None),
+    ("federation_peers", C.TELEMETRY_FEDERATION, C.FEDERATION_PEERS,
+     C.FEDERATION_PEERS_DEFAULT, tuple),
+    ("federation_run_dir", C.TELEMETRY_FEDERATION, C.FEDERATION_RUN_DIR,
+     C.FEDERATION_RUN_DIR_DEFAULT, None),
+    ("federation_aggregator", C.TELEMETRY_FEDERATION, C.FEDERATION_AGGREGATOR,
+     C.FEDERATION_AGGREGATOR_DEFAULT, str),
+    ("federation_scrape_interval_s", C.TELEMETRY_FEDERATION,
+     C.FEDERATION_SCRAPE_INTERVAL_S,
+     C.FEDERATION_SCRAPE_INTERVAL_S_DEFAULT, float),
+    ("federation_timeout_s", C.TELEMETRY_FEDERATION, C.FEDERATION_TIMEOUT_S,
+     C.FEDERATION_TIMEOUT_S_DEFAULT, float),
+    ("federation_stale_after_s", C.TELEMETRY_FEDERATION,
+     C.FEDERATION_STALE_AFTER_S, C.FEDERATION_STALE_AFTER_S_DEFAULT, float),
+    ("federation_events_ring", C.TELEMETRY_FEDERATION,
+     C.FEDERATION_EVENTS_RING, C.FEDERATION_EVENTS_RING_DEFAULT, int),
+    ("federation_snapshot_file", C.TELEMETRY_FEDERATION,
+     C.FEDERATION_SNAPSHOT_FILE, C.FEDERATION_SNAPSHOT_FILE_DEFAULT, None),
+    ("federation_goodput_target", C.TELEMETRY_FEDERATION,
+     C.FEDERATION_GOODPUT_TARGET, C.FEDERATION_GOODPUT_TARGET_DEFAULT, float),
+    ("federation_ttft_target", C.TELEMETRY_FEDERATION,
+     C.FEDERATION_TTFT_TARGET, C.FEDERATION_TTFT_TARGET_DEFAULT, float),
+)
+
+# telemetry sub-blocks whose ``enabled`` an environment variable forces
+_TELEMETRY_ENV_FLAGS = (
+    ("enabled", "DS_TELEMETRY"),
+    ("cost_explorer_enabled", "DS_COST_EXPLORER"),
+    ("health_enabled", "DS_TELEMETRY_HEALTH"),
+    ("goodput_enabled", "DS_TELEMETRY_GOODPUT"),
+    ("anatomy_enabled", "DS_TELEMETRY_ANATOMY"),
+    ("fleet_enabled", "DS_TELEMETRY_FLEET"),
+    ("memory_enabled", "DS_TELEMETRY_MEMORY"),
+    ("chronicle_enabled", "DS_TELEMETRY_CHRONICLE"),
+    ("server_enabled", "DS_TELEMETRY_SERVER"),
+    ("slo_enabled", "DS_TELEMETRY_SLO"),
+    ("federation_enabled", "DS_TELEMETRY_FEDERATION"),
+)
+
+# enabled telemetry sub-blocks the port does not run: (attribute, module)
+_UNPORTED_TELEMETRY = (
+    ("health_enabled", "telemetry.health (the training-health monitor)"),
+    ("goodput_enabled", "telemetry.goodput (the goodput ledger)"),
+    ("memory_enabled", "telemetry.memory (the memory observatory)"),
+    ("fleet_enabled", "telemetry.fleet (the fleet flight recorder)"),
+    ("federation_enabled", "telemetry.federation (the fleet aggregator)"),
+    ("cost_explorer_enabled", "telemetry.cost_explorer (the cost explorer)"),
+    ("chronicle_enabled",
+     "telemetry.chronicle (arming the run chronicle from the config; arm "
+     "one with telemetry.chronicle.set_chronicle)"),
+)
+
+
+class DeepSpeedTelemetryConfig:
+    """``telemetry`` (JAX config.py:90-435): the telemetry manager, its
+    sinks, the compile watch, the SLO monitor (``slo``) and the HTTP obs
+    server (``server``); every key of the JAX block, flattened onto the
+    JAX attribute names (``slo_*``, ``server_*``, ...), with the same
+    defaults and environment overrides: ``DS_TELEMETRY``,
+    ``DS_COST_EXPLORER``, ``DS_TELEMETRY_{HEALTH,GOODPUT,ANATOMY,FLEET,
+    MEMORY,CHRONICLE,SERVER,SLO,FEDERATION}`` = 1/0 force-toggle
+    ``enabled`` flags; ``DS_TELEMETRY_DIR``, ``DS_TELEMETRY_FLEET_RUN_DIR``,
+    ``DS_TELEMETRY_FLEET_RANK``, ``DS_TELEMETRY_FEDERATION_RUN_DIR``,
+    ``DS_TELEMETRY_FEDERATION_PEERS`` (a comma list) and
+    ``DS_TELEMETRY_FEDERATION_AGGREGATOR`` override their keys. The
+    ranges are :data:`_RANGE_RULES`' (the JAX validators); the SLO
+    objectives are validated here. ``jax_annotations`` opens a
+    ``torch.profiler.record_function`` range for each span. ``anatomy``
+    is parsed and arms nothing (JAX reads it only in ``profile_step``,
+    which is not ported); an enabled health, goodput, memory, fleet,
+    federation, cost_explorer or chronicle sub-block is refused by
+    :meth:`DeepSpeedConfig._reject_unported`."""
+
+    def __init__(self, param_dict):
+        t = param_dict.get(C.TELEMETRY, {}) or {}
+        for attr, block, key, default, cast in _TELEMETRY_FIELDS:
+            src = t if block is None else (t.get(block, {}) or {})
+            value = src.get(key, default)
+            if cast is tuple:
+                value = tuple(src.get(key) or default)
+            elif cast is not None:
+                value = cast(value)
+            setattr(self, attr, value)
+        for attr, env in _TELEMETRY_ENV_FLAGS:
+            setattr(self, attr, _env_flag(env, getattr(self, attr)))
+        for attr, env in (("output_path", "DS_TELEMETRY_DIR"),
+                          ("fleet_run_dir", "DS_TELEMETRY_FLEET_RUN_DIR"),
+                          ("federation_run_dir",
+                           "DS_TELEMETRY_FEDERATION_RUN_DIR"),
+                          ("federation_aggregator",
+                           "DS_TELEMETRY_FEDERATION_AGGREGATOR")):
+            if os.environ.get(env):
+                setattr(self, attr, os.environ[env])
+        if os.environ.get("DS_TELEMETRY_FLEET_RANK") is not None:
+            self.fleet_rank = int(os.environ["DS_TELEMETRY_FLEET_RANK"])
+        if os.environ.get("DS_TELEMETRY_FEDERATION_PEERS"):
+            self.federation_peers = tuple(
+                p.strip() for p in
+                os.environ["DS_TELEMETRY_FEDERATION_PEERS"].split(",")
+                if p.strip())
+        from deepspeed_tpu_torch.telemetry.slo import normalize_objective
+        for o in self.slo_objectives:
+            # declarative objectives fail at config time, not first tick
+            try:
+                normalize_objective(o)
+            except ValueError as e:
+                raise DeepSpeedConfigError(
+                    f"telemetry.slo.objectives: {e}") from None
+
+
+class DeepSpeedGuardianConfig:
+    """``guardian`` (JAX config.py:493-587; runtime/guardian.py): the
+    anomaly->action policy engine. Empty ``emergency_rules`` /
+    ``pause_rules`` take the guardian's built-in sets. ``DS_GUARDIAN`` =
+    1/0 force-toggles ``enabled``; ``DS_GUARDIAN_JOURNAL``,
+    ``DS_GUARDIAN_MAX_ROLLBACKS`` and ``DS_GUARDIAN_COOLDOWN_STEPS``
+    override their keys. The ranges (a rollback cooldown of 0 would loop)
+    are :data:`_RANGE_RULES`'."""
+
+    def __init__(self, param_dict):
+        from deepspeed_tpu_torch.runtime.guardian import (
+            DEFAULT_EMERGENCY_RULES, DEFAULT_PAUSE_RULES)
+        g = param_dict.get(C.GUARDIAN, {}) or {}
+        self.enabled = _env_flag("DS_GUARDIAN", g.get(
+            C.GUARDIAN_ENABLED, C.GUARDIAN_ENABLED_DEFAULT))
+        self.journal_file = os.environ.get("DS_GUARDIAN_JOURNAL", g.get(
+            C.GUARDIAN_JOURNAL_FILE, C.GUARDIAN_JOURNAL_FILE_DEFAULT))
+        self.action_cooldown_steps = int(os.environ.get(
+            "DS_GUARDIAN_COOLDOWN_STEPS", g.get(
+                C.GUARDIAN_ACTION_COOLDOWN,
+                C.GUARDIAN_ACTION_COOLDOWN_DEFAULT)))
+        self.emergency_checkpoint = g.get(
+            C.GUARDIAN_EMERGENCY_CHECKPOINT,
+            C.GUARDIAN_EMERGENCY_CHECKPOINT_DEFAULT)
+        self.emergency_rules = tuple(
+            g.get(C.GUARDIAN_EMERGENCY_RULES) or DEFAULT_EMERGENCY_RULES)
+        self.max_emergency_checkpoints = int(g.get(
+            C.GUARDIAN_MAX_EMERGENCY_CHECKPOINTS,
+            C.GUARDIAN_MAX_EMERGENCY_CHECKPOINTS_DEFAULT))
+        self.rollback = g.get(C.GUARDIAN_ROLLBACK, C.GUARDIAN_ROLLBACK_DEFAULT)
+        self.divergence_window = int(g.get(
+            C.GUARDIAN_DIVERGENCE_WINDOW,
+            C.GUARDIAN_DIVERGENCE_WINDOW_DEFAULT))
+        self.divergence_streak = int(g.get(
+            C.GUARDIAN_DIVERGENCE_STREAK,
+            C.GUARDIAN_DIVERGENCE_STREAK_DEFAULT))
+        self.rollback_cooldown_steps = int(g.get(
+            C.GUARDIAN_ROLLBACK_COOLDOWN,
+            C.GUARDIAN_ROLLBACK_COOLDOWN_DEFAULT))
+        self.max_rollbacks = int(os.environ.get(
+            "DS_GUARDIAN_MAX_ROLLBACKS", g.get(
+                C.GUARDIAN_MAX_ROLLBACKS, C.GUARDIAN_MAX_ROLLBACKS_DEFAULT)))
+        self.fp16_rescue = g.get(C.GUARDIAN_FP16_RESCUE,
+                                 C.GUARDIAN_FP16_RESCUE_DEFAULT)
+        self.max_fp16_rescues = int(g.get(
+            C.GUARDIAN_MAX_FP16_RESCUES,
+            C.GUARDIAN_MAX_FP16_RESCUES_DEFAULT))
+        self.serving_degrade = g.get(C.GUARDIAN_SERVING_DEGRADE,
+                                     C.GUARDIAN_SERVING_DEGRADE_DEFAULT)
+        self.pause_rules = tuple(
+            g.get(C.GUARDIAN_PAUSE_RULES) or DEFAULT_PAUSE_RULES)
+        self.resume_clear_steps = int(g.get(
+            C.GUARDIAN_RESUME_CLEAR_STEPS,
+            C.GUARDIAN_RESUME_CLEAR_STEPS_DEFAULT))
+
+
 class DeepSpeedConfig:
     """Parsed training config. ``world_size`` is the data-parallel world:
     ``data_parallel_size`` when given (as the JAX config takes it from the
@@ -701,7 +1078,13 @@ class DeepSpeedConfig:
         self.dataloader_drop_last = pd.get(C.DATALOADER_DROP_LAST, None)
         self.data_prefetch = DeepSpeedDataPrefetchConfig(pd)
         self._read_checkpoint(pd)
-        self.wall_clock_breakdown = pd.get(C.WALL_CLOCK_BREAKDOWN, False)
+        self.wall_clock_breakdown = pd.get(C.WALL_CLOCK_BREAKDOWN,
+                                           C.WALL_CLOCK_BREAKDOWN_DEFAULT)
+        self.memory_breakdown = pd.get(C.MEMORY_BREAKDOWN,
+                                       C.MEMORY_BREAKDOWN_DEFAULT)
+        self.tensorboard = DeepSpeedTensorboardConfig(pd)
+        self.telemetry = DeepSpeedTelemetryConfig(pd)
+        self.guardian = DeepSpeedGuardianConfig(pd)
         self.serving = DeepSpeedServingConfig(pd)
 
     def _read_checkpoint(self, pd):
@@ -853,11 +1236,10 @@ class DeepSpeedConfig:
                 f"{self.optimizer_name!r}")
 
     def _reject_unported(self, pd):
-        device = self.zero_config.offload_optimizer.device
-        if device not in (None, "none", "cpu", "nvme"):
-            raise DeepSpeedConfigError(
-                f"zero_optimization.offload_optimizer.device must be one of "
-                f"none|cpu|nvme, got {device!r}")
+        # zero_optimization.offload_optimizer.device: any value but
+        # None/"none" offloads, "nvme" to files and any other to the host,
+        # as the JAX engine reads it (engine.py:300-301, 1036)
+        #
         # parameter offload (offload_param, or the deprecated
         # cpu_offload_params at stage 3) is the layered engine, which
         # initialize() routes to before it parses a config (JAX
@@ -880,5 +1262,6 @@ class DeepSpeedConfig:
         for key, what in _UNPORTED_BLOCKS:
             if (pd.get(key) or {}).get("enabled"):
                 _not_ported(f"{what} ({key}.enabled)")
-        if self.wall_clock_breakdown:
-            _not_ported("wall_clock_breakdown (the breakdown timers)")
+        for attr, what in _UNPORTED_TELEMETRY:
+            if getattr(self.telemetry, attr):
+                _not_ported(what)

@@ -116,6 +116,17 @@ flag that decides whether the update is applied; this is the port's
 counterpart of the JAX ``lax.cond`` (engine.py:1627), which keeps that
 decision on the device.
 
+The observers (JAX engine.py:442-826; :meth:`_arm_observers`): the rank-0
+telemetry manager (spans, the step metrics, the trace), the monitor's
+``Train/Samples/*`` scalars and the telemetry gauges at
+``steps_per_print`` cadence (one loss read there when a sink is armed),
+the breakdown timers under ``wall_clock_breakdown`` (a synchronize at
+each start and stop), the throughput timer (no synchronize), and on one
+process the guardian, whose tick runs after the SLO monitor's at the end
+of each boundary ``step()``: a rollback loads the newest intact user tag
+with the ``data_iter`` ``train_batch`` was given, an fp16 rescue lifts
+the loss scale, an emergency save goes beside the last user save.
+
 The engine numbers the module's dropout sites (``dropout.number_sites``)
 once, at construction, so layers a user stacks draw distinct masks.
 Remat and dropout live in the models (``models/gpt2.py``,
@@ -129,6 +140,7 @@ import glob
 import os
 import re
 import tempfile
+import time
 
 import numpy as np
 import torch
@@ -167,6 +179,13 @@ from deepspeed_tpu_torch.telemetry.metrics import get_registry
 from deepspeed_tpu_torch.telemetry.tracer import trace_span
 from deepspeed_tpu_torch.utils import groups
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
+from deepspeed_tpu_torch.utils.timer import (SynchronizedWallClockTimer,
+                                             ThroughputTimer)
+
+# the breakdown timers' names (JAX engine.py:65-67)
+FORWARD_GLOBAL_TIMER = "forward"
+BACKWARD_GLOBAL_TIMER = "backward"
+STEP_GLOBAL_TIMER = "step"
 
 
 def _on_device(t, device):
@@ -191,6 +210,12 @@ def _to_device(batch, device):
     if isinstance(batch, (tuple, list)):
         return type(batch)(_to_device(v, device) for v in batch)
     return torch.as_tensor(batch, device=device)
+
+
+def _batch_of(batch):
+    """The batch itself: the compile watch's entry point, which records
+    the signature (shapes, dtypes, device) of each batch it is given."""
+    return batch
 
 
 def _grad_of(name, p):
@@ -300,7 +325,9 @@ class DeepSpeedEngine:
         self._masters_sliced = self._partition is not None and \
             self.zero_stage == 3
         self._offload_device = config.zero_config.offload_optimizer.device
-        self._offload = self._offload_device in ("cpu", "nvme")
+        # any device but None/"none" offloads; "nvme" goes to files and
+        # every other value to the host (JAX engine.py:300-301, 1036)
+        self._offload = self._offload_device not in (None, "none")
         self._offload_opt = None
         if config.fp16_enabled:
             self.compute_dtype = torch.float16
@@ -381,6 +408,8 @@ class DeepSpeedEngine:
             self.curriculum_scheduler = CurriculumScheduler(
                 config.curriculum_config.params)
         self.collate_fn = collate_fn
+        self._last_batch = None
+        self._arm_observers()
         self._prefetch_cfg = config.data_prefetch
         self._prefetchers = []
         self._prefetch_wrap_cache = {}
@@ -573,6 +602,80 @@ class DeepSpeedEngine:
             q_start_bits=qc.start_bits, q_target_bits=qc.target_bits,
             q_period=qc.quantize_period)
 
+    def _arm_observers(self):
+        """The observers of the JAX engine (engine.py:442-449, 586-705,
+        795-826): the telemetry manager (rank 0; a no-op elsewhere), the
+        guardian (one process only: a rollback swaps this process's
+        state), the SLO monitor and the HTTP obs server (with the
+        manager), the compile watch of the micro-step's and eval's
+        batches, the monitor (TensorBoard or CSV, JSONL, Prometheus) and
+        the breakdown and throughput timers."""
+        from deepspeed_tpu_torch.monitor.monitor import MonitorMaster
+        from deepspeed_tpu_torch.telemetry.manager import TelemetryManager
+        cfg = self.config
+        tcfg = cfg.telemetry
+        out = tcfg.output_path or "telemetry/"
+        job = tcfg.job_name or ""
+        rank = torch.distributed.get_rank() if self._dist else 0
+        self.telemetry = TelemetryManager(tcfg, rank=rank,
+                                          device=self.device)
+        self._guardian = None
+        self._guardian_ckpt_dir = None      # learned from save_checkpoint
+        self._guardian_data_iter = None     # learned from train_batch
+        if cfg.guardian.enabled:
+            if self._dist and torch.distributed.get_world_size() > 1:
+                logger.warning(
+                    "[guardian] enabled but running multi-process; the "
+                    "guardian's rollback/rescue actions are single-process "
+                    "only — disarming")
+            else:
+                from deepspeed_tpu_torch.runtime.guardian import Guardian
+                self._guardian = Guardian.from_config(
+                    cfg.guardian, output_path=out, job_name=job,
+                    registry=self.telemetry.registry)
+                self._guardian.emergency_save_fn = \
+                    self._guardian_emergency_save
+                self._guardian.rollback_fn = self._guardian_rollback
+                self._guardian.fp16_rescue_fn = self._guardian_fp16_rescue
+        self._slo = None
+        if self.telemetry.enabled and tcfg.slo_enabled:
+            from deepspeed_tpu_torch.telemetry.slo import SloMonitor
+            self._slo = SloMonitor.from_config(
+                tcfg, output_path=out, job_name=job,
+                registry=self.telemetry.registry,
+                on_escalate=(self.telemetry._force_trace_export
+                             if tcfg.trace else None))
+            if self._guardian is not None:
+                self._slo.on_anomaly = self._guardian.hook("slo")
+        self._obs_server = None
+        if self.telemetry.enabled and tcfg.server_enabled:
+            # providers are the monitors' own report() methods: a scrape
+            # reads host snapshots and never touches the card
+            from deepspeed_tpu_torch.telemetry import obs_server as obs_mod
+            srv = obs_mod.ObsServer.from_config(
+                tcfg, registry=self.telemetry.registry)
+            if self._guardian is not None:
+                srv.register("guardian", self._guardian.report)
+            if self._slo is not None:
+                srv.register("slo", self._slo.report,
+                             age_s_fn=self._slo.last_eval_age_s)
+            self._obs_server = srv
+            obs_mod.set_obs_server(srv)
+            log_dist(f"telemetry: obs server live at {srv.url} "
+                     f"({len(srv.providers())} provider(s))", ranks=[0])
+        self._watch_micro = self.telemetry.wrap_compiled(
+            _batch_of, "micro_step")
+        self._watch_eval = self.telemetry.wrap_compiled(_batch_of,
+                                                        "eval_step")
+        self.monitor = MonitorMaster(cfg.tensorboard, rank=rank,
+                                     telemetry_config=tcfg,
+                                     metrics_registry=self.telemetry.registry)
+        self.timers = SynchronizedWallClockTimer()
+        self.tput_timer = ThroughputTimer(
+            batch_size=self.train_micro_batch_size_per_gpu()
+            * self.dp_world_size, steps_per_output=self.steps_per_print())
+        self._breakdown_steps = 0   # global steps since the last breakdown
+
     # ------------------------------------------------------------- queries
     def gradient_accumulation_steps(self):
         return self.config.gradient_accumulation_steps
@@ -583,6 +686,11 @@ class DeepSpeedEngine:
 
     def steps_per_print(self):
         return self.config.steps_per_print
+
+    def wall_clock_breakdown(self):
+        """Time forward, backward and step apart (engine.py:855): each
+        timer synchronizes the card at its start and stop."""
+        return self.config.wall_clock_breakdown
 
     def is_gradient_accumulation_boundary(self):
         return self.micro_steps % self.gradient_accumulation_steps() == 0
@@ -911,11 +1019,18 @@ class DeepSpeedEngine:
             self.progressive_layer_drop.update_state(self.global_steps)
             kwargs = {"progressive_layer_drop": True,
                       "pld_theta": self.progressive_layer_drop.get_theta()}
-        batch = _to_device(batch, self.device)
-        with dropout_lib.key_scope(self._dropout_key()):
+        batch = self._watch_micro(_to_device(batch, self.device))
+        breakdown = self.wall_clock_breakdown()
+        if breakdown:
+            self.timers(FORWARD_GLOBAL_TIMER).start()
+        with self.telemetry.span("forward", micro_step=self.micro_steps), \
+                dropout_lib.key_scope(self._dropout_key()):
             loss = self._compute_loss(batch, kwargs)
+        if breakdown:
+            self.timers(FORWARD_GLOBAL_TIMER).stop(record=True)
         self._pending_loss = loss
         self._pending_weight = self._loss_weight(batch)
+        self._last_batch = batch
         return loss
 
     def backward(self, loss=None, allreduce_gradients=True,
@@ -942,7 +1057,13 @@ class DeepSpeedEngine:
         if loss is self._pending_loss and self._pending_weight is not None:
             weighted = loss * self._pending_weight
         scale = self.scale.loss_scale / self.gradient_accumulation_steps()
-        (weighted * scale).backward()
+        breakdown = self.wall_clock_breakdown()
+        if breakdown:
+            self.timers(BACKWARD_GLOBAL_TIMER).start()
+        with self.telemetry.span("backward", micro_step=self.micro_steps):
+            (weighted * scale).backward()
+        if breakdown:
+            self.timers(BACKWARD_GLOBAL_TIMER).stop(record=True)
         # stage 3 reduce-scatters in the backward whatever the flag says
         # (JAX ignores it), and averages its persistent tensors with them
         self._reduce_grads = bool(allreduce_gradients) or \
@@ -972,6 +1093,23 @@ class DeepSpeedEngine:
         then the scheduler (which does not advance on a skipped step)."""
         if not self.is_gradient_accumulation_boundary():
             return
+        breakdown = self.wall_clock_breakdown()
+        if breakdown:
+            self.timers(STEP_GLOBAL_TIMER).start()
+        with self.telemetry.span("step", global_step=self.global_steps):
+            self._step()
+        if breakdown:
+            self.timers(STEP_GLOBAL_TIMER).stop(record=True)
+        if self._slo is not None:
+            # burn-rate evaluation (host arithmetic, self-throttled) before
+            # the guardian's tick, so a page fired now is acted on now
+            self._slo.tick(step=self.global_steps)
+        if self._guardian is not None:
+            # the policies run here, at the step boundary, the one place
+            # a rollback or an fp16 rescue may swap the live state
+            self._guardian.tick(self.global_steps)
+
+    def _step(self):
         # fp32 .grad is averaged here, unless the last backward said not
         # to; the buffer's micro-steps were averaged before their cast,
         # and allreduce_gradients() may have reduced them already
@@ -1040,13 +1178,33 @@ class DeepSpeedEngine:
         device fp32 scalar; over a data group each micro-batch's is the
         global micro-batch's (each rank passes its own rows). With
         ``data_prefetch`` on, ``data_iter`` is pulled through a prefetch
-        pipeline (:meth:`_maybe_prefetch_iter`)."""
+        pipeline (:meth:`_maybe_prefetch_iter`).
+
+        The observers (JAX engine.py:3216-3400): the step's span, counters
+        and time histogram with telemetry on, the throughput timer, and at
+        ``steps_per_print`` cadence the breakdown log and the monitor's
+        ``Train/Samples/*`` scalars (reading the loss: the cadence's one
+        added sync) and the telemetry gauges. The guardian keeps the raw
+        ``data_iter``, which a rollback rewinds."""
         if data_iter is None and batch is None:
             raise ValueError("train_batch needs data_iter or batch")
         if data_iter is not None:
+            if self._guardian is not None:
+                self._guardian_data_iter = data_iter
             data_iter = self._maybe_prefetch_iter(data_iter)
+        tel = self.telemetry
+        if not tel.enabled:
+            return self._train_batch(data_iter, batch)
+        t0 = time.perf_counter()
+        with tel.span("train_batch", global_step=self.global_steps):
+            mean_loss = self._train_batch(data_iter, batch)
+        self._publish_step_telemetry(mean_loss, time.perf_counter() - t0)
+        return mean_loss
+
+    def _train_batch(self, data_iter, batch):
         gas = self.gradient_accumulation_steps()
         losses = []
+        self.tput_timer.start()
         # JAX's offloaded step has no fused gas-1 form (engine.py:1702)
         self._fused_gas1 = gas == 1 and not self._offload
         try:
@@ -1060,7 +1218,88 @@ class DeepSpeedEngine:
             self.step()
         finally:
             self._fused_gas1 = False
-        return self._mean_over_ranks(torch.stack(losses).mean())
+        self.tput_timer.stop(global_step=True)
+        mean_loss = self._mean_over_ranks(torch.stack(losses).mean())
+        printing = self.global_steps % self.steps_per_print() == 0
+        writing = self.monitor.enabled and bool(self.monitor.monitors)
+        if self.wall_clock_breakdown():
+            self._breakdown_steps += 1
+            if printing:
+                names = [FORWARD_GLOBAL_TIMER, BACKWARD_GLOBAL_TIMER,
+                         STEP_GLOBAL_TIMER]
+                if writing:
+                    means = self.timers.get_mean(
+                        names, normalizer=self._breakdown_steps, reset=False)
+                    self.monitor.write_events([
+                        (f"Train/Samples/elapsed_time_ms_{n}", means[n],
+                         self.global_samples) for n in names if n in means])
+                self.timers.log(names, normalizer=self._breakdown_steps,
+                                memory_breakdown=self.config.memory_breakdown)
+                self._breakdown_steps = 0
+        if writing and printing:
+            # the reference's scalar names (engine.py:3376-3398), at print
+            # cadence only: float(mean_loss) reads the card
+            self.monitor.write_events([
+                ("Train/Samples/train_loss", float(mean_loss),
+                 self.global_samples),
+                ("Train/Samples/lr", self.get_lr()[0], self.global_samples),
+                ("Train/Samples/loss_scale", self.loss_scale,
+                 self.global_samples),
+                ("Train/Samples/skipped_steps", float(self.skipped_steps),
+                 self.global_samples)])
+        return mean_loss
+
+    def _tokens_per_sample(self):
+        """Tokens a sample from the last batch's first integer [B, S, ...]
+        leaf; 0 when the workload has no token axis."""
+        batch = self._last_batch
+        leaves = (list(batch.values()) if isinstance(batch, dict)
+                  else list(batch) if isinstance(batch, (list, tuple))
+                  else [batch])
+        for x in leaves:
+            if isinstance(x, torch.Tensor) and x.dim() >= 2 and \
+                    not x.is_floating_point():
+                return int(x.shape[1])
+        return 0
+
+    def _publish_step_telemetry(self, mean_loss, step_s):
+        """The step's metrics (JAX engine.py:3269-3314): host counters and
+        the step-time histogram every step; the gauges that read the card
+        (loss) and the memory stats only at ``steps_per_print`` cadence,
+        then the trace flush (throttled)."""
+        reg = self.telemetry.registry
+        reg.counter("train_steps_total",
+                    "global steps (applied + skipped)").inc()
+        reg.counter("train_samples_total", "training samples consumed").inc(
+            self.config.train_batch_size)
+        reg.histogram("train_step_time_ms",
+                      "host wall time per train_batch").observe(
+                          step_s * 1000.0)
+        if self.global_steps % self.steps_per_print() != 0:
+            return
+        reg.gauge("train_loss", "loss at the last print step").set(
+            float(mean_loss))
+        if self.config.fp16_enabled:
+            reg.gauge("train_loss_scale", "dynamic loss scale").set(
+                self.loss_scale)
+        reg.gauge("train_lr", "lr of the next applied step").set(
+            self.get_lr()[0])
+        if self._last_grad_norm is not None:
+            reg.gauge("train_grad_norm",
+                      "global grad norm of the last applied step").set(
+                          self._last_grad_norm)
+        reg.gauge("train_skipped_steps",
+                  "overflow-skipped optimizer steps").set(self.skipped_steps)
+        sps = self.tput_timer.avg_samples_per_sec()
+        if sps > 0:
+            reg.gauge("samples_per_sec",
+                      "running average samples/sec").set(sps)
+            tokens = self._tokens_per_sample()
+            if tokens:
+                reg.gauge("tokens_per_sec",
+                          "running average tokens/sec").set(sps * tokens)
+        self.telemetry.publish_device_memory()
+        self.telemetry.flush()
 
     def eval_batch(self, batch):
         """The loss of ``batch`` without gradients or dropout, the module
@@ -1069,8 +1308,9 @@ class DeepSpeedEngine:
         was_training = self.module.training
         self.module.eval()
         try:
-            with torch.no_grad(), dropout_lib.key_scope(None):
-                batch = _to_device(batch, self.device)
+            with torch.no_grad(), dropout_lib.key_scope(None), \
+                    self.telemetry.span("eval_batch"):
+                batch = self._watch_eval(_to_device(batch, self.device))
                 loss = self._compute_loss(batch)
                 weight = self._loss_weight(batch)
                 return self._mean_over_ranks(
@@ -1824,7 +2064,7 @@ class DeepSpeedEngine:
         return self._ckpt_writer
 
     def save_checkpoint(self, save_dir, tag=None, client_state=None,
-                        save_latest=True, data_iter=None):
+                        save_latest=True, data_iter=None, initiator="user"):
         """Save the engine to ``save_dir/tag`` (default tag
         ``global_step{N}``), in two phases as in JAX (engine.py:3640):
         the snapshot copies the device state to the host at the step
@@ -1845,12 +2085,18 @@ class DeepSpeedEngine:
         the tag, ``[global_steps, micro_steps]`` and the masters' shapes
         (``all_gather_object``, over a process group of any size); a
         mismatch raises on every rank under ``Fail`` and logs once (rank
-        0) under ``Warn``; ``Ignore`` compares nothing."""
+        0) under ``Warn``; ``Ignore`` compares nothing.
+
+        ``initiator``: ``"user"``, or ``"guardian"`` for the guardian's
+        emergency saves; a user's save teaches the guardian its
+        checkpoint directory."""
         tag = str(f"global_step{self.global_steps}" if tag is None else tag)
+        if self._guardian is not None and initiator == "user":
+            self._guardian_ckpt_dir = save_dir
         if self._ckpt_writer is not None:
             self._ckpt_writer.drain()
         self._validate_checkpoint_tag(tag)
-        with trace_span("checkpoint/save", tag=tag):
+        with trace_span("checkpoint/save", tag=tag, initiator=initiator):
             os.makedirs(os.path.join(save_dir, tag), exist_ok=True)
             snapshot = self._snapshot_checkpoint(client_state, data_iter)
         if not self._ckpt_async:
@@ -2156,15 +2402,92 @@ class DeepSpeedEngine:
             out, t.contiguous(), group=groups.get_expert_parallel_group())
         return out
 
+    # ------------------------------------------------------------ guardian
+    def guardian_report(self, write=False):
+        """The guardian's journal (what ``GUARDIAN.json`` holds): its
+        policies, the rules seen, every action with its trigger rule and
+        outcome. ``{"enabled": False}`` without a guardian (off, or
+        disarmed at world > 1)."""
+        if self._guardian is None:
+            return {"enabled": False}
+        report = self._guardian.report()
+        if write:
+            self._guardian.write_journal()
+        return report
+
+    def _guardian_save_dir(self):
+        if self._guardian_ckpt_dir is None:
+            raise RuntimeError(
+                "no checkpoint directory known yet (the guardian learns "
+                "it from the first user save_checkpoint())")
+        return self._guardian_ckpt_dir
+
+    def _guardian_emergency_save(self, step):
+        """Guardian action (a): an extra checkpoint through the normal
+        save path, its tag prefixed so a rollback ranks it last (JAX
+        engine.py:2683-2698)."""
+        from deepspeed_tpu_torch.runtime.guardian import EMERGENCY_TAG_PREFIX
+        tag = f"{EMERGENCY_TAG_PREFIX}_step{int(step)}"
+        self.save_checkpoint(self._guardian_save_dir(), tag=tag,
+                             data_iter=self._guardian_data_iter,
+                             initiator="guardian")
+        return tag
+
+    def _guardian_rollback(self):
+        """Guardian action (b): load the newest intact tag — masters,
+        optimizer state, loss scale and the data stream's position —
+        preferring user tags over the guardian's own emergency tags
+        (JAX engine.py:2700-2733)."""
+        from deepspeed_tpu_torch.runtime.guardian import EMERGENCY_TAG_PREFIX
+        save_dir = self._guardian_save_dir()
+        try:
+            names = os.listdir(save_dir)
+        except OSError:
+            names = []
+        emergency = [n for n in names if n.startswith(EMERGENCY_TAG_PREFIX)]
+        tag = checkpoint_io.newest_intact_tag(save_dir, exclude=emergency)
+        if tag is None and emergency:
+            tag = checkpoint_io.newest_intact_tag(save_dir)
+        if tag is None:
+            raise RuntimeError(f"no intact checkpoint tag under {save_dir} "
+                               f"to roll back to")
+        with self.telemetry.span("guardian/rollback", tag=str(tag)):
+            path, _ = self.load_checkpoint(
+                save_dir, tag=tag, data_iter=self._guardian_data_iter)
+        if path is None:
+            raise RuntimeError(f"rollback load of tag {tag!r} failed")
+        return tag
+
+    def _guardian_fp16_rescue(self):
+        """Guardian action (c): lift the dynamic loss scale out of
+        collapse — 16 times the scale (at least 16), a fresh good-step
+        count and a hysteresis of at least 2 (JAX engine.py:2735-2751)."""
+        if not self.config.fp16_enabled:
+            raise RuntimeError("fp16_rescue on a non-fp16 engine")
+        old_scale = float(self.scale.loss_scale)
+        new_scale = max(old_scale * 16.0, 16.0)
+        self.scale = self.scale._replace(
+            loss_scale=new_scale, good_steps=0,
+            hysteresis=max(int(self.scale.hysteresis), 2))
+        return f"loss_scale {old_scale:g} -> {new_scale:g}"
+
     def close(self):
         """Drain the async writer (a failed background save re-raises
         here, its last chance to surface), release the pinned snapshot
-        buffers and stop every prefetch pipeline (their threads joined).
+        buffers, stop every prefetch pipeline (their threads joined), stop
+        the obs server first of the observers (its providers point at
+        them), then the guardian's and the SLO monitor's final files, the
+        monitor's files and the telemetry manager (the final trace).
         Idempotent."""
         try:
             if self._ckpt_writer is not None:
                 self._ckpt_writer.close()
         finally:
+            if self._obs_server is not None:
+                from deepspeed_tpu_torch.telemetry import \
+                    obs_server as obs_mod
+                self._obs_server.close()
+                obs_mod.reset_obs_server(if_current=self._obs_server)
             self._pinned = {}
             for loader in self._prefetchers:
                 loader.close()
@@ -2172,3 +2495,10 @@ class DeepSpeedEngine:
             for _, wrapped in self._prefetch_wrap_cache.values():
                 wrapped.close()
             self._prefetch_wrap_cache = {}
+            self._last_batch = None
+            if self._guardian is not None:
+                self._guardian.close()
+            if self._slo is not None:
+                self._slo.close()
+            self.monitor.close()
+            self.telemetry.close()

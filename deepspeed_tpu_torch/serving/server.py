@@ -25,10 +25,19 @@ already holds; ``router_signals`` reads its recent anomalies for
 rites and refused submits go into the process-global run chronicle
 (telemetry/chronicle.py) when one is armed.
 
-Not ported yet: the guardian (and with it the pause / resume /
-speculation-disable hooks), the mission-control server and SLO monitor,
-the HBM residency observatory and ``profile_window``. Passing
-``guardian``, ``obs_server`` or ``slo`` raises ``NotImplementedError``.
+The mission-control plane (JAX server.py:185-215, 356-415): a
+``Guardian`` (runtime/guardian.py) pauses admission on an overload rule
+(the observatory's ``queue_growth`` / ``ttft_slo_breach``, the SLO
+monitor's ``slo_burn_page``), resumes it after quiet serving steps and
+turns speculation off on ``speculation_waste``; an ``SloMonitor``
+(telemetry/slo.py) burns the TTFT and end-to-end latency objectives; an
+``ObsServer`` (telemetry/obs_server.py) serves ``serving_report`` at
+``/api/report/serving``. Each is passed in or taken from the wrapped
+engine (``_guardian`` / ``_slo`` / ``_obs_server``). Each step ticks
+the SLO monitor, then the guardian, on the serving step clock; all of it
+is host bookkeeping and adds no synchronization.
+
+Not ported yet: the HBM residency observatory and ``profile_window``.
 """
 
 import dataclasses
@@ -71,9 +80,10 @@ class ServingLivelockError(RuntimeError):
 
 
 class ServingAdmissionPausedError(RuntimeError):
-    """``submit()`` refused a request because admission is paused
-    (``_admission_pause_rule`` set; the guardian that sets it is not
-    ported yet). ``.rule`` names the rule that paused it."""
+    """``submit()`` refused a request because the guardian paused
+    admission (overload degradation). ``.rule`` names the rule that paused
+    it: the structured reason a client can act on (back off, retry
+    later)."""
 
     def __init__(self, rule):
         super().__init__(
@@ -106,13 +116,11 @@ class ServingEngine:
         entries may come separately as ``draft_scales``); ``None``
         selects the truncated-layer self-draft. ``cuda_graph=False`` runs
         the gather impl's decode eagerly on CUDA (to hold the graph
-        against)."""
+        against). ``guardian``: a ``runtime.guardian.Guardian`` to wire
+        the overload degradation into; ``slo`` / ``obs_server``: an
+        ``SloMonitor`` and an ``ObsServer``; each falls back to the
+        wrapped engine's own."""
         from deepspeed_tpu_torch.runtime.config import DeepSpeedServingConfig
-        for what, value in (("guardian", guardian),
-                            ("obs_server", obs_server), ("slo", slo)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"ServingEngine({what}=...) is not ported yet")
         if config is None:
             config = DeepSpeedServingConfig({})
         elif isinstance(config, dict):
@@ -194,9 +202,32 @@ class ServingEngine:
                                        if self.speculative is not None
                                        else None))
             self.scheduler.observer = self.observatory
-        # None = admission open (the guardian that pauses it is not
-        # ported yet)
-        self._admission_pause_rule = None
+        # guardian overload degradation: the observatory's (and the SLO
+        # monitor's) anomalies feed the guardian, whose serving policy
+        # calls the pause / resume / speculation-disable actions below
+        self.guardian = guardian if guardian is not None \
+            else getattr(engine, "_guardian", None)
+        self._serving_steps = 0
+        self._admission_pause_rule = None     # None = admission open
+        self._spec_disabled_rule = None       # None = speculation live
+        if self.guardian is not None and self.guardian.enabled \
+                and self.guardian.serving_degrade:
+            self.guardian.pause_fn = self._pause_admission
+            self.guardian.resume_fn = self._resume_admission
+            self.guardian.spec_disable_fn = self._disable_speculation
+            if self.observatory is not None:
+                self.observatory.on_anomaly = self.guardian.hook("serving")
+        # the SLO monitor burns the serving latency objectives; the obs
+        # server serves the serving report
+        self._slo = slo if slo is not None else getattr(engine, "_slo",
+                                                        None)
+        if self._slo is not None and getattr(self._slo, "enabled", False):
+            for obj in getattr(self._slo, "serving_defaults", ()):
+                self._slo.add_objective(obj)
+        self._obs_server = obs_server if obs_server is not None \
+            else getattr(engine, "_obs_server", None)
+        if self._obs_server is not None:
+            self._obs_server.register("serving", self.serving_report)
         # shared-prefix KV reuse: the scheduler reads cache.prefix_cache
         # at admission; the server runs the planned COW forks and
         # registers full blocks as prefill/decode completes them
@@ -314,7 +345,55 @@ class ServingEngine:
                     kv_occupancy=self.cache.allocator.occupancy(),
                     kv_fragmentation=self._kv_fragmentation(),
                     progress=progress)
+            if self.guardian is not None or self._slo is not None:
+                # the serving step clock (not training steps): the pause
+                # policy fires here, and recovery counts quiet steps
+                self._serving_steps += 1
+                if self._slo is not None:
+                    # burn-rate evaluation before the guardian's tick, so
+                    # a page fired now pauses admission now
+                    self._slo.tick(step=self._serving_steps)
+                if self.guardian is not None:
+                    self.guardian.serving_tick(self._serving_steps)
         return progress
+
+    def _pause_admission(self, rule):
+        """Guardian overload action: refuse new submits (they fail fast
+        with the rule) until recovery; queued requests keep draining."""
+        self._admission_pause_rule = str(rule)
+        self.registry.gauge(
+            "serving_admission_paused",
+            "1 while the guardian has admission paused").set(1)
+        self._chronicle_serving("admission_pause", severity="warning",
+                                rule=str(rule))
+        log_dist(f"serving: admission PAUSED (rule {rule}); new submits "
+                 f"fail fast until recovery", ranks=[0])
+
+    def _resume_admission(self):
+        """Guardian recovery action: the overload rules stayed quiet for
+        ``resume_clear_steps`` serving steps."""
+        self._chronicle_serving("admission_resume", severity="info",
+                                rule=self._admission_pause_rule)
+        self._admission_pause_rule = None
+        self.registry.gauge(
+            "serving_admission_paused",
+            "1 while the guardian has admission paused").set(0)
+        log_dist("serving: admission RESUMED", ranks=[0])
+
+    def _disable_speculation(self, rule):
+        """Guardian degradation action (``speculation_waste``): decode
+        falls back to the plain program, for the rest of the server's
+        life (flapping would switch programs again and again)."""
+        if self.speculative is None or self._spec_disabled_rule is not None:
+            return
+        self._spec_disabled_rule = str(rule)
+        self.registry.gauge(
+            "serving_speculation_disabled",
+            "1 after the guardian disabled speculative decoding").set(1)
+        self._chronicle_serving("speculation_disable", severity="warning",
+                                rule=str(rule))
+        log_dist(f"serving: speculation DISABLED (rule {rule}); decode "
+                 f"falls back to the plain program", ranks=[0])
 
     def _fail_all_pending(self, reason):
         """Fail every waiting AND slotted request with *reason*; slotted
@@ -448,7 +527,8 @@ class ServingEngine:
             top_p[i] = r.top_p
             lanes[i] = self._lanes[r.req_id]
             budget[i] = r.step_budget
-        spec = self.speculative
+        spec = (self.speculative
+                if self._spec_disabled_rule is None else None)
         t0 = time.perf_counter_ns()
         with trace_span("serving_decode", batch=len(decode_slots)):
             if spec is not None:
@@ -770,13 +850,14 @@ class ServingEngine:
 
     def _chronicle_serving(self, event, severity=None, detail=None,
                            **data):
-        """A serving event into the run chronicle (preemption, livelock
-        last rites, a refused submit). ``step`` is the serving step
-        clock, which the guardian and SLO ticks advance (not ported: 0),
-        not a training step."""
+        """A serving event into the run chronicle (admission pause and
+        resume, preemption, livelock last rites, a refused submit).
+        ``step`` is the serving step clock, which the guardian and SLO
+        ticks advance, not a training step."""
         chron = _chronicle.get_chronicle()
         if chron.enabled:
-            chron.emit("serving", source="serving", step=0,
+            chron.emit("serving", source="serving",
+                       step=self._serving_steps,
                        severity=severity, detail=detail, event=event,
                        **data)
 
@@ -804,9 +885,14 @@ class ServingEngine:
                 "engine_state": self._engine_state()}
 
     def close(self):
-        """Teardown: force the observatory's final snapshot, so anomalies
-        whose repeat firings all landed inside the snapshot throttle
-        still reach ``snapshot_file``. Safe with observability off."""
+        """Teardown: unregister the serving report from the obs server
+        (its provider points at this object), then force the
+        observatory's final snapshot, so anomalies whose repeat firings
+        all landed inside the snapshot throttle still reach
+        ``snapshot_file``. Safe with observability off."""
+        if self._obs_server is not None:
+            self._obs_server.unregister("serving")
+            self._obs_server = None
         if self.observatory is not None:
             self.observatory.close()
 

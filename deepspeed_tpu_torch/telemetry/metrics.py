@@ -187,3 +187,41 @@ def set_registry(registry):
     global _GLOBAL
     old, _GLOBAL = _GLOBAL, registry
     return old
+
+
+def device_memory_stats(device=None):
+    """Memory stats of ``device`` (JAX ``device_memory_stats``' split):
+    on a card the caching allocator's counters and the driver's free and
+    total bytes, ``source`` "cuda"; otherwise the process's resident set,
+    ``source`` "host". Host reads only (no stream is synchronized);
+    never raises, an empty dict at worst."""
+    import torch
+    dev = torch.device(device) if device is not None else (
+        torch.device("cuda") if torch.cuda.is_available()
+        else torch.device("cpu"))
+    if dev.type == "cuda":
+        try:
+            s = torch.cuda.memory_stats(dev)
+            free, total = torch.cuda.mem_get_info(dev)
+            return {"bytes_in_use": s.get("allocated_bytes.all.current", 0),
+                    "peak_bytes_in_use": s.get("allocated_bytes.all.peak", 0),
+                    "bytes_reserved": s.get("reserved_bytes.all.current", 0),
+                    "bytes_free": free, "bytes_limit": total,
+                    "source": "cuda"}
+        except Exception:
+            return {}
+    try:
+        with open("/proc/self/statm") as f:
+            pages = int(f.read().split()[1])
+        import os
+        return {"host_rss_bytes": pages * os.sysconf("SC_PAGE_SIZE"),
+                "source": "host"}
+    except Exception:
+        pass
+    try:
+        import resource
+        # ru_maxrss is KiB on Linux
+        peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+        return {"host_peak_rss_bytes": peak, "source": "host"}
+    except Exception:
+        return {}

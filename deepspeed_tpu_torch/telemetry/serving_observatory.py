@@ -35,10 +35,9 @@ synchronization and leaves the gather impl's CUDA-graph replay as it is.
 The report and the snapshot carry the JAX package's schema string, so
 one reader takes either package's file.
 
-The escalation hook ``on_escalate`` defaults to ``None`` (the JAX
-package's default flushes its telemetry manager's trace, which the port
-does not have yet), and closed windows are not shipped to a fleet
-recorder.
+The escalation hook ``on_escalate`` defaults to :func:`_flush_trace`,
+which exports the live telemetry manager's Chrome trace (as the JAX
+package's does); closed windows are not shipped to a fleet recorder.
 
 CLI: ``python -m deepspeed_tpu_torch.telemetry.serving_observatory
 --render SERVING_HEALTH.json`` pretty-prints a snapshot.
@@ -76,6 +75,16 @@ RULE_SEVERITY = {
     "speculation_waste": "warning",
 }
 _SEVERITY_ORDER = ("critical", "warning", "watch")
+
+
+def _flush_trace():
+    """Default escalation hook: export the telemetry manager's Chrome
+    trace now (its throttle still applies), so the forensics file and the
+    trace cover the same incident. A no-op without a live manager."""
+    from deepspeed_tpu_torch.telemetry import manager as _mgr
+    m = _mgr.get_manager()
+    if m is not None:
+        m.flush()
 
 # synthetic Chrome-trace lane tids come from the tracer's process-scoped
 # registry (tracer.allocate_lane_tid), so slot lanes never collide with
@@ -218,7 +227,8 @@ class ServingObservatory:
         self.spec_acceptance_floor = (None if spec_acceptance_floor is None
                                       else float(spec_acceptance_floor))
         self.registry = registry
-        self.on_escalate = on_escalate
+        self.on_escalate = on_escalate if on_escalate is not None \
+            else _flush_trace
         self.on_anomaly = on_anomaly
         self.engine_state_fn = engine_state_fn
         self._log = log_fn or logger.warning

@@ -172,6 +172,21 @@ def test_invalid_configs_raise_like_jax(cfg):
     ({"wall_clock_breakdown": True}, "wall_clock_breakdown"),
     ({"serving": {"observability": {"enabled": True}}}, "observatory"),
     ({"serving": {"router": {"replicas": 2}}}, "router"),
+    # the telemetry sub-blocks the port does not run yet
+    ({"telemetry": {"enabled": True, "health": {"enabled": True}}},
+     "telemetry.health"),
+    ({"telemetry": {"enabled": True, "goodput": {"enabled": True}}},
+     "telemetry.goodput"),
+    ({"telemetry": {"enabled": True, "memory": {"enabled": True}}},
+     "telemetry.memory"),
+    ({"telemetry": {"enabled": True, "chronicle": {"enabled": True}}},
+     "telemetry.chronicle"),
+    ({"telemetry": {"enabled": True, "fleet": {"enabled": True}}},
+     "telemetry.fleet"),
+    ({"telemetry": {"federation": {"enabled": True}}},
+     "telemetry.federation"),
+    ({"telemetry": {"cost_explorer": {"enabled": True}}},
+     "telemetry.cost_explorer"),
 ])
 def test_unported_keys_raise(over, what):
     if what == "MoE":
@@ -193,6 +208,17 @@ def test_unported_keys_raise(over, what):
                 vars(getattr(jax_cfg.serving, block))
         assert cfg.serving.observability.enabled is (what == "observatory")
         assert cfg.serving.router.replicas == (2 if what == "router" else 1)
+        return
+    if what in ("telemetry", "guardian", "TensorBoard",
+                "wall_clock_breakdown"):
+        # ported: the observers are parsed as the JAX config parses them
+        # and armed by the engine (tests/test_torch_telemetry.py,
+        # test_torch_guardian.py)
+        cfg = DeepSpeedConfig(basic(**over))
+        jax_cfg = JaxConfig(basic(**over), data_parallel_size=1)
+        for block in ("telemetry", "guardian", "tensorboard"):
+            assert vars(getattr(cfg, block)) == vars(getattr(jax_cfg, block))
+        assert cfg.wall_clock_breakdown == jax_cfg.wall_clock_breakdown
         return
     if what in ("data_prefetch", "curriculum", "layer drop"):
         # ported: the data path's blocks are read as the JAX config reads
@@ -233,6 +259,8 @@ def test_unported_keys_raise(over, what):
     with pytest.raises(NotImplementedError, match="not ported yet") as err:
         DeepSpeedConfig(basic(**over))
     assert what in str(err.value)
+    if what.startswith("telemetry."):
+        JaxConfig(basic(**over), data_parallel_size=1)   # JAX runs it
 
 
 @pytest.mark.parametrize("opt", [
@@ -269,6 +297,145 @@ def test_disabled_blocks_are_accepted():
     cfg = DeepSpeedConfig(basic(**over))
     JaxConfig(basic(**over), data_parallel_size=1)
     assert cfg.serving.max_batch == 4 and not cfg.wall_clock_breakdown
+    # the observer blocks the port runs are accepted enabled as well
+    over = dict(tensorboard={"enabled": True, "output_path": "tb"},
+                wall_clock_breakdown=True, memory_breakdown=True,
+                guardian={"enabled": True, "max_rollbacks": 0},
+                telemetry={"enabled": True, "slo": {"enabled": True},
+                           "server": {"enabled": True, "port": 0},
+                           "anatomy": {"enabled": True}})
+    cfg = DeepSpeedConfig(basic(**over))
+    jax_cfg = JaxConfig(basic(**over), data_parallel_size=1)
+    assert cfg.wall_clock_breakdown and cfg.memory_breakdown
+    for block in ("telemetry", "guardian", "tensorboard"):
+        assert vars(getattr(cfg, block)) == vars(getattr(jax_cfg, block))
+
+
+OBSERVER_CONFIGS = [
+    {"telemetry": {"enabled": True, "output_path": "o", "job_name": "j",
+                   "trace": False, "jax_annotations": True,
+                   "compile_watch": False, "jsonl": False,
+                   "prometheus": False, "memory_metrics": False,
+                   "max_trace_events": 7}},
+    {"telemetry": {"enabled": True, "slo": {
+        "enabled": True, "fast_window_s": 60, "slow_window_s": 120,
+        "burn_threshold": 2, "eval_interval_s": 3, "goodput_target": 0.5,
+        "ttft_target": 0.9, "ttft_threshold_ms": 10, "e2e_target": 0.8,
+        "e2e_threshold_ms": 20, "snapshot_file": "s.json",
+        "objectives": [{"name": "t", "kind": "latency", "metric": "m",
+                        "threshold_ms": 5, "target": 0.9}]},
+        "server": {"enabled": True, "host": "0.0.0.0", "port": 9,
+                   "token": "t", "events_tail": 3}}},
+    {"telemetry": {"health": {"enabled": False, "cadence": 3},
+                   "goodput": {"window_ring": 9},
+                   "fleet": {"rank": 2, "cadence": 4},
+                   "memory": {"leak_windows": 3},
+                   "chronicle": {"max_events": 5},
+                   "federation": {"peers": ["http://a"],
+                                  "aggregator": "never"},
+                   "cost_explorer": {"peak_tflops": 3},
+                   "anatomy": {"capture_steps": 2}}},
+    {"guardian": {"enabled": True, "journal_file": "g.json",
+                  "action_cooldown_steps": 3,
+                  "emergency_checkpoint": False,
+                  "emergency_rules": ["loss_stall"],
+                  "max_emergency_checkpoints": 1, "rollback": False,
+                  "divergence_window": 9, "divergence_streak": 3,
+                  "rollback_cooldown_steps": 4, "max_rollbacks": 1,
+                  "fp16_rescue": False, "max_fp16_rescues": 5,
+                  "serving_degrade": False, "pause_rules": ["x"],
+                  "resume_clear_steps": 2}},
+    {"tensorboard": {"enabled": True, "output_path": "p", "job_name": "q"},
+     "wall_clock_breakdown": True},
+]
+
+
+@pytest.mark.parametrize("over", OBSERVER_CONFIGS,
+                         ids=lambda c: json.dumps(c)[:50])
+def test_observer_blocks_match_jax(over):
+    """Every key of the telemetry, guardian and tensorboard blocks parses
+    to the JAX attribute of the same name and value."""
+    cfg = DeepSpeedConfig(basic(**over))
+    jax_cfg = JaxConfig(basic(**over), data_parallel_size=1)
+    for block in ("telemetry", "guardian", "tensorboard"):
+        assert vars(getattr(cfg, block)) == vars(getattr(jax_cfg, block))
+    assert (cfg.wall_clock_breakdown, cfg.memory_breakdown) == \
+        (jax_cfg.wall_clock_breakdown, jax_cfg.memory_breakdown)
+
+
+@pytest.mark.parametrize("env,value,attr,want", [
+    ("DS_TELEMETRY", "1", "enabled", True),
+    ("DS_TELEMETRY_DIR", "/tmp/x", "output_path", "/tmp/x"),
+    ("DS_TELEMETRY_SLO", "yes", "slo_enabled", True),
+    ("DS_TELEMETRY_SERVER", "on", "server_enabled", True),
+    ("DS_TELEMETRY_ANATOMY", "0", "anatomy_enabled", False),
+    ("DS_TELEMETRY_FLEET_RANK", "3", "fleet_rank", 3),
+    ("DS_TELEMETRY_FEDERATION_PEERS", "http://a, http://b",
+     "federation_peers", ("http://a", "http://b")),
+    ("DS_GUARDIAN", "1", "guardian.enabled", True),
+    ("DS_GUARDIAN_JOURNAL", "j.json", "guardian.journal_file", "j.json"),
+    ("DS_GUARDIAN_MAX_ROLLBACKS", "5", "guardian.max_rollbacks", 5),
+    ("DS_GUARDIAN_COOLDOWN_STEPS", "7", "guardian.action_cooldown_steps", 7),
+])
+def test_observer_env_overrides_match_jax(monkeypatch, env, value, attr,
+                                          want):
+    monkeypatch.setenv(env, value)
+    got = []
+    for cfg in (DeepSpeedConfig(basic()),
+                JaxConfig(basic(), data_parallel_size=1)):
+        block, _, name = attr.rpartition(".")
+        got.append(getattr(getattr(cfg, block or "telemetry"), name))
+    assert got == [want, want]
+
+
+@pytest.mark.parametrize("device", ["CPU", "x", 0])
+def test_offload_device_values_follow_jax(device):
+    """C6: any ``offload_optimizer.device`` but None/"none" turns the
+    optimizer offload on and every value but "nvme" means the host, as
+    the JAX engine reads it (engine.py:300-301, 1036). Both packages'
+    engines train a tiny GPT-2 at stage 2 through their host CPU-Adam,
+    from the same init, with equal losses (the offload tolerance of
+    tests/test_torch_dist_zero_offload.py, 2e-4)."""
+    import shutil
+
+    import jax
+    import numpy as np
+
+    import deepspeed_tpu
+    import deepspeed_tpu_torch
+    from deepspeed_tpu.models import gpt2 as jax_gpt2
+    from deepspeed_tpu.utils import groups
+    from deepspeed_tpu_torch.bridge import flax_to_state_dict
+    from deepspeed_tpu_torch.models import gpt2
+    from tests.model import oracle
+    if shutil.which("g++") is None:
+        pytest.skip("no C++ toolchain for the host CPU-Adam")
+    over = {"train_batch_size": oracle.BATCH_SIZE,
+            "steps_per_print": 10 ** 9,
+            "optimizer": {"type": "Adam", "params": {"lr": oracle.LR}},
+            "zero_optimization": {"stage": 2, "offload_optimizer": {
+                "device": device}}}
+    batches = [{"input_ids": np.array(b["input_ids"])}
+               for b in oracle.make_batches(3)]
+    groups.destroy()
+    groups.initialize(devices=jax.devices()[:1])
+    jeng, *_ = deepspeed_tpu.initialize(
+        model=jax_gpt2.GPT2LMHeadModel(jax_gpt2.GPT2Config(**oracle.TINY)),
+        config=json.loads(json.dumps(over)), sample_batch=batches[0],
+        seed=oracle.SEED)
+    init = flax_to_state_dict(jax.tree.map(np.asarray, jeng.state.params))
+    assert jeng._offload and jeng._offload_opt is not None
+    want = [float(jeng.train_batch(batch=b)) for b in batches]
+    peng, *_ = deepspeed_tpu_torch.initialize(
+        model=gpt2.GPT2LMHeadModel(gpt2.PRESETS["tiny"], device="cpu"),
+        config=json.loads(json.dumps(over)), model_parameters=init,
+        device="cpu")
+    assert peng._offload and peng._offload_opt is not None
+    assert peng.opt_state is None and peng._offload_opt.swapper is None
+    got = [float(peng.train_batch(batch=b)) for b in batches]
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+    assert got[-1] < got[0]
+    peng.close()
 
 
 SERVING_FIELDS = ("block_size", "num_blocks", "max_batch", "prefill_chunk",

@@ -265,3 +265,91 @@ def test_router_places_by_prefix_affinity_on_the_card(gen, tmp_path):
     alone, _, _ = run(ServingRouter([replica()]))
     assert tokens == alone
     router.close()
+
+
+def _mission_control(tmp_path, name, registry):
+    """A guardian (cooldown 0, 3 quiet steps to resume), an SLO monitor
+    built from a ``telemetry`` block and a token-guarded obs server."""
+    from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+    from deepspeed_tpu_torch.runtime.guardian import Guardian
+    from deepspeed_tpu_torch.telemetry.obs_server import ObsServer
+    from deepspeed_tpu_torch.telemetry.slo import SloMonitor
+    tcfg = DeepSpeedConfig({"train_batch_size": 1, "telemetry": {
+        "enabled": True, "slo": {"enabled": True}}}).telemetry
+    d = tmp_path / name
+    guardian = Guardian(action_cooldown_steps=0, resume_clear_steps=3,
+                        journal_path=str(d / "GUARDIAN.json"),
+                        registry=registry)
+    slo = SloMonitor.from_config(tcfg, output_path=str(d),
+                                 registry=registry)
+    slo.on_anomaly = guardian.hook("slo")
+    return guardian, slo, ObsServer(registry=registry, token="t")
+
+
+def test_overload_cycle_and_no_added_sync_on_the_card(gen, tmp_path):
+    """The mission-control plane on the gather impl's graph: the pool
+    starved, admission pauses on ``queue_growth`` and a submit is refused
+    with it; the chaos lifted, the backlog drains and admission resumes
+    after the quiet steps. A decode window makes the same synchronizing
+    calls with the plane armed as without it, and the greedy tokens equal
+    an unarmed server's."""
+    from deepspeed_tpu_torch.serving.server import \
+        ServingAdmissionPausedError
+    from deepspeed_tpu_torch.testing.chaos import PoolStarvationChaos
+    eng = deepspeed_tpu_torch.init_inference(gpt2.GPT2LMHeadModel(CFG),
+                                             dtype=torch.bfloat16)
+    conf = {"max_batch": 4, "block_size": 16, "prefill_chunk": 32,
+            "attention_impl": "gather",
+            "observability": {"enabled": True, "window": 2,
+                              "warmup_windows": 0,
+                              "queue_growth_windows": 1, "ttft_slo_ms": 1e9,
+                              "snapshot_file": str(tmp_path / "s.json")}}
+
+    def armed(name):
+        reg = MetricsRegistry()
+        g, slo, http = _mission_control(tmp_path, name, reg)
+        srv = ServingEngine(eng, config=conf, registry=reg, guardian=g,
+                            slo=slo, obs_server=http)
+        assert srv.compile_stats()["graph_captures"] == 1
+        return srv, g, http
+
+    srv, g, http = armed("cycle")
+    rng = np.random.default_rng(2)
+    chaos = PoolStarvationChaos(srv.cache.allocator, hold_frac=1.0)
+    chaos.install()
+    accepted = []
+    try:
+        for _ in range(24):
+            if srv._admission_pause_rule is not None:
+                break
+            accepted.append(srv.submit(rng.integers(0, CFG.vocab_size, 6),
+                                       max_new_tokens=4))
+            srv.step()
+        assert srv._admission_pause_rule == "queue_growth"
+        with pytest.raises(ServingAdmissionPausedError) as ei:
+            srv.submit(rng.integers(0, CFG.vocab_size, 6), max_new_tokens=4)
+        assert ei.value.rule == "queue_growth"
+    finally:
+        chaos.uninstall()
+    outs = {o.req_id: o for o in srv.serve_forever()}
+    assert set(outs) == set(accepted)
+    for _ in range(20):
+        if srv._admission_pause_rule is None:
+            break
+        srv.step()
+    assert srv._admission_pause_rule is None
+    assert g.action_counts == {"serving_pause": 1, "serving_resume": 1}
+    srv.close()
+    http.close()
+
+    on, _, http_on = armed("sync")
+    off = ServingEngine(eng, config={k: v for k, v in conf.items()
+                                     if k != "observability"},
+                        registry=MetricsRegistry())
+    counts = {"on": _decode_window_syncs(on),
+              "off": _decode_window_syncs(off)}
+    assert counts["on"] == counts["off"] > 0
+    trace = _trace(seed=4)
+    assert _serve(on, trace) == _serve(off, trace)
+    on.close()
+    http_on.close()

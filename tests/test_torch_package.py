@@ -89,6 +89,14 @@ def test_import_leaves_jax_out():
         "import deepspeed_tpu_torch.runtime.zero.offload\n"
         "import deepspeed_tpu_torch.runtime.swap_tensor.swapper\n"
         "import deepspeed_tpu_torch.ops.adagrad.cpu_adagrad\n"
+        "import deepspeed_tpu_torch.telemetry.sinks\n"
+        "import deepspeed_tpu_torch.telemetry.manager\n"
+        "import deepspeed_tpu_torch.telemetry.slo\n"
+        "import deepspeed_tpu_torch.telemetry.obs_server\n"
+        "import deepspeed_tpu_torch.runtime.guardian\n"
+        "import deepspeed_tpu_torch.monitor.monitor\n"
+        "import deepspeed_tpu_torch.utils.timer\n"
+        "import deepspeed_tpu_torch.testing.chaos\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'flax', 'deepspeed_tpu', 'triton')\n"
         "       or m == 'torch.utils.cpp_extension']\n"

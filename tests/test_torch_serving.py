@@ -569,9 +569,34 @@ def test_livelock_guard_and_report(tiny_serving, monkeypatch):
 
 @pytest.mark.parametrize("what", ["guardian", "obs_server", "slo"])
 def test_unported_hooks_raise(tiny_serving, what):
+    """The mission-control hooks are ported: each is wired into the
+    server (tests/test_torch_serving_guardian.py holds them to JAX);
+    ``use_flash=False`` still raises."""
+    from deepspeed_tpu_torch.runtime.guardian import Guardian
+    from deepspeed_tpu_torch.telemetry.obs_server import ObsServer
+    from deepspeed_tpu_torch.telemetry.slo import SloMonitor
     cfg, eng, srv, registry = tiny_serving
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ServingEngine(eng, config={"max_batch": 1}, **{what: object()})
+    hook = {"guardian": lambda: Guardian(journal_path=None),
+            "obs_server": lambda: ObsServer(registry=registry),
+            "slo": lambda: SloMonitor(registry=registry)}[what]()
+    try:
+        s = ServingEngine(eng, config={"max_batch": 1}, registry=registry,
+                          **{what: hook})
+        if what == "guardian":
+            assert s.guardian is hook
+            assert hook.pause_fn == s._pause_admission
+        elif what == "obs_server":
+            assert hook.providers() == ["serving"]
+            s.close()
+            assert hook.providers() == []
+        else:
+            assert s._slo is hook
+            s.submit([1, 2, 3], max_new_tokens=2)
+            s.serve_forever()
+            assert hook.evals >= 1 and s._serving_steps >= 1
+    finally:
+        if what == "obs_server":
+            hook.close()
     with pytest.raises(ValueError, match="use_flash"):
         ServingEngine(eng, config={"max_batch": 1}, use_flash=False)
 
