@@ -348,7 +348,24 @@ Phases, each fatal on failure:
    ``nonfinite_grads`` streak notified, the step that rolls back to the
    tag, the 3 steps replayed bit-equal; exactly 2 flash_fwd, 2 dq, 2 dkv
    and 1 adam launch a step; the trace, JSONL, ``.prom``, CSV (or
-   TensorBoard) and ``GUARDIAN.json`` files parse strictly.
+   TensorBoard) and ``GUARDIAN.json`` files parse strictly;
+25. long context (writes nothing): the flash forward, dq and dk/dv at
+   head dim 256 against their plain versions at GPT-J's shapes (B 4, H
+   16, S 512 and 2048, causal, bf16: 2e-2, lse and delta 2e-5) and timed
+   beside SDPA; (a) GPT-J-6B (28 x 4096, 16 heads of 256, rotary_dim 64,
+   vocab 50400, seeded bf16 weights built on the card) generates B 4 x
+   prompt 512, 16 new, greedy, by recompute: exactly 16 x 28 D 256
+   forward launches, the generated sequence's logits within 0.1 of the
+   same model on plain attention with >= 7/8 argmax agreement; prefill
+   ms, ms a new token, tokens/s, peak memory; (b) 2 GPT-J layers at full
+   width, bs 4 x 2048, bf16, fused Adam: 3 steps (2 forward, 2 dq, 2
+   dk/dv and 1 adam launch a step) and one step on the kernels against
+   one on plain attention (phase 7's bounds); (c) GPT-2 medium with
+   rope, bs 1 x 8192, fused Adam: 3 steps each under ``auto``,
+   ``ring:data`` and ``ulysses:data`` at world 1 over NCCL, losses within
+   0.02 of ``auto``'s, step ms of each; cached rope generation at 8 x
+   896 (64 new): each decode step's logits against the recompute's at
+   its position (0.1, 7/8).
 
 Prints an ``e2e`` JSON line, a ``train`` JSON line, a ``bert`` JSON line,
 a ``moq`` JSON line, an ``int8`` JSON line, a ``sparse`` JSON line, a
@@ -368,8 +385,10 @@ JSON line (phase 19's figures and checks, its launches by kernel row), a
 line (phase 21's figures and checks), a ``data`` JSON line (phase 22's
 figures and checks, its launches by kernel row), a ``serve_obs`` JSON
 line (phase 23's figures and checks), a ``mission`` JSON line (phase
-24's figures and checks, the card beside them), a ``kernels`` JSON
-line (the softmax, on no path as in the JAX package, with 0 launches,
+24's figures and checks, the card beside them), a ``long_context``
+JSON line (phase 25's figures and checks), a ``kernels`` JSON line (the
+D 256 flash rows ``flash_fwd_d256``, ``flash_bwd_dq_d256`` and
+``flash_bwd_dkv_d256`` with phase 25's GPT-J launches; the softmax, on no path as in the JAX package, with 0 launches,
 and its C entry's and ``torch.softmax``'s device times from the
 profiler; the decode rows' ``single_stream`` and
 ``serving_batch`` shapes beside the main path's; the sparse kernels'
@@ -925,8 +944,14 @@ def one_step_parity(torch, deepspeed_tpu_torch, gpt2, attn_mod, decode,
         params = {k: p.detach().clone() for k, p in engine.params.items()}
         return loss, grads, params
 
-    loss_k, grads_k, params_k = one(False)
-    loss_p, grads_p, params_p = one(True)
+    return step_parity(one(False), one(True), what)
+
+
+def step_parity(kernels, plain, what):
+    """One step on the kernels against one on the plain versions, each
+    (loss, master gradients, updated masters): :func:`one_step_parity`'s
+    bounds, raising past them."""
+    (loss_k, grads_k, params_k), (loss_p, grads_p, params_p) = kernels, plain
     num = sum((grads_k[k] - grads_p[k]).square().sum() for k in grads_p)
     den = sum(grads_p[k].square().sum() for k in grads_p)
     grad_rel = (num / den).sqrt().item()
@@ -1141,8 +1166,9 @@ def decode_row(torch, np, decode, op_builder, quantized):
     return row
 
 
-def flash_fwd_timing(torch, flash, batch, seq, causal):
-    """The forward at [batch, 16, seq, 64] bf16: ``ms`` times the wrapper
+def flash_fwd_timing(torch, flash, batch, seq, causal, heads=H, dim=D):
+    """The forward at [batch, heads, seq, dim] bf16 (default 16 heads of
+    64): ``ms`` times the wrapper
     (what the models call; CUDA events), ``kernel_ms`` its C entry point
     alone (without the wrapper's checks and allocations) and
     ``device_ms`` the kernel's device time from the profiler. SDPA's
@@ -1155,6 +1181,7 @@ def flash_fwd_timing(torch, flash, batch, seq, causal):
     from torch.nn.attention import SDPBackend
 
     from deepspeed_tpu_torch.ops import op_builder
+    H, D = heads, dim
     F = torch.nn.functional
     gen = torch.Generator(device="cuda").manual_seed(8)
     q, k, v = (torch.randn(batch, H, seq, D, generator=gen,
@@ -1217,14 +1244,15 @@ def sdpa_bwd_ms(torch, q, k, v, do, causal):
     raise RuntimeError("no SDPA backend takes this shape")
 
 
-def flash_bwd_timing(torch, flash, batch, seq, causal):
-    """The two backward kernels alone at [batch, 16, seq, 64] bf16 (their C
-    entry points, without the wrapper's allocations; dq writes delta, dk/dv
-    reads it), the wrapper, and SDPA's backward alone on the same inputs.
-    Times by CUDA events."""
+def flash_bwd_timing(torch, flash, batch, seq, causal, heads=H, dim=D):
+    """The two backward kernels alone at [batch, heads, seq, dim] bf16
+    (default 16 heads of 64; their C entry points, without the wrapper's
+    allocations; dq writes delta, dk/dv reads it), the wrapper, and SDPA's
+    backward alone on the same inputs. Times by CUDA events."""
     import ctypes
 
     from deepspeed_tpu_torch.ops import op_builder
+    H, D = heads, dim
     gen = torch.Generator(device="cuda").manual_seed(7)
     q, k, v, do = (torch.randn(batch, H, seq, D, generator=gen,
                                device="cuda").to(torch.bfloat16)
@@ -1257,6 +1285,12 @@ def flash_bwd_timing(torch, flash, batch, seq, causal):
            "dq_bytes": 6 * tensor + 2 * rowstat,
            "dkv_bytes": 6 * tensor + 2 * rowstat,
            "dq_flops": 6 * D * pairs, "dkv_flops": 8 * D * pairs}
+    # each kernel's device time from the profiler (None where it recorded
+    # nothing); dk/dv reads the delta the timed dq launches wrote
+    for name in ("dq", "dkv"):
+        out[f"{name}_device_ms"] = maybe_device_ms(
+            torch, launch(getattr(lib, f"ds_flash_bwd_{name}")),
+            f"flash_bwd_{name}")
     out["sdpa_bwd_ms"], out["sdpa_backend"] = sdpa_bwd_ms(torch, q, k, v, do,
                                                           causal)
     # cuDNN's backend, which SDPA may pick when no backend is pinned
@@ -1297,6 +1331,9 @@ def training_kernel_rows(torch, flash, fused_adam, param_shapes):
          "source": "deepspeed_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "deepspeed_tpu/ops/transformer/flash.py:258",
          "shape": bwd["shape"], "ms": bwd["dq_ms"],
+         "device_ms": bwd["dq_device_ms"],
+         "wrapper_ms": bwd["wrapper_ms"],
+         "wrapper_note": "dq and dk/dv through the wrapper",
          "plain_ms": plain_ms, "plain_note": "the whole plain backward",
          "library_ms": bwd["sdpa_bwd_ms"], "library_note": sdpa_note,
          "bytes": bwd["dq_bytes"], "flops": bwd["dq_flops"],
@@ -1305,6 +1342,7 @@ def training_kernel_rows(torch, flash, fused_adam, param_shapes):
          "source": "deepspeed_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "deepspeed_tpu/ops/transformer/flash.py:292",
          "shape": bwd["shape"], "ms": bwd["dkv_ms"],
+         "device_ms": bwd["dkv_device_ms"],
          "plain_ms": plain_ms, "plain_note": "the whole plain backward",
          "library_ms": bwd["sdpa_bwd_ms"], "library_note": sdpa_note,
          "bytes": bwd["dkv_bytes"], "flops": bwd["dkv_flops"],
@@ -5975,6 +6013,402 @@ def mission_phase(torch, np, deepspeed_tpu_torch, gpt2, op_builder, cfg,
     return line, dict(rows)
 
 
+# phase 25, long context. (a) GPT-J-6B (EleutherAI's published shape: 28
+# x 4096, 16 heads of 256, rotary_dim 64, vocab 50400; seeded weights
+# built on the card in bf16) generates at B 4 x prompt 512, 16 new
+# tokens, greedy, by recompute (GPT-J has no KV cache, in JAX as in the
+# port): the D 256 flash forward. (b) 2 GPT-J layers at full width (depth
+# cut: the whole model with Adam's state does not fit one card) train at
+# bs 4 x 2048, bf16 over fp32 masters, fused Adam: the D 256 forward, dq
+# and dk/dv. (c) GPT-2 medium with rope trains at bs 1 x 8192 under auto,
+# ring:data and ulysses:data at world 1 over NCCL, and generates with its
+# KV cache at phase 4's 8 x 896 (64 new), rotating at each decode step's
+# position
+GPTJ_B, GPTJ_PROMPT, GPTJ_NEW = 4, 512, 16
+GPTJ_TRAIN_B, GPTJ_TRAIN_S, GPTJ_TRAIN_STEPS = 4, 2048, 3
+ROPE_S, ROPE_STEPS, ROPE_MODES = 8192, 3, ("auto", "ring:data",
+                                           "ulysses:data")
+ROPE_NEW = 64
+# the modes at world 1 run the same kernels on the same inputs (the
+# exchange is a copy, the ring one chunk): their losses agree to within
+# bf16 rounding of the loss
+ROPE_LOSS_TOL = 0.02
+D256 = 256
+
+
+@contextlib.contextmanager
+def plain_gptj_attention(gptj, attn_mod):
+    """GPT-J's attention on the plain dense version (the reference runs
+    of phase 25), restoring the kernels."""
+    saved = gptj.attention
+    gptj.attention = lambda q, k, v, causal=True: attn_mod.mha_reference(
+        q, k, v, causal=causal)
+    try:
+        yield
+    finally:
+        gptj.attention = saved
+
+
+def d256_kernel_rows(torch, flash):
+    """The D 256 flash kernels at the main path's shapes against their
+    plain versions (bf16 2e-2, lse and delta 2e-5: phase 3's), and their
+    rows for the kernels line: the forward at the generation shape (B 4,
+    H 16, S 512, causal) and the training shape (S 2048), the backward at
+    the training shape; timed at the training shape beside SDPA. Returns
+    (rows without launches, {row: max_abs_err})."""
+    gen = torch.Generator(device="cuda").manual_seed(25)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    err = {}
+    for seq in (GPTJ_PROMPT, GPTJ_TRAIN_S):
+        q, k, v = (rnd(GPTJ_B, 16, seq, D256) for _ in range(3))
+        o, lse = flash.flash_attention_fwd(q, k, v, True)
+        o_ref, lse_ref = flash.flash_attention_fwd_plain(q, k, v, True)
+        e_o, ok_o = close(o, o_ref, 2e-2)
+        e_l, ok_l = close(lse, lse_ref, 2e-5)
+        print(f"check flash_fwd D256 bf16 S={seq} causal: o err {e_o:.3g}, "
+              f"lse err {e_l:.3g}", flush=True)
+        if not (ok_o and ok_l):
+            raise AssertionError("flash_fwd at D 256 disagrees with its "
+                                 "plain version")
+        err["flash_fwd_d256"] = max(err.get("flash_fwd_d256", 0), e_o)
+    do = rnd(GPTJ_B, 16, GPTJ_TRAIN_S, D256)
+    *got, delta = flash.flash_attention_bwd(q, k, v, o, lse, do, True,
+                                            return_delta=True)
+    *want, want_delta = flash.flash_attention_bwd_plain(
+        q, k, v, o, lse, do, True, return_delta=True)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        e, ok = close(g, w, 2e-2)
+        print(f"check flash_bwd D256 bf16 S={GPTJ_TRAIN_S} causal: {name} "
+              f"err {e:.3g}", flush=True)
+        if not ok:
+            raise AssertionError(f"flash backward {name} at D 256 disagrees "
+                                 f"with its plain version")
+        row = "flash_bwd_dq_d256" if name == "dq" else "flash_bwd_dkv_d256"
+        err[row] = max(err.get(row, 0), e)
+    e, ok = close(delta, want_delta, 2e-5)
+    if not ok:
+        raise AssertionError(f"delta at D 256: err {e}")
+    plain_fwd_ms = cuda_ms(lambda: flash.flash_attention_fwd_plain(
+        q, k, v, True), iters=5)
+    plain_bwd_ms = cuda_ms(lambda: flash.flash_attention_bwd_plain(
+        q, k, v, o, lse, do, True), iters=3)
+    del q, k, v, o, lse, do, got, want, delta, want_delta
+    torch.cuda.empty_cache()
+    fwd = flash_fwd_timing(torch, flash, GPTJ_TRAIN_B, GPTJ_TRAIN_S, True,
+                           heads=16, dim=D256)
+    bwd = flash_bwd_timing(torch, flash, GPTJ_TRAIN_B, GPTJ_TRAIN_S, True,
+                           heads=16, dim=D256)
+    sdpa_note = (f"scaled_dot_product_attention backward alone "
+                 f"({bwd['sdpa_backend']} backend pinned), dq, dk and dv "
+                 f"together")
+    rows = [
+        {"name": "flash_fwd_d256", "route": "cuda",
+         "source": "deepspeed_tpu_torch/csrc/flash_fwd.cu",
+         "replaces": "deepspeed_tpu/ops/transformer/flash.py:211",
+         "shape": fwd["shape"], "ms": fwd["ms"],
+         "kernel_ms": fwd["kernel_ms"], "device_ms": fwd["device_ms"],
+         "plain_ms": plain_fwd_ms, "library_ms": fwd["sdpa_flash_ms"],
+         "library_note": "scaled_dot_product_attention forward, flash "
+                         "backend pinned",
+         **{key: fwd[key] for key in SDPA_FWD_KEYS if key in fwd},
+         "bytes": fwd["bytes"], "flops": fwd["flops"], "peak": BF16_FLOPS},
+        {"name": "flash_bwd_dq_d256", "route": "cuda",
+         "source": "deepspeed_tpu_torch/csrc/flash_bwd.cu",
+         "replaces": "deepspeed_tpu/ops/transformer/flash.py:258",
+         "shape": bwd["shape"], "ms": bwd["dq_ms"],
+         "device_ms": bwd["dq_device_ms"],
+         "wrapper_ms": bwd["wrapper_ms"],
+         "wrapper_note": "dq and dk/dv through the wrapper",
+         "plain_ms": plain_bwd_ms, "plain_note": "the whole plain backward",
+         "library_ms": bwd["sdpa_bwd_ms"], "library_note": sdpa_note,
+         "sdpa_cudnn_bwd_ms": bwd["sdpa_cudnn_bwd_ms"],
+         "bytes": bwd["dq_bytes"], "flops": bwd["dq_flops"],
+         "peak": BF16_FLOPS},
+        {"name": "flash_bwd_dkv_d256", "route": "cuda",
+         "source": "deepspeed_tpu_torch/csrc/flash_bwd.cu",
+         "replaces": "deepspeed_tpu/ops/transformer/flash.py:292",
+         "shape": bwd["shape"], "ms": bwd["dkv_ms"],
+         "device_ms": bwd["dkv_device_ms"],
+         "plain_ms": plain_bwd_ms, "plain_note": "the whole plain backward",
+         "library_ms": bwd["sdpa_bwd_ms"], "library_note": sdpa_note,
+         "sdpa_cudnn_bwd_ms": bwd["sdpa_cudnn_bwd_ms"],
+         "bytes": bwd["dkv_bytes"], "flops": bwd["dkv_flops"],
+         "peak": BF16_FLOPS}]
+    torch.cuda.empty_cache()
+    return rows, err
+
+
+def logits_agree(torch, got, want, vocab, what):
+    """Max abs error and argmax agreement of two logits tensors over the
+    vocab; raises past 0.1 or below 7/8 (phase 4's bounds)."""
+    err = (got.float() - want.float()).abs().max().item()
+    same = (got[..., :vocab].argmax(-1) == want[..., :vocab].argmax(-1)
+            ).float().mean().item()
+    scale = want.float().abs().max().item()
+    print(f"long context {what}: logits max abs err {err:.4g} (max |logit| "
+          f"{scale:.3g}), argmax agree {same:.4f}", flush=True)
+    if not (math.isfinite(err) and err <= 0.1 and same >= 7 / 8):
+        raise AssertionError(f"{what}: logits disagree with the reference "
+                             f"(err {err}, argmax agree {same})")
+    return {"max_abs_err": err, "logit_scale": scale, "argmax_agree": same}
+
+
+def gptj_generation(torch, deepspeed_tpu_torch, gptj, attn_mod, op_builder):
+    """(a): GPT-J-6B at full width and depth. Returns (line, launches)."""
+    cfg = gptj.PRESETS["gptj-6b"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = gptj.GPTJForCausalLM(cfg, dtype=torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    engine = deepspeed_tpu_torch.init_inference(model, dtype=torch.bfloat16)
+    ids = gptj.synthetic_batch(GPTJ_B, GPTJ_PROMPT, cfg.vocab_size,
+                               seed=21)["input_ids"]
+    engine.generate(ids[:, :64], max_new_tokens=2)      # warm-up
+    torch.cuda.synchronize()
+    op_builder.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = engine.generate(ids, max_new_tokens=GPTJ_NEW)
+    torch.cuda.synchronize()
+    gen_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(op_builder.LAUNCHES)
+    if out.shape != (GPTJ_B, GPTJ_PROMPT + GPTJ_NEW) or not torch.equal(
+            out[:, :GPTJ_PROMPT], ids):
+        raise AssertionError(f"gptj generate: output {tuple(out.shape)}")
+    if int(out.max()) >= cfg.vocab_size or int(out.min()) < 0:
+        raise AssertionError("gptj generate: a token outside the vocab")
+    want = {"flash_fwd": GPTJ_NEW * cfg.n_layer}
+    if launches != want:
+        raise AssertionError(f"gptj generate launched {launches}, expected "
+                             f"{want} (one D 256 forward a layer a token)")
+    with torch.no_grad():
+        prefill_ms = cuda_ms(lambda: model({"input_ids": ids},
+                                           return_logits=True),
+                             iters=3, warmup=1)
+        logits = model({"input_ids": out[:, :-1]}, return_logits=True)
+        with plain_gptj_attention(gptj, attn_mod):
+            ref = model({"input_ids": out[:, :-1]}, return_logits=True)
+    check = logits_agree(torch, logits, ref, cfg.vocab_size,
+                         "gptj-6b generated sequence vs plain attention")
+    del logits, ref
+    new_ms = (gen_ms - prefill_ms) / (GPTJ_NEW - 1)
+    line = {"config": "gptj-6b (28 x 4096, 16 heads of 256, rotary_dim 64, "
+                      "vocab 50400), seeded bf16 weights built on the card",
+            "params": cfg.num_params(), "batch": GPTJ_B,
+            "prompt": GPTJ_PROMPT, "new_tokens": GPTJ_NEW,
+            "build_s": build_s, "generate_ms": gen_ms,
+            "prefill_ms": prefill_ms, "ms_per_new_token": new_ms,
+            "tokens_per_s": GPTJ_B * GPTJ_NEW / (gen_ms / 1e3),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "check": check, "launches": launches}
+    print(f"long context gptj-6b generate: {json.dumps(line)}", flush=True)
+    del engine, model, out
+    torch.cuda.empty_cache()
+    return line, launches
+
+
+def gptj_training(torch, deepspeed_tpu_torch, gptj, attn_mod, op_builder):
+    """(b): 2 GPT-J layers at full width, 3 fused-Adam steps, and one step
+    on the kernels against one on the plain attention (phase 7's bounds).
+    Returns (line, launches of the 3 steps)."""
+    import dataclasses
+    cfg = dataclasses.replace(gptj.PRESETS["gptj-6b"], n_layer=2)
+    batch = gptj.synthetic_batch(GPTJ_TRAIN_B, GPTJ_TRAIN_S, cfg.vocab_size,
+                                 seed=22)
+    config = train_config(batch=GPTJ_TRAIN_B, fused=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=gptj.GPTJForCausalLM(cfg, seed=0), config=config)
+    op_builder.reset_launch_counts()
+    losses, step_ms = run_steps(torch, engine, batch, GPTJ_TRAIN_STEPS)
+    launches = dict(op_builder.LAUNCHES)
+    want = {"flash_fwd": 2 * GPTJ_TRAIN_STEPS,
+            "flash_bwd_dq": 2 * GPTJ_TRAIN_STEPS,
+            "flash_bwd_dkv": 2 * GPTJ_TRAIN_STEPS, "adam": GPTJ_TRAIN_STEPS}
+    if launches != want:
+        raise AssertionError(f"gptj training launched {launches}, expected "
+                             f"{want}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"gptj training: losses {losses}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del engine
+    torch.cuda.empty_cache()
+
+    def one(plain):
+        eng, *_ = deepspeed_tpu_torch.initialize(
+            model=gptj.GPTJForCausalLM(cfg, seed=5), config=config)
+        ctx = (plain_gptj_attention(gptj, attn_mod) if plain
+               else contextlib.nullcontext())
+        with ctx:
+            grads = micro_batch_grads(eng, batch)
+            loss = float(eng.train_batch(batch=batch))
+        params = {k: p.detach().clone() for k, p in eng.params.items()}
+        del eng
+        torch.cuda.empty_cache()
+        return loss, grads, params
+
+    parity = step_parity(one(False), one(True), "gptj 2-layer")
+    torch.cuda.empty_cache()
+    line = {"config": "gptj-6b width, 2 layers (depth cut), bs 4 x 2048, "
+                      "bf16 over fp32 masters, fused Adam lr 1e-4, ZeRO 1",
+            "losses": losses, "step_ms": step_ms,
+            "median_step_ms": statistics.median(step_ms[1:]),
+            "tokens_per_s": GPTJ_TRAIN_B * GPTJ_TRAIN_S
+            / (statistics.median(step_ms[1:]) / 1e3),
+            "peak_memory_gb": peak, "launches": launches,
+            "parity": parity}
+    print(f"long context gptj 2-layer training: {json.dumps(line)}",
+          flush=True)
+    return line, launches
+
+
+def rope_training(torch, deepspeed_tpu_torch, gpt2, op_builder):
+    """(c), training: GPT-2 medium with rope at bs 1 x 8192 under each of
+    ROPE_MODES at world 1 over NCCL. Returns (line, launches)."""
+    import dataclasses
+    dist = torch.distributed
+    cfg = dataclasses.replace(gpt2.PRESETS["gpt2-medium"],
+                              position_embedding="rope", n_positions=ROPE_S)
+    batch = gpt2.synthetic_batch(1, ROPE_S, cfg.vocab_size, seed=23)
+    if dist.is_initialized():
+        raise AssertionError("a process group exists before phase 25")
+    deepspeed_tpu_torch.init_distributed()         # NCCL, world 1
+    line = {"config": "gpt2-medium, position_embedding rope, bs 1 x 8192, "
+                      "bf16 over fp32 masters, fused Adam lr 1e-4, ZeRO 1",
+            "backend": dist.get_backend(),
+            "world_size": dist.get_world_size()}
+    counts = {}
+    try:
+        for mode in ROPE_MODES:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            engine, *_ = deepspeed_tpu_torch.initialize(
+                model=gpt2.GPT2LMHeadModel(dataclasses.replace(
+                    cfg, attention_mode=mode), seed=0),
+                config=train_config(batch=1, fused=True))
+            op_builder.reset_launch_counts()
+            losses, step_ms = run_steps(torch, engine, batch, ROPE_STEPS)
+            launches = dict(op_builder.LAUNCHES)
+            want = {"flash_fwd": 24 * ROPE_STEPS,
+                    "flash_bwd_dq": 24 * ROPE_STEPS,
+                    "flash_bwd_dkv": 24 * ROPE_STEPS, "adam": ROPE_STEPS}
+            if launches != want:
+                raise AssertionError(f"rope {mode}: launched {launches}, "
+                                     f"expected {want}")
+            for k, n in launches.items():
+                counts[k] = counts.get(k, 0) + n
+            line[mode] = {"losses": losses, "step_ms": step_ms,
+                          "median_step_ms": statistics.median(step_ms[1:]),
+                          "peak_memory_gb":
+                              torch.cuda.max_memory_allocated() / 1e9}
+            print(f"long context rope {mode}: {json.dumps(line[mode])}",
+                  flush=True)
+            del engine
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    auto = line["auto"]["losses"]
+    for mode in ROPE_MODES[1:]:
+        gap = max(abs(a - b) for a, b in zip(line[mode]["losses"], auto))
+        line[mode]["loss_gap_to_auto"] = gap
+        line[mode]["step_ms_over_auto"] = (line[mode]["median_step_ms"]
+                                           / line["auto"]["median_step_ms"])
+        if not (all(math.isfinite(x) for x in line[mode]["losses"])
+                and gap <= ROPE_LOSS_TOL):
+            raise AssertionError(f"rope {mode}: losses {line[mode]['losses']}"
+                                 f" against auto's {auto}")
+    print(f"long context rope modes: gaps to auto "
+          f"{[line[m]['loss_gap_to_auto'] for m in ROPE_MODES[1:]]}",
+          flush=True)
+    return line, counts
+
+
+def rope_generation(torch, deepspeed_tpu_torch, gpt2, op_builder):
+    """(c), generation: GPT-2 medium with rope, cached, at phase 4's
+    8 x 896, 64 new; each decode step's logits (teacher-forced on the
+    generated tokens) against the full recompute's at its position.
+    Returns (line, launches of the cached generate)."""
+    import dataclasses
+    cfg = dataclasses.replace(gpt2.PRESETS["gpt2-medium"],
+                              position_embedding="rope")
+    model = gpt2.GPT2LMHeadModel(cfg, seed=0)
+    engine = deepspeed_tpu_torch.init_inference(model, dtype=torch.bfloat16)
+    ids = gpt2.synthetic_batch(B, 896, cfg.vocab_size, seed=1)["input_ids"]
+    engine.generate(ids[:, :32], max_new_tokens=4)      # warm-up
+    torch.cuda.synchronize()
+    op_builder.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = engine.generate(ids, max_new_tokens=ROPE_NEW)
+    torch.cuda.synchronize()
+    gen_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(op_builder.LAUNCHES)
+    want = {"flash_fwd": cfg.n_layer,
+            "decode_attention": cfg.n_layer * (ROPE_NEW - 1)}
+    if launches != want:
+        raise AssertionError(f"rope generate launched {launches}, expected "
+                             f"{want}")
+    t0 = time.perf_counter()
+    recompute = engine.generate(ids, max_new_tokens=ROPE_NEW,
+                                use_cache=False)
+    torch.cuda.synchronize()
+    recompute_ms = (time.perf_counter() - t0) * 1e3
+    with torch.no_grad():
+        cache = model.new_cache(B)
+        model({"input_ids": out[:, :896]}, cache=cache, last_only=True)
+        steps = torch.cat([model({"input_ids": out[:, t:t + 1]}, cache=cache)
+                           for t in range(896, 896 + ROPE_NEW - 1)], dim=1)
+        full = model({"input_ids": out[:, :-1]}, return_logits=True)[:, 896:]
+    check = logits_agree(torch, steps, full, cfg.vocab_size,
+                         "rope gpt2-medium cached decode steps vs recompute")
+    same_rows = (out == recompute).all(dim=1).float().mean().item()
+    line = {"config": "gpt2-medium, position_embedding rope, bf16, "
+                      f"bs {B} x prompt 896, {ROPE_NEW} new, greedy",
+            "generate_ms": gen_ms, "recompute_generate_ms": recompute_ms,
+            "ms_per_token": gen_ms / ROPE_NEW,
+            "tokens_per_s": B * ROPE_NEW / (gen_ms / 1e3),
+            "check": check, "rows_equal_to_recompute": same_rows,
+            "launches": launches}
+    print(f"long context rope generate: {json.dumps(line)}", flush=True)
+    del engine, model, out, recompute, steps, full, cache
+    torch.cuda.empty_cache()
+    return line, launches
+
+
+def long_context_phase(torch, deepspeed_tpu_torch, gpt2, gptj, attn_mod,
+                       flash, op_builder, card):
+    """Phase 25. Returns (the line, the D 256 rows without launches,
+    {row: max_abs_err} of the D 256 rows, {row: launches} of the D 256
+    rows, {row: launches} of the other rows)."""
+    t0 = time.perf_counter()
+    line = {"card": card}
+    d256_rows, d256_err = d256_kernel_rows(torch, flash)
+    line["gptj_generate"], gen = gptj_generation(
+        torch, deepspeed_tpu_torch, gptj, attn_mod, op_builder)
+    line["gptj_train"], train = gptj_training(
+        torch, deepspeed_tpu_torch, gptj, attn_mod, op_builder)
+    d256_launches = {
+        "flash_fwd_d256": gen.get("flash_fwd", 0) + train["flash_fwd"],
+        "flash_bwd_dq_d256": train["flash_bwd_dq"],
+        "flash_bwd_dkv_d256": train["flash_bwd_dkv"]}
+    line["rope_train"], rope = rope_training(torch, deepspeed_tpu_torch,
+                                             gpt2, op_builder)
+    line["rope_generate"], rope_gen = rope_generation(
+        torch, deepspeed_tpu_torch, gpt2, op_builder)
+    other = {"adam_per_tensor": train["adam"] + rope["adam"]}
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        other[name] = rope.get(name, 0) + rope_gen.get(name, 0)
+    other["decode_attention"] = rope_gen.get("decode_attention", 0)
+    line["phase_s"] = time.perf_counter() - t0
+    print(f"long context phase: {line['phase_s']:.1f} s", flush=True)
+    return line, d256_rows, d256_err, d256_launches, other
+
+
 def finish_rows(rows, launches, max_err, card):
     """bound_ms (the larger of bytes at 3.35 TB/s and operations at the
     peak of their type), launches and max_abs_err for each row."""
@@ -6002,7 +6436,7 @@ def main():
     import numpy as np
 
     import deepspeed_tpu_torch
-    from deepspeed_tpu_torch.models import bert, gpt2
+    from deepspeed_tpu_torch.models import bert, gpt2, gptj
     from deepspeed_tpu_torch.ops import op_builder
     from deepspeed_tpu_torch.ops.adam import fused_adam
     from deepspeed_tpu_torch.module_inject import module_quantize
@@ -6541,6 +6975,26 @@ def main():
             row.setdefault("launches_by_path", {})["mission"] = n
     mission_line["script_s"] = time.perf_counter() - script_t0
 
+    # 25. long context: GPT-J-6B generation at full width and depth and
+    # 2 full-width GPT-J layers trained, on the D 256 flash kernels;
+    # GPT-2 medium with rope at S 8192 under auto, ring:data and
+    # ulysses:data over NCCL, and its cached rope generation
+    (long_line, d256_rows, d256_err, d256_launches,
+     long_counts) = long_context_phase(
+        torch, deepspeed_tpu_torch, gpt2, gptj, attn_mod, flash, op_builder,
+        card)
+    for row in rows:
+        n = long_counts.get(row["name"], 0)
+        row["launches"] += n
+        if n:
+            row.setdefault("launches_by_path", {})["long_context"] = n
+    rows += finish_rows(d256_rows, d256_launches, d256_err, card)
+    for name, n in d256_launches.items():
+        if n == 0:
+            raise AssertionError(f"kernel {name} never launched on the main "
+                                 f"path")
+    long_line["script_s"] = time.perf_counter() - script_t0
+
     print(json.dumps({"e2e": e2e}))
     print(json.dumps({"train": train}))
     print(json.dumps({"bert": bert_line}))
@@ -6557,6 +7011,7 @@ def main():
     print(json.dumps({"data": data_line}))
     print(json.dumps({"serve_obs": serve_obs_line}))
     print(json.dumps({"mission": mission_line}))
+    print(json.dumps({"long_context": long_line}))
     print(json.dumps({"kernels": rows}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

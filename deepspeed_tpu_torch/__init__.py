@@ -47,6 +47,13 @@ This package ports these paths, with hand-written CUDA kernels
   entry point on the flash and Adam kernels, the per-expert checkpoint
   files, and ``init_inference(moe=True)`` on the flash and decode
   kernels;
+* long context: GPT-2 with ``position_embedding="rope"``
+  (``ops.transformer.rotary``) and ``attention_mode="ring:<axis>"`` /
+  ``"ulysses:<axis>"`` (each rank's rows exchanged to sequence chunks
+  over the axis's group, ``utils.groups.axis_group``), and GPT-J
+  (``models.gptj``: training through ``initialize``, recompute
+  generation through ``init_inference``) on the flash kernels at head
+  dim 256;
 * the data path: ``initialize(training_data=)`` and
   ``DeepSpeedEngine.deepspeed_io`` build a ``DeepSpeedDataLoader``
   (``RepeatingLoader`` around it, with its resume state in checkpoints),

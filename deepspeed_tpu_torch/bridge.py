@@ -12,12 +12,13 @@ block ``h_{i}`` becomes ``h.{i}``, and ``wte`` keeps its padded vocab.
 Both directions come from the same rows:
 
 * :func:`flax_to_state_dict` (GPT-2, MoE-GPT),
-  :func:`bert_flax_to_state_dict`, :func:`moe_inference_flax_to_state_dict`,
+  :func:`gptj_flax_to_state_dict`, :func:`bert_flax_to_state_dict`,
+  :func:`moe_inference_flax_to_state_dict`,
   :func:`simple_flax_to_state_dict` (``SimpleModel`` / ``LinearStack`` /
   ``EmbeddingModel``), :func:`cifar_flax_to_state_dict` and
   :func:`tiled_flax_to_state_dict` take a flax
   params tree of numpy arrays (``jax.tree.map(np.asarray, params)``) to
-  the port model's state_dict;
+  the port model's state_dict, and :func:`state_dict_to_flax` back;
 * :func:`layout_of` finds the table that names every parameter of a port
   module; with it the engine writes each per-parameter leaf (the params,
   an optimizer's ``mu`` / ``nu`` / ``momentum`` / ``accum``) at its flax
@@ -141,12 +142,22 @@ OFFLOAD_BLOCK_LAYOUT = (_attention_block("block", "block")
                         + _dense("block.mlp.proj", "block/mlp/proj"))
 OFFLOAD_HEAD_LAYOUT = _norm("ln_f", "ln_f") + _raw("lm_head")
 
+# models/gptj.GPTJForCausalLM (JAX gptj.py): bias-free qkv and out_proj,
+# biased fc_in / fc_out, the untied biased lm_head; no position table
+GPTJ_LAYOUT = (
+    _raw("wte") + _norm("h.{i}.ln_1", "h_{i}/ln_1")
+    + (("h.{i}.qkv.weight", "h_{i}/qkv/kernel", _T),
+       ("h.{i}.out_proj.weight", "h_{i}/out_proj/kernel", _T))
+    + _dense("h.{i}.fc_in", "h_{i}/fc_in")
+    + _dense("h.{i}.fc_out", "h_{i}/fc_out")
+    + _norm("ln_f", "ln_f") + _dense("lm_head", "lm_head"))
+
 LAYOUTS = {"gpt2": GPT2_LAYOUT, "bert": BERT_LAYOUT,
            "embedding": EMBEDDING_LAYOUT, "simple": SIMPLE_LAYOUT,
            "cifar": CIFAR_LAYOUT, "moe_inference": MOE_INFERENCE_LAYOUT,
            "moe_layer": MOE_LAYER_LAYOUT, "tiled": TILED_LAYOUT,
            "offload_block": OFFLOAD_BLOCK_LAYOUT,
-           "offload_head": OFFLOAD_HEAD_LAYOUT}
+           "offload_head": OFFLOAD_HEAD_LAYOUT, "gptj": GPTJ_LAYOUT}
 
 
 def _pattern(template):
@@ -320,8 +331,35 @@ def _from_flax_params(family, params):
 
 
 def flax_to_state_dict(params) -> dict:
-    """Convert a flax GPT-2 params tree (numpy leaves) to a state_dict."""
+    """Convert a flax GPT-2 params tree (numpy leaves) to a state_dict
+    (with rope positions the tree has no ``wpe``, nor the state_dict)."""
     return _from_flax_params("gpt2", params)
+
+
+def gptj_flax_to_state_dict(params) -> dict:
+    """Convert a flax GPT-J params tree (numpy leaves; JAX's
+    ``GPTJForCausalLM``, or ``models.gptj.hf_gptj_to_params``) to the
+    state_dict of ``deepspeed_tpu_torch.models.gptj.GPTJForCausalLM``."""
+    return _from_flax_params("gptj", params)
+
+
+def state_dict_to_flax(state_dict) -> dict:
+    """The inverse of the ``*_flax_to_state_dict`` functions: a port
+    model's state_dict (or ``named_parameters()``) as the nested flax
+    params tree of its family, numpy leaves in flax's layout (bf16 as
+    fp32). ``KeyError`` when no family's table names every tensor."""
+    table = layout_of(state_dict)
+    if table is None:
+        raise KeyError("no layout table names every tensor of the "
+                       "state_dict")
+
+    def host(x):
+        x = x.detach().cpu()
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+
+    return nest((path, np.ascontiguousarray(
+        _permute(host(state_dict[n]), inverse(perm))))
+        for n, (path, perm) in table.items())
 
 
 def bert_flax_to_state_dict(params) -> dict:

@@ -51,10 +51,20 @@
 //   products vanish. Loop bounds kv_end / q_begin skip the tiles above the
 //   diagonal; the dq grid runs the heavy causal tiles first.
 // * p is rounded to bf16 before p^T do and ds before ds k and ds^T q,
-//   where the JAX kernels cast (flash.py:317-325). Every head dim 1..128
-//   takes this design, padded with zeros in shared memory to 16, 32, 64 or
-//   128; rows that are not 16-byte aligned (D % 8 != 0) stage through the
-//   registers into the same layout.
+//   where the JAX kernels cast (flash.py:317-325). Every head dim 1..256
+//   takes this design, padded with zeros in shared memory to 16, 32, 64,
+//   128 or 256; rows that are not 16-byte aligned (D % 8 != 0) stage
+//   through the registers into the same layout.
+// * D 256 (GPT-J) runs on mma.sync as D 128 does, with 32-row streamed
+//   tiles, but the resident rows' A fragments stay in shared memory and
+//   are read one k-step at a time (two operands would take 128 registers
+//   a thread beside an accumulator of 128). The dk/dv kernel's two
+//   [64, 256] fp32 accumulators would take 256 registers a thread, so its
+//   CTA has two warpgroups that split the head dim of dk and dv: each
+//   computes s^T and dp^T over the whole head dim for its 16-key rows
+//   (the products that need all of D, done twice) and accumulates its 128
+//   columns of dk and dv; the staged tiles serve both. The D <= 128
+//   kernels are unchanged.
 // * fp32: FMA pipes, no TF32 (fp32 parity holds); four neighbouring
 //   threads own a row and split the head dim as float4 groups, and the
 //   dot products are reduced with two xor-shuffles.
@@ -70,13 +80,16 @@
 namespace {
 
 using namespace flash;
+using hopper::AFrags;
 using hopper::cp_async4;
 using hopper::cp_async_commit;
 using hopper::cp_async_wait;
 using hopper::ex2;
 using hopper::hold_regs;
 using hopper::kLog2e;
+using hopper::load_a;
 using hopper::ldsm_a;
+using hopper::ldsm_a1;
 using hopper::ldsm_b;
 using hopper::ldsm_bt;
 using hopper::stage_tile;
@@ -111,6 +124,10 @@ struct Args {
 template <int DP>
 __host__ __device__ constexpr int inner_tile() { return DP <= 64 ? 64 : 32; }
 
+// warpgroups of a dk/dv CTA, each accumulating its share of the head dim
+template <int DP>
+__host__ __device__ constexpr int dkv_halves() { return DP > 128 ? 2 : 1; }
+
 template <int DP>
 constexpr int dq_smem_bytes() {
   return (2 * kRows * DP + kStages * 2 * inner_tile<DP>() * DP) * 2;
@@ -140,8 +157,8 @@ __device__ __forceinline__ float2 unpack_bf16(uint32_t x) {
 // MASK: the causal diagonal or the ragged key tail.
 template <int DP, int BN, bool MASK>
 __device__ __forceinline__ void dq_tile(
-    float (&acc)[DP / 8][4], uint32_t (&qa)[DP / 16][4],
-    uint32_t (&da)[DP / 16][4], const bf16* ks, const bf16* vs, int kt,
+    float (&acc)[DP / 8][4], AFrags<DP>& qa, AFrags<DP>& da,
+    const bf16* ks, const bf16* vs, int kt,
     int r0, int Sk, int offset, bool causal, float scale, float scale2,
     float ls0, float ls1, float dl0, float dl1, int lane) {
   constexpr int NK = DP / 16, NS = BN / 8, NO = DP / 8;
@@ -163,6 +180,23 @@ __device__ __forceinline__ void dq_tile(
     wgmma_wait();
     hopper::reg_fence(s);
     hopper::reg_fence(dp);
+  } else if constexpr (DP > 128) {
+#pragma unroll 4
+    for (int kk = 0; kk < NK; ++kk) {
+      uint32_t q4[4], d4[4];
+      ldsm_a1<DP>(q4, qa.tile, qa.r0, kk, lane);
+      ldsm_a1<DP>(d4, da.tile, da.r0, kk, lane);
+#pragma unroll
+      for (int j2 = 0; j2 < NS / 2; ++j2) {
+        uint32_t bk[4], bv[4];
+        ldsm_b<DP>(bk, ks, j2 * 16, kk, lane);
+        ldsm_b<DP>(bv, vs, j2 * 16, kk, lane);
+        mma_bf16(s[2 * j2], q4, bk);
+        mma_bf16(s[2 * j2 + 1], q4, bk + 2);
+        mma_bf16(dp[2 * j2], d4, bv);
+        mma_bf16(dp[2 * j2 + 1], d4, bv + 2);
+      }
+    }
   } else {
 #pragma unroll
     for (int kk = 0; kk < NK; ++kk) {
@@ -288,12 +322,26 @@ flash_bwd_dq_bf16_kernel(Args a) {
   if (use_wgmma<DP>()) hopper::fence_async_smem();
   __syncthreads();
 
-  uint32_t qa[NK][4], da[NK][4];
-  ldsm_a<DP, NK>(qa, q_s, warp * 16, lane);
-  ldsm_a<DP, NK>(da, do_s, warp * 16, lane);
+  AFrags<DP> qa, da;
+  load_a<DP>(qa, q_s, warp * 16, lane);
+  load_a<DP>(da, do_s, warp * 16, lane);
   // delta = rowsum(do * o) - g_lse: fp32 sums of the bf16 products
   float dl0 = 0.f, dl1 = 0.f;
-  {
+  if constexpr (DP > 128) {
+#pragma unroll 4
+    for (int kk = 0; kk < NK; ++kk) {
+      uint32_t d4[4], o4[4];
+      ldsm_a1<DP>(d4, do_s, warp * 16, kk, lane);
+      ldsm_a1<DP>(o4, o_s, warp * 16, kk, lane);
+#pragma unroll
+      for (int reg = 0; reg < 4; ++reg) {
+        const float2 x = unpack_bf16(d4[reg]);
+        const float2 y = unpack_bf16(o4[reg]);
+        const float part = x.x * y.x + x.y * y.y;
+        if (reg & 1) dl1 += part; else dl0 += part;
+      }
+    }
+  } else {
     uint32_t oa[NK][4];
     ldsm_a<DP, NK>(oa, o_s, warp * 16, lane);
 #pragma unroll
@@ -363,12 +411,14 @@ flash_bwd_dq_bf16_kernel(Args a) {
 // One query tile of the dk/dv kernel: s^T = k q^T, dp^T = v do^T, p^T,
 // ds^T, dv += p^T do, dk += ds^T q. MASK: the causal diagonal (the only
 // tiles where a query row can have no visible key).
+// DP 256: this warpgroup's share `half` of the head dim of dk and dv.
 template <int DP, int BQ, bool MASK>
 __device__ __forceinline__ void dkv_tile(
-    float (&dk)[DP / 8][4], float (&dv)[DP / 8][4],
-    uint32_t (&ka)[DP / 16][4], uint32_t (&va)[DP / 16][4], const bf16* qs,
-    const bf16* ds_, const float* lse_t, const float* dl_t, int qt, int r0,
-    int offset, float scale, float scale2, int lane) {
+    float (&dk)[DP / 8 / dkv_halves<DP>()][4],
+    float (&dv)[DP / 8 / dkv_halves<DP>()][4], AFrags<DP>& ka,
+    AFrags<DP>& va, const bf16* qs, const bf16* ds_, const float* lse_t,
+    const float* dl_t, int qt, int r0, int offset, float scale,
+    float scale2, int lane, int half) {
   constexpr int NK = DP / 16, NS = BQ / 8, NO = DP / 8;
   const int t = lane % 4;
   float st[NS][4], dpt[NS][4];
@@ -388,6 +438,23 @@ __device__ __forceinline__ void dkv_tile(
     wgmma_wait();
     hopper::reg_fence(st);
     hopper::reg_fence(dpt);
+  } else if constexpr (DP > 128) {
+#pragma unroll 4
+    for (int kk = 0; kk < NK; ++kk) {
+      uint32_t k4[4], v4[4];
+      ldsm_a1<DP>(k4, ka.tile, ka.r0, kk, lane);
+      ldsm_a1<DP>(v4, va.tile, va.r0, kk, lane);
+#pragma unroll
+      for (int j2 = 0; j2 < NS / 2; ++j2) {
+        uint32_t bq[4], bd[4];
+        ldsm_b<DP>(bq, qs, j2 * 16, kk, lane);
+        ldsm_b<DP>(bd, ds_, j2 * 16, kk, lane);
+        mma_bf16(st[2 * j2], k4, bq);
+        mma_bf16(st[2 * j2 + 1], k4, bq + 2);
+        mma_bf16(dpt[2 * j2], v4, bd);
+        mma_bf16(dpt[2 * j2 + 1], v4, bd + 2);
+      }
+    }
   } else {
 #pragma unroll
     for (int kk = 0; kk < NK; ++kk) {
@@ -449,6 +516,29 @@ __device__ __forceinline__ void dkv_tile(
     hopper::reg_fence(dk);
     hold_regs(pa);
     hold_regs(sa);
+  } else if constexpr (DP > 128) {
+    constexpr int NP = NO / 2 / dkv_halves<DP>();  // n-tile pairs a half
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(st[2 * kk][0], st[2 * kk][1]),
+                              pack_bf16(st[2 * kk][2], st[2 * kk][3]),
+                              pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]),
+                              pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3])};
+      const uint32_t sa[4] = {pack_bf16(dpt[2 * kk][0], dpt[2 * kk][1]),
+                              pack_bf16(dpt[2 * kk][2], dpt[2 * kk][3]),
+                              pack_bf16(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]),
+                              pack_bf16(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3])};
+#pragma unroll
+      for (int np = 0; np < NP; ++np) {
+        uint32_t bd[4], bq[4];
+        ldsm_bt<DP>(bd, ds_, kk * 16, half * NP + np, lane);
+        ldsm_bt<DP>(bq, qs, kk * 16, half * NP + np, lane);
+        mma_bf16(dv[2 * np], pa, bd);
+        mma_bf16(dv[2 * np + 1], pa, bd + 2);
+        mma_bf16(dk[2 * np], sa, bq);
+        mma_bf16(dk[2 * np + 1], sa, bq + 2);
+      }
+    }
   } else {
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
@@ -476,12 +566,15 @@ __device__ __forceinline__ void dkv_tile(
 
 // dk, dv: one CTA per (batch*head, 64-key tile), heavy causal tiles first;
 // the q loop starts at the first tile that sees the CTA's first key
-// (flash.py:299-303) and runs the diagonal tiles first.
+// (flash.py:299-303) and runs the diagonal tiles first. At DP 256 a CTA
+// holds two warpgroups, warpgroup `half` accumulating that half of the
+// head dim of dk and dv.
 template <int DP>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads * dkv_halves<DP>())
 flash_bwd_dkv_bf16_kernel(Args a) {
   constexpr int BQ = inner_tile<DP>();
-  constexpr int NK = DP / 16, NO = DP / 8;
+  constexpr int NH = dkv_halves<DP>(), NT = kThreads * NH;
+  constexpr int NO = DP / 8 / NH;  // accumulator n-tiles a warpgroup
   constexpr int TILE = BQ * DP;
   extern __shared__ __align__(1024) unsigned char smem[];
   bf16* k_s = reinterpret_cast<bf16*>(smem);
@@ -492,7 +585,11 @@ flash_bwd_dkv_bf16_kernel(Args a) {
 
   const int bh = blockIdx.y;
   const int b = bh / a.H, h = bh % a.H;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // one warpgroup but at DP 256 (folded, so the other kernels keep their
+  // registers)
+  const int warp = NH == 1 ? threadIdx.x / 32 : threadIdx.x / 32 % kWarps;
+  const int lane = threadIdx.x % 32;
+  const int half = NH == 1 ? 0 : threadIdx.x / kThreads;
   const int g = lane / 4, t = lane % 4;
   const int k0 = blockIdx.x * kRows;
   const int r0 = k0 + warp * 16 + g;  // this thread's keys: r0, r0 + 8
@@ -520,9 +617,9 @@ flash_bwd_dkv_bf16_kernel(Args a) {
   auto stage_q = [&](int j, int st) {
     const int qt = q_begin + j * BQ;
     bf16* slot = ring + st * 2 * TILE;
-    stage_tile<DP, BQ, kThreads>(slot, qb, a.qs.s, qt, Sq, D, vec);
-    stage_tile<DP, BQ, kThreads>(slot + TILE, db, a.dos.s, qt, Sq, D, vec);
-    for (int i = threadIdx.x; i < BQ; i += kThreads) {
+    stage_tile<DP, BQ, NT>(slot, qb, a.qs.s, qt, Sq, D, vec);
+    stage_tile<DP, BQ, NT>(slot + TILE, db, a.dos.s, qt, Sq, D, vec);
+    for (int i = threadIdx.x; i < BQ; i += NT) {
       const bool live = qt + i < Sq;
       cp_async4(lse_r + st * BQ + i, live ? lse_b + qt + i : lse_b,
                 live ? 4 : 0);
@@ -531,8 +628,8 @@ flash_bwd_dkv_bf16_kernel(Args a) {
     }
   };
 
-  stage_tile<DP, kRows, kThreads>(k_s, kb, a.ks.s, k0, Sk, D, vec);
-  stage_tile<DP, kRows, kThreads>(v_s, vb, a.vs.s, k0, Sk, D, vec);
+  stage_tile<DP, kRows, NT>(k_s, kb, a.ks.s, k0, Sk, D, vec);
+  stage_tile<DP, kRows, NT>(v_s, vb, a.vs.s, k0, Sk, D, vec);
   cp_async_commit();
 #pragma unroll
   for (int st = 0; st < kStages - 1; ++st) {
@@ -543,9 +640,9 @@ flash_bwd_dkv_bf16_kernel(Args a) {
   if (use_wgmma<DP>()) hopper::fence_async_smem();
   __syncthreads();
 
-  uint32_t ka[NK][4], va[NK][4];
-  ldsm_a<DP, NK>(ka, k_s, warp * 16, lane);
-  ldsm_a<DP, NK>(va, v_s, warp * 16, lane);
+  AFrags<DP> ka, va;
+  load_a<DP>(ka, k_s, warp * 16, lane);
+  load_a<DP>(va, v_s, warp * 16, lane);
   const float scale = a.sm_scale, scale2 = scale * kLog2e;
 
   float dk[NO][4], dv[NO][4];
@@ -568,19 +665,21 @@ flash_bwd_dkv_bf16_kernel(Args a) {
     if (j < n_masked)
       dkv_tile<DP, BQ, true>(dk, dv, ka, va, qs, qs + TILE, lse_r + slot * BQ,
                              dl_r + slot * BQ, qt, r0, offset, scale, scale2,
-                             lane);
+                             lane, half);
     else
       dkv_tile<DP, BQ, false>(dk, dv, ka, va, qs, qs + TILE,
                               lse_r + slot * BQ, dl_r + slot * BQ, qt, r0,
-                              offset, scale, scale2, lane);
+                              offset, scale, scale2, lane, half);
     slot = slot + 1 == kStages ? 0 : slot + 1;
   }
   cp_async_wait<0>();
 
-  store_rows<NO>(static_cast<bf16*>(a.dk) + b * a.dks.b + h * a.dks.h,
-                 a.dks.s, dk, r0, Sk, D, t);
-  store_rows<NO>(static_cast<bf16*>(a.dv) + b * a.dvs.b + h * a.dvs.h,
-                 a.dvs.s, dv, r0, Sk, D, t);
+  // this warpgroup's columns c0 .. of dk and dv
+  const int c0 = half * (DP / NH);
+  store_rows<NO>(static_cast<bf16*>(a.dk) + b * a.dks.b + h * a.dks.h + c0,
+                 a.dks.s, dk, r0, Sk, D - c0, t);
+  store_rows<NO>(static_cast<bf16*>(a.dv) + b * a.dvs.b + h * a.dvs.h + c0,
+                 a.dvs.s, dv, r0, Sk, D - c0, t);
 }
 
 // ------------------------------------------------------------ fp32: FMA
@@ -723,17 +822,19 @@ flash_bwd_dkv_f32_kernel(Args a) {
 }
 
 // ------------------------------------------------------------ launch
-// the fp32 kernels' inner tile: 64 rows, 32 at D = 128 (static 48 KB)
+// the fp32 kernels' inner tile: 64 rows, 32 at D = 128, 16 at D = 256
+// (static 48 KB)
 template <int DP>
-constexpr int f32_tile() { return DP <= 64 ? 64 : 32; }
+constexpr int f32_tile() { return DP <= 64 ? 64 : DP <= 128 ? 32 : 16; }
 
 template <typename Kernel>
-cudaError_t launch_bf16(Kernel kernel, dim3 grid, int smem, const Args& a) {
+cudaError_t launch_bf16(Kernel kernel, dim3 grid, int threads, int smem,
+                        const Args& a) {
   // above 48 KB of dynamic shared memory only after opting in
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, a.stream>>>(a);
+  kernel<<<grid, threads, smem, a.stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -741,7 +842,7 @@ template <int DP>
 cudaError_t dq_launch(const Args& a, int dtype) {
   dim3 grid((a.Sq + kRows - 1) / kRows, a.B * a.H);
   if (dtype == 1)
-    return launch_bf16(flash_bwd_dq_bf16_kernel<DP>, grid,
+    return launch_bf16(flash_bwd_dq_bf16_kernel<DP>, grid, kThreads,
                        dq_smem_bytes<DP>(), a);
   flash_bwd_dq_f32_kernel<DP, f32_tile<DP>()>
       <<<grid, kThreads32, 0, a.stream>>>(a);
@@ -753,7 +854,7 @@ cudaError_t dkv_launch(const Args& a, int dtype) {
   dim3 grid((a.Sk + kRows - 1) / kRows, a.B * a.H);
   if (dtype == 1)
     return launch_bf16(flash_bwd_dkv_bf16_kernel<DP>, grid,
-                       dkv_smem_bytes<DP>(), a);
+                       kThreads * dkv_halves<DP>(), dkv_smem_bytes<DP>(), a);
   flash_bwd_dkv_f32_kernel<DP, f32_tile<DP>()>
       <<<grid, kThreads32, 0, a.stream>>>(a);
   return cudaGetLastError();
@@ -762,11 +863,12 @@ cudaError_t dkv_launch(const Args& a, int dtype) {
 typedef cudaError_t (*Launch)(const Args&, int);
 
 cudaError_t by_head_dim(const Args& a, int dtype, Launch l16, Launch l32,
-                        Launch l64, Launch l128) {
+                        Launch l64, Launch l128, Launch l256) {
   if (a.D <= 16) return l16(a, dtype);
   if (a.D <= 32) return l32(a, dtype);
   if (a.D <= 64) return l64(a, dtype);
-  return l128(a, dtype);
+  if (a.D <= 128) return l128(a, dtype);
+  return l256(a, dtype);
 }
 
 bool make_args(Args* a, const void* q, const void* k, const void* v,
@@ -775,7 +877,7 @@ bool make_args(Args* a, const void* q, const void* k, const void* v,
                void* dv, int dtype, int B, int H, int Sq, int Sk, int D,
                const long long* st, float sm_scale, int causal, int vec,
                void* stream) {
-  if (D < 1 || D > 128 || B * H == 0 || Sq == 0 || Sk == 0) return false;
+  if (D < 1 || D > 256 || B * H == 0 || Sq == 0 || Sk == 0) return false;
   if (dtype != 0 && dtype != 1) return false;
   *a = Args{q, k, v, o, dout, lse, g_lse, delta, dq, dk, dv, B, H, Sq, Sk, D,
             Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
@@ -792,7 +894,7 @@ bool make_args(Args* a, const void* q, const void* k, const void* v,
 // (batch, head, seq) of q, k, v, o, do, dq, dk, dv in that order; every
 // head dim must be contiguous. lse, g_lse (null: no lse cotangent) and
 // delta are contiguous fp32 [B, H, Sq]. vec = 1 when D % 8 == 0 and the
-// rows of q, k, v, o and do are 16-byte aligned. 1 <= D <= 128.
+// rows of q, k, v, o and do are 16-byte aligned. 1 <= D <= 256.
 // ds_flash_bwd_dq writes dq and delta = rowsum(do * o) - g_lse (dk, dv
 // unused); ds_flash_bwd_dkv reads that delta and writes dk and dv (dq, o
 // and g_lse unused): launch it after ds_flash_bwd_dq on the same stream.
@@ -808,7 +910,7 @@ extern "C" int ds_flash_bwd_dq(const void* q, const void* k, const void* v,
                  B, H, Sq, Sk, D, strides, sm_scale, causal, vec, stream))
     return cudaErrorInvalidValue;
   return by_head_dim(a, dtype, dq_launch<16>, dq_launch<32>, dq_launch<64>,
-                     dq_launch<128>);
+                     dq_launch<128>, dq_launch<256>);
 }
 
 extern "C" int ds_flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -824,5 +926,5 @@ extern "C" int ds_flash_bwd_dkv(const void* q, const void* k, const void* v,
                  B, H, Sq, Sk, D, strides, sm_scale, causal, vec, stream))
     return cudaErrorInvalidValue;
   return by_head_dim(a, dtype, dkv_launch<16>, dkv_launch<32>,
-                     dkv_launch<64>, dkv_launch<128>);
+                     dkv_launch<64>, dkv_launch<128>, dkv_launch<256>);
 }

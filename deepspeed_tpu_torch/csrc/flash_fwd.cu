@@ -46,10 +46,17 @@
 //   shuffles. The causal mask and the ragged key tail are applied only on
 //   the tiles where they bite (the diagonal and the last tile); the
 //   others carry no mask arithmetic.
-// * Every head dim 1..128 takes this design, padded with zeros in shared
-//   memory to 16, 32, 64 or 128; rows that are not 16-byte aligned (D % 8
-//   != 0, or unaligned views) stage through the registers into the same
-//   layout.
+// * Every head dim 1..256 takes this design, padded with zeros in shared
+//   memory to 16, 32, 64, 128 or 256; rows that are not 16-byte aligned
+//   (D % 8 != 0, or unaligned views) stage through the registers into the
+//   same layout.
+// * D 256 (GPT-J): one warpgroup a CTA on mma.sync, as at D 128, but Q
+//   stays in shared memory and is read one k-step at a time: the o
+//   accumulator alone is 128 fp32 registers a thread, and Q's A fragments
+//   would be 64 more. Q gets its own 32 KB after the ring (it is read in
+//   every tile), so the 3-stage ring of 64-key K|V tiles (64 KB a stage)
+//   and Q take 224 KB of the 227 KB a CTA may have: one CTA an SM. The
+//   D <= 128 kernels are unchanged.
 // * fp32: the FMA pipes (no TF32, so results keep fp32 accuracy). Four
 //   neighbouring threads own a query row and split the head dim as float4
 //   groups interleaved by 16, so a warp's shared-memory reads of a key row
@@ -67,12 +74,14 @@
 namespace {
 
 using namespace flash;
+using hopper::AFrags;
 using hopper::cp_async_commit;
 using hopper::cp_async_wait;
 using hopper::ex2;
 using hopper::hold_regs;
 using hopper::kLog2e;
-using hopper::ldsm_a;
+using hopper::load_a;
+using hopper::ldsm_a1;
 using hopper::ldsm_b;
 using hopper::ldsm_bt;
 using hopper::stage_tile;
@@ -101,9 +110,17 @@ struct Args {
   cudaStream_t stream;
 };
 
+// DP 256: Q is read from shared memory in every tile (AFrags), so it gets
+// its own region after the ring
+template <int DP>
+constexpr bool q_in_smem() {
+  return DP > 128;
+}
+
 template <int DP>
 constexpr int fwd_smem_bytes() {
-  return kStages * 2 * kBK * DP * 2;  // K | V tiles; Q shares a stage
+  // K | V tiles; Q shares a stage up to DP 128
+  return kStages * 2 * kBK * DP * 2 + (q_in_smem<DP>() ? kBQ * DP * 2 : 0);
 }
 
 // The running row max of one thread's two rows (scores in the log2
@@ -127,7 +144,7 @@ __device__ __forceinline__ float row_step(float& m, float mx, float& off) {
 // diagonal or the ragged key tail.
 template <int DP, bool MASK>
 __device__ __forceinline__ void fwd_tile(
-    float (&acc)[DP / 8][4], uint32_t (&qa)[DP / 16][4], const bf16* ks,
+    float (&acc)[DP / 8][4], AFrags<DP>& qa, const bf16* ks,
     const bf16* vs, int kt, int r0, int Sk, int offset, bool causal,
     float scale2, float& m0, float& m1, float& l0, float& l1, int lane) {
   constexpr int NK = DP / 16, NS = kBK / 8, NO = DP / 8;
@@ -143,6 +160,19 @@ __device__ __forceinline__ void fwd_tile(
     wgmma_commit();
     wgmma_wait();
     hopper::reg_fence(s);
+  } else if constexpr (q_in_smem<DP>()) {
+#pragma unroll 4
+    for (int kk = 0; kk < NK; ++kk) {
+      uint32_t a[4];
+      ldsm_a1<DP>(a, qa.tile, qa.r0, kk, lane);
+#pragma unroll
+      for (int j2 = 0; j2 < NS / 2; ++j2) {
+        uint32_t bk[4];
+        ldsm_b<DP>(bk, ks, j2 * 16, kk, lane);
+        mma_bf16(s[2 * j2], a, bk);
+        mma_bf16(s[2 * j2 + 1], a, bk + 2);
+      }
+    }
   } else {
 #pragma unroll
     for (int kk = 0; kk < NK; ++kk) {
@@ -228,18 +258,19 @@ __device__ __forceinline__ void fwd_tile(
 }
 
 // ------------------------------------------------------------ bf16
-// DP: head dim padded to 16, 32, 64 or 128 (zeros beyond D). WG
+// DP: head dim padded to 16, 32, 64, 128 or 256 (zeros beyond D). WG
 // warpgroups a CTA, 64 query rows each, sharing the K/V ring.
 template <int DP, int WG>
 __global__ void __launch_bounds__(kThreads * WG)
 flash_fwd_bf16_kernel(Args a) {
-  constexpr int NK = DP / 16, NO = DP / 8;
+  constexpr int NO = DP / 8;
   constexpr int TILE = kBK * DP;
   constexpr int NT = kThreads * WG;
   static_assert(kBQ == kBK && WG <= 2, "Q is staged into one ring stage");
   extern __shared__ __align__(1024) unsigned char smem[];
   bf16* ring = reinterpret_cast<bf16*>(smem);  // kStages x [K tile | V tile]
-  bf16* q_s = ring + (kStages - 1) * 2 * TILE;  // free until the loop
+  // Q: in the last stage, free until the loop; after the ring at DP 256
+  bf16* q_s = ring + (q_in_smem<DP>() ? kStages : kStages - 1) * 2 * TILE;
 
   const int bh = blockIdx.x;
   const int q_tile = gridDim.y - 1 - blockIdx.y;  // heavy causal tiles first
@@ -282,8 +313,8 @@ flash_fwd_bf16_kernel(Args a) {
   cp_async_wait<kStages - 1>();  // Q
   __syncthreads();
 
-  uint32_t qa[NK][4];
-  ldsm_a<DP, NK>(qa, q_s, warp * 16, lane);
+  AFrags<DP> qa;
+  load_a<DP>(qa, q_s, warp * 16, lane);
   float acc[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
@@ -474,7 +505,7 @@ cudaError_t launch_bf16_wg(const Args& a) {
 
 // two warpgroups a CTA where wgmma runs (D <= 64; measured faster on the
 // H100 than one: the K/V tiles serve 128 rows), one at D 128 (178
-// registers a thread on mma.sync)
+// registers a thread on mma.sync) and 256
 template <int DP>
 cudaError_t launch_bf16(const Args& a) {
   return launch_bf16_wg<DP, use_wgmma<DP>() ? 2 : 1>(a);
@@ -482,7 +513,8 @@ cudaError_t launch_bf16(const Args& a) {
 
 template <int DP>
 cudaError_t launch_f32(const Args& a) {
-  constexpr int BK = DP <= 64 ? 64 : 32;  // K+V tiles stay within 32 KB
+  // K+V tiles within 32 KB of static shared memory
+  constexpr int BK = DP <= 64 ? 64 : DP <= 128 ? 32 : 16;
   dim3 grid((a.Sq + kBQ - 1) / kBQ, a.B * a.H);
   flash_fwd_f32_kernel<DP, BK><<<grid, kThreads32, 0, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
@@ -492,12 +524,14 @@ cudaError_t launch_f32(const Args& a) {
 }
 
 template <cudaError_t (*L16)(const Args&), cudaError_t (*L32)(const Args&),
-          cudaError_t (*L64)(const Args&), cudaError_t (*L128)(const Args&)>
+          cudaError_t (*L64)(const Args&), cudaError_t (*L128)(const Args&),
+          cudaError_t (*L256)(const Args&)>
 cudaError_t by_head_dim(const Args& a) {
   if (a.D <= 16) return L16(a);
   if (a.D <= 32) return L32(a);
   if (a.D <= 64) return L64(a);
-  return L128(a);
+  if (a.D <= 128) return L128(a);
+  return L256(a);
 }
 
 }  // namespace
@@ -505,7 +539,7 @@ cudaError_t by_head_dim(const Args& a) {
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements, per tensor
 // (batch, head, seq); the head dim must be contiguous. lse is a contiguous
 // fp32 [B, H, Sq]. vec = 1 when D % 8 == 0 and the rows of q, k and v are
-// 16-byte aligned (16-byte cp.async staging). Requires 1 <= D <= 128.
+// 16-byte aligned (16-byte cp.async staging). Requires 1 <= D <= 256.
 extern "C" int ds_flash_fwd(
     const void* q, const void* k, const void* v, void* o, float* lse,
     int dtype, int B, int H, int Sq, int Sk, int D,
@@ -514,16 +548,16 @@ extern "C" int ds_flash_fwd(
     long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss,
     float sm_scale, int causal, int vec, void* stream) {
-  if (D < 1 || D > 128 || B * H == 0 || Sq == 0) return cudaErrorInvalidValue;
+  if (D < 1 || D > 256 || B * H == 0 || Sq == 0) return cudaErrorInvalidValue;
   const Args a{q, k, v, o, lse, B, H, Sq, Sk, D,
                Strides{q_sb, q_sh, q_ss}, Strides{k_sb, k_sh, k_ss},
                Strides{v_sb, v_sh, v_ss}, Strides{o_sb, o_sh, o_ss},
                sm_scale, causal, vec, static_cast<cudaStream_t>(stream)};
   if (dtype == 0)
     return by_head_dim<launch_f32<16>, launch_f32<32>, launch_f32<64>,
-                       launch_f32<128>>(a);
+                       launch_f32<128>, launch_f32<256>>(a);
   if (dtype == 1)
     return by_head_dim<launch_bf16<16>, launch_bf16<32>, launch_bf16<64>,
-                       launch_bf16<128>>(a);
+                       launch_bf16<128>, launch_bf16<256>>(a);
   return cudaErrorInvalidValue;
 }

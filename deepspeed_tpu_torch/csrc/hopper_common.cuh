@@ -14,9 +14,9 @@
 // at DP 64 (128-byte rows) it is the 128-byte swizzle TMA writes
 // (CU_TENSOR_MAP_SWIZZLE_128B) and wgmma reads; at DP 32 and 16, where 2
 // or 4 rows share a 128-byte line, the XOR takes the row bits above those:
-// the 64- and 32-byte swizzles. At DP 128 it is the 128-byte pattern on
-// each 128-byte half row, which ldmatrix reads without conflicts but no
-// wgmma descriptor describes.
+// the 64- and 32-byte swizzles. At DP 128 and 256 it is the 128-byte
+// pattern on each 128-byte part of a row, which ldmatrix reads without
+// conflicts but no wgmma descriptor describes.
 //
 // Fragments of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4; layouts in
 // flash_common.cuh). ldmatrix.x4 loads four 8 x 8 matrices, lane l giving
@@ -38,6 +38,8 @@
 
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace hopper {
 
@@ -119,6 +121,43 @@ __device__ __forceinline__ void ldsm_a(uint32_t a[NK][4], const bf16* tile,
 #pragma unroll
   for (int kk = 0; kk < NK; ++kk)
     ldsm_x4(a[kk], tile_addr<DP>(tile, r, 2 * kk + (m >> 1)));
+}
+
+// the A fragment of k-step kk alone (ldsm_a's fragment a[kk])
+template <int DP>
+__device__ __forceinline__ void ldsm_a1(uint32_t a[4], const bf16* tile,
+                                        int r0, int kk, int lane) {
+  const int m = lane >> 3;
+  const int r = r0 + (lane & 7) + ((m & 1) << 3);
+  ldsm_x4(a, tile_addr<DP>(tile, r, 2 * kk + (m >> 1)));
+}
+
+// The A operand of a product over the head dim: ldsm_a's fragments of a
+// warp's 16 rows, held in registers up to DP 128; at DP 256, where they
+// do not fit beside the accumulators (two operands of 64 registers, an
+// accumulator of 128), the staged tile itself, read one k-step at a time
+// (ldsm_a1).
+template <int DP>
+struct SmemRows {
+  const bf16* tile;
+  int r0;
+};
+
+template <int DP>
+using AFrags =
+    std::conditional_t<(DP > 128), SmemRows<DP>, uint32_t[DP / 16][4]>;
+
+template <int DP, int NK>
+__device__ __forceinline__ void load_a(uint32_t (&a)[NK][4],
+                                       const bf16* tile, int r0, int lane) {
+  ldsm_a<DP, NK>(a, tile, r0, lane);
+}
+
+template <int DP>
+__device__ __forceinline__ void load_a(SmemRows<DP>& a, const bf16* tile,
+                                       int r0, int lane) {
+  a.tile = tile;
+  a.r0 = r0;
 }
 
 // B fragments of the n-tiles of rows n0 .. n0 + 15 of an [N, DP] tile, at
@@ -252,7 +291,7 @@ __device__ __forceinline__ void hold_regs(uint32_t (&a)[N][4]) {
 }
 
 // the products are warpgroup MMAs where the tile rows are a hardware
-// swizzle (DP 16, 32, 64), mma.sync at DP 128
+// swizzle (DP 16, 32, 64), mma.sync at DP 128 and 256
 template <int DP>
 __host__ __device__ constexpr bool use_wgmma() {
   return DP <= 64;

@@ -29,6 +29,10 @@ tokens with the eval capacity factor. ``moe``, ``moe_experts`` and
 own count). ``ep_size > 1`` raises: this engine has no process group
 (ROADMAP Queue A, MoE's rest).
 
+A module without the ``cache`` protocol (GPT-J, ``models/gptj.py``, as
+JAX's GPT-J has no cache either) generates by recompute: a full
+forward with ``return_logits=True`` a token.
+
 Not ported yet: tensor parallelism (``mp_size > 1``), expert parallelism
 at inference, the Megatron checkpoint description JSON
 (``runtime/state_dict_factory.py``), the HF/Megatron naming conversions

@@ -33,10 +33,25 @@ step can drop tokens, as in JAX.
 
 :func:`gpt2_offload_layers` is the layered decomposition (embedding,
 blocks, an untied loss head) that ZeRO-3 parameter offload streams one
-layer at a time (``runtime/zero/param_offload.py``). Not ported yet:
-pipeline stages (MoE with
-them raises, as JAX asserts, :403-406), ring/ulysses attention, rotary
-embeddings.
+layer at a time (``runtime/zero/param_offload.py``).
+
+``position_embedding="rope"`` (JAX gpt2.py:121-125, 177-186) drops the
+``wpe`` table and rotates q and k (``ops.transformer.rotary``, all of the
+head dim) before attention; a cached decode step rotates at its position
+``cache.pos``.
+
+``attention_mode="ring:<axis>"`` / ``"ulysses:<axis>"`` (JAX
+gpt2.py:196-203) shards the sequence over the ranks of a mesh axis
+(``utils.groups.axis_group``). JAX's ``shard_map`` with
+``P(None, None, axis, None)`` hands each device every row of the batch
+and its own S/n chunk of the sequence; the port makes that layout
+itself: each rank's ``[b, H, S, D]`` q, k, v go through one all-to-all
+over the axis's group (rows to sequence chunks: ``[b·n, H, S/n, D]``,
+rank r the r-th chunk), ``ring_attention`` / ``ulysses_attention`` run
+on the chunk, and the inverse all-to-all brings the rank its rows back.
+Rope is applied before, on whole rows, as in JAX; S must divide by n.
+The loader, the loss and the gradient average are unchanged. Not ported
+yet: pipeline stages (MoE with them raises, as JAX asserts, :403-406).
 """
 
 import dataclasses
@@ -46,6 +61,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from deepspeed_tpu_torch.comm import all_to_all
 from deepspeed_tpu_torch.models.common import masked_next_token_ce
 from deepspeed_tpu_torch.moe.layer import MoE
 from deepspeed_tpu_torch.ops._platform import resolve_device
@@ -56,9 +72,13 @@ from deepspeed_tpu_torch.ops.transformer.attention import attention
 from deepspeed_tpu_torch.ops.transformer.decode import (
     aligned_cache_len, decode_attention, decode_attention_quantized,
     quantize_kv)
+from deepspeed_tpu_torch.ops.transformer.ring import (ring_attention,
+                                                      ulysses_attention)
+from deepspeed_tpu_torch.ops.transformer.rotary import apply_rotary_pos_emb
 from deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing \
     import remat
 from deepspeed_tpu_torch.runtime.dropout import Dropout
+from deepspeed_tpu_torch.utils import groups
 
 
 def _pad_vocab(v: int, multiple: int = 128) -> int:
@@ -95,7 +115,8 @@ class GPT2Config:
         return _pad_vocab(self.vocab_size)
 
     def num_params(self) -> int:
-        wpe = self.n_positions * self.n_embd
+        wpe = 0 if self.position_embedding == "rope" \
+            else self.n_positions * self.n_embd
         wte = self.padded_vocab * self.n_embd
         per_layer = 12 * self.n_embd ** 2 + 13 * self.n_embd
         return wte + wpe + self.n_layer * per_layer + 2 * self.n_embd
@@ -111,30 +132,55 @@ PRESETS = {
 }
 
 
+SEQUENCE_MODES = ("ring:", "ulysses:")
+
+
 def _check_ported(cfg: GPT2Config):
-    unported = {
-        "pp_stages > 1": cfg.pp_stages > 1,
-        f"attention_mode={cfg.attention_mode!r}":
-            cfg.attention_mode != "auto"
-            and not cfg.attention_mode.startswith("sparse"),
-        f"position_embedding={cfg.position_embedding!r}":
-            cfg.position_embedding != "learned",
-    }
-    for what, hit in unported.items():
-        if hit:
-            if cfg.attention_mode.startswith(("ring:", "ulysses:")):
-                what += (" (ops.transformer.ring is ported; the model "
-                         "waits for how a rank's batch maps to sequence "
-                         "chunks, ROADMAP Queue A item 6)")
-            if what == "pp_stages > 1" and cfg.moe_num_experts > 0:
-                what += (" with MoE (MoE blocks are not expressible in "
-                         "the uniform GPipe stack; JAX refuses it too)")
-            raise NotImplementedError(f"GPT-2 {what} is not ported yet")
+    if cfg.pp_stages > 1:
+        what = "pp_stages > 1"
+        if cfg.moe_num_experts > 0:
+            what += (" with MoE (MoE blocks are not expressible in the "
+                     "uniform GPipe stack; JAX refuses it too)")
+        raise NotImplementedError(f"GPT-2 {what} is not ported yet")
+    if cfg.position_embedding not in ("learned", "rope"):
+        raise ValueError(f"position_embedding must be 'learned' or 'rope', "
+                         f"got {cfg.position_embedding!r}")
     if cfg.attention_mode.startswith("sparse"):
         parse_sparse_mode(cfg.attention_mode)
+    if cfg.attention_mode.startswith(SEQUENCE_MODES):
+        # an axis the mesh lacks fails here, where JAX's shard_map fails
+        # at its first trace
+        groups.check_axis(cfg.attention_mode.split(":", 1)[1])
     if cfg.kv_cache_dtype not in ("auto", "int8"):
         raise ValueError(f"kv_cache_dtype must be 'auto' or 'int8', got "
                          f"{cfg.kv_cache_dtype!r}")
+
+
+def _sequence_parallel(q, k, v, mode):
+    """Causal attention of q, k, v ``[b, H, S, D]`` (this rank's rows)
+    with the sequence split over the ranks of the mode's axis, as JAX's
+    ``shard_map`` splits it: an all-to-all from rows to sequence chunks
+    (q, k and v in one exchange), ring or Ulysses attention on
+    ``[b·n, H, S/n, D]``, and the inverse all-to-all. A group of one rank
+    attends over its rows directly."""
+    kind, axis = mode.split(":", 1)
+    group, n = groups.axis_group(axis)
+    if group is None:
+        return attention(q, k, v, causal=True)
+    b, H, S, D = q.shape
+    if S % n:
+        raise ValueError(f"attention_mode={mode!r}: the sequence ({S}) "
+                         f"must divide by the {axis!r} group's {n} ranks")
+    c = S // n
+    x = torch.stack([q, k, v]).reshape(3, b, H, n, c, D)
+    # chunk j of the sequence to rank j; from rank j its rows of ours
+    x = all_to_all(x.permute(3, 0, 1, 2, 4, 5), group)
+    q, k, v = x.transpose(0, 1).reshape(3, n * b, H, c, D).unbind(0)
+    fn = ring_attention if kind == "ring" else ulysses_attention
+    out = fn(q, k, v, group=group, causal=True)
+    # rank j's rows back to rank j; from rank j our rows' chunk j
+    out = all_to_all(out.reshape(n, b, H, c, D), group)
+    return out.permute(1, 2, 0, 3, 4).reshape(b, H, S, D)
 
 
 class KVCache:
@@ -198,12 +244,22 @@ class CausalSelfAttention(nn.Module):
         # fused projection: [q | k | v] along the last dim, each (B, S, H, D)
         qkv = self.qkv(x).view(B, S, 3, H, D)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        if cfg.position_embedding == "rope":
+            # decode steps continue the rotation at their position
+            q, k = apply_rotary_pos_emb(
+                q, k, offset=0 if cache is None else cache.pos)
         sparse = cfg.attention_mode.startswith("sparse")
         if sparse and cache is not None:
             raise ValueError(
                 "KV-cache decode would silently run DENSE attention on a "
                 "sparse-trained model; decode with attention_mode='auto'")
-        if sparse:
+        sequence = cfg.attention_mode.startswith(SEQUENCE_MODES)
+        if sequence and cache is not None:
+            raise ValueError("KV-cache decode is incompatible with sequence "
+                             "parallelism")
+        if sequence:
+            out = _sequence_parallel(q, k, v, cfg.attention_mode)
+        elif sparse:
             layout, blk = sparse_mode_layout(cfg.attention_mode, H, S)
             out = block_sparse_attention_fused(q, k, v, layout, block=blk,
                                                causal=True)
@@ -314,6 +370,13 @@ def _unpack(batch):
     return batch, None
 
 
+def next_token_count(batch):
+    """The next-token terms a causal LM's loss of ``batch`` averages: the
+    shifted labels (or ids) that are not ignored (≥ 0)."""
+    input_ids, labels = _unpack(batch)
+    return ((input_ids if labels is None else labels)[:, 1:] >= 0).sum()
+
+
 class GPT2LMHeadModel(nn.Module):
     """GPT-2 causal LM with a tied LM head; ``forward`` returns the mean
     next-token cross-entropy, or fp32 logits over the padded vocab.
@@ -332,8 +395,10 @@ class GPT2LMHeadModel(nn.Module):
         E = config.n_embd
         self.wte = nn.Parameter(torch.empty(
             (config.padded_vocab, E), device=dev, dtype=dtype))
-        self.wpe = nn.Parameter(torch.empty(
-            (config.n_positions, E), device=dev, dtype=dtype))
+        # rope rotates q and k instead: no position table
+        self.wpe = None if config.position_embedding == "rope" else \
+            nn.Parameter(torch.empty((config.n_positions, E), device=dev,
+                                     dtype=dtype))
         self.h = nn.ModuleList(
             (MoEBlock if is_moe_layer(config, i) else Block)(config, dev,
                                                              dtype)
@@ -347,7 +412,8 @@ class GPT2LMHeadModel(nn.Module):
     def reset_parameters(self, seed: int = 0):
         gen = torch.Generator(device=self.wte.device).manual_seed(seed)
         nn.init.normal_(self.wte, 0.0, 0.02, generator=gen)
-        nn.init.normal_(self.wpe, 0.0, 0.01, generator=gen)
+        if self.wpe is not None:
+            nn.init.normal_(self.wpe, 0.0, 0.01, generator=gen)
         for blk in self.h:
             _init_block(blk, self.config.n_layer, gen)
         nn.init.ones_(self.ln_f.weight)
@@ -367,11 +433,16 @@ class GPT2LMHeadModel(nn.Module):
         input_ids, labels = _unpack(batch)
         B, S = input_ids.shape
         pos = 0 if cache is None else cache.pos
-        if pos + S > cfg.n_positions:
+        # the bound of the wpe table and of the cache (rope training has
+        # neither, as in JAX)
+        if pos + S > cfg.n_positions and (self.wpe is not None
+                                          or cache is not None):
             raise ValueError(f"positions {pos}..{pos + S - 1} exceed "
                              f"n_positions ({cfg.n_positions})")
-        x = self.drop(F.embedding(input_ids, self.wte)
-                      + self.wpe[pos:pos + S])
+        x = F.embedding(input_ids, self.wte)
+        if self.wpe is not None:
+            x = x + self.wpe[pos:pos + S]
+        x = self.drop(x)
         if cache is not None:
             return_logits = True
             cache.lens = torch.full((), pos + S, dtype=torch.int32,
@@ -403,8 +474,7 @@ class GPT2LMHeadModel(nn.Module):
     def loss_count(self, batch):
         """The number of next-token terms the loss of ``batch`` averages
         (labels ≥ 0); the engine weights a rank's loss by it."""
-        input_ids, labels = _unpack(batch)
-        return ((input_ids if labels is None else labels)[:, 1:] >= 0).sum()
+        return next_token_count(batch)
 
 
 class _PipeBlock(nn.Module):
@@ -435,17 +505,20 @@ class _OffloadEmbed(nn.Module):
         E = config.n_embd
         self.wte = nn.Parameter(torch.empty(
             (config.padded_vocab, E), device=device, dtype=dtype))
-        self.wpe = nn.Parameter(torch.empty(
-            (config.n_positions, E), device=device, dtype=dtype))
+        self.wpe = None if config.position_embedding == "rope" else \
+            nn.Parameter(torch.empty((config.n_positions, E), device=device,
+                                     dtype=dtype))
 
     def forward(self, input_ids):
         S = input_ids.shape[1]
-        return F.embedding(input_ids, self.wte) + self.wpe[:S]
+        x = F.embedding(input_ids, self.wte)
+        return x if self.wpe is None else x + self.wpe[:S]
 
     @torch.no_grad()
     def reset_parameters(self, generator=None):
         nn.init.normal_(self.wte, 0.0, 0.02, generator=generator)
-        nn.init.normal_(self.wpe, 0.0, 0.01, generator=generator)
+        if self.wpe is not None:
+            nn.init.normal_(self.wpe, 0.0, 0.01, generator=generator)
 
 
 class _OffloadHead(nn.Module):

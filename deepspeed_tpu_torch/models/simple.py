@@ -2,6 +2,11 @@
 ``SimpleModel``, ``LinearStack`` and ``EmbeddingModel`` as ``nn.Module``s
 whose ``forward(batch)`` returns the loss, the DeepSpeed convention.
 
+Each dense promotes its input and its parameters to their common type
+before the product, as flax's ``Dense`` does: an fp16 or bf16 model fed
+fp32 batches computes in fp32 (the engine's low-precision weights
+upcast), as the JAX fixtures do.
+
 Weights are drawn from ``seed`` with the flax initialisers' statistics
 (denses LeCun-normal, zero biases; the embedding table normal with
 variance 1 / dim); ``bridge.simple_flax_to_state_dict`` carries flax
@@ -16,6 +21,14 @@ from torch.nn import functional as F
 
 from deepspeed_tpu_torch.models.common import lecun_normal_
 from deepspeed_tpu_torch.ops._platform import resolve_device
+
+
+def _dense(layer, x):
+    """``layer(x)`` with flax ``Dense``'s promotion: the input, weight
+    and bias cast to their common type (the identity when they agree)."""
+    dt = torch.promote_types(x.dtype, layer.weight.dtype)
+    bias = None if layer.bias is None else layer.bias.to(dt)
+    return F.linear(x.to(dt), layer.weight.to(dt), bias)
 
 
 class _Seeded(nn.Module):
@@ -47,7 +60,7 @@ class SimpleModel(_Seeded):
     def forward(self, batch):
         x, y = batch
         for layer in self.layers:
-            x = layer(x)
+            x = _dense(layer, x)
         return torch.mean((x - y) ** 2)
 
 
@@ -70,7 +83,7 @@ class LinearStack(_Seeded):
         x, y = batch
         last = len(self.layers) - 1
         for i, layer in enumerate(self.layers):
-            x = layer(x)
+            x = _dense(layer, x)
             if 0 < i < last:
                 x = F.relu(x)
         return torch.mean((x - y) ** 2)
@@ -91,7 +104,7 @@ class EmbeddingModel(_Seeded):
 
     def forward(self, batch):
         x = self.wte(batch["input_ids"].long()).mean(dim=1)
-        return torch.mean((self.dense(x) - batch["targets"]) ** 2)
+        return torch.mean((_dense(self.dense, x) - batch["targets"]) ** 2)
 
 
 def random_dataset(total_samples, hidden_dim, seed=0, dtype=np.float32):

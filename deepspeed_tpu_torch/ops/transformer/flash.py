@@ -7,8 +7,10 @@ Counterpart of ``deepspeed_tpu/ops/transformer/flash.py``: the forward
 softmax(q kᵀ · sm_scale) v with an online softmax and returns the fp32
 log-sum-exp of each query row; the backward (``_flash_bwd``) recomputes
 the scores from q, k and the lse and writes dq, dk, dv. Layout
-``[batch, heads, seq, head_dim]``. The lse is ``[B, H, Sq]``; the TPU
-kernels' lane-replicated ``[B·H, Sq, 8]`` layout is not carried over.
+``[batch, heads, seq, head_dim]``, head dims 1..256 (the TPU kernels take
+the whole head dim as one block; GPT-J's is 256). The lse is
+``[B, H, Sq]``; the TPU kernels' lane-replicated ``[B·H, Sq, 8]`` layout
+is not carried over.
 """
 
 import ctypes
@@ -74,8 +76,8 @@ def _check(q, k, v):
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
         raise TypeError(f"flash kernel takes float32 or bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if not 1 <= D <= 128:
-        raise ValueError(f"flash kernel takes head dims up to 128, got {D}")
+    if not 1 <= D <= 256:
+        raise ValueError(f"flash kernel takes head dims up to 256, got {D}")
     for t in (q, k, v):
         if t.stride(3) != 1:
             raise ValueError("flash kernel needs a contiguous head dim")

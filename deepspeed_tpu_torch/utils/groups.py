@@ -19,6 +19,12 @@ the expert axis out of the data axis the same way). So
 ``pipe`` and ``model`` have size 1; any other size raises
 ``NotImplementedError`` naming the ROADMAP Queue A item that ports it.
 
+:func:`axis_group` gives a sequence-parallel attention mode
+(``"ring:<axis>"`` / ``"ulysses:<axis>"``) the process group of a mesh
+axis name: ``data`` the expert-data group (the world at ``ep_size`` 1),
+``expert`` the expert-parallel group, ``model`` and ``pipe`` a group of
+one rank.
+
 With no process group initialised the world is one rank: every getter
 answers 1 (sizes) or 0 (ranks), ``ep_size`` must be 1, and the engine
 runs no collective. With one (``deepspeed_tpu_torch.init_distributed``),
@@ -100,6 +106,37 @@ def destroy():
     global _INITIALIZED, _EP_SIZE, _EP_GROUP, _EDP_GROUP
     _INITIALIZED = False
     _EP_SIZE, _EP_GROUP, _EDP_GROUP = 1, None, None
+
+
+def check_axis(axis):
+    """Raise ``ValueError`` for a name that is not an axis of the mesh
+    (JAX's ``shard_map`` refuses such an axis too)."""
+    if axis not in MESH_AXES:
+        raise ValueError(f"mesh axis {axis!r} is not one of {MESH_AXES}")
+
+
+def axis_group(axis):
+    """``(group, size)`` of the ranks that share this rank's place on
+    every mesh axis but ``axis``: the group a ``ring:``/``ulysses:``
+    attention mode exchanges sequence chunks over (JAX's ``shard_map``
+    over that axis). ``data``: the expert-data group (the world at
+    ``ep_size`` 1; ``torch.distributed``'s world group then, so the
+    exchange runs over NCCL or gloo at world size 1 too); ``expert``: the
+    expert-parallel group; ``model`` and ``pipe``, and any axis without a
+    process group: ``(None, 1)``, a group of one rank, so nothing is
+    exchanged. JAX also replicates the batch's rows over the axes it does
+    not name; attention is row by row, so a rank needs only its own
+    group's rows."""
+    check_axis(axis)
+    if not dist_active():
+        return None, 1
+    if axis == DATA_AXIS:
+        if _EP_SIZE > 1:
+            return _EDP_GROUP, get_expert_data_parallel_world_size()
+        return torch.distributed.group.WORLD, get_data_parallel_world_size()
+    if axis == EXPERT_AXIS and _EP_SIZE > 1:
+        return _EP_GROUP, _EP_SIZE
+    return None, 1
 
 
 def get_data_parallel_group():

@@ -330,6 +330,62 @@ def test_flash_bwd_kernels_match_plain(gen, dtype, B, H, Sq, Sk, D, causal,
     torch.testing.assert_close(delta, want_delta, rtol=2e-5, atol=2e-5)
 
 
+# (B, H, Sq, Sk, D, causal, packed) at head dim 256 (GPT-J's), where the
+# forward keeps Q in shared memory and the dk/dv CTA splits the head dim
+# over two warpgroups: one short of and one past the 64-row tile, the
+# 32-row inner tile and the 192-key / 96-row rings; Sq != Sk both ways
+# (Sq > Sk causal: rows with no visible key); head dims 136 and 250 pad
+# to 256 (250: rows not 16-byte aligned, staged through the registers);
+# a packed qkv projection
+D256_CASES = [
+    (1, 2, 160, 160, 256, True, False), (1, 2, 160, 160, 256, False, False),
+    (1, 2, 63, 63, 256, True, False), (1, 2, 65, 193, 256, True, False),
+    (1, 2, 193, 193, 256, False, False), (1, 2, 97, 33, 256, True, False),
+    (1, 2, 31, 31, 256, True, False), (1, 2, 33, 97, 256, False, False),
+    (1, 2, 100, 100, 136, True, False), (1, 2, 70, 70, 250, False, False),
+    (2, 4, 150, 150, 256, True, True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Sq,Sk,D,causal,packed", D256_CASES)
+def test_flash_kernels_at_head_dim_256_match_plain(gen, dtype, B, H, Sq, Sk,
+                                                   D, causal, packed):
+    """The forward, dq and dk/dv kernels at head dims above 128 against
+    the plain versions, at the tolerances of the other head dims: o, dq,
+    dk, dv fp32 2e-5 and bf16 2e-2 (the bf16 outputs are O(1), one ulp
+    0.0078 below 2, whatever the head dim; the products sum in fp32 in
+    either form), lse and delta 2e-5 (fp32 sums in another order); rows
+    with no visible key keep o = 0 and the masking lse."""
+    q, k, v, do = _bwd_inputs(gen, dtype, B, H, Sq, Sk, D, packed)
+    before = dict(op_builder.LAUNCHES)
+    o, lse = flash.flash_attention_fwd(q, k, v, causal)
+    *got, delta = flash.flash_attention_bwd(q, k, v, o, lse, do, causal,
+                                            return_delta=True)
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert op_builder.LAUNCHES[name] == before.get(name, 0) + 1
+    o_ref, lse_ref = flash.flash_attention_fwd_plain(q, k, v, causal)
+    *want, want_delta = flash.flash_attention_bwd_plain(
+        q, k, v, o, lse, do, causal, return_delta=True)
+    tol = TOLS[dtype]
+    torch.testing.assert_close(o.float(), o_ref.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, lse_ref, rtol=2e-5, atol=2e-5)
+    if causal and Sq > Sk:
+        blind = torch.arange(Sq, device="cuda") + Sk - Sq < 0
+        assert bool((lse[:, :, blind] <= -5e29).all())
+        assert bool((o[:, :, blind] == 0).all())
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == dtype
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(delta, want_delta, rtol=2e-5, atol=2e-5)
+    # no atomics at D 256 either: a rerun is bit-equal
+    again = flash.flash_attention_fwd(q, k, v, causal)
+    assert torch.equal(again[0], o) and torch.equal(again[1], lse)
+    again = flash.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    for a, b in zip(again, got):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_bwd_is_bit_reproducible(gen, dtype, causal):

@@ -1,8 +1,12 @@
 """Data parallelism in the PyTorch port, second part: BERT with LAMB (fused
 and plain) and with the Fixed block-sparse layout, an fp16 overflow on one
 rank only, the dropout masks a rank draws, the Adam sweep and MoQ at
-ZeRO 3 against stage 0, and the ring refusal. gloo ranks spawned by ``tests/torch_dist_worker.py``
-against the JAX engine on a 2- and a 4-device mesh, on the CPU.
+ZeRO 3 against stage 0, and GPT-2's ring mode. gloo ranks spawned by ``tests/torch_dist_worker.py``
+against the JAX engine on a 2- and a 4-device mesh, on the CPU. The ring
+case (GPT-2 with ``attention_mode="ring:data"`` under LAMB at world 2, a
+refusal until the model mapped a rank's rows to sequence chunks) is held
+to the JAX engine's ring mode on a 2-device mesh, as the cases of
+``tests/test_torch_dist_ring.py`` are.
 
 The BERT batches mask 15% of the positions at random (``-100`` labels
 elsewhere), so the ranks' rows hold different numbers of labels: the
@@ -24,9 +28,11 @@ import torch
 
 import deepspeed_tpu
 from deepspeed_tpu.models import bert as jax_bert
+from deepspeed_tpu.models import gpt2 as jax_gpt2
 from deepspeed_tpu.models import simple as jax_simple
 from deepspeed_tpu.utils import groups
 from deepspeed_tpu_torch.bridge import (bert_flax_to_state_dict,
+                                        flax_to_state_dict,
                                         simple_flax_to_state_dict)
 from deepspeed_tpu_torch.runtime import dropout
 from tests import torch_dist_worker as worker
@@ -156,9 +162,13 @@ def port(setup, tmp_path_factory):
                 cases.append(_port_case("bert", dict(
                     bert_cfg, zero_optimization={"stage": stage},
                     quantize_training=MOQ), setup))
-            names.append("refuse_ring")
-            cases.append(dict(kind="refusal", model="gpt2", model_cfg={
-                "attention_mode": "ring:data"}, config=bert_cfg))
+            # GPT-2's ring mode under the same LAMB config (it was refused
+            # until the model mapped a rank's rows to sequence chunks)
+            names.append("ring")
+            gpt_batches, gpt_init = _gpt2_ring_setup()
+            cases.append(dict(model="gpt2", model_cfg=RING_GPT2,
+                              config=bert_cfg, init=gpt_init,
+                              batches=gpt_batches))
         res = worker.run("engine", world,
                          str(tmp_path_factory.mktemp(f"bert{world}")), cases)
         assert all(r["jax_modules"] == [] for r in res)
@@ -166,7 +176,7 @@ def port(setup, tmp_path_factory):
                       for i, n in enumerate(names)}
     out["dropout"] = out[2]["dropout"]
     out["refusals"] = [[out[2][n][r] for n in ("sweep_stage3", "moq_stage3",
-                                                "refuse_ring")]
+                                                "ring")]
                        for r in range(2)]
     out["stage0"] = [[out[2][n][r] for n in ("sweep_stage0", "moq_stage0")]
                      for r in range(2)]
@@ -284,11 +294,15 @@ def test_dropout_masks_differ_by_rank_and_world1_keeps_its_masks(port):
 
 
 def test_refusals_at_world_two(port):
-    """GPT-2's ring/Ulysses modes raise on every rank of a real two-rank
-    group, naming themselves. The Adam sweep (clip 0.5) and MoQ, which
-    ZeRO 3 used to refuse, run there on BERT: losses and masters equal on
-    both ranks and within 1e-4 of the same run at stage 0 (the JAX
-    engine holds both on a mesh in tests/test_torch_dist_zero.py)."""
+    """What a real two-rank group used to refuse runs there. GPT-2's
+    ``ring:data`` (refused until the model mapped a rank's rows to
+    sequence chunks) trains under LAMB: losses and masters within 1e-4 of
+    the JAX engine's ring mode on a 2-device mesh, equal on both ranks.
+    The Adam sweep (clip 0.5) and MoQ, which ZeRO 3 used to refuse, run
+    there on BERT: losses and masters equal on both ranks and within 1e-4
+    of the same run at stage 0 (the JAX engine holds both on a mesh in
+    tests/test_torch_dist_zero.py)."""
+    want_losses, want_params = _jax_ring_run()
     for rank_out, rank_ref in zip(port["refusals"], port["stage0"]):
         *runs, ring_mode = rank_out
         for got, want in zip(runs, rank_ref):
@@ -297,11 +311,44 @@ def test_refusals_at_world_two(port):
             for k, p in want["params"].items():
                 np.testing.assert_allclose(got["params"][k], p, err_msg=k,
                                            **TOL)
-        assert ring_mode.startswith("NotImplementedError") and "ring" in \
-            ring_mode
+        np.testing.assert_allclose(ring_mode["losses"], want_losses, **TOL)
+        for k, w in want_params.items():
+            np.testing.assert_allclose(ring_mode["params"][k], w, err_msg=k,
+                                       **TOL)
     a, b = port["refusals"]
-    for got, other in zip(a[:2], b[:2]):
+    for got, other in zip(a, b):
         assert got["losses"] == other["losses"]
+
+
+RING_GPT2 = {"attention_mode": "ring:data"}
+
+
+def _gpt2_ring_setup():
+    """(the oracle's GPT-2 batches, the bridged flax init of tiny GPT-2)."""
+    batches = [{"input_ids": np.array(b["input_ids"])}
+               for b in oracle.make_batches(STEPS)]
+    params = jax_gpt2.GPT2LMHeadModel(jax_gpt2.GPT2Config(
+        **oracle.TINY)).init(jax.random.PRNGKey(oracle.SEED), batches[0])
+    return batches, flax_to_state_dict(jax.tree.map(np.asarray,
+                                                    params["params"]))
+
+
+def _jax_ring_run():
+    """The JAX engine's ring mode under the ring case's LAMB config on a
+    2-device mesh: (losses, masters)."""
+    batches, _ = _gpt2_ring_setup()
+    groups.destroy()
+    groups.initialize(devices=jax.devices()[:2])
+    engine, *_ = deepspeed_tpu.initialize(
+        model=jax_gpt2.GPT2LMHeadModel(jax_gpt2.GPT2Config(
+            **dict(oracle.TINY, **RING_GPT2))),
+        config=copy.deepcopy(_lamb(False, 1)), sample_batch=batches[0],
+        seed=oracle.SEED)
+    losses = [float(engine.train_batch(batch=b)) for b in batches]
+    params = flax_to_state_dict(jax.tree.map(np.asarray,
+                                             engine.state.params))
+    groups.destroy()
+    return losses, {k: v.numpy() for k, v in params.items()}
 
 
 @pytest.mark.parametrize("name,world", [("bert_fused_lamb_zero0", 2),

@@ -107,9 +107,10 @@ def test_attention_dispatch_on_cpu_runs_plain_version(monkeypatch):
 
 # The bf16 forward kernel's walk (csrc/flash_fwd.cu), emulated in numpy: a
 # CTA holds WG warpgroups of 64 query rows (two at head dims up to 64, one
-# at 128; the grid runs the heavy causal tiles first) and streams key tiles
-# of BK through a ring of STAGES slots, Q staged into the last slot until
-# the loop's first issue. The CTA walks its last warpgroup's tiles; each
+# at 128 and 256; the grid runs the heavy causal tiles first) and streams
+# key tiles of BK through a ring of STAGES slots, Q staged into the last
+# slot until the loop's first issue (at head dims above 128 Q has its own
+# region after the ring, read in every tile). The CTA walks its last warpgroup's tiles; each
 # warpgroup skips those past its own diagonal. Scores are in the log2
 # domain (sm_scale · log2 e folded in), tiles where the mask cannot bite
 # run without it, and a row that has seen no key keeps its running max at
@@ -131,16 +132,17 @@ class _FwdRing:
     the barrier) issues tile j + STAGES - 1 into the slot that tile j - 1
     (or Q, at j = 0) has left."""
 
-    def __init__(self, n_tiles):
+    def __init__(self, n_tiles, q_in_ring=True):
         self.n, self.slots = n_tiles, [None] * STAGES
-        self.slots[STAGES - 1] = "q"
+        self.q = "q" if q_in_ring else None
+        self.slots[STAGES - 1] = self.q
         for t in range(min(STAGES - 1, n_tiles)):
             self.slots[t] = t
 
     def take(self, j):
         nxt = j + STAGES - 1
         if nxt < self.n:
-            assert self.slots[nxt % STAGES] == ("q" if j == 0 else j - 1)
+            assert self.slots[nxt % STAGES] == (self.q if j == 0 else j - 1)
             self.slots[nxt % STAGES] = nxt
         assert self.slots[j % STAGES] == j
 
@@ -172,7 +174,7 @@ def _emulate_fwd(q, k, v, causal, scale):
         walked.append(n_tiles)
         for b in range(B):
             for h in range(H):
-                ring = _FwdRing(n_tiles)
+                ring = _FwdRing(n_tiles, q_in_ring=D <= 128)
                 groups = []
                 for w in range(wg):
                     w0 = q0 + w * WG_ROWS
@@ -247,6 +249,8 @@ def _emulate_fwd(q, k, v, causal, scale):
     (1, 1, 65, 63, 20, False),       # one past a tile; Sk one short
     (1, 2, 100, 40, 64, False),      # Sq > Sk, one key tile (ring reuse)
     (1, 1, 40, 129, 128, False),     # Sq < Sk, three key tiles
+    (1, 1, 130, 130, 256, True),     # D 256: Q outside the ring
+    (1, 1, 70, 200, 256, False),     # D 256, Sq < Sk, four key tiles
 ])
 def test_kernel_walk_reproduces_plain_and_jax_forward(B, H, Sq, Sk, D,
                                                       causal):

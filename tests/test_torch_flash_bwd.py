@@ -257,6 +257,8 @@ def _emulate_dkv(q, k, v, do, lse, delta, causal, scale):
     (1, 1, 300, 100, 32, True),
     (1, 1, 65, 63, 16, False),
     (1, 1, 97, 97, 128, True),       # one past the 96-row ring at D 128
+    (1, 1, 97, 97, 256, True),       # D 256: the same walk, 32-row tiles
+    (1, 1, 70, 33, 256, True),       # D 256, Sq > Sk: rows with no key
 ])
 def test_kernel_tile_walk_reproduces_plain_backward(B, H, Sq, Sk, D, causal):
     """The dq and dk/dv kernels' walk (full tiles, diagonal tiles, ring
@@ -280,3 +282,36 @@ def test_kernel_tile_walk_reproduces_plain_backward(B, H, Sq, Sk, D, causal):
     for name, got, w in zip(("dq", "dk", "dv", "delta"), (dq, dk, dv, delta),
                             (*want, want_delta)):
         np.testing.assert_allclose(got, w.numpy(), **TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("Sq,Sk,causal", [(40, 40, True), (24, 70, True),
+                                          (70, 24, True), (33, 33, False)])
+def test_plain_versions_at_head_dim_256(Sq, Sk, causal):
+    """GPT-J's head dim: the plain forward against the port's and JAX's
+    ``mha_reference``, and the plain backward against the autograd of
+    the port's ``mha_reference``, fp32 at 2e-5. Rows with no visible key
+    (Sq > Sk, causal) take o = 0 in the flash versions and the mean of v
+    in ``mha_reference``: they are compared on the rows that see a key,
+    with a zero output cotangent on the others."""
+    from deepspeed_tpu.ops.transformer.attention import \
+        mha_reference as jax_mha
+    q, k, v, do = _inputs(2, 2, Sq, Sk, 256, seed=Sq + Sk)
+    sees = np.arange(Sq) + Sk - Sq >= 0 if causal else np.ones(Sq, bool)
+    do[:, :, ~sees] = 0.0
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    o, lse = flash.flash_attention_fwd_plain(tq, tk, tv, causal)
+    want = attention.mha_reference(tq, tk, tv, causal=causal)
+    np.testing.assert_allclose(o.numpy()[:, :, sees],
+                               want.numpy()[:, :, sees], **TOL)
+    np.testing.assert_allclose(
+        o.numpy()[:, :, sees],
+        np.asarray(jax_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           causal=causal))[:, :, sees], **TOL)
+    assert not o.numpy()[:, :, ~sees].any()
+    got = flash.flash_attention_bwd_plain(tq, tk, tv, o, lse, tdo, causal)
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    ref = torch.autograd.grad(attention.mha_reference(*leaves, causal=causal),
+                              leaves, tdo)
+    for name, g, w in zip("dq dk dv".split(), got, ref):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), **TOL,
+                                   err_msg=name)

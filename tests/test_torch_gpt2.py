@@ -158,11 +158,30 @@ def test_cache_overflow_raises(tiny):
     ("attention_mode", "sparse"), ("moe_num_experts", 4),
     ("position_embedding", "rope"), ("dropout", 0.1), ("remat", True)])
 def test_unported_options_raise(field, value):
-    """Pipeline stages, ring attention and rope still raise. Sparse
-    attention, dropout, remat and MoE are ported: the model builds (sparse
-    with remat too) and the option acts: dropout draws masks under a key,
-    remat leaves the loss as it is, MoE's loss carries the aux term."""
+    """Pipeline stages still raise. ``ring:seq`` raises ``ValueError`` as
+    the model is built: JAX's mesh has no ``seq`` axis either (ring and
+    Ulysses over a mesh axis are ported, tests/test_torch_dist_ring.py).
+    Sparse attention, dropout, remat, MoE and rope are ported: the model
+    builds (sparse with remat too) and the option acts: dropout draws
+    masks under a key, remat leaves the loss as it is, MoE's loss carries
+    the aux term, rope drops the position table and changes the logits."""
     cfg = dataclasses.replace(gpt2.PRESETS["tiny"], **{field: value})
+    if value == "ring:seq":
+        with pytest.raises(ValueError, match="'seq'"):
+            gpt2.GPT2LMHeadModel(cfg, device="cpu")
+        return
+    if field == "position_embedding":
+        model = gpt2.GPT2LMHeadModel(cfg, device="cpu")
+        assert model.wpe is None
+        assert cfg.num_params() == sum(p.numel() for p in model.parameters())
+        learned = gpt2.GPT2LMHeadModel(gpt2.PRESETS["tiny"], device="cpu")
+        learned.load_state_dict(dict(model.state_dict(),
+                                     wpe=torch.zeros(128, 64)))
+        batch = gpt2.synthetic_batch(2, 32, 512, seed=0, device="cpu")
+        with torch.no_grad():
+            assert not torch.equal(model(batch, return_logits=True),
+                                   learned(batch, return_logits=True))
+        return
     if field == "moe_num_experts":
         batch = gpt2.synthetic_batch(2, 32, 512, seed=0, device="cpu")
         loss = gpt2.GPT2LMHeadModel(cfg, device="cpu")(batch)

@@ -246,9 +246,8 @@ CONFIG = {"train_batch_size": 8, "steps_per_print": 10 ** 9,
 @pytest.fixture(scope="module")
 def batches():
     """Ten seeded numpy batches."""
-    # fp16 batches: flax's Dense promotes an fp32 input over fp16 params
-    # to fp32, the port's nn.Linear refuses the mix, so both engines get
-    # the compute dtype's inputs
+    # fp16 batches, the compute dtype's (fp32 batches train in both too:
+    # tests/test_torch_simple_models.py holds the promotion)
     rng = np.random.default_rng(0)
     batches = [(rng.standard_normal((8, HIDDEN)).astype(np.float16),
                 rng.standard_normal((8, HIDDEN)).astype(np.float16))

@@ -97,6 +97,8 @@ def test_import_leaves_jax_out():
         "import deepspeed_tpu_torch.monitor.monitor\n"
         "import deepspeed_tpu_torch.utils.timer\n"
         "import deepspeed_tpu_torch.testing.chaos\n"
+        "import deepspeed_tpu_torch.ops.transformer.rotary\n"
+        "import deepspeed_tpu_torch.models.gptj\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'flax', 'deepspeed_tpu', 'triton')\n"
         "       or m == 'torch.utils.cpp_extension']\n"

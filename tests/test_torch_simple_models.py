@@ -137,6 +137,47 @@ def test_engine_steps_match_jax_engine(name, opt):
                                    **TOL)
 
 
+@pytest.mark.parametrize("precision", ["fp16", "bf16"])
+@pytest.mark.parametrize("name", ["simple_3", "linear_stack"])
+def test_low_precision_engine_takes_fp32_batches_as_jax(name, precision):
+    """ROADMAP Queue C item C7: an fp16 or bf16 engine fed fp32 (x, y)
+    batches. Flax's ``Dense`` promotes its input and its low-precision
+    kernel to their common type, so the JAX engine computes in fp32 over
+    the cast params; the port's fixture denses promote the same way
+    (they raised "mat1 and mat2 must have the same dtype" before). Three
+    Adam steps against the JAX engine: losses at rtol = atol = 1e-5 (both
+    round the masters to the compute dtype at the same points and compute
+    the products in fp32); masters at atol 1e-4 (the gradients are
+    rounded to the compute dtype, and a sum in another order can land one
+    ulp away, 2^-8 relative in bf16, which Adam's normalised update at
+    lr 1e-2 carries to ~2e-5 of a weight)."""
+    make_jax, make_port, to_sd, make_batch = CASES[name]
+    batch = make_batch()
+    assert batch[0].dtype == np.float32
+    cfg = {"train_batch_size": 8, "steps_per_print": 10 ** 9,
+           "optimizer": {"type": "Adam", "params": {"lr": 1e-2}},
+           precision: {"enabled": True}}
+    if precision == "fp16":
+        cfg["fp16"].update(loss_scale=0, initial_scale_power=8)
+    groups.destroy()
+    groups.initialize(devices=jax.devices()[:1])
+    jeng, *_ = deepspeed_tpu.initialize(model=make_jax(), config=dict(cfg),
+                                        sample_batch=batch)
+    init = to_sd(jax.tree.map(np.asarray, jeng.state.params))
+    want = [float(jeng.train_batch(batch=batch)) for _ in range(3)]
+    peng, *_ = deepspeed_tpu_torch.initialize(
+        model=make_port(), config=dict(cfg), model_parameters=init,
+        device="cpu")
+    got = [float(peng.train_batch(batch=_to_torch(batch)))
+           for _ in range(3)]
+    np.testing.assert_allclose(got, want, **TOL)
+    assert got[-1] < got[0]
+    final = to_sd(jax.tree.map(np.asarray, jeng.state.params))
+    for k, p in peng.params.items():
+        np.testing.assert_allclose(p.detach().numpy(), final[k].numpy(),
+                                   err_msg=k, rtol=0, atol=1e-4)
+
+
 def test_data_helpers_draw_the_jax_values():
     want = jax_simple.random_dataset(5, 7, seed=3)
     got = simple.random_dataset(5, 7, seed=3)

@@ -344,7 +344,33 @@ def all_to_all_case(rank, world, case, root):
     return {"out": out.detach().numpy(), "grad": x.grad.numpy()}
 
 
+def axis_case(rank, world, case, root):
+    """``groups.axis_group`` of every mesh axis at ``case["ep_size"]``:
+    {axis: [size, the group's global ranks (None: a group of one)]}."""
+    from deepspeed_tpu_torch.utils import groups
+    groups.destroy()
+    groups.initialize(ep_size=case["ep_size"])
+    out = {}
+    for axis in groups.MESH_AXES:
+        group, size = groups.axis_group(axis)
+        out[axis] = [size, None if group is None else
+                     torch.distributed.get_process_group_ranks(group)]
+    return out
+
+
+def step_error_case(rank, world, case, root):
+    """The error one ``train_batch`` on this rank's rows of
+    ``case["batch"]`` raises, as text."""
+    engine = _engine(case)
+    try:
+        engine.train_batch(batch=rank_rows(case["batch"], rank, world, 1, 0))
+    except ValueError as e:
+        return f"ValueError: {e}"
+    return "no error"
+
+
 KINDS = {"engine": engine_case, "dropout": dropout_case,
          "refusal": refusal_case, "checkpoint": checkpoint_case,
          "ring": ring_case, "groups": groups_case,
-         "all_to_all": all_to_all_case}
+         "all_to_all": all_to_all_case, "axis": axis_case,
+         "step_error": step_error_case}
